@@ -1,0 +1,49 @@
+"""Carry data between the JAX package and the port.
+
+Neither side imports the other: data crosses as numpy arrays.
+
+  * `sh23_operators(problem)`: the SH23 step operators `_M`, `_P` of
+    either package's `SwiftHohenberg` (matmul/pallas/cuda methods) and
+    the f32 kernel operands `b32`, `w32`, `p32` exactly as the JAX
+    package's pallas path forms them — all numpy.
+  * `operators_to_torch(ops, device, dtype)`: those arrays as tensors.
+  * `state_to_torch` / `state_to_numpy`: state lists (lists of 1-D
+    arrays) in either direction.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+def sh23_operators(problem) -> Dict[str, np.ndarray]:
+    """The SH23 operators of a `SwiftHohenberg` of either package."""
+    if problem._M is None:
+        raise ValueError("the problem has no step matrix (method='fft')")
+    M, P = np.asarray(problem._M), np.asarray(problem._P)
+    mg = M.shape[0]
+    return {"M": M, "P": P, "b32": M.astype(np.float32),
+            "w32": np.full(mg, 1.0 / mg, np.float32),
+            "p32": P.astype(np.float32)}
+
+
+def operators_to_torch(ops: Dict[str, np.ndarray], device="cpu",
+                       dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """numpy operators -> tensors on `device`; `dtype` None keeps each
+    array's own dtype."""
+    return {k: torch.as_tensor(v, device=device, dtype=dtype)
+            for k, v in ops.items()}
+
+
+def state_to_torch(xs: Sequence, device="cpu",
+                   dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
+    # np.array copies: JAX hands out read-only buffers
+    return [torch.as_tensor(np.array(x), device=device, dtype=dtype)
+            for x in xs]
+
+
+def state_to_numpy(xs: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    return [x.detach().cpu().numpy() for x in xs]

@@ -1,0 +1,98 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+`spheremanopt_torch/csrc/*.cu` expose a plain C interface (pointers and
+the stream as `void*`, scalars by value, a `cudaError_t` as `int`
+return), so they compile with `nvcc` alone in seconds — no PyTorch
+headers — into one shared library for Hopper (`sm_90a`):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o <lib> csrc/*.cu
+
+The library goes to `build/spheremanopt_torch/<hash of the sources and
+flags>/` beside the package (git-ignored), so a changed source rebuilds
+and an unchanged one is reused. There is no fallback: a missing `nvcc`
+or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC = PKG_DIR / "csrc"
+BUILD_ROOT = PKG_DIR.parent / "build" / "spheremanopt_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+# C signatures of the exported functions (csrc/fused_shared.cu)
+SIGNATURES = {
+    "sm_fused_fwd_shared": [_P, _P, _P, _F, _F, _F, _I, _I, _P, _P, _P, _P],
+    "sm_fused_bwd_shared": [_P, _P, _P, _P, _F, _F, _F, _P, _I, _I, _P, _P],
+}
+
+CUDA_NVCC = "/usr/local/cuda/bin/nvcc"   # used when nvcc is not on PATH
+
+_lib = None
+build_log = ""   # nvcc's output (ptxas register/shared-memory report)
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc") or CUDA_NVCC
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found (needed to build the CUDA kernels "
+                           "in spheremanopt_torch/csrc)")
+    return nvcc
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / "libspheremanopt_kernels.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu unless the library for these sources exists."""
+    global build_log
+    lib = library_path()
+    if lib.exists():
+        return lib
+    nvcc = find_nvcc()
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    srcs = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    # build into a temporary name and rename: concurrent first uses never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *srcs],
+                              capture_output=True, text=True)
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built on first use, with typed signatures."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib

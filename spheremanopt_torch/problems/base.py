@@ -1,0 +1,57 @@
+"""Problem helpers shared by the port's problems (PyTorch port of
+the JAX package's `problems/base.py`).
+
+A problem exposes the callable triple the optimiser and gradient test
+consume — `objective(xs) -> 0-dim tensor -J`, `gradient(xs) -> [tensor]`
+(Riesz representatives), `inner_product(x, y)` — over lists of 1-D
+tensors, together with the sphere radii and IC generation:
+
+    p = SwiftHohenberg(cfg, device="cuda")
+    x0 = p.generate_ic(seed=42)
+    res = optimise_on_multi_sphere(x0, p.radii, p.objective, p.gradient,
+                                   p.inner_product, ...)
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+# config dtype names -> torch dtypes
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def check_choice(field: str, value, allowed) -> None:
+    """Loud validation for string config switches: an unrecognised value
+    must not silently select a fallback compute path."""
+    if value not in allowed:
+        raise ValueError(
+            f"{field} must be one of {sorted(allowed)!r}, got {value!r}")
+
+
+def riesz_gradient(objective: Callable, weights) -> Callable:
+    """Gradient of `objective` as Riesz representatives under weighted
+    inner products IP_i(x, y) = sum(w_i * x * y).
+
+    Autograd returns covectors g with dJ[v] = sum(g * v); the optimiser's
+    geometry needs the representative r with IP(r, v) = dJ[v], i.e.
+    r = g / w. `weights` is one scalar (or tensor) per state component.
+    """
+
+    def gradient(x_list):
+        raw = value_and_raw_gradient(objective, x_list)[1]
+        return [g / w for g, w in zip(raw, weights)]
+
+    return gradient
+
+
+def value_and_raw_gradient(objective: Callable, x_list):
+    """(objective(xs), [d objective / d x_i]) from one forward+backward:
+    reverse-mode autograd of the discrete forward (the discrete
+    adjoint)."""
+    xs = [x.detach().requires_grad_(True) for x in x_list]
+    with torch.enable_grad():
+        J = objective(xs)
+        grads = torch.autograd.grad(J, xs)
+    return J.detach(), list(grads)

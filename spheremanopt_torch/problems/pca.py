@@ -1,0 +1,54 @@
+"""PCA on the unit sphere: min J(X) = -(1/2) X^T M X  s.t.  ||X|| = 1.
+
+PyTorch port of the JAX package's `problems/pca.py`: the optimiser
+integration test with an analytic ground truth (reference:
+`Example_Problems/PCA_example.py`); the minimiser is the leading
+eigenvector of the symmetric matrix M, checked against
+`numpy.linalg.eigh`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def random_spd_matrix(dim: int, seed: int = 0, dtype=np.float64) -> np.ndarray:
+    """Symmetric matrix with a positive probe quadratic form, exactly the
+    reference's `Hessian_Matrix` (`PCA_example.py:14-31`) and the JAX
+    package's. Despite the name (kept for parity), a symmetrised Gaussian
+    matrix is almost surely indefinite; the optimisation only needs the
+    leading eigenvector."""
+    rng = np.random.RandomState(seed)
+    probe = rng.rand(dim)
+    while True:
+        m = rng.randn(dim, dim)
+        m = 0.5 * (m + m.T)
+        if probe @ (m @ probe) > 0:
+            return m.astype(dtype)
+
+
+class PCAProblem:
+    """Callable triple (objective, gradient, inner_product) for the
+    optimiser, with M on `device` in `dtype`."""
+
+    def __init__(self, m, device="cpu", dtype=torch.float64):
+        self.m_np = np.asarray(m)
+        self.m = torch.as_tensor(self.m_np, dtype=dtype, device=device)
+
+    def objective(self, x_list):
+        x = x_list[0]
+        return -0.5 * torch.dot(x, self.m @ x)
+
+    def gradient(self, x_list):
+        # Euclidean gradient of J = -(1/2) x^T M x is -Mx; under the plain
+        # dot-product inner product the Riesz representative is itself.
+        return [-(self.m @ x_list[0])]
+
+    def inner_product(self, x, y):
+        return torch.dot(x, y)
+
+    def ground_truth(self) -> np.ndarray:
+        """Leading eigenvector via LAPACK (`PCA_example.py:123-129`)."""
+        vals, vecs = np.linalg.eigh(self.m_np)
+        return vecs[:, -1]

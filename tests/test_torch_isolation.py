@@ -1,0 +1,66 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, and its chip smoke test has no CPU path."""
+
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "spheremanopt_torch"
+
+_BLOCK_JAX = "import sys; sys.modules['jax'] = None; "
+
+
+def _python(code, cwd=ROOT, timeout=120):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_imports_without_jax():
+    code = _BLOCK_JAX + (
+        "import spheremanopt_torch, spheremanopt_torch.run, "
+        "spheremanopt_torch.convert, spheremanopt_torch.problems.pca; "
+        "from spheremanopt_torch.problems.swift_hohenberg import SwiftHohenberg, SH23Config; "
+        "from spheremanopt_torch.ops.cuda import build, fused_two_matrix; "
+        "p = SwiftHohenberg(SH23Config(npts=16, n_iters=3, method='cuda', dtype='float32')); "
+        "p.objective_and_gradient(p.generate_ic()); "
+        "assert not any(m.startswith(('jax', 'spheremanopt_tpu')) "
+        "for m, v in sys.modules.items() if v is not None), 'JAX imported'; "
+        "print('isolated')")
+    r = _python(code)
+    assert r.returncode == 0, r.stderr
+    assert "isolated" in r.stdout
+
+
+@pytest.mark.parametrize("pattern", ["import jax", "from jax", "spheremanopt_tpu"])
+def test_no_package_file_names_jax(pattern):
+    files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu"))
+    assert len(files) > 10
+    offenders = [str(f.relative_to(ROOT)) for f in files if pattern in f.read_text()]
+    assert not offenders, f"{pattern!r} in {offenders}"
+
+
+def test_chip_smoke_imports_no_jax_and_refuses_without_cuda():
+    """chip_smoke.py on a machine without CUDA: no JAX needed to import
+    it, a non-zero exit, and no result line."""
+    code = _BLOCK_JAX + (
+        "import runpy; sys.argv = ['chip_smoke.py']; "
+        "runpy.run_path('chip_smoke.py', run_name='__main__')")
+    r = _python(code)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """Copied out of the repository, the script cannot run the port."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       env=dict(os.environ, PYTHONPATH=""), capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
