@@ -6,6 +6,10 @@ Neither side imports the other: data crosses as numpy arrays.
     either package's `SwiftHohenberg` (matmul/pallas/cuda methods) and
     the f32 kernel operands `b32`, `w32`, `p32` exactly as the JAX
     package's pallas path forms them — all numpy.
+  * `shb23_operators(problem)`: the SHB23 propagators `A_lin`, `A_nl`,
+    the weights `w` and the f32 kernel operands `a32`, `b32`, `w32` of
+    either package's `SwiftHohenbergBounded`, as the JAX pallas path
+    forms them — all numpy.
   * `operators_to_torch(ops, device, dtype)`: those arrays as tensors.
   * `state_to_torch` / `state_to_numpy`: state lists (lists of 1-D
     arrays) in either direction.
@@ -28,6 +32,15 @@ def sh23_operators(problem) -> Dict[str, np.ndarray]:
     return {"M": M, "P": P, "b32": M.astype(np.float32),
             "w32": np.full(mg, 1.0 / mg, np.float32),
             "p32": P.astype(np.float32)}
+
+
+def shb23_operators(problem) -> Dict[str, np.ndarray]:
+    """The SHB23 operators of a `SwiftHohenbergBounded` of either package."""
+    A_lin, A_nl = np.asarray(problem._A_lin), np.asarray(problem._A_nl)
+    w = np.asarray(problem._w)
+    return {"A_lin": A_lin, "A_nl": A_nl, "w": w,
+            "a32": A_lin.astype(np.float32), "b32": A_nl.astype(np.float32),
+            "w32": w.astype(np.float32)}
 
 
 def operators_to_torch(ops: Dict[str, np.ndarray], device="cpu",

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU (Pallas) kernels of the JAX package's
 // ops/pallas/fused_two_matrix.py:
-//   sm_fused_fwd_shared  <- _fwd_kernel_shared (_run_fwd_shared)
+//   sm_fused_fwd_shared  <- _fwd_kernel_shared (_run_fwd_shared; has_traj
+//                           and has_ser as the traj / ser pointers)
 //   sm_fused_bwd_shared  <- _bwd_kernel_shared (_run_bwd_shared, op_grads=False)
 //
 // What bounds them on an H100: every step is a batch-1 GEMV with the
@@ -12,59 +13,42 @@
 // memory and, after the first step, in the 50 MB L2. One thread block
 // runs the whole solve (one launch, as on the TPU): the per-step cost is
 // one SM pulling 1 MiB out of L2, about 2 flop per 4 bytes, so the
-// kernel is bound by a single SM's L2 bandwidth, not by arithmetic. The
-// design keeps the small state (u, v or lambda, the weights) in shared
-// memory, reads B as float4 with neighbouring threads on neighbouring
-// addresses, and never touches device memory for anything but B and the
-// trajectory rows. Splitting B over a thread-block cluster's distributed
-// shared memory is the later, faster design.
+// kernel is bound by a single SM's L2 bandwidth and by the step-to-step
+// dependency, not by arithmetic. The design keeps the small state (u, v
+// or lambda, the weights) in shared memory, reads B as float4 with
+// neighbouring threads on neighbouring addresses, and never touches
+// device memory for anything but B and the trajectory rows. Splitting B
+// over a thread-block cluster's distributed shared memory is the later,
+// faster design.
+//
+// The energy series is a template flag, chosen from the `ser` pointer at
+// launch: a runtime test of the pointer on thread 0's per-step path made
+// every step measurably slower on an H100. J stays bitwise the
+// same in both instantiations because the energy term and the Kahan step
+// round as common.cuh pins them.
 //
 // Both functions launch on the given stream, do not synchronise, and
 // return cudaGetLastError() so the caller can raise on a refused launch.
 // The caller guarantees mg % 128 == 0, 128 <= mg <= 2048, contiguous
 // f32 buffers on one device.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Kahan step, the same operations as solvers/scan_utils.py:kahan_add.
-__device__ __forceinline__ void kahan_add(float& acc, float& comp, float value) {
-  float y = value - comp;
-  float t = acc + y;
-  comp = (t - acc) - y;
-  acc = t;
-}
-
-// Block-wide sum of per-thread partials, valid in thread 0 only.
-__device__ __forceinline__ float block_sum(float part, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  part = warp_sum(part);
-  if (lane == 0) red[warp] = part;
-  __syncthreads();
-  float total = 0.f;
-  if (warp == 0) {
-    total = warp_sum(lane < kWarps ? red[lane] : 0.f);
-  }
-  return total;
-}
+using smo::kThreads;
+using smo::kWarps;
 
 // Forward: N steps; J_sum = Kahan sum over n = 0..N of sum_j w_j u_n,j^2.
-// Shared memory: u[mg], v[mg], w[mg], red[32].
+// traj (N rows) is written when non-null, ser (N + 1 energies) when
+// kSeries. Shared memory: u[mg], v[mg], w[mg], red[32].
+template <bool kSeries>
 __global__ void __launch_bounds__(kThreads)
 fused_fwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w,
                         const float* __restrict__ u0, float c2, float c3, float lin,
                         int n_steps, int mg, float* __restrict__ uT,
-                        float* __restrict__ jsum, float* __restrict__ traj) {
+                        float* __restrict__ jsum, float* __restrict__ traj,
+                        float* __restrict__ ser) {
   extern __shared__ float4 smem4[];
   float* u = reinterpret_cast<float*>(smem4);
   float* v = u + mg;
@@ -87,12 +71,15 @@ fused_fwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w
     float part = 0.f;
     for (int j = tid; j < mg; j += kThreads) {
       const float uj = u[j];
-      part += ws[j] * uj * uj;
+      part = smo::add_energy(part, ws[j], uj);
       if (traj != nullptr) traj[(size_t)n * mg + j] = uj;
       v[j] = lin * uj + c2 * uj * uj + c3 * uj * uj * uj;
     }
-    const float e = block_sum(part, red);  // its __syncthreads publishes v
-    if (tid == 0) kahan_add(acc, comp, e);
+    const float e = smo::block_sum(part, red);  // its __syncthreads publishes v
+    if (tid == 0) {
+      if constexpr (kSeries) ser[n] = e;
+      smo::kahan_add(acc, comp, e);
+    }
     // u_new = B v: one warp per row, float4 loads across the row
     for (int r = warp; r < mg; r += kWarps) {
       const float4* row = b4 + (size_t)r * mg4;
@@ -103,7 +90,7 @@ fused_fwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w
         const float4 vv = v4[k];
         s += bb.x * vv.x + bb.y * vv.y + bb.z * vv.z + bb.w * vv.w;
       }
-      s = warp_sum(s);
+      s = smo::warp_sum(s);
       if (lane == 0) u[r] = s;
     }
     __syncthreads();
@@ -112,12 +99,13 @@ fused_fwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w
   float part = 0.f;
   for (int j = tid; j < mg; j += kThreads) {
     const float uj = u[j];
-    part += ws[j] * uj * uj;
+    part = smo::add_energy(part, ws[j], uj);
     uT[j] = uj;
   }
-  const float eN = block_sum(part, red);
+  const float eN = smo::block_sum(part, red);
   if (tid == 0) {
-    kahan_add(acc, comp, eN);
+    if constexpr (kSeries) ser[n_steps] = eN;
+    smo::kahan_add(acc, comp, eN);
     *jsum = acc;
   }
 }
@@ -182,10 +170,12 @@ extern "C" {
 
 int sm_fused_fwd_shared(const float* b, const float* w, const float* u0, float c2,
                         float c3, float lin, int n_steps, int mg, float* uT,
-                        float* jsum, float* traj, void* stream) {
+                        float* jsum, float* traj, float* ser, void* stream) {
   const size_t smem = (3 * (size_t)mg + 32) * sizeof(float);
-  fused_fwd_shared_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      b, w, u0, c2, c3, lin, n_steps, mg, uT, jsum, traj);
+  const auto kernel = ser != nullptr ? fused_fwd_shared_kernel<true>
+                                     : fused_fwd_shared_kernel<false>;
+  kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      b, w, u0, c2, c3, lin, n_steps, mg, uT, jsum, traj, ser);
   return static_cast<int>(cudaGetLastError());
 }
 

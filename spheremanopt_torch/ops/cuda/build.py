@@ -3,15 +3,18 @@
 `spheremanopt_torch/csrc/*.cu` expose a plain C interface (pointers and
 the stream as `void*`, scalars by value, a `cudaError_t` as `int`
 return), so they compile with `nvcc` alone in seconds — no PyTorch
-headers — into one shared library for Hopper (`sm_90a`):
+headers — for Hopper (`sm_90a`). Each source compiles to an object in
+its own `nvcc` process, all started together, and one more `nvcc` links
+them into one shared library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o <lib> csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c -o <src>.o csrc/<src>.cu   # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> *.o
 
-The library goes to `build/spheremanopt_torch/<hash of the sources and
-flags>/` beside the package (git-ignored), so a changed source rebuilds
-and an unchanged one is reused. There is no fallback: a missing `nvcc`
-or a failed build raises.
+The library goes to `build/spheremanopt_torch/<hash of the sources,
+headers and flags>/` beside the package (git-ignored), so a changed
+source rebuilds and an unchanged one is reused. There is no fallback: a
+missing `nvcc` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -27,14 +30,18 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent / "build" / "spheremanopt_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v"]
 
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-# C signatures of the exported functions (csrc/fused_shared.cu)
+# C signatures of the exported functions (csrc/fused_shared.cu,
+# csrc/fused_two_matrix.cu)
 SIGNATURES = {
-    "sm_fused_fwd_shared": [_P, _P, _P, _F, _F, _F, _I, _I, _P, _P, _P, _P],
+    "sm_fused_fwd_shared": [_P, _P, _P, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P],
     "sm_fused_bwd_shared": [_P, _P, _P, _P, _F, _F, _F, _P, _I, _I, _P, _P],
+    "sm_fused_fwd": [_P, _P, _P, _P, _F, _F, _I, _I, _P, _P, _P, _P, _P],
+    "sm_fused_bwd": [_P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _P, _P],
 }
 
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"   # used when nvcc is not on PATH
@@ -53,10 +60,19 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / "libspheremanopt_kernels.so"
+
+
+def _run_all(cmds):
+    """Start every command at once; (return codes, combined output)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [p.returncode for p in procs], "".join(outs)
 
 
 def build() -> Path:
@@ -67,21 +83,22 @@ def build() -> Path:
         return lib
     nvcc = find_nvcc()
     lib.parent.mkdir(parents=True, exist_ok=True)
-    srcs = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    # build into a temporary name and rename: concurrent first uses never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *srcs],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    srcs = sorted(CSRC.glob("*.cu"))
+    # build into a temporary directory and rename the library: concurrent
+    # first uses never load a half-written one
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        objs = [os.path.join(tmp, s.stem + ".o") for s in srcs]
+        codes, build_log = _run_all(
+            [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+             for s, o in zip(srcs, objs)])
+        if any(codes):
+            raise RuntimeError(f"nvcc failed ({codes}):\n{build_log}")
+        out = os.path.join(tmp, lib.name)
+        codes, link_log = _run_all([[nvcc, *ARCH, "-shared", "-o", out, *objs]])
+        build_log += link_log
+        if any(codes):
+            raise RuntimeError(f"nvcc link failed ({codes}):\n{build_log}")
+        os.replace(out, lib)
     return lib
 
 

@@ -1,25 +1,33 @@
-"""Shared-matrix fused integrator u' = B (lin u + c2 u^2 + c3 u^3) and its
-reverse sweep, as hand-written CUDA kernels for Hopper.
+"""Fused SBDF integrators and their reverse sweeps, as hand-written CUDA
+kernels for Hopper.
 
-PyTorch port of the shared-matrix pair of
-the JAX package's `ops/pallas/fused_two_matrix.py` (SH23's step is one
-matrix, u' = M (u/dt + 1.8u^2 - u^3), so B = M, lin = 1/dt):
+PyTorch port of the JAX package's `ops/pallas/fused_two_matrix.py`:
 
-  fused_fwd_shared   <- `_run_fwd_shared` / `_fwd_kernel_shared`
-  fused_bwd_shared   <- `_run_bwd_shared` / `_bwd_kernel_shared`
-  FusedObjectiveShared  <- `fused_objective_shared` (custom_vjp)
+  two-matrix form  u' = A u + B (c2 u^2 + c3 u^3)       (SHB23)
+    fused_fwd          <- `_run_fwd` / `_fwd_kernel` (has_traj, has_ser)
+    fused_bwd          <- `_run_bwd` / `_bwd_kernel`
+    FusedObjective     <- `fused_objective` (custom_vjp)
+    FusedObjectiveDiag <- `fused_objective_diag`
+  shared-matrix form  u' = B (lin u + c2 u^2 + c3 u^3)  (SH23: B = M,
+  lin = 1/dt)
+    fused_fwd_shared   <- `_run_fwd_shared` / `_fwd_kernel_shared`
+    fused_bwd_shared   <- `_run_bwd_shared` / `_bwd_kernel_shared`
+    FusedObjectiveShared     <- `fused_objective_shared`
+    FusedObjectiveSharedDiag <- `fused_objective_shared_diag`
 
-The forward runs all N steps in one launch and returns the final state,
+A forward runs all N steps in one launch and returns the final state,
 the Kahan-compensated sum J_sum = sum_{n=0..N} sum_j w_j u_n,j^2 and,
-for gradient contexts, the N pre-step states. The backward carries
-lambda_N = s w u_N back through
-lambda_n = (lin + 2 c2 u_n + 3 c3 u_n^2) (B^T lambda_{n+1}) + s w u_n.
+on request, the N pre-step states (gradient contexts) and the N+1
+per-step energies that the Kahan sum consumes (fused diagnostics; the J
+arithmetic does not depend on that flag). A backward carries
+lambda_N = s w u_N back through the transposed step.
 
 Each wrapper takes its plain PyTorch version (`*_plain`) for tensors on
 the CPU and launches its kernel for CUDA tensors; a CUDA tensor never
-falls back. `LAUNCHES` counts kernel launches per wrapper. The kernels
-are f32 only; the plain versions take f32 or f64 and also provide the
-operator cotangent dB (`op_grads=True`), which the kernels do not.
+falls back. `LAUNCHES` counts kernel launches per wrapper (the series
+variants of the forwards apart). The kernels are f32 only; the plain
+versions take f32 or f64 and also provide the operator cotangents
+(`op_grads=True`), which the kernels do not.
 """
 
 from __future__ import annotations
@@ -28,9 +36,16 @@ import torch
 
 from spheremanopt_torch.solvers.scan_utils import kahan_add, kahan_zero
 
-KERNEL_SOURCE = "spheremanopt_torch/csrc/fused_shared.cu"
+KERNEL_SOURCES = {
+    "fused_fwd_shared": "spheremanopt_torch/csrc/fused_shared.cu",
+    "fused_fwd_shared_ser": "spheremanopt_torch/csrc/fused_shared.cu",
+    "fused_bwd_shared": "spheremanopt_torch/csrc/fused_shared.cu",
+    "fused_fwd": "spheremanopt_torch/csrc/fused_two_matrix.cu",
+    "fused_fwd_ser": "spheremanopt_torch/csrc/fused_two_matrix.cu",
+    "fused_bwd": "spheremanopt_torch/csrc/fused_two_matrix.cu",
+}
 # kernel launches per wrapper since the last reset_launches()
-LAUNCHES = {"fused_fwd_shared": 0, "fused_bwd_shared": 0}
+LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
 
 
 def reset_launches() -> None:
@@ -43,20 +58,42 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 
-def fused_fwd_shared_plain(b, w, u0, c2, c3, lin, n_steps, store_traj=True):
-    """(uT, J_sum, traj or None), step by step with `torch.mv`."""
+def _plain_sweep(step, w, u0, n_steps, store_traj, store_series):
+    """(uT, J_sum, traj or None, series or None) of N steps of `step`."""
     u = u0
     acc = kahan_zero(u0.dtype, u0.device)
-    traj = []
+    traj, ser = [], []
     for _ in range(n_steps):
         if store_traj:
             traj.append(u)
-        acc = kahan_add(acc, torch.sum(w * u * u))
-        u = torch.mv(b, lin * u + c2 * u * u + c3 * u * u * u)
-    acc = kahan_add(acc, torch.sum(w * u * u))
-    if not store_traj:
-        return u, acc[0], None
-    return u, acc[0], torch.stack(traj) if traj else u0.new_zeros((0, len(u0)))
+        e = torch.sum(w * u * u)
+        ser.append(e)
+        acc = kahan_add(acc, e)
+        u = step(u)
+    e = torch.sum(w * u * u)
+    ser.append(e)
+    acc = kahan_add(acc, e)
+    traj = ((torch.stack(traj) if traj else u0.new_zeros((0, len(u0))))
+            if store_traj else None)
+    return u, acc[0], traj, torch.stack(ser) if store_series else None
+
+
+def fused_fwd_shared_plain(b, w, u0, c2, c3, lin, n_steps, store_traj=True,
+                           store_series=False):
+    """(uT, J_sum, traj or None, series or None), step by step with
+    `torch.mv`: u' = B (lin u + c2 u^2 + c3 u^3)."""
+    return _plain_sweep(
+        lambda u: torch.mv(b, lin * u + c2 * u * u + c3 * u * u * u),
+        w, u0, n_steps, store_traj, store_series)
+
+
+def fused_fwd_plain(a, b, w, u0, c2, c3, n_steps, store_traj=True,
+                    store_series=False):
+    """(uT, J_sum, traj or None, series or None), step by step with
+    `torch.mv`: u' = A u + B (c2 u^2 + c3 u^3)."""
+    return _plain_sweep(
+        lambda u: torch.mv(a, u) + torch.mv(b, c2 * u * u + c3 * u * u * u),
+        w, u0, n_steps, store_traj, store_series)
 
 
 def fused_bwd_shared_plain(b, w, uT, traj, c2, c3, lin, scale, n_steps,
@@ -75,6 +112,25 @@ def fused_bwd_shared_plain(b, w, uT, traj, c2, c3, lin, scale, n_steps,
     return lam, db
 
 
+def fused_bwd_plain(a, b, w, uT, traj, c2, c3, scale, n_steps, op_grads=False):
+    """(lambda_0, dA or None, dB or None) of the two-matrix reverse sweep:
+    lambda_n = A^T lambda + g'(u_n) (B^T lambda) + s w u_n, and with
+    `op_grads` dA += lambda (x) u_n, dB += lambda (x) g(u_n)."""
+    lam = scale * (w * uT)
+    da = torch.zeros_like(a) if op_grads else None
+    db = torch.zeros_like(b) if op_grads else None
+    for k in range(n_steps):
+        u = traj[n_steps - 1 - k]
+        if op_grads:
+            da += torch.outer(lam, u)
+            db += torch.outer(lam, c2 * u * u + c3 * u * u * u)
+        wa = torch.mv(a.t(), lam)
+        wb = torch.mv(b.t(), lam)
+        gprime = 2.0 * c2 * u + 3.0 * c3 * u * u
+        lam = wa + gprime * wb + scale * (w * u)
+    return lam, da, db
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -82,12 +138,18 @@ def fused_bwd_shared_plain(b, w, uT, traj, c2, c3, lin, scale, n_steps,
 MG_MIN, MG_MAX, MG_ALIGN = 128, 2048, 128
 
 
-def _check_cuda(mg, **tensors):
+def _check(n_steps, mats, vecs, traj=None, scale=None) -> int:
+    """mg of the operands; raises unless they fit the kernels: f32,
+    contiguous, on one CUDA device, (mg, mg) matrices, (mg,) vectors, an
+    (n_steps, mg) trajectory, 128 <= mg <= 2048 with mg % 128 == 0."""
+    mg = vecs[0][1].shape[-1]
     if not (MG_MIN <= mg <= MG_MAX and mg % MG_ALIGN == 0):
         raise ValueError(f"the CUDA kernels take {MG_MIN} <= mg <= {MG_MAX}, "
                          f"mg % {MG_ALIGN} == 0; got mg={mg}")
+    extra = [(k, t) for k, t in (("traj", traj), ("scale", scale))
+             if t is not None]
     dev = None
-    for name, t in tensors.items():
+    for name, t in list(mats) + list(vecs) + extra:
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor (got {t.device})")
         if t.dtype != torch.float32:
@@ -97,38 +159,68 @@ def _check_cuda(mg, **tensors):
         if dev is not None and t.device != dev:
             raise ValueError("all tensors must be on one device")
         dev = t.device
+    bad = [f"{k}{tuple(t.shape)}" for k, t in mats if t.shape != (mg, mg)]
+    bad += [f"{k}{tuple(t.shape)}" for k, t in vecs if t.shape != (mg,)]
+    if traj is not None and traj.shape != (n_steps, mg):
+        bad.append(f"traj{tuple(traj.shape)}")
+    if bad:
+        raise ValueError(f"shapes {' '.join(bad)} do not match mg={mg}, "
+                         f"n_steps={n_steps}")
+    return mg
 
 
-def _raise_on(code: int, name: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {code}")
-
-
-def fused_fwd_shared(b, w, u0, c2, c3, lin, n_steps, store_traj=True):
-    """(uT, J_sum, traj or None) of N steps of u' = B(lin u + g(u))."""
-    if u0.device.type == "cpu":
-        return fused_fwd_shared_plain(b, w, u0, c2, c3, lin, n_steps, store_traj)
+def _launch(symbol, counter, device, *args) -> None:
+    """Launch `symbol` of the built library on the current stream of
+    `device`, count it under LAUNCHES[counter] and raise if it failed."""
     from spheremanopt_torch.ops.cuda.build import load
 
-    mg = u0.shape[-1]
-    _check_cuda(mg, b=b, w=w, u0=u0)
-    if b.shape != (mg, mg) or w.shape != (mg,) or u0.shape != (mg,):
-        raise ValueError(f"shapes b{tuple(b.shape)} w{tuple(w.shape)} "
-                         f"u0{tuple(u0.shape)} do not match mg={mg}")
-    lib = load()
-    with torch.cuda.device(u0.device):
-        uT = torch.empty_like(u0)
-        jsum = torch.empty((), dtype=torch.float32, device=u0.device)
-        traj = (torch.empty((n_steps, mg), dtype=torch.float32, device=u0.device)
-                if store_traj else None)
-        code = lib.sm_fused_fwd_shared(
-            b.data_ptr(), w.data_ptr(), u0.data_ptr(), c2, c3, lin,
-            int(n_steps), mg, uT.data_ptr(), jsum.data_ptr(),
-            traj.data_ptr() if store_traj and n_steps > 0 else None,
-            torch.cuda.current_stream().cuda_stream)
-    LAUNCHES["fused_fwd_shared"] += 1
-    _raise_on(code, "fused_fwd_shared")
-    return uT, jsum, traj
+    fn = getattr(load(), symbol)
+    with torch.cuda.device(device):
+        code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    LAUNCHES[counter] += 1
+    if code != 0:
+        raise RuntimeError(f"{symbol}: CUDA launch failed with cudaError_t "
+                           f"{code}")
+
+
+def _no_op_grads(op_grads):
+    if op_grads:
+        raise NotImplementedError(
+            "the CUDA reverse kernels have no operator cotangents "
+            "(op_grads=True) yet (ROADMAP Queue 2 item 1)")
+
+
+def _fwd_outputs(u0, n_steps, store_traj, store_series):
+    """(uT, jsum, traj, ser) buffers for a forward launch."""
+    mg, dev = u0.shape[-1], u0.device
+    return (torch.empty_like(u0),
+            torch.empty((), dtype=torch.float32, device=dev),
+            torch.empty((n_steps, mg), dtype=torch.float32, device=dev)
+            if store_traj else None,
+            torch.empty((n_steps + 1,), dtype=torch.float32, device=dev)
+            if store_series else None)
+
+
+def _ptr(t):
+    """Device pointer of `t`, or NULL for None and empty buffers."""
+    return t.data_ptr() if t is not None and t.numel() else None
+
+
+def fused_fwd_shared(b, w, u0, c2, c3, lin, n_steps, store_traj=True,
+                     store_series=False):
+    """(uT, J_sum, traj or None, series or None) of N steps of
+    u' = B(lin u + g(u))."""
+    if u0.device.type == "cpu":
+        return fused_fwd_shared_plain(b, w, u0, c2, c3, lin, n_steps,
+                                      store_traj, store_series)
+    mg = _check(n_steps, mats=[("b", b)], vecs=[("u0", u0), ("w", w)])
+    uT, jsum, traj, ser = _fwd_outputs(u0, n_steps, store_traj, store_series)
+    _launch("sm_fused_fwd_shared",
+            "fused_fwd_shared_ser" if store_series else "fused_fwd_shared",
+            u0.device, b.data_ptr(), w.data_ptr(), u0.data_ptr(), c2, c3, lin,
+            int(n_steps), mg, uT.data_ptr(), jsum.data_ptr(), _ptr(traj),
+            _ptr(ser))
+    return uT, jsum, traj, ser
 
 
 def fused_bwd_shared(b, w, uT, traj, c2, c3, lin, scale, n_steps,
@@ -138,34 +230,125 @@ def fused_bwd_shared(b, w, uT, traj, c2, c3, lin, scale, n_steps,
     if uT.device.type == "cpu":
         return fused_bwd_shared_plain(b, w, uT, traj, c2, c3, lin, scale,
                                       n_steps, op_grads)
-    if op_grads:
-        raise NotImplementedError(
-            "the CUDA reverse kernel has no operator cotangent (op_grads=True) "
-            "yet (ROADMAP Queue 2 item 2)")
-    from spheremanopt_torch.ops.cuda.build import load
-
-    mg = uT.shape[-1]
+    _no_op_grads(op_grads)
     scale = scale.reshape(())
-    _check_cuda(mg, b=b, w=w, uT=uT, traj=traj, scale=scale)
-    if b.shape != (mg, mg) or w.shape != (mg,) or traj.shape != (n_steps, mg):
-        raise ValueError(f"shapes b{tuple(b.shape)} w{tuple(w.shape)} "
-                         f"traj{tuple(traj.shape)} do not match mg={mg}, "
-                         f"n_steps={n_steps}")
-    lib = load()
-    with torch.cuda.device(uT.device):
-        lam = torch.empty_like(uT)
-        code = lib.sm_fused_bwd_shared(
-            b.data_ptr(), w.data_ptr(), uT.data_ptr(), traj.data_ptr(),
-            c2, c3, lin, scale.data_ptr(), int(n_steps), mg, lam.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    LAUNCHES["fused_bwd_shared"] += 1
-    _raise_on(code, "fused_bwd_shared")
+    mg = _check(n_steps, mats=[("b", b)], vecs=[("uT", uT), ("w", w)],
+                traj=traj, scale=scale)
+    lam = torch.empty_like(uT)
+    _launch("sm_fused_bwd_shared", "fused_bwd_shared", uT.device,
+            b.data_ptr(), w.data_ptr(), uT.data_ptr(), _ptr(traj), c2, c3, lin,
+            scale.data_ptr(), int(n_steps), mg, lam.data_ptr())
     return lam, None
 
 
+def fused_fwd(a, b, w, u0, c2, c3, n_steps, store_traj=True,
+              store_series=False):
+    """(uT, J_sum, traj or None, series or None) of N steps of
+    u' = A u + B(c2 u^2 + c3 u^3)."""
+    if u0.device.type == "cpu":
+        return fused_fwd_plain(a, b, w, u0, c2, c3, n_steps, store_traj,
+                               store_series)
+    mg = _check(n_steps, mats=[("a", a), ("b", b)],
+                vecs=[("u0", u0), ("w", w)])
+    uT, jsum, traj, ser = _fwd_outputs(u0, n_steps, store_traj, store_series)
+    _launch("sm_fused_fwd", "fused_fwd_ser" if store_series else "fused_fwd",
+            u0.device, a.data_ptr(), b.data_ptr(), w.data_ptr(), u0.data_ptr(),
+            c2, c3, int(n_steps), mg, uT.data_ptr(), jsum.data_ptr(),
+            _ptr(traj), _ptr(ser))
+    return uT, jsum, traj, ser
+
+
+def fused_bwd(a, b, w, uT, traj, c2, c3, scale, n_steps, op_grads=False):
+    """(lambda_0, dA or None, dB or None) of the two-matrix reverse
+    sweep; `scale` is a 0-dim tensor float32(-2 dt) * gbar."""
+    if uT.device.type == "cpu":
+        return fused_bwd_plain(a, b, w, uT, traj, c2, c3, scale, n_steps,
+                               op_grads)
+    _no_op_grads(op_grads)
+    scale = scale.reshape(())
+    mg = _check(n_steps, mats=[("a", a), ("b", b)],
+                vecs=[("uT", uT), ("w", w)], traj=traj, scale=scale)
+    lam = torch.empty_like(uT)
+    _launch("sm_fused_bwd", "fused_bwd", uT.device, a.data_ptr(),
+            b.data_ptr(), w.data_ptr(), uT.data_ptr(), _ptr(traj), c2, c3,
+            scale.data_ptr(), int(n_steps), mg, lam.data_ptr())
+    return lam, None, None
+
+
 # ---------------------------------------------------------------------------
-# differentiable objective
+# differentiable objectives (the JAX custom_vjp pairs)
 # ---------------------------------------------------------------------------
+
+
+def _dw(gbar, dt, traj, uT):
+    """dJ/dw_j = -dt * sum_n u_n,j^2, times the incoming cotangent."""
+    return gbar * (-dt) * (torch.sum(traj * traj, dim=0) + uT * uT)
+
+
+def _scale(dt, gbar, like):
+    """float32(-2 dt) * gbar in the working dtype (JAX:
+    jnp.float32(-2.0 * dt) * gbar), left on the device: no sync."""
+    return torch.tensor(-2.0 * dt, dtype=like.dtype, device=like.device) * gbar
+
+
+class FusedObjective(torch.autograd.Function):
+    """-J with J = dt * sum_{n=0..N} sum_j w_j u_n,j^2 under
+    u' = A u + B (c2 u^2 + c3 u^3); differentiable in u0, w and (with
+    op_grads=True, plain path only) A and B.
+
+    apply(a, b, w, u0, c2, c3, dt, n_steps, op_grads=False)
+
+    The forward stores the trajectory only when a gradient is wanted;
+    the backward runs the reverse-sweep kernel.
+    """
+
+    @staticmethod
+    def forward(ctx, a, b, w, u0, c2, c3, dt, n_steps, op_grads=False):
+        need_traj = any(ctx.needs_input_grad[:4])
+        uT, jsum, traj, _ = fused_fwd(a, b, w, u0, c2, c3, n_steps,
+                                      store_traj=need_traj)
+        if need_traj:
+            ctx.save_for_backward(a, b, w, uT, traj)
+        ctx.consts = (c2, c3, dt, n_steps, op_grads)
+        return -dt * jsum
+
+    @staticmethod
+    def backward(ctx, gbar):
+        return _two_matrix_backward(ctx, gbar)
+
+
+def _two_matrix_backward(ctx, gbar):
+    a, b, w, uT, traj = ctx.saved_tensors
+    c2, c3, dt, n_steps, op_grads = ctx.consts
+    want_ops = op_grads and any(ctx.needs_input_grad[:2])
+    lam, da, db = fused_bwd(a, b, w, uT, traj, c2, c3, _scale(dt, gbar, uT),
+                            n_steps, op_grads=want_ops)
+    dw = _dw(gbar, dt, traj, uT) if ctx.needs_input_grad[2] else None
+    return (da, db, dw, lam) + (None,) * 5
+
+
+class FusedObjectiveDiag(torch.autograd.Function):
+    """`FusedObjective` that also returns (energies, uT): the N+1
+    per-step weighted energies that the Kahan sum consumes, and the final
+    state, from the same forward pass. Only J carries a gradient: the
+    two aux outputs are non-differentiable (the JAX `_vjp_bwd_diag`
+    consumes only J's cotangent)."""
+
+    @staticmethod
+    def forward(ctx, a, b, w, u0, c2, c3, dt, n_steps, op_grads=False):
+        need_traj = any(ctx.needs_input_grad[:4])
+        uT, jsum, traj, ser = fused_fwd(a, b, w, u0, c2, c3, n_steps,
+                                        store_traj=need_traj,
+                                        store_series=True)
+        if need_traj:
+            ctx.save_for_backward(a, b, w, uT, traj)
+        ctx.consts = (c2, c3, dt, n_steps, op_grads)
+        ctx.mark_non_differentiable(ser, uT)
+        return -dt * jsum, ser, uT
+
+    @staticmethod
+    def backward(ctx, gbar, _ser_bar, _uT_bar):
+        return _two_matrix_backward(ctx, gbar)
 
 
 class FusedObjectiveShared(torch.autograd.Function):
@@ -183,8 +366,8 @@ class FusedObjectiveShared(torch.autograd.Function):
     @staticmethod
     def forward(ctx, b, w, u0, c2, c3, lin, dt, n_steps, op_grads=False):
         need_traj = any(ctx.needs_input_grad[:3])
-        uT, jsum, traj = fused_fwd_shared(b, w, u0, c2, c3, lin, n_steps,
-                                          store_traj=need_traj)
+        uT, jsum, traj, _ = fused_fwd_shared(b, w, u0, c2, c3, lin, n_steps,
+                                             store_traj=need_traj)
         if need_traj:
             ctx.save_for_backward(b, w, uT, traj)
         ctx.consts = (c2, c3, lin, dt, n_steps, op_grads)
@@ -192,16 +375,35 @@ class FusedObjectiveShared(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gbar):
-        b, w, uT, traj = ctx.saved_tensors
-        c2, c3, lin, dt, n_steps, op_grads = ctx.consts
-        want_db = ctx.needs_input_grad[0] and op_grads
-        # scale folds the cost-term derivative and the incoming cotangent
-        # in the working dtype (JAX: jnp.float32(-2.0 * dt) * gbar)
-        scale = torch.tensor(-2.0 * dt, dtype=uT.dtype, device=uT.device) * gbar
-        lam, db = fused_bwd_shared(b, w, uT, traj, c2, c3, lin, scale,
-                                   n_steps, op_grads=want_db)
-        dw = None
-        if ctx.needs_input_grad[1]:
-            # dJ/dw_j = -dt * sum_n u_n,j^2
-            dw = gbar * (-dt) * (torch.sum(traj * traj, dim=0) + uT * uT)
-        return db, dw, lam, None, None, None, None, None, None
+        return _shared_backward(ctx, gbar)
+
+
+def _shared_backward(ctx, gbar):
+    b, w, uT, traj = ctx.saved_tensors
+    c2, c3, lin, dt, n_steps, op_grads = ctx.consts
+    want_db = ctx.needs_input_grad[0] and op_grads
+    lam, db = fused_bwd_shared(b, w, uT, traj, c2, c3, lin,
+                               _scale(dt, gbar, uT), n_steps, op_grads=want_db)
+    dw = _dw(gbar, dt, traj, uT) if ctx.needs_input_grad[1] else None
+    return (db, dw, lam) + (None,) * 6
+
+
+class FusedObjectiveSharedDiag(torch.autograd.Function):
+    """`FusedObjectiveShared` that also returns (energies, uT); the aux
+    outputs are non-differentiable, as in `FusedObjectiveDiag`."""
+
+    @staticmethod
+    def forward(ctx, b, w, u0, c2, c3, lin, dt, n_steps, op_grads=False):
+        need_traj = any(ctx.needs_input_grad[:3])
+        uT, jsum, traj, ser = fused_fwd_shared(b, w, u0, c2, c3, lin, n_steps,
+                                               store_traj=need_traj,
+                                               store_series=True)
+        if need_traj:
+            ctx.save_for_backward(b, w, uT, traj)
+        ctx.consts = (c2, c3, lin, dt, n_steps, op_grads)
+        ctx.mark_non_differentiable(ser, uT)
+        return -dt * jsum, ser, uT
+
+    @staticmethod
+    def backward(ctx, gbar, _ser_bar, _uT_bar):
+        return _shared_backward(ctx, gbar)

@@ -22,12 +22,44 @@ import torch
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device without a GPU raises
+    (a problem never drops to the CPU on its own)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r}: no CUDA GPU found (pass device='cpu' "
+            "to run on the CPU)")
+    return device
+
+
 def check_choice(field: str, value, allowed) -> None:
     """Loud validation for string config switches: an unrecognised value
     must not silently select a fallback compute path."""
     if value not in allowed:
         raise ValueError(
             f"{field} must be one of {sorted(allowed)!r}, got {value!r}")
+
+
+class SegmentAdvance:
+    """n-step solver advances for PDE-state restart (the JAX package's
+    `SegmentAdvance`, there a cached jitted scan per segment length).
+
+    Problems expose `initial_state(x_list) -> dict[str, tensor]` and
+    `advance_state(state, n_steps) -> state` built on this helper — the
+    analogue of the reference's Dedalus `IVP_FWD.load_state` restart
+    path (`FWD_Solve_SH23.py:459-460`). A plain loop under no_grad, so
+    advance(s, a + b) == advance(advance(s, a), b) exactly.
+    """
+
+    def __init__(self, step_fn: Callable):
+        self._step = step_fn
+
+    def __call__(self, state: dict, n_steps: int):
+        with torch.no_grad():
+            for _ in range(int(n_steps)):
+                state = self._step(state)
+        return state
 
 
 def riesz_gradient(objective: Callable, weights) -> Callable:

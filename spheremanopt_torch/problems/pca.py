@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spheremanopt_torch.problems.base import resolve_device
+
 
 def random_spd_matrix(dim: int, seed: int = 0, dtype=np.float64) -> np.ndarray:
     """Symmetric matrix with a positive probe quadratic form, exactly the
@@ -32,9 +34,10 @@ class PCAProblem:
     """Callable triple (objective, gradient, inner_product) for the
     optimiser, with M on `device` in `dtype`."""
 
-    def __init__(self, m, device="cpu", dtype=torch.float64):
+    def __init__(self, m, device="cuda", dtype=torch.float64):
         self.m_np = np.asarray(m)
-        self.m = torch.as_tensor(self.m_np, dtype=dtype, device=device)
+        self.m = torch.as_tensor(self.m_np, dtype=dtype,
+                                 device=resolve_device(device))
 
     def objective(self, x_list):
         x = x_list[0]

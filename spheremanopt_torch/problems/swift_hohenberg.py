@@ -21,6 +21,11 @@ as the JAX package):
     `ops/cuda/fused_two_matrix.py` (f32; the counterpart of the JAX
     package's "pallas"); on a CPU tensor it runs their plain versions
 
+The fused diagnostics (`objective_and_diagnostics`,
+`objective_gradient_and_diagnostics`) record the energy series and the
+final state from the optimisation's own solve, every `diag_stride`
+steps, with J bitwise the plain objective's.
+
 The gradient is reverse-mode autograd of the discrete forward — the
 reference's `Adjoint_type="Discrete"` adjoint — returned as the Riesz
 representative under the grid-mean inner product (factor n_grid). The
@@ -40,10 +45,13 @@ from spheremanopt_torch.ops.fourier import (
     filter_coeff_fraction,
     nyquist_mask_rfft,
 )
-from spheremanopt_torch.problems.base import (DTYPES, check_choice,
+from spheremanopt_torch.problems.base import (DTYPES, SegmentAdvance,
+                                              check_choice, resolve_device,
                                               riesz_gradient,
                                               value_and_raw_gradient)
-from spheremanopt_torch.solvers.scan_utils import kahan_add, kahan_zero
+from spheremanopt_torch.solvers.scan_utils import (kahan_add, kahan_zero,
+                                                   strided_energy_scan,
+                                                   strided_steps)
 
 @dataclass(frozen=True)
 class SH23Config:
@@ -55,13 +63,13 @@ class SH23Config:
     e0: float = 0.0725
     pad_factor: float = 2.0      # Dedalus dealias=2
     dtype: str = "float64"
-    remat: bool = True           # not applicable here: autograd keeps the
-                                 # (small) per-step states; accepted so JAX
-                                 # configs carry over unchanged
     method: str = "matmul"       # "matmul" | "fft" | "cuda" (f32 kernels)
     adjoint: str = "discrete"    # "continuous" is not ported yet
-    diag_stride: int = 1         # cadence of the fused diagnostics
-                                 # (not ported yet)
+    diag_stride: int = 1         # energy-series cadence of the fused
+                                 # diagnostics (any >= 1; a short final
+                                 # chunk records its start energy and the
+                                 # final step is always included);
+                                 # `diagnostics()` stays per-step
 
 
 _NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item {})"
@@ -71,7 +79,7 @@ class SwiftHohenberg:
     """SH23 problem: callable triple + IC generation for the optimiser,
     on `device` in `cfg.dtype`."""
 
-    def __init__(self, cfg: SH23Config = SH23Config(), device="cpu"):
+    def __init__(self, cfg: SH23Config = SH23Config(), device="cuda"):
         check_choice("dtype", cfg.dtype, tuple(DTYPES))
         check_choice("method", cfg.method, ("matmul", "fft", "cuda"))
         check_choice("adjoint", cfg.adjoint, ("discrete", "continuous"))
@@ -85,7 +93,7 @@ class SwiftHohenberg:
                 "method='cuda' runs f32 kernels; use dtype='float32' "
                 "(or method='matmul' for f64 runs)")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
         self.basis = FourierBasis1D(cfg.npts, cfg.length, cfg.pad_factor)
         self.radii = [cfg.e0]
@@ -131,6 +139,7 @@ class SwiftHohenberg:
             # weights = grid mean; u0 = P x stays a matmul outside
             from spheremanopt_torch.ops.cuda.fused_two_matrix import (
                 FusedObjectiveShared,
+                FusedObjectiveSharedDiag,
             )
 
             b32 = self._Mt.float().contiguous()
@@ -144,7 +153,18 @@ class SwiftHohenberg:
                     b32, w32, u0, 1.8, -1.0, 1.0 / cfg.dt, cfg.dt,
                     cfg.n_iters, False)
 
+            sidx = torch.as_tensor(strided_steps(cfg.n_iters, cfg.diag_stride),
+                                   device=self.device)
+
+            def obj_diag_cuda(xs):
+                u0 = torch.matmul(p32, xs[0].float())
+                J, ser, uT = FusedObjectiveSharedDiag.apply(
+                    b32, w32, u0, 1.8, -1.0, 1.0 / cfg.dt, cfg.dt,
+                    cfg.n_iters, False)
+                return J, {"kinetic_energy": ser[sidx], "u_final": uT}
+
             self._objective_impl = obj_cuda
+            self._objective_aux_impl = obj_diag_cuda
             # the JAX pallas path scales by n_grid in both gradient forms
             self._gradient = lambda xs: [
                 g * n_grid for g in value_and_raw_gradient(obj_cuda, xs)[1]]
@@ -206,6 +226,32 @@ class SwiftHohenberg:
             _, J = self._integrate(c0, self.cfg.n_iters, False)
         return -J
 
+    def _integrate_aux(self, s0, n_steps: int, use_matmul: bool):
+        """`_integrate` that also records the energy series from the SAME
+        solve, every `diag_stride` steps; J matches the plain path
+        bitwise."""
+        step = self._matmul_step if use_matmul else self._sbdf1_step
+        energy = (lambda u: torch.mean(u * u)) if use_matmul else self._energy
+        return strided_energy_scan(step, energy, s0, n_steps,
+                                   self.cfg.diag_stride, self.dtype,
+                                   self.cfg.dt)
+
+    def _objective_aux_impl(self, x_list):
+        """(-J, diagnostics) from ONE forward solve — the fused-capture
+        analogue of the reference's shared forward trajectory feeding
+        both the cost and the 'scalar_data' handler
+        (`FWD_Solve_SH23.py:478-483,499-503`)."""
+        x = x_list[0].to(self.dtype)
+        if self.cfg.method == "matmul":
+            u0 = torch.mv(self._Pt, x)
+            u_final, J, energies = self._integrate_aux(u0, self.cfg.n_iters, True)
+        else:
+            c0 = self.basis.to_coeff(x)
+            c, J, energies = self._integrate_aux(c0, self.cfg.n_iters, False)
+            u_final = self.basis.to_grid(c)
+        return -J, {"kinetic_energy": energies.detach(),
+                    "u_final": u_final.detach()}
+
     # ------------------------------------------------------------------
     # public triple
     # ------------------------------------------------------------------
@@ -232,25 +278,94 @@ class SwiftHohenberg:
         return self.inner_product
 
     # ------------------------------------------------------------------
-    # not ported yet
+    # fused diagnostics: the energy series and final state from the
+    # optimisation's own solve
     # ------------------------------------------------------------------
 
-    has_fused_diagnostics = False
+    has_fused_diagnostics = True
+
+    def _diag_host(self, x_list, diag: dict) -> dict:
+        out = dict(diag)
+        out["sim_time"] = self.cfg.dt * strided_steps(self.cfg.n_iters,
+                                                      self.cfg.diag_stride)
+        out["x_grid"] = self.basis.grid()
+        out["u_initial"] = x_list[0]
+        return out
 
     def objective_and_diagnostics(self, x_list):
-        raise NotImplementedError("fused diagnostics " + _NOT_PORTED.format(8))
+        """(J, diagnostics dict) from ONE forward solve (vs `diagnostics`,
+        which re-runs it)."""
+        with torch.no_grad():
+            J, diag = self._objective_aux_impl(list(x_list))
+        return J, self._diag_host(x_list, diag)
 
     def objective_gradient_and_diagnostics(self, x_list):
-        raise NotImplementedError("fused diagnostics " + _NOT_PORTED.format(8))
+        """(J, Riesz gradient, diagnostics) from one fused fwd+bwd solve."""
+        out = {}
 
-    def diagnostics(self, x_list):
-        raise NotImplementedError("diagnostics " + _NOT_PORTED.format(8))
+        def objective(xs):
+            J, out["diag"] = self._objective_aux_impl(xs)
+            return J
 
-    def initial_state(self, x_list):
-        raise NotImplementedError("PDE-state restart " + _NOT_PORTED.format(8))
+        J, raw = value_and_raw_gradient(objective, list(x_list))
+        return (J, [g * self.basis.n_grid for g in raw],
+                self._diag_host(x_list, out["diag"]))
 
-    def advance_state(self, state, n_steps):
-        raise NotImplementedError("PDE-state restart " + _NOT_PORTED.format(8))
+    def final_state(self, x_list) -> torch.Tensor:
+        """u(x, T) on the oversampled grid (for diagnostics/plots)."""
+        with torch.no_grad():
+            c0 = self.basis.to_coeff(self._as_state(x_list[0]))
+            c, _ = self._integrate(c0, self.cfg.n_iters, False)
+            return self.basis.to_grid(c)
+
+    def diagnostics(self, x_list) -> dict:
+        """Per-step KE series, initial/final states and final spectrum —
+        the reference's 'scalar_data' + 'CheckPoints' analysis tasks
+        (`FWD_Solve_SH23.py:478-483`)."""
+        with torch.no_grad():
+            c0 = self.basis.to_coeff(self._as_state(x_list[0]))
+            c, _, energies = strided_energy_scan(
+                self._sbdf1_step, self._energy, c0, self.cfg.n_iters, 1,
+                self.dtype, self.cfg.dt)
+            return {
+                "sim_time": self.cfg.dt * np.arange(self.cfg.n_iters + 1),
+                "kinetic_energy": energies,
+                "x_grid": self.basis.grid(),
+                "u_initial": self.basis.to_grid(c0),
+                "u_final": self.basis.to_grid(c),
+                "u_hat_final": c.cpu().numpy(),
+            }
+
+    # ------------------------------------------------------------------
+    # PDE-state restart (ref `IVP_FWD.load_state`, FWD_Solve_SH23.py:459-460)
+    # ------------------------------------------------------------------
+
+    def _as_state(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
+    def initial_state(self, x_list) -> dict:
+        """Solver state at t=0 from the optimisation vector: rfft
+        coefficients as a stacked re/im plane (real)."""
+        with torch.no_grad():
+            c = self.basis.to_coeff(self._as_state(x_list[0]))
+            return {"c": torch.stack([c.real, c.imag])}
+
+    def advance_state(self, state: dict, n_steps: int) -> dict:
+        """Advance the solver state n_steps; composable and restartable:
+        advance(s, a+b) == advance(advance(s, a), b) exactly."""
+        if not hasattr(self, "_advance"):
+            def step(s):
+                c = self._sbdf1_step(torch.complex(s["c"][0], s["c"][1]))
+                return {"c": torch.stack([c.real, c.imag])}
+
+            self._advance = SegmentAdvance(step)
+        return self._advance(state, n_steps)
+
+    def state_fields(self, state) -> dict:
+        """Named real fields for saving/plotting a solver state."""
+        with torch.no_grad():
+            u = self.basis.to_grid(torch.complex(state["c"][0], state["c"][1]))
+        return {"u": u, "u_hat_ri": state["c"]}
 
     # ------------------------------------------------------------------
     # initial conditions (ref Generate_IC, `FWD_Solve_SH23.py:174-236`)
@@ -282,7 +397,7 @@ class SwiftHohenberg:
             SH23Config(
                 npts=self.cfg.npts, length=self.cfg.length, a=self.cfg.a,
                 dt=1e-2, n_iters=100, e0=e0, pad_factor=self.cfg.pad_factor,
-                dtype=self.cfg.dtype, remat=False, method="fft",
+                dtype=self.cfg.dtype, method="fft",
             ),
             device=self.device,
         )

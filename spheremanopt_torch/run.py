@@ -1,16 +1,18 @@
-"""Command line of the port: the `sh23` and `pca` subset of
+"""Command line of the port: the `sh23`, `shb23` and `pca` subset of
 the JAX package's `run.py`.
 
     python -m spheremanopt_torch.run sh23 --device cuda --method cuda --dtype float32
     python -m spheremanopt_torch.run sh23 --device cuda --dtype float64
     python -m spheremanopt_torch.run sh23 --test-grad      # Taylor test only
+    python -m spheremanopt_torch.run shb23                 # kernels, f32, on a GPU
+    python -m spheremanopt_torch.run shb23 --dtype float64 --adjoint continuous
     python -m spheremanopt_torch.run pca --dim 100
 
 `--device` defaults to `cuda` and fails when no GPU is found; it never
-drops to the CPU on its own (`--device cpu` asks for it). On CUDA the SH23
-default is the hand-written kernel path (`--method cuda`, f32), as the
-JAX CLI defaults to its Pallas kernels on a TPU. TF32 is off: f32 matmuls
-run in full f32.
+drops to the CPU on its own (`--device cpu` asks for it). On CUDA the
+SH23 and SHB23 default is the hand-written kernel path (`--method cuda`,
+f32), as the JAX CLI defaults to its Pallas kernels on a TPU. TF32 is
+off: f32 matmuls run in full f32.
 """
 
 from __future__ import annotations
@@ -27,20 +29,21 @@ import torch
 from spheremanopt_torch.convert import state_to_torch
 from spheremanopt_torch.problems.base import DTYPES
 
-_METHODS = ("matmul", "fft", "cuda")
+_METHODS = {"sh23": ("matmul", "fft", "cuda"), "shb23": ("matmul", "cuda")}
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="spheremanopt_torch.run",
                                  description=__doc__.splitlines()[0])
-    ap.add_argument("problem", choices=["sh23", "pca"])
+    ap.add_argument("problem", choices=["sh23", "shb23", "pca"])
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--out-dir", default="runs/latest")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--dtype", choices=sorted(DTYPES), default=None,
                     help="default: float32 for --method cuda, else float64")
-    ap.add_argument("--method", choices=_METHODS, default=None,
-                    help="sh23 step method (default: cuda on a GPU in f32, "
+    ap.add_argument("--method", choices=_METHODS["sh23"], default=None,
+                    help="step method (sh23: matmul|fft|cuda, shb23: "
+                         "matmul|cuda; default: cuda on a GPU in f32, "
                          "else matmul)")
     ap.add_argument("--max-iters", type=int, default=None)
     ap.add_argument("--err-tol", type=float, default=None)
@@ -50,8 +53,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--test-grad", action="store_true", help="Taylor test, then exit")
     ap.add_argument("--test-grad-eps", type=float, default=1e-4)
     ap.add_argument("--quiet", action="store_true")
-    ap.add_argument("--npts", type=int, default=None, help="sh23 Fourier modes")
-    ap.add_argument("--n-iters", type=int, default=None, help="sh23 time steps")
+    ap.add_argument("--adjoint", choices=["discrete", "continuous"],
+                    default="discrete")
+    ap.add_argument("--diag-stride", type=int, default=None,
+                    help="energy-series cadence of the fused diagnostics "
+                         "(sh23/shb23; any >= 1)")
+    ap.add_argument("--npts", type=int, default=None,
+                    help="sh23 Fourier modes / shb23 grid points")
+    ap.add_argument("--n-iters", type=int, default=None, help="time steps")
+    ap.add_argument("--dt", type=float, default=None, help="time step")
     ap.add_argument("--dim", type=int, default=100, help="PCA dimension")
     return ap
 
@@ -81,21 +91,34 @@ def make_problem(args, x0=None):
             x0 = [np.random.RandomState(args.seed).rand(args.dim)]
         return p, state_to_torch(x0, device, dtype), dict(alpha=1.0, max_iters=2000)
 
-    from spheremanopt_torch.problems.swift_hohenberg import SH23Config, SwiftHohenberg
-
     method = args.method
     if method is None:
         method = "cuda" if (args.device == "cuda"
                             and args.dtype in (None, "float32")) else "matmul"
+    if method not in _METHODS[args.problem]:
+        raise SystemExit(f"--method {method}: {args.problem} takes "
+                         f"{'|'.join(_METHODS[args.problem])}")
     dtype = args.dtype or ("float32" if method == "cuda" else "float64")
-    kw = dict(dtype=dtype, method=method)
-    for name, val in (("npts", args.npts), ("n_iters", args.n_iters)):
+    kw = dict(dtype=dtype, method=method, adjoint=args.adjoint)
+    for name, val in (("npts", args.npts), ("n_iters", args.n_iters),
+                      ("dt", args.dt), ("diag_stride", args.diag_stride)):
         if val is not None:
             kw[name] = val
-    p = SwiftHohenberg(SH23Config(**kw), device=device)
+    if args.problem == "shb23":
+        from spheremanopt_torch.problems.swift_hohenberg_bounded import (
+            SHB23Config, SwiftHohenbergBounded)
+
+        p = SwiftHohenbergBounded(SHB23Config(**kw), device=device)
+        defaults = dict(alpha=1.0, max_iters=50, err_tol=1e-5)
+    else:
+        from spheremanopt_torch.problems.swift_hohenberg import (
+            SH23Config, SwiftHohenberg)
+
+        p = SwiftHohenberg(SH23Config(**kw), device=device)
+        defaults = dict(alpha=np.pi, max_iters=200)
     x0 = (p.generate_ic(seed=args.seed) if x0 is None
           else state_to_torch(x0, device, p.dtype))
-    return p, x0, dict(alpha=np.pi, max_iters=200)
+    return p, x0, defaults
 
 
 def optimise(problem, x0, defaults, args):
@@ -108,7 +131,8 @@ def optimise(problem, x0, defaults, args):
         problem.objective,
         problem.gradient,
         problem.inner_product,
-        err_tol=args.err_tol if args.err_tol is not None else 1e-6,
+        err_tol=args.err_tol if args.err_tol is not None
+        else defaults.get("err_tol", 1e-6),
         max_iters=args.max_iters if args.max_iters is not None
         else defaults["max_iters"],
         alpha_k=args.alpha if args.alpha is not None else defaults["alpha"],

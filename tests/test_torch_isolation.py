@@ -27,8 +27,15 @@ def test_port_imports_without_jax():
         "spheremanopt_torch.convert, spheremanopt_torch.problems.pca; "
         "from spheremanopt_torch.problems.swift_hohenberg import SwiftHohenberg, SH23Config; "
         "from spheremanopt_torch.ops.cuda import build, fused_two_matrix; "
-        "p = SwiftHohenberg(SH23Config(npts=16, n_iters=3, method='cuda', dtype='float32')); "
+        "from spheremanopt_torch.ops import chebyshev; "
+        "from spheremanopt_torch.problems.swift_hohenberg_bounded import "
+        "SwiftHohenbergBounded, SHB23Config; "
+        "p = SwiftHohenberg(SH23Config(npts=16, n_iters=3, method='cuda', dtype='float32'), device='cpu'); "
         "p.objective_and_gradient(p.generate_ic()); "
+        "p.objective_gradient_and_diagnostics(p.generate_ic()); "
+        "q = SwiftHohenbergBounded(SHB23Config(npts=16, n_iters=3, method='cuda', dtype='float32'), device='cpu'); "
+        "q.objective_gradient_and_diagnostics(q.generate_ic()); "
+        "chebyshev.cheb_to_coeff_fft(q.generate_ic()[0]); "
         "assert not any(m.startswith(('jax', 'spheremanopt_tpu')) "
         "for m, v in sys.modules.items() if v is not None), 'JAX imported'; "
         "print('isolated')")

@@ -55,7 +55,7 @@ def test_random_spd_matrix_is_the_jax_one():
 def test_pca_trajectory_matches_jax(ls, cg):
     m = j_spd(DIM, seed=3)
     kw = dict(err_tol=1e-8, max_iters=2000, line_search=ls, cg=cg, verbose=False)
-    jp, tp = JPCA(m), TPCA(m)
+    jp, tp = JPCA(m), TPCA(m, device="cpu")
     rj = j_optimise([jnp.asarray(_pca_x0())], [1.0], jp.objective, jp.gradient,
                     jp.inner_product, **kw)
     rt = t_optimise([torch.as_tensor(_pca_x0())], [1.0], tp.objective,
@@ -69,7 +69,7 @@ def test_pca_trajectory_matches_jax(ls, cg):
 )
 def test_pca_recovers_leading_eigenvector(ls, cg):
     """Same gates as the JAX package's tests/test_optimiser_pca.py."""
-    tp = TPCA(t_spd(DIM, seed=3))
+    tp = TPCA(t_spd(DIM, seed=3), device="cpu")
     r = t_optimise([torch.as_tensor(_pca_x0())], [1.0], tp.objective,
                    tp.gradient, tp.inner_product, err_tol=1e-8,
                    max_iters=2000, line_search=ls, cg=cg, verbose=False)
@@ -81,7 +81,7 @@ def test_pca_recovers_leading_eigenvector(ls, cg):
 
 def test_sh23_host_loop_trajectory_matches_jax():
     cfg = dict(npts=128, n_iters=100)
-    jp, tp = JSH(JConfig(**cfg)), TSH(TConfig(**cfg))
+    jp, tp = JSH(JConfig(**cfg)), TSH(TConfig(**cfg), device="cpu")
     x0 = np.array(jp.generate_ic(seed=42)[0])
     kw = dict(max_iters=6, alpha_k=float(np.pi), line_search="wolfe", cg=True,
               verbose=False)
@@ -99,14 +99,14 @@ def test_sh23_host_loop_trajectory_matches_jax():
     (dict(checkpoint_path="DAL_PROGRESS.npz"), "checkpoint_path"),
 ])
 def test_unported_options_raise(kw, match):
-    tp = TPCA(t_spd(8, seed=0))
+    tp = TPCA(t_spd(8, seed=0), device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         t_optimise([torch.ones(8, dtype=torch.float64)], [1.0], tp.objective,
                    tp.gradient, tp.inner_product, verbose=False, **kw)
 
 
 def test_log_path_records_each_iteration(tmp_path):
-    tp = TPCA(t_spd(16, seed=1))
+    tp = TPCA(t_spd(16, seed=1), device="cpu")
     log = tmp_path / "optimize_result.txt"
     r = t_optimise([torch.ones(16, dtype=torch.float64)], [1.0], tp.objective,
                    tp.gradient, tp.inner_product, max_iters=4, verbose=False,

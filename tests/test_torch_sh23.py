@@ -58,7 +58,7 @@ def test_objective_and_gradient_match_numpy_baseline(method):
     """Independent of JAX: the hand-rolled numpy forward and reverse
     sweep of `baselines/sh23_numpy.py` (rel 1e-12 / 1e-10 in f64)."""
     npy = SH23Numpy(npts=64, dt=0.05, n_iters=80)
-    tp = TSH(TConfig(npts=64, n_iters=80, method=method))
+    tp = TSH(TConfig(npts=64, n_iters=80, method=method), device="cpu")
     u0 = generate_ic_like(npts=64, seed=42, e0=0.0725)
     J, g = tp.objective_and_gradient(state_to_torch([u0]))
     assert abs(float(J) - npy.forward(u0)) / abs(npy.forward(u0)) < 1e-12
@@ -67,7 +67,8 @@ def test_objective_and_gradient_match_numpy_baseline(method):
 
 @pytest.mark.parametrize("method", ["matmul", "fft"])
 def test_objective_and_gradient_match_jax_f64(method):
-    jp, tp = JSH(JConfig(method=method, **SMALL)), TSH(TConfig(method=method, **SMALL))
+    jp = JSH(JConfig(method=method, **SMALL))
+    tp = TSH(TConfig(method=method, **SMALL), device="cpu")
     x = _x(jp.basis.n_grid)
     J_j = float(jp.objective([jnp.asarray(x)]))
     g_j = np.asarray(jp.gradient([jnp.asarray(x)])[0])
@@ -83,7 +84,7 @@ def test_objective_and_gradient_match_jax_f64(method):
 
 
 def test_inner_product_and_radii_match_jax():
-    jp, tp = JSH(JConfig(**SMALL)), TSH(TConfig(**SMALL))
+    jp, tp = JSH(JConfig(**SMALL)), TSH(TConfig(**SMALL), device="cpu")
     x, y = _x(128, 1), _x(128, 2)
     assert tp.radii == jp.radii
     ij = float(jp.inner_product(jnp.asarray(x), jnp.asarray(y)))
@@ -92,7 +93,7 @@ def test_inner_product_and_radii_match_jax():
 
 
 def test_taylor_test_order_two():
-    p = TSH(TConfig(**SMALL))
+    p = TSH(TConfig(**SMALL), device="cpu")
     x0 = p.generate_ic(seed=42)
     dx = p.generate_ic(seed=9, e0=1.0)
     r = adjoint_gradient_test(x0, dx, p.objective, p.gradient, p.inner_product,
@@ -102,7 +103,8 @@ def test_taylor_test_order_two():
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_generate_ic_from_jax_noise_matches_jax(dtype):
-    jp, tp = JSH(JConfig(dtype=dtype, **SMALL)), TSH(TConfig(dtype=dtype, **SMALL))
+    jp = JSH(JConfig(dtype=dtype, **SMALL))
+    tp = TSH(TConfig(dtype=dtype, **SMALL), device="cpu")
     noise = np.asarray(jax.random.normal(jax.random.PRNGKey(42), (128,), jnp.dtype(dtype)))
     x_j = np.asarray(jp.generate_ic(seed=42)[0])
     x_t = tp.generate_ic(seed=42, noise=noise)[0]
@@ -113,7 +115,7 @@ def test_generate_ic_from_jax_noise_matches_jax(dtype):
 
 
 def test_generate_ic_own_noise_is_seeded():
-    p = TSH(TConfig(**SMALL))
+    p = TSH(TConfig(**SMALL), device="cpu")
     a, b, c = (p.generate_ic(seed=s)[0] for s in (42, 42, 43))
     assert torch.equal(a, b) and not torch.equal(a, c)
 
@@ -121,7 +123,7 @@ def test_generate_ic_own_noise_is_seeded():
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_step_operators_bitwise_and_convert_roundtrip(dtype):
     jp = JSH(JConfig(dtype=dtype, **SMALL))
-    tp = TSH(TConfig(dtype=dtype, **SMALL))
+    tp = TSH(TConfig(dtype=dtype, **SMALL), device="cpu")
     oj, ot = sh23_operators(jp), sh23_operators(tp)
     assert oj.keys() == ot.keys()
     for k in oj:
@@ -141,14 +143,15 @@ def test_cuda_method_on_cpu_runs_the_plain_version():
     """method="cuda" on CPU tensors: the plain sweeps, no kernel launch,
     and the f32 matmul path's numbers to f32 accuracy (rel 1e-5)."""
     cfg = dict(dtype="float32", **SMALL)
-    pk, pm = TSH(TConfig(method="cuda", **cfg)), TSH(TConfig(method="matmul", **cfg))
+    pk = TSH(TConfig(method="cuda", **cfg), device="cpu")
+    pm = TSH(TConfig(method="matmul", **cfg), device="cpu")
     x = state_to_torch([_x(128)], dtype=torch.float32)
     fk.reset_launches()
     Jk, gk = pk.objective_and_gradient(x)
     g2 = pk.gradient(x)
     J0 = pk.objective(x)
     Jm, gm = pm.objective_and_gradient(x)
-    assert fk.LAUNCHES == {"fused_fwd_shared": 0, "fused_bwd_shared": 0}
+    assert not any(fk.LAUNCHES.values())
     assert float(J0) == float(Jk)
     assert torch.equal(gk[0], g2[0])
     assert abs(float(Jk) - float(Jm)) / abs(float(Jm)) < 1e-5
@@ -157,20 +160,14 @@ def test_cuda_method_on_cpu_runs_the_plain_version():
 
 def test_cuda_method_needs_float32():
     with pytest.raises(ValueError, match="float32"):
-        TSH(TConfig(method="cuda", dtype="float64", **SMALL))
+        TSH(TConfig(method="cuda", dtype="float64", **SMALL), device="cpu")
 
 
 @pytest.mark.parametrize("call", [
-    lambda p, x: p.diagnostics(x),
-    lambda p, x: p.objective_and_diagnostics(x),
-    lambda p, x: p.objective_gradient_and_diagnostics(x),
-    lambda p, x: p.initial_state(x),
-    lambda p, x: p.advance_state({}, 1),
-    lambda p, x: TSH(TConfig(adjoint="continuous", **SMALL)),
-], ids=["diagnostics", "obj_diag", "obj_grad_diag", "initial_state",
-        "advance_state", "continuous"])
+    lambda p, x: TSH(TConfig(adjoint="continuous", **SMALL), device="cpu"),
+], ids=["continuous"])
 def test_unported_paths_raise_with_their_roadmap_item(call):
-    p = TSH(TConfig(**SMALL))
+    p = TSH(TConfig(**SMALL), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         call(p, p.generate_ic())
 
@@ -212,7 +209,7 @@ def test_pinned_objective_and_gradient_match_jax_now(ref, dtype, method):
 
 
 def test_port_reproduces_pinned_f64_at_full_config(ref):
-    p = TSH(TConfig())
+    p = TSH(TConfig(), device="cpu")
     x0 = p.generate_ic(noise=ref["noise_f64"])
     assert _rel(x0[0], ref["x0_f64"]) < 1e-12
     J, g = p.objective_and_gradient(state_to_torch([ref["x0_f64"]]))
