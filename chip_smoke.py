@@ -12,11 +12,15 @@ holding each against its plain PyTorch version on the card:
   * SHB23: 512 Chebyshev roots points, 2000 SBDF1 steps, alpha0 = 1,
     max_iters = 50, err_tol = 1e-5 (two-matrix kernels);
   * the fused diagnostics of both (the series variants of the forward
-    kernels).
+    kernels);
+  * KDyn: the kinematic dynamo on two spheres, 24^3 modes on the 36^3
+    dealiased grid, Rm = 1, 2000 CNAB1 steps at dt = 5e-4, cost "Final",
+    alpha0 = 100, max_iters = 10 (the three kdyn_step kernels).
 
-Inputs come from `baselines/sh23_port_ref.npz` and
-`baselines/shb23_port_ref.npz` (the JAX package's seed-42 initial
-conditions and trajectories; this script imports no JAX).
+Inputs come from `baselines/sh23_port_ref.npz`,
+`baselines/shb23_port_ref.npz`, `baselines/kdyn_port_ref.npz` and
+`baselines/kdyn24_truth.npz` (the JAX package's seed-42 initial
+conditions, trajectories and f64 values; this script imports no JAX).
 
 Phases, one line each; any failure exits non-zero without a result line:
   A  card, power limit, torch/CUDA versions, TF32 flags (off)
@@ -37,14 +41,25 @@ Phases, one line each; any failure exits non-zero without a result line:
      then a torch.profiler trace of a second run
   M  fused diagnostics on method=cuda, both problems: a main path of the
      series kernels; J and the gradient bitwise the plain objective's
+  N  KDyn kernels vs plain f32 on the card, full width: cost Final at the
+     full 2000 steps, Integrated at 200; then J and both gradients of
+     method=cuda, plain f32 and plain f64 against the pinned f64 values
+  O  CUDA-event timings: the three KDyn sweeps and the fwd+grad unit,
+     kernel vs plain
+  P  Taylor test of the KDyn f64 plain path at 200 steps
+  Q  KDyn f64 workload (method=plain) at 200 steps vs the pinned JAX f64
+     trajectory
+  R  KDyn f32 workload through the kernels (method=cuda) at full size: a
+     main path, then a torch.profiler trace of a second run
 
-Each main path (G, L, M) runs with the launch counters set to 0 just
+Each main path (G, L, M, R) runs with the launch counters set to 0 just
 before it and read just after; a kernel of that path that was not
 launched fails it. The last lines are the card, the kernels' JSON line
 and `{"ok": true, ...}`. Without CUDA it exits non-zero: there is no
 CPU path.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -64,10 +79,14 @@ from spheremanopt_torch.convert import (
 from spheremanopt_torch.grad.testgrad import adjoint_gradient_test
 from spheremanopt_torch.ops.cuda import build as kbuild
 from spheremanopt_torch.ops.cuda import fused_two_matrix as fk
+from spheremanopt_torch.ops.cuda import kdyn_step as kd
+from spheremanopt_torch.problems.kinematic_dynamo import KinematicDynamo
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REF = os.path.join(HERE, "baselines", "sh23_port_ref.npz")
 REF_B = os.path.join(HERE, "baselines", "shb23_port_ref.npz")
+REF_K = os.path.join(HERE, "baselines", "kdyn_port_ref.npz")
+TRUTH_K = os.path.join(HERE, "baselines", "kdyn24_truth.npz")
 OUT = os.path.join(HERE, "build", "chip_smoke")   # run logs (git-ignored)
 C2, C3 = 1.8, -1.0     # SH23:  g(u) = 1.8 u^2 - u^3
 C2B, C3B = 2.0, -1.0   # SHB23: g(u) = 2 u^2 - u^3
@@ -76,9 +95,22 @@ C2B, C3B = 2.0, -1.0   # SHB23: g(u) = 2 u^2 - u^3
 # class; SHB23's A_lin has entries ~1/dt = 100, so its gradient gets 1e-4.
 TOL_VS_PLAIN, TOL_VS_F64, TOL_G_VS_F64_SHB = 1e-4, 1e-5, 1e-4
 GAMMA2_TOL, TRAJ_F64_RTOL, FV0_ATOL, FV0_RTOL, SPHERE_TOL = 0.05, 1e-6, 1e-4, 1e-4, 1e-5
+# KDyn. Kernel vs plain f32: both f32, sums in another order, growth over
+# 2000 steps whose factors carry 1/dt = 2000. f32 vs the pinned f64 values:
+# the class the JAX package recorded for its full-f32 path (1.5e-4), with
+# margin. Plain f64 vs the pinned values: J to f64 roundoff; the pinned
+# gradients are stored in f32 (~6e-8).
+TOL_KDYN_VS_PLAIN, TOL_KDYN_VS_F64, TOL_KDYN_J64, TOL_KDYN_G64 = 1e-3, 1e-3, 1e-10, 1e-6
+KDYN_CUT = 200   # steps of the depth-cut f64 phases (a tenth of the horizon)
+# the JAX package's bench record (iterations, J): another workload, with
+# unprojected gradients through its device-resident optimiser loop
+KDYN_BENCH_END = (10, 2.518)
 # H100 SXM data-sheet peaks (dense f32 outside the tensor cores, HBM3)
 F32_PEAK, HBM_RATE = 67e12, 3.35e12
 PALLAS = "spheremanopt_tpu/ops/pallas/fused_two_matrix.py"
+PALLAS_K = "spheremanopt_tpu/ops/pallas/kdyn_step.py"
+LAUNCH_TABLES = (fk, kd)   # modules that count their kernels' launches
+SOURCES = {**fk.KERNEL_SOURCES, **kd.KERNEL_SOURCES}
 REPLACES = {
     "fused_fwd_shared": f"{PALLAS}:150",        # _fwd_kernel_shared
     "fused_fwd_shared_ser": f"{PALLAS}:150",    # same, has_ser=True
@@ -86,13 +118,25 @@ REPLACES = {
     "fused_fwd": f"{PALLAS}:60",                # _fwd_kernel
     "fused_fwd_ser": f"{PALLAS}:60",            # same, has_ser=True
     "fused_bwd": f"{PALLAS}:102",               # _bwd_kernel
+    "kdyn_fwd": f"{PALLAS_K}:411",              # _fwd_kernel
+    "kdyn_fwd_traj": f"{PALLAS_K}:201",         # _fwd_traj_kernel
+    "kdyn_bwd": f"{PALLAS_K}:247",              # _bwd_kernel
 }
 
 
-def problem_args(problem, dtype, method):
+def reset_launches():
+    for mod in LAUNCH_TABLES:
+        mod.reset_launches()
+
+
+def launches():
+    return {k: v for mod in LAUNCH_TABLES for k, v in mod.LAUNCHES.items()}
+
+
+def problem_args(problem, dtype, method, *extra):
     return cli.build_parser().parse_args(
         [problem, "--device", "cuda", "--dtype", dtype, "--method", method,
-         "--quiet", "--out-dir", OUT])
+         "--quiet", "--out-dir", OUT, *extra])
 
 
 def rel(a, b):
@@ -106,9 +150,9 @@ def max_abs(pairs):
                      .abs().max()) for a, b in pairs)
 
 
-def gpu_ms(fn, reps):
-    """Mean ms per call by CUDA events, after two warm-up calls."""
-    for _ in range(2):
+def gpu_ms(fn, reps, warm=2):
+    """Mean ms per call by CUDA events, after `warm` warm-up calls."""
+    for _ in range(warm):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -120,10 +164,10 @@ def gpu_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def interleaved_ms(plain, kernel, reps_plain, reps_kernel):
+def interleaved_ms(plain, kernel, reps_plain, reps_kernel, warm_plain=2):
     """(plain ms, kernel ms), measured plain, kernel, kernel, plain."""
-    t = [gpu_ms(plain, reps_plain), gpu_ms(kernel, reps_kernel),
-         gpu_ms(kernel, reps_kernel), gpu_ms(plain, reps_plain)]
+    t = [gpu_ms(plain, reps_plain, warm_plain), gpu_ms(kernel, reps_kernel),
+         gpu_ms(kernel, reps_kernel), gpu_ms(plain, reps_plain, warm_plain)]
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
 
@@ -138,6 +182,31 @@ def sweep_work(mg, n_steps, n_mats, fwd, traj=True, ser=False):
     floats += n_steps * mg if (traj or not fwd) else 0
     floats += n_steps + 1 if ser else 0
     return flop, 4 * floats
+
+
+def kdyn_work(n, mg, n_steps, fwd, traj):
+    """(flop, bytes) one KDyn sweep must do. A transform between the
+    (3, n, n, kz) modes and the (3, mg, mg, mg) grid is three per-axis DFT
+    stages: complex along x and y (8 flop per complex multiply-add), and
+    along z between complex modes and a real grid (4 flop). A forward step
+    is a synthesis and an analysis; a reverse step is two transposed
+    transforms and the synthesis of the stored state. The pointwise work
+    is ~9 flop per grid point for each cross product and ~60 per mode for
+    the mode-space tail. Each input is read once (both planes, u, the
+    constant pack, the trajectory for a reverse sweep) and each output
+    written once (both planes and J, or both plane cotangents and u_bar;
+    the trajectory when stored)."""
+    kz = n // 2 + 1
+    s, grid = 3 * n * n * kz, 3 * mg ** 3
+    transform = (8 * mg * n * 3 * n * kz + 8 * mg * n * 3 * mg * kz
+                 + 4 * mg * kz * 3 * mg * mg)
+    tail = 60 * n * n * kz
+    step = (2 * transform + 3 * grid + tail if fwd
+            else 3 * transform + 2 * 3 * grid + tail)
+    consts = 4 * n * mg + 4 * kz * mg + 9 * n * n * kz
+    floats = 2 * s + grid + consts + 1 + (2 * s if fwd else 2 * s + grid)
+    floats += 2 * n_steps * s if (traj or not fwd) else 0
+    return n_steps * step, 4 * floats
 
 
 def bound(flop, nbytes):
@@ -181,8 +250,9 @@ def trace(fn):
 class Smoke:
     def __init__(self):
         self.ref, self.refb = np.load(REF), np.load(REF_B)
+        self.refk, self.truthk = np.load(REF_K), np.load(TRUTH_K)
         self.failures = []
-        self.kernels = {name: {} for name in fk.KERNEL_SOURCES}
+        self.kernels = {name: {} for name in SOURCES}
         self.card = ""
 
     def check(self, phase, ok, msg):
@@ -194,21 +264,21 @@ class Smoke:
         """Run `fn` with the launch counters set to 0 just before and read
         just after; every kernel in `kernels` must have launched. The
         counts of `record` (default: `kernels`) go to the JSON line."""
-        fk.reset_launches()
+        reset_launches()
         out = fn()
         torch.cuda.synchronize()
-        launched = {k: fk.LAUNCHES[k] for k in kernels}
+        launched = {k: launches()[k] for k in kernels}
         for k in (kernels if record is None else record):
             self.kernels[k]["launches"] = launched[k]
         self.check(phase, all(v > 0 for v in launched.values()),
                    f"main-path launches {launched}")
         return out
 
-    def report_trace(self, phase, problem, ref):
+    def report_trace(self, phase, problem, x0):
         """Trace a second run of the f32 kernel workload (the optimisation
         only; the problem is built before)."""
         args = problem_args(problem, "float32", "cuda")
-        p, x, defaults = cli.make_problem(args, x0=[ref["x0_f32"]])
+        p, x, defaults = cli.make_problem(args, x0=x0)
         wall, busy, rows = trace(lambda: cli.optimise(p, x, defaults, args))
         top = "; ".join(f"{k[:40]} {ms:.1f} ms x{n}" for k, ms, n in rows[:4])
         idle = f"{100 * (1 - busy / wall):.1f} %" if busy > 0 else "not measured"
@@ -309,23 +379,23 @@ class Smoke:
                    f"{b_pl:.3f} ms; fwd+grad unit kernel path {u_k:.3f} ms vs "
                    f"plain f32 path {u_pl:.3f} ms")
 
-    def taylor(self, phase, problem, ref):
-        p, x0, _ = cli.make_problem(problem_args(problem, "float64", "matmul"),
-                                    x0=[ref["x0_f64"]])
+    def taylor(self, phase, args, x0):
+        p, x0, _ = cli.make_problem(args, x0=x0)
         dx0 = p.generate_ic(seed=43)
         r = adjoint_gradient_test(x0, dx0, p.objective, p.gradient, p.inner_product,
                                   epsilon=1e-4, verbose=False)
         self.check(phase, abs(r.gamma2 - 2.0) <= GAMMA2_TOL,
-                   f"Taylor {problem} f64 plain path: gamma1 {r.gamma1:.4f}, "
+                   f"Taylor {args.problem} f64 plain path: gamma1 {r.gamma1:.4f}, "
                    f"gamma2 {r.gamma2:.4f} (tol {GAMMA2_TOL})")
 
     def phase_e(self):
-        self.taylor("E", "sh23", self.ref)
+        self.taylor("E", problem_args("sh23", "float64", "matmul"),
+                    [self.ref["x0_f64"]])
 
-    def workload(self, problem, dtype, method, x0):
-        args = problem_args(problem, dtype, method)
+    def workload(self, problem, dtype, method, x0, *extra):
+        args = problem_args(problem, dtype, method, *extra)
         os.makedirs(OUT, exist_ok=True)
-        p, x, defaults = cli.make_problem(args, x0=[x0])
+        p, x, defaults = cli.make_problem(args, x0=x0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = cli.optimise(p, x, defaults, args)
@@ -334,7 +404,7 @@ class Smoke:
 
     def pinned_f64(self, phase, problem, ref):
         pin_fv, pin_k = ref["fv_f64_matmul"], int(ref["iters_f64_matmul"])
-        _, res, wall = self.workload(problem, "float64", "matmul", ref["x0_f64"])
+        _, res, wall = self.workload(problem, "float64", "matmul", [ref["x0_f64"]])
         fv = np.asarray(res.function_values)
         worst = (float(np.max(np.abs(fv - pin_fv) / np.abs(pin_fv)))
                  if len(fv) == len(pin_fv) else float("inf"))
@@ -350,7 +420,7 @@ class Smoke:
     def f32_workload(self, phase, problem, ref, kernels, fv0_ok, iters):
         p, res, wall = self.main_path(
             phase, kernels,
-            lambda: self.workload(problem, "float32", "cuda", ref["x0_f32"]))
+            lambda: self.workload(problem, "float32", "cuda", [ref["x0_f32"]]))
         fv = np.asarray(res.function_values)
         x = res.x_opt[0]
         sphere = abs(float(p.inner_product(x, x)) / p.radii[0] - 1.0)
@@ -369,7 +439,7 @@ class Smoke:
               f"{int(ref['iters_f32_pallas'])} to {float(ref['fv_f32_pallas'][-1])!r}. "
               "Not gated: from one x0 the f32 runs differ by roundoff after the "
               "first iteration, so the end point may differ.", flush=True)
-        self.report_trace(phase, problem, ref)
+        self.report_trace(phase, problem, [ref["x0_f32"]])
 
     def phase_g(self):
         self.f32_workload("G", "sh23", self.ref,
@@ -487,7 +557,8 @@ class Smoke:
                    f"path {u_pl:.3f} ms")
 
     def phase_j(self):
-        self.taylor("J", "shb23", self.refb)
+        self.taylor("J", problem_args("shb23", "float64", "matmul"),
+                    [self.refb["x0_f64"]])
 
     def phase_k(self):
         self.pinned_f64("K", "shb23", self.refb)
@@ -526,8 +597,191 @@ class Smoke:
                    "(SH23, SHB23): J and gradient bitwise the plain objective's, "
                    f"series (n+1,) finite and equal in both calls: {res}")
 
+
+    # -- KDyn ---------------------------------------------------------------
+
+    def kdyn_x0(self, dtype):
+        return [self.refk["b0"].astype(dtype), self.refk["u0"].astype(dtype)]
+
+    def phase_n(self):
+        p, x0, _ = cli.make_problem(problem_args("kdyn", "float32", "cuda"),
+                                    x0=self.kdyn_x0(np.float32))
+        cfg, C = p.cfg, p._consts
+        with torch.no_grad():
+            b0_c, u = p._prepare(x0)
+        br0, bi0, u = b0_c.real.contiguous(), b0_c.imag.contiguous(), u.contiguous()
+        self.kdyn_sweep = (br0, bi0, u, C, cfg.n_iters, cfg.dt)
+        gbar = torch.tensor(-1.0, dtype=torch.float32, device=u.device)
+        pairs = {k: [] for k in kd.KERNEL_SOURCES}
+        reset_launches()
+        for integrated, n in ((False, cfg.n_iters), (True, KDYN_CUT)):
+            k = kd.run_fwd_traj(br0, bi0, u, C, n, integrated, cfg.dt)
+            k0 = kd.run_forward(br0, bi0, u, C, n, integrated, cfg.dt)
+            r = kd.run_fwd_traj_plain(br0, bi0, u, C, n, integrated, cfg.dt)
+            bk = kd.run_bwd(u, k[0], k[1], gbar, k[3], k[4], C, n, integrated, cfg.dt)
+            bp = kd.run_bwd_plain(u, k[0], k[1], gbar, k[3], k[4], C, n, integrated,
+                                  cfg.dt)
+            torch.cuda.synchronize()
+            pairs["kdyn_fwd_traj"] += list(zip(k, r))
+            pairs["kdyn_fwd"] += list(zip(k0, r[:3]))
+            pairs["kdyn_bwd"] += list(zip(bk, bp))
+            same = [torch.equal(a, b) for a, b in zip(k0, k[:3])]
+            self.check("N", all(same), f"KDyn forward with and without the trajectory "
+                       f"bitwise equal (b_T re, im, J), integrated={integrated}: {same}")
+        launched = {k: launches()[k] for k in pairs}
+        errs = {k: max(rel(a, b) for a, b in v) for k, v in pairs.items()}
+        for k, v in pairs.items():
+            self.kernels[k]["max_abs_err"] = max_abs(v)
+        self.check("N", max(errs.values()) <= TOL_KDYN_VS_PLAIN,
+                   f"KDyn kernel vs plain f32 (n={cfg.npts}, mg={p.mg}; Final N="
+                   f"{cfg.n_iters}, Integrated N={KDYN_CUT}): worst rel "
+                   + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                   + f", tol {TOL_KDYN_VS_PLAIN:g}")
+        self.check("N", all(v == 2 for v in launched.values()),
+                   f"launch counters moved: {launched}")
+
+        # J and both unprojected gradients at the pinned x0, full depth,
+        # against the pinned f64 values (computed by the JAX package on a CPU)
+        def unprojected(args, dtype):
+            q, x, _ = cli.make_problem(args, x0=self.kdyn_x0(dtype))
+            q = KinematicDynamo(dataclasses.replace(q.cfg, project_gradients=False),
+                                device=q.device)
+            J, g = q.objective_and_gradient(x)
+            return float(J), [a.double() for a in g]
+
+        def against(J, g, J64, g64):
+            return (abs(J - J64) / abs(J64),
+                    *(float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+                      for a, b in zip(g, g64)))
+
+        dev = u.device
+        J64 = float(self.truthk["J"])
+        g64 = [torch.as_tensor(self.truthk[k], device=dev).double() for k in ("gb", "gu")]
+        e_k = against(*unprojected(problem_args("kdyn", "float32", "cuda"), np.float32),
+                      J64, g64)
+        e_p = against(*unprojected(problem_args("kdyn", "float32", "plain"), np.float32),
+                      J64, g64)
+        e_d = against(*unprojected(problem_args("kdyn", "float64", "plain"), np.float64),
+                      J64, g64)
+        fmt = "rel_J {:.3e} rel_gB {:.3e} rel_gU {:.3e}".format
+        self.check("N", max(e_k) <= TOL_KDYN_VS_F64,
+                   f"KDyn full depth vs pinned f64: method=cuda {fmt(*e_k)} (plain "
+                   f"f32: {fmt(*e_p)}), tol {TOL_KDYN_VS_F64:g}")
+        self.check("N", e_d[0] <= TOL_KDYN_J64 and max(e_d[1:]) <= TOL_KDYN_G64,
+                   f"KDyn full depth plain f64 vs pinned f64: {fmt(*e_d)}, tol "
+                   f"{TOL_KDYN_J64:g} / {TOL_KDYN_G64:g}")
+        self.pk_cuda, self.xk32 = p, x0
+        self.pk_plain32 = cli.make_problem(problem_args("kdyn", "float32", "plain"),
+                                           x0=self.kdyn_x0(np.float32))[0]
+
+        # both costs at the cut depth, projected gradients, through the
+        # problem: method=cuda f32 and plain f64 against the pinned f64 values
+        for cost in ("Final", "Integrated"):
+            J64 = float(self.refk[f"J200_{cost}"])
+            g64 = [torch.as_tensor(self.refk[f"{k}200_{cost}"], device=dev).double()
+                   for k in ("gb", "gu")]
+            extra = ("--n-iters", str(KDYN_CUT), "--cost", cost)
+            res = []
+            for dtype, method, npd in (("float32", "cuda", np.float32),
+                                       ("float64", "plain", np.float64)):
+                q, x, _ = cli.make_problem(problem_args("kdyn", dtype, method, *extra),
+                                           x0=self.kdyn_x0(npd))
+                J, g = q.objective_and_gradient(x)
+                res.append(against(float(J), [a.double() for a in g], J64, g64))
+            self.check("N", max(res[0]) <= TOL_KDYN_VS_F64 and res[1][0] <= TOL_KDYN_J64
+                       and max(res[1][1:]) <= TOL_KDYN_G64,
+                       f"KDyn cost={cost} N={KDYN_CUT}, projected gradients, vs pinned "
+                       f"f64: method=cuda {fmt(*res[0])} (tol {TOL_KDYN_VS_F64:g}); "
+                       f"plain f64 {fmt(*res[1])} (tol {TOL_KDYN_J64:g} / "
+                       f"{TOL_KDYN_G64:g})")
+
+    def phase_o(self):
+        br0, bi0, u, C, n, dt = self.kdyn_sweep
+        brT, biT, _, trr, tri = kd.run_fwd_traj(br0, bi0, u, C, n, False, dt)
+        gbar = torch.tensor(-1.0, dtype=torch.float32, device=u.device)
+        # the plain versions take seconds a sweep and were run in phase N:
+        # one call each way, no warm-up
+        f_pl, f_k = interleaved_ms(
+            lambda: kd.run_forward_plain(br0, bi0, u, C, n, False, dt),
+            lambda: kd.run_forward(br0, bi0, u, C, n, False, dt), 1, 5, 0)
+        t_pl, t_k = interleaved_ms(
+            lambda: kd.run_fwd_traj_plain(br0, bi0, u, C, n, False, dt),
+            lambda: kd.run_fwd_traj(br0, bi0, u, C, n, False, dt), 1, 5, 0)
+        b_pl, b_k = interleaved_ms(
+            lambda: kd.run_bwd_plain(u, brT, biT, gbar, trr, tri, C, n, False, dt),
+            lambda: kd.run_bwd(u, brT, biT, gbar, trr, tri, C, n, False, dt), 1, 5, 0)
+        u_pl, u_k = interleaved_ms(
+            lambda: self.pk_plain32.objective_and_gradient(self.xk32),
+            lambda: self.pk_cuda.objective_and_gradient(self.xk32), 1, 5, 0)
+        npts, mg = br0.shape[1], u.shape[1]
+        self.kernels["kdyn_fwd"].update(
+            ms=f_k, plain_ms=f_pl, work=kdyn_work(npts, mg, n, fwd=True, traj=False))
+        self.kernels["kdyn_fwd_traj"].update(
+            ms=t_k, plain_ms=t_pl, work=kdyn_work(npts, mg, n, fwd=True, traj=True))
+        self.kernels["kdyn_bwd"].update(
+            ms=b_k, plain_ms=b_pl, work=kdyn_work(npts, mg, n, fwd=False, traj=True))
+        self.check("O", True,
+                   f"[{self.card}] KDyn (n={npts}, mg={mg}, N={n}) fwd sweep kernel "
+                   f"{f_k:.3f} ms vs plain {f_pl:.3f} ms; with the trajectory "
+                   f"{t_k:.3f} vs {t_pl:.3f} ms; bwd sweep kernel {b_k:.3f} ms vs "
+                   f"plain {b_pl:.3f} ms; fwd+grad unit kernel path {u_k:.3f} ms vs "
+                   f"plain f32 path {u_pl:.3f} ms")
+
+    def phase_p(self):
+        self.taylor("P", problem_args("kdyn", "float64", "plain", "--n-iters",
+                                      str(KDYN_CUT)), self.kdyn_x0(np.float64))
+
+    def phase_q(self):
+        pin_fv, pin_k = self.refk["fv200_f64"], int(self.refk["iters200_f64"])
+        _, res, wall = self.workload("kdyn", "float64", "plain",
+                                     self.kdyn_x0(np.float64), "--n-iters",
+                                     str(KDYN_CUT))
+        fv = np.asarray(res.function_values)
+        worst = (float(np.max(np.abs(fv - pin_fv) / np.abs(pin_fv)))
+                 if len(fv) == len(pin_fv) else float("inf"))
+        self.check("Q", res.iterations == pin_k and worst <= TRAJ_F64_RTOL,
+                   f"kdyn f64 workload at N={KDYN_CUT}: {res.iterations} iterations "
+                   f"(JAX {pin_k}), J_final {float(fv[-1]) if len(fv) else None!r} "
+                   f"(JAX {float(pin_fv[-1])!r}), worst rel {worst:.2e} (tol "
+                   f"{TRAJ_F64_RTOL:g}), {wall:.2f} s")
+
+    def phase_r(self):
+        x0 = self.kdyn_x0(np.float32)
+        p, res, wall = self.main_path(
+            "R", tuple(kd.KERNEL_SOURCES),
+            lambda: self.workload("kdyn", "float32", "cuda", x0))
+        fv = np.asarray(res.function_values)
+        spheres = [abs(float(p.inner_product(x, x)) / r - 1.0)
+                   for x, r in zip(res.x_opt, p.radii)]
+        fv0_ref = float(self.refk["fv0_f32_full"])
+        finite = all(bool(torch.isfinite(x).all()) and x.shape == (3, p.mg, p.mg, p.mg)
+                     for x in res.x_opt)
+        ok = (5 <= res.iterations <= 10 and bool(np.all(np.diff(fv) >= 0))
+              and abs(fv[0] - fv0_ref) <= TOL_KDYN_VS_F64 * abs(fv0_ref)
+              and max(spheres) <= SPHERE_TOL and finite)
+        self.check("R", ok,
+                   f"kdyn f32 kernel workload (n={p.cfg.npts}, N={p.cfg.n_iters}): "
+                   f"{res.iterations} iterations (5-10), values "
+                   f"{[float(v) for v in fv]}, first {float(fv[0])!r} vs JAX f32 "
+                   f"{fv0_ref!r} (rel tol {TOL_KDYN_VS_F64:g}), |<x,x>/r-1| "
+                   f"{[f'{s:.1e}' for s in spheres]}, {wall:.2f} s [{self.card}]")
+        pin = self.refk["fv_f32_full"]
+        drift = (f"{float(np.max(np.abs(fv - pin) / np.abs(pin))):.2e}"
+                 if len(fv) == len(pin) else "not comparable")
+        print(f"[R] end point: {res.iterations} iterations to J {float(fv[-1])!r}; the "
+              f"JAX package in f32 on a CPU, from the same x0: "
+              f"{int(self.refk['iters_f32_full'])} iterations to {float(pin[-1])!r} "
+              f"(worst rel over the trajectory {drift}), and in f64 "
+              f"{int(self.refk['iters_f64_full'])} iterations to "
+              f"{float(self.refk['fv_f64_full'][-1])!r}. Its bench record of "
+              f"{KDYN_BENCH_END[0]} iterations to {KDYN_BENCH_END[1]} is another "
+              "workload (unprojected gradients, device-resident loop). Not gated: "
+              "f32 runs from one x0 differ by roundoff after the first iteration.",
+              flush=True)
+        self.report_trace("R", "kdyn", x0)
+
     def run(self):
-        for name in "abcdefghijklm":
+        for name in "abcdefghijklmnopqr":
             phase = getattr(self, f"phase_{name}")
             t0 = time.perf_counter()
             try:
@@ -545,7 +799,7 @@ class Smoke:
             rec = dict(rec)
             bound_ms, bound_by = bound(*rec.pop("work"))
             recs.append(dict(
-                name=name, route="cuda", source=fk.KERNEL_SOURCES[name],
+                name=name, route="cuda", source=SOURCES[name],
                 replaces=REPLACES[name], launches=rec["launches"],
                 max_abs_err=rec["max_abs_err"], ms=rec["ms"],
                 plain_ms=rec["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,

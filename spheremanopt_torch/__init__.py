@@ -14,9 +14,10 @@ Layering (bottom-up), mirroring the JAX package:
   manifold/   sphere geometry: retraction, tangent projection, transport
   optim/      Armijo + strong-Wolfe line searches, SD/CG optimiser
   grad/       Taylor-remainder adjoint verification
-  problems/   PCA, Swift-Hohenberg (SH23)
+  problems/   PCA, Swift-Hohenberg periodic (SH23) and bounded (SHB23),
+              kinematic dynamo (KDyn, two spheres)
   convert.py  numpy bridge for data shared with the JAX package
-  run.py      command line (sh23, pca)
+  run.py      command line (sh23, shb23, kdyn, pca)
 
 Gradients are discrete adjoints: reverse-mode autograd of the forward
 solve, or the kernels' own reverse sweep.
@@ -33,6 +34,10 @@ from spheremanopt_torch.optim.optimiser import (
     optimise_on_multi_sphere,
 )
 from spheremanopt_torch.grad.testgrad import adjoint_gradient_test
+from spheremanopt_torch.problems.kinematic_dynamo import (
+    KDynConfig,
+    KinematicDynamo,
+)
 
 __version__ = "0.1.0"
 
@@ -44,4 +49,6 @@ __all__ = [
     "OptimiseResult",
     "optimise_on_multi_sphere",
     "adjoint_gradient_test",
+    "KDynConfig",
+    "KinematicDynamo",
 ]

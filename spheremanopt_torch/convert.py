@@ -10,9 +10,19 @@ Neither side imports the other: data crosses as numpy arrays.
     the weights `w` and the f32 kernel operands `a32`, `b32`, `w32` of
     either package's `SwiftHohenbergBounded`, as the JAX pallas path
     forms them — all numpy.
-  * `operators_to_torch(ops, device, dtype)`: those arrays as tensors.
-  * `state_to_torch` / `state_to_numpy`: state lists (lists of 1-D
-    arrays) in either direction.
+  * `kdyn_operators(problem)`: the constant pack of either package's
+    `KinematicDynamo` (per-axis DFT matrices `Ff`, `Fz`, `Bf`, `Bz`,
+    wavenumbers `k`, `inv_k2`, the CNAB1 factors `lhs_inv`, `rhs_fac`,
+    the band mask `keep` and the Parseval weights `pw`) — all numpy;
+    what `ops/cuda/kdyn_step.make_consts` reads.
+  * `operators_to_torch(ops, device, dtype)`: those arrays as tensors
+    on `device`.
+  * `state_to_torch(xs, device, dtype)` / `state_to_numpy`: state lists
+    in either direction: one array per sphere, 1-D for SH23, SHB23 and
+    PCA, a pair of (3, mg, mg, mg) fields for KDyn.
+
+Nothing lands on a device unasked: every converter to tensors takes
+the device explicitly.
 """
 
 from __future__ import annotations
@@ -43,7 +53,14 @@ def shb23_operators(problem) -> Dict[str, np.ndarray]:
             "w32": w.astype(np.float32)}
 
 
-def operators_to_torch(ops: Dict[str, np.ndarray], device="cpu",
+def kdyn_operators(problem) -> Dict[str, np.ndarray]:
+    """The constant pack of a `KinematicDynamo` of either package."""
+    names = ("Ff", "Fz", "Bf", "Bz", "k", "inv_k2", "lhs_inv", "rhs_fac",
+             "keep", "pw")
+    return {name: np.asarray(getattr(problem, "_" + name)) for name in names}
+
+
+def operators_to_torch(ops: Dict[str, np.ndarray], device,
                        dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """numpy operators -> tensors on `device`; `dtype` None keeps each
     array's own dtype."""
@@ -51,8 +68,9 @@ def operators_to_torch(ops: Dict[str, np.ndarray], device="cpu",
             for k, v in ops.items()}
 
 
-def state_to_torch(xs: Sequence, device="cpu",
+def state_to_torch(xs: Sequence, device,
                    dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
+    """State arrays (any shape, one per sphere) -> tensors on `device`."""
     # np.array copies: JAX hands out read-only buffers
     return [torch.as_tensor(np.array(x), device=device, dtype=dtype)
             for x in xs]

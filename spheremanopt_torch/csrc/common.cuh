@@ -1,5 +1,5 @@
-// Helpers shared by the one-block fused integrators (fused_shared.cu,
-// fused_two_matrix.cu): block-wide sums, the Kahan step and the energy
+// Helpers shared by the fused integrators (fused_shared.cu,
+// fused_two_matrix.cu, kdyn_step.cu): block-wide sums, the Kahan step and the energy
 // term, each written once with its rounding pinned, so that both
 // instantiations of a forward kernel (with and without the energy
 // series) give the same J bit for bit.
@@ -34,15 +34,18 @@ __device__ __forceinline__ float add_energy(float part, float w, float u) {
   return __fmaf_rn(__fmul_rn(w, u), u, part);
 }
 
-// Block-wide sum of per-thread partials, valid in thread 0 only. Its
-// __syncthreads also publishes every shared-memory write made before it.
+// Block-wide sum of per-thread partials of a block of kNumWarps warps,
+// valid in thread 0 only. Its __syncthreads also publishes every
+// shared-memory write made before it; a block barrier must pass before
+// `red` (kNumWarps floats) is used again.
+template <int kNumWarps = kWarps>
 __device__ __forceinline__ float block_sum(float part, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   part = warp_sum(part);
   if (lane == 0) red[warp] = part;
   __syncthreads();
   float total = 0.f;
-  if (warp == 0) total = warp_sum(lane < kWarps ? red[lane] : 0.f);
+  if (warp == 0) total = warp_sum(lane < kNumWarps ? red[lane] : 0.f);
   return total;
 }
 

@@ -34,14 +34,22 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
 
-_P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+_P, _F, _I, _L = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                  ctypes.c_longlong)
 # C signatures of the exported functions (csrc/fused_shared.cu,
-# csrc/fused_two_matrix.cu)
+# csrc/fused_two_matrix.cu, csrc/kdyn_step.cu); the last argument of each
+# launcher is the stream
+_KDYN_FWD = [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P]
 SIGNATURES = {
     "sm_fused_fwd_shared": [_P, _P, _P, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P],
     "sm_fused_bwd_shared": [_P, _P, _P, _P, _F, _F, _F, _P, _I, _I, _P, _P],
     "sm_fused_fwd": [_P, _P, _P, _P, _F, _F, _I, _I, _P, _P, _P, _P, _P],
     "sm_fused_bwd": [_P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _P, _P],
+    "sm_kdyn_work_floats": [_I, _I],   # returns a count, not an error code
+    "sm_kdyn_fwd": _KDYN_FWD + [_P, _L, _P],
+    "sm_kdyn_fwd_traj": _KDYN_FWD + [_P, _P, _P, _L, _P],
+    "sm_kdyn_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P,
+                    _P, _L, _P],
 }
 
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"   # used when nvcc is not on PATH

@@ -1,0 +1,498 @@
+"""Willis optimal kinematic dynamo: two-sphere optimisation over (B0, U).
+
+PyTorch port of the JAX package's `problems/kinematic_dynamo.py`
+(reference: `Example_Problems/Periodic_Domain(Fourier)/Kinematic_Dynamo/
+FWD_Solve_KDyn.py`). The optimisation is
+
+    max_{B0, U} J = (1/V) int |B(T)|^2 dV   ("Final"; or time-integrated)
+    s.t.  (1/V) int |B0|^2 = M0,  (1/V) int |U|^2 = E0,
+          dB/dt - nabla x (U x B) + grad(Pi) - (1/Rm) lap(B) = 0,
+          div B = 0, div U = 0,   triply periodic, 24^3 modes,
+
+CNAB1 timestepping with 3/2-rule dealiasing (ref `:211-216,443`).
+
+  * the state is a pair of (3, m, m, m) grid tensors (B and U components
+    stacked); the optimiser is shape-agnostic
+  * the tau-pressure / divergence constraint pair (ref `:431-440`) is
+    the mode-wise Leray projection P = I - k k^T/k^2 applied to the CNAB1
+    right-hand side, with the mean mode pinned to zero
+  * the induction term nabla x (U x B) is a padded-grid cross product
+    followed by a spectral curl (i k x E-hat), discretely divergence-free
+  * gradients for BOTH spheres come from one reverse pass over the
+    discrete forward: the discrete adjoint
+  * the constants are built with the JAX package's numpy expressions in
+    the same dtype order (so they are bitwise the same) and moved to the
+    device once, at construction
+
+`method` maps onto the JAX package's:
+  * "plain" (JAX "xla"): a Python loop over the complex CNAB1 step,
+    differentiated by autograd; f32 or f64, `transform` "matmul"
+    (per-axis DFT einsums) or "fft" (`torch.fft.rfftn`). `remat=True`
+    (default) checkpoints every step (the stored state is one
+    coefficient field per step); `remat=False` stores every intermediate.
+  * "cuda" (JAX "pallas"): the whole solve and its hand-transposed
+    reverse sweep as one CUDA kernel launch each
+    (`ops/cuda/kdyn_step.py`); f32 and `transform="matmul"` only. On CPU
+    tensors the wrappers run their plain versions. It has no fused
+    diagnostics (the objective is a closed kernel), as in JAX.
+
+The f32 path is full f32 (TF32 off); the JAX package's
+`matmul_precision`, `carry` and `unroll` are TPU pass-count and layout
+settings and have no counterpart here.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from spheremanopt_torch.problems.base import (DTYPES, SegmentAdvance,
+                                              check_choice, resolve_device,
+                                              value_and_raw_gradient)
+from spheremanopt_torch.solvers.scan_utils import kahan_add, kahan_zero
+
+
+@dataclass(frozen=True)
+class KDynConfig:
+    npts: int = 24
+    length: float = 2.0 * np.pi
+    rm: float = 1.0
+    dt: float = 5e-4
+    n_iters: int = 2000          # Rm/dt (ref `__main__` :1028-1031)
+    m0: float = 1.0              # <B0,B0> sphere
+    e0: float = 1.0              # <U,U> sphere
+    cost: str = "Final"          # "Final" | "Integrated" (ref :655-673)
+    pad_factor: float = 1.5      # Dedalus dealias=3/2
+    dtype: str = "float64"
+    remat: bool = True           # per-step checkpointing | store-all
+    transform: str = "matmul"    # "matmul" | "fft"
+    method: str = "plain"        # "plain" | "cuda" (f32 kernels)
+    project_gradients: bool = True
+    # Leray-project dJ/dB0 and dJ/dU onto divergence-free fields. The
+    # reference's adjoint systems solve with div G = div nu = 0 tau
+    # constraints, so its gradients are solenoidal and the optimiser
+    # stays on the div-free manifold; raw autodiff gradients carry a
+    # compressible component (exact for unconstrained perturbations).
+
+
+def _cross(a, b):
+    return torch.stack([
+        a[1] * b[2] - a[2] * b[1],
+        a[2] * b[0] - a[0] * b[2],
+        a[0] * b[1] - a[1] * b[0],
+    ])
+
+
+class KinematicDynamo:
+    """Two-sphere problem: X = [B (3,m,m,m), U (3,m,m,m)], on `device`
+    in `cfg.dtype`."""
+
+    def __init__(self, cfg: KDynConfig = KDynConfig(), device="cuda"):
+        check_choice("dtype", cfg.dtype, tuple(DTYPES))
+        check_choice("method", cfg.method, ("plain", "cuda"))
+        check_choice("transform", cfg.transform, ("matmul", "fft"))
+        check_choice("cost", cfg.cost, ("Final", "Integrated"))
+        check_choice("remat", cfg.remat, (True, False))
+        if cfg.method == "cuda":
+            if cfg.dtype != "float32":
+                raise ValueError(
+                    "method='cuda' runs f32 kernels; use dtype='float32' "
+                    "(or method='plain' for f64 runs)")
+            if cfg.transform != "matmul":
+                raise ValueError(
+                    "method='cuda' supports transform='matmul' only")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = DTYPES[cfg.dtype]
+        n = cfg.npts
+        self.mg = int(round(n * cfg.pad_factor))
+        self.radii = [cfg.m0, cfg.e0]
+        rdtype = np.dtype(cfg.dtype)
+
+        # --- numpy constant tensors (the JAX package's expressions) ---
+        kfull = 2 * np.pi * np.fft.fftfreq(n, 1.0 / n) / cfg.length
+        kr = 2 * np.pi * np.fft.rfftfreq(n, 1.0 / n) / cfg.length
+        nr = n // 2 + 1
+        k64 = np.stack(
+            [np.broadcast_to(kfull[:, None, None], (n, n, nr)),
+             np.broadcast_to(kfull[None, :, None], (n, n, nr)),
+             np.broadcast_to(kr[None, None, :], (n, n, nr))]
+        )
+        self._k = k64.astype(rdtype)
+        k2 = (self._k ** 2).sum(axis=0)   # from the rdtype-cast k
+        with np.errstate(divide="ignore", invalid="ignore"):
+            inv_k2 = np.where(k2 > 0, 1.0 / k2, 0.0)
+        self._inv_k2 = inv_k2.astype(rdtype)
+
+        # Nyquist-free keep mask (Dedalus keeps |k| < n/2 of the NPTS
+        # band); the mean is zeroed by the step's mean mask
+        nyq = n // 2
+        fidx = np.abs(np.fft.fftfreq(n) * n)
+        full_keep = fidx < nyq
+        r_keep = np.arange(nr) < nyq
+        self._keep = (full_keep[:, None, None] & full_keep[None, :, None]
+                      & r_keep[None, None, :])
+
+        # rfftn Hermitian double-count weights for Parseval energies
+        wz = np.full(nr, 2.0)
+        wz[0] = 1.0
+        if n % 2 == 0:
+            wz[-1] = 1.0
+        self._pw = np.broadcast_to(wz[None, None, :], (n, n, nr)).astype(rdtype)
+
+        # CNAB1 diagonal factors: (1/dt -+ k^2/(2Rm))
+        a = 1.0 / cfg.dt
+        nu = 1.0 / (2.0 * cfg.rm)
+        self._lhs_inv = (1.0 / (a + nu * k2)).astype(rdtype)
+        self._rhs_fac = (a - nu * k2).astype(rdtype)
+
+        # per-axis DFT matrices of the matmul transform: grid (mg) ->
+        # truncated modes with 1/mg per axis, and back; the z-axis
+        # synthesis carries the Hermitian doubling
+        cdt = np.complex64 if rdtype == np.float32 else np.complex128
+        mg = self.mg
+        freqs = np.concatenate([np.arange(0, n // 2 + 1),
+                                np.arange(-(n - n // 2 - 1), 0)])
+        j = np.arange(mg)
+        self._Ff = (np.exp(-2j * np.pi * np.outer(freqs, j) / mg) / mg).astype(cdt)
+        self._Fz = (np.exp(-2j * np.pi * np.outer(np.arange(n // 2 + 1), j) / mg)
+                    / mg).astype(cdt)
+        self._Bf = np.exp(2j * np.pi * np.outer(j, freqs) / mg).astype(cdt)
+        self._Bz = (np.exp(2j * np.pi * np.outer(j, np.arange(n // 2 + 1)) / mg)
+                    * wz[None, :]).astype(cdt)
+
+        # --- the same constants on the device ---
+        t = self._t
+        self._kt, self._inv_k2t = t(self._k), t(self._inv_k2)
+        self._keept, self._pwt = t(self._keep), t(self._pw)
+        self._lhs_invt, self._rhs_fact = t(self._lhs_inv), t(self._rhs_fac)
+        self._Fft, self._Fzt = t(self._Ff), t(self._Fz)
+        self._Bft, self._Bzt = t(self._Bf), t(self._Bz)
+        self._cdtype = self._Fft.dtype
+        mean_mask = np.ones((n, n, nr), rdtype)
+        mean_mask[0, 0, 0] = 0.0
+        self._mean_maskt = t(mean_mask)
+        self._czero = torch.zeros((), dtype=self._cdtype, device=self.device)
+        self._w = 1.0 / self.mg ** 3  # IP weight: sum over comps of grid means
+
+        if cfg.method == "cuda":
+            from spheremanopt_torch.ops.cuda.kdyn_step import (
+                consts_to_torch, make_consts)
+
+            self._consts = consts_to_torch(make_consts(self), self.device)
+
+    def _t(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+    # ------------------------------------------------------------------
+    # transforms (batched over the leading component axis)
+    # ------------------------------------------------------------------
+
+    def to_coeff(self, v_grid: torch.Tensor) -> torch.Tensor:
+        """(c, mg, mg, mg) grid -> truncated coeffs (c, n, n, n//2+1)."""
+        if self.cfg.transform == "matmul":
+            c = torch.einsum("Zk,...abk->...abZ", self._Fzt,
+                             v_grid.to(self._cdtype))
+            c = torch.einsum("Yb,...abZ->...aYZ", self._Fft, c)
+            c = torch.einsum("Xa,...aYZ->...XYZ", self._Fft, c)
+            return torch.where(self._keept, c, self._czero)
+        n, mg = self.cfg.npts, v_grid.shape[-1]
+        c = torch.fft.rfftn(v_grid, dim=(-3, -2, -1)) / (mg ** 3)
+        h = n // 2
+        c = torch.cat([c[..., : h + 1, :, :], c[..., -(n - h - 1):, :, :]], dim=-3)
+        c = torch.cat([c[..., :, : h + 1, :], c[..., :, -(n - h - 1):, :]], dim=-2)
+        c = c[..., :, :, : n // 2 + 1]
+        return torch.where(self._keept, c, self._czero)
+
+    def to_grid(self, c: torch.Tensor) -> torch.Tensor:
+        """Truncated coeffs -> (c, mg, mg, mg) oversampled grid."""
+        n, mg = self.cfg.npts, self.mg
+        if self.cfg.transform == "matmul":
+            g = torch.einsum("aX,...XYZ->...aYZ", self._Bft, c)
+            g = torch.einsum("bY,...aYZ->...abZ", self._Bft, g)
+            g = torch.einsum("kZ,...abZ->...abk", self._Bzt, g)
+            return g.real
+        h = n // 2
+        hi = n - h - 1
+        out = c.new_zeros(c.shape[:-3] + (mg, mg, mg // 2 + 1))
+        out[..., : h + 1, : h + 1, : h + 1] = c[..., : h + 1, : h + 1, :]
+        out[..., mg - hi:, : h + 1, : h + 1] = c[..., h + 1:, : h + 1, :]
+        out[..., : h + 1, mg - hi:, : h + 1] = c[..., : h + 1, h + 1:, :]
+        out[..., mg - hi:, mg - hi:, : h + 1] = c[..., h + 1:, h + 1:, :]
+        return torch.fft.irfftn(out * (mg ** 3), s=(mg, mg, mg), dim=(-3, -2, -1))
+
+    # ------------------------------------------------------------------
+    # dynamics
+    # ------------------------------------------------------------------
+
+    def _energy(self, c: torch.Tensor) -> torch.Tensor:
+        """(1/V) int |B|^2 via Parseval over the 3 components."""
+        return torch.sum(self._pwt * (c.real ** 2 + c.imag ** 2))
+
+    def _leray(self, c: torch.Tensor) -> torch.Tensor:
+        """Mode-wise projection onto divergence-free fields (the i
+        factors cancel in P; inv_k2[0,0,0] = 0)."""
+        div = torch.sum(self._kt * c, dim=0)
+        return c - self._kt * (div * self._inv_k2t)[None]
+
+    def _induction(self, b_c: torch.Tensor, u_grid: torch.Tensor) -> torch.Tensor:
+        """F-hat = i k x (U x B)-hat with padded-grid cross product."""
+        e_c = self.to_coeff(_cross(u_grid, self.to_grid(b_c)))
+        return 1j * _cross(self._kt, e_c)
+
+    def _cnab1_step(self, b_c: torch.Tensor, u_grid: torch.Tensor) -> torch.Tensor:
+        """CNAB1: (1/dt + k^2/2Rm) B' = (1/dt - k^2/2Rm) B + F, with the
+        tau-pressure divergence constraint as Leray projection and the
+        mean mode pinned to zero (ref equations :431-440)."""
+        rhs = self._rhs_fact * b_c + self._induction(b_c, u_grid)
+        # lhs_inv[0,0,0] is finite, so the mean mode (k=0) is masked
+        return self._leray(rhs) * self._lhs_invt * self._mean_maskt
+
+    def _remat_step(self, b, u_grid):
+        """One step under the configured trajectory-memory policy."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(self._cnab1_step, b, u_grid, use_reentrant=False)
+        return self._cnab1_step(b, u_grid)
+
+    def _integrate(self, b0_c, u_grid, n_steps: int, series: bool = False):
+        """(b_T, J) of n_steps of CNAB1, and with `series` the per-step
+        energies E(b_0..b_N) of the same solve (the J arithmetic does
+        not depend on that flag)."""
+        integrated = self.cfg.cost == "Integrated"
+        b = b0_c
+        acc = kahan_zero(self.dtype, self.device)
+        es = []
+        for _ in range(n_steps):
+            if integrated or series:
+                e = self._energy(b)
+                es.append(e)
+            if integrated:
+                acc = kahan_add(acc, e)
+            b = self._remat_step(b, u_grid)
+        eN = self._energy(b)
+        J = self.cfg.dt * kahan_add(acc, eN)[0] if integrated else eN
+        if series:
+            return b, J, torch.stack(es + [eN]).detach()
+        return b, J
+
+    def _prepare(self, x_list):
+        """(B0 coefficients, band-limited U) of a state: U is band-limited
+        the way Vec_to_Field + Dedalus products do."""
+        b0 = x_list[0].to(self.dtype)
+        u = x_list[1].to(self.dtype)
+        return self.to_coeff(b0), self.to_grid(self.to_coeff(u))
+
+    def _objective_impl(self, x_list) -> torch.Tensor:
+        b0_c, u_bl = self._prepare(x_list)
+        if self.cfg.method == "cuda":
+            from spheremanopt_torch.ops.cuda.kdyn_step import FusedEnergy
+
+            # whole solve in one kernel (its backward is the hand-derived
+            # transposed sweep); the outer transforms stay torch and
+            # differentiate as usual. Real planes cross the boundary.
+            return -FusedEnergy.apply(
+                b0_c.real.contiguous(), b0_c.imag.contiguous(),
+                u_bl.contiguous(), self._consts, self.cfg.n_iters,
+                self.cfg.cost == "Integrated", self.cfg.dt)
+        return -self._integrate(b0_c, u_bl, self.cfg.n_iters)[1]
+
+    def _objective_aux_impl(self, x_list):
+        """(-J, diagnostics) captured from one forward solve — the ME
+        series + div-B invariant the reference's GlobalFlowProperty
+        monitors track along the FWD solve (`FWD_Solve_KDyn.py:
+        608-650,941-973`)."""
+        b0_c, u_bl = self._prepare(x_list)
+        b, J, energies = self._integrate(b0_c, u_bl, self.cfg.n_iters,
+                                         series=True)
+        b = b.detach()
+        div_b = torch.abs(torch.sum(self._kt * b, dim=0)).max()
+        return -J, {"magnetic_energy": energies, "max_div_B": div_b,
+                    "B_final": self.to_grid(b)}
+
+    # ------------------------------------------------------------------
+    # PDE-state restart (ref `IVP_FWD.load_state`, FWD_Solve_SH23.py:459-460)
+    # ------------------------------------------------------------------
+
+    def initial_state(self, x_list) -> dict:
+        """Induction-solver state at t=0: B spectral coefficients as a
+        stacked re/im plane plus the (fixed) band-limited stirring field."""
+        with torch.no_grad():
+            b_c, u_bl = self._prepare(
+                [torch.as_tensor(x, device=self.device) for x in x_list])
+        return {"b": torch.stack([b_c.real, b_c.imag]), "u": u_bl}
+
+    def advance_state(self, state: dict, n_steps: int) -> dict:
+        if not hasattr(self, "_advance"):
+            def step(s):
+                b = self._cnab1_step(torch.complex(s["b"][0], s["b"][1]), s["u"])
+                return {"b": torch.stack([b.real, b.imag]), "u": s["u"]}
+
+            self._advance = SegmentAdvance(step)
+        return self._advance(state, n_steps)
+
+    def state_fields(self, state) -> dict:
+        with torch.no_grad():
+            b_grid = self.to_grid(torch.complex(state["b"][0], state["b"][1]))
+        return {"b_grid": b_grid, "b_hat_ri": state["b"], "u": state["u"]}
+
+    # ------------------------------------------------------------------
+    # public triple
+    # ------------------------------------------------------------------
+
+    def _riesz(self, raw):
+        out = []
+        with torch.no_grad():
+            for g in raw:
+                g = g / self._w
+                if self.cfg.project_gradients:
+                    g = self.to_grid(self._leray(self.to_coeff(g)))
+                out.append(g)
+        return out
+
+    def objective(self, x_list):
+        with torch.no_grad():
+            return self._objective_impl(list(x_list))
+
+    def gradient(self, x_list):
+        return self.objective_and_gradient(x_list)[1]
+
+    def objective_and_gradient(self, x_list):
+        """Fused (J, [dJ/dB0, dJ/dU])."""
+        J, raw = value_and_raw_gradient(self._objective_impl, list(x_list))
+        return J, self._riesz(raw)
+
+    def inner_product(self, x, y):
+        """(1/V) int f . g dV = sum over components of grid means
+        (ref `Inner_Prod_3`, `FWD_Solve_KDyn.py:173-181`)."""
+        return torch.sum(torch.mean(x * y, dim=(-3, -2, -1)))
+
+    @property
+    def inner_products(self):
+        return self.inner_product
+
+    # ------------------------------------------------------------------
+    # fused diagnostics: same-solve capture for zero-extra-cost archiving
+    # ------------------------------------------------------------------
+
+    @property
+    def has_fused_diagnostics(self) -> bool:
+        return self.cfg.method != "cuda"
+
+    def _need_fused_diagnostics(self):
+        if not self.has_fused_diagnostics:
+            raise ValueError(
+                "fused diagnostics unavailable for "
+                f"method={self.cfg.method!r}, remat={self.cfg.remat!r}")
+
+    def _diag_host(self, diag: dict) -> dict:
+        out = dict(diag)
+        out["sim_time"] = self.cfg.dt * np.arange(self.cfg.n_iters + 1)
+        return out
+
+    def objective_and_diagnostics(self, x_list):
+        """(J, diagnostics dict) from ONE forward solve (vs `diagnostics`,
+        which re-runs it)."""
+        self._need_fused_diagnostics()
+        with torch.no_grad():
+            J, diag = self._objective_aux_impl(list(x_list))
+        return J, self._diag_host(diag)
+
+    def objective_gradient_and_diagnostics(self, x_list):
+        """(J, grads, diagnostics) from one fused fwd+bwd solve."""
+        self._need_fused_diagnostics()
+        out = {}
+
+        def objective(xs):
+            J, out["diag"] = self._objective_aux_impl(xs)
+            return J
+
+        J, raw = value_and_raw_gradient(objective, list(x_list))
+        return J, self._riesz(raw), self._diag_host(out["diag"])
+
+    def diagnostics(self, x_list) -> dict:
+        """Per-step magnetic-energy series + div/flux invariants (the
+        reference's GlobalFlowProperty monitors, `FWD_Solve_KDyn.py:
+        608-650,941-973`) and final fields, from a plain step loop."""
+        with torch.no_grad():
+            b, u_bl = self._prepare(
+                [torch.as_tensor(x, device=self.device) for x in x_list])
+            energies = []
+            for _ in range(self.cfg.n_iters):
+                energies.append(self._energy(b))
+                b = self._cnab1_step(b, u_bl)
+            energies.append(self._energy(b))
+            div_b = torch.abs(torch.sum(self._kt * b, dim=0)).max()
+            return {
+                "sim_time": self.cfg.dt * np.arange(self.cfg.n_iters + 1),
+                "magnetic_energy": torch.stack(energies),
+                "max_div_B": div_b,
+                "B_final": self.to_grid(b),
+            }
+
+    # ------------------------------------------------------------------
+    # initial conditions (ref `Generate_IC`, :183-317)
+    # ------------------------------------------------------------------
+
+    def _curl_of_noise(self, noise: torch.Tensor, frac=0.25) -> torch.Tensor:
+        """curl-like combination of filtered-noise potential derivatives
+        (ref takes B = curl-ish of (phi_y - phi_z, ...), :240-243)."""
+        c = self.to_coeff(noise[None])[0]
+        # low-pass: keep the lowest `frac` of mode indices per axis (ref
+        # filter_field frac=0.25, :30-55)
+        n = self.cfg.npts
+        idx = np.abs(np.fft.fftfreq(n) * n) / (n // 2)
+        idxr = np.arange(n // 2 + 1) / (n // 2)
+        keep = ((idx[:, None, None] <= frac) & (idx[None, :, None] <= frac)
+                & (idxr[None, None, :] <= frac))
+        c = torch.where(self._t(keep), c, self._czero)
+        dx, dy, dz = 1j * self._kt[0] * c, 1j * self._kt[1] * c, 1j * self._kt[2] * c
+        return self.to_grid(torch.stack([dy - dz, dz - dx, dx - dy]))
+
+    def generate_ic(self, seed: int = 42, u_noise: bool = True,
+                    noise: Optional[tuple] = None) -> List[torch.Tensor]:
+        """[B0, U] on the two spheres. The noise comes from a CPU
+        `torch.Generator` seeded with `seed`, unless `noise` (a pair of
+        (mg, mg, mg) arrays for B and U, e.g. the JAX package's
+        `jax.random.normal` draws) is given; torch and JAX draw different
+        numbers from the same seed.
+
+        B is prep-smoothed by 100 CNAB1 steps at dt=1e-3 (ref :297-302;
+        the reference accidentally passes the module globals Rm, dt — a
+        known bug that is not replicated)."""
+        shape = (self.mg,) * 3
+        if noise is None:
+            gen = torch.Generator(device="cpu").manual_seed(seed)
+            noise = [torch.randn(shape, generator=gen, dtype=self.dtype)
+                     for _ in range(2)]
+        else:
+            noise = [torch.tensor(np.asarray(z), dtype=self.dtype) for z in noise]
+        if len(noise) != 2 or any(z.shape != shape for z in noise):
+            raise ValueError(f"noise must be a pair of {shape} arrays")
+        prep = KinematicDynamo(KDynConfig(
+            npts=self.cfg.npts, length=self.cfg.length, rm=1.0, dt=1e-3,
+            n_iters=100, cost="Final", pad_factor=self.cfg.pad_factor,
+            dtype=self.cfg.dtype, remat=False, transform=self.cfg.transform,
+        ), device=self.device)
+        with torch.no_grad():
+            b = self._curl_of_noise(noise[0].to(self.device))
+            if u_noise:
+                u = self._curl_of_noise(noise[1].to(self.device))
+            else:
+                # Willis-type ABC-like base flow (ref :255-261)
+                xs = np.arange(self.mg) * self.cfg.length / self.mg
+                X, Y, Z = np.meshgrid(xs, xs, xs, indexing="ij")
+                s3 = np.sqrt(3.0)
+                u = self._t(np.stack([
+                    0.5 * np.sin(Y) * np.cos(Z) / s3,
+                    0.5 * np.sin(Z) * np.cos(X) / s3,
+                    0.5 * np.sin(X) * np.cos(Y) / s3,
+                ]).astype(np.dtype(self.cfg.dtype)))
+            u = u * torch.sqrt(self.cfg.e0 / self.inner_product(u, u))
+            b_c, _ = prep._integrate(prep.to_coeff(b), u, 100)
+            b = self.to_grid(b_c)
+            b = b * torch.sqrt(self.cfg.m0 / self.inner_product(b, b))
+        return [b, u]

@@ -1,18 +1,22 @@
-"""Command line of the port: the `sh23`, `shb23` and `pca` subset of
-the JAX package's `run.py`.
+"""Command line of the port: the `sh23`, `shb23`, `kdyn` and `pca` subset
+of the JAX package's `run.py`.
 
     python -m spheremanopt_torch.run sh23 --device cuda --method cuda --dtype float32
     python -m spheremanopt_torch.run sh23 --device cuda --dtype float64
     python -m spheremanopt_torch.run sh23 --test-grad      # Taylor test only
     python -m spheremanopt_torch.run shb23                 # kernels, f32, on a GPU
     python -m spheremanopt_torch.run shb23 --dtype float64 --adjoint continuous
+    python -m spheremanopt_torch.run kdyn --cost Final     # kernels, f32, on a GPU
+    python -m spheremanopt_torch.run kdyn --dtype float64 --n-iters 200
     python -m spheremanopt_torch.run pca --dim 100
 
 `--device` defaults to `cuda` and fails when no GPU is found; it never
 drops to the CPU on its own (`--device cpu` asks for it). On CUDA the
-SH23 and SHB23 default is the hand-written kernel path (`--method cuda`,
-f32), as the JAX CLI defaults to its Pallas kernels on a TPU. TF32 is
-off: f32 matmuls run in full f32.
+SH23, SHB23 and KDyn default is the hand-written kernel path (`--method
+cuda`, f32), as the JAX CLI defaults to its Pallas kernels on a TPU for
+SH23 and SHB23. (For KDyn the JAX CLI defaults to `xla`, only because its
+Pallas kernel took a quarter of an hour to compile there; the CUDA
+kernels build in seconds.) TF32 is off: f32 matmuls run in full f32.
 """
 
 from __future__ import annotations
@@ -29,22 +33,26 @@ import torch
 from spheremanopt_torch.convert import state_to_torch
 from spheremanopt_torch.problems.base import DTYPES
 
-_METHODS = {"sh23": ("matmul", "fft", "cuda"), "shb23": ("matmul", "cuda")}
+_METHODS = {"sh23": ("matmul", "fft", "cuda"), "shb23": ("matmul", "cuda"),
+            "kdyn": ("plain", "cuda")}
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="spheremanopt_torch.run",
                                  description=__doc__.splitlines()[0])
-    ap.add_argument("problem", choices=["sh23", "shb23", "pca"])
+    ap.add_argument("problem", choices=["sh23", "shb23", "kdyn", "pca"])
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--out-dir", default="runs/latest")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--dtype", choices=sorted(DTYPES), default=None,
                     help="default: float32 for --method cuda, else float64")
-    ap.add_argument("--method", choices=_METHODS["sh23"], default=None,
+    ap.add_argument("--method", default=None,
+                    choices=sorted({m for ms in _METHODS.values() for m in ms}),
                     help="step method (sh23: matmul|fft|cuda, shb23: "
-                         "matmul|cuda; default: cuda on a GPU in f32, "
-                         "else matmul)")
+                         "matmul|cuda, kdyn: plain|cuda; default: cuda on a "
+                         "GPU in f32, else matmul, or plain for kdyn)")
+    ap.add_argument("--cost", choices=["Final", "Integrated"], default="Final",
+                    help="kdyn cost functional")
     ap.add_argument("--max-iters", type=int, default=None)
     ap.add_argument("--err-tol", type=float, default=None)
     ap.add_argument("--alpha", type=float, default=None)
@@ -59,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="energy-series cadence of the fused diagnostics "
                          "(sh23/shb23; any >= 1)")
     ap.add_argument("--npts", type=int, default=None,
-                    help="sh23 Fourier modes / shb23 grid points")
+                    help="sh23 Fourier modes / shb23 grid points / kdyn "
+                         "modes per axis")
     ap.add_argument("--n-iters", type=int, default=None, help="time steps")
     ap.add_argument("--dt", type=float, default=None, help="time step")
     ap.add_argument("--dim", type=int, default=100, help="PCA dimension")
@@ -94,16 +103,30 @@ def make_problem(args, x0=None):
     method = args.method
     if method is None:
         method = "cuda" if (args.device == "cuda"
-                            and args.dtype in (None, "float32")) else "matmul"
+                            and args.dtype in (None, "float32")) \
+            else _METHODS[args.problem][0]
     if method not in _METHODS[args.problem]:
         raise SystemExit(f"--method {method}: {args.problem} takes "
                          f"{'|'.join(_METHODS[args.problem])}")
     dtype = args.dtype or ("float32" if method == "cuda" else "float64")
-    kw = dict(dtype=dtype, method=method, adjoint=args.adjoint)
+    kw = dict(dtype=dtype, method=method)
     for name, val in (("npts", args.npts), ("n_iters", args.n_iters),
-                      ("dt", args.dt), ("diag_stride", args.diag_stride)):
+                      ("dt", args.dt)):
         if val is not None:
             kw[name] = val
+    if args.problem == "kdyn":
+        from spheremanopt_torch.problems.kinematic_dynamo import (
+            KDynConfig, KinematicDynamo)
+
+        if args.adjoint != "discrete":
+            raise SystemExit("--adjoint continuous: not ported for kdyn")
+        p = KinematicDynamo(KDynConfig(cost=args.cost, **kw), device=device)
+        x0 = (p.generate_ic(seed=args.seed) if x0 is None
+              else state_to_torch(x0, device, p.dtype))
+        return p, x0, dict(alpha=100.0, max_iters=10)
+    kw["adjoint"] = args.adjoint
+    if args.diag_stride is not None:
+        kw["diag_stride"] = args.diag_stride
     if args.problem == "shb23":
         from spheremanopt_torch.problems.swift_hohenberg_bounded import (
             SHB23Config, SwiftHohenbergBounded)

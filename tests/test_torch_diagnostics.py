@@ -64,7 +64,7 @@ def test_fused_diagnostics_match_jax(case, stride):
     tp, jp = _pair(case, stride)
     x = _x(tp)
     tol = 1e-12 if tp.dtype == torch.float64 else 1e-5
-    J_t, d_t = tp.objective_and_diagnostics(state_to_torch([x], dtype=tp.dtype))
+    J_t, d_t = tp.objective_and_diagnostics(state_to_torch([x], "cpu", dtype=tp.dtype))
     J_j, d_j = jp.objective_and_diagnostics([jnp.asarray(x, jp.cfg.dtype)])
     steps = jscan.strided_steps(N, stride)
     assert d_t["kinetic_energy"].shape == (len(steps),)
@@ -80,7 +80,7 @@ def test_fused_diagnostics_match_jax(case, stride):
 @pytest.mark.parametrize("case", list(CASES))
 def test_diagnostics_J_and_gradient_bitwise_the_plain_ones(case, stride):
     tp, _ = _pair(case, stride)
-    x = state_to_torch([_x(tp)], dtype=tp.dtype)
+    x = state_to_torch([_x(tp)], "cpu", dtype=tp.dtype)
     J, g = tp.objective_and_gradient(x)
     J_gd, g_gd, diag = tp.objective_gradient_and_diagnostics(x)
     J_d, diag_d = tp.objective_and_diagnostics(x)
@@ -100,13 +100,13 @@ def test_diagnostics_J_and_gradient_bitwise_the_plain_ones(case, stride):
 def test_diagnostics_and_final_state_match_jax(kind):
     tp, jp = _pair(f"{kind}-matmul", 1)
     x = _x(tp)
-    d_t = tp.diagnostics(state_to_torch([x]))
+    d_t = tp.diagnostics(state_to_torch([x], "cpu"))
     d_j = jp.diagnostics([jnp.asarray(x)])
     assert _rel(d_t["kinetic_energy"], d_j["kinetic_energy"]) < 1e-12
     for key in ("u_initial", "u_final") + (("u_hat_final",) if kind == "sh23" else ()):
         assert _rel(d_t[key], d_j[key]) < 1e-12, key
     np.testing.assert_array_equal(d_t["sim_time"], d_j["sim_time"])
-    f_t = tp.final_state(state_to_torch([x]))
+    f_t = tp.final_state(state_to_torch([x], "cpu"))
     assert _rel(f_t, jp.final_state([jnp.asarray(x)])) < 1e-12
     assert _rel(f_t, d_t["u_final"]) < 1e-12
 
@@ -115,7 +115,7 @@ def test_diagnostics_and_final_state_match_jax(kind):
 def test_advance_state_composes_exactly_and_matches_jax(kind):
     tp, jp = _pair(f"{kind}-matmul", 1)
     x = _x(tp)
-    s0_t = tp.initial_state(state_to_torch([x]))
+    s0_t = tp.initial_state(state_to_torch([x], "cpu"))
     s0_j = jp.initial_state([jnp.asarray(x)])
     assert s0_t.keys() == s0_j.keys()
     whole = tp.advance_state(s0_t, 12)
@@ -128,7 +128,7 @@ def test_advance_state_composes_exactly_and_matches_jax(kind):
     assert _rel(f_t["u"], f_j["u"]) < 1e-12
     # a full-length advance lands on the solver's final state
     assert _rel(tp.state_fields(tp.advance_state(s0_t, N))["u"],
-                tp.final_state(state_to_torch([x]))) < 1e-12
+                tp.final_state(state_to_torch([x], "cpu"))) < 1e-12
 
 
 @pytest.mark.parametrize("n,stride", [(30, 1), (30, 3), (30, 7), (5, 9), (12, 12)])

@@ -1,0 +1,364 @@
+"""Fused kinematic-dynamo integrator of the PyTorch port (plain versions,
+wrappers and the autograd Function of `ops/cuda/kdyn_step.py`) against
+the JAX package's Pallas kernels of `ops/pallas/kdyn_step.py`, run in
+interpret mode on the CPU.
+
+Size: 8^3 modes on the 12^3 grid, 12 CNAB1 steps at dt = 1e-3, inputs
+from the JAX package's seed-3 `generate_ic`. Tolerances:
+  * `step_planes` / `step_planes_T` in f64 vs the JAX functions of the
+    same name: rel 1e-12 (the same operations, einsum sums in another
+    order);
+  * the f32 plain sweeps vs the interpret-mode kernels: 5e-5 of the
+    largest entry (the JAX package's own bound for its kernels against
+    autodiff: f32 dot products and energy sums in another order over 12
+    steps whose factors carry 1/dt = 1000);
+  * `FusedEnergy` (f64, CPU) vs torch autograd of the complex step loop:
+    rel 1e-10 for all three cotangents.
+The kernels themselves run only on the card: the `requires_cuda` cases
+hold them against the plain versions there and skip on the CPU. The
+card's machine has no JAX, so JAX is imported only by the fixtures of
+the CPU cases, and the card's cases run without the JAX conftest:
+
+    python -m pytest --noconftest -m requires_cuda tests/test_torch_kdyn_kernel.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from spheremanopt_torch.ops.cuda import kdyn_step as kd
+from spheremanopt_torch.problems.kinematic_dynamo import KDynConfig as TConfig
+from spheremanopt_torch.problems.kinematic_dynamo import KinematicDynamo as TKDyn
+
+NPTS, N, DT = 8, 12, 1e-3
+COSTS = [False, True]   # integrated
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """JAX f32 problem, its constant pack, and (br0, bi0, u_bl) as numpy."""
+    from spheremanopt_tpu.ops.pallas.kdyn_step import make_consts
+    from spheremanopt_tpu.problems.kinematic_dynamo import KDynConfig, KinematicDynamo
+
+    p = KinematicDynamo(KDynConfig(npts=NPTS, n_iters=N, dt=DT, dtype="float32",
+                                   project_gradients=False))
+    x0 = p.generate_ic(seed=3)
+    c = p.to_coeff(x0[0])
+    planes = [np.asarray(a) for a in (c.real, c.imag, p.to_grid(p.to_coeff(x0[1])))]
+    return dict(p=p, C=make_consts(p), planes=planes,
+                x0=[np.asarray(a) for a in x0])
+
+
+def _consts(jx, dtype):
+    """The torch constant pack from the JAX problem's constants."""
+    npd = np.float32 if dtype == torch.float32 else np.float64
+    return kd.consts_to_torch(kd.make_consts(jx["p"], npd), "cpu")
+
+
+def _planes(jx, dtype):
+    return [torch.tensor(a, dtype=dtype) for a in jx["planes"]]
+
+
+def test_constant_pack_layout(jx):
+    C = _consts(jx, torch.float32)
+    n, mg, kz = NPTS, 12, NPTS // 2 + 1
+    assert C["packed"].dtype == torch.float32
+    assert C["packed"].numel() == 4 * n * mg + 4 * kz * mg + 9 * n * n * kz
+    assert torch.equal(C["packed"][: n * mg], C["Ffr"].reshape(-1))
+    assert torch.equal(C["packed"][-n * n * kz:], C["mean_mask"].reshape(-1))
+    assert float(C["mean_mask"][0, 0, 0]) == 0.0 and float(C["mean_mask"].sum()) == n * n * kz - 1
+    # from a port problem the pack is the same as from the JAX one
+    tp = TKDyn(TConfig(npts=NPTS, n_iters=N, dt=DT, dtype="float32"), device="cpu")
+    Ct = kd.consts_to_torch(kd.make_consts(tp), "cpu")
+    assert torch.equal(Ct["packed"], C["packed"])
+
+
+def test_step_planes_and_transpose_match_jax_f64(jx):
+    import jax.numpy as jnp
+
+    from spheremanopt_tpu.ops.pallas import kdyn_step as jk
+
+    C64 = kd.make_consts(jx["p"], np.float64)
+    Cj = {k: jnp.asarray(v) for k, v in C64.items()}
+    Ct = kd.consts_to_torch(C64, "cpu")
+    br, bi, u = (a.astype(np.float64) for a in jx["planes"])
+    out_j = jk.step_planes(jnp.asarray(br), jnp.asarray(bi), jnp.asarray(u), Cj)
+    out_t = kd.step_planes(torch.tensor(br), torch.tensor(bi), torch.tensor(u), Ct)
+    for a, b in zip(out_t, out_j):
+        assert a.dtype == torch.float64 and _rel(a, b) < 1e-12
+    lam = np.random.RandomState(1).randn(2, *br.shape)
+    T_j = jk.step_planes_T(jnp.asarray(lam[0]), jnp.asarray(lam[1]), jnp.asarray(u), Cj)
+    T_t = kd.step_planes_T(torch.tensor(lam[0]), torch.tensor(lam[1]),
+                           torch.tensor(u), Ct)
+    for a, b in zip(T_t, T_j):
+        assert _rel(a, b) < 1e-12
+    assert T_t[2].shape == (3, 12, 12, 12)
+    e_j = jk.energy_planes(jnp.asarray(br), jnp.asarray(bi), Cj)
+    assert _rel(kd.energy_planes(torch.tensor(br), torch.tensor(bi), Ct), e_j) < 1e-13
+
+
+def test_step_planes_T_is_the_transpose_of_step_planes(jx):
+    """<S b, lam> == <b, S^T lam> in f64, for random b and lam."""
+    Ct = kd.consts_to_torch(kd.make_consts(jx["p"], np.float64), "cpu")
+    rs = np.random.RandomState(2)
+    br, bi, lr, li = (torch.tensor(rs.randn(3, 8, 8, 5)) for _ in range(4))
+    u = torch.tensor(jx["planes"][2], dtype=torch.float64)
+    sr, si = kd.step_planes(br, bi, u, Ct)
+    tr, ti, _ = kd.step_planes_T(lr, li, u, Ct)
+    lhs = float((sr * lr).sum() + (si * li).sum())
+    rhs = float((br * tr).sum() + (bi * ti).sum())
+    assert abs(lhs - rhs) < 1e-12 * abs(lhs)
+
+
+@pytest.mark.parametrize("integrated", COSTS)
+def test_plain_forward_sweeps_match_interpret_kernels(jx, integrated):
+    import jax.numpy as jnp
+
+    from spheremanopt_tpu.ops.pallas import kdyn_step as jk
+
+    args_j = [jnp.asarray(a) for a in jx["planes"]]
+    brT_j, biT_j, J_j = jk.run_forward(*args_j, jx["C"], N, True,
+                                       integrated=integrated, dt=DT)
+    tj = jk._run_fwd_traj(*args_j, jx["C"], N, True, jk._HI, integrated, DT)
+    C = _consts(jx, torch.float32)
+    br0, bi0, u = _planes(jx, torch.float32)
+    out = kd.run_forward_plain(br0, bi0, u, C, N, integrated, DT)
+    outt = kd.run_fwd_traj_plain(br0, bi0, u, C, N, integrated, DT)
+    assert all(a.dtype == torch.float32 for a in outt)
+    for a, b in zip(out, outt[:3]):
+        assert torch.equal(a, b)
+    for a, b in zip(out, (brT_j, biT_j, J_j)):
+        assert _rel(a, b) < 5e-5
+    assert outt[3].shape == outt[4].shape == (N, 3, 8, 8, 5)
+    assert torch.equal(outt[3][0], br0) and torch.equal(outt[4][0], bi0)
+    for a, b in zip(outt, tj):
+        assert _rel(a, b) < 5e-5
+
+
+@pytest.mark.parametrize("integrated", COSTS)
+def test_plain_reverse_sweep_matches_interpret_kernel(jx, integrated):
+    import jax.numpy as jnp
+
+    from spheremanopt_tpu.ops.pallas import kdyn_step as jk
+
+    args_j = [jnp.asarray(a) for a in jx["planes"]]
+    brT, biT, _, trr, tri = jk._run_fwd_traj(*args_j, jx["C"], N, True, jk._HI,
+                                             integrated, DT)
+    gbar = -1.0
+    g_j = jk._run_bwd(args_j[2], brT, biT, jnp.float32(gbar), trr, tri, jx["C"], N,
+                      True, jk._HI, integrated, DT)
+    C = _consts(jx, torch.float32)
+    u = _planes(jx, torch.float32)[2]
+    t = [torch.tensor(np.asarray(a)) for a in (brT, biT, trr, tri)]
+    g_t = kd.run_bwd_plain(u, t[0], t[1], torch.tensor(gbar), t[2], t[3], C, N,
+                           integrated, DT)
+    for name, a, b in zip(("dbr0", "dbi0", "du"), g_t, g_j):
+        assert a.dtype == torch.float32 and _rel(a, b) < 5e-5, name
+
+
+def _loop_J(p, br, bi, u, n, integrated):
+    """J of the port's complex step loop, plain sums as the JAX tests' own."""
+    b = torch.complex(br, bi)
+    acc = br.new_zeros(())
+    for _ in range(n):
+        if integrated:
+            acc = acc + p._energy(b)
+        b = p._cnab1_step(b, u)
+    eT = p._energy(b)
+    return p.cfg.dt * (acc + eT) if integrated else eT
+
+
+@pytest.mark.parametrize("integrated", COSTS)
+def test_fused_energy_matches_autograd_of_the_complex_loop(jx, integrated):
+    """All three cotangents of the hand-transposed sweep, in f64 on the
+    CPU, against reverse-mode autograd of the complex CNAB1 loop."""
+    p = TKDyn(TConfig(npts=NPTS, n_iters=N, dt=DT), device="cpu")
+    C = kd.consts_to_torch(kd.make_consts(p, np.float64), "cpu")
+    ins = [a.requires_grad_(True) for a in _planes(jx, torch.float64)]
+    J_f = kd.FusedEnergy.apply(*ins, C, N, integrated, DT)
+    g_f = torch.autograd.grad(J_f, ins)
+    ins2 = [a.detach().clone().requires_grad_(True) for a in ins]
+    J_r = _loop_J(p, *ins2, N, integrated)
+    g_r = torch.autograd.grad(J_r, ins2)
+    assert abs(float(J_f.detach()) - float(J_r.detach())) < 1e-12 * abs(float(J_r.detach()))
+    for name, a, b in zip(("dbr0", "dbi0", "du"), g_f, g_r):
+        assert _rel(a, b) < 1e-10, name
+    # an upstream cotangent scales all three
+    J2 = kd.FusedEnergy.apply(*ins, C, N, integrated, DT)
+    g2 = torch.autograd.grad(-3.0 * J2, ins)
+    for a, b in zip(g2, g_f):
+        assert _rel(a, -3.0 * b) < 1e-14
+
+
+@pytest.mark.parametrize("integrated", COSTS)
+def test_fused_energy_f32_matches_jax_custom_vjp(jx, integrated):
+    import jax
+    import jax.numpy as jnp
+
+    from spheremanopt_tpu.ops.pallas.kdyn_step import make_fused_energy
+
+    f = make_fused_energy(jx["C"], N, interpret=True, integrated=integrated, dt=DT)
+    J_j, g_j = jax.value_and_grad(f, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in jx["planes"]))
+    ins = [a.requires_grad_(True) for a in _planes(jx, torch.float32)]
+    kd.reset_launches()
+    J_t = kd.FusedEnergy.apply(*ins, _consts(jx, torch.float32), N, integrated, DT)
+    g_t = torch.autograd.grad(J_t, ins)
+    assert J_t.dtype == torch.float32 and not any(kd.LAUNCHES.values())
+    assert abs(float(J_t.detach()) - float(J_j)) < 1e-5 * abs(float(J_j))
+    for name, a, b in zip(("dbr0", "dbi0", "du"), g_t, g_j):
+        assert _rel(a, b) < 5e-5, name
+
+
+def test_primal_only_call_stores_no_trajectory(jx, monkeypatch):
+    seen = []
+    for name in ("run_forward", "run_fwd_traj"):
+        real = getattr(kd, name)
+        monkeypatch.setattr(kd, name, lambda *a, _n=name, _r=real: (
+            seen.append(_n), _r(*a))[1])
+    C = _consts(jx, torch.float32)
+    ins = _planes(jx, torch.float32)
+    kd.FusedEnergy.apply(*ins, C, N, False, DT)
+    ins[2].requires_grad_(True)
+    kd.FusedEnergy.apply(*ins, C, N, False, DT)
+    assert seen == ["run_forward", "run_fwd_traj"]
+
+
+def test_integrated_needs_a_positive_dt(jx):
+    C = _consts(jx, torch.float32)
+    ins = _planes(jx, torch.float32)
+    with pytest.raises(ValueError, match="dt"):
+        kd.FusedEnergy.apply(*ins, C, 4, True)
+    with pytest.raises(ValueError, match="dt"):
+        kd.FusedEnergy.apply(*ins, C, 4, True, -1.0)
+
+
+def test_cpu_tensors_take_the_plain_versions(jx):
+    kd.reset_launches()
+    C = _consts(jx, torch.float32)
+    br0, bi0, u = _planes(jx, torch.float32)
+    got = kd.run_fwd_traj(br0, bi0, u, C, N, True, DT)
+    want = kd.run_fwd_traj_plain(br0, bi0, u, C, N, True, DT)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(
+        kd.run_forward(br0, bi0, u, C, N, True, DT), want[:3]))
+    g = torch.tensor(-1.0)
+    gb = kd.run_bwd(u, got[0], got[1], g, got[3], got[4], C, N, True, DT)
+    wb = kd.run_bwd_plain(u, got[0], got[1], g, got[3], got[4], C, N, True, DT)
+    assert all(torch.equal(a, b) for a, b in zip(gb, wb))
+    assert not any(kd.LAUNCHES.values())
+    assert set(kd.LAUNCHES) == set(kd.KERNEL_SOURCES) == {
+        "kdyn_fwd", "kdyn_fwd_traj", "kdyn_bwd"}
+
+
+@pytest.mark.parametrize("cost", ["Final", "Integrated"])
+def test_cuda_method_on_cpu_matches_plain_method_and_jax_pallas(jx, cost):
+    """method="cuda" end to end with the Riesz wrapper (on the CPU: the
+    plain versions, f32) vs method="plain" f32 and vs the JAX package's
+    method="pallas" in interpret mode."""
+    from spheremanopt_tpu.problems.kinematic_dynamo import KDynConfig, KinematicDynamo
+
+    kw = dict(npts=NPTS, n_iters=10, dt=DT, dtype="float32", cost=cost)
+    pk = TKDyn(TConfig(method="cuda", **kw), device="cpu")
+    pp = TKDyn(TConfig(method="plain", **kw), device="cpu")
+    x = [torch.tensor(a) for a in jx["x0"]]
+    kd.reset_launches()
+    J_k, g_k = pk.objective_and_gradient(x)
+    J_p, g_p = pp.objective_and_gradient(x)
+    assert not any(kd.LAUNCHES.values())
+    assert J_k.dtype == torch.float32 and float(pk.objective(x)) == float(J_k)
+    assert abs(float(J_k) - float(J_p)) < 1e-5 * abs(float(J_p))
+    for a, b in zip(g_k, g_p):
+        assert _rel(a, b) < 5e-5
+    import jax.numpy as jnp
+
+    J_j, g_j = KinematicDynamo(KDynConfig(method="pallas", **kw)) \
+        .objective_and_gradient([jnp.asarray(a) for a in jx["x0"]])
+    assert abs(float(J_k) - float(J_j)) < 1e-5 * abs(float(J_j))
+    for a, b in zip(g_k, g_j):
+        assert _rel(a, b) < 5e-5
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _card_case(cuda, integrated, npts=NPTS, n=N):
+    p = TKDyn(TConfig(npts=npts, n_iters=n, dt=DT, dtype="float32", method="cuda",
+                      cost="Integrated" if integrated else "Final"), device=cuda)
+    with torch.no_grad():
+        b0_c, u = p._prepare(p.generate_ic(seed=3))
+    return p, b0_c.real.contiguous(), b0_c.imag.contiguous(), u.contiguous()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("npts", [8, 12])
+@pytest.mark.parametrize("integrated", COSTS)
+def test_kernels_match_plain_on_card(cuda, integrated, npts):
+    """The three kernels vs their plain f32 versions on the same card
+    inputs, rel 1e-4 (f32 sums in another order over the sweep); the
+    forward with and without the trajectory bitwise the same."""
+    p, br0, bi0, u = _card_case(cuda, integrated, npts, 40)
+    C, n = p._consts, 40
+    kd.reset_launches()
+    k = kd.run_fwd_traj(br0, bi0, u, C, n, integrated, DT)
+    k0 = kd.run_forward(br0, bi0, u, C, n, integrated, DT)
+    r = kd.run_fwd_traj_plain(br0, bi0, u, C, n, integrated, DT)
+    g = torch.tensor(-1.0, device=cuda)
+    bk = kd.run_bwd(u, k[0], k[1], g, k[3], k[4], C, n, integrated, DT)
+    br = kd.run_bwd_plain(u, k[0], k[1], g, k[3], k[4], C, n, integrated, DT)
+    torch.cuda.synchronize()
+    assert kd.LAUNCHES == {"kdyn_fwd": 1, "kdyn_fwd_traj": 1, "kdyn_bwd": 1}
+    for got, want in list(zip(k, r)) + list(zip(bk, br)):
+        assert _rel(got.cpu(), want.cpu()) < 1e-4
+    for a, b in zip(k0, k[:3]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cost", ["Final", "Integrated"])
+def test_method_cuda_matches_method_plain_on_card(cuda, cost):
+    kw = dict(npts=NPTS, n_iters=40, dt=DT, dtype="float32", cost=cost)
+    pk = TKDyn(TConfig(method="cuda", **kw), device=cuda)
+    pp = TKDyn(TConfig(method="plain", **kw), device=cuda)
+    x = pk.generate_ic(seed=5)
+    kd.reset_launches()
+    J_k, g_k = pk.objective_and_gradient(x)
+    assert float(pk.objective(x)) == float(J_k)
+    assert kd.LAUNCHES == {"kdyn_fwd": 1, "kdyn_fwd_traj": 1, "kdyn_bwd": 1}
+    J_p, g_p = pp.objective_and_gradient(x)
+    assert abs(float(J_k) - float(J_p)) < 1e-5 * abs(float(J_p))
+    for a, b in zip(g_k, g_p):
+        assert _rel(a.cpu(), b.cpu()) < 1e-4
+
+
+@pytest.mark.requires_cuda
+def test_kernel_wrappers_reject_what_they_cannot_run(cuda):
+    p, br0, bi0, u = _card_case(cuda, False)
+    C = p._consts
+    with pytest.raises(TypeError, match="float32"):
+        kd.run_forward(br0.double(), bi0, u, C, 4)
+    with pytest.raises(ValueError, match="shape"):
+        kd.run_forward(br0[:, :4].contiguous(), bi0, u, C, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        kd.run_forward(br0, bi0, u.transpose(1, 2), C, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        kd.run_forward(br0, bi0, u.cpu(), C, 4)
+    with pytest.raises(ValueError, match="n_steps"):
+        kd.run_forward(br0, bi0, u, C, 0)
+    with pytest.raises(ValueError, match="dt"):
+        kd.run_fwd_traj(br0, bi0, u, C, 4, True, 0.0)

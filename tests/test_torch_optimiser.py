@@ -79,17 +79,31 @@ def test_pca_recovers_leading_eigenvector(ls, cg):
     assert np.isclose(r.function_values[-1], 0.5 * lam, rtol=1e-6)
 
 
-def test_sh23_host_loop_trajectory_matches_jax():
+@pytest.fixture
+def one_thread():
+    """Long step loops of small matvecs: with several test workers on one
+    host, torch's intra-op threads fight over the cores and a loop that
+    takes a second alone takes a minute. One thread is as fast alone and
+    does not degrade."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_sh23_host_loop_trajectory_matches_jax(one_thread):
     cfg = dict(npts=128, n_iters=100)
     jp, tp = JSH(JConfig(**cfg)), TSH(TConfig(**cfg), device="cpu")
     x0 = np.array(jp.generate_ic(seed=42)[0])
-    kw = dict(max_iters=6, alpha_k=float(np.pi), line_search="wolfe", cg=True,
+    # the first three iterations; the whole pinned trajectory is held on the
+    # card (chip_smoke.py, phase F)
+    kw = dict(max_iters=3, alpha_k=float(np.pi), line_search="wolfe", cg=True,
               verbose=False)
     rj = j_optimise([jnp.asarray(x0)], jp.radii, jp.objective, jp.gradient,
                     jp.inner_product, f_and_g=jp.objective_and_gradient, **kw)
     rt = t_optimise([torch.as_tensor(x0)], tp.radii, tp.objective, tp.gradient,
                     tp.inner_product, f_and_g=tp.objective_and_gradient, **kw)
-    assert rj.iterations == 6
+    assert rj.iterations == 3
     _assert_same_trajectory(rj, rt, 1e-9)
     assert abs(float(tp.inner_product(rt.x_opt[0], rt.x_opt[0])) - tp.cfg.e0) < 1e-15
 

@@ -60,7 +60,7 @@ def test_objective_and_gradient_match_numpy_baseline(method):
     npy = SH23Numpy(npts=64, dt=0.05, n_iters=80)
     tp = TSH(TConfig(npts=64, n_iters=80, method=method), device="cpu")
     u0 = generate_ic_like(npts=64, seed=42, e0=0.0725)
-    J, g = tp.objective_and_gradient(state_to_torch([u0]))
+    J, g = tp.objective_and_gradient(state_to_torch([u0], "cpu"))
     assert abs(float(J) - npy.forward(u0)) / abs(npy.forward(u0)) < 1e-12
     assert _rel(g[0], npy.gradient(u0)) < 1e-10
 
@@ -72,13 +72,13 @@ def test_objective_and_gradient_match_jax_f64(method):
     x = _x(jp.basis.n_grid)
     J_j = float(jp.objective([jnp.asarray(x)]))
     g_j = np.asarray(jp.gradient([jnp.asarray(x)])[0])
-    J_t = tp.objective(state_to_torch([x]))
-    g_t = tp.gradient(state_to_torch([x]))[0]
+    J_t = tp.objective(state_to_torch([x], "cpu"))
+    g_t = tp.gradient(state_to_torch([x], "cpu"))[0]
     assert J_t.dim() == 0 and J_t.dtype == torch.float64 and float(J_t) < 0
     assert abs(float(J_t) - J_j) / abs(J_j) < 1e-12
     assert _rel(g_t, g_j) < 1e-10
     Jf_j, gf_j = jp.objective_and_gradient([jnp.asarray(x)])
-    Jf_t, gf_t = tp.objective_and_gradient(state_to_torch([x]))
+    Jf_t, gf_t = tp.objective_and_gradient(state_to_torch([x], "cpu"))
     assert abs(float(Jf_t) - float(Jf_j)) / abs(float(Jf_j)) < 1e-12
     assert _rel(gf_t[0], gf_j[0]) < 1e-10
 
@@ -88,7 +88,7 @@ def test_inner_product_and_radii_match_jax():
     x, y = _x(128, 1), _x(128, 2)
     assert tp.radii == jp.radii
     ij = float(jp.inner_product(jnp.asarray(x), jnp.asarray(y)))
-    it = float(tp.inner_product(*state_to_torch([x, y])))
+    it = float(tp.inner_product(*state_to_torch([x, y], "cpu")))
     assert abs(it - ij) <= 1e-14 * np.mean(np.abs(x * y))
 
 
@@ -129,12 +129,12 @@ def test_step_operators_bitwise_and_convert_roundtrip(dtype):
     for k in oj:
         assert oj[k].dtype == ot[k].dtype
         np.testing.assert_array_equal(ot[k], oj[k])
-    tens = operators_to_torch(oj)
+    tens = operators_to_torch(oj, "cpu")
     for k in oj:
         np.testing.assert_array_equal(tens[k].numpy(), oj[k])
-    assert operators_to_torch(oj, dtype=torch.float32)["M"].dtype == torch.float32
+    assert operators_to_torch(oj, "cpu", dtype=torch.float32)["M"].dtype == torch.float32
     xs = [_x(128), _x(7)]
-    back = state_to_numpy(state_to_torch(xs))
+    back = state_to_numpy(state_to_torch(xs, "cpu"))
     for a, b in zip(xs, back):
         np.testing.assert_array_equal(a, b)
 
@@ -145,7 +145,7 @@ def test_cuda_method_on_cpu_runs_the_plain_version():
     cfg = dict(dtype="float32", **SMALL)
     pk = TSH(TConfig(method="cuda", **cfg), device="cpu")
     pm = TSH(TConfig(method="matmul", **cfg), device="cpu")
-    x = state_to_torch([_x(128)], dtype=torch.float32)
+    x = state_to_torch([_x(128)], "cpu", dtype=torch.float32)
     fk.reset_launches()
     Jk, gk = pk.objective_and_gradient(x)
     g2 = pk.gradient(x)
@@ -185,6 +185,18 @@ def ref():
     return np.load(REF)
 
 
+@pytest.fixture
+def one_thread():
+    """Long step loops of small matvecs: with several test workers on one
+    host, torch's intra-op threads fight over the cores and a loop that
+    takes a second alone takes a minute. One thread is as fast alone and
+    does not degrade."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_pinned_inputs_match_jax_now(ref):
     for dtype, tag in (("float64", "f64"), ("float32", "f32")):
         p = JSH(JConfig(dtype=dtype))
@@ -208,11 +220,11 @@ def test_pinned_objective_and_gradient_match_jax_now(ref, dtype, method):
     assert _rel(g[0], ref[f"g_{tag}"]) < 100 * _PIN_RTOL[dtype]
 
 
-def test_port_reproduces_pinned_f64_at_full_config(ref):
+def test_port_reproduces_pinned_f64_at_full_config(ref, one_thread):
     p = TSH(TConfig(), device="cpu")
     x0 = p.generate_ic(noise=ref["noise_f64"])
     assert _rel(x0[0], ref["x0_f64"]) < 1e-12
-    J, g = p.objective_and_gradient(state_to_torch([ref["x0_f64"]]))
+    J, g = p.objective_and_gradient(state_to_torch([ref["x0_f64"]], "cpu"))
     assert abs(float(J) - float(ref["J_f64"])) / abs(float(ref["J_f64"])) < 1e-12
     assert _rel(g[0], ref["g_f64"]) < 1e-10
 

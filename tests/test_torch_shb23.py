@@ -84,16 +84,16 @@ def test_objective_and_gradient_match_jax_f64(adjoint):
     jp, tp = _j(adjoint=adjoint), _t(adjoint=adjoint)
     x = _x(jp)
     J_j, g_j = jp.objective_and_gradient([jnp.asarray(x)])
-    J_t, g_t = tp.objective_and_gradient(state_to_torch([x]))
+    J_t, g_t = tp.objective_and_gradient(state_to_torch([x], "cpu"))
     assert J_t.dim() == 0 and J_t.dtype == torch.float64 and float(J_t) < 0
     assert abs(float(J_t) - float(J_j)) / abs(float(J_j)) < 1e-12
     assert _rel(g_t[0], g_j[0]) < 1e-10
-    assert abs(float(tp.objective(state_to_torch([x]))) - float(J_j)) \
+    assert abs(float(tp.objective(state_to_torch([x], "cpu"))) - float(J_j)) \
         <= 1e-12 * abs(float(J_j))
-    assert _rel(tp.gradient(state_to_torch([x]))[0], g_j[0]) < 1e-10
+    assert _rel(tp.gradient(state_to_torch([x], "cpu"))[0], g_j[0]) < 1e-10
     y = _x(jp, seed=4)
     ij = float(jp.inner_product(jnp.asarray(x), jnp.asarray(y)))
-    it = float(tp.inner_product(*state_to_torch([x, y])))
+    it = float(tp.inner_product(*state_to_torch([x, y], "cpu")))
     assert abs(it - ij) <= 1e-15 * abs(ij) + 1e-18
 
 
@@ -114,8 +114,8 @@ def test_cuda_method_on_cpu_matches_jax_pallas_interpret():
     x = _x(jp).astype(np.float32)
     J_j, g_j = jp.objective_and_gradient([jnp.asarray(x)])
     fk.reset_launches()
-    J_t, g_t = tp.objective_and_gradient(state_to_torch([x]))
-    J0 = tp.objective(state_to_torch([x]))
+    J_t, g_t = tp.objective_and_gradient(state_to_torch([x], "cpu"))
+    J0 = tp.objective(state_to_torch([x], "cpu"))
     assert not any(fk.LAUNCHES.values())
     assert J_t.dtype == torch.float32 and float(J0) == float(J_t)
     assert abs(float(J_t) - float(J_j)) / abs(float(J_j)) < 1e-5
@@ -157,7 +157,7 @@ def test_host_loop_trajectory_matches_jax():
               cg=True, verbose=False)
     rj = j_opt([jnp.asarray(x)], jp.radii, jp.objective, jp.gradient,
                jp.inner_product, f_and_g=jp.objective_and_gradient, **kw)
-    rt = t_opt(state_to_torch([x]), tp.radii, tp.objective, tp.gradient,
+    rt = t_opt(state_to_torch([x], "cpu"), tp.radii, tp.objective, tp.gradient,
                tp.inner_product, f_and_g=tp.objective_and_gradient, **kw)
     assert rt.iterations == rj.iterations == 3
     assert _rel(rt.function_values, rj.function_values) < 1e-9
@@ -187,6 +187,18 @@ def ref():
     return np.load(REF)
 
 
+@pytest.fixture
+def one_thread():
+    """Long step loops of small matvecs: with several test workers on one
+    host, torch's intra-op threads fight over the cores and a loop that
+    takes a second alone takes a minute. One thread is as fast alone and
+    does not degrade."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_pinned_inputs_match_jax_now(ref):
     for dtype, tag in (("float64", "f64"), ("float32", "f32")):
         p = JSHB(JConfig(dtype=dtype))
@@ -211,11 +223,11 @@ def test_pinned_objective_and_gradient_match_jax_now(ref, dtype, method):
     assert _rel(g[0], ref[f"g_{tag}"]) < 100 * _PIN_RTOL[dtype]
 
 
-def test_port_reproduces_pinned_f64_at_full_config(ref):
+def test_port_reproduces_pinned_f64_at_full_config(ref, one_thread):
     p = TSHB(TConfig(), device="cpu")
     x0 = p.generate_ic(noise=ref["noise_f64"])
     assert _rel(x0[0], ref["x0_f64"]) < 1e-12
-    J, g = p.objective_and_gradient(state_to_torch([ref["x0_f64"]]))
+    J, g = p.objective_and_gradient(state_to_torch([ref["x0_f64"]], "cpu"))
     assert abs(float(J) - float(ref["J_f64"])) / abs(float(ref["J_f64"])) < 1e-12
     assert _rel(g[0], ref["g_f64"]) < 1e-10
 
