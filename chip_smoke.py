@@ -15,12 +15,17 @@ holding each against its plain PyTorch version on the card:
     kernels);
   * KDyn: the kinematic dynamo on two spheres, 24^3 modes on the 36^3
     dealiased grid, Rm = 1, 2000 CNAB1 steps at dt = 5e-4, cost "Final",
-    alpha0 = 100, max_iters = 10 (the three kdyn_step kernels).
+    alpha0 = 100, max_iters = 10 (the three kdyn_step kernels);
+  * the operator cotangents of `FusedObjectiveShared` / `FusedObjective`
+    at the SH23 and SHB23 widths (the lambda-history variants of both
+    reverse kernels and the op_grads product kernel);
+  * SH23 with L-BFGS (`--direction lbfgs`) and the continuous adjoint.
 
 Inputs come from `baselines/sh23_port_ref.npz`,
-`baselines/shb23_port_ref.npz`, `baselines/kdyn_port_ref.npz` and
-`baselines/kdyn24_truth.npz` (the JAX package's seed-42 initial
-conditions, trajectories and f64 values; this script imports no JAX).
+`baselines/sh23_ext_port_ref.npz`, `baselines/shb23_port_ref.npz`,
+`baselines/kdyn_port_ref.npz` and `baselines/kdyn24_truth.npz` (the JAX
+package's seed-42 initial conditions, trajectories and f64 values; this
+script imports no JAX).
 
 Phases, one line each; any failure exits non-zero without a result line:
   A  card, power limit, torch/CUDA versions, TF32 flags (off)
@@ -51,8 +56,19 @@ Phases, one line each; any failure exits non-zero without a result line:
      trajectory
   R  KDyn f32 workload through the kernels (method=cuda) at full size: a
      main path, then a torch.profiler trace of a second run
+  S  operator cotangents at full width (SH23: B, N = 1000; SHB23: A and
+     B, N = 2000): autograd of the fused objectives in u0 and the
+     operators, op_grads at its default (a main path of the history
+     sweeps and the product kernel); dB, dA against the plain f32 and
+     f64 versions; lambda_0 bitwise the sweep's without the history;
+     CUDA-event timings of the sweeps with and without the history and
+     of the whole gradient beside the u0-only one; the product kernels
+     beside torch.matmul, each in a CUDA graph (no host time per call)
+  T  SH23 L-BFGS: the f32 kernel workload (method=cuda, a main path) and
+     the f64 workload (method=matmul) vs the pinned JAX f64 trajectory;
+     the f64 continuous-adjoint gradient vs JAX's pinned one
 
-Each main path (G, L, M, R) runs with the launch counters set to 0 just
+Each main path (G, L, M, R, S, T) runs with the launch counters set to 0 just
 before it and read just after; a kernel of that path that was not
 launched fails it. The last lines are the card, the kernels' JSON line
 and `{"ok": true, ...}`. Without CUDA it exits non-zero: there is no
@@ -84,6 +100,7 @@ from spheremanopt_torch.problems.kinematic_dynamo import KinematicDynamo
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REF = os.path.join(HERE, "baselines", "sh23_port_ref.npz")
+REF_X = os.path.join(HERE, "baselines", "sh23_ext_port_ref.npz")
 REF_B = os.path.join(HERE, "baselines", "shb23_port_ref.npz")
 REF_K = os.path.join(HERE, "baselines", "kdyn_port_ref.npz")
 TRUTH_K = os.path.join(HERE, "baselines", "kdyn24_truth.npz")
@@ -102,6 +119,8 @@ GAMMA2_TOL, TRAJ_F64_RTOL, FV0_ATOL, FV0_RTOL, SPHERE_TOL = 0.05, 1e-6, 1e-4, 1e
 # gradients are stored in f32 (~6e-8).
 TOL_KDYN_VS_PLAIN, TOL_KDYN_VS_F64, TOL_KDYN_J64, TOL_KDYN_G64 = 1e-3, 1e-3, 1e-10, 1e-6
 KDYN_CUT = 200   # steps of the depth-cut f64 phases (a tenth of the horizon)
+# the continuous adjoint is the same FFT recursion in both packages (f64)
+TOL_CONT_F64 = 1e-10
 # the JAX package's bench record (iterations, J): another workload, with
 # unprojected gradients through its device-resident optimiser loop
 KDYN_BENCH_END = (10, 2.518)
@@ -121,6 +140,9 @@ REPLACES = {
     "kdyn_fwd": f"{PALLAS_K}:411",              # _fwd_kernel
     "kdyn_fwd_traj": f"{PALLAS_K}:201",         # _fwd_traj_kernel
     "kdyn_bwd": f"{PALLAS_K}:247",              # _bwd_kernel
+    "fused_bwd_shared_ops": f"{PALLAS}:203",    # _bwd_kernel_shared, op_grads
+    "fused_bwd_ops": f"{PALLAS}:125",           # _bwd_kernel, op_grads
+    "op_grads": f"{PALLAS}:125",                # its dA/dB (and :203-206's dB)
 }
 
 
@@ -182,6 +204,20 @@ def sweep_work(mg, n_steps, n_mats, fwd, traj=True, ser=False):
     floats += n_steps * mg if (traj or not fwd) else 0
     floats += n_steps + 1 if ser else 0
     return flop, 4 * floats
+
+
+def hist_work(mg, n_steps, n_mats):
+    """(flop, bytes) of a reverse sweep that also writes its lambda
+    history (n_steps rows of mg floats)."""
+    flop, nbytes = sweep_work(mg, n_steps, n_mats, fwd=False)
+    return flop, nbytes + 4 * n_steps * mg
+
+
+def op_grads_work(mg, n_steps, n_out):
+    """(flop, bytes) of the operator-cotangent product: 2 mg^2 N flop per
+    output (f(u) elementwise aside); the history and the trajectory read
+    once, the outputs written once."""
+    return 2 * mg * mg * n_steps * n_out, 4 * (2 * n_steps * mg + n_out * mg * mg)
 
 
 def kdyn_work(n, mg, n_steps, fwd, traj):
@@ -247,9 +283,27 @@ def trace(fn):
     return wall, sum(r[1] for r in rows) / 1e3, rows
 
 
+def graph_ms(fn, reps=20, replays=5):
+    """Mean ms per call of `fn` on the card: CUDA events around replays of
+    one CUDA graph that holds `reps` calls, so the host's per-call time
+    (Python wrappers, allocation) is not in it. A call whose host side
+    takes longer than its kernels leaves the card idle, and CUDA events
+    around plain calls then measure the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()   # warm-up outside the graph
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    return gpu_ms(g.replay, replays) / reps
+
+
 class Smoke:
     def __init__(self):
-        self.ref, self.refb = np.load(REF), np.load(REF_B)
+        self.ref, self.refb, self.refx = np.load(REF), np.load(REF_B), np.load(REF_X)
         self.refk, self.truthk = np.load(REF_K), np.load(TRUTH_K)
         self.failures = []
         self.kernels = {name: {} for name in SOURCES}
@@ -780,8 +834,192 @@ class Smoke:
               flush=True)
         self.report_trace("R", "kdyn", x0)
 
+    # -- operator cotangents ------------------------------------------------
+
+    def op_grads_case(self, tag, bwd, bwd_plain, mats, w, u0, n, dt, c, lin, mode):
+        """One problem's operator cotangents from the same kernel
+        trajectory: the history sweep, the product kernel and the sweep
+        without the history, against the plain f32 sweep (step-by-step
+        outer products), the plain product on the kernel's history, and
+        the plain f64 sweep on the same inputs. Returns what the checks
+        and timings need."""
+        dev = u0.device
+        fwd = fk.fused_fwd_shared if mode == "shared" else fk.fused_fwd
+        fwd_plain = fk.fused_fwd_shared_plain if mode == "shared" else fk.fused_fwd_plain
+        lin_arg = (lin,) if mode == "shared" else ()
+        sc = torch.tensor(-2.0 * dt, dtype=torch.float32, device=dev)
+        uT, _, tr, _ = fwd(*mats, w, u0, *c, *lin_arg, n)
+        args = (*mats, w, uT, tr, *c, *lin_arg, sc, n)
+        hist, hist_p = torch.empty_like(tr), torch.empty_like(tr)
+        lk = bwd(*args, lam_hist=hist)[0]
+        ops_k = fk.op_grads_product(hist, tr, mode, *c, lin)
+        l0 = bwd(*args)[0]
+        lp, *ops_p = bwd_plain(*args, op_grads=True, lam_hist=hist_p)
+        ops_q = fk.op_grads_plain(hist, tr, mode, *c, lin)
+        m64 = [m.double() for m in mats]
+        uT64, _, tr64, _ = fwd_plain(*m64, w.double(), u0.double(), *c, *lin_arg, n)
+        l64, *ops_64 = bwd_plain(*m64, w.double(), uT64, tr64, *c, *lin_arg, sc.double(),
+                                 n, op_grads=True)
+        torch.cuda.synchronize()
+        return dict(tag=tag, args=args, hist=hist, tr=tr, lk=lk, l0=l0, lp=lp,
+                    hist_p=hist_p, l64=l64, ops_k=ops_k, ops_p=ops_p, ops_q=ops_q,
+                    ops_64=ops_64, c=c, lin=lin, mode=mode)
+
+    def phase_s(self):
+        b, w, u0, lin, n = self.sweep_args
+        a2, b2, w2, u2, n2 = self.shb_sweep
+        dt, dt2 = self.p_cuda.cfg.dt, self.pb_cuda.cfg.dt
+
+        def sh23(with_ops=True):
+            bb = b.detach().requires_grad_(with_ops)
+            uu = u0.detach().requires_grad_(True)
+            J = fk.FusedObjectiveShared.apply(bb, w, uu, C2, C3, lin, dt, n)
+            return torch.autograd.grad(J, (uu, bb) if with_ops else (uu,))
+
+        def shb23(with_ops=True):
+            aa, bb = (m.detach().requires_grad_(with_ops) for m in (a2, b2))
+            uu = u2.detach().requires_grad_(True)
+            J = fk.FusedObjective.apply(aa, bb, w2, uu, C2B, C3B, dt2, n2)
+            return torch.autograd.grad(J, (uu, aa, bb) if with_ops else (uu,))
+
+        # the main path: autograd in u0 and the operators, op_grads left at
+        # its default
+        g_sh, g_shb = self.main_path(
+            "S", ("fused_bwd_shared_ops", "fused_bwd_ops", "op_grads"),
+            lambda: (sh23(), shb23()))
+        cases = [
+            self.op_grads_case("SH23", fk.fused_bwd_shared, fk.fused_bwd_shared_plain,
+                               (b,), w, u0, n, dt, (C2, C3), lin, "shared"),
+            self.op_grads_case("SHB23", fk.fused_bwd, fk.fused_bwd_plain, (a2, b2), w2,
+                               u2, n2, dt2, (C2B, C3B), 0.0, "two")]
+        for cs, g, tol64 in zip(cases, (g_sh, g_shb), (TOL_VS_F64, TOL_G_VS_F64_SHB)):
+            auto_same = all(torch.equal(x, y) for x, y in zip(g, (cs["lk"], *cs["ops_k"])))
+            e_p = max(rel(x, y) for x, y in zip((cs["lk"], cs["hist"], *cs["ops_k"]),
+                                                 (cs["lp"], cs["hist_p"], *cs["ops_p"])))
+            e_q = max(rel(x, y) for x, y in zip(cs["ops_k"], cs["ops_q"]))
+            e_64 = [rel(x, y) for x, y in zip((cs["lk"], *cs["ops_k"]),
+                                               (cs["l64"], *cs["ops_64"]))]
+            same0 = torch.equal(cs["lk"], cs["l0"])
+            self.check("S", auto_same and same0 and max(e_p, e_q) <= TOL_VS_PLAIN
+                       and max(e_64) <= tol64,
+                       f"{cs['tag']} operator cotangents (mg={cs['tr'].shape[1]}, "
+                       f"N={cs['tr'].shape[0]}): kernels vs plain f32 (lambda_0, history, "
+                       f"d{'AB' if cs['mode'] == 'two' else 'B'}) rel {e_p:.2e}, product "
+                       f"kernel vs its plain version on the same history {e_q:.2e} (tol "
+                       f"{TOL_VS_PLAIN:g}); vs plain f64 lambda_0 {e_64[0]:.2e}, operators "
+                       f"{max(e_64[1:]):.2e} (tol {tol64:g}); lambda_0 bitwise the sweep "
+                       f"without the history: {same0}; autograd's (u0, operators) "
+                       f"gradient bitwise the wrappers': {auto_same}")
+        sh, shb = cases
+        self.kernels["fused_bwd_shared_ops"]["max_abs_err"] = max_abs(
+            [(sh["lk"], sh["lp"]), (sh["hist"], sh["hist_p"])])
+        self.kernels["fused_bwd_ops"]["max_abs_err"] = max_abs(
+            [(shb["lk"], shb["lp"]), (shb["hist"], shb["hist_p"])])
+        self.kernels["op_grads"]["max_abs_err"] = max_abs(
+            list(zip(shb["ops_k"], shb["ops_q"])))
+
+        # timings: each sweep without / with the history, the product
+        # kernel beside its plain version and torch.matmul on the same
+        # operands (f(u) formed before), the whole gradient beside the
+        # u0-only one
+        t = {}
+        for cs, bwd, bwd_plain, reps, reps_plain in (
+                (sh, fk.fused_bwd_shared, fk.fused_bwd_shared_plain, 20, 3),
+                (shb, fk.fused_bwd, fk.fused_bwd_plain, 10, 2)):
+            args, hist, tr, tag = cs["args"], cs["hist"], cs["tr"], cs["tag"]
+            c, lin_, mode = cs["c"], cs["lin"], cs["mode"]
+            t[tag, "sweep"] = interleaved_ms(lambda: bwd(*args),
+                                             lambda: bwd(*args, lam_hist=hist), reps, reps)
+            t[tag, "hist_plain"] = gpu_ms(lambda: bwd_plain(*args, lam_hist=cs["hist_p"]),
+                                          reps_plain, 1)
+            fcat = torch.cat(fk.op_factors(tr, mode, *c, lin_), dim=1)
+            t[tag, "prod"] = interleaved_ms(
+                lambda: fk.op_grads_plain(hist, tr, mode, *c, lin_),
+                lambda: fk.op_grads_product(hist, tr, mode, *c, lin_), reps_plain, 50, 1)
+            t[tag, "lib"] = gpu_ms(lambda: torch.matmul(hist.T, fcat), 50)
+            t[tag, "prod_dev"] = graph_ms(
+                lambda: fk.op_grads_product(hist, tr, mode, *c, lin_))
+            t[tag, "lib_dev"] = graph_ms(lambda: torch.matmul(hist.T, fcat))
+        t["SH23", "unit"] = interleaved_ms(lambda: sh23(False), lambda: sh23(True), 10, 10)
+        t["SHB23", "unit"] = interleaved_ms(lambda: shb23(False), lambda: shb23(True), 5, 5)
+        mg, mg2 = b.shape[0], b2.shape[0]
+        self.kernels["fused_bwd_shared_ops"].update(
+            ms=t["SH23", "sweep"][1], plain_ms=t["SH23", "hist_plain"],
+            work=hist_work(mg, n, 1))
+        self.kernels["fused_bwd_ops"].update(
+            ms=t["SHB23", "sweep"][1], plain_ms=t["SHB23", "hist_plain"],
+            work=hist_work(mg2, n2, 2))
+        self.kernels["op_grads"].update(
+            ms=t["SHB23", "prod_dev"], plain_ms=t["SHB23", "prod"][0],
+            library_ms=t["SHB23", "lib_dev"], work=op_grads_work(mg2, n2, 2))
+        for tag, mg_, n_, n_out in (("SH23", mg, n, 1), ("SHB23", mg2, n2, 2)):
+            (s0, s1), (p0, p1), (u0_ms, u1_ms) = (t[tag, "sweep"], t[tag, "prod"],
+                                                   t[tag, "unit"])
+            pb, _ = bound(*op_grads_work(mg_, n_, n_out))
+            pd, ld = t[tag, "prod_dev"], t[tag, "lib_dev"]
+            self.check("S", True,
+                       f"[{self.card}] {tag} reverse sweep without the history "
+                       f"{s0:.3f} ms, with it {s1:.3f} ms ({100 * (s1 / s0 - 1):+.2f} %), "
+                       f"plain with it {t[tag, 'hist_plain']:.3f} ms; op_grads product "
+                       f"kernels in a CUDA graph {1e3 * pd:.1f} us a call (bound "
+                       f"{1e3 * pb:.1f} us, {100 * pb / pd:.1f} % of it) vs torch.matmul "
+                       f"{1e3 * ld:.1f} us; "
+                       f"per call with the host (CUDA events) {1e3 * p1:.1f} vs "
+                       f"{1e3 * t[tag, 'lib']:.1f} us; plain loop {p0:.3f} ms; gradient in "
+                       f"u0 {u0_ms:.3f} ms, in u0 and the operators {u1_ms:.3f} ms "
+                       f"({100 * (u1_ms / u0_ms - 1):+.2f} %)")
+
+    # -- L-BFGS and the continuous adjoint ------------------------------------
+
+    def phase_t(self):
+        ref, ext = self.ref, self.refx
+        p, res, wall = self.main_path(
+            "T", ("fused_fwd_shared", "fused_bwd_shared"),
+            lambda: self.workload("sh23", "float32", "cuda", [ref["x0_f32"]],
+                                  "--direction", "lbfgs"), record=())
+        fv = np.asarray(res.function_values)
+        x = res.x_opt[0]
+        sphere = abs(float(p.inner_product(x, x)) / p.radii[0] - 1.0)
+        # iteration 0 is the same Armijo steepest-descent step as CG's
+        fv0_ref = float(ref["fv_f32_matmul"][0])
+        ok = (5 <= res.iterations <= 200 and bool(np.all(np.diff(fv) >= 0))
+              and abs(fv[0] - fv0_ref) <= FV0_ATOL and sphere <= SPHERE_TOL)
+        pin32 = ext["fv_f32_lbfgs"]
+        self.check("T", ok,
+                   f"sh23 f32 kernel L-BFGS workload: {res.iterations} iterations "
+                   f"(5-200), values {[float(v) for v in fv]}, first {float(fv[0])!r} vs "
+                   f"JAX f32 {fv0_ref!r}, |<x,x>/r-1| {sphere:.1e}, {wall:.2f} s "
+                   f"[{self.card}]; not gated: the JAX package in f32 on a CPU took "
+                   f"{int(ext['iters_f32_lbfgs'])} iterations to {float(pin32[-1])!r}")
+
+        pin_fv, pin_st, pin_k = (ext["fv_f64_lbfgs"], ext["steps_f64_lbfgs"],
+                                 int(ext["iters_f64_lbfgs"]))
+        _, res, wall = self.workload("sh23", "float64", "matmul", [ref["x0_f64"]],
+                                     "--direction", "lbfgs")
+        fv, st = np.asarray(res.function_values), np.asarray(res.step_sizes)
+        worst = (max(float(np.max(np.abs(fv - pin_fv) / np.abs(pin_fv))),
+                     float(np.max(np.abs(st - pin_st) / np.abs(pin_st))))
+                 if len(fv) == len(pin_fv) else float("inf"))
+        self.check("T", res.iterations == pin_k and worst <= TRAJ_F64_RTOL,
+                   f"sh23 f64 L-BFGS workload: {res.iterations} iterations (JAX "
+                   f"{pin_k}), J_final {float(fv[-1]) if len(fv) else None!r} (JAX "
+                   f"{float(pin_fv[-1])!r}), worst rel over values and steps "
+                   f"{worst:.2e} (tol {TRAJ_F64_RTOL:g}), {res.message!r}, {wall:.2f} s")
+
+        p, x0, _ = cli.make_problem(
+            problem_args("sh23", "float64", "matmul", "--adjoint", "continuous"),
+            x0=[ref["x0_f64"]])
+        t0 = time.perf_counter()
+        g = p.gradient(x0)[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        e = rel(g.cpu(), ext["gc_f64"])
+        self.check("T", e <= TOL_CONT_F64 and bool(torch.isfinite(g).all()),
+                   f"sh23 f64 continuous-adjoint gradient vs JAX's pinned one: rel "
+                   f"{e:.2e} (tol {TOL_CONT_F64:g}), {wall:.2f} s")
+
     def run(self):
-        for name in "abcdefghijklmnopqr":
+        for name in "abcdefghijklmnopqrst":
             phase = getattr(self, f"phase_{name}")
             t0 = time.perf_counter()
             try:
@@ -803,7 +1041,7 @@ class Smoke:
                 replaces=REPLACES[name], launches=rec["launches"],
                 max_abs_err=rec["max_abs_err"], ms=rec["ms"],
                 plain_ms=rec["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None))
+                library_ms=rec.get("library_ms")))
         return recs
 
 

@@ -1,8 +1,10 @@
 // Helpers shared by the fused integrators (fused_shared.cu,
-// fused_two_matrix.cu, kdyn_step.cu): block-wide sums, the Kahan step and the energy
-// term, each written once with its rounding pinned, so that both
-// instantiations of a forward kernel (with and without the energy
-// series) give the same J bit for bit.
+// fused_two_matrix.cu, kdyn_step.cu): block-wide sums, the Kahan step, the energy
+// term and the reverse step's terms, each written once with its rounding
+// pinned, so that both instantiations of a forward kernel (with and
+// without the energy series) give the same J, and both of a reverse
+// kernel (with and without the lambda history) the same lambda, bit for
+// bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,6 +34,21 @@ __device__ __forceinline__ void kahan_add(float& acc, float& comp, float value) 
 // differently.
 __device__ __forceinline__ float add_energy(float part, float w, float u) {
   return __fmaf_rn(__fmul_rn(w, u), u, part);
+}
+
+// lin + 2 c2 u + 3 c3 u^2 (c2x2 = 2 c2, c3x3 = 3 c3), the derivative factor
+// of a reverse step, with its rounding pinned: the instantiations of a
+// reverse kernel (with and without the lambda history) would otherwise be
+// free to fuse other products into FMAs and give lambda differently
+// rounded.
+__device__ __forceinline__ float poly_prime(float lin, float c2x2, float c3x3,
+                                            float u) {
+  return __fmaf_rn(__fmul_rn(c3x3, u), u, __fmaf_rn(c2x2, u, lin));
+}
+
+// s (w u), the cost term of a reverse step, rounded as written.
+__device__ __forceinline__ float cost_term(float s, float w, float u) {
+  return __fmul_rn(s, __fmul_rn(w, u));
 }
 
 // Block-wide sum of per-thread partials of a block of kNumWarps warps,

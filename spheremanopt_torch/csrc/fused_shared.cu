@@ -4,7 +4,9 @@
 // ops/pallas/fused_two_matrix.py:
 //   sm_fused_fwd_shared  <- _fwd_kernel_shared (_run_fwd_shared; has_traj
 //                           and has_ser as the traj / ser pointers)
-//   sm_fused_bwd_shared  <- _bwd_kernel_shared (_run_bwd_shared, op_grads=False)
+//   sm_fused_bwd_shared  <- _bwd_kernel_shared (_run_bwd_shared); with op_grads
+//                           it stores the lambda history that op_grads.cu
+//                           turns into dB (the `lam_hist` pointer)
 //
 // What bounds them on an H100: every step is a batch-1 GEMV with the
 // (mg, mg) f32 step matrix B (1 MiB at mg = 512), and the steps are
@@ -25,7 +27,11 @@
 // launch: a runtime test of the pointer on thread 0's per-step path made
 // every step measurably slower on an H100. J stays bitwise the
 // same in both instantiations because the energy term and the Kahan step
-// round as common.cuh pins them.
+// round as common.cuh pins them. The lambda history of the reverse sweep
+// is a template flag for the same reason, chosen from `lam_hist`; the
+// store does not touch lambda's arithmetic, and the update rounds as
+// common.cuh pins it, so lambda_0 is bitwise the same in both
+// instantiations.
 //
 // Both functions launch on the given stream, do not synchronise, and
 // return cudaGetLastError() so the caller can raise on a refused launch.
@@ -115,12 +121,17 @@ fused_fwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w
 // with s = *scale and u_n = traj row n. Thread (p, cg) sums rows
 // p, p + P, ... of column group cg (4 columns, one float4); the P
 // partial sums meet in shared memory.
+// With kLamHist, step n also stores the lambda_{n+1} it consumes as row n
+// of lam_hist (N rows), for the operator cotangent dB = sum_n
+// lambda_{n+1} (x) v(u_n) (op_grads.cu).
 // Shared memory: lam[mg], part[P * mg] (P * mg = 4 * active threads).
+template <bool kLamHist>
 __global__ void __launch_bounds__(kThreads)
 fused_bwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w,
                         const float* __restrict__ uT, const float* __restrict__ traj,
                         float c2, float c3, float lin, const float* __restrict__ scale,
-                        int n_steps, int mg, float* __restrict__ lam_out) {
+                        int n_steps, int mg, float* __restrict__ lam_out,
+                        float* __restrict__ lam_hist) {
   extern __shared__ float4 smem4[];
   const int ncg = mg / 4;
   const int P = kThreads / ncg;
@@ -137,7 +148,8 @@ fused_bwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w
   __syncthreads();
 
   for (int k = 0; k < n_steps; ++k) {
-    const float* urow = traj + (size_t)(n_steps - 1 - k) * mg;
+    const size_t row = (size_t)(n_steps - 1 - k) * mg;
+    const float* urow = traj + row;
     if (active) {
       float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
@@ -156,8 +168,9 @@ fused_bwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w
       float wb = 0.f;
       for (int q = 0; q < P; ++q) wb += part[q * mg + j];
       const float un = urow[j];
-      const float vprime = lin + 2.f * c2 * un + 3.f * c3 * un * un;
-      lam[j] = vprime * wb + s * (w[j] * un);
+      const float vprime = smo::poly_prime(lin, 2.f * c2, 3.f * c3, un);
+      if constexpr (kLamHist) lam_hist[row + j] = lam[j];  // lambda_{n+1}
+      lam[j] = __fmaf_rn(vprime, wb, smo::cost_term(s, w[j], un));
     }
     __syncthreads();
   }
@@ -182,12 +195,14 @@ int sm_fused_fwd_shared(const float* b, const float* w, const float* u0, float c
 int sm_fused_bwd_shared(const float* b, const float* w, const float* uT,
                         const float* traj, float c2, float c3, float lin,
                         const float* scale, int n_steps, int mg, float* lam_out,
-                        void* stream) {
+                        float* lam_hist, void* stream) {
   const int ncg = mg / 4;
   const int P = kThreads / ncg;
   const size_t smem = ((size_t)mg + 4 * (size_t)P * ncg) * sizeof(float);
-  fused_bwd_shared_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      b, w, uT, traj, c2, c3, lin, scale, n_steps, mg, lam_out);
+  const auto kernel = lam_hist != nullptr ? fused_bwd_shared_kernel<true>
+                                          : fused_bwd_shared_kernel<false>;
+  kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      b, w, uT, traj, c2, c3, lin, scale, n_steps, mg, lam_out, lam_hist);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,7 +4,9 @@
 // ops/pallas/fused_two_matrix.py:
 //   sm_fused_fwd  <- _fwd_kernel (_run_fwd; has_traj and has_ser as the
 //                    traj / ser pointers)
-//   sm_fused_bwd  <- _bwd_kernel (_run_bwd, op_grads=False)
+//   sm_fused_bwd  <- _bwd_kernel (_run_bwd); with op_grads it stores the
+//                    lambda history that op_grads.cu turns into dA and dB
+//                    (the `lam_hist` pointer)
 //
 // SHB23's step has two dense (mg, mg) f32 propagators: A = A_lin (the
 // Chebyshev-tau solve of the linear operator, entries ~1/dt) and
@@ -33,7 +35,10 @@
 // The energy series is a template flag, chosen from the `ser` pointer at
 // launch, as in fused_shared.cu (a runtime test sits on thread 0's
 // per-step path); the pinned rounding of common.cuh keeps J bitwise the
-// same in both instantiations.
+// same in both instantiations. The lambda history of the reverse sweep
+// is a template flag too, chosen from `lam_hist`; with the update's
+// rounding pinned in common.cuh, lambda_0 is bitwise the same in both
+// instantiations.
 //
 // Both functions launch on the given stream, do not synchronise, and
 // return cudaGetLastError(). The caller guarantees mg % 128 == 0,
@@ -133,14 +138,18 @@ fused_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // with s = *scale and u_n = traj row n. Thread (p, cg) sums rows
 // p, p + P, ... of column group cg (4 columns, one float4) of A and of
 // B; the P partial sums of each meet in shared memory.
+// With kLamHist, step n also stores the lambda_{n+1} it consumes as row n
+// of lam_hist (N rows), for dA = sum_n lambda_{n+1} (x) u_n and
+// dB = sum_n lambda_{n+1} (x) g(u_n) (op_grads.cu).
 // Shared memory: lam[mg], partA[P * mg], partB[P * mg]
 // (P * mg = 4 * active threads <= 4096 floats each).
+template <bool kLamHist>
 __global__ void __launch_bounds__(kThreads)
 fused_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
                  const float* __restrict__ w, const float* __restrict__ uT,
                  const float* __restrict__ traj, float c2, float c3,
                  const float* __restrict__ scale, int n_steps, int mg,
-                 float* __restrict__ lam_out) {
+                 float* __restrict__ lam_out, float* __restrict__ lam_hist) {
   extern __shared__ float4 smem4[];
   const int ncg = mg / 4;
   const int P = kThreads / ncg;
@@ -160,7 +169,8 @@ fused_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
   __syncthreads();
 
   for (int k = 0; k < n_steps; ++k) {
-    const float* urow = traj + (size_t)(n_steps - 1 - k) * mg;
+    const size_t row = (size_t)(n_steps - 1 - k) * mg;
+    const float* urow = traj + row;
     if (active) {
       float4 sa = make_float4(0.f, 0.f, 0.f, 0.f);
       float4 sb = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -189,8 +199,9 @@ fused_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
         wb += pb[q * mg + j];
       }
       const float un = urow[j];
-      const float gprime = 2.f * c2 * un + 3.f * c3 * un * un;
-      lam[j] = wa + gprime * wb + s * (w[j] * un);
+      const float gprime = smo::poly_prime(0.f, 2.f * c2, 3.f * c3, un);
+      if constexpr (kLamHist) lam_hist[row + j] = lam[j];  // lambda_{n+1}
+      lam[j] = __fadd_rn(__fmaf_rn(gprime, wb, wa), smo::cost_term(s, w[j], un));
     }
     __syncthreads();
   }
@@ -213,12 +224,15 @@ int sm_fused_fwd(const float* a, const float* b, const float* w, const float* u0
 
 int sm_fused_bwd(const float* a, const float* b, const float* w, const float* uT,
                  const float* traj, float c2, float c3, const float* scale,
-                 int n_steps, int mg, float* lam_out, void* stream) {
+                 int n_steps, int mg, float* lam_out, float* lam_hist,
+                 void* stream) {
   const int ncg = mg / 4;
   const int P = kThreads / ncg;
   const size_t smem = ((size_t)mg + 8 * (size_t)P * ncg) * sizeof(float);
-  fused_bwd_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, b, w, uT, traj, c2, c3, scale, n_steps, mg, lam_out);
+  const auto kernel = lam_hist != nullptr ? fused_bwd_kernel<true>
+                                          : fused_bwd_kernel<false>;
+  kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, b, w, uT, traj, c2, c3, scale, n_steps, mg, lam_out, lam_hist);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,13 +5,16 @@ PyTorch port of the JAX package's `ops/pallas/fused_two_matrix.py`:
 
   two-matrix form  u' = A u + B (c2 u^2 + c3 u^3)       (SHB23)
     fused_fwd          <- `_run_fwd` / `_fwd_kernel` (has_traj, has_ser)
-    fused_bwd          <- `_run_bwd` / `_bwd_kernel`
+    fused_bwd          <- `_run_bwd` / `_bwd_kernel` (op_grads=True: the
+                          sweep stores the lambda history, then
+                          `op_grads_product` forms dA and dB)
     FusedObjective     <- `fused_objective` (custom_vjp)
     FusedObjectiveDiag <- `fused_objective_diag`
   shared-matrix form  u' = B (lin u + c2 u^2 + c3 u^3)  (SH23: B = M,
   lin = 1/dt)
     fused_fwd_shared   <- `_run_fwd_shared` / `_fwd_kernel_shared`
     fused_bwd_shared   <- `_run_bwd_shared` / `_bwd_kernel_shared`
+                          (op_grads=True: lambda history, then dB)
     FusedObjectiveShared     <- `fused_objective_shared`
     FusedObjectiveSharedDiag <- `fused_objective_shared_diag`
 
@@ -20,14 +23,22 @@ the Kahan-compensated sum J_sum = sum_{n=0..N} sum_j w_j u_n,j^2 and,
 on request, the N pre-step states (gradient contexts) and the N+1
 per-step energies that the Kahan sum consumes (fused diagnostics; the J
 arithmetic does not depend on that flag). A backward carries
-lambda_N = s w u_N back through the transposed step.
+lambda_N = s w u_N back through the transposed step. With op_grads=True
+it also returns the operator cotangents, sum_n lambda_{n+1} (x) f(u_n):
+on the card the reverse kernel stores every lambda_{n+1} it consumes
+(the lambda history) and `op_grads_product` (csrc/op_grads.cu) forms
+the sum as one product over all SMs.
+
+The autograd Functions are differentiable in the operators by default
+(op_grads=True), as the JAX package's `fused_objective*` are; the
+problems, whose operators are fixed data, pass op_grads=False.
 
 Each wrapper takes its plain PyTorch version (`*_plain`) for tensors on
 the CPU and launches its kernel for CUDA tensors; a CUDA tensor never
 falls back. `LAUNCHES` counts kernel launches per wrapper (the series
-variants of the forwards apart). The kernels are f32 only; the plain
-versions take f32 or f64 and also provide the operator cotangents
-(`op_grads=True`), which the kernels do not.
+variants of the forwards and the lambda-history variants of the reverse
+sweeps apart). The kernels are f32 only; the plain versions take f32 or
+f64.
 """
 
 from __future__ import annotations
@@ -43,6 +54,9 @@ KERNEL_SOURCES = {
     "fused_fwd": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_fwd_ser": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_bwd": "spheremanopt_torch/csrc/fused_two_matrix.cu",
+    "fused_bwd_shared_ops": "spheremanopt_torch/csrc/fused_shared.cu",
+    "fused_bwd_ops": "spheremanopt_torch/csrc/fused_two_matrix.cu",
+    "op_grads": "spheremanopt_torch/csrc/op_grads.cu",
 }
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
@@ -97,12 +111,16 @@ def fused_fwd_plain(a, b, w, u0, c2, c3, n_steps, store_traj=True,
 
 
 def fused_bwd_shared_plain(b, w, uT, traj, c2, c3, lin, scale, n_steps,
-                           op_grads=False):
-    """(lambda_0, dB or None); `scale` = float32(-2 dt) * gbar."""
+                           op_grads=False, lam_hist=None):
+    """(lambda_0, dB or None); `scale` = float32(-2 dt) * gbar. Row n of
+    `lam_hist` ((n_steps, mg), when given) receives the lambda_{n+1} that
+    step n consumes, as the kernel's lambda history."""
     lam = scale * (w * uT)
     db = torch.zeros_like(b) if op_grads else None
     for k in range(n_steps):
         u = traj[n_steps - 1 - k]
+        if lam_hist is not None:
+            lam_hist[n_steps - 1 - k] = lam
         if op_grads:
             v = lin * u + c2 * u * u + c3 * u * u * u
             db += torch.outer(lam, v)
@@ -112,15 +130,20 @@ def fused_bwd_shared_plain(b, w, uT, traj, c2, c3, lin, scale, n_steps,
     return lam, db
 
 
-def fused_bwd_plain(a, b, w, uT, traj, c2, c3, scale, n_steps, op_grads=False):
+def fused_bwd_plain(a, b, w, uT, traj, c2, c3, scale, n_steps, op_grads=False,
+                    lam_hist=None):
     """(lambda_0, dA or None, dB or None) of the two-matrix reverse sweep:
     lambda_n = A^T lambda + g'(u_n) (B^T lambda) + s w u_n, and with
-    `op_grads` dA += lambda (x) u_n, dB += lambda (x) g(u_n)."""
+    `op_grads` dA += lambda (x) u_n, dB += lambda (x) g(u_n). Row n of
+    `lam_hist` (when given) receives lambda_{n+1}, as in
+    `fused_bwd_shared_plain`."""
     lam = scale * (w * uT)
     da = torch.zeros_like(a) if op_grads else None
     db = torch.zeros_like(b) if op_grads else None
     for k in range(n_steps):
         u = traj[n_steps - 1 - k]
+        if lam_hist is not None:
+            lam_hist[n_steps - 1 - k] = lam
         if op_grads:
             da += torch.outer(lam, u)
             db += torch.outer(lam, c2 * u * u + c3 * u * u * u)
@@ -131,6 +154,34 @@ def fused_bwd_plain(a, b, w, uT, traj, c2, c3, scale, n_steps, op_grads=False):
     return lam, da, db
 
 
+OP_GRADS_MODES = ("shared", "two")
+
+
+def op_factors(traj, mode, c2, c3, lin):
+    """The right factors of the operator cotangents, row by row: v(u) for
+    the shared-matrix step, (u, g(u)) for the two-matrix step."""
+    if mode not in OP_GRADS_MODES:
+        raise ValueError(f"mode must be one of {OP_GRADS_MODES}, got {mode!r}")
+    if mode == "shared":   # the association of the step-by-step sweep's v
+        return (lin * traj + c2 * traj * traj + c3 * traj * traj * traj,)
+    return (traj, c2 * traj * traj + c3 * traj * traj * traj)
+
+
+def op_grads_plain(lam_hist, traj, mode, c2, c3, lin=0.0):
+    """Plain version of `op_grads_product`: the operator cotangents
+    sum_n lam_hist[n] (x) f(traj[n]) as a loop of outer products, in the
+    reverse sweep's order (n = N-1..0). mode "shared" gives (dB,) with
+    f = v(u) = lin u + c2 u^2 + c3 u^3; mode "two" gives (dA, dB) with
+    f = u and g(u) = c2 u^2 + c3 u^3."""
+    mg = traj.shape[-1]
+    fs = op_factors(traj, mode, c2, c3, lin)
+    outs = tuple(traj.new_zeros((mg, mg)) for _ in fs)
+    for n in reversed(range(traj.shape[0])):
+        for out, f in zip(outs, fs):
+            out += torch.outer(lam_hist[n], f[n])
+    return outs
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -138,16 +189,17 @@ def fused_bwd_plain(a, b, w, uT, traj, c2, c3, scale, n_steps, op_grads=False):
 MG_MIN, MG_MAX, MG_ALIGN = 128, 2048, 128
 
 
-def _check(n_steps, mats, vecs, traj=None, scale=None) -> int:
+def _check(n_steps, mats, vecs, traj=None, scale=None, hist=None) -> int:
     """mg of the operands; raises unless they fit the kernels: f32,
     contiguous, on one CUDA device, (mg, mg) matrices, (mg,) vectors, an
-    (n_steps, mg) trajectory, 128 <= mg <= 2048 with mg % 128 == 0."""
-    mg = vecs[0][1].shape[-1]
+    (n_steps, mg) trajectory and lambda history, 128 <= mg <= 2048 with
+    mg % 128 == 0."""
+    mg = (vecs[0][1] if vecs else traj).shape[-1]
     if not (MG_MIN <= mg <= MG_MAX and mg % MG_ALIGN == 0):
         raise ValueError(f"the CUDA kernels take {MG_MIN} <= mg <= {MG_MAX}, "
                          f"mg % {MG_ALIGN} == 0; got mg={mg}")
-    extra = [(k, t) for k, t in (("traj", traj), ("scale", scale))
-             if t is not None]
+    extra = [(k, t) for k, t in (("traj", traj), ("scale", scale),
+                                 ("lam_hist", hist)) if t is not None]
     dev = None
     for name, t in list(mats) + list(vecs) + extra:
         if not t.is_cuda:
@@ -161,8 +213,8 @@ def _check(n_steps, mats, vecs, traj=None, scale=None) -> int:
         dev = t.device
     bad = [f"{k}{tuple(t.shape)}" for k, t in mats if t.shape != (mg, mg)]
     bad += [f"{k}{tuple(t.shape)}" for k, t in vecs if t.shape != (mg,)]
-    if traj is not None and traj.shape != (n_steps, mg):
-        bad.append(f"traj{tuple(traj.shape)}")
+    bad += [f"{k}{tuple(t.shape)}" for k, t in (("traj", traj), ("lam_hist", hist))
+            if t is not None and t.shape != (n_steps, mg)]
     if bad:
         raise ValueError(f"shapes {' '.join(bad)} do not match mg={mg}, "
                          f"n_steps={n_steps}")
@@ -183,13 +235,6 @@ def _launch(symbol, counter, device, *args) -> None:
                            f"{code}")
 
 
-def _no_op_grads(op_grads):
-    if op_grads:
-        raise NotImplementedError(
-            "the CUDA reverse kernels have no operator cotangents "
-            "(op_grads=True) yet (ROADMAP Queue 2 item 1)")
-
-
 def _fwd_outputs(u0, n_steps, store_traj, store_series):
     """(uT, jsum, traj, ser) buffers for a forward launch."""
     mg, dev = u0.shape[-1], u0.device
@@ -204,6 +249,38 @@ def _fwd_outputs(u0, n_steps, store_traj, store_series):
 def _ptr(t):
     """Device pointer of `t`, or NULL for None and empty buffers."""
     return t.data_ptr() if t is not None and t.numel() else None
+
+
+def _lam_hist(uT, n_steps, op_grads, lam_hist):
+    """The lambda-history buffer of a reverse sweep: `lam_hist`, or a new
+    one for op_grads, else None (the sweep without the history)."""
+    if lam_hist is None and op_grads:
+        lam_hist = torch.empty((n_steps, uT.shape[-1]), dtype=torch.float32,
+                               device=uT.device)
+    return lam_hist
+
+
+def op_grads_product(lam_hist, traj, mode, c2, c3, lin=0.0):
+    """Operator cotangents sum_n lam_hist[n] (x) f(traj[n]) from a reverse
+    sweep's lambda history: (dB,) for mode "shared", (dA, dB) for mode
+    "two" (see `op_grads_plain`). One product over all SMs on the card."""
+    if lam_hist.device.type == "cpu":
+        return op_grads_plain(lam_hist, traj, mode, c2, c3, lin)
+    if mode not in OP_GRADS_MODES:
+        raise ValueError(f"mode must be one of {OP_GRADS_MODES}, got {mode!r}")
+    from spheremanopt_torch.ops.cuda.build import load
+
+    n_steps = traj.shape[0]
+    mg = _check(n_steps, mats=[], vecs=[], traj=traj, hist=lam_hist)
+    n_out = 1 if mode == "shared" else 2
+    splits = load().sm_op_grads_splits(mg, int(n_steps))
+    part = torch.empty((splits, n_out, mg, mg), dtype=torch.float32,
+                       device=traj.device)
+    out = torch.empty((n_out, mg, mg), dtype=torch.float32, device=traj.device)
+    _launch("sm_op_grads", "op_grads", traj.device, lam_hist.data_ptr(),
+            traj.data_ptr(), int(n_steps), mg, int(mode == "two"), c2, c3, lin,
+            part.data_ptr(), out.data_ptr())
+    return tuple(out)
 
 
 def fused_fwd_shared(b, w, u0, c2, c3, lin, n_steps, store_traj=True,
@@ -224,21 +301,29 @@ def fused_fwd_shared(b, w, u0, c2, c3, lin, n_steps, store_traj=True,
 
 
 def fused_bwd_shared(b, w, uT, traj, c2, c3, lin, scale, n_steps,
-                     op_grads=False):
+                     op_grads=False, lam_hist=None):
     """(lambda_0, dB or None) of the reverse sweep; `scale` is a 0-dim
-    tensor float32(-2 dt) * gbar (kept on the device: no sync)."""
+    tensor float32(-2 dt) * gbar (kept on the device: no sync). Row n of
+    `lam_hist` ((n_steps, mg), when given) receives the lambda_{n+1} that
+    step n consumes: the kernel's history variant. With op_grads,
+    dB = sum_n lambda_{n+1} (x) v(u_n): the sweep stores its lambda
+    history and `op_grads_product` forms dB."""
     if uT.device.type == "cpu":
         return fused_bwd_shared_plain(b, w, uT, traj, c2, c3, lin, scale,
-                                      n_steps, op_grads)
-    _no_op_grads(op_grads)
+                                      n_steps, op_grads, lam_hist)
     scale = scale.reshape(())
+    hist = _lam_hist(uT, n_steps, op_grads, lam_hist)
     mg = _check(n_steps, mats=[("b", b)], vecs=[("uT", uT), ("w", w)],
-                traj=traj, scale=scale)
+                traj=traj, scale=scale, hist=hist)
     lam = torch.empty_like(uT)
-    _launch("sm_fused_bwd_shared", "fused_bwd_shared", uT.device,
-            b.data_ptr(), w.data_ptr(), uT.data_ptr(), _ptr(traj), c2, c3, lin,
-            scale.data_ptr(), int(n_steps), mg, lam.data_ptr())
-    return lam, None
+    _launch("sm_fused_bwd_shared",
+            "fused_bwd_shared" if hist is None else "fused_bwd_shared_ops",
+            uT.device, b.data_ptr(), w.data_ptr(), uT.data_ptr(), _ptr(traj),
+            c2, c3, lin, scale.data_ptr(), int(n_steps), mg, lam.data_ptr(),
+            _ptr(hist))
+    if not op_grads:
+        return lam, None
+    return lam, op_grads_product(hist, traj, "shared", c2, c3, lin)[0]
 
 
 def fused_fwd(a, b, w, u0, c2, c3, n_steps, store_traj=True,
@@ -258,21 +343,28 @@ def fused_fwd(a, b, w, u0, c2, c3, n_steps, store_traj=True,
     return uT, jsum, traj, ser
 
 
-def fused_bwd(a, b, w, uT, traj, c2, c3, scale, n_steps, op_grads=False):
+def fused_bwd(a, b, w, uT, traj, c2, c3, scale, n_steps, op_grads=False,
+              lam_hist=None):
     """(lambda_0, dA or None, dB or None) of the two-matrix reverse
-    sweep; `scale` is a 0-dim tensor float32(-2 dt) * gbar."""
+    sweep; `scale` is a 0-dim tensor float32(-2 dt) * gbar; `lam_hist` as
+    in `fused_bwd_shared`. With op_grads, dA = sum_n lambda_{n+1} (x) u_n
+    and dB = sum_n lambda_{n+1} (x) g(u_n), from the sweep's lambda
+    history."""
     if uT.device.type == "cpu":
         return fused_bwd_plain(a, b, w, uT, traj, c2, c3, scale, n_steps,
-                               op_grads)
-    _no_op_grads(op_grads)
+                               op_grads, lam_hist)
     scale = scale.reshape(())
+    hist = _lam_hist(uT, n_steps, op_grads, lam_hist)
     mg = _check(n_steps, mats=[("a", a), ("b", b)],
-                vecs=[("uT", uT), ("w", w)], traj=traj, scale=scale)
+                vecs=[("uT", uT), ("w", w)], traj=traj, scale=scale, hist=hist)
     lam = torch.empty_like(uT)
-    _launch("sm_fused_bwd", "fused_bwd", uT.device, a.data_ptr(),
-            b.data_ptr(), w.data_ptr(), uT.data_ptr(), _ptr(traj), c2, c3,
-            scale.data_ptr(), int(n_steps), mg, lam.data_ptr())
-    return lam, None, None
+    _launch("sm_fused_bwd", "fused_bwd" if hist is None else "fused_bwd_ops",
+            uT.device, a.data_ptr(), b.data_ptr(), w.data_ptr(), uT.data_ptr(),
+            _ptr(traj), c2, c3, scale.data_ptr(), int(n_steps), mg,
+            lam.data_ptr(), _ptr(hist))
+    if not op_grads:
+        return lam, None, None
+    return (lam,) + op_grads_product(hist, traj, "two", c2, c3)
 
 
 # ---------------------------------------------------------------------------
@@ -293,17 +385,19 @@ def _scale(dt, gbar, like):
 
 class FusedObjective(torch.autograd.Function):
     """-J with J = dt * sum_{n=0..N} sum_j w_j u_n,j^2 under
-    u' = A u + B (c2 u^2 + c3 u^3); differentiable in u0, w and (with
-    op_grads=True, plain path only) A and B.
+    u' = A u + B (c2 u^2 + c3 u^3); differentiable in u0, w, A and B.
 
-    apply(a, b, w, u0, c2, c3, dt, n_steps, op_grads=False)
+    apply(a, b, w, u0, c2, c3, dt, n_steps, op_grads=True)
 
     The forward stores the trajectory only when a gradient is wanted;
-    the backward runs the reverse-sweep kernel.
+    the backward runs the reverse-sweep kernel, and for an A or B that
+    requires grad the operator-cotangent product after it.
+    op_grads=False opts out of dA and dB (JAX: zero cotangents; here
+    None) for callers whose operators are fixed data.
     """
 
     @staticmethod
-    def forward(ctx, a, b, w, u0, c2, c3, dt, n_steps, op_grads=False):
+    def forward(ctx, a, b, w, u0, c2, c3, dt, n_steps, op_grads=True):
         need_traj = any(ctx.needs_input_grad[:4])
         uT, jsum, traj, _ = fused_fwd(a, b, w, u0, c2, c3, n_steps,
                                       store_traj=need_traj)
@@ -335,7 +429,7 @@ class FusedObjectiveDiag(torch.autograd.Function):
     consumes only J's cotangent)."""
 
     @staticmethod
-    def forward(ctx, a, b, w, u0, c2, c3, dt, n_steps, op_grads=False):
+    def forward(ctx, a, b, w, u0, c2, c3, dt, n_steps, op_grads=True):
         need_traj = any(ctx.needs_input_grad[:4])
         uT, jsum, traj, ser = fused_fwd(a, b, w, u0, c2, c3, n_steps,
                                         store_traj=need_traj,
@@ -353,18 +447,19 @@ class FusedObjectiveDiag(torch.autograd.Function):
 
 class FusedObjectiveShared(torch.autograd.Function):
     """-J with J = dt * sum_{n=0..N} sum_j w_j u_n,j^2 under
-    u' = B (lin u + c2 u^2 + c3 u^3); differentiable in u0, w and (with
-    op_grads=True, plain path only) B.
+    u' = B (lin u + c2 u^2 + c3 u^3); differentiable in u0, w and B.
 
-    apply(b, w, u0, c2, c3, lin, dt, n_steps, op_grads=False)
+    apply(b, w, u0, c2, c3, lin, dt, n_steps, op_grads=True)
 
     The forward stores the trajectory only when a gradient is wanted (the
     primal-only path runs trajectory-free, like `store_traj=False` in the
-    JAX primal); the backward runs the reverse-sweep kernel.
+    JAX primal); the backward runs the reverse-sweep kernel, and for a B
+    that requires grad the operator-cotangent product after it.
+    op_grads=False opts out of dB, as in `FusedObjective`.
     """
 
     @staticmethod
-    def forward(ctx, b, w, u0, c2, c3, lin, dt, n_steps, op_grads=False):
+    def forward(ctx, b, w, u0, c2, c3, lin, dt, n_steps, op_grads=True):
         need_traj = any(ctx.needs_input_grad[:3])
         uT, jsum, traj, _ = fused_fwd_shared(b, w, u0, c2, c3, lin, n_steps,
                                              store_traj=need_traj)
@@ -393,7 +488,7 @@ class FusedObjectiveSharedDiag(torch.autograd.Function):
     outputs are non-differentiable, as in `FusedObjectiveDiag`."""
 
     @staticmethod
-    def forward(ctx, b, w, u0, c2, c3, lin, dt, n_steps, op_grads=False):
+    def forward(ctx, b, w, u0, c2, c3, lin, dt, n_steps, op_grads=True):
         need_traj = any(ctx.needs_input_grad[:3])
         uT, jsum, traj, ser = fused_fwd_shared(b, w, u0, c2, c3, lin, n_steps,
                                                store_traj=need_traj,

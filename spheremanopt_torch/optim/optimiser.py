@@ -1,4 +1,4 @@
-"""SD/CG optimiser on a product of spherical manifolds.
+"""SD/CG/L-BFGS optimiser on a product of spherical manifolds.
 
 PyTorch port of the JAX package's `optim/optimiser.py`, the rebuild of
 the reference's `Optimise_On_Multi_Sphere`
@@ -14,6 +14,12 @@ the reference's `Optimise_On_Multi_Sphere`
   * residual recorded from the pre-update tangent gradient
   * failed line search returns early with best-so-far
   * function values recorded negated (problems return -J to maximise)
+
+and the JAX package's Riemannian L-BFGS (`method="lbfgs"`, beyond the
+reference): curvature pairs transported to each new tangent plane, the
+two-loop recursion under the problem's inner product, pairs failing the
+curvature condition skipped, a reset to steepest descent when the
+direction is not a descent direction, and a 16 x alpha_0 Wolfe envelope.
 
 The geometry (`ManifoldKernels`) is plain tensor code: PyTorch runs
 eagerly, so there is nothing to compile. State is a list of 1-D tensors
@@ -34,6 +40,13 @@ from spheremanopt_torch.manifold import sphere as geom
 from spheremanopt_torch.optim import linesearch as ls
 
 
+def _curv_eps(dtype) -> float:
+    """L-BFGS curvature-skip threshold, relative to ||s||*||y||: 1e-10 in
+    f64 (classic), widened to ~32 ULP in f32 where 1e-10 sits far below
+    the rounding noise of the transported inner products."""
+    return max(1e-10, 32.0 * float(torch.finfo(dtype).eps))
+
+
 @dataclass
 class OptimiseResult:
     """Optimisation state record (reference: `result` class,
@@ -44,7 +57,7 @@ class OptimiseResult:
     iterations: int = 0
     function_evals: int = 0
     gradient_evals: int = 0
-    # Hessian-vector products (RTR only; SD/CG never form any)
+    # Hessian-vector products (RTR only; SD/CG/L-BFGS never form any)
     hvp_evals: int = 0
     residuals: List[List[float]] = field(default_factory=list)
     step_sizes: List[float] = field(default_factory=list)
@@ -121,6 +134,44 @@ class ManifoldKernels:
         beta = torch.clamp(torch.minimum(beta_fr, beta_pr), min=0.0)
         return [-g + beta * td for g, td in zip(gs, tds)]
 
+    def lbfgs_shift(self, xs_new, alpha, ds_old, gs_old, gs_new, S, Y):
+        """L-BFGS history maintenance at the new iterate: transport the
+        step alpha*d and the old tangent gradient into x_new's tangent
+        plane (transport == projection on the sphere, ref
+        `Sphere_Grad_Descent.py:625-642`), form the new curvature pair
+        (s, y = g_new - T g_old), re-transport every stored pair, and
+        return <s,y>, <y,y> and the keep decision of the curvature test."""
+        s = self.tangent(xs_new, [alpha * d for d in ds_old])
+        tg = self.tangent(xs_new, gs_old)
+        y = [gn - t for gn, t in zip(gs_new, tg)]
+        sy, yy, ss = self.slope(s, y), self.slope(y, y), self.slope(s, s)
+        keep = bool(sy > _curv_eps(sy.dtype)
+                    * torch.sqrt(torch.clamp(ss, min=0.0) * torch.clamp(yy, min=0.0))) \
+            and bool(yy > 0.0)
+        S2 = tuple(self.tangent(xs_new, si) for si in S)
+        Y2 = tuple(self.tangent(xs_new, yi) for yi in Y)
+        return s, y, sy, yy, keep, S2, Y2
+
+    def lbfgs_direction(self, xs, gs, S, Y, gamma):
+        """Two-loop recursion (Nocedal & Wright Alg. 7.4) over the
+        product-manifold inner product, with the initial inverse Hessian
+        gamma*I; the result is re-projected onto the tangent plane at xs
+        (all inputs are tangent, so this only cleans rounding drift).
+        Returns the direction and its slope <g, d>."""
+        q = list(gs)
+        coeffs = []
+        for s, y in zip(reversed(S), reversed(Y)):
+            rho = 1.0 / self.slope(y, s)
+            a = rho * self.slope(s, q)
+            q = [qi - a * yi for qi, yi in zip(q, y)]
+            coeffs.append((rho, a))
+        r = [gamma * qi for qi in q]
+        for (s, y), (rho, a) in zip(zip(S, Y), reversed(coeffs)):
+            b = rho * self.slope(y, r)
+            r = [ri + (a - b) * si for ri, si in zip(r, s)]
+        d = self.tangent(xs, [-ri for ri in r])
+        return d, self.slope(gs, d)
+
 
 def optimise_on_multi_sphere(
     x0: Sequence[Any],
@@ -143,6 +194,7 @@ def optimise_on_multi_sphere(
     f_and_g: Optional[Callable[[List[Any]], Any]] = None,
     use_fused_phi: bool = True,
     method: Optional[str] = None,
+    lbfgs_memory: int = 8,
 ) -> OptimiseResult:
     """Minimise f(X) subject to <X_i, X_i> = radii[i] for each component.
 
@@ -155,17 +207,18 @@ def optimise_on_multi_sphere(
     Returns an OptimiseResult; `result.function_values` holds -J(X_k)
     (the reference's sign convention for maximisation problems).
 
-    `method` selects the search direction: "sd" or "cg" (the reference's
-    hybrid FR/PR conjugate gradient — the default when `cg=True`). When
-    given it overrides the legacy `cg` flag.
+    `method` selects the search direction: "sd" (steepest descent), "cg"
+    (the reference's hybrid FR/PR conjugate gradient — the default when
+    `cg=True`), or "lbfgs" (Riemannian limited-memory BFGS with the last
+    `lbfgs_memory` curvature pairs; pairs failing <s,y> > 0 are skipped).
+    When given it overrides the legacy `cg` flag. L-BFGS also runs under
+    the Armijo search, which gives no curvature guarantee: more pairs are
+    skipped and the direction degrades toward SD, as in the JAX package.
     """
     n = len(radii)
     if method is None:
         method = "cg" if cg else "sd"
-    if method == "lbfgs":
-        raise NotImplementedError(
-            "method='lbfgs' is not ported yet (ROADMAP Queue 1 item 6)")
-    if method not in ("sd", "cg"):
+    if method not in ("sd", "cg", "lbfgs"):
         raise ValueError(f"method must be sd|cg|lbfgs, got {method!r}")
     if checkpoint_path is not None:
         raise NotImplementedError(
@@ -173,8 +226,11 @@ def optimise_on_multi_sphere(
     cg = method == "cg"
     use_wolfe = line_search == "wolfe"
     # The reference caps Wolfe at amax = alpha_0 (`Sphere_Grad_Descent.py`
-    # passes alpha_k as amax) — kept for sd/cg parity.
-    alpha_max = alpha_k
+    # passes alpha_k as amax) — kept for sd/cg parity. Quasi-Newton
+    # directions carry their own scale, and the curvature condition can
+    # need steps past alpha_0 when gamma underestimates the local Hessian,
+    # so lbfgs gets a wider envelope.
+    alpha_max = alpha_k * (16.0 if method == "lbfgs" else 1.0)
     K = ManifoldKernels(radii, inner_prod)
 
     R = OptimiseResult(n_components=n)
@@ -190,6 +246,13 @@ def optimise_on_multi_sphere(
     derphi_star_grad: Optional[List[Any]] = None
     g_km1: Optional[List[Any]] = None
     d_k: Optional[List[Any]] = None
+    # L-BFGS state: transported curvature pairs, the initial
+    # inverse-Hessian scale, and the (alpha, d, g) of the last accepted
+    # step pending pair formation at the next iterate.
+    lb_S: tuple = ()
+    lb_Y: tuple = ()
+    lb_gamma: float = 1.0
+    lb_pending = None
 
     while max(error) > err_tol and R.iterations < max_iters:
         t_iter = time.perf_counter()
@@ -202,14 +265,40 @@ def optimise_on_multi_sphere(
             g_k = K.tangent(x_k, nab_J)
             grad_evals += 1
 
-        # --- search direction: SD or hybrid FR/PR CG (ref :750-776) ---
-        if R.iterations > 1 and cg and g_km1 is not None and d_k is not None:
+        # --- L-BFGS history: form the pair for the step just taken ---
+        if method == "lbfgs" and lb_pending is not None:
+            a_prev, d_prev, g_prev = lb_pending
+            s, y, sy, yy, keep, lb_S, lb_Y = K.lbfgs_shift(
+                x_k, a_prev, d_prev, g_prev, g_k, lb_S, lb_Y)
+            # keep the pair only when <s,y> is positive beyond rounding
+            # (on the sphere Wolfe does not guarantee it: y is formed from
+            # transported gradients)
+            if keep:
+                lb_S = (lb_S + (s,))[-lbfgs_memory:]
+                lb_Y = (lb_Y + (y,))[-lbfgs_memory:]
+                lb_gamma = float(sy) / float(yy)
+            lb_pending = None
+
+        # --- search direction: SD, hybrid FR/PR CG (ref :750-776),
+        #     or L-BFGS two-loop ---
+        derphi0 = None
+        if method == "lbfgs" and lb_S:
+            d_k, slope = K.lbfgs_direction(x_k, g_k, lb_S, lb_Y, lb_gamma)
+            derphi0 = float(slope)
+            if not derphi0 < 0.0:
+                # not a descent direction (stale/ill-conditioned history):
+                # reset to steepest descent, standard L-BFGS safeguard
+                lb_S, lb_Y, lb_gamma = (), (), 1.0
+                d_k = [-g for g in g_k]
+                derphi0 = None
+        elif R.iterations > 1 and cg and g_km1 is not None and d_k is not None:
             d_k = K.cg_direction(x_k, g_k, g_km1, d_k)
         else:
             d_k = [-g for g in g_k]
 
         # --- line search (Armijo on iteration 0, ref :780-784) ---
-        derphi0 = float(K.slope(g_k, d_k))
+        if derphi0 is None:
+            derphi0 = float(K.slope(g_k, d_k))
 
         # One-entry (alpha -> gradient) cache: on every ACCEPT path the
         # Wolfe algorithm evaluates derphi(a) right after phi(a) at the
@@ -290,6 +379,8 @@ def optimise_on_multi_sphere(
         # --- update + residual from pre-update gradient (ref :789-796) ---
         x_k = K.retract(x_k, alpha_k, d_k)
         error = K.residuals(g_k).cpu().numpy()
+        if method == "lbfgs":
+            lb_pending = (alpha_k, d_k, g_k)
 
         R.x_opt = x_k
         R.iterations += 1

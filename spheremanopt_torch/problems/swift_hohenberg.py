@@ -28,7 +28,10 @@ steps, with J bitwise the plain objective's.
 
 The gradient is reverse-mode autograd of the discrete forward — the
 reference's `Adjoint_type="Discrete"` adjoint — returned as the Riesz
-representative under the grid-mean inner product (factor n_grid). The
+representative under the grid-mean inner product (factor n_grid), or,
+with adjoint="continuous", the reference's continuous adjoint: the
+adjoint PDE integrated backward along the stored forward trajectory
+(first-order accurate in dt; a plain torch path for every method). The
 cost J = dt * sum_{n=0..N} (1/V)||u_n||^2 is Kahan-compensated.
 """
 
@@ -64,15 +67,14 @@ class SH23Config:
     pad_factor: float = 2.0      # Dedalus dealias=2
     dtype: str = "float64"
     method: str = "matmul"       # "matmul" | "fft" | "cuda" (f32 kernels)
-    adjoint: str = "discrete"    # "continuous" is not ported yet
+    adjoint: str = "discrete"    # "discrete" (autodiff-exact, the ref's
+                                 # Adjoint_type="Discrete") | "continuous"
+                                 # (adjoint-PDE integration, ref :654-656)
     diag_stride: int = 1         # energy-series cadence of the fused
                                  # diagnostics (any >= 1; a short final
                                  # chunk records its start energy and the
                                  # final step is always included);
                                  # `diagnostics()` stays per-step
-
-
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item {})"
 
 
 class SwiftHohenberg:
@@ -83,9 +85,6 @@ class SwiftHohenberg:
         check_choice("dtype", cfg.dtype, tuple(DTYPES))
         check_choice("method", cfg.method, ("matmul", "fft", "cuda"))
         check_choice("adjoint", cfg.adjoint, ("discrete", "continuous"))
-        if cfg.adjoint == "continuous":
-            raise NotImplementedError(
-                "adjoint='continuous' " + _NOT_PORTED.format(7))
         if cfg.diag_stride < 1:
             raise ValueError(f"diag_stride={cfg.diag_stride} must be >= 1")
         if cfg.method == "cuda" and cfg.dtype != "float32":
@@ -252,6 +251,30 @@ class SwiftHohenberg:
         return -J, {"kinetic_energy": energies.detach(),
                     "u_final": u_final.detach()}
 
+    def _gradient_continuous(self, x_list):
+        """Continuous-adjoint gradient (ref `ADJ_Solve_IVP_Lin` with
+        Adjoint_type='Continuous', `FWD_Solve_SH23.py:632-656,717-719`):
+        integrate dt(q) + Lap(q) - a q = (3.6 uf - 3 uf^2) q - 2 uf
+        backward along the stored forward trajectory u_1..u_N with
+        q(T) = 0, SBDF1 in reverse. First-order accurate in dt (Taylor
+        order 2 plateaus at the discretisation error; adjoint='discrete'
+        is exact)."""
+        dt = self.cfg.dt
+        with torch.no_grad():
+            c = self.basis.to_coeff(x_list[0].to(self.dtype))
+            q = torch.zeros_like(c)
+            snaps = []
+            for _ in range(self.cfg.n_iters):
+                c = self._sbdf1_step(c)
+                snaps.append(c)   # u_1..u_N: the adjoint consumes u_N..u_1
+            for uf_c in reversed(snaps):
+                uf = self.basis.to_grid(uf_c)
+                qg = self.basis.to_grid(q)
+                rhs_nl = self.basis.to_coeff((3.6 * uf - 3.0 * uf * uf) * qg
+                                             - 2.0 * uf)
+                q = (q / dt + rhs_nl) / (1.0 / dt + self._L)
+            return [self.basis.to_grid(q)]
+
     # ------------------------------------------------------------------
     # public triple
     # ------------------------------------------------------------------
@@ -261,12 +284,22 @@ class SwiftHohenberg:
             return self._objective_impl(list(x_list))
 
     def gradient(self, x_list):
+        if self.cfg.adjoint == "continuous":
+            return self._gradient_continuous(list(x_list))
         return self._gradient(list(x_list))
 
     def objective_and_gradient(self, x_list):
         """One fused forward+backward (J, Riesz gradient) — the
         reference's FWD-then-ADJ-with-shared-trajectory pattern
-        (`FWD_Solve_SH23.py:499-503` fill / `:688` consume)."""
+        (`FWD_Solve_SH23.py:499-503` fill / `:688` consume). Under
+        adjoint='continuous' there is no fused form (the continuous
+        adjoint is its own backward PDE integration, not the reverse of
+        the discrete forward), so the mode's gradient is paired with a
+        separate forward: the Wolfe search's fused phi never mixes the
+        two gradient definitions."""
+        if self.cfg.adjoint == "continuous":
+            return (self.objective(x_list),
+                    self._gradient_continuous(list(x_list)))
         J, raw = value_and_raw_gradient(self._objective_impl, list(x_list))
         return J, [g * self.basis.n_grid for g in raw]
 
@@ -300,7 +333,12 @@ class SwiftHohenberg:
         return J, self._diag_host(x_list, diag)
 
     def objective_gradient_and_diagnostics(self, x_list):
-        """(J, Riesz gradient, diagnostics) from one fused fwd+bwd solve."""
+        """(J, Riesz gradient, diagnostics) from one fused fwd+bwd solve
+        (under adjoint='continuous', the mode's own gradient beside the
+        diagnostics-carrying forward, as in `objective_and_gradient`)."""
+        if self.cfg.adjoint == "continuous":
+            J, diag = self.objective_and_diagnostics(x_list)
+            return J, self._gradient_continuous(list(x_list)), diag
         out = {}
 
         def objective(xs):

@@ -4,6 +4,8 @@ of the JAX package's `run.py`.
     python -m spheremanopt_torch.run sh23 --device cuda --method cuda --dtype float32
     python -m spheremanopt_torch.run sh23 --device cuda --dtype float64
     python -m spheremanopt_torch.run sh23 --test-grad      # Taylor test only
+    python -m spheremanopt_torch.run sh23 --direction lbfgs --lbfgs-memory 8
+    python -m spheremanopt_torch.run sh23 --dtype float64 --adjoint continuous
     python -m spheremanopt_torch.run shb23                 # kernels, f32, on a GPU
     python -m spheremanopt_torch.run shb23 --dtype float64 --adjoint continuous
     python -m spheremanopt_torch.run kdyn --cost Final     # kernels, f32, on a GPU
@@ -58,6 +60,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--alpha", type=float, default=None)
     ap.add_argument("--ls", choices=["wolfe", "armijo"], default="wolfe")
     ap.add_argument("--sd", action="store_true", help="steepest descent (no CG)")
+    ap.add_argument("--direction", choices=["sd", "cg", "lbfgs", "rtr"],
+                    default=None,
+                    help="search direction (default: cg, or sd with --sd; "
+                         "lbfgs = Riemannian L-BFGS; rtr is not ported yet)")
+    ap.add_argument("--lbfgs-memory", type=int, default=8,
+                    help="curvature-pair history length for --direction lbfgs")
     ap.add_argument("--test-grad", action="store_true", help="Taylor test, then exit")
     ap.add_argument("--test-grad-eps", type=float, default=1e-4)
     ap.add_argument("--quiet", action="store_true")
@@ -148,6 +156,10 @@ def optimise(problem, x0, defaults, args):
     """The host-loop optimisation exactly as `main` runs it."""
     from spheremanopt_torch.optim.optimiser import optimise_on_multi_sphere
 
+    if args.direction == "rtr":
+        raise NotImplementedError(
+            "--direction rtr: trust-region Newton is not ported yet "
+            "(ROADMAP Queue 1 item 13)")
     return optimise_on_multi_sphere(
         x0,
         problem.radii if hasattr(problem, "radii") else [1.0],
@@ -161,6 +173,8 @@ def optimise(problem, x0, defaults, args):
         alpha_k=args.alpha if args.alpha is not None else defaults["alpha"],
         line_search=args.ls,
         cg=not args.sd,
+        method=args.direction,
+        lbfgs_memory=args.lbfgs_memory,
         verbose=not args.quiet,
         log_path=os.path.join(args.out_dir, "optimize_result.txt"),
         f_and_g=getattr(problem, "objective_and_gradient", None),

@@ -15,6 +15,10 @@ Size: SH23 at npts=64 (mg=128), SHB23 at npts=96, n_iters=40. Tolerances:
   * f64 vs the JAX matmul path: rel 1e-12 (SH23's step u/dt is lin*u
     here, an ulp apart; nothing else differs).
   * the series variants: J and lambda bitwise equal to the plain ones.
+  * the operator cotangents with op_grads left at its default (True, as
+    in JAX): rel 1e-5 of `jax.grad` of the interpret-mode kernel.
+  * the lambda history and `op_grads_plain` against the step-by-step
+    op_grads sweeps in f64: rel 1e-12.
 The kernels themselves run only on the card: the `requires_cuda` cases
 hold them against the plain versions there and skip on the CPU. The
 machine with the card has no JAX, so JAX is imported only by the
@@ -111,6 +115,48 @@ def test_plain_f32_operator_cotangent_matches_interpret_kernel(sh23):
                                       op_grads=True)
     db_t, = torch.autograd.grad(J_t, b)
     assert _rel(db_t, db_j) < 1e-4
+
+
+def test_operator_gradient_by_default_matches_jax_grad(sh23):
+    """FusedObjectiveShared without an op_grads argument is differentiable
+    in B, as `fused_objective_shared` is with its default."""
+    _, db_j = _jax_kernel(sh23, 0, op_grads=True)
+    b, w, u0 = (torch.tensor(a) for a in _ops(sh23, torch.float32))
+    b.requires_grad_(True)
+    J = fk.FusedObjectiveShared.apply(b, w, u0, C2, C3, sh23["lin"], sh23["dt"], N)
+    db_t, = torch.autograd.grad(J, b)
+    assert _rel(db_t, db_j) < 1e-5
+
+
+@pytest.mark.parametrize("mode", ["shared", "two"])
+def test_lam_hist_and_op_grads_plain_match_step_by_step_f64(sh23, shb23, mode):
+    """The lambda history (the wrappers on CPU tensors: the plain sweeps)
+    and `op_grads_plain` give the operator cotangents of the step-by-step
+    op_grads sweeps (f64, rel 1e-12), with lambda_0 unchanged by the
+    history."""
+    scale = torch.tensor(-0.1, dtype=torch.float64)
+    if mode == "shared":
+        b, w, u0 = (torch.as_tensor(a) for a in _ops(sh23, torch.float64))
+        uT, _, traj, _ = fk.fused_fwd_shared_plain(b, w, u0, C2, C3, sh23["lin"], N)
+        args = (b, w, uT, traj, C2, C3, sh23["lin"], scale, N)
+        lam_s, *want = fk.fused_bwd_shared_plain(*args, op_grads=True)
+        bwd, c, lin = fk.fused_bwd_shared, (C2, C3), sh23["lin"]
+    else:
+        a, b, w, u0 = (torch.as_tensor(x) for x in _ops2(shb23, torch.float64))
+        uT, _, traj, _ = fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, N)
+        args = (a, b, w, uT, traj, C2B, C3B, scale, N)
+        lam_s, *want = fk.fused_bwd_plain(*args, op_grads=True)
+        bwd, c, lin = fk.fused_bwd, (C2B, C3B), 0.0
+    hist = torch.full_like(traj, float("nan"))
+    lam_h = bwd(*args, lam_hist=hist)[0]
+    assert torch.equal(lam_h, bwd(*args)[0]) and torch.equal(lam_h, lam_s)
+    assert torch.equal(hist[-1], scale * (w * uT))   # lambda_N
+    got = fk.op_grads_product(hist, traj, mode, *c, lin)   # CPU: the plain version
+    assert len(got) == len(want) == (1 if mode == "shared" else 2)
+    for g, x in zip(got, want):
+        assert _rel(g, x) < 1e-12
+    with pytest.raises(ValueError, match="mode"):
+        fk.op_grads_plain(hist, traj, "three", *c, lin)
 
 
 def test_plain_sweeps_match_interpret_kernel_directly(sh23):
@@ -291,6 +337,19 @@ def test_two_matrix_operator_cotangents_match_interpret_kernel(shb23):
     assert _rel(db_t, db_j) < 1e-4
 
 
+def test_two_matrix_operator_gradients_by_default_match_jax_grad(shb23):
+    """FusedObjective without an op_grads argument gives (dA, dB), as
+    `fused_objective` does with its default."""
+    _, (da_j, db_j) = _jax_kernel2(shb23, (0, 1), op_grads=True)
+    a, b, w, u0 = (torch.tensor(x) for x in _ops2(shb23, torch.float32))
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    J = fk.FusedObjective.apply(a, b, w, u0, C2B, C3B, shb23["dt"], N)
+    da_t, db_t = torch.autograd.grad(J, (a, b))
+    assert _rel(da_t, da_j) < 1e-5
+    assert _rel(db_t, db_j) < 1e-5
+
+
 def test_two_matrix_plain_f64_matches_jax_matmul_path(shb23):
     p = shb23["p"]
     J_j, g_j = p.objective_and_gradient([shb23["u0"]])
@@ -410,9 +469,38 @@ def test_kernel_wrappers_reject_what_they_cannot_run(cuda):
     with pytest.raises(TypeError, match="float32"):
         fk.fused_fwd_shared(b, w, u, C2, C3, 1.0, 4)
     traj = torch.zeros(4, 128, device=cuda)
-    with pytest.raises(NotImplementedError, match="op_grads"):
-        fk.fused_bwd_shared(b, w, w, traj, C2, C3, 1.0, torch.zeros((), device=cuda),
-                            4, op_grads=True)
+    with pytest.raises(ValueError, match="lam_hist"):
+        fk.op_grads_product(traj[:3], traj, "shared", C2, C3, 1.0)
+    with pytest.raises(ValueError, match="mode"):
+        fk.op_grads_product(traj, traj, "three", C2, C3, 1.0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("npts", [128, 512])
+def test_op_grads_kernels_match_plain_on_card(cuda, npts):
+    """op_grads=True on the card: the reverse kernel with its lambda
+    history, then the product kernel, vs the step-by-step plain f32 sweep
+    on the same inputs (rel 1e-4); lambda_0 bitwise that of the kernel
+    without the history."""
+    p = TSH(TConfig(npts=npts, dtype="float32", method="cuda"), device=cuda)
+    mg = p.basis.n_grid
+    x = torch.as_tensor(np.random.RandomState(1).randn(mg), dtype=torch.float32,
+                        device=cuda)
+    b, w = p._Mt.float().contiguous(), torch.full((mg,), 1.0 / mg, device=cuda)
+    u0 = torch.mv(p._Pt.float(), x) * 0.3
+    lin, n = 1.0 / p.cfg.dt, 200
+    uT, _, tr, _ = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n)
+    scale = torch.tensor(-0.1, device=cuda)
+    fk.reset_launches()
+    lk, dbk = fk.fused_bwd_shared(b, w, uT, tr, C2, C3, lin, scale, n, op_grads=True)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        "fused_bwd_shared_ops": 1, "op_grads": 1}
+    l0, _ = fk.fused_bwd_shared(b, w, uT, tr, C2, C3, lin, scale, n)
+    lr, dbr = fk.fused_bwd_shared_plain(b, w, uT, tr, C2, C3, lin, scale, n,
+                                        op_grads=True)
+    assert torch.equal(lk, l0)
+    assert _rel(lk.cpu(), lr.cpu()) < 1e-4 and _rel(dbk.cpu(), dbr.cpu()) < 1e-4
 
 
 def _card_shb23(cuda, npts):
@@ -472,8 +560,36 @@ def test_two_matrix_wrappers_reject_what_they_cannot_run(cuda):
     a = torch.zeros(128, 128, device=cuda)
     w = u = torch.zeros(128, device=cuda)
     traj = torch.zeros(4, 128, device=cuda)
-    with pytest.raises(NotImplementedError, match="op_grads"):
-        fk.fused_bwd(a, a, w, u, traj, C2B, C3B, torch.zeros((), device=cuda), 4,
+    with pytest.raises(ValueError, match="traj"):
+        fk.fused_bwd(a, a, w, u, traj[:3], C2B, C3B, torch.zeros((), device=cuda), 4,
                      op_grads=True)
     with pytest.raises(ValueError, match="shapes"):
         fk.fused_fwd(a, a[:64], w, u, C2B, C3B, 4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("npts", [128, 512])
+def test_two_matrix_op_grads_kernels_match_plain_on_card(cuda, npts):
+    """Two-matrix op_grads=True on the card (history sweep, then the
+    product kernel) vs the step-by-step plain f32 sweep: lambda_0, dA and
+    dB rel 1e-4; lambda_0 bitwise the kernel's without the history; the
+    autograd Function gives the same (dA, dB) by default."""
+    a, b, w, u0 = _card_shb23(cuda, npts)
+    n = 300
+    uT, _, tr, _ = fk.fused_fwd(a, b, w, u0, C2B, C3B, n)
+    scale = torch.tensor(-0.02, device=cuda)
+    fk.reset_launches()
+    lk, dak, dbk = fk.fused_bwd(a, b, w, uT, tr, C2B, C3B, scale, n, op_grads=True)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        "fused_bwd_ops": 1, "op_grads": 1}
+    l0 = fk.fused_bwd(a, b, w, uT, tr, C2B, C3B, scale, n)[0]
+    lr, dar, dbr = fk.fused_bwd_plain(a, b, w, uT, tr, C2B, C3B, scale, n,
+                                      op_grads=True)
+    assert torch.equal(lk, l0)
+    for got, want in [(lk, lr), (dak, dar), (dbk, dbr)]:
+        assert _rel(got.cpu(), want.cpu()) < 1e-4
+    ar, br = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    J = fk.FusedObjective.apply(ar, br, w, u0, C2B, C3B, 0.01, n)   # scale -2 dt
+    da, db = torch.autograd.grad(J, (ar, br))
+    assert torch.equal(da, dak) and torch.equal(db, dbk)

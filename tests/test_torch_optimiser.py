@@ -109,7 +109,6 @@ def test_sh23_host_loop_trajectory_matches_jax(one_thread):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(method="lbfgs"), "lbfgs"),
     (dict(checkpoint_path="DAL_PROGRESS.npz"), "checkpoint_path"),
 ])
 def test_unported_options_raise(kw, match):

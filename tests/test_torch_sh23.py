@@ -5,11 +5,13 @@ size (npts=64, n_iters=40). Tolerances in f64:
   * J rel 1e-12 and Riesz gradient rel 1e-10 for "matmul" and "fft" —
     the same operations in another summation order (matvec, FFT), whose
     ulp differences the gradient's reverse sweep amplifies a little;
+  * the continuous-adjoint gradient rel 1e-12 (the same FFT recursion);
   * generate_ic from JAX's noise rel 1e-12 (100 FFT prep steps);
   * the step operators bitwise (the same numpy code).
-The pinned file `baselines/sh23_port_ref.npz` is checked against what
-the JAX package computes now at the full config: x0 and J/grad at x0
-(the whole trajectories are not re-run here).
+The pinned files `baselines/sh23_port_ref.npz` and
+`baselines/sh23_ext_port_ref.npz` are checked against what the JAX
+package computes now at the full config: x0, J/grad and the continuous
+gradient at x0 (the whole trajectories are not re-run here).
 """
 
 import os
@@ -163,13 +165,41 @@ def test_cuda_method_needs_float32():
         TSH(TConfig(method="cuda", dtype="float64", **SMALL), device="cpu")
 
 
-@pytest.mark.parametrize("call", [
-    lambda p, x: TSH(TConfig(adjoint="continuous", **SMALL), device="cpu"),
-], ids=["continuous"])
-def test_unported_paths_raise_with_their_roadmap_item(call):
-    p = TSH(TConfig(**SMALL), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        call(p, p.generate_ic())
+@pytest.mark.parametrize("method", ["matmul", "fft"])
+def test_continuous_gradient_matches_jax_f64(method):
+    cfg = dict(adjoint="continuous", method=method, **SMALL)
+    jp, tp = JSH(JConfig(**cfg)), TSH(TConfig(**cfg), device="cpu")
+    x = _x(jp.basis.n_grid)
+    g_j = np.asarray(jp.gradient([jnp.asarray(x)])[0])
+    g_t = tp.gradient(state_to_torch([x], "cpu"))[0]
+    assert g_t.dtype == torch.float64
+    assert _rel(g_t, g_j) < 1e-12
+
+
+def test_continuous_mode_objective_and_gradient_dispatch():
+    """Port of the JAX package's test of the same name: under
+    adjoint='continuous', `objective_and_gradient` and the fused
+    diagnostics form serve the continuous gradient (= `gradient()`), not
+    the discrete one, so a Wolfe search never mixes the two. method="cuda"
+    takes the same plain path (no kernel launch)."""
+    p = TSH(TConfig(npts=64, n_iters=30, dt=0.05, adjoint="continuous"),
+            device="cpu")
+    x0 = p.generate_ic(seed=4)
+    g_ref = p.gradient(x0)[0]
+    g_disc = p._gradient(list(x0))[0]
+    assert not torch.allclose(g_ref, g_disc)
+    J_f, g_f = p.objective_and_gradient(x0)
+    assert float(J_f) == float(p.objective(x0))
+    assert torch.equal(g_f[0], g_ref)
+    _, g_fd, _ = p.objective_gradient_and_diagnostics(x0)
+    assert torch.equal(g_fd[0], g_ref)
+    cfg = dict(npts=64, n_iters=30, dtype="float32", adjoint="continuous")
+    x32 = [x0[0].float()]
+    fk.reset_launches()
+    g_k = TSH(TConfig(method="cuda", **cfg), device="cpu").objective_and_gradient(x32)[1]
+    assert not any(fk.LAUNCHES.values())
+    assert torch.equal(g_k[0], TSH(TConfig(method="fft", **cfg),
+                                   device="cpu").gradient(x32)[0])
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +248,19 @@ def test_pinned_objective_and_gradient_match_jax_now(ref, dtype, method):
     J, g = p.objective_and_gradient([jnp.asarray(ref[f"x0_{tag}"])])
     assert _rel(J, ref[f"J_{tag}"]) < _PIN_RTOL[dtype]
     assert _rel(g[0], ref[f"g_{tag}"]) < 100 * _PIN_RTOL[dtype]
+
+
+def test_pinned_continuous_gradient_matches_jax_now_and_the_port():
+    """gc_f64 of baselines/sh23_ext_port_ref.npz at x0_f64 (full config)."""
+    ext = np.load(os.path.join(BASELINES, "sh23_ext_port_ref.npz"))
+    x0 = np.load(REF)["x0_f64"]
+    g_j = JSH(JConfig(adjoint="continuous")).gradient([jnp.asarray(x0)])[0]
+    g_t = TSH(TConfig(adjoint="continuous"), device="cpu").gradient(
+        state_to_torch([x0], "cpu"))[0]
+    assert _rel(g_j, ext["gc_f64"]) < 1e-12
+    assert _rel(g_t, ext["gc_f64"]) < 1e-12
+    assert int(ext["iters_f64_lbfgs"]) == len(ext["fv_f64_lbfgs"]) \
+        == len(ext["steps_f64_lbfgs"])
 
 
 def test_port_reproduces_pinned_f64_at_full_config(ref, one_thread):

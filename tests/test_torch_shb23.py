@@ -271,7 +271,6 @@ def test_cli_shb23_defaults_mirror_the_jax_cli():
                                          "--method", "fft"])
     with pytest.raises(SystemExit, match="fft"):
         run.make_problem(bad)
-    sh = run.build_parser().parse_args(["sh23", "--device", "cpu",
+    sh = run.build_parser().parse_args(["sh23", "--device", "cpu", "--npts", "32",
                                         "--adjoint", "continuous"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        run.make_problem(sh)
+    assert run.make_problem(sh)[0].cfg.adjoint == "continuous"
