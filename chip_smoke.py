@@ -37,7 +37,10 @@ Phases, one line each; any failure exits non-zero without a result line:
   G  SH23 f32 workload through the kernels (method=cuda): a main path,
      then a torch.profiler trace of a second run
   H  SHB23 kernels vs plain f32 vs plain f64, full width; the series
-     variants of both forwards bitwise the plain ones (J, u_T, lambda)
+     variants of both forwards bitwise the plain ones (J, u_T, lambda);
+     the forward's one-block route (mg > 640) at mg = 1024, N = 200: a
+     main path of its own through the fused objectives, against plain
+     f32, bitwise across the series variants, timed
   I  CUDA-event timings: the SHB23 sweeps, both series forwards and the
      SHB23 fwd+grad unit, kernel vs plain
   J  Taylor test of the SHB23 f64 plain path
@@ -63,7 +66,9 @@ Phases, one line each; any failure exits non-zero without a result line:
      f64 versions; lambda_0 bitwise the sweep's without the history;
      CUDA-event timings of the sweeps with and without the history and
      of the whole gradient beside the u0-only one; the product kernels
-     beside torch.matmul, each in a CUDA graph (no host time per call)
+     beside torch.matmul, each in a CUDA graph (no host time per call);
+     the product's bound is 3xTF32 at the tensor cores' TF32 peak; a
+     torch.profiler trace of one gradient of each
   T  SH23 L-BFGS: the f32 kernel workload (method=cuda, a main path) and
      the f64 workload (method=matmul) vs the pinned JAX f64 trajectory;
      the f64 continuous-adjoint gradient vs JAX's pinned one
@@ -124,8 +129,10 @@ TOL_CONT_F64 = 1e-10
 # the JAX package's bench record (iterations, J): another workload, with
 # unprojected gradients through its device-resident optimiser loop
 KDYN_BENCH_END = (10, 2.518)
-# H100 SXM data-sheet peaks (dense f32 outside the tensor cores, HBM3)
-F32_PEAK, HBM_RATE = 67e12, 3.35e12
+# H100 SXM data-sheet peaks (dense f32 outside the tensor cores, dense
+# TF32 on the tensor cores, HBM3)
+F32_PEAK, TF32_PEAK, HBM_RATE = 67e12, 495e12, 3.35e12
+BLOCK_MG, BLOCK_N = 1024, 200   # the one-block forward route's check (H)
 PALLAS = "spheremanopt_tpu/ops/pallas/fused_two_matrix.py"
 PALLAS_K = "spheremanopt_tpu/ops/pallas/kdyn_step.py"
 LAUNCH_TABLES = (fk, kd)   # modules that count their kernels' launches
@@ -136,6 +143,8 @@ REPLACES = {
     "fused_bwd_shared": f"{PALLAS}:185",        # _bwd_kernel_shared
     "fused_fwd": f"{PALLAS}:60",                # _fwd_kernel
     "fused_fwd_ser": f"{PALLAS}:60",            # same, has_ser=True
+    "fused_fwd_block": f"{PALLAS}:60",          # same, mg > 640
+    "fused_fwd_block_ser": f"{PALLAS}:60",      # same, mg > 640, has_ser=True
     "fused_bwd": f"{PALLAS}:102",               # _bwd_kernel
     "kdyn_fwd": f"{PALLAS_K}:411",              # _fwd_kernel
     "kdyn_fwd_traj": f"{PALLAS_K}:201",         # _fwd_traj_kernel
@@ -214,10 +223,12 @@ def hist_work(mg, n_steps, n_mats):
 
 
 def op_grads_work(mg, n_steps, n_out):
-    """(flop, bytes) of the operator-cotangent product: 2 mg^2 N flop per
-    output (f(u) elementwise aside); the history and the trajectory read
-    once, the outputs written once."""
-    return 2 * mg * mg * n_steps * n_out, 4 * (2 * n_steps * mg + n_out * mg * mg)
+    """(flop, bytes, peak) of the operator-cotangent product at f32
+    accuracy on the tensor cores: 3xTF32, three TF32 products of 2 mg^2 N
+    flop per output (f(u) elementwise aside) at the TF32 peak; the
+    history and the trajectory read once, the outputs written once."""
+    return (3 * 2 * mg * mg * n_steps * n_out,
+            4 * (2 * n_steps * mg + n_out * mg * mg), TF32_PEAK)
 
 
 def kdyn_work(n, mg, n_steps, fwd, traj):
@@ -245,10 +256,10 @@ def kdyn_work(n, mg, n_steps, fwd, traj):
     return n_steps * step, 4 * floats
 
 
-def bound(flop, nbytes):
+def bound(flop, nbytes, peak=F32_PEAK):
     """(ms, "bytes" | "operations"): the larger of bytes over the HBM rate
-    and flop over the f32 peak."""
-    t_ops, t_bytes = flop / F32_PEAK, nbytes / HBM_RATE
+    and flop over `peak` (default the f32 peak outside the tensor cores)."""
+    t_ops, t_bytes = flop / peak, nbytes / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -328,17 +339,23 @@ class Smoke:
                    f"main-path launches {launched}")
         return out
 
+    def print_trace(self, phase, what, fn):
+        """Trace one call of `fn` and print its wall and device-busy time,
+        idle share and the kernels that took the most device time."""
+        wall, busy, rows = trace(fn)
+        top = "; ".join(f"{k[:40]} {ms:.3f} ms x{n}" for k, ms, n in rows[:4])
+        idle = f"{100 * (1 - busy / wall):.1f} %" if busy > 0 else "not measured"
+        print(f"[{phase}] trace of {what}: wall {1e3 * wall:.3f} ms, device busy "
+              f"{1e3 * busy:.3f} ms, idle share {idle}; by kernel: {top} "
+              f"({len(rows)} kernel names) [{self.card}]", flush=True)
+
     def report_trace(self, phase, problem, x0):
         """Trace a second run of the f32 kernel workload (the optimisation
         only; the problem is built before)."""
         args = problem_args(problem, "float32", "cuda")
         p, x, defaults = cli.make_problem(args, x0=x0)
-        wall, busy, rows = trace(lambda: cli.optimise(p, x, defaults, args))
-        top = "; ".join(f"{k[:40]} {ms:.1f} ms x{n}" for k, ms, n in rows[:4])
-        idle = f"{100 * (1 - busy / wall):.1f} %" if busy > 0 else "not measured"
-        print(f"[{phase}] trace of a second run: wall {wall:.3f} s, device busy "
-              f"{busy:.3f} s, idle share {idle}; by kernel: {top} "
-              f"({len(rows)} kernel names) [{self.card}]", flush=True)
+        self.print_trace(phase, "a second run",
+                         lambda: cli.optimise(p, x, defaults, args))
 
     # -- SH23 ---------------------------------------------------------------
 
@@ -569,6 +586,52 @@ class Smoke:
                    f"SHB23 vs plain f64: kernel rel_J {relJ:.3e} rel_g {relg:.3e} "
                    f"(plain f32: rel_J {relJm:.3e} rel_g {relgm:.3e}), tol "
                    f"{TOL_VS_F64:g} / {TOL_G_VS_F64_SHB:g}")
+        self.block_route(p.cfg.dt)
+
+    def block_route(self, dt):
+        """The two-matrix forward above the cluster's width: SHB23's
+        operators at npts = 1024 take the one-block kernel. Its main path
+        is the fused objectives (J, and J with the series); then the
+        kernel against plain f32 and across the series variants, and its
+        time."""
+        q, _, _ = cli.make_problem(problem_args("shb23", "float32", "cuda", "--npts",
+                                                str(BLOCK_MG)))
+        ops = operators_to_torch(shb23_operators(q), q.device)
+        a, b, w = ops["a32"], ops["b32"], ops["w32"]
+        u0 = q.generate_ic(seed=42)[0]
+        n = BLOCK_N
+        J, (Jd, ser, _) = self.main_path(
+            "H", ("fused_fwd_block", "fused_fwd_block_ser"),
+            lambda: (fk.FusedObjective.apply(a, b, w, u0, C2B, C3B, dt, n, False),
+                     fk.FusedObjectiveDiag.apply(a, b, w, u0, C2B, C3B, dt, n, False)))
+        k = fk.fused_fwd(a, b, w, u0, C2B, C3B, n)
+        ks = fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True)
+        r = fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n, store_series=True)
+        torch.cuda.synchronize()
+        pairs, ser_pairs = list(zip(k[:3], r[:3])), list(zip(ks, r))
+        e = max(rel(x, y) for x, y in pairs + ser_pairs + [(J, -dt * r[1])])
+        same = ([torch.equal(x, y) for x, y in zip(k[:3], ks[:3])]
+                + [torch.equal(J, Jd), torch.equal(ser, ks[3])])
+        self.kernels["fused_fwd_block"]["max_abs_err"] = max_abs(pairs)
+        self.kernels["fused_fwd_block_ser"]["max_abs_err"] = max_abs(ser_pairs)
+        f_pl, f_k = interleaved_ms(
+            lambda: fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n),
+            lambda: fk.fused_fwd(a, b, w, u0, C2B, C3B, n), 2, 10)
+        fs_pl, fs_k = interleaved_ms(
+            lambda: fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n, store_series=True),
+            lambda: fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True), 2, 10)
+        self.kernels["fused_fwd_block"].update(
+            ms=f_k, plain_ms=f_pl, work=sweep_work(BLOCK_MG, n, 2, fwd=True))
+        self.kernels["fused_fwd_block_ser"].update(
+            ms=fs_k, plain_ms=fs_pl,
+            work=sweep_work(BLOCK_MG, n, 2, fwd=True, ser=True))
+        self.check("H", fk.fwd_route(BLOCK_MG) == "block" and e <= TOL_VS_PLAIN
+                   and all(same),
+                   f"[{self.card}] one-block forward route (mg={a.shape[0]}, N={n}): "
+                   f"vs plain f32 (u_T, J, traj, series, the objective's J) rel "
+                   f"{e:.2e} (tol {TOL_VS_PLAIN:g}); series variant and the "
+                   f"objectives bitwise: {same}; sweep {f_k:.3f} ms vs plain "
+                   f"{f_pl:.3f} ms, with series {fs_k:.3f} vs {fs_pl:.3f} ms")
 
     def phase_i(self):
         a, b, w, u0, n = self.shb_sweep
@@ -955,19 +1018,21 @@ class Smoke:
         for tag, mg_, n_, n_out in (("SH23", mg, n, 1), ("SHB23", mg2, n2, 2)):
             (s0, s1), (p0, p1), (u0_ms, u1_ms) = (t[tag, "sweep"], t[tag, "prod"],
                                                    t[tag, "unit"])
-            pb, _ = bound(*op_grads_work(mg_, n_, n_out))
+            pb, _ = bound(*op_grads_work(mg_, n_, n_out))   # 3xTF32
             pd, ld = t[tag, "prod_dev"], t[tag, "lib_dev"]
             self.check("S", True,
                        f"[{self.card}] {tag} reverse sweep without the history "
                        f"{s0:.3f} ms, with it {s1:.3f} ms ({100 * (s1 / s0 - 1):+.2f} %), "
                        f"plain with it {t[tag, 'hist_plain']:.3f} ms; op_grads product "
-                       f"kernels in a CUDA graph {1e3 * pd:.1f} us a call (bound "
+                       f"kernels in a CUDA graph {1e3 * pd:.1f} us a call (3xTF32 bound "
                        f"{1e3 * pb:.1f} us, {100 * pb / pd:.1f} % of it) vs torch.matmul "
                        f"{1e3 * ld:.1f} us; "
                        f"per call with the host (CUDA events) {1e3 * p1:.1f} vs "
                        f"{1e3 * t[tag, 'lib']:.1f} us; plain loop {p0:.3f} ms; gradient in "
                        f"u0 {u0_ms:.3f} ms, in u0 and the operators {u1_ms:.3f} ms "
                        f"({100 * (u1_ms / u0_ms - 1):+.2f} %)")
+        for tag, fn in (("SH23", sh23), ("SHB23", shb23)):
+            self.print_trace("S", f"one {tag} gradient in u0 and the operators", fn)
 
     # -- L-BFGS and the continuous adjoint ------------------------------------
 

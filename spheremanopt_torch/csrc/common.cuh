@@ -1,5 +1,5 @@
 // Helpers shared by the fused integrators (fused_shared.cu,
-// fused_two_matrix.cu, kdyn_step.cu): block-wide sums, the Kahan step, the energy
+// fused_two_matrix.cu, kdyn_step.cu) and op_grads.cu: block-wide sums, the Kahan step, the energy
 // term and the reverse step's terms, each written once with its rounding
 // pinned, so that both instantiations of a forward kernel (with and
 // without the energy series) give the same J, and both of a reverse
@@ -64,6 +64,22 @@ __device__ __forceinline__ float block_sum(float part, float* red) {
   float total = 0.f;
   if (warp == 0) total = warp_sum(lane < kNumWarps ? red[lane] : 0.f);
   return total;
+}
+
+constexpr int kMaxDevices = 64;
+
+// Runs `set` (a kernel's cudaFuncSetAttribute calls) the first time it is
+// reached for the current device; `done` is the caller's static flags.
+// Setting the attributes on every launch added ~30 us of host time to
+// each call of the operator-cotangent product, as much as its kernels.
+template <typename F>
+cudaError_t set_once(bool (&done)[kMaxDevices], F set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
+  err = set();
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
 }
 
 }  // namespace smo

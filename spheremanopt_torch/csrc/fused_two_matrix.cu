@@ -2,8 +2,10 @@
 //
 // Replaces the TPU (Pallas) kernels of the JAX package's
 // ops/pallas/fused_two_matrix.py:
-//   sm_fused_fwd  <- _fwd_kernel (_run_fwd; has_traj and has_ser as the
-//                    traj / ser pointers)
+//   sm_fused_fwd, sm_fused_fwd_block
+//                 <- _fwd_kernel (_run_fwd; has_traj and has_ser as the
+//                    traj / ser pointers): the cluster route and the
+//                    one-block route of the same forward
 //   sm_fused_bwd  <- _bwd_kernel (_run_bwd); with op_grads it stores the
 //                    lambda history that op_grads.cu turns into dA and dB
 //                    (the `lam_hist` pointer)
@@ -14,23 +16,44 @@
 // mg = 512, over 2000 sequential steps.
 //
 // What bounds them on an H100: each step is two batch-1 GEMVs, and the
-// steps depend on each other. The TPU kernel keeps both matrices in
-// VMEM; one SM's 227 KB of shared memory holds neither, so here A and B
-// stay in global memory and, after the first step, in the 50 MB L2.
-// One thread block runs the whole solve in one launch, as on the TPU:
-// each step one SM reads 2 MiB out of L2 at about 2 flop per 4 bytes,
-// so the kernel is bound by one SM's L2 read rate and the step-to-step
-// dependency, not by arithmetic. What the design does about it:
-//   * the forward reads row r of A and of B in one pass (one warp per
-//     row, float4 loads, neighbouring lanes on neighbouring addresses),
-//     so u and g(u) each come out of shared memory once per row;
-//   * the reverse sweep computes A^T lambda and B^T lambda in the same
-//     column-partitioned loop as the shared-matrix reverse kernel, with
-//     one lambda read per row for both products;
-//   * the state (u ping-pong, g, w, lambda) lives in shared memory; only
-//     A, B and the trajectory rows touch device memory.
-// Splitting A and B over a 16-CTA thread-block cluster is the later,
-// faster design.
+// steps depend on each other, so a step's time is latency: reading
+// 2 MiB of A and B (at mg = 512) and passing one barrier. Its arithmetic,
+// 2 * 2 mg^2 flop, takes ~16 ns at the card's f32 peak; the sweep's bound
+// is 31.5 us of operations.
+//
+// sm_fused_fwd (forward, mg <= 640): one thread-block cluster of 16 CTAs
+// on 16 SMs. The TPU kernel keeps both matrices in VMEM for the whole
+// solve; one SM's 227 KB of shared memory holds neither, but 16 SMs hold
+// both: CTA rank r keeps rows [r mg/16, (r+1) mg/16) of A and of B in its
+// shared memory (2 x 64 KB at mg = 512) for all N steps, and every CTA
+// keeps all of u (ping-pong), g and w. A step:
+//   * every CTA forms g = c2 u^2 + c3 u^3 from its full copy of u;
+//   * each warp computes its rows' dot products in the lane and k order
+//     of the one-block kernel below (fwd_dot4), so u, the trajectory and
+//     J come out bitwise equal to it;
+//   * each row's value goes into every CTA's next-u buffer through
+//     distributed shared memory (lane l < 16 stores to rank l), and one
+//     cluster.sync() a step publishes it (u is double-buffered, so one
+//     barrier is enough);
+//   * the trajectory: each CTA stores its own slice of the row; J and
+//     the series: rank 0, from its local u, with the one-block kernel's
+//     1024-thread reduction tree (energy_partials), its last level
+//     overlapped with rank 0's share of the product.
+// A and B are read once from device memory; a step reads ~160 KB of
+// shared memory per SM (the rows, then u and g once per warp) and passes
+// one cluster barrier: 2.2 us a step on an H100 SXM at 700 W, against
+// 21 us for the one-block kernel at mg = 512.
+// The cluster holds the operators while 2 mg^2 4 / 16 bytes fit one SM
+// (mg <= 640); a larger mg takes sm_fused_fwd_block, one thread block
+// that streams A and B from the 50 MB L2 every step (one warp per row,
+// float4 loads), bound by one SM's L2 read rate (~191 GB/s measured).
+// The wrapper chooses by shape; each route launches its kernel or fails.
+//
+// sm_fused_bwd (reverse): one thread block; A and B stay in global
+// memory and L2. It computes A^T lambda and B^T lambda in the same
+// column-partitioned loop as the shared-matrix reverse kernel, with one
+// lambda read per row for both products; the state (lambda, partials)
+// lives in shared memory.
 //
 // The energy series is a template flag, chosen from the `ser` pointer at
 // launch, as in fused_shared.cu (a runtime test sits on thread 0's
@@ -40,20 +63,40 @@
 // rounding pinned in common.cuh, lambda_0 is bitwise the same in both
 // instantiations.
 //
-// Both functions launch on the given stream, do not synchronise, and
-// return cudaGetLastError(). The caller guarantees mg % 128 == 0,
-// 128 <= mg <= 2048, contiguous f32 buffers on one device.
+// The launchers launch on the given stream, do not synchronise, and
+// return cudaGetLastError() (or the launch's error). The caller
+// guarantees mg % 128 == 0, 128 <= mg <= 2048 (sm_fused_fwd: mg <= 640),
+// contiguous f32 buffers on one device.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using smo::kThreads;
 using smo::kWarps;
 
-// Forward: N steps; J_sum = Kahan sum over n = 0..N of sum_j w_j u_n,j^2.
-// traj (N rows) is written when non-null, ser (N + 1 energies) when
-// kSeries. Shared memory: u[2][mg] (ping-pong), g[mg], w[mg], red[32].
+// g(u) = c2 u^2 + c3 u^3 and one float4 of a row's dot products with u
+// and g(u): written once for both forward kernels, so the cluster's u
+// is bitwise the one-block kernel's.
+__device__ __forceinline__ float g_poly(float c2, float c3, float u) {
+  return c2 * u * u + c3 * u * u * u;
+}
+
+__device__ __forceinline__ float fwd_dot4(float s, const float4 aa, const float4 uu,
+                                          const float4 bb, const float4 gg) {
+  s += aa.x * uu.x + aa.y * uu.y + aa.z * uu.z + aa.w * uu.w;
+  s += bb.x * gg.x + bb.y * gg.y + bb.z * gg.z + bb.w * gg.w;
+  return s;
+}
+
+// Forward, one block (sm_fused_fwd_block): N steps; J_sum = Kahan sum
+// over n = 0..N of sum_j w_j u_n,j^2. traj (N rows) is written when
+// non-null, ser (N + 1 energies) when kSeries. Shared memory: u[2][mg]
+// (ping-pong), g[mg], w[mg], red[32].
 template <bool kSeries>
 __global__ void __launch_bounds__(kThreads)
 fused_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -87,7 +130,7 @@ fused_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
       const float uj = u[j];
       part = smo::add_energy(part, ws[j], uj);
       if (traj != nullptr) traj[(size_t)n * mg + j] = uj;
-      g[j] = c2 * uj * uj + c3 * uj * uj * uj;
+      g[j] = g_poly(c2, c3, uj);
     }
     const float e = smo::block_sum(part, red);  // its __syncthreads publishes g
     if (tid == 0) {
@@ -102,12 +145,7 @@ fused_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
       float s = 0.f;
 #pragma unroll 4
       for (int k = lane; k < mg4; k += 32) {
-        const float4 aa = __ldg(arow + k);
-        const float4 bb = __ldg(brow + k);
-        const float4 uu = u4[k];
-        const float4 gg = g4[k];
-        s += aa.x * uu.x + aa.y * uu.y + aa.z * uu.z + aa.w * uu.w;
-        s += bb.x * gg.x + bb.y * gg.y + bb.z * gg.z + bb.w * gg.w;
+        s = fwd_dot4(s, __ldg(arow + k), u4[k], __ldg(brow + k), g4[k]);
       }
       s = smo::warp_sum(s);
       if (lane == 0) un[r] = s;
@@ -129,6 +167,212 @@ fused_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
     if constexpr (kSeries) ser[n_steps] = eN;
     smo::kahan_add(acc, comp, eN);
     *jsum = acc;
+  }
+}
+
+// Forward, one cluster (sm_fused_fwd): the same recurrence, J and
+// outputs as fused_fwd_kernel, on kClusterCtas CTAs of kClusterThreads
+// threads, mg = 128 R. Each warp owns R rows (rank's rows warp, warp + 8,
+// ...) and a lane R float4s of each: those of k = lane + 32 i, the
+// one-block kernel's k order. Shared memory: A rows, B rows (8 R x mg
+// each), u[2][mg], g[mg], w[mg], red[32].
+constexpr int kClusterCtas = 16;
+constexpr int kClusterThreads = 256;
+constexpr int kClusterWarps = kClusterThreads / 32;
+constexpr int kRefWarps = kThreads / 32;   // the one-block kernel's reduction tree
+
+__host__ __device__ constexpr size_t cluster_smem_bytes(int R) {
+  return (2 * (size_t)(8 * R) * (128 * R) + 4 * (size_t)(128 * R) + 32) * sizeof(float);
+}
+
+// sum_j w_j u_j^2 as fused_fwd_kernel's block_sum forms it (thread j of
+// 1024 holds w_j u_j^2, then warp sums, then a sum of the 32 warp sums),
+// with this block's warps standing in for the 1024-thread block's: the
+// warp sums go to red[32]. A __syncthreads must pass before red is read.
+__device__ __forceinline__ void energy_partials(const float* u, const float* ws, int mg,
+                                                float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int kPer = kRefWarps / kClusterWarps;
+  float p[kPer];
+#pragma unroll
+  for (int v = 0; v < kPer; ++v) {
+    const int j = (warp + v * kClusterWarps) * 32 + lane;
+    p[v] = j < mg ? smo::add_energy(0.f, ws[j], u[j]) : 0.f;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int v = 0; v < kPer; ++v) p[v] += __shfl_xor_sync(0xffffffffu, p[v], off);
+  if (lane == 0)
+#pragma unroll
+    for (int v = 0; v < kPer; ++v) red[warp + v * kClusterWarps] = p[v];
+}
+
+template <bool kSeries, int R>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+fused_fwd_cluster_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                         const float* __restrict__ w, const float* __restrict__ u0,
+                         float c2, float c3, int n_steps, float* __restrict__ uT,
+                         float* __restrict__ jsum, float* __restrict__ traj,
+                         float* __restrict__ ser) {
+  constexpr int mg = 128 * R, mg4 = mg / 4, rows = mg / kClusterCtas;
+  static_assert(rows == kClusterWarps * R, "one warp per R rows");
+  static_assert(mg <= kThreads, "one element per thread of the reduction tree");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = rank * rows;
+  extern __shared__ float4 smem4[];
+  float4* as4 = smem4;                 // rows x mg4
+  float4* bs4 = as4 + rows * mg4;
+  float* u = reinterpret_cast<float*>(bs4 + rows * mg4);
+  float* un = u + mg;
+  float* g = un + mg;
+  float* ws = g + mg;
+  float* red = ws + mg;
+  const float4* g4 = reinterpret_cast<const float4*>(g);
+
+  const float4* a4 = reinterpret_cast<const float4*>(a) + (size_t)r0 * mg4;
+  const float4* b4 = reinterpret_cast<const float4*>(b) + (size_t)r0 * mg4;
+  for (int i = tid; i < rows * mg4; i += kClusterThreads) {
+    as4[i] = __ldg(a4 + i);
+    bs4[i] = __ldg(b4 + i);
+  }
+  for (int j = tid; j < mg; j += kClusterThreads) {
+    u[j] = u0[j];
+    ws[j] = w[j];
+  }
+  cluster.sync();   // every CTA has started and holds u_0 before any remote store
+
+  float acc = 0.f, comp = 0.f;  // live in rank 0's thread 0
+  for (int n = 0; n < n_steps; ++n) {
+    for (int j = tid; j < mg; j += kClusterThreads) g[j] = g_poly(c2, c3, u[j]);
+    if (traj != nullptr && tid < rows) traj[(size_t)n * mg + r0 + tid] = u[r0 + tid];
+    if (rank == 0) energy_partials(u, ws, mg, red);
+    __syncthreads();   // g and red complete
+    const float4* u4 = reinterpret_cast<const float4*>(u);
+    float4 ur[R], gr[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      ur[i] = u4[lane + 32 * i];
+      gr[i] = g4[lane + 32 * i];
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int rl = warp + q * kClusterWarps;
+      const float4* arow = as4 + rl * mg4;
+      const float4* brow = bs4 + rl * mg4;
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        s = fwd_dot4(s, arow[lane + 32 * i], ur[i], brow[lane + 32 * i], gr[i]);
+      s = smo::warp_sum(s);   // every lane holds the same sum
+      if (lane < kClusterCtas) cluster.map_shared_rank(un, lane)[r0 + rl] = s;
+    }
+    if (rank == 0 && warp == 0) {
+      const float e = smo::warp_sum(red[lane]);
+      if (lane == 0) {
+        if constexpr (kSeries) ser[n] = e;
+        smo::kahan_add(acc, comp, e);
+      }
+    }
+    cluster.sync();   // un complete in every CTA; u, g and red free
+    float* t = u;
+    u = un;
+    un = t;
+  }
+
+  if (tid < rows) uT[r0 + tid] = u[r0 + tid];
+  if (rank == 0) {
+    energy_partials(u, ws, mg, red);
+    __syncthreads();
+    if (warp == 0) {
+      const float eN = smo::warp_sum(red[lane]);
+      if (lane == 0) {
+        if constexpr (kSeries) ser[n_steps] = eN;
+        smo::kahan_add(acc, comp, eN);
+        *jsum = acc;
+      }
+    }
+  }
+}
+
+template <bool kSeries, int R>
+cudaError_t cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                           cudaStream_t st) {
+  const auto kernel = fused_fwd_cluster_kernel<kSeries, R>;
+  const size_t smem = cluster_smem_bytes(R);
+  static bool ready[smo::kMaxDevices] = {};
+  const cudaError_t err = smo::set_once(ready, [&] {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return e;
+  });
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(kClusterCtas);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kClusterCtas;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return err;
+}
+
+// clusters of the forward for this mg that the card can hold at once
+// (> 0 when it can be scheduled), or -cudaError_t
+template <bool kSeries, int R>
+int cluster_capacity() {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<kSeries, R>(cfg, attr, nullptr);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&n, fused_fwd_cluster_kernel<kSeries, R>, &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+template <bool kSeries, int R>
+int launch_cluster(const float* a, const float* b, const float* w, const float* u0,
+                   float c2, float c3, int n_steps, float* uT, float* jsum, float* traj,
+                   float* ser, cudaStream_t st) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<kSeries, R>(cfg, attr, st);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&cfg, fused_fwd_cluster_kernel<kSeries, R>, a, b, w, u0, c2,
+                             c3, n_steps, uT, jsum, traj, ser);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <bool kSeries>
+int launch_cluster_mg(int mg, const float* a, const float* b, const float* w,
+                      const float* u0, float c2, float c3, int n_steps, float* uT,
+                      float* jsum, float* traj, float* ser, cudaStream_t st) {
+  switch (mg) {
+    case 128: return launch_cluster<kSeries, 1>(a, b, w, u0, c2, c3, n_steps, uT, jsum, traj, ser, st);
+    case 256: return launch_cluster<kSeries, 2>(a, b, w, u0, c2, c3, n_steps, uT, jsum, traj, ser, st);
+    case 384: return launch_cluster<kSeries, 3>(a, b, w, u0, c2, c3, n_steps, uT, jsum, traj, ser, st);
+    case 512: return launch_cluster<kSeries, 4>(a, b, w, u0, c2, c3, n_steps, uT, jsum, traj, ser, st);
+    case 640: return launch_cluster<kSeries, 5>(a, b, w, u0, c2, c3, n_steps, uT, jsum, traj, ser, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool kSeries>
+int cluster_capacity_mg(int mg) {
+  switch (mg) {
+    case 128: return cluster_capacity<kSeries, 1>();
+    case 256: return cluster_capacity<kSeries, 2>();
+    case 384: return cluster_capacity<kSeries, 3>();
+    case 512: return cluster_capacity<kSeries, 4>();
+    case 640: return cluster_capacity<kSeries, 5>();
+    default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -215,6 +459,22 @@ extern "C" {
 int sm_fused_fwd(const float* a, const float* b, const float* w, const float* u0,
                  float c2, float c3, int n_steps, int mg, float* uT, float* jsum,
                  float* traj, float* ser, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return ser != nullptr
+             ? launch_cluster_mg<true>(mg, a, b, w, u0, c2, c3, n_steps, uT, jsum, traj, ser, st)
+             : launch_cluster_mg<false>(mg, a, b, w, u0, c2, c3, n_steps, uT, jsum, traj, ser, st);
+}
+
+// Clusters of sm_fused_fwd (with the series when `series`) that the card
+// can hold at once for this mg: 0 means it cannot be scheduled; a
+// negative value is -cudaError_t.
+int sm_fused_fwd_capacity(int mg, int series) {
+  return series ? cluster_capacity_mg<true>(mg) : cluster_capacity_mg<false>(mg);
+}
+
+int sm_fused_fwd_block(const float* a, const float* b, const float* w, const float* u0,
+                       float c2, float c3, int n_steps, int mg, float* uT, float* jsum,
+                       float* traj, float* ser, void* stream) {
   const size_t smem = (4 * (size_t)mg + 32) * sizeof(float);
   const auto kernel = ser != nullptr ? fused_fwd_kernel<true> : fused_fwd_kernel<false>;
   kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -39,14 +39,16 @@ _P, _F, _I, _L = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
 # C signatures of the exported functions (csrc/fused_shared.cu,
 # csrc/fused_two_matrix.cu, csrc/op_grads.cu, csrc/kdyn_step.cu); the last
 # argument of each launcher is the stream
+_FWD = [_P, _P, _P, _P, _F, _F, _I, _I, _P, _P, _P, _P, _P]
 _KDYN_FWD = [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P]
 SIGNATURES = {
     "sm_fused_fwd_shared": [_P, _P, _P, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P],
     "sm_fused_bwd_shared": [_P, _P, _P, _P, _F, _F, _F, _P, _I, _I, _P, _P, _P],
-    "sm_fused_fwd": [_P, _P, _P, _P, _F, _F, _I, _I, _P, _P, _P, _P, _P],
+    "sm_fused_fwd": _FWD,
+    "sm_fused_fwd_block": _FWD,
+    "sm_fused_fwd_capacity": [_I, _I],  # returns a count, not an error code
     "sm_fused_bwd": [_P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _P, _P, _P],
-    "sm_op_grads_splits": [_I, _I],    # returns a count, not an error code
-    "sm_op_grads": [_P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P],
+    "sm_op_grads": [_P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P, _P, _P],
     "sm_kdyn_work_floats": [_I, _I],   # returns a count, not an error code
     "sm_kdyn_fwd": _KDYN_FWD + [_P, _L, _P],
     "sm_kdyn_fwd_traj": _KDYN_FWD + [_P, _P, _P, _L, _P],

@@ -4,7 +4,9 @@ kernels for Hopper.
 PyTorch port of the JAX package's `ops/pallas/fused_two_matrix.py`:
 
   two-matrix form  u' = A u + B (c2 u^2 + c3 u^3)       (SHB23)
-    fused_fwd          <- `_run_fwd` / `_fwd_kernel` (has_traj, has_ser)
+    fused_fwd          <- `_run_fwd` / `_fwd_kernel` (has_traj, has_ser): a
+                          16-CTA cluster up to mg = 640, one block above
+                          (`fwd_route`)
     fused_bwd          <- `_run_bwd` / `_bwd_kernel` (op_grads=True: the
                           sweep stores the lambda history, then
                           `op_grads_product` forms dA and dB)
@@ -27,7 +29,7 @@ lambda_N = s w u_N back through the transposed step. With op_grads=True
 it also returns the operator cotangents, sum_n lambda_{n+1} (x) f(u_n):
 on the card the reverse kernel stores every lambda_{n+1} it consumes
 (the lambda history) and `op_grads_product` (csrc/op_grads.cu) forms
-the sum as one product over all SMs.
+the sum as one product over all SMs, on the tensor cores (3xTF32).
 
 The autograd Functions are differentiable in the operators by default
 (op_grads=True), as the JAX package's `fused_objective*` are; the
@@ -36,12 +38,14 @@ problems, whose operators are fixed data, pass op_grads=False.
 Each wrapper takes its plain PyTorch version (`*_plain`) for tensors on
 the CPU and launches its kernel for CUDA tensors; a CUDA tensor never
 falls back. `LAUNCHES` counts kernel launches per wrapper (the series
-variants of the forwards and the lambda-history variants of the reverse
-sweeps apart). The kernels are f32 only; the plain versions take f32 or
-f64.
+variants of the forwards, the two routes of the two-matrix forward and
+the lambda-history variants of the reverse sweeps apart). The kernels
+are f32 only; the plain versions take f32 or f64.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -53,6 +57,8 @@ KERNEL_SOURCES = {
     "fused_bwd_shared": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_fwd": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_fwd_ser": "spheremanopt_torch/csrc/fused_two_matrix.cu",
+    "fused_fwd_block": "spheremanopt_torch/csrc/fused_two_matrix.cu",
+    "fused_fwd_block_ser": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_bwd": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_bwd_shared_ops": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_bwd_ops": "spheremanopt_torch/csrc/fused_two_matrix.cu",
@@ -260,26 +266,43 @@ def _lam_hist(uT, n_steps, op_grads, lam_hist):
     return lam_hist
 
 
+# the product kernel's tiles (csrc/op_grads.cu): 128 x 128 outputs (in
+# mode "two" 64 columns of dA and the same 64 of dB), 16 steps a stage
+OP_TILE, OP_STAGE, OP_SMS = 128, 16, 132
+
+
+@functools.lru_cache(maxsize=None)
+def op_grads_split(mg, n_steps, n_out):
+    """(chunk, splits) of the product kernel: N is cut into `splits`
+    chunks of `chunk` steps (a multiple of the stage depth), so that
+    tiles x splits blocks fill the card's 132 SMs about once."""
+    tiles = (mg // OP_TILE) * (n_out * mg // OP_TILE)
+    want = max(1, OP_SMS // tiles)
+    chunk = -(-max(n_steps, 1) // want)
+    chunk = -(-chunk // OP_STAGE) * OP_STAGE
+    return chunk, -(-max(n_steps, 1) // chunk)
+
+
 def op_grads_product(lam_hist, traj, mode, c2, c3, lin=0.0):
     """Operator cotangents sum_n lam_hist[n] (x) f(traj[n]) from a reverse
     sweep's lambda history: (dB,) for mode "shared", (dA, dB) for mode
-    "two" (see `op_grads_plain`). One product over all SMs on the card."""
+    "two" (see `op_grads_plain`). One product over all SMs on the card,
+    on the tensor cores as 3xTF32 (f32 accuracy). The outputs are views
+    of one buffer that also holds the split partials."""
     if lam_hist.device.type == "cpu":
         return op_grads_plain(lam_hist, traj, mode, c2, c3, lin)
     if mode not in OP_GRADS_MODES:
         raise ValueError(f"mode must be one of {OP_GRADS_MODES}, got {mode!r}")
-    from spheremanopt_torch.ops.cuda.build import load
-
     n_steps = traj.shape[0]
     mg = _check(n_steps, mats=[], vecs=[], traj=traj, hist=lam_hist)
     n_out = 1 if mode == "shared" else 2
-    splits = load().sm_op_grads_splits(mg, int(n_steps))
-    part = torch.empty((splits, n_out, mg, mg), dtype=torch.float32,
-                       device=traj.device)
-    out = torch.empty((n_out, mg, mg), dtype=torch.float32, device=traj.device)
+    chunk, splits = op_grads_split(mg, int(n_steps), n_out)
+    buf = torch.empty(((1 + splits if splits > 1 else 1) * n_out, mg, mg),
+                      dtype=torch.float32, device=traj.device)
+    out, part = buf[:n_out], buf[n_out:]
     _launch("sm_op_grads", "op_grads", traj.device, lam_hist.data_ptr(),
             traj.data_ptr(), int(n_steps), mg, int(mode == "two"), c2, c3, lin,
-            part.data_ptr(), out.data_ptr())
+            chunk, splits, _ptr(part), out.data_ptr())
     return tuple(out)
 
 
@@ -326,17 +349,51 @@ def fused_bwd_shared(b, w, uT, traj, c2, c3, lin, scale, n_steps,
     return lam, op_grads_product(hist, traj, "shared", c2, c3, lin)[0]
 
 
+# The two-matrix forward's cluster route keeps A's and B's rows on 16
+# SMs: 2 mg^2 * 4 / 16 bytes must fit one SM's shared memory.
+CLUSTER_MG_MAX = 640
+
+
+def fwd_route(mg):
+    """The two-matrix forward's kernel for width mg: "cluster" (16 CTAs
+    holding A and B in shared memory, `sm_fused_fwd`) up to
+    CLUSTER_MG_MAX, else "block" (one thread block streaming A and B
+    from L2, `sm_fused_fwd_block`). A choice by shape, not a fallback."""
+    return "cluster" if mg <= CLUSTER_MG_MAX else "block"
+
+
+@functools.lru_cache(maxsize=None)
+def _check_cluster(device, mg, series):
+    """Raise unless the card can schedule the cluster forward for this mg
+    (cudaOccupancyMaxActiveClusters > 0); a pass is remembered."""
+    from spheremanopt_torch.ops.cuda.build import load
+
+    with torch.cuda.device(device):
+        n = load().sm_fused_fwd_capacity(mg, int(series))
+    if n <= 0:
+        raise RuntimeError(
+            f"the 16-CTA cluster forward (mg={mg}) cannot be scheduled on "
+            f"{torch.cuda.get_device_name(device)}: cudaOccupancyMaxActiveClusters "
+            f"gave {n}" + ("" if n == 0 else f" (cudaError_t {-n})"))
+
+
 def fused_fwd(a, b, w, u0, c2, c3, n_steps, store_traj=True,
               store_series=False):
     """(uT, J_sum, traj or None, series or None) of N steps of
-    u' = A u + B(c2 u^2 + c3 u^3)."""
+    u' = A u + B(c2 u^2 + c3 u^3). On the card the route follows
+    `fwd_route(mg)`; both give the same numbers bit for bit."""
     if u0.device.type == "cpu":
         return fused_fwd_plain(a, b, w, u0, c2, c3, n_steps, store_traj,
                                store_series)
     mg = _check(n_steps, mats=[("a", a), ("b", b)],
                 vecs=[("u0", u0), ("w", w)])
     uT, jsum, traj, ser = _fwd_outputs(u0, n_steps, store_traj, store_series)
-    _launch("sm_fused_fwd", "fused_fwd_ser" if store_series else "fused_fwd",
+    if fwd_route(mg) == "cluster":
+        _check_cluster(u0.device, mg, bool(store_series))
+        symbol, counter = "sm_fused_fwd", "fused_fwd"
+    else:
+        symbol, counter = "sm_fused_fwd_block", "fused_fwd_block"
+    _launch(symbol, counter + "_ser" if store_series else counter,
             u0.device, a.data_ptr(), b.data_ptr(), w.data_ptr(), u0.data_ptr(),
             c2, c3, int(n_steps), mg, uT.data_ptr(), jsum.data_ptr(),
             _ptr(traj), _ptr(ser))

@@ -19,6 +19,10 @@ Size: SH23 at npts=64 (mg=128), SHB23 at npts=96, n_iters=40. Tolerances:
     in JAX): rel 1e-5 of `jax.grad` of the interpret-mode kernel.
   * the lambda history and `op_grads_plain` against the step-by-step
     op_grads sweeps in f64: rel 1e-12.
+  * the product kernel's 3xTF32 arithmetic, emulated with integer
+    operations on the bits: within 1e-5 of the largest entry of the f64
+    product and 1e-4 of the plain f32 loop (the split keeps ~2^-22 of
+    each operand; the dropped lo.lo term is of that order).
 The kernels themselves run only on the card: the `requires_cuda` cases
 hold them against the plain versions there and skip on the CPU. The
 machine with the card has no JAX, so JAX is imported only by the
@@ -421,6 +425,90 @@ def test_two_matrix_primal_only_call_stores_no_trajectory(shb23, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the product kernel's 3xTF32 arithmetic and the forward's routes (CPU)
+# ---------------------------------------------------------------------------
+
+
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32 on an f32 tensor: round to nearest, ties away from
+    zero, at a 10-bit mantissa, with integer operations on the bits (add
+    half a TF32 ulp to the magnitude, clear the 13 low bits)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _product_3xtf32(lam_hist, fcat):
+    """The kernel's product Lambda^T f(U) as 3xTF32: both operands split
+    into hi + lo, the TF32 products lo.hi + hi.lo + hi.hi summed in f32
+    (each product of two TF32 values is exact in f32)."""
+    ah, al = _split(lam_hist.t())
+    bh, bl = _split(fcat)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def test_tf32_emulation_rounds_ties_away():
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0 + ulp / 2, -(1.0 + ulp / 2), 1.0 + ulp / 4,
+                      1.0 + 3 * ulp / 4, 3.0e-3], dtype=torch.float32)
+    got = _tf32_rna(x)
+    assert got[:4].tolist() == [1.0 + ulp, -(1.0 + ulp), 1.0, 1.0 + ulp]
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    hi, lo = _split(x)
+    assert ((x - hi - lo).abs() <= 2.0 ** -21 * x.abs()).all()
+
+
+@pytest.mark.parametrize("mode", ["shared", "two"])
+def test_3xtf32_split_product_keeps_f32_accuracy(mode):
+    """The product kernel's 3xTF32 split (emulated) against the f64
+    product: within 1e-5 of the largest entry; against the plain f32 loop
+    (`op_grads_plain`): within 1e-4. mg = 256, N = 500, seeded data at
+    the sweeps' scale."""
+    rs = np.random.RandomState(11)
+    mg, n = 256, 500
+    lam = torch.as_tensor(rs.randn(n, mg), dtype=torch.float32)
+    traj = torch.as_tensor(0.3 * rs.randn(n, mg), dtype=torch.float32)
+    c, lin = ((C2, C3), 20.0) if mode == "shared" else ((C2B, C3B), 0.0)
+    fcat = torch.cat(fk.op_factors(traj, mode, *c, lin), dim=1)
+    got = _product_3xtf32(lam, fcat)
+    want64 = lam.double().t() @ fcat.double()
+    plain = torch.cat(fk.op_grads_plain(lam, traj, mode, *c, lin), dim=1)
+    scale = want64.abs().max()
+    assert (got.double() - want64).abs().max() <= 1e-5 * scale
+    assert (got - plain).abs().max() <= 1e-4 * plain.abs().max()
+    # one TF32 product alone is three digits: the split is what keeps f32
+    tf32 = _tf32_rna(lam.t()) @ _tf32_rna(fcat)
+    assert (tf32.double() - want64).abs().max() > 1e-5 * scale
+
+
+@pytest.mark.parametrize("mg,n_steps,n_out,blocks", [
+    (512, 2000, 2, 128), (512, 1000, 1, 128), (128, 300, 1, 19),
+    (128, 0, 2, 2), (1024, 2000, 2, 128), (2048, 17, 2, 512)])
+def test_op_grads_split_covers_the_steps(mg, n_steps, n_out, blocks):
+    """Every step lies in exactly one chunk, chunks are whole stages, and
+    tiles x splits blocks fill the card about once (SH23, SHB23: 128)."""
+    chunk, splits = fk.op_grads_split(mg, n_steps, n_out)
+    assert chunk % fk.OP_STAGE == 0 and splits >= 1
+    assert (splits - 1) * chunk < max(n_steps, 1) <= splits * chunk
+    tiles = (mg // fk.OP_TILE) * (n_out * mg // fk.OP_TILE)
+    assert tiles * splits == blocks
+
+
+@pytest.mark.parametrize("mg", range(128, 2049, 128))
+def test_forward_route_by_width(mg):
+    """The cluster while A's and B's rows fit 16 SMs' shared memory (227
+    KB each: 2 mg^2 4 / 16 bytes of rows and 4 mg floats of state), one
+    block above."""
+    smem = 2 * mg * mg * 4 // 16 + 4 * mg * 4 + 128
+    assert fk.fwd_route(mg) == ("cluster" if mg <= fk.CLUSTER_MG_MAX else "block")
+    assert (smem <= 232448) == (mg <= fk.CLUSTER_MG_MAX)
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -593,3 +681,73 @@ def test_two_matrix_op_grads_kernels_match_plain_on_card(cuda, npts):
     J = fk.FusedObjective.apply(ar, br, w, u0, C2B, C3B, 0.01, n)   # scale -2 dt
     da, db = torch.autograd.grad(J, (ar, br))
     assert torch.equal(da, dak) and torch.equal(db, dbk)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mode", ["shared", "two"])
+@pytest.mark.parametrize("n", [320, 301])
+@pytest.mark.parametrize("mg", [128, 512])
+def test_op_grads_product_matches_plain_on_card(cuda, mg, n, mode):
+    """The tensor-core product (3xTF32) against `op_grads_plain` on the
+    same card inputs: within 1e-4 of the largest entry in f32 and 1e-5
+    against f64; N a multiple of the 16-step stage and not; one launch;
+    the same bits again on a second call."""
+    rs = np.random.RandomState(mg + n)
+    lam = torch.as_tensor(rs.randn(n, mg), dtype=torch.float32, device=cuda)
+    traj = torch.as_tensor(0.3 * rs.randn(n, mg), dtype=torch.float32, device=cuda)
+    c, lin = ((C2, C3), 20.0) if mode == "shared" else ((C2B, C3B), 0.0)
+    fk.reset_launches()
+    got = fk.op_grads_product(lam, traj, mode, *c, lin)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {"op_grads": 1}
+    want = fk.op_grads_plain(lam, traj, mode, *c, lin)
+    want64 = fk.op_grads_plain(lam.double(), traj.double(), mode, *c, lin)
+    assert len(got) == len(want) == (1 if mode == "shared" else 2)
+    for g, x, x64 in zip(got, want, want64):
+        assert _rel(g.cpu(), x.cpu()) < 1e-4 and _rel(g.cpu(), x64.cpu()) < 1e-5
+    again = fk.op_grads_product(lam, traj, mode, *c, lin)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def _fwd_block(a, b, w, u0, n, store_series):
+    """The one-block forward kernel called directly, at any mg."""
+    uT, jsum, traj, ser = fk._fwd_outputs(u0, n, True, store_series)
+    fk._launch("sm_fused_fwd_block", "fused_fwd_block", u0.device, a.data_ptr(),
+               b.data_ptr(), w.data_ptr(), u0.data_ptr(), C2B, C3B, n, a.shape[0],
+               uT.data_ptr(), jsum.data_ptr(), traj.data_ptr(), fk._ptr(ser))
+    return uT, jsum, traj, ser
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("npts,n", [(128, 300), (512, 300), (1024, 200)])
+def test_two_matrix_forward_routes_match_plain_on_card(cuda, npts, n):
+    """Both routes of the two-matrix forward (the cluster up to mg = 640,
+    one block above) against plain f32, rel 1e-4; with and without the
+    series J, u_T and the trajectory bitwise; the cluster's bitwise the
+    one-block kernel's on the same inputs."""
+    a, b, w, u0 = _card_shb23(cuda, npts)
+    route = fk.fwd_route(npts)
+    fk.reset_launches()
+    k = fk.fused_fwd(a, b, w, u0, C2B, C3B, n)
+    ks = fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True)
+    torch.cuda.synchronize()
+    name = "fused_fwd" if route == "cluster" else "fused_fwd_block"
+    assert route == ("cluster" if npts <= 640 else "block")
+    assert {k_: v for k_, v in fk.LAUNCHES.items() if v} == {name: 1, name + "_ser": 1}
+    r = fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n, store_series=True)
+    for got, want in [(k[0], r[0]), (k[1], r[1]), (k[2], r[2]), (ks[3], r[3])]:
+        assert _rel(got.cpu(), want.cpu()) < 1e-4
+    for x, y in zip(k[:3], ks[:3]):
+        assert torch.equal(x, y)
+    blk = _fwd_block(a, b, w, u0, n, True)
+    for x, y in zip(ks, blk):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.requires_cuda
+def test_two_matrix_forward_rejects_widths_neither_route_takes(cuda):
+    for mg in (96, 2176):
+        a = torch.zeros(mg, mg, device=cuda)
+        v = torch.zeros(mg, device=cuda)
+        with pytest.raises(ValueError, match="mg"):
+            fk.fused_fwd(a, a, v, v, C2B, C3B, 4)

@@ -1,17 +1,31 @@
-"""Time the fused reverse-sweep kernels of one checkout of the PyTorch port
-on one NVIDIA GPU, for comparing two checkouts in turns on one card.
+"""Time the fused sweep kernels and the operator-cotangent product of one
+checkout of the PyTorch port on one NVIDIA GPU, for comparing two
+checkouts in turns on one card.
 
     python tools/time_reverse_sweeps.py [--root DIR] [--tag NAME]
+        [--save DIR] [--against NAME]
 
 `--root` is the checkout whose `spheremanopt_torch` is imported (default:
-this one); its kernels are built there at first use. At the SH23 width
-(B = M of `SH23Config()`, mg = 512, N = 1000) and the SHB23 width (A, B of
-`SHB23Config()`, mg = 512, N = 2000) it times, by CUDA events over 20
-calls after 2 warm-up calls, the reverse sweep without the lambda history
-(`fused_bwd_shared`, `fused_bwd`) and, where the checkout has it, with
-the history (`lam_hist=`), and prints one JSON line with the card's name
-and power limit. Run parent, change, change, parent, each in its own
-process, and compare within one call only.
+this one); its kernels are built there at first use. By CUDA events over
+20 calls after 2 warm-up calls (5 for the longer calls) it times:
+  * at the SH23 width (B = M of `SH23Config()`, mg = 512, N = 1000) and
+    the SHB23 width (A, B of `SHB23Config()`, mg = 512, N = 2000) the
+    reverse sweep without the lambda history (`fused_bwd_shared`,
+    `fused_bwd`) and, where the checkout has it, with it (`lam_hist=`);
+  * the SHB23 forward sweep (`fused_fwd`, with the trajectory, and with
+    the series) at mg = 512, N = 2000, and at mg = 1024, N = 200 (SHB23's
+    operators at npts = 1024: the one-block route where the checkout has
+    two routes);
+  * the SHB23 fwd+grad unit (`objective_and_gradient`, method "cuda");
+  * `op_grads_product` at both widths on the sweeps' own lambda history,
+    in a CUDA graph of 20 calls (device time) and per plain call (with
+    the host's time), beside `torch.matmul` of the same operands.
+It prints one JSON line with the card's name and power limit. With
+`--save DIR` it writes the forward's u_T and trajectory (mg = 512) to
+DIR/<tag>.npz, and with `--against NAME` it prints the largest
+|u_T - u_T(NAME)| and |traj - traj(NAME)| against DIR/NAME.npz. Run
+parent, change, change, parent, each in its own process, and compare
+within one call only.
 """
 
 import argparse
@@ -47,10 +61,29 @@ def gpu_ms(fn, reps=20, warm=2):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps=20, replays=5):
+    """Mean ms per call: CUDA events around replays of one CUDA graph of
+    `reps` calls (no host time per call)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    return gpu_ms(g.replay, replays) / reps
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--tag", default="")
+    ap.add_argument("--save", default=None)
+    ap.add_argument("--against", default=None)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
@@ -96,6 +129,46 @@ def main() -> int:
         hist2 = torch.empty_like(tr2)
         out["shb23_bwd_hist_ms"] = gpu_ms(lambda: fk.fused_bwd(
             a2, b2, w2, uT2, tr2, 2.0, -1.0, sc2, n2, lam_hist=hist2))
+
+    # the SHB23 forward sweep, both widths, and the fwd+grad unit
+    out["shb23_fwd_ms"] = gpu_ms(lambda: fk.fused_fwd(a2, b2, w2, u2, 2.0, -1.0, n2))
+    out["shb23_fwd_ser_ms"] = gpu_ms(lambda: fk.fused_fwd(
+        a2, b2, w2, u2, 2.0, -1.0, n2, store_series=True))
+    r = SwiftHohenbergBounded(SHB23Config(npts=1024, dtype="float32", method="cuda"),
+                              device=dev)
+    a3, b3, w3 = r._Alt.float().contiguous(), r._Ant.float().contiguous(), r._wt.float()
+    u3 = torch.as_tensor(np.random.RandomState(3).randn(1024), dtype=torch.float32,
+                         device=dev)
+    u3 = u3 * torch.sqrt(r.cfg.m0 / torch.sum(w3 * u3 * u3))
+    out["shb23_fwd_1024_ms"] = gpu_ms(lambda: fk.fused_fwd(a3, b3, w3, u3, 2.0, -1.0, 200))
+    x2 = q.generate_ic(seed=42)
+    out["shb23_unit_ms"] = gpu_ms(lambda: q.objective_and_gradient(x2), 5)
+
+    # the operator-cotangent product on the sweeps' own history
+    if has_hist:
+        for tag, hist_, tr_, mode, c, lin_ in (
+                ("sh23", hist, tr, "shared", (1.8, -1.0), lin),
+                ("shb23", hist2, tr2, "two", (2.0, -1.0), 0.0)):
+            fcat = torch.cat(fk.op_factors(tr_, mode, *c, lin_), dim=1)
+            prod = (lambda h=hist_, t=tr_, m=mode, c=c, l=lin_:
+                    fk.op_grads_product(h, t, m, *c, l))
+            lib = lambda h=hist_, f=fcat: torch.matmul(h.T, f)
+            out[f"{tag}_prod_graph_us"] = 1e3 * graph_ms(prod)
+            out[f"{tag}_matmul_graph_us"] = 1e3 * graph_ms(lib)
+            out[f"{tag}_prod_call_us"] = 1e3 * gpu_ms(prod)
+            out[f"{tag}_matmul_call_us"] = 1e3 * gpu_ms(lib)
+
+    uT2, _, tr2, _ = fk.fused_fwd(a2, b2, w2, u2, 2.0, -1.0, n2)
+    if args.save:
+        os.makedirs(args.save, exist_ok=True)
+        np.savez(os.path.join(args.save, f"{args.tag}.npz"), uT=uT2.cpu().numpy(),
+                 traj=tr2.cpu().numpy())
+        if args.against:
+            ref = np.load(os.path.join(args.save, f"{args.against}.npz"))
+            out[f"max_abs_uT_vs_{args.against}"] = float(np.abs(uT2.cpu().numpy()
+                                                               - ref["uT"]).max())
+            out[f"max_abs_traj_vs_{args.against}"] = float(np.abs(tr2.cpu().numpy()
+                                                                 - ref["traj"]).max())
     print(json.dumps(out), flush=True)
     return 0
 
