@@ -36,13 +36,14 @@ Phases, one line each; any failure exits non-zero without a result line:
   F  SH23 f64 workload (method=matmul) vs the pinned JAX f64 trajectory
   G  SH23 f32 workload through the kernels (method=cuda): a main path,
      then a torch.profiler trace of a second run
-  H  SHB23 kernels vs plain f32 vs plain f64, full width; the series
-     variants of both forwards bitwise the plain ones (J, u_T, lambda);
-     the forward's one-block route (mg > 640) at mg = 1024, N = 200: a
-     main path of its own through the fused objectives, against plain
-     f32, bitwise across the series variants, timed
-  I  CUDA-event timings: the SHB23 sweeps, both series forwards and the
-     SHB23 fwd+grad unit, kernel vs plain
+  H  SHB23 kernels vs plain f32 vs plain f64, full width (mg = 512: the
+     16-CTA cluster routes of the forward and the reverse sweep); the
+     series variants of both forwards bitwise the plain ones (J, u_T,
+     lambda); the one-block routes (mg > 640) at mg = 1024, N = 200: a
+     main path of their own through the fused objectives, differentiated
+     in u0, against plain f32, bitwise across the series variants, timed
+  I  CUDA-event timings: the SHB23 sweeps (cluster routes), both series
+     forwards and the SHB23 fwd+grad unit, kernel vs plain
   J  Taylor test of the SHB23 f64 plain path
   K  SHB23 f64 workload (method=matmul) vs the pinned JAX f64 trajectory
   L  SHB23 f32 workload through the kernels (method=cuda): a main path,
@@ -52,8 +53,8 @@ Phases, one line each; any failure exits non-zero without a result line:
   N  KDyn kernels vs plain f32 on the card, full width: cost Final at the
      full 2000 steps, Integrated at 200; then J and both gradients of
      method=cuda, plain f32 and plain f64 against the pinned f64 values
-  O  CUDA-event timings: the three KDyn sweeps and the fwd+grad unit,
-     kernel vs plain
+  O  CUDA-event timings: the three KDyn sweeps (the reverse sweep in two
+     grid-wide stages a step) and the fwd+grad unit, kernel vs plain
   P  Taylor test of the KDyn f64 plain path at 200 steps
   Q  KDyn f64 workload (method=plain) at 200 steps vs the pinned JAX f64
      trajectory
@@ -146,6 +147,7 @@ REPLACES = {
     "fused_fwd_block": f"{PALLAS}:60",          # same, mg > 640
     "fused_fwd_block_ser": f"{PALLAS}:60",      # same, mg > 640, has_ser=True
     "fused_bwd": f"{PALLAS}:102",               # _bwd_kernel
+    "fused_bwd_block": f"{PALLAS}:102",         # same, mg > 640
     "kdyn_fwd": f"{PALLAS_K}:411",              # _fwd_kernel
     "kdyn_fwd_traj": f"{PALLAS_K}:201",         # _fwd_traj_kernel
     "kdyn_bwd": f"{PALLAS_K}:247",              # _bwd_kernel
@@ -589,31 +591,42 @@ class Smoke:
         self.block_route(p.cfg.dt)
 
     def block_route(self, dt):
-        """The two-matrix forward above the cluster's width: SHB23's
-        operators at npts = 1024 take the one-block kernel. Its main path
-        is the fused objectives (J, and J with the series); then the
-        kernel against plain f32 and across the series variants, and its
-        time."""
+        """The two-matrix sweeps above the clusters' width: SHB23's
+        operators at npts = 1024 take the one-block kernels. Their main
+        path is the fused objectives (J differentiated in u0, and J with
+        the series); then the kernels against plain f32 and across the
+        series variants, and their times."""
         q, _, _ = cli.make_problem(problem_args("shb23", "float32", "cuda", "--npts",
                                                 str(BLOCK_MG)))
         ops = operators_to_torch(shb23_operators(q), q.device)
         a, b, w = ops["a32"], ops["b32"], ops["w32"]
         u0 = q.generate_ic(seed=42)[0]
         n = BLOCK_N
-        J, (Jd, ser, _) = self.main_path(
-            "H", ("fused_fwd_block", "fused_fwd_block_ser"),
-            lambda: (fk.FusedObjective.apply(a, b, w, u0, C2B, C3B, dt, n, False),
-                     fk.FusedObjectiveDiag.apply(a, b, w, u0, C2B, C3B, dt, n, False)))
+
+        def path():
+            uu = u0.detach().requires_grad_(True)
+            J = fk.FusedObjective.apply(a, b, w, uu, C2B, C3B, dt, n, False)
+            (grad,) = torch.autograd.grad(J, uu)
+            return (J.detach(), grad,
+                    fk.FusedObjectiveDiag.apply(a, b, w, u0, C2B, C3B, dt, n, False))
+
+        J, grad, (Jd, ser, _) = self.main_path(
+            "H", ("fused_fwd_block", "fused_fwd_block_ser", "fused_bwd_block"), path)
         k = fk.fused_fwd(a, b, w, u0, C2B, C3B, n)
         ks = fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True)
         r = fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n, store_series=True)
+        scale = torch.tensor(-2.0 * dt, dtype=torch.float32, device=u0.device)
+        lk = fk.fused_bwd(a, b, w, k[0], k[2], C2B, C3B, scale, n)[0]
+        lp = fk.fused_bwd_plain(a, b, w, k[0], k[2], C2B, C3B, scale, n)[0]
         torch.cuda.synchronize()
         pairs, ser_pairs = list(zip(k[:3], r[:3])), list(zip(ks, r))
         e = max(rel(x, y) for x, y in pairs + ser_pairs + [(J, -dt * r[1])])
+        e_b = rel(lk, lp)
         same = ([torch.equal(x, y) for x, y in zip(k[:3], ks[:3])]
-                + [torch.equal(J, Jd), torch.equal(ser, ks[3])])
+                + [torch.equal(J, Jd), torch.equal(ser, ks[3]), torch.equal(grad, lk)])
         self.kernels["fused_fwd_block"]["max_abs_err"] = max_abs(pairs)
         self.kernels["fused_fwd_block_ser"]["max_abs_err"] = max_abs(ser_pairs)
+        self.kernels["fused_bwd_block"]["max_abs_err"] = max_abs([(lk, lp)])
         f_pl, f_k = interleaved_ms(
             lambda: fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n),
             lambda: fk.fused_fwd(a, b, w, u0, C2B, C3B, n), 2, 10)
@@ -625,13 +638,21 @@ class Smoke:
         self.kernels["fused_fwd_block_ser"].update(
             ms=fs_k, plain_ms=fs_pl,
             work=sweep_work(BLOCK_MG, n, 2, fwd=True, ser=True))
-        self.check("H", fk.fwd_route(BLOCK_MG) == "block" and e <= TOL_VS_PLAIN
+        b_pl, b_k = interleaved_ms(
+            lambda: fk.fused_bwd_plain(a, b, w, k[0], k[2], C2B, C3B, scale, n),
+            lambda: fk.fused_bwd(a, b, w, k[0], k[2], C2B, C3B, scale, n), 2, 10)
+        self.kernels["fused_bwd_block"].update(
+            ms=b_k, plain_ms=b_pl, work=sweep_work(BLOCK_MG, n, 2, fwd=False))
+        routes = (fk.fwd_route(BLOCK_MG), fk.bwd_route(BLOCK_MG))
+        self.check("H", routes == ("block", "block") and max(e, e_b) <= TOL_VS_PLAIN
                    and all(same),
-                   f"[{self.card}] one-block forward route (mg={a.shape[0]}, N={n}): "
+                   f"[{self.card}] one-block routes (mg={a.shape[0]}, N={n}): forward "
                    f"vs plain f32 (u_T, J, traj, series, the objective's J) rel "
-                   f"{e:.2e} (tol {TOL_VS_PLAIN:g}); series variant and the "
-                   f"objectives bitwise: {same}; sweep {f_k:.3f} ms vs plain "
-                   f"{f_pl:.3f} ms, with series {fs_k:.3f} vs {fs_pl:.3f} ms")
+                   f"{e:.2e}, reverse (lambda_0) rel {e_b:.2e} (tol {TOL_VS_PLAIN:g}); "
+                   f"series variant, the objectives and autograd's gradient bitwise "
+                   f"the wrappers': {same}; forward sweep {f_k:.3f} ms vs plain "
+                   f"{f_pl:.3f} ms, with series {fs_k:.3f} vs {fs_pl:.3f} ms; reverse "
+                   f"sweep {b_k:.3f} ms vs plain {b_pl:.3f} ms")
 
     def phase_i(self):
         a, b, w, u0, n = self.shb_sweep

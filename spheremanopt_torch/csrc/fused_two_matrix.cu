@@ -6,9 +6,11 @@
 //                 <- _fwd_kernel (_run_fwd; has_traj and has_ser as the
 //                    traj / ser pointers): the cluster route and the
 //                    one-block route of the same forward
-//   sm_fused_bwd  <- _bwd_kernel (_run_bwd); with op_grads it stores the
-//                    lambda history that op_grads.cu turns into dA and dB
-//                    (the `lam_hist` pointer)
+//   sm_fused_bwd, sm_fused_bwd_block
+//                 <- _bwd_kernel (_run_bwd): the cluster route and the
+//                    one-block route of the same reverse sweep; with
+//                    op_grads it stores the lambda history that op_grads.cu
+//                    turns into dA and dB (the `lam_hist` pointer)
 //
 // SHB23's step has two dense (mg, mg) f32 propagators: A = A_lin (the
 // Chebyshev-tau solve of the linear operator, entries ~1/dt) and
@@ -49,11 +51,30 @@
 // float4 loads), bound by one SM's L2 read rate (~191 GB/s measured).
 // The wrapper chooses by shape; each route launches its kernel or fails.
 //
-// sm_fused_bwd (reverse): one thread block; A and B stay in global
-// memory and L2. It computes A^T lambda and B^T lambda in the same
-// column-partitioned loop as the shared-matrix reverse kernel, with one
-// lambda read per row for both products; the state (lambda, partials)
-// lives in shared memory.
+// sm_fused_bwd (reverse, mg <= 640): the forward's cluster transposed.
+// lambda_n = A^T lambda + g'(u_n) (B^T lambda) + s w u_n needs columns of
+// A and B, so CTA rank r keeps columns [r mg/16, (r+1) mg/16) of A and of
+// B in its shared memory for the whole sweep, and every CTA keeps all of
+// lambda (ping-pong). A step:
+//   * the CTA's P x (mg/16) threads (P = 1024 / (mg/4) row phases) form
+//     the column partial sums over rows p, p + P, ... in ascending order,
+//     exactly as the one-block kernel's threads (p, column group) do for
+//     each of their four columns;
+//   * each new entry adds the P partials in phase order and applies the
+//     pinned update of common.cuh, from the CTA's slice of the trajectory
+//     row (loaded while the partial sums run), and goes into every CTA's
+//     next-lambda buffer through distributed shared memory; one
+//     cluster.sync() a step publishes it;
+//   * with the lambda history, each CTA stores its slice of lambda_{n+1}.
+// With that order lambda_0 and the history are bitwise the one-block
+// kernel's. The cost: only P x (mg/16) = 240-256 threads a CTA, each a
+// dependent chain of mg / P multiply-adds per matrix (64 at mg = 512),
+// reading 2 mg^2 4 / 16 bytes of shared memory a step.
+// A larger mg takes sm_fused_bwd_block: one thread block; A and B stay in
+// global memory and L2. It computes A^T lambda and B^T lambda in a
+// column-partitioned loop (thread (p, column group) sums rows p, p + P,
+// ... of four columns), with one lambda read per row for both products;
+// the state (lambda, partials) lives in shared memory.
 //
 // The energy series is a template flag, chosen from the `ser` pointer at
 // launch, as in fused_shared.cu (a runtime test sits on thread 0's
@@ -65,8 +86,8 @@
 //
 // The launchers launch on the given stream, do not synchronise, and
 // return cudaGetLastError() (or the launch's error). The caller
-// guarantees mg % 128 == 0, 128 <= mg <= 2048 (sm_fused_fwd: mg <= 640),
-// contiguous f32 buffers on one device.
+// guarantees mg % 128 == 0, 128 <= mg <= 2048 (sm_fused_fwd and
+// sm_fused_bwd: mg <= 640), contiguous f32 buffers on one device.
 
 #include <cooperative_groups.h>
 
@@ -297,12 +318,13 @@ fused_fwd_cluster_kernel(const float* __restrict__ a, const float* __restrict__ 
   }
 }
 
-template <bool kSeries, int R>
-cudaError_t cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
-                           cudaStream_t st) {
-  const auto kernel = fused_fwd_cluster_kernel<kSeries, R>;
-  const size_t smem = cluster_smem_bytes(R);
-  static bool ready[smo::kMaxDevices] = {};
+// The launch of one cluster of kClusterCtas CTAs of `threads` threads and
+// `smem` bytes of dynamic shared memory. The kernel's attributes are set
+// once per device; `ready` is the flag set of that kernel.
+template <typename Kernel>
+cudaError_t cluster_config(Kernel kernel, size_t smem, int threads,
+                           bool (&ready)[smo::kMaxDevices], cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute& attr, cudaStream_t st) {
   const cudaError_t err = smo::set_once(ready, [&] {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -312,7 +334,7 @@ cudaError_t cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
   });
   cfg = cudaLaunchConfig_t{};
   cfg.gridDim = dim3(kClusterCtas);
-  cfg.blockDim = dim3(kClusterThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -324,64 +346,79 @@ cudaError_t cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
   return err;
 }
 
-// clusters of the forward for this mg that the card can hold at once
-// (> 0 when it can be scheduled), or -cudaError_t
-template <bool kSeries, int R>
-int cluster_capacity() {
+// clusters of `kernel` that the card can hold at once (> 0 when it can be
+// scheduled), or -cudaError_t
+template <typename Kernel>
+int cluster_capacity(Kernel kernel, size_t smem, int threads,
+                     bool (&ready)[smo::kMaxDevices]) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config<kSeries, R>(cfg, attr, nullptr);
+  cudaError_t err = cluster_config(kernel, smem, threads, ready, cfg, attr, nullptr);
   int n = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&n, fused_fwd_cluster_kernel<kSeries, R>, &cfg);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
-template <bool kSeries, int R>
-int launch_cluster(const float* a, const float* b, const float* w, const float* u0,
-                   float c2, float c3, int n_steps, float* uT, float* jsum, float* traj,
-                   float* ser, cudaStream_t st) {
+template <typename Kernel, typename... Args>
+int cluster_launch(Kernel kernel, size_t smem, int threads, bool (&ready)[smo::kMaxDevices],
+                   cudaStream_t st, Args... args) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config<kSeries, R>(cfg, attr, st);
-  if (err == cudaSuccess)
-    err = cudaLaunchKernelEx(&cfg, fused_fwd_cluster_kernel<kSeries, R>, a, b, w, u0, c2,
-                             c3, n_steps, uT, jsum, traj, ser);
+  cudaError_t err = cluster_config(kernel, smem, threads, ready, cfg, attr, st);
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <bool kSeries>
-int launch_cluster_mg(int mg, const float* a, const float* b, const float* w,
-                      const float* u0, float c2, float c3, int n_steps, float* uT,
-                      float* jsum, float* traj, float* ser, cudaStream_t st) {
+template <bool kSeries, int R>
+struct FwdCluster {
+  static inline bool ready[smo::kMaxDevices] = {};
+  static int capacity() {
+    return cluster_capacity(fused_fwd_cluster_kernel<kSeries, R>, cluster_smem_bytes(R),
+                            kClusterThreads, ready);
+  }
+  static int launch(cudaStream_t st, const float* a, const float* b, const float* w,
+                    const float* u0, float c2, float c3, int n_steps, float* uT, float* jsum,
+                    float* traj, float* ser) {
+    return cluster_launch(fused_fwd_cluster_kernel<kSeries, R>, cluster_smem_bytes(R),
+                          kClusterThreads, ready, st, a, b, w, u0, c2, c3, n_steps, uT,
+                          jsum, traj, ser);
+  }
+};
+
+// K<V, R>::launch(args...) and K<V, R>::capacity() for the R of
+// mg = 128 R (the cluster kernels' widths), or cudaErrorInvalidValue
+template <template <bool, int> class K, bool V, typename... Args>
+int launch_by_mg(int mg, Args... args) {
   switch (mg) {
-    case 128: return launch_cluster<kSeries, 1>(a, b, w, u0, c2, c3, n_steps, uT, jsum, traj, ser, st);
-    case 256: return launch_cluster<kSeries, 2>(a, b, w, u0, c2, c3, n_steps, uT, jsum, traj, ser, st);
-    case 384: return launch_cluster<kSeries, 3>(a, b, w, u0, c2, c3, n_steps, uT, jsum, traj, ser, st);
-    case 512: return launch_cluster<kSeries, 4>(a, b, w, u0, c2, c3, n_steps, uT, jsum, traj, ser, st);
-    case 640: return launch_cluster<kSeries, 5>(a, b, w, u0, c2, c3, n_steps, uT, jsum, traj, ser, st);
+    case 128: return K<V, 1>::launch(args...);
+    case 256: return K<V, 2>::launch(args...);
+    case 384: return K<V, 3>::launch(args...);
+    case 512: return K<V, 4>::launch(args...);
+    case 640: return K<V, 5>::launch(args...);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <bool kSeries>
-int cluster_capacity_mg(int mg) {
+template <template <bool, int> class K, bool V>
+int capacity_by_mg(int mg) {
   switch (mg) {
-    case 128: return cluster_capacity<kSeries, 1>();
-    case 256: return cluster_capacity<kSeries, 2>();
-    case 384: return cluster_capacity<kSeries, 3>();
-    case 512: return cluster_capacity<kSeries, 4>();
-    case 640: return cluster_capacity<kSeries, 5>();
+    case 128: return K<V, 1>::capacity();
+    case 256: return K<V, 2>::capacity();
+    case 384: return K<V, 3>::capacity();
+    case 512: return K<V, 4>::capacity();
+    case 640: return K<V, 5>::capacity();
     default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Backward: lambda_N = s w u_N, then for n = N-1..0
+// Backward, one block (sm_fused_bwd_block): lambda_N = s w u_N, then for
+// n = N-1..0
 //   lambda_n = A^T lambda_{n+1} + (2 c2 u_n + 3 c3 u_n^2) * (B^T lambda_{n+1})
 //              + s w u_n,
 // with s = *scale and u_n = traj row n. Thread (p, cg) sums rows
 // p, p + P, ... of column group cg (4 columns, one float4) of A and of
-// B; the P partial sums of each meet in shared memory.
+// B, each product one rounded multiply-add; the P partial sums of each
+// meet in shared memory.
 // With kLamHist, step n also stores the lambda_{n+1} it consumes as row n
 // of lam_hist (N rows), for dA = sum_n lambda_{n+1} (x) u_n and
 // dB = sum_n lambda_{n+1} (x) g(u_n) (op_grads.cu).
@@ -409,7 +446,7 @@ fused_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const float4* b4 = reinterpret_cast<const float4*>(b);
   const float s = *scale;
 
-  for (int j = tid; j < mg; j += kThreads) lam[j] = s * (w[j] * uT[j]);
+  for (int j = tid; j < mg; j += kThreads) lam[j] = smo::cost_term(s, w[j], uT[j]);
   __syncthreads();
 
   for (int k = 0; k < n_steps; ++k) {
@@ -423,14 +460,14 @@ fused_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
         const float4 aa = __ldg(a4 + (size_t)i * ncg + cg);
         const float4 bb = __ldg(b4 + (size_t)i * ncg + cg);
         const float l = lam[i];
-        sa.x += aa.x * l;
-        sa.y += aa.y * l;
-        sa.z += aa.z * l;
-        sa.w += aa.w * l;
-        sb.x += bb.x * l;
-        sb.y += bb.y * l;
-        sb.z += bb.z * l;
-        sb.w += bb.w * l;
+        sa.x = __fmaf_rn(aa.x, l, sa.x);
+        sa.y = __fmaf_rn(aa.y, l, sa.y);
+        sa.z = __fmaf_rn(aa.z, l, sa.z);
+        sa.w = __fmaf_rn(aa.w, l, sa.w);
+        sb.x = __fmaf_rn(bb.x, l, sb.x);
+        sb.y = __fmaf_rn(bb.y, l, sb.y);
+        sb.z = __fmaf_rn(bb.z, l, sb.z);
+        sb.w = __fmaf_rn(bb.w, l, sb.w);
       }
       pa4[p * ncg + cg] = sa;
       pb4[p * ncg + cg] = sb;
@@ -452,6 +489,113 @@ fused_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
   for (int j = tid; j < mg; j += kThreads) lam_out[j] = lam[j];
 }
 
+// Backward, one cluster (sm_fused_bwd): the recurrence, lambda_0 and the
+// history of fused_bwd_kernel on kClusterCtas CTAs of kClusterThreads
+// threads, mg = 128 R. CTA rank r owns the C = mg / 16 columns from
+// c0 = r C; thread t < P C stands in for the one-block kernel's thread
+// (p, column group) for one column: p = t / C, column c0 + t % C, with the
+// one-block kernel's P = 1024 / (mg / 4) row phases. Shared memory: A's
+// and B's columns (mg x C each, row-major), lambda[2][mg] (ping-pong),
+// the partials (P x C each), w and u_n of the columns.
+__host__ __device__ constexpr int bwd_phases(int R) { return kThreads / (32 * R); }
+
+__host__ __device__ constexpr size_t bwd_cluster_smem_bytes(int R) {
+  return (2 * (size_t)(128 * R) * (8 * R) + 2 * (size_t)(128 * R)
+          + 2 * (size_t)bwd_phases(R) * (8 * R) + 2 * (size_t)(8 * R)) * sizeof(float);
+}
+
+template <bool kLamHist, int R>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+fused_bwd_cluster_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                         const float* __restrict__ w, const float* __restrict__ uT,
+                         const float* __restrict__ traj, float c2, float c3,
+                         const float* __restrict__ scale, int n_steps,
+                         float* __restrict__ lam_out, float* __restrict__ lam_hist) {
+  constexpr int mg = 128 * R, C = mg / kClusterCtas, P = bwd_phases(R);
+  static_assert(P * C <= kClusterThreads, "one thread per (phase, column)");
+  static_assert(P == kThreads / (mg / 4), "the one-block kernel's row phases");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int c0 = rank * C;
+  extern __shared__ float4 smem4[];
+  float* as = reinterpret_cast<float*>(smem4);  // [mg][C]
+  float* bs = as + mg * C;
+  float* lam = bs + mg * C;
+  float* lamn = lam + mg;
+  float* pa = lamn + mg;  // [P][C]
+  float* pb = pa + P * C;
+  float* ws = pb + P * C;  // [C]
+  float* us = ws + C;      // [C]
+
+  for (int idx = tid; idx < mg * C; idx += kClusterThreads) {
+    const size_t src = (size_t)(idx / C) * mg + c0 + idx % C;
+    as[idx] = __ldg(a + src);
+    bs[idx] = __ldg(b + src);
+  }
+  const float s = *scale;
+  for (int j = tid; j < mg; j += kClusterThreads) lam[j] = smo::cost_term(s, w[j], uT[j]);
+  if (tid < C) ws[tid] = w[c0 + tid];
+  cluster.sync();  // every CTA has started and holds lambda_N before any remote store
+
+  const int p = tid / C, col = tid % C;
+  for (int k = 0; k < n_steps; ++k) {
+    const size_t row = (size_t)(n_steps - 1 - k) * mg;
+    const float un = tid < C ? traj[row + c0 + tid] : 0.f;  // in flight during the sums
+    if (tid < P * C) {
+      float sa = 0.f, sb = 0.f;
+#pragma unroll 4
+      for (int i = p; i < mg; i += P) {
+        const float l = lam[i];
+        sa = __fmaf_rn(as[i * C + col], l, sa);
+        sb = __fmaf_rn(bs[i * C + col], l, sb);
+      }
+      pa[p * C + col] = sa;
+      pb[p * C + col] = sb;
+    }
+    if (tid < C) us[tid] = un;
+    __syncthreads();  // partials and u_n ready
+    // (column, destination rank) pairs: the entry is formed once per
+    // destination, consecutive threads store consecutive columns
+    for (int t = tid; t < kClusterCtas * C; t += kClusterThreads) {
+      const int c = t % C, dst = t / C;
+      float wa = 0.f, wb = 0.f;
+      for (int q = 0; q < P; ++q) {
+        wa += pa[q * C + c];
+        wb += pb[q * C + c];
+      }
+      const float u = us[c];
+      const float gprime = smo::poly_prime(0.f, 2.f * c2, 3.f * c3, u);
+      cluster.map_shared_rank(lamn, dst)[c0 + c] =
+          __fadd_rn(__fmaf_rn(gprime, wb, wa), smo::cost_term(s, ws[c], u));
+      if constexpr (kLamHist) {
+        if (dst == rank) lam_hist[row + c0 + c] = lam[c0 + c];  // lambda_{n+1}
+      }
+    }
+    cluster.sync();  // lamn complete in every CTA; lam, partials and u_n free
+    float* t = lam;
+    lam = lamn;
+    lamn = t;
+  }
+  if (tid < C) lam_out[c0 + tid] = lam[c0 + tid];
+}
+
+template <bool kLamHist, int R>
+struct BwdCluster {
+  static inline bool ready[smo::kMaxDevices] = {};
+  static int capacity() {
+    return cluster_capacity(fused_bwd_cluster_kernel<kLamHist, R>,
+                            bwd_cluster_smem_bytes(R), kClusterThreads, ready);
+  }
+  static int launch(cudaStream_t st, const float* a, const float* b, const float* w,
+                    const float* uT, const float* traj, float c2, float c3,
+                    const float* scale, int n_steps, float* lam_out, float* lam_hist) {
+    return cluster_launch(fused_bwd_cluster_kernel<kLamHist, R>, bwd_cluster_smem_bytes(R),
+                          kClusterThreads, ready, st, a, b, w, uT, traj, c2, c3, scale,
+                          n_steps, lam_out, lam_hist);
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -461,15 +605,17 @@ int sm_fused_fwd(const float* a, const float* b, const float* w, const float* u0
                  float* traj, float* ser, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return ser != nullptr
-             ? launch_cluster_mg<true>(mg, a, b, w, u0, c2, c3, n_steps, uT, jsum, traj, ser, st)
-             : launch_cluster_mg<false>(mg, a, b, w, u0, c2, c3, n_steps, uT, jsum, traj, ser, st);
+             ? launch_by_mg<FwdCluster, true>(mg, st, a, b, w, u0, c2, c3, n_steps, uT, jsum,
+                                              traj, ser)
+             : launch_by_mg<FwdCluster, false>(mg, st, a, b, w, u0, c2, c3, n_steps, uT, jsum,
+                                               traj, ser);
 }
 
 // Clusters of sm_fused_fwd (with the series when `series`) that the card
 // can hold at once for this mg: 0 means it cannot be scheduled; a
 // negative value is -cudaError_t.
 int sm_fused_fwd_capacity(int mg, int series) {
-  return series ? cluster_capacity_mg<true>(mg) : cluster_capacity_mg<false>(mg);
+  return series ? capacity_by_mg<FwdCluster, true>(mg) : capacity_by_mg<FwdCluster, false>(mg);
 }
 
 int sm_fused_fwd_block(const float* a, const float* b, const float* w, const float* u0,
@@ -486,6 +632,24 @@ int sm_fused_bwd(const float* a, const float* b, const float* w, const float* uT
                  const float* traj, float c2, float c3, const float* scale,
                  int n_steps, int mg, float* lam_out, float* lam_hist,
                  void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return lam_hist != nullptr
+             ? launch_by_mg<BwdCluster, true>(mg, st, a, b, w, uT, traj, c2, c3, scale,
+                                              n_steps, lam_out, lam_hist)
+             : launch_by_mg<BwdCluster, false>(mg, st, a, b, w, uT, traj, c2, c3, scale,
+                                               n_steps, lam_out, lam_hist);
+}
+
+// Clusters of sm_fused_bwd (with the lambda history when `hist`) that the
+// card can hold at once for this mg, as sm_fused_fwd_capacity.
+int sm_fused_bwd_capacity(int mg, int hist) {
+  return hist ? capacity_by_mg<BwdCluster, true>(mg) : capacity_by_mg<BwdCluster, false>(mg);
+}
+
+int sm_fused_bwd_block(const float* a, const float* b, const float* w, const float* uT,
+                       const float* traj, float c2, float c3, const float* scale,
+                       int n_steps, int mg, float* lam_out, float* lam_hist,
+                       void* stream) {
   const int ncg = mg / 4;
   const int P = kThreads / ncg;
   const size_t smem = ((size_t)mg + 8 * (size_t)P * ncg) * sizeof(float);

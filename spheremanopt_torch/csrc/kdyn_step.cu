@@ -27,8 +27,8 @@
 // up to the y analysis is local to one (a, b) pencil of the grid. What
 // the design does:
 //   * one persistent cooperative kernel per sweep, all blocks
-//     co-resident (two or so of 128 threads on each SM), with a
-//     grid-wide barrier between the five stages of a step:
+//     co-resident (two or so of 128 threads on each SM); the forward has
+//     a grid-wide barrier between the five stages of a step:
 //     x-synthesis | y-synthesis | per pencil: z-synthesis, cross
 //     product, z-analysis | y-analysis | x-analysis fused with the
 //     mode-space tail (curl, rhs, Leray, lhs_inv) and the energy;
@@ -37,10 +37,43 @@
 //   * J and the per-step energies are sums of per-block partials taken
 //     in a fixed order (no float atomics), and the Kahan accumulation
 //     over the steps lives in one thread with the pinned rounding of
-//     common.cuh, so J is the same from run to run;
-//   * in the reverse sweep each pencil has one owner warp for the whole
-//     sweep, so u_bar accumulates without atomics; the synthesis of the
-//     stored state b_n rides in the same stages as the lambda chain.
+//     common.cuh, so J is the same from run to run.
+// The reverse sweep (sm_kdyn_bwd) has its own partition, with two
+// grid-wide barriers a step instead of five. The transforms are
+// separable, so the x-direction work and the y/z-direction work get
+// different owners, and the only exchanges through L2 are q1, g1 and r4:
+//   * stage X, by mode column (Y, z), tasks of two adjacent columns
+//     (adjacent in every array the stage reads and writes; 156 tasks at
+//     n = 24): r4 of the
+//     column -> x-synthesis^T plus the direct term (and the integrated
+//     cost's term) -> lambda_n; the head of the next transposed step
+//     (local to a mode, all three components at hand); the x-analysis^T
+//     of its p0 -> q1, and the x-synthesis of the next stored state -> g1
+//     (that chain does not depend on lambda);
+//   * stage YZ, by x-grid slab a, split into S groups of <= 6 y-grid
+//     points b so that the ~216 tasks spread over the card (36 slabs
+//     alone would leave 96 of 132 SMs idle): the y-analysis^T of q1 and
+//     y-synthesis of g1 onto the group's b, the pencil work (z-stages,
+//     cross products, u_bar), the z-synthesis^T, and the group's share of
+//     the y-synthesis^T; stage X adds the S shares in group order.
+//   q2, g2 and r3 stay in shared memory. Blocks of 256 threads, two on an
+//   SM, one block per task of the larger stage: a block that has to run
+//   two tasks of a stage doubles that stage's time. Measured on an H100
+//   SXM at 700 W (n = 24, 2000 steps): 31.6 ms a sweep with 6 groups,
+//   two-column X tasks and one grid point a thread for all three
+//   components in the z-stage (34.3 ms with one output a thread); 3, 4
+//   or 9 groups, 1, 3 or 8 columns, or blocks of 384 or 512 threads took
+//   38.1-63.5 ms. The shape of the KDyn configuration
+//   (n = 24, mg = 36) has its own instance with the shape as constants:
+//   with run-time strides the stages were bound by integer address work
+//   (57 ms). A split by cluster
+//   (exchanging the shares through distributed shared memory) was not
+//   taken: it needs cluster dimensions and a cooperative launch in one
+//   launch, and the shares cost one read of S small planes a step.
+//   Every sum has a fixed order and no float atomics: the grid point
+//   (a, b, k) keeps its owner thread for the sweep, so u_bar accumulates
+//   without atomics, and two calls give the same bits. S follows from
+//   (n, mg) alone, not from the card.
 // Thread-block clusters with the state in distributed shared memory and
 // tensor-core transforms are the later, faster designs.
 //
@@ -63,12 +96,13 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// Small blocks, as many on an SM as the registers allow. The sweeps are
-// bound by latency, and the stages want ~170-190 registers a thread: a
-// bound that forces fewer (two blocks of 256 threads, 128 registers)
-// spills in the mode-space stage and slowed the plain forward by 40 %
-// and the reverse sweep by 5 % on an H100; 128 threads with the
-// registers left free was the fastest of the sizes tried (64 to 1024).
+// The forward kernels: small blocks, as many on an SM as the registers
+// allow. The sweeps are bound by latency, and the stages want ~170-190
+// registers a thread: a bound that forces fewer (two blocks of 256
+// threads, 128 registers) spills in the mode-space stage and slowed the
+// plain forward by 40 % on an H100; 128 threads with the registers left
+// free was the fastest of the sizes tried (64 to 1024). The reverse
+// sweep's blocks are below (kBwdThreads).
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBlocksPerSm = 4;  // at most; the occupancy query decides
@@ -92,7 +126,7 @@ struct Dims {
     mats = 4 * n * mg + 4 * kz * mg;
     warp_scratch = 12 * kz + 6 * mg;
   }
-  __host__ __device__ long long work_floats() const {
+  __host__ __device__ long long work_floats() const {  // the forward's scratch
     return 4LL * s + 6LL * p1 + 6LL * p2 + kMaxBlocks;
   }
   __host__ __device__ size_t smem_bytes() const {
@@ -108,8 +142,9 @@ struct Factors {  // in global memory, constant for the whole launch
   const float *k, *inv_k2, *lhs_inv, *rhs_fac, *keep, *pw, *mean_mask;
 };
 
+template <int kT>
 __device__ Mats load_mats(float* smem, const float* consts, const Dims& d) {
-  for (int i = threadIdx.x; i < d.mats; i += kThreads) smem[i] = __ldg(consts + i);
+  for (int i = threadIdx.x; i < d.mats; i += kT) smem[i] = __ldg(consts + i);
   __syncthreads();
   Mats m;
   m.Ffr = smem;
@@ -162,6 +197,46 @@ __device__ __forceinline__ void cdot(const float* mr, const float* mi, int js,
   }
   outr = r;
   outi = im;
+}
+
+// cdot with four independent partial sums (terms j = 4 i + q go to sum
+// q; the sums meet as (s0 + s1) + (s2 + s3)), so that a thread's loads and
+// multiply-adds overlap instead of waiting on one chain: the reverse
+// sweep's stages are a few short dot products per thread.
+template <bool kConj>
+__device__ __forceinline__ void cdot4(const float* mr, const float* mi, int js,
+                                      const float* xr, const float* xi, int stride,
+                                      int len, float& outr, float& outi) {
+  float r[4] = {0.f, 0.f, 0.f, 0.f}, im[4] = {0.f, 0.f, 0.f, 0.f};
+  int j = 0;
+#pragma unroll
+  for (; j + 4 <= len; j += 4) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float a = mr[(j + q) * js], b = mi[(j + q) * js];
+      const float x = xr[(size_t)(j + q) * stride], y = xi[(size_t)(j + q) * stride];
+      if constexpr (kConj) {
+        r[q] += a * x + b * y;
+        im[q] += a * y - b * x;
+      } else {
+        r[q] += a * x - b * y;
+        im[q] += a * y + b * x;
+      }
+    }
+  }
+  for (int q = 0; j < len; ++j, ++q) {
+    const float a = mr[j * js], b = mi[j * js];
+    const float x = xr[(size_t)j * stride], y = xi[(size_t)j * stride];
+    if constexpr (kConj) {
+      r[q] += a * x + b * y;
+      im[q] += a * y - b * x;
+    } else {
+      r[q] += a * x - b * y;
+      im[q] += a * y + b * x;
+    }
+  }
+  outr = (r[0] + r[1]) + (r[2] + r[3]);
+  outi = (im[0] + im[1]) + (im[2] + im[3]);
 }
 
 // out[o, m, i] = sum_j M(m, j) in[o, j, i] over the whole grid, with
@@ -235,73 +310,6 @@ __device__ void pencils_fwd(const Mats& M, const Dims& d, const float* u,
   }
 }
 
-// Reverse pencil stage. For each (a, b): e_bar = z-analysis^T of
-// q2[:, a, b, :], B_n = z-synthesis of g2[:, a, b, :] (the stored state),
-// u_bar[:, a, b, :] += B_n x e_bar, and r3[:, a, b, :] = z-synthesis^T of
-// e_bar x u. A pencil keeps its warp for the whole sweep.
-__device__ void pencils_bwd(const Mats& M, const Dims& d, const float* u,
-                            const float* q2r, const float* q2i, const float* g2r,
-                            const float* g2i, float* r3r, float* r3i, float* ubar,
-                            float* ws, int gwarp, int gwarps, int lane) {
-  const int mg = d.mg, kz = d.kz;
-  const size_t grid1 = (size_t)mg * mg * mg;
-  float* qr = ws;  // [3][kz] each
-  float* qi = qr + 3 * kz;
-  float* gr = qi + 3 * kz;
-  float* gi = gr + 3 * kz;
-  float* gs = ws + 12 * kz;  // [3][mg]: B_n, then e_bar x u
-  float* es = gs + 3 * mg;   // [3][mg]: e_bar
-  for (int p = gwarp; p < mg * mg; p += gwarps) {
-    for (int t = lane; t < 3 * kz; t += 32) {
-      const int c = t / kz, z = t % kz;
-      const size_t src = ((size_t)c * mg * mg + p) * kz + z;
-      qr[t] = q2r[src];
-      qi[t] = q2i[src];
-      gr[t] = g2r[src];
-      gi[t] = g2i[src];
-    }
-    __syncwarp();
-    for (int t = lane; t < 3 * mg; t += 32) {
-      const int c = t / mg, k = t % mg;
-      float e = 0.f, b = 0.f;
-      for (int z = 0; z < kz; ++z) {
-        e += M.Fzr[z * mg + k] * qr[c * kz + z] + M.Fzi[z * mg + k] * qi[c * kz + z];
-        b += M.Bzr[k * kz + z] * gr[c * kz + z] - M.Bzi[k * kz + z] * gi[c * kz + z];
-      }
-      es[t] = e;
-      gs[t] = b;
-    }
-    __syncwarp();
-    for (int k = lane; k < mg; k += 32) {
-      const size_t ui = (size_t)p * mg + k;
-      const float u0 = __ldg(u + ui), u1 = __ldg(u + grid1 + ui),
-                  u2 = __ldg(u + 2 * grid1 + ui);
-      const float e0 = es[k], e1 = es[mg + k], e2 = es[2 * mg + k];
-      const float b0 = gs[k], b1 = gs[mg + k], b2 = gs[2 * mg + k];
-      ubar[ui] += b1 * e2 - b2 * e1;
-      ubar[grid1 + ui] += b2 * e0 - b0 * e2;
-      ubar[2 * grid1 + ui] += b0 * e1 - b1 * e0;
-      gs[k] = e1 * u2 - e2 * u1;
-      gs[mg + k] = e2 * u0 - e0 * u2;
-      gs[2 * mg + k] = e0 * u1 - e1 * u0;
-    }
-    __syncwarp();
-    for (int t = lane; t < 3 * kz; t += 32) {
-      const int c = t / kz, z = t % kz;
-      float a = 0.f, b = 0.f;
-      for (int k = 0; k < mg; ++k) {
-        const float g = gs[c * mg + k];
-        a += M.Bzr[k * kz + z] * g;
-        b -= M.Bzi[k * kz + z] * g;
-      }
-      const size_t dst = ((size_t)c * mg * mg + p) * kz + z;
-      r3r[dst] = a;
-      r3i[dst] = b;
-    }
-    __syncwarp();
-  }
-}
-
 // Mode-space tail of the forward step at mode m: band mask, F = i k x e,
 // rhs = rhs_fac b + F, Leray projection, lhs_inv, mean mode zeroed.
 __device__ __forceinline__ void step_tail(const Factors& F, int s1, int m,
@@ -334,18 +342,25 @@ __device__ __forceinline__ void step_tail(const Factors& F, int s1, int m,
   ni[2] = (ri2 - k2 * pi) * li * mm;
 }
 
-// Head of the transposed step at mode m, from lambda: t = mean mask,
-// lhs_inv, k-projector; the direct term d = rhs_fac t; and the cotangent
-// of the analysed e, (e_r, e_i)_bar = (-k x t_i, k x t_r), band-masked.
-__device__ __forceinline__ void adjoint_head(const Factors& F, int s1, int m,
-                                             const float* lr, const float* li,
-                                             float* dr, float* di, float* p0r,
-                                             float* p0i) {
-  const float keep = __ldg(F.keep + m);
-  const float k0 = __ldg(F.k + m), k1 = __ldg(F.k + s1 + m),
-              k2 = __ldg(F.k + 2 * s1 + m);
-  const float rf = __ldg(F.rhs_fac + m), lhs = __ldg(F.lhs_inv + m),
-              ik2 = __ldg(F.inv_k2 + m), mm = __ldg(F.mean_mask + m);
+// Head of the transposed step at mode m, from lambda (three components):
+// t = mean mask, lhs_inv, k-projector; the direct term d = rhs_fac t; and
+// the cotangent of the analysed e, (e_r, e_i)_bar = (-k x t_i, k x t_r),
+// band-masked. Outputs three components each.
+struct ModeFactors {
+  float keep, k0, k1, k2, rf, lhs, ik2, mm;
+};
+
+__device__ __forceinline__ ModeFactors mode_factors(const Factors& F, int s1, int m) {
+  return {__ldg(F.keep + m),    __ldg(F.k + m),        __ldg(F.k + s1 + m),
+          __ldg(F.k + 2 * s1 + m), __ldg(F.rhs_fac + m), __ldg(F.lhs_inv + m),
+          __ldg(F.inv_k2 + m),  __ldg(F.mean_mask + m)};
+}
+
+__device__ __forceinline__ void adjoint_head(const ModeFactors& f, const float* lr,
+                                             const float* li, float* dr, float* di,
+                                             float* p0r, float* p0i) {
+  const float keep = f.keep, k0 = f.k0, k1 = f.k1, k2 = f.k2;
+  const float rf = f.rf, lhs = f.lhs, ik2 = f.ik2, mm = f.mm;
   float tr[3], ti[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -362,15 +377,15 @@ __device__ __forceinline__ void adjoint_head(const Factors& F, int s1, int m,
   ti[2] -= k2 * pi;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    dr[c * s1 + m] = rf * tr[c];
-    di[c * s1 + m] = rf * ti[c];
+    dr[c] = rf * tr[c];
+    di[c] = rf * ti[c];
   }
-  p0r[m] = -keep * (k1 * ti[2] - k2 * ti[1]);
-  p0r[s1 + m] = -keep * (k2 * ti[0] - k0 * ti[2]);
-  p0r[2 * s1 + m] = -keep * (k0 * ti[1] - k1 * ti[0]);
-  p0i[m] = keep * (k1 * tr[2] - k2 * tr[1]);
-  p0i[s1 + m] = keep * (k2 * tr[0] - k0 * tr[2]);
-  p0i[2 * s1 + m] = keep * (k0 * tr[1] - k1 * tr[0]);
+  p0r[0] = -keep * (k1 * ti[2] - k2 * ti[1]);
+  p0r[1] = -keep * (k2 * ti[0] - k0 * ti[2]);
+  p0r[2] = -keep * (k0 * ti[1] - k1 * ti[0]);
+  p0i[0] = keep * (k1 * tr[2] - k2 * tr[1]);
+  p0i[1] = keep * (k2 * tr[0] - k0 * tr[2]);
+  p0i[2] = keep * (k0 * tr[1] - k1 * tr[0]);
 }
 
 struct FwdParams {
@@ -389,7 +404,7 @@ __global__ void __launch_bounds__(kThreads, 1) kdyn_fwd_kernel(const FwdParams p
   extern __shared__ float smem[];
   __shared__ float red[kWarps];
   const Dims d(p.n, p.mg);
-  const Mats M = load_mats(smem, p.consts, d);
+  const Mats M = load_mats<kThreads>(smem, p.consts, d);
   const Factors F = factors(p.consts, d);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gtid = blockIdx.x * kThreads + tid, gthreads = gridDim.x * kThreads;
@@ -508,115 +523,384 @@ struct BwdParams {
   float *b0r_bar, *b0i_bar, *ubar, *work;
 };
 
-// Reverse sweep: lambda_T = w_T gbar pw b_T (w_T = 2, or 2 dt with
-// kIntegrated); for n = N-1 .. 0: lambda_n = S^T lambda_{n+1}
-// (+ 2 dt gbar pw b_n with kIntegrated), u_bar += to_grid(b_n) x e_bar_n.
-template <bool kIntegrated>
-__global__ void __launch_bounds__(kThreads, 1) kdyn_bwd_kernel(const BwdParams p) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float smem[];
-  const Dims d(p.n, p.mg);
-  const Mats M = load_mats(smem, p.consts, d);
-  const Factors F = factors(p.consts, d);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gtid = blockIdx.x * kThreads + tid, gthreads = gridDim.x * kThreads;
-  const int gwarp = blockIdx.x * kWarps + warp, gwarps = gridDim.x * kWarps;
-  float* ws = smem + d.mats + warp * d.warp_scratch;
-  float* dr = p.work;  // the direct term rhs_fac t (3, n, n, kz)
-  float* di = dr + d.s;
-  float* p0r = di + d.s;  // cotangent of the analysed e (3, n, n, kz)
-  float* p0i = p0r + d.s;
-  float* q1r = p0i + d.s;  // lambda chain after x, then y analysis^T
-  float* q1i = q1r + d.p1;
-  float* g1r = q1i + d.p1;  // stored state after x, then y synthesis
-  float* g1i = g1r + d.p1;
-  float* r4r = g1i + d.p1;  // lambda chain after y synthesis^T
-  float* r4i = r4r + d.p1;
-  float* q2r = r4i + d.p1;
-  float* q2i = q2r + d.p2;
-  float* g2r = q2i + d.p2;
-  float* g2i = g2r + d.p2;
-  float* r3r = g2i + d.p2;  // lambda chain after z synthesis^T
-  float* r3i = r3r + d.p2;
+// The reverse sweep's partition (see the header). Stage YZ: task (a, grp)
+// owns the x-grid slab a and the y-grid points b0 .. b0 + nb - 1,
+// b0 = grp nb, of the S groups of a slab; stage X: task `chunk` owns the
+// kColChunk (Y, z) mode columns from chunk kColChunk. S and nb follow from
+// (n, mg) alone, so the sums' order does not depend on the card.
+constexpr int kBwdThreads = 256;
+constexpr int kBwdBlocksPerSm = 2;   // at most; the occupancy query decides
+constexpr int kPencilsPerTask = 6;   // y-grid points of a stage-YZ task, at most
+constexpr int kColChunk = 2;         // mode columns of a stage-X task
+constexpr int kPts = 2;              // grid points a thread holds in stage YZ
+constexpr int kMaxGroups = 16;       // groups S of a slab, at most (mg <= 96)
+constexpr int kLoads = 4;            // global loads a thread keeps in flight
 
-  const float g = __ldg(p.gbar);
-  const float wT = (kIntegrated ? 2.f * p.dt : 2.f) * g;
-  const float wI = 2.f * p.dt * g;
-
-  for (int m = gtid; m < d.s1; m += gthreads) {
-    const float w = wT * __ldg(F.pw + m);
-    float lr[3], li[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      lr[c] = w * p.brT[c * d.s1 + m];
-      li[c] = w * p.biT[c * d.s1 + m];
-    }
-    adjoint_head(F, d.s1, m, lr, li, dr, di, p0r, p0i);
+struct BwdDims : Dims {
+  int S, nb, tasks, chunks;
+  __host__ __device__ BwdDims(int n_, int mg_) : Dims(n_, mg_) {
+    S = (mg + kPencilsPerTask - 1) / kPencilsPerTask;
+    nb = (mg + S - 1) / S;
+    tasks = mg * S;
+    chunks = (nkz + kColChunk - 1) / kColChunk;
   }
-  grid.sync();
+  // d (2 s), q1 and g1 (4 p1), the S groups' shares of r4 (2 S p1)
+  __host__ __device__ long long bwd_work_floats() const {
+    return 2LL * s + 4LL * p1 + 2LL * S * p1;
+  }
+  __host__ __device__ int yz_floats() const { return 12 * nkz + 18 * nb * kz + 3 * nb * mg; }
+  __host__ __device__ int x_floats() const { return kColChunk * (6 * mg + 30 * n); }
+  __host__ __device__ size_t bwd_smem_bytes() const {
+    const int buf = yz_floats() > x_floats() ? yz_floats() : x_floats();
+    return (size_t)(mats + buf) * sizeof(float);
+  }
+};
 
-  for (int kk = 0; kk < p.n_steps; ++kk) {
-    const float* tr_r = p.trr + (size_t)(p.n_steps - 1 - kk) * d.s;  // b_n
-    const float* tr_i = p.tri + (size_t)(p.n_steps - 1 - kk) * d.s;
-    caxis<true>(M.Ffr, M.Ffi, 1, d.mg, p0r, p0i, q1r, q1i, 3, d.mg, d.n, d.nkz, gtid,
-                gthreads);
-    caxis<false>(M.Bfr, M.Bfi, d.n, 1, tr_r, tr_i, g1r, g1i, 3, d.mg, d.n, d.nkz, gtid,
-                 gthreads);
-    grid.sync();
-    caxis<true>(M.Ffr, M.Ffi, 1, d.mg, q1r, q1i, q2r, q2i, 3 * d.mg, d.mg, d.n, d.kz,
-                gtid, gthreads);
-    caxis<false>(M.Bfr, M.Bfi, d.n, 1, g1r, g1i, g2r, g2i, 3 * d.mg, d.mg, d.n, d.kz,
-                 gtid, gthreads);
-    grid.sync();
-    pencils_bwd(M, d, p.u, q2r, q2i, g2r, g2i, r3r, r3i, p.ubar, ws, gwarp, gwarps,
-                lane);
-    grid.sync();
-    caxis<true>(M.Bfr, M.Bfi, 1, d.n, r3r, r3i, r4r, r4i, 3 * d.mg, d.n, d.mg, d.kz,
-                gtid, gthreads);
-    grid.sync();
-    // x synthesis^T, one thread per mode for all three components, plus
-    // the direct term; then the head of the next transposed step
-    const bool last = kk == p.n_steps - 1;
-    for (int m = gtid; m < d.s1; m += gthreads) {
-      const int X = m / d.nkz, yz = m % d.nkz;
-      const float w = wI * __ldg(F.pw + m);
-      float lr[3], li[3];
+struct BwdCtx {
+  BwdDims d;
+  Mats M;
+  Factors F;
+  const BwdParams* p;
+  float* buf;                    // shared memory after the matrices
+  float *dr, *di;                // direct term rhs_fac t (3, n, n, kz)
+  float *q1r, *q1i, *g1r, *g1i;  // (3, mg, n, kz): x-analysis^T of p0, x-synthesis of b
+  float *r4r, *r4i;              // S x (3, mg, n, kz): each group's share of r4
+  float wT, wI;
+};
+
+// Stage YZ of a reverse step: for each task (a, grp), the y-analysis^T of
+// q1 and the y-synthesis of g1 onto the task's y-grid points, the pencil
+// work (z-analysis^T -> e_bar, z-synthesis of the stored state -> B_n,
+// u_bar += B_n x e_bar, z-synthesis^T of e_bar x u -> r3) and the task's
+// share of the y-synthesis^T, sum over its b of conj(Bf(b, Y)) r3.
+template <int kN, int kMG>
+__device__ __forceinline__ void bwd_stage_yz(const BwdCtx& x) {
+  const BwdDims d = kN ? BwdDims(kN, kMG) : x.d;  // constants in the specialised instance
+  const Mats& M = x.M;
+  const BwdParams& p = *x.p;
+  const int tid = threadIdx.x, mg = d.mg, n = d.n, kz = d.kz, nkz = d.nkz, nb = d.nb;
+  const size_t grid1 = (size_t)mg * mg * mg;
+  float* sq1r = x.buf;  // [3][nkz] each: the slab of q1 and of g1
+  float* sq1i = sq1r + 3 * nkz;
+  float* sg1r = sq1i + 3 * nkz;
+  float* sg1i = sg1r + 3 * nkz;
+  float* q2r = sg1i + 3 * nkz;  // [3][nb][kz] each
+  float* q2i = q2r + 3 * nb * kz;
+  float* g2r = q2i + 3 * nb * kz;
+  float* g2i = g2r + 3 * nb * kz;
+  float* r3r = g2i + 3 * nb * kz;
+  float* r3i = r3r + 3 * nb * kz;
+  float* eb = r3i + 3 * nb * kz;  // [3][nb][mg]: e_bar x u
+  const int cs = nb * mg;         // its component stride
+  for (int task = blockIdx.x; task < d.tasks; task += gridDim.x) {
+    const int a = task / d.S, grp = task % d.S;
+    const int b0 = grp * nb, nbl = min(nb, mg - b0), npts = nbl * mg;
+    // this thread's grid points (pt = bl mg + k): u and u_bar in flight
+    // during the y stage
+    float uu[kPts][3], ub[kPts][3];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const int base = c * d.mg * d.nkz + yz;
-        cdot<true>(M.Bfr + X, M.Bfi + X, d.n, r4r + base, r4i + base, d.nkz, d.mg,
-                   lr[c], li[c]);
-        lr[c] += dr[c * d.s1 + m];
-        li[c] += di[c * d.s1 + m];
-        if constexpr (kIntegrated) {
-          lr[c] += w * tr_r[c * d.s1 + m];
-          li[c] += w * tr_i[c * d.s1 + m];
-        }
-      }
-      if (last) {
+    for (int q = 0; q < kPts; ++q) {
+      const int pt = tid + q * kBwdThreads;
+      if (pt < npts) {
+        const size_t gi = ((size_t)a * mg + b0) * mg + pt;
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          p.b0r_bar[c * d.s1 + m] = lr[c];
-          p.b0i_bar[c * d.s1 + m] = li[c];
+          uu[q][c] = __ldg(p.u + c * grid1 + gi);
+          ub[q][c] = p.ubar[c * grid1 + gi];
         }
-      } else {
-        adjoint_head(F, d.s1, m, lr, li, dr, di, p0r, p0i);
       }
     }
-    grid.sync();
+    // the slab of q1 and g1, kLoads elements a thread in flight at once
+    for (int i0 = tid; i0 < 3 * nkz; i0 += kLoads * kBwdThreads) {
+      float v[kLoads][4];
+#pragma unroll
+      for (int q = 0; q < kLoads; ++q) {
+        const int i = i0 + q * kBwdThreads;
+        if (i < 3 * nkz) {
+          const size_t src = ((size_t)(i / nkz) * mg + a) * nkz + i % nkz;
+          v[q][0] = x.q1r[src];
+          v[q][1] = x.q1i[src];
+          v[q][2] = x.g1r[src];
+          v[q][3] = x.g1i[src];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kLoads; ++q) {
+        const int i = i0 + q * kBwdThreads;
+        if (i < 3 * nkz) {
+          sq1r[i] = v[q][0];
+          sq1i[i] = v[q][1];
+          sg1r[i] = v[q][2];
+          sg1i[i] = v[q][3];
+        }
+      }
+    }
+    __syncthreads();
+    for (int o = tid; o < 3 * nbl * kz; o += kBwdThreads) {
+      const int c = o / (nbl * kz), bl = (o / kz) % nbl, z = o % kz, b = b0 + bl;
+      const int dst = (c * nb + bl) * kz + z;
+      cdot4<true>(M.Ffr + b, M.Ffi + b, mg, sq1r + c * nkz + z, sq1i + c * nkz + z, kz, n,
+                 q2r[dst], q2i[dst]);
+      cdot4<false>(M.Bfr + b * n, M.Bfi + b * n, 1, sg1r + c * nkz + z, sg1i + c * nkz + z,
+                  kz, n, g2r[dst], g2i[dst]);
+    }
+    __syncthreads();
+    // at this thread's grid points (bl, k): z-analysis^T -> e_bar and
+    // z-synthesis -> B_n, all three components at once (the matrix
+    // entries shared), then u_bar += B_n x e_bar and e_bar x u
+#pragma unroll
+    for (int q = 0; q < kPts; ++q) {
+      const int pt = tid + q * kBwdThreads;
+      if (pt < npts) {
+        const int bl = pt / mg, k = pt % mg;
+        float e[3] = {0.f, 0.f, 0.f}, v[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+        for (int z = 0; z < kz; ++z) {
+          const float fr = M.Fzr[z * mg + k], fi = M.Fzi[z * mg + k];
+          const float br = M.Bzr[k * kz + z], bi = M.Bzi[k * kz + z];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const int src = (c * nb + bl) * kz + z;
+            e[c] += fr * q2r[src] + fi * q2i[src];
+            v[c] += br * g2r[src] - bi * g2i[src];
+          }
+        }
+        const float u0 = uu[q][0], u1 = uu[q][1], u2 = uu[q][2];
+        const size_t gi = ((size_t)a * mg + b0) * mg + pt;
+        p.ubar[gi] = ub[q][0] + (v[1] * e[2] - v[2] * e[1]);
+        p.ubar[grid1 + gi] = ub[q][1] + (v[2] * e[0] - v[0] * e[2]);
+        p.ubar[2 * grid1 + gi] = ub[q][2] + (v[0] * e[1] - v[1] * e[0]);
+        eb[pt] = e[1] * u2 - e[2] * u1;
+        eb[cs + pt] = e[2] * u0 - e[0] * u2;
+        eb[2 * cs + pt] = e[0] * u1 - e[1] * u0;
+      }
+    }
+    __syncthreads();
+    for (int o = tid; o < 3 * nbl * kz; o += kBwdThreads) {
+      const int c = o / (nbl * kz), bl = (o / kz) % nbl, z = o % kz;
+      const float* gs = eb + c * cs + bl * mg;
+      float ar[4] = {0.f, 0.f, 0.f, 0.f}, ai[4] = {0.f, 0.f, 0.f, 0.f};  // k mod 4
+      int k = 0;
+#pragma unroll
+      for (; k + 4 <= mg; k += 4) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          ar[q] += M.Bzr[(k + q) * kz + z] * gs[k + q];
+          ai[q] -= M.Bzi[(k + q) * kz + z] * gs[k + q];
+        }
+      }
+      for (int q = 0; k < mg; ++k, ++q) {
+        ar[q] += M.Bzr[k * kz + z] * gs[k];
+        ai[q] -= M.Bzi[k * kz + z] * gs[k];
+      }
+      r3r[(c * nb + bl) * kz + z] = (ar[0] + ar[1]) + (ar[2] + ar[3]);
+      r3i[(c * nb + bl) * kz + z] = (ai[0] + ai[1]) + (ai[2] + ai[3]);
+    }
+    __syncthreads();
+    for (int o = tid; o < 3 * nkz; o += kBwdThreads) {
+      const int c = o / nkz, col = o % nkz, Y = col / kz, z = col % kz;
+      float vr, vi;
+      cdot4<true>(M.Bfr + b0 * n + Y, M.Bfi + b0 * n + Y, n, r3r + c * nb * kz + z,
+                 r3i + c * nb * kz + z, kz, nbl, vr, vi);
+      const size_t dst = (size_t)grp * d.p1 + ((size_t)c * mg + a) * nkz + col;
+      x.r4r[dst] = vr;
+      x.r4i[dst] = vi;
+    }
+    __syncthreads();  // the buffers are free for the next task
   }
 }
 
-// Cooperative launch with every block co-resident: at most kBlocksPerSm
-// blocks on each SM, fewer if the kernel's resources allow fewer.
+// Stage X at the end of reverse step kk (kk = -1: the start of the sweep,
+// from lambda_T): for each task's mode columns, r4 (the groups' shares
+// added in group order), the x-synthesis^T plus the direct term (and the
+// integrated cost's term) -> lambda_n; on the last step b0_bar = lambda_0,
+// else the head of the next transposed step (d to memory, p0), the
+// x-analysis^T of p0 -> q1 and the x-synthesis of the next stored state
+// -> g1.
+template <bool kIntegrated, int kN, int kMG>
+__device__ __forceinline__ void bwd_stage_x(const BwdCtx& x, int kk) {
+  const BwdDims d = kN ? BwdDims(kN, kMG) : x.d;
+  const Mats& M = x.M;
+  const Factors& F = x.F;
+  const BwdParams& p = *x.p;
+  const int tid = threadIdx.x, mg = d.mg, n = d.n, nkz = d.nkz, s1 = d.s1;
+  const int tm = 3 * n;  // modes (c, X) of one column
+  const bool first = kk < 0, last = kk == p.n_steps - 1;
+  const long long state = (long long)(p.n_steps - 1 - kk) * d.s;  // b_{N-1-kk}
+  const long long next = state - d.s;                              // b_{N-2-kk}
+  constexpr int CT = kColChunk;
+  float* r4sr = x.buf;  // [CT][3 mg] each
+  float* r4si = r4sr + CT * 3 * mg;
+  float* lamr = r4si + CT * 3 * mg;  // [CT][3 n] each, as are the rest
+  float* lami = lamr + CT * tm;
+  float* p0r = lami + CT * tm;
+  float* p0i = p0r + CT * tm;
+  float* dsr = p0i + CT * tm;
+  float* dsi = dsr + CT * tm;
+  float* bir = dsi + CT * tm;
+  float* bii = bir + CT * tm;
+  float* bnr = bii + CT * tm;
+  float* bni = bnr + CT * tm;
+  for (int chunk = blockIdx.x; chunk < d.chunks; chunk += gridDim.x) {
+    const int col0 = chunk * CT, nc = min(CT, nkz - col0);
+    // the head's factors of this thread's mode (j, X), in flight early
+    const bool header = !last && tid < n * nc;
+    const int hj = tid / n, hX = tid % n, hm = hX * nkz + col0 + hj;
+    ModeFactors hf{};
+    if (header) hf = mode_factors(F, s1, hm);
+    // the columns' mode-space inputs, (c, X, j) with j fastest
+    for (int o = tid; o < tm * nc; o += kBwdThreads) {
+      const int j = o % nc, cx = o / nc, c = cx / n, X = cx % n;
+      const int m = X * nkz + col0 + j, idx = c * s1 + m, sl = j * tm + cx;
+      if (first) {
+        const float w = x.wT * __ldg(F.pw + m);
+        lamr[sl] = w * p.brT[idx];
+        lami[sl] = w * p.biT[idx];
+      } else {
+        dsr[sl] = x.dr[idx];
+        dsi[sl] = x.di[idx];
+        if constexpr (kIntegrated) {  // the integrated cost's term, w b_n
+          const float w = x.wI * __ldg(F.pw + m);
+          bir[sl] = w * p.trr[state + idx];
+          bii[sl] = w * p.tri[state + idx];
+        }
+      }
+      if (!last) {
+        bnr[sl] = p.trr[next + idx];
+        bni[sl] = p.tri[next + idx];
+      }
+    }
+    if (!first) {
+      for (int o = tid; o < 3 * mg * nc; o += kBwdThreads) {
+        const int j = o % nc, ca = o / nc;  // ca = c mg + a
+        const size_t src = (size_t)ca * nkz + col0 + j;
+        float sr[kMaxGroups], si[kMaxGroups];  // all loads in flight at once
+#pragma unroll
+        for (int g = 0; g < kMaxGroups; ++g) {
+          if (g < d.S) {
+            sr[g] = x.r4r[(size_t)g * d.p1 + src];
+            si[g] = x.r4i[(size_t)g * d.p1 + src];
+          }
+        }
+        float vr = 0.f, vi = 0.f;
+#pragma unroll
+        for (int g = 0; g < kMaxGroups; ++g) {
+          if (g < d.S) {
+            vr += sr[g];
+            vi += si[g];
+          }
+        }
+        r4sr[j * 3 * mg + ca] = vr;
+        r4si[j * 3 * mg + ca] = vi;
+      }
+    }
+    __syncthreads();
+    if (!first) {
+      for (int o = tid; o < tm * nc; o += kBwdThreads) {
+        const int j = o / tm, cx = o % tm, c = cx / n, X = cx % n;
+        const int m = X * nkz + col0 + j, sl = j * tm + cx;
+        float lr, li;
+        cdot4<true>(M.Bfr + X, M.Bfi + X, n, r4sr + j * 3 * mg + c * mg,
+                   r4si + j * 3 * mg + c * mg, 1, mg, lr, li);
+        lr += dsr[sl];
+        li += dsi[sl];
+        if constexpr (kIntegrated) {
+          lr += bir[sl];
+          li += bii[sl];
+        }
+        if (last) {
+          p.b0r_bar[c * s1 + m] = lr;
+          p.b0i_bar[c * s1 + m] = li;
+        } else {
+          lamr[sl] = lr;
+          lami[sl] = li;
+        }
+      }
+      __syncthreads();
+    }
+    if (!last) {
+      if (header) {
+        float lr[3], li[3], hdr[3], hdi[3], hpr[3], hpi[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          lr[c] = lamr[hj * tm + c * n + hX];
+          li[c] = lami[hj * tm + c * n + hX];
+        }
+        adjoint_head(hf, lr, li, hdr, hdi, hpr, hpi);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          x.dr[c * s1 + hm] = hdr[c];
+          x.di[c * s1 + hm] = hdi[c];
+          p0r[hj * tm + c * n + hX] = hpr[c];
+          p0i[hj * tm + c * n + hX] = hpi[c];
+        }
+      }
+      __syncthreads();
+      for (int o = tid; o < 3 * mg * nc; o += kBwdThreads) {
+        const int j = o % nc, ca = o / nc, c = ca / mg, a = ca % mg;
+        const int base = j * tm + c * n;
+        float qr, qi, gr, gi;
+        cdot4<true>(M.Ffr + a, M.Ffi + a, mg, p0r + base, p0i + base, 1, n, qr, qi);
+        cdot4<false>(M.Bfr + a * n, M.Bfi + a * n, 1, bnr + base, bni + base, 1, n, gr, gi);
+        const size_t dst = (size_t)ca * nkz + col0 + j;
+        x.q1r[dst] = qr;
+        x.q1i[dst] = qi;
+        x.g1r[dst] = gr;
+        x.g1i[dst] = gi;
+      }
+    }
+    __syncthreads();  // the buffers are free for the next task
+  }
+}
+
+// Reverse sweep: lambda_T = w_T gbar pw b_T (w_T = 2, or 2 dt with
+// kIntegrated); for n = N-1 .. 0: lambda_n = S^T lambda_{n+1}
+// (+ 2 dt gbar pw b_n with kIntegrated), u_bar += to_grid(b_n) x e_bar_n.
+// Two grid-wide barriers a step: after stage YZ and after stage X.
+// (kN, kMG) = (0, 0) takes the shape from p; otherwise it must be (n, mg),
+// and the shape is a compile-time constant (strides and trip counts fold,
+// which cuts the stages' integer work about in half at n = 24).
+template <bool kIntegrated, int kN, int kMG>
+__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm)
+kdyn_bwd_kernel(const BwdParams p) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float smem[];
+  BwdCtx x{BwdDims(p.n, p.mg)};
+  x.M = load_mats<kBwdThreads>(smem, p.consts, x.d);
+  x.F = factors(p.consts, x.d);
+  x.p = &p;
+  x.buf = smem + x.d.mats;
+  x.dr = p.work;
+  x.di = x.dr + x.d.s;
+  x.q1r = x.di + x.d.s;
+  x.q1i = x.q1r + x.d.p1;
+  x.g1r = x.q1i + x.d.p1;
+  x.g1i = x.g1r + x.d.p1;
+  x.r4r = x.g1i + x.d.p1;
+  x.r4i = x.r4r + (size_t)x.d.S * x.d.p1;
+  const float g = __ldg(p.gbar);
+  x.wT = (kIntegrated ? 2.f * p.dt : 2.f) * g;
+  x.wI = 2.f * p.dt * g;
+
+  bwd_stage_x<kIntegrated, kN, kMG>(x, -1);
+  grid.sync();
+  for (int kk = 0; kk < p.n_steps; ++kk) {
+    bwd_stage_yz<kN, kMG>(x);
+    grid.sync();
+    bwd_stage_x<kIntegrated, kN, kMG>(x, kk);
+    if (kk + 1 < p.n_steps) grid.sync();
+  }
+}
+
+// Cooperative launch with every block co-resident: at most `per_sm`
+// blocks of `threads` on each SM, fewer if the kernel's resources allow
+// fewer, and at most `max_blocks`. `need` is the scratch the launch reads.
 template <typename Params>
-int launch(void (*kernel)(const Params), Params& params, long long work_floats,
+int launch(void (*kernel)(const Params), Params& params, int threads, int per_sm,
+           int max_blocks, size_t smem, long long need, long long work_floats,
            void* stream) {
-  const Dims d(params.n, params.mg);
-  if (params.n < 2 || params.mg < params.n || params.n_steps < 1 ||
-      work_floats < d.work_floats())
+  if (params.n < 2 || params.mg < params.n || params.n_steps < 1 || work_floats < need)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = d.smem_bytes();
   const void* fn = reinterpret_cast<const void*>(kernel);
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024) {
@@ -628,30 +912,49 @@ int launch(void (*kernel)(const Params), Params& params, long long work_floats,
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, threads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (occ < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  int blocks = sms * (occ < kBlocksPerSm ? occ : kBlocksPerSm);
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  int blocks = sms * (occ < per_sm ? occ : per_sm);
+  if (blocks > max_blocks) blocks = max_blocks;
   void* args[] = {&params};
-  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kThreads), args, smem,
+  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), args, smem,
                                     static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <bool kTraj>
 int launch_fwd(FwdParams& p, int integrated, long long work_floats, void* stream) {
-  return integrated ? launch(kdyn_fwd_kernel<kTraj, true>, p, work_floats, stream)
-                    : launch(kdyn_fwd_kernel<kTraj, false>, p, work_floats, stream);
+  const Dims d(p.n, p.mg);
+  const auto kernel = integrated ? kdyn_fwd_kernel<kTraj, true> : kdyn_fwd_kernel<kTraj, false>;
+  return launch(kernel, p, kThreads, kBlocksPerSm, kMaxBlocks, d.smem_bytes(),
+                d.work_floats(), work_floats, stream);
+}
+
+// One block per task of the larger stage, at most.
+int launch_bwd(BwdParams& p, int integrated, long long work_floats, void* stream) {
+  const BwdDims d(p.n, p.mg);
+  if (d.nb * d.mg > kPts * kBwdThreads || d.S > kMaxGroups || d.n * kColChunk > kBwdThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the KDyn configuration's shape (24^3 modes on the 36^3 grid) has its
+  // own instance
+  const bool main = p.n == 24 && p.mg == 36;
+  const auto kernel = integrated ? (main ? kdyn_bwd_kernel<true, 24, 36> : kdyn_bwd_kernel<true, 0, 0>)
+                                 : (main ? kdyn_bwd_kernel<false, 24, 36> : kdyn_bwd_kernel<false, 0, 0>);
+  return launch(kernel, p, kBwdThreads, kBwdBlocksPerSm,
+                d.tasks > d.chunks ? d.tasks : d.chunks, d.bwd_smem_bytes(),
+                d.bwd_work_floats(), work_floats, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch that a launch at (n, mg) needs.
+// Floats of scratch that a launch at (n, mg) needs (the larger of the
+// forward's and the reverse sweep's).
 int sm_kdyn_work_floats(int n, int mg) {
-  return static_cast<int>(Dims(n, mg).work_floats());
+  const long long f = Dims(n, mg).work_floats(), b = BwdDims(n, mg).bwd_work_floats();
+  return static_cast<int>(f > b ? f : b);
 }
 
 int sm_kdyn_fwd(const float* br0, const float* bi0, const float* u,
@@ -676,8 +979,7 @@ int sm_kdyn_bwd(const float* u, const float* brT, const float* biT, const float*
                 float* ubar, float* work, long long work_floats, void* stream) {
   BwdParams p{u, brT, biT, gbar, consts, trr, tri, n, mg, n_steps, dt,
               b0r_bar, b0i_bar, ubar, work};
-  return integrated ? launch(kdyn_bwd_kernel<true>, p, work_floats, stream)
-                    : launch(kdyn_bwd_kernel<false>, p, work_floats, stream);
+  return launch_bwd(p, integrated, work_floats, stream);
 }
 
 }  // extern "C"

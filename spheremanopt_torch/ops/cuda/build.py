@@ -40,6 +40,7 @@ _P, _F, _I, _L = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
 # csrc/fused_two_matrix.cu, csrc/op_grads.cu, csrc/kdyn_step.cu); the last
 # argument of each launcher is the stream
 _FWD = [_P, _P, _P, _P, _F, _F, _I, _I, _P, _P, _P, _P, _P]
+_BWD = [_P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _P, _P, _P]
 _KDYN_FWD = [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P]
 SIGNATURES = {
     "sm_fused_fwd_shared": [_P, _P, _P, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P],
@@ -47,7 +48,9 @@ SIGNATURES = {
     "sm_fused_fwd": _FWD,
     "sm_fused_fwd_block": _FWD,
     "sm_fused_fwd_capacity": [_I, _I],  # returns a count, not an error code
-    "sm_fused_bwd": [_P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _P, _P, _P],
+    "sm_fused_bwd": _BWD,
+    "sm_fused_bwd_block": _BWD,
+    "sm_fused_bwd_capacity": [_I, _I],  # returns a count, not an error code
     "sm_op_grads": [_P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P, _P, _P],
     "sm_kdyn_work_floats": [_I, _I],   # returns a count, not an error code
     "sm_kdyn_fwd": _KDYN_FWD + [_P, _L, _P],

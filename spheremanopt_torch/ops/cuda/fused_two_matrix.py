@@ -9,7 +9,9 @@ PyTorch port of the JAX package's `ops/pallas/fused_two_matrix.py`:
                           (`fwd_route`)
     fused_bwd          <- `_run_bwd` / `_bwd_kernel` (op_grads=True: the
                           sweep stores the lambda history, then
-                          `op_grads_product` forms dA and dB)
+                          `op_grads_product` forms dA and dB): a 16-CTA
+                          cluster up to mg = 640, one block above
+                          (`bwd_route`)
     FusedObjective     <- `fused_objective` (custom_vjp)
     FusedObjectiveDiag <- `fused_objective_diag`
   shared-matrix form  u' = B (lin u + c2 u^2 + c3 u^3)  (SH23: B = M,
@@ -38,8 +40,9 @@ problems, whose operators are fixed data, pass op_grads=False.
 Each wrapper takes its plain PyTorch version (`*_plain`) for tensors on
 the CPU and launches its kernel for CUDA tensors; a CUDA tensor never
 falls back. `LAUNCHES` counts kernel launches per wrapper (the series
-variants of the forwards, the two routes of the two-matrix forward and
-the lambda-history variants of the reverse sweeps apart). The kernels
+variants of the forwards, the two routes of the two-matrix sweeps and
+the lambda-history variants of the reverse sweeps apart; the one-block
+reverse counts both of its variants under `fused_bwd_block`). The kernels
 are f32 only; the plain versions take f32 or f64.
 """
 
@@ -60,6 +63,7 @@ KERNEL_SOURCES = {
     "fused_fwd_block": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_fwd_block_ser": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_bwd": "spheremanopt_torch/csrc/fused_two_matrix.cu",
+    "fused_bwd_block": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_bwd_shared_ops": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_bwd_ops": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "op_grads": "spheremanopt_torch/csrc/op_grads.cu",
@@ -349,30 +353,42 @@ def fused_bwd_shared(b, w, uT, traj, c2, c3, lin, scale, n_steps,
     return lam, op_grads_product(hist, traj, "shared", c2, c3, lin)[0]
 
 
-# The two-matrix forward's cluster route keeps A's and B's rows on 16
-# SMs: 2 mg^2 * 4 / 16 bytes must fit one SM's shared memory.
+# The two-matrix sweeps' cluster routes keep A and B (rows forward,
+# columns in reverse) on 16 SMs: 2 mg^2 * 4 / 16 bytes must fit one SM's
+# shared memory.
 CLUSTER_MG_MAX = 640
 
 
 def fwd_route(mg):
     """The two-matrix forward's kernel for width mg: "cluster" (16 CTAs
-    holding A and B in shared memory, `sm_fused_fwd`) up to
+    holding A's and B's rows in shared memory, `sm_fused_fwd`) up to
     CLUSTER_MG_MAX, else "block" (one thread block streaming A and B
     from L2, `sm_fused_fwd_block`). A choice by shape, not a fallback."""
     return "cluster" if mg <= CLUSTER_MG_MAX else "block"
 
 
+def bwd_route(mg):
+    """The two-matrix reverse sweep's kernel for width mg: "cluster" (16
+    CTAs holding A's and B's columns in shared memory, `sm_fused_bwd`) up
+    to CLUSTER_MG_MAX, else "block" (`sm_fused_bwd_block`). Both give the
+    same bits."""
+    return "cluster" if mg <= CLUSTER_MG_MAX else "block"
+
+
 @functools.lru_cache(maxsize=None)
-def _check_cluster(device, mg, series):
-    """Raise unless the card can schedule the cluster forward for this mg
-    (cudaOccupancyMaxActiveClusters > 0); a pass is remembered."""
+def _check_cluster(device, symbol, mg, variant):
+    """Raise unless the card can schedule the cluster kernel `symbol`
+    ("sm_fused_fwd" or "sm_fused_bwd") for this mg and template variant
+    (the series, the lambda history): `<symbol>_capacity`, the
+    cudaOccupancyMaxActiveClusters count, must be > 0. A pass is
+    remembered."""
     from spheremanopt_torch.ops.cuda.build import load
 
     with torch.cuda.device(device):
-        n = load().sm_fused_fwd_capacity(mg, int(series))
+        n = getattr(load(), symbol + "_capacity")(mg, int(variant))
     if n <= 0:
         raise RuntimeError(
-            f"the 16-CTA cluster forward (mg={mg}) cannot be scheduled on "
+            f"the 16-CTA cluster kernel {symbol} (mg={mg}) cannot be scheduled on "
             f"{torch.cuda.get_device_name(device)}: cudaOccupancyMaxActiveClusters "
             f"gave {n}" + ("" if n == 0 else f" (cudaError_t {-n})"))
 
@@ -389,7 +405,7 @@ def fused_fwd(a, b, w, u0, c2, c3, n_steps, store_traj=True,
                 vecs=[("u0", u0), ("w", w)])
     uT, jsum, traj, ser = _fwd_outputs(u0, n_steps, store_traj, store_series)
     if fwd_route(mg) == "cluster":
-        _check_cluster(u0.device, mg, bool(store_series))
+        _check_cluster(u0.device, "sm_fused_fwd", mg, bool(store_series))
         symbol, counter = "sm_fused_fwd", "fused_fwd"
     else:
         symbol, counter = "sm_fused_fwd_block", "fused_fwd_block"
@@ -406,7 +422,8 @@ def fused_bwd(a, b, w, uT, traj, c2, c3, scale, n_steps, op_grads=False,
     sweep; `scale` is a 0-dim tensor float32(-2 dt) * gbar; `lam_hist` as
     in `fused_bwd_shared`. With op_grads, dA = sum_n lambda_{n+1} (x) u_n
     and dB = sum_n lambda_{n+1} (x) g(u_n), from the sweep's lambda
-    history."""
+    history. On the card the route follows `bwd_route(mg)`; both give
+    the same numbers bit for bit."""
     if uT.device.type == "cpu":
         return fused_bwd_plain(a, b, w, uT, traj, c2, c3, scale, n_steps,
                                op_grads, lam_hist)
@@ -415,10 +432,15 @@ def fused_bwd(a, b, w, uT, traj, c2, c3, scale, n_steps, op_grads=False,
     mg = _check(n_steps, mats=[("a", a), ("b", b)],
                 vecs=[("uT", uT), ("w", w)], traj=traj, scale=scale, hist=hist)
     lam = torch.empty_like(uT)
-    _launch("sm_fused_bwd", "fused_bwd" if hist is None else "fused_bwd_ops",
-            uT.device, a.data_ptr(), b.data_ptr(), w.data_ptr(), uT.data_ptr(),
-            _ptr(traj), c2, c3, scale.data_ptr(), int(n_steps), mg,
-            lam.data_ptr(), _ptr(hist))
+    if bwd_route(mg) == "cluster":
+        _check_cluster(uT.device, "sm_fused_bwd", mg, hist is not None)
+        symbol = "sm_fused_bwd"
+        counter = "fused_bwd" if hist is None else "fused_bwd_ops"
+    else:
+        symbol, counter = "sm_fused_bwd_block", "fused_bwd_block"
+    _launch(symbol, counter, uT.device, a.data_ptr(), b.data_ptr(),
+            w.data_ptr(), uT.data_ptr(), _ptr(traj), c2, c3, scale.data_ptr(),
+            int(n_steps), mg, lam.data_ptr(), _ptr(hist))
     if not op_grads:
         return lam, None, None
     return (lam,) + op_grads_product(hist, traj, "two", c2, c3)

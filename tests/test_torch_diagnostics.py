@@ -156,3 +156,13 @@ def test_strided_scan_J_bitwise_the_plain_integration(n, stride):
     assert torch.equal(J, 0.05 * acc[0]) and torch.equal(uT, u)
     steps = torch.as_tensor(tscan.strided_steps(n, stride))
     assert torch.equal(ser, torch.stack(energies)[steps])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_has_fused_diagnostics_on_every_method_as_jax(case):
+    """SH23 (`matmul`, `fft`, `cuda`) and SHB23 (`matmul`, `cuda`) expose
+    `has_fused_diagnostics` True on the CPU, as the JAX problems do (a
+    fused archiver reads it)."""
+    tp, jp = _pair(case, 1)
+    assert jp.has_fused_diagnostics is True
+    assert tp.has_fused_diagnostics is True

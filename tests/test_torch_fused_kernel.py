@@ -508,6 +508,17 @@ def test_forward_route_by_width(mg):
     assert (smem <= 232448) == (mg <= fk.CLUSTER_MG_MAX)
 
 
+@pytest.mark.parametrize("mg", range(128, 2049, 128))
+def test_reverse_route_by_width(mg):
+    """The reverse sweep's cluster while A's and B's columns fit 16 SMs'
+    shared memory (227 KB each: 2 mg^2 4 / 16 bytes of columns, lambda
+    twice, and the partial sums), one block above."""
+    phases = 1024 // (mg // 4)
+    smem = 4 * (2 * mg * mg // 16 + 2 * mg + 2 * phases * mg // 16 + 2 * mg // 16)
+    assert fk.bwd_route(mg) == ("cluster" if mg <= fk.CLUSTER_MG_MAX else "block")
+    assert (smem <= 232448) == (mg <= fk.CLUSTER_MG_MAX)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -751,3 +762,99 @@ def test_two_matrix_forward_rejects_widths_neither_route_takes(cuda):
         v = torch.zeros(mg, device=cuda)
         with pytest.raises(ValueError, match="mg"):
             fk.fused_fwd(a, a, v, v, C2B, C3B, 4)
+
+
+def _bwd_block(a, b, w, uT, traj, scale, n, lam_hist=None):
+    """The one-block reverse kernel called directly, at any mg."""
+    lam = torch.empty_like(uT)
+    fk._launch("sm_fused_bwd_block", "fused_bwd_block", uT.device, a.data_ptr(),
+               b.data_ptr(), w.data_ptr(), uT.data_ptr(), traj.data_ptr(), C2B, C3B,
+               scale.data_ptr(), n, a.shape[0], lam.data_ptr(), fk._ptr(lam_hist))
+    return lam
+
+
+def _reverse_inputs(cuda, mg, n):
+    """Seeded operands of a two-matrix reverse sweep: A and B of spectral
+    radius ~0.5, a trajectory of O(0.3) entries."""
+    rs = np.random.RandomState(mg + n)
+    mats = [torch.as_tensor(0.5 * rs.randn(mg, mg) / np.sqrt(mg), dtype=torch.float32,
+                            device=cuda) for _ in range(2)]
+    w = torch.as_tensor(rs.rand(mg) / mg, dtype=torch.float32, device=cuda)
+    traj = torch.as_tensor(0.3 * rs.randn(n, mg), dtype=torch.float32, device=cuda)
+    uT = torch.as_tensor(0.3 * rs.randn(mg), dtype=torch.float32, device=cuda)
+    return (*mats, w, uT, traj, torch.tensor(-0.02, device=cuda))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("hist", [False, True])
+@pytest.mark.parametrize("mg", [128, 512, 640])
+def test_cluster_reverse_bitwise_the_block_reverse_on_card(cuda, mg, hist):
+    """The 16-CTA cluster reverse sweep against the one-block kernel on the
+    same inputs: lambda_0 and the lambda history bitwise; lambda_0 bitwise
+    across the two history instantiations; within 1e-4 of plain f32."""
+    a, b, w, uT, traj, sc = _reverse_inputs(cuda, mg, 300)
+    n = traj.shape[0]
+    h_c = torch.empty_like(traj) if hist else None
+    h_b = torch.empty_like(traj) if hist else None
+    fk.reset_launches()
+    lam_c = fk.fused_bwd(a, b, w, uT, traj, C2B, C3B, sc, n, lam_hist=h_c)[0]
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        "fused_bwd_ops" if hist else "fused_bwd": 1}
+    lam_b = _bwd_block(a, b, w, uT, traj, sc, n, h_b)
+    other = fk.fused_bwd(a, b, w, uT, traj, C2B, C3B, sc, n,
+                         lam_hist=None if hist else torch.empty_like(traj))[0]
+    torch.cuda.synchronize()
+    assert torch.equal(lam_c, lam_b) and torch.equal(lam_c, other)
+    if hist:
+        assert torch.equal(h_c, h_b)
+    lam_p = fk.fused_bwd_plain(a, b, w, uT, traj, C2B, C3B, sc, n)[0]
+    assert _rel(lam_c.cpu(), lam_p.cpu()) < 1e-4
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mg", [512, 1024])
+def test_reverse_route_by_width_on_card(cuda, mg):
+    """`bwd_route` picks the kernel by mg: the launch counters show the
+    cluster up to 640 and the one-block kernel above, both variants of the
+    latter under `fused_bwd_block`; lambda within 1e-4 of plain f32."""
+    a, b, w, uT, traj, sc = _reverse_inputs(cuda, mg, 200)
+    n = traj.shape[0]
+    fk.reset_launches()
+    lam = fk.fused_bwd(a, b, w, uT, traj, C2B, C3B, sc, n)[0]
+    lam_h = fk.fused_bwd(a, b, w, uT, traj, C2B, C3B, sc, n,
+                         lam_hist=torch.empty_like(traj))[0]
+    torch.cuda.synchronize()
+    want = ({"fused_bwd": 1, "fused_bwd_ops": 1} if fk.bwd_route(mg) == "cluster"
+            else {"fused_bwd_block": 2})
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == want
+    assert torch.equal(lam, lam_h)
+    lam_p = fk.fused_bwd_plain(a, b, w, uT, traj, C2B, C3B, sc, n)[0]
+    assert _rel(lam.cpu(), lam_p.cpu()) < 1e-4
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("symbol", ["sm_fused_fwd", "sm_fused_bwd"])
+def test_cluster_capacity_of_zero_raises(cuda, symbol, monkeypatch):
+    """A cluster the card cannot schedule (capacity 0) raises; nothing
+    falls back to the one-block kernel."""
+    from spheremanopt_torch.ops.cuda import build
+
+    class NoClusters:
+        def __getattr__(self, name):
+            if name.endswith("_capacity"):
+                return lambda mg, variant: 0
+            raise AssertionError(f"{name} must not be called")
+
+    monkeypatch.setattr(build, "load", lambda: NoClusters())
+    fk._check_cluster.cache_clear()
+    a, b, w, uT, traj, sc = _reverse_inputs(cuda, 128, 4)
+    fk.reset_launches()
+    with pytest.raises(RuntimeError, match="cannot be scheduled"):
+        if symbol == "sm_fused_fwd":
+            fk.fused_fwd(a, b, w, uT, C2B, C3B, 4)
+        else:
+            fk.fused_bwd(a, b, w, uT, traj, C2B, C3B, sc, 4)
+    assert not any(fk.LAUNCHES.values())
+    monkeypatch.undo()
+    fk._check_cluster.cache_clear()

@@ -284,6 +284,79 @@ def test_cuda_method_on_cpu_matches_plain_method_and_jax_pallas(jx, cost):
         assert _rel(a, b) < 5e-5
 
 
+def _two_stage_reverse(u, brT, biT, gbar, trr, tri, C, n_steps, integrated, dt):
+    """The reverse kernel's partition, in plain complex torch: stage X by
+    mode column (the head, x-analysis^T of p0 -> q1, x-synthesis of the
+    stored state -> g1; then x-synthesis^T of r4 plus the direct term),
+    stage YZ by x-grid slab and group of y-grid points (y-stages, pencils,
+    the group's share of r4). Only q1, g1 and the groups' shares of r4
+    cross between the stages; the shares are added in group order, with S
+    and the group size chosen as the kernel chooses them."""
+    Ff = torch.complex(C["Ffr"], C["Ffi"])      # (n, mg)
+    Bf = torch.complex(C["Bfr"], C["Bfi"])      # (mg, n)
+    Bz = torch.complex(C["Bzr"], C["Bzi"])      # (mg, kz)
+    k, pw = C["k"], C["pw"]
+    mg = Bf.shape[0]
+    S = -(-mg // 6)
+    nb = -(-mg // S)
+
+    def head(lam):
+        t = kd._leray_scale(lam.real, C) + 1j * kd._leray_scale(lam.imag, C)
+        p0 = (-kd._cross(k, t.imag) + 1j * kd._cross(k, t.real)) * C["keep"]
+        return C["rhs_fac"] * t, p0
+
+    def stage_x_tail(lam, state):
+        d, p0 = head(lam)
+        q1 = torch.einsum("Xa,cXYz->caYz", Ff.conj(), p0)
+        g1 = torch.einsum("aX,cXYz->caYz", Bf, state)
+        return d, q1, g1
+
+    states = torch.complex(trr, tri)
+    lam = ((2.0 * dt if integrated else 2.0) * gbar * pw) * torch.complex(brT, biT)
+    d, q1, g1 = stage_x_tail(lam, states[n_steps - 1])
+    ubar = torch.zeros_like(u)
+    for kk in range(n_steps):
+        shares = []
+        for grp in range(S):
+            bs = slice(grp * nb, min(mg, (grp + 1) * nb))
+            q2 = torch.einsum("Yb,caYz->cabz", Ff[:, bs].conj(), q1)
+            g2 = torch.einsum("bY,caYz->cabz", Bf[bs], g1)
+            e_bar = (torch.einsum("zk,cabz->cabk", C["Fzr"], q2.real)
+                     + torch.einsum("zk,cabz->cabk", C["Fzi"], q2.imag))
+            bg = torch.einsum("kz,cabz->cabk", Bz, g2).real
+            ubar[:, :, bs] += kd._cross(bg, e_bar)
+            gs = kd._cross(e_bar, u[:, :, bs])
+            r3 = torch.einsum("kz,cabk->cabz", Bz.conj(), gs.to(Bz.dtype))
+            shares.append(torch.einsum("bY,cabz->caYz", Bf[bs].conj(), r3))
+        r4 = shares[0]
+        for sh in shares[1:]:
+            r4 = r4 + sh
+        n = n_steps - 1 - kk
+        lam = torch.einsum("aX,caYz->cXYz", Bf.conj(), r4) + d
+        if integrated:
+            lam = lam + (2.0 * dt) * gbar * pw * states[n]
+        if kk + 1 < n_steps:
+            d, q1, g1 = stage_x_tail(lam, states[n - 1])
+    return lam.real, lam.imag, ubar
+
+
+@pytest.mark.parametrize("integrated", COSTS)
+def test_reverse_kernel_partition_matches_step_planes_T_f64(jx, integrated):
+    """The two-stage partition of the reverse kernel (stage boundaries,
+    the groups' shares of r4, the order the stored states are read in),
+    emulated in f64: rel 1e-12 against the step-by-step `step_planes_T`
+    sweep for 4 steps at n = 8."""
+    C = kd.consts_to_torch(kd.make_consts(jx["p"], np.float64), "cpu")
+    br0, bi0, u = _planes(jx, torch.float64)
+    n = 4
+    brT, biT, _, trr, tri = kd.run_fwd_traj_plain(br0, bi0, u, C, n, integrated, DT)
+    g = torch.tensor(-1.0, dtype=torch.float64)
+    want = kd.run_bwd_plain(u, brT, biT, g, trr, tri, C, n, integrated, DT)
+    got = _two_stage_reverse(u, brT, biT, g, trr, tri, C, n, integrated, DT)
+    for name, a, b in zip(("dbr0", "dbi0", "du"), got, want):
+        assert a.dtype == torch.float64 and _rel(a, b) < 1e-12, name
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -362,3 +435,26 @@ def test_kernel_wrappers_reject_what_they_cannot_run(cuda):
         kd.run_forward(br0, bi0, u, C, 0)
     with pytest.raises(ValueError, match="dt"):
         kd.run_fwd_traj(br0, bi0, u, C, 4, True, 0.0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("npts", [8, 24])
+@pytest.mark.parametrize("integrated", COSTS)
+def test_reverse_kernel_matches_plain_and_repeats_on_card(cuda, integrated, npts):
+    """The two-stage reverse kernel against its plain f32 version on the
+    same card inputs (rel 1e-4, 40 steps), at a small n and at the 24^3
+    width; two calls give bitwise equal (b0_bar, u_bar)."""
+    p, br0, bi0, u = _card_case(cuda, integrated, npts, 40)
+    C, n = p._consts, 40
+    k = kd.run_fwd_traj(br0, bi0, u, C, n, integrated, DT)
+    g = torch.tensor(-1.0, device=cuda)
+    kd.reset_launches()
+    bk = kd.run_bwd(u, k[0], k[1], g, k[3], k[4], C, n, integrated, DT)
+    again = kd.run_bwd(u, k[0], k[1], g, k[3], k[4], C, n, integrated, DT)
+    torch.cuda.synchronize()
+    assert kd.LAUNCHES["kdyn_bwd"] == 2
+    br = kd.run_bwd_plain(u, k[0], k[1], g, k[3], k[4], C, n, integrated, DT)
+    for got, want in zip(bk, br):
+        assert _rel(got.cpu(), want.cpu()) < 1e-4
+    for x, y in zip(bk, again):
+        assert torch.equal(x, y)

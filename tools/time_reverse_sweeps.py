@@ -19,13 +19,21 @@ this one); its kernels are built there at first use. By CUDA events over
   * the SHB23 fwd+grad unit (`objective_and_gradient`, method "cuda");
   * `op_grads_product` at both widths on the sweeps' own lambda history,
     in a CUDA graph of 20 calls (device time) and per plain call (with
-    the host's time), beside `torch.matmul` of the same operands.
+    the host's time), beside `torch.matmul` of the same operands;
+  * the KDyn reverse sweep (`run_bwd`, 24^3 modes, 2000 steps, cost
+    Final, from the pinned x0 of `baselines/kdyn_port_ref.npz`; 5 calls
+    after 1) and the KDyn fwd+grad unit (`objective_and_gradient`,
+    method "cuda"; 3 calls after 1);
+  * the largest |lambda_0 - plain f32| of the SHB23 reverse sweep and
+    |(b0_bar, u_bar) - plain f32| of the KDyn one (one plain sweep each,
+    ~10 s for KDyn).
 It prints one JSON line with the card's name and power limit. With
-`--save DIR` it writes the forward's u_T and trajectory (mg = 512) to
-DIR/<tag>.npz, and with `--against NAME` it prints the largest
-|u_T - u_T(NAME)| and |traj - traj(NAME)| against DIR/NAME.npz. Run
-parent, change, change, parent, each in its own process, and compare
-within one call only.
+`--save DIR` it writes the SHB23 forward's u_T and trajectory (mg = 512)
+and the SHB23 reverse sweep's lambda_0 to DIR/<tag>.npz, and with
+`--against NAME` it prints the largest |u_T - u_T(NAME)|,
+|traj - traj(NAME)| and |lambda_0 - lambda_0(NAME)| against
+DIR/NAME.npz. Run parent, change, change, parent, each in its own
+process, and compare within one call only.
 """
 
 import argparse
@@ -143,6 +151,30 @@ def main() -> int:
     out["shb23_fwd_1024_ms"] = gpu_ms(lambda: fk.fused_fwd(a3, b3, w3, u3, 2.0, -1.0, 200))
     x2 = q.generate_ic(seed=42)
     out["shb23_unit_ms"] = gpu_ms(lambda: q.objective_and_gradient(x2), 5)
+    lam2 = fk.fused_bwd(a2, b2, w2, uT2, tr2, 2.0, -1.0, sc2, n2)[0]
+    lam2_p = fk.fused_bwd_plain(a2, b2, w2, uT2, tr2, 2.0, -1.0, sc2, n2)[0]
+    out["shb23_bwd_max_abs_vs_plain"] = float((lam2 - lam2_p).abs().max())
+
+    # the KDyn reverse sweep and the KDyn fwd+grad unit, from the pinned x0
+    from spheremanopt_torch.ops.cuda import kdyn_step as kd
+    from spheremanopt_torch.problems.kinematic_dynamo import KDynConfig, KinematicDynamo
+
+    ref = np.load(os.path.join(HERE, "baselines", "kdyn_port_ref.npz"))
+    xk = [torch.as_tensor(ref[k].astype(np.float32), device=dev) for k in ("b0", "u0")]
+    pk = KinematicDynamo(KDynConfig(dtype="float32", method="cuda"), device=dev)
+    with torch.no_grad():
+        b0_c, uk = pk._prepare(xk)
+    br0, bi0, uk = b0_c.real.contiguous(), b0_c.imag.contiguous(), uk.contiguous()
+    Ck, nk, dtk = pk._consts, pk.cfg.n_iters, pk.cfg.dt
+    brT, biT, _, trr, tri = kd.run_fwd_traj(br0, bi0, uk, Ck, nk, False, dtk)
+    gk = torch.tensor(-1.0, device=dev)
+    bwd_k = lambda: kd.run_bwd(uk, brT, biT, gk, trr, tri, Ck, nk, False, dtk)
+    out["kdyn_bwd_ms"] = gpu_ms(bwd_k, 5, 1)
+    out["kdyn_unit_ms"] = gpu_ms(lambda: pk.objective_and_gradient(xk), 3, 1)
+    got = bwd_k()
+    want = kd.run_bwd_plain(uk, brT, biT, gk, trr, tri, Ck, nk, False, dtk)
+    out["kdyn_bwd_max_abs_vs_plain"] = max(float((x - y).abs().max())
+                                           for x, y in zip(got, want))
 
     # the operator-cotangent product on the sweeps' own history
     if has_hist:
@@ -162,13 +194,15 @@ def main() -> int:
     if args.save:
         os.makedirs(args.save, exist_ok=True)
         np.savez(os.path.join(args.save, f"{args.tag}.npz"), uT=uT2.cpu().numpy(),
-                 traj=tr2.cpu().numpy())
+                 traj=tr2.cpu().numpy(), lam0=lam2.cpu().numpy())
         if args.against:
             ref = np.load(os.path.join(args.save, f"{args.against}.npz"))
             out[f"max_abs_uT_vs_{args.against}"] = float(np.abs(uT2.cpu().numpy()
                                                                - ref["uT"]).max())
             out[f"max_abs_traj_vs_{args.against}"] = float(np.abs(tr2.cpu().numpy()
                                                                  - ref["traj"]).max())
+            out[f"max_abs_lam0_vs_{args.against}"] = float(np.abs(lam2.cpu().numpy()
+                                                                 - ref["lam0"]).max())
     print(json.dumps(out), flush=True)
     return 0
 
