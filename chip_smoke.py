@@ -30,7 +30,9 @@ script imports no JAX).
 Phases, one line each; any failure exits non-zero without a result line:
   A  card, power limit, torch/CUDA versions, TF32 flags (off)
   B  kernel build (nvcc, sm_90a, one process per source), timed
-  C  SH23 kernels vs plain f32 vs plain f64 on the card, full width
+  C  SH23 kernels vs plain f32 vs plain f64 on the card, full width (mg =
+     512: the 16-CTA cluster route of the forward); the cluster forward's
+     u_T, J, trajectory and series bitwise the one-block kernel's
   D  SH23 CUDA-event timings: each sweep and the fwd+grad unit
   E  Taylor test of the SH23 f64 plain path (gamma2 within 0.05 of 2)
   F  SH23 f64 workload (method=matmul) vs the pinned JAX f64 trajectory
@@ -41,7 +43,9 @@ Phases, one line each; any failure exits non-zero without a result line:
      series variants of both forwards bitwise the plain ones (J, u_T,
      lambda); the one-block routes (mg > 640) at mg = 1024, N = 200: a
      main path of their own through the fused objectives, differentiated
-     in u0, against plain f32, bitwise across the series variants, timed
+     in u0, against plain f32, bitwise across the series variants, timed;
+     the same for SH23's one-block forward route (mg > 896) at mg = 1024,
+     N = 200
   I  CUDA-event timings: the SHB23 sweeps (cluster routes), both series
      forwards and the SHB23 fwd+grad unit, kernel vs plain
   J  Taylor test of the SHB23 f64 plain path
@@ -53,8 +57,8 @@ Phases, one line each; any failure exits non-zero without a result line:
   N  KDyn kernels vs plain f32 on the card, full width: cost Final at the
      full 2000 steps, Integrated at 200; then J and both gradients of
      method=cuda, plain f32 and plain f64 against the pinned f64 values
-  O  CUDA-event timings: the three KDyn sweeps (the reverse sweep in two
-     grid-wide stages a step) and the fwd+grad unit, kernel vs plain
+  O  CUDA-event timings: the three KDyn sweeps (each in two grid-wide
+     stages a step) and the fwd+grad unit, kernel vs plain
   P  Taylor test of the KDyn f64 plain path at 200 steps
   Q  KDyn f64 workload (method=plain) at 200 steps vs the pinned JAX f64
      trajectory
@@ -133,7 +137,7 @@ KDYN_BENCH_END = (10, 2.518)
 # H100 SXM data-sheet peaks (dense f32 outside the tensor cores, dense
 # TF32 on the tensor cores, HBM3)
 F32_PEAK, TF32_PEAK, HBM_RATE = 67e12, 495e12, 3.35e12
-BLOCK_MG, BLOCK_N = 1024, 200   # the one-block forward route's check (H)
+BLOCK_MG, BLOCK_N = 1024, 200   # the one-block routes' check (H)
 PALLAS = "spheremanopt_tpu/ops/pallas/fused_two_matrix.py"
 PALLAS_K = "spheremanopt_tpu/ops/pallas/kdyn_step.py"
 LAUNCH_TABLES = (fk, kd)   # modules that count their kernels' launches
@@ -141,6 +145,8 @@ SOURCES = {**fk.KERNEL_SOURCES, **kd.KERNEL_SOURCES}
 REPLACES = {
     "fused_fwd_shared": f"{PALLAS}:150",        # _fwd_kernel_shared
     "fused_fwd_shared_ser": f"{PALLAS}:150",    # same, has_ser=True
+    "fused_fwd_shared_block": f"{PALLAS}:150",  # same, mg > 896
+    "fused_fwd_shared_block_ser": f"{PALLAS}:150",  # same, mg > 896, has_ser=True
     "fused_bwd_shared": f"{PALLAS}:185",        # _bwd_kernel_shared
     "fused_fwd": f"{PALLAS}:60",                # _fwd_kernel
     "fused_fwd_ser": f"{PALLAS}:60",            # same, has_ser=True
@@ -155,6 +161,16 @@ REPLACES = {
     "fused_bwd_ops": f"{PALLAS}:125",           # _bwd_kernel, op_grads
     "op_grads": f"{PALLAS}:125",                # its dA/dB (and :203-206's dB)
 }
+
+
+def fwd_shared_block(b, w, u0, lin, n):
+    """The one-block shared-matrix forward kernel called directly (any mg),
+    with the trajectory and the series."""
+    uT, jsum, traj, ser = fk._fwd_outputs(u0, n, True, True)
+    fk._launch("sm_fused_fwd_shared_block", "fused_fwd_shared_block_ser", u0.device,
+               b.data_ptr(), w.data_ptr(), u0.data_ptr(), C2, C3, lin, n, b.shape[0],
+               uT.data_ptr(), jsum.data_ptr(), traj.data_ptr(), ser.data_ptr())
+    return uT, jsum, traj, ser
 
 
 def reset_launches():
@@ -410,6 +426,17 @@ class Smoke:
                    f"(abs {abs_bwd:.2e}), tol {TOL_VS_PLAIN:g}")
         self.check("C", all(v > 0 for v in launched.values()),
                    f"launch counters moved: {launched}")
+        # the cluster route against the one-block kernel on the same inputs
+        ks = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n, store_series=True)
+        blk = fwd_shared_block(b, w, u0, lin, n)
+        torch.cuda.synchronize()
+        same = ([torch.equal(x, y) for x, y in zip(ks, blk)]
+                + [torch.equal(x, y) for x, y in zip((uT_k, js_k, tr_k), ks)])
+        route = fk.shared_fwd_route(b.shape[0])
+        self.check("C", route == "cluster" and all(same),
+                   f"SH23 forward route {route!r}: u_T, J, trajectory and series "
+                   f"bitwise the one-block kernel's, and the series variant's bitwise "
+                   f"the plain one's: {same}")
 
         # both f32 paths against plain f64 on the card, at the same x
         p64, x64, _ = cli.make_problem(problem_args("sh23", "float64", "matmul"),
@@ -589,6 +616,7 @@ class Smoke:
                    f"(plain f32: rel_J {relJm:.3e} rel_g {relgm:.3e}), tol "
                    f"{TOL_VS_F64:g} / {TOL_G_VS_F64_SHB:g}")
         self.block_route(p.cfg.dt)
+        self.shared_block_route()
 
     def block_route(self, dt):
         """The two-matrix sweeps above the clusters' width: SHB23's
@@ -653,6 +681,61 @@ class Smoke:
                    f"the wrappers': {same}; forward sweep {f_k:.3f} ms vs plain "
                    f"{f_pl:.3f} ms, with series {fs_k:.3f} vs {fs_pl:.3f} ms; reverse "
                    f"sweep {b_k:.3f} ms vs plain {b_pl:.3f} ms")
+
+    def shared_block_route(self):
+        """SH23's forward above its cluster's width: SH23's operators at
+        npts = 512 (mg = 1024) take the one-block kernel. Its main path is
+        the fused objectives (J differentiated in u0, and J with the
+        series); then the kernel against plain f32 and across the series
+        variants, the reverse sweep's lambda_0 against autograd's gradient,
+        and the forward's times."""
+        q, _, _ = cli.make_problem(problem_args("sh23", "float32", "cuda", "--npts",
+                                                str(BLOCK_MG // 2)))
+        ops = operators_to_torch(sh23_operators(q), q.device)
+        b, w = ops["b32"], ops["w32"]
+        u0 = torch.matmul(ops["p32"], q.generate_ic(seed=42)[0])
+        lin, dt, n = 1.0 / q.cfg.dt, q.cfg.dt, BLOCK_N
+
+        def path():
+            uu = u0.detach().requires_grad_(True)
+            J = fk.FusedObjectiveShared.apply(b, w, uu, C2, C3, lin, dt, n, False)
+            (grad,) = torch.autograd.grad(J, uu)
+            return (J.detach(), grad,
+                    fk.FusedObjectiveSharedDiag.apply(b, w, u0, C2, C3, lin, dt, n, False))
+
+        J, grad, (Jd, ser, _) = self.main_path(
+            "H", ("fused_fwd_shared_block", "fused_fwd_shared_block_ser", "fused_bwd_shared"),
+            path, record=("fused_fwd_shared_block", "fused_fwd_shared_block_ser"))
+        k = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n)
+        ks = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n, store_series=True)
+        r = fk.fused_fwd_shared_plain(b, w, u0, C2, C3, lin, n, store_series=True)
+        scale = torch.tensor(-2.0 * dt, dtype=torch.float32, device=u0.device)
+        lk = fk.fused_bwd_shared(b, w, k[0], k[2], C2, C3, lin, scale, n)[0]
+        torch.cuda.synchronize()
+        pairs, ser_pairs = list(zip(k[:3], r[:3])), list(zip(ks, r))
+        e = max(rel(x, y) for x, y in pairs + ser_pairs + [(J, -dt * r[1])])
+        same = ([torch.equal(x, y) for x, y in zip(k[:3], ks[:3])]
+                + [torch.equal(J, Jd), torch.equal(ser, ks[3]), torch.equal(grad, lk)])
+        self.kernels["fused_fwd_shared_block"]["max_abs_err"] = max_abs(pairs)
+        self.kernels["fused_fwd_shared_block_ser"]["max_abs_err"] = max_abs(ser_pairs)
+        f_pl, f_k = interleaved_ms(
+            lambda: fk.fused_fwd_shared_plain(b, w, u0, C2, C3, lin, n),
+            lambda: fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n), 2, 10)
+        fs_pl, fs_k = interleaved_ms(
+            lambda: fk.fused_fwd_shared_plain(b, w, u0, C2, C3, lin, n, store_series=True),
+            lambda: fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n, store_series=True), 2, 10)
+        self.kernels["fused_fwd_shared_block"].update(
+            ms=f_k, plain_ms=f_pl, work=sweep_work(BLOCK_MG, n, 1, fwd=True))
+        self.kernels["fused_fwd_shared_block_ser"].update(
+            ms=fs_k, plain_ms=fs_pl, work=sweep_work(BLOCK_MG, n, 1, fwd=True, ser=True))
+        route = fk.shared_fwd_route(BLOCK_MG)
+        self.check("H", route == "block" and e <= TOL_VS_PLAIN and all(same),
+                   f"[{self.card}] SH23 one-block forward route (mg={b.shape[0]}, N={n}): "
+                   f"vs plain f32 (u_T, J, traj, series, the objective's J) rel {e:.2e} "
+                   f"(tol {TOL_VS_PLAIN:g}); series variant, the objectives and "
+                   f"autograd's gradient bitwise the wrappers': {same}; forward sweep "
+                   f"{f_k:.3f} ms vs plain {f_pl:.3f} ms, with series {fs_k:.3f} vs "
+                   f"{fs_pl:.3f} ms")
 
     def phase_i(self):
         a, b, w, u0, n = self.shb_sweep

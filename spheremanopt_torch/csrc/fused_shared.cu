@@ -2,26 +2,54 @@
 //
 // Replaces the TPU (Pallas) kernels of the JAX package's
 // ops/pallas/fused_two_matrix.py:
-//   sm_fused_fwd_shared  <- _fwd_kernel_shared (_run_fwd_shared; has_traj
-//                           and has_ser as the traj / ser pointers)
+//   sm_fused_fwd_shared, sm_fused_fwd_shared_block
+//                        <- _fwd_kernel_shared (_run_fwd_shared; has_traj
+//                           and has_ser as the traj / ser pointers): the
+//                           cluster route and the one-block route of the
+//                           same forward
 //   sm_fused_bwd_shared  <- _bwd_kernel_shared (_run_bwd_shared); with op_grads
 //                           it stores the lambda history that op_grads.cu
 //                           turns into dB (the `lam_hist` pointer)
 //
 // What bounds them on an H100: every step is a batch-1 GEMV with the
 // (mg, mg) f32 step matrix B (1 MiB at mg = 512), and the steps are
-// sequential. The TPU kernel keeps B in VMEM for the whole solve; one
-// SM's 227 KB of shared memory cannot hold it, so here B stays in global
-// memory and, after the first step, in the 50 MB L2. One thread block
-// runs the whole solve (one launch, as on the TPU): the per-step cost is
-// one SM pulling 1 MiB out of L2, about 2 flop per 4 bytes, so the
-// kernel is bound by a single SM's L2 bandwidth and by the step-to-step
-// dependency, not by arithmetic. The design keeps the small state (u, v
-// or lambda, the weights) in shared memory, reads B as float4 with
-// neighbouring threads on neighbouring addresses, and never touches
-// device memory for anything but B and the trajectory rows. Splitting B
-// over a thread-block cluster's distributed shared memory is the later,
-// faster design.
+// sequential, so a step's time is latency: reading B and passing a
+// barrier. Its arithmetic, 2 mg^2 flop, takes ~8 ns at the card's f32 peak.
+// The TPU kernel keeps B in VMEM for the whole solve; one SM's 227 KB of
+// shared memory cannot hold it.
+//
+// sm_fused_fwd_shared (forward, mg <= 896): one thread-block cluster of
+// 16 CTAs on 16 SMs, the two-matrix forward cluster of fused_two_matrix.cu
+// with one matrix. CTA rank r keeps rows [r mg/16, (r+1) mg/16) of B in
+// its shared memory (64 KB at mg = 512) for all N steps, and every CTA
+// keeps all of u (ping-pong), v and w. A step:
+//   * every CTA forms v = lin u + c2 u^2 + c3 u^3 from its full copy of u
+//     (v_poly, shared with the one-block kernel);
+//   * each warp computes its rows' dot products in the lane and k order of
+//     the one-block kernel (shared_dot4), so u, the trajectory, J and the
+//     series come out bitwise equal to it;
+//   * each row's value goes into every CTA's next-u buffer through
+//     distributed shared memory (lane l < 16 stores to rank l), and one
+//     cluster.sync() a step publishes it;
+//   * each CTA stores its slice of the trajectory row; rank 0 forms J and
+//     the series with the one-block kernel's reduction tree
+//     (energy_partials, cluster.cuh).
+// One matrix fits a wider cluster than two: mg^2 4 / 16 bytes of rows and
+// 4 mg + 32 floats of state fit 227 KB up to mg = 896. 16 CTAs rather than
+// 8 (which would need no non-portable cluster size): 8 CTAs would hold
+// twice the rows each (128 KB at mg = 512) and stop at mg = 640, and each
+// warp would run twice the dot products a step: 2.36 ms a sweep against
+// 1.91 ms for 16 CTAs (mg = 512, N = 1000, H100 SXM at 700 W). The
+// cluster barrier and the remote stores are most of a step either way:
+// 1.9 us, against 12.7 us for the one-block kernel.
+// A larger mg takes sm_fused_fwd_shared_block: one block of 1024 threads
+// on one SM that streams B from the 50 MB L2 every step (one warp per
+// row, float4 loads), bound by one SM's L2 read rate. The wrapper chooses
+// by shape; each route launches its kernel or fails.
+//
+// sm_fused_bwd_shared (reverse): one thread block. B stays in global
+// memory and, after the first step, in L2; the small state (lambda, the
+// partial sums, the weights) lives in shared memory.
 //
 // The energy series is a template flag, chosen from the `ser` pointer at
 // launch: a runtime test of the pointer on thread 0's per-step path made
@@ -33,21 +61,47 @@
 // common.cuh pins it, so lambda_0 is bitwise the same in both
 // instantiations.
 //
-// Both functions launch on the given stream, do not synchronise, and
-// return cudaGetLastError() so the caller can raise on a refused launch.
-// The caller guarantees mg % 128 == 0, 128 <= mg <= 2048, contiguous
-// f32 buffers on one device.
+// The launchers launch on the given stream, do not synchronise, and
+// return cudaGetLastError() (or the launch's error) so the caller can
+// raise on a refused launch. The caller guarantees mg % 128 == 0,
+// 128 <= mg <= 2048 (sm_fused_fwd_shared: mg <= 896), contiguous f32
+// buffers on one device.
 
+#include <cooperative_groups.h>
+
+#include "cluster.cuh"
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
+using smo::kClusterCtas;
+using smo::kClusterThreads;
+using smo::kClusterWarps;
 using smo::kThreads;
 using smo::kWarps;
 
-// Forward: N steps; J_sum = Kahan sum over n = 0..N of sum_j w_j u_n,j^2.
-// traj (N rows) is written when non-null, ser (N + 1 energies) when
-// kSeries. Shared memory: u[mg], v[mg], w[mg], red[32].
+// The cluster holds B's rows while mg^2 4 / 16 bytes fit one SM:
+// instances for mg = 128 R, R <= kMaxR.
+constexpr int kMaxR = 7;
+
+// v(u) = lin u + c2 u^2 + c3 u^3 and one float4 of a row's dot product
+// with v: written once for both forward kernels, so that the cluster's u
+// is bitwise the one-block kernel's.
+__device__ __forceinline__ float v_poly(float lin, float c2, float c3, float u) {
+  return lin * u + c2 * u * u + c3 * u * u * u;
+}
+
+__device__ __forceinline__ float shared_dot4(float s, const float4 bb, const float4 vv) {
+  s += bb.x * vv.x + bb.y * vv.y + bb.z * vv.z + bb.w * vv.w;
+  return s;
+}
+
+// Forward, one block (sm_fused_fwd_shared_block): N steps; J_sum = Kahan
+// sum over n = 0..N of sum_j w_j u_n,j^2. traj (N rows) is written when
+// non-null, ser (N + 1 energies) when kSeries. Shared memory: u[mg],
+// v[mg], w[mg], red[32].
 template <bool kSeries>
 __global__ void __launch_bounds__(kThreads)
 fused_fwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w,
@@ -79,7 +133,7 @@ fused_fwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w
       const float uj = u[j];
       part = smo::add_energy(part, ws[j], uj);
       if (traj != nullptr) traj[(size_t)n * mg + j] = uj;
-      v[j] = lin * uj + c2 * uj * uj + c3 * uj * uj * uj;
+      v[j] = v_poly(lin, c2, c3, uj);
     }
     const float e = smo::block_sum(part, red);  // its __syncthreads publishes v
     if (tid == 0) {
@@ -91,11 +145,7 @@ fused_fwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w
       const float4* row = b4 + (size_t)r * mg4;
       float s = 0.f;
 #pragma unroll 4
-      for (int k = lane; k < mg4; k += 32) {
-        const float4 bb = __ldg(row + k);
-        const float4 vv = v4[k];
-        s += bb.x * vv.x + bb.y * vv.y + bb.z * vv.z + bb.w * vv.w;
-      }
+      for (int k = lane; k < mg4; k += 32) s = shared_dot4(s, __ldg(row + k), v4[k]);
       s = smo::warp_sum(s);
       if (lane == 0) u[r] = s;
     }
@@ -115,6 +165,110 @@ fused_fwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w
     *jsum = acc;
   }
 }
+
+// Forward, one cluster (sm_fused_fwd_shared): the same recurrence, J and
+// outputs as fused_fwd_shared_kernel, on kClusterCtas CTAs of
+// kClusterThreads threads, mg = 128 R. Each warp owns R rows (rank's rows
+// warp, warp + 8, ...) and a lane R float4s of each: those of
+// k = lane + 32 i, the one-block kernel's k order. Shared memory: B's rows
+// (8 R x mg), u[2][mg], v[mg], w[mg], red[32].
+__host__ __device__ constexpr size_t shared_cluster_smem_bytes(int R) {
+  return ((size_t)(8 * R) * (128 * R) + 4 * (size_t)(128 * R) + 32) * sizeof(float);
+}
+
+template <bool kSeries, int R>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+fused_fwd_shared_cluster_kernel(const float* __restrict__ b, const float* __restrict__ w,
+                                const float* __restrict__ u0, float c2, float c3, float lin,
+                                int n_steps, float* __restrict__ uT,
+                                float* __restrict__ jsum, float* __restrict__ traj,
+                                float* __restrict__ ser) {
+  constexpr int mg = 128 * R, mg4 = mg / 4, rows = mg / kClusterCtas;
+  static_assert(rows == kClusterWarps * R, "one warp per R rows");
+  static_assert(mg <= kThreads, "one element per thread of the reduction tree");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = rank * rows;
+  extern __shared__ float4 smem4[];
+  float4* bs4 = smem4;                 // rows x mg4
+  float* u = reinterpret_cast<float*>(bs4 + rows * mg4);
+  float* un = u + mg;
+  float* v = un + mg;
+  float* ws = v + mg;
+  float* red = ws + mg;
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+
+  const float4* b4 = reinterpret_cast<const float4*>(b) + (size_t)r0 * mg4;
+  for (int i = tid; i < rows * mg4; i += kClusterThreads) bs4[i] = __ldg(b4 + i);
+  for (int j = tid; j < mg; j += kClusterThreads) {
+    u[j] = u0[j];
+    ws[j] = w[j];
+  }
+  cluster.sync();   // every CTA has started and holds u_0 before any remote store
+
+  float acc = 0.f, comp = 0.f;  // live in rank 0's thread 0
+  for (int n = 0; n < n_steps; ++n) {
+    for (int j = tid; j < mg; j += kClusterThreads) v[j] = v_poly(lin, c2, c3, u[j]);
+    if (traj != nullptr && tid < rows) traj[(size_t)n * mg + r0 + tid] = u[r0 + tid];
+    if (rank == 0) smo::energy_partials(u, ws, mg, red);
+    __syncthreads();   // v and red complete
+    float4 vr[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) vr[i] = v4[lane + 32 * i];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int rl = warp + q * kClusterWarps;
+      const float4* row = bs4 + rl * mg4;
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < R; ++i) s = shared_dot4(s, row[lane + 32 * i], vr[i]);
+      s = smo::warp_sum(s);   // every lane holds the same sum
+      if (lane < kClusterCtas) cluster.map_shared_rank(un, lane)[r0 + rl] = s;
+    }
+    if (rank == 0 && warp == 0) {
+      const float e = smo::warp_sum(red[lane]);
+      if (lane == 0) {
+        if constexpr (kSeries) ser[n] = e;
+        smo::kahan_add(acc, comp, e);
+      }
+    }
+    cluster.sync();   // un complete in every CTA; u, v and red free
+    float* t = u;
+    u = un;
+    un = t;
+  }
+
+  if (tid < rows) uT[r0 + tid] = u[r0 + tid];
+  if (rank == 0) {
+    smo::energy_partials(u, ws, mg, red);
+    __syncthreads();
+    if (warp == 0) {
+      const float eN = smo::warp_sum(red[lane]);
+      if (lane == 0) {
+        if constexpr (kSeries) ser[n_steps] = eN;
+        smo::kahan_add(acc, comp, eN);
+        *jsum = acc;
+      }
+    }
+  }
+}
+
+template <bool kSeries, int R>
+struct FwdSharedCluster {
+  static inline bool ready[smo::kMaxDevices] = {};
+  static int capacity() {
+    return smo::cluster_capacity(fused_fwd_shared_cluster_kernel<kSeries, R>,
+                                 shared_cluster_smem_bytes(R), kClusterThreads, ready);
+  }
+  static int launch(cudaStream_t st, const float* b, const float* w, const float* u0, float c2,
+                    float c3, float lin, int n_steps, float* uT, float* jsum, float* traj,
+                    float* ser) {
+    return smo::cluster_launch(fused_fwd_shared_cluster_kernel<kSeries, R>,
+                               shared_cluster_smem_bytes(R), kClusterThreads, ready, st, b, w,
+                               u0, c2, c3, lin, n_steps, uT, jsum, traj, ser);
+  }
+};
 
 // Backward: lambda_N = s w u_N, then for n = N-1..0
 //   lambda_n = (lin + 2 c2 u_n + 3 c3 u_n^2) * (B^T lambda_{n+1}) + s w u_n,
@@ -184,6 +338,25 @@ extern "C" {
 int sm_fused_fwd_shared(const float* b, const float* w, const float* u0, float c2,
                         float c3, float lin, int n_steps, int mg, float* uT,
                         float* jsum, float* traj, float* ser, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return ser != nullptr
+             ? smo::launch_by_mg<FwdSharedCluster, true, kMaxR>(mg, st, b, w, u0, c2, c3, lin,
+                                                                n_steps, uT, jsum, traj, ser)
+             : smo::launch_by_mg<FwdSharedCluster, false, kMaxR>(mg, st, b, w, u0, c2, c3, lin,
+                                                                 n_steps, uT, jsum, traj, ser);
+}
+
+// Clusters of sm_fused_fwd_shared (with the series when `series`) that the
+// card can hold at once for this mg: 0 means it cannot be scheduled; a
+// negative value is -cudaError_t.
+int sm_fused_fwd_shared_capacity(int mg, int series) {
+  return series ? smo::capacity_by_mg<FwdSharedCluster, true, kMaxR>(mg)
+                : smo::capacity_by_mg<FwdSharedCluster, false, kMaxR>(mg);
+}
+
+int sm_fused_fwd_shared_block(const float* b, const float* w, const float* u0, float c2,
+                              float c3, float lin, int n_steps, int mg, float* uT,
+                              float* jsum, float* traj, float* ser, void* stream) {
   const size_t smem = (3 * (size_t)mg + 32) * sizeof(float);
   const auto kernel = ser != nullptr ? fused_fwd_shared_kernel<true>
                                      : fused_fwd_shared_kernel<false>;

@@ -50,6 +50,8 @@
 // that streams A and B from the 50 MB L2 every step (one warp per row,
 // float4 loads), bound by one SM's L2 read rate (~191 GB/s measured).
 // The wrapper chooses by shape; each route launches its kernel or fails.
+// The clusters' launch, capacity query, energy tree and dispatch by width
+// are in cluster.cuh, shared with fused_shared.cu's forward cluster.
 //
 // sm_fused_bwd (reverse, mg <= 640): the forward's cluster transposed.
 // lambda_n = A^T lambda + g'(u_n) (B^T lambda) + s w u_n needs columns of
@@ -91,14 +93,27 @@
 
 #include <cooperative_groups.h>
 
+#include "cluster.cuh"
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using smo::capacity_by_mg;
+using smo::cluster_capacity;
+using smo::cluster_launch;
+using smo::energy_partials;
+using smo::kClusterCtas;
+using smo::kClusterThreads;
+using smo::kClusterWarps;
 using smo::kThreads;
 using smo::kWarps;
+using smo::launch_by_mg;
+
+// The clusters hold A and B (rows forward, columns in reverse) while
+// 2 mg^2 4 / 16 bytes fit one SM: instances for mg = 128 R, R <= kMaxR.
+constexpr int kMaxR = 5;
 
 // g(u) = c2 u^2 + c3 u^3 and one float4 of a row's dot products with u
 // and g(u): written once for both forward kernels, so the cluster's u
@@ -197,36 +212,8 @@ fused_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // ...) and a lane R float4s of each: those of k = lane + 32 i, the
 // one-block kernel's k order. Shared memory: A rows, B rows (8 R x mg
 // each), u[2][mg], g[mg], w[mg], red[32].
-constexpr int kClusterCtas = 16;
-constexpr int kClusterThreads = 256;
-constexpr int kClusterWarps = kClusterThreads / 32;
-constexpr int kRefWarps = kThreads / 32;   // the one-block kernel's reduction tree
-
 __host__ __device__ constexpr size_t cluster_smem_bytes(int R) {
   return (2 * (size_t)(8 * R) * (128 * R) + 4 * (size_t)(128 * R) + 32) * sizeof(float);
-}
-
-// sum_j w_j u_j^2 as fused_fwd_kernel's block_sum forms it (thread j of
-// 1024 holds w_j u_j^2, then warp sums, then a sum of the 32 warp sums),
-// with this block's warps standing in for the 1024-thread block's: the
-// warp sums go to red[32]. A __syncthreads must pass before red is read.
-__device__ __forceinline__ void energy_partials(const float* u, const float* ws, int mg,
-                                                float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int kPer = kRefWarps / kClusterWarps;
-  float p[kPer];
-#pragma unroll
-  for (int v = 0; v < kPer; ++v) {
-    const int j = (warp + v * kClusterWarps) * 32 + lane;
-    p[v] = j < mg ? smo::add_energy(0.f, ws[j], u[j]) : 0.f;
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-    for (int v = 0; v < kPer; ++v) p[v] += __shfl_xor_sync(0xffffffffu, p[v], off);
-  if (lane == 0)
-#pragma unroll
-    for (int v = 0; v < kPer; ++v) red[warp + v * kClusterWarps] = p[v];
 }
 
 template <bool kSeries, int R>
@@ -318,57 +305,6 @@ fused_fwd_cluster_kernel(const float* __restrict__ a, const float* __restrict__ 
   }
 }
 
-// The launch of one cluster of kClusterCtas CTAs of `threads` threads and
-// `smem` bytes of dynamic shared memory. The kernel's attributes are set
-// once per device; `ready` is the flag set of that kernel.
-template <typename Kernel>
-cudaError_t cluster_config(Kernel kernel, size_t smem, int threads,
-                           bool (&ready)[smo::kMaxDevices], cudaLaunchConfig_t& cfg,
-                           cudaLaunchAttribute& attr, cudaStream_t st) {
-  const cudaError_t err = smo::set_once(ready, [&] {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    return e;
-  });
-  cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3(kClusterCtas);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kClusterCtas;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return err;
-}
-
-// clusters of `kernel` that the card can hold at once (> 0 when it can be
-// scheduled), or -cudaError_t
-template <typename Kernel>
-int cluster_capacity(Kernel kernel, size_t smem, int threads,
-                     bool (&ready)[smo::kMaxDevices]) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config(kernel, smem, threads, ready, cfg, attr, nullptr);
-  int n = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-  return err == cudaSuccess ? n : -static_cast<int>(err);
-}
-
-template <typename Kernel, typename... Args>
-int cluster_launch(Kernel kernel, size_t smem, int threads, bool (&ready)[smo::kMaxDevices],
-                   cudaStream_t st, Args... args) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config(kernel, smem, threads, ready, cfg, attr, st);
-  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
-}
-
 template <bool kSeries, int R>
 struct FwdCluster {
   static inline bool ready[smo::kMaxDevices] = {};
@@ -384,32 +320,6 @@ struct FwdCluster {
                           jsum, traj, ser);
   }
 };
-
-// K<V, R>::launch(args...) and K<V, R>::capacity() for the R of
-// mg = 128 R (the cluster kernels' widths), or cudaErrorInvalidValue
-template <template <bool, int> class K, bool V, typename... Args>
-int launch_by_mg(int mg, Args... args) {
-  switch (mg) {
-    case 128: return K<V, 1>::launch(args...);
-    case 256: return K<V, 2>::launch(args...);
-    case 384: return K<V, 3>::launch(args...);
-    case 512: return K<V, 4>::launch(args...);
-    case 640: return K<V, 5>::launch(args...);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <template <bool, int> class K, bool V>
-int capacity_by_mg(int mg) {
-  switch (mg) {
-    case 128: return K<V, 1>::capacity();
-    case 256: return K<V, 2>::capacity();
-    case 384: return K<V, 3>::capacity();
-    case 512: return K<V, 4>::capacity();
-    case 640: return K<V, 5>::capacity();
-    default: return -static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 // Backward, one block (sm_fused_bwd_block): lambda_N = s w u_N, then for
 // n = N-1..0
@@ -605,17 +515,18 @@ int sm_fused_fwd(const float* a, const float* b, const float* w, const float* u0
                  float* traj, float* ser, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return ser != nullptr
-             ? launch_by_mg<FwdCluster, true>(mg, st, a, b, w, u0, c2, c3, n_steps, uT, jsum,
-                                              traj, ser)
-             : launch_by_mg<FwdCluster, false>(mg, st, a, b, w, u0, c2, c3, n_steps, uT, jsum,
-                                               traj, ser);
+             ? launch_by_mg<FwdCluster, true, kMaxR>(mg, st, a, b, w, u0, c2, c3, n_steps, uT,
+                                                     jsum, traj, ser)
+             : launch_by_mg<FwdCluster, false, kMaxR>(mg, st, a, b, w, u0, c2, c3, n_steps, uT,
+                                                      jsum, traj, ser);
 }
 
 // Clusters of sm_fused_fwd (with the series when `series`) that the card
 // can hold at once for this mg: 0 means it cannot be scheduled; a
 // negative value is -cudaError_t.
 int sm_fused_fwd_capacity(int mg, int series) {
-  return series ? capacity_by_mg<FwdCluster, true>(mg) : capacity_by_mg<FwdCluster, false>(mg);
+  return series ? capacity_by_mg<FwdCluster, true, kMaxR>(mg)
+                : capacity_by_mg<FwdCluster, false, kMaxR>(mg);
 }
 
 int sm_fused_fwd_block(const float* a, const float* b, const float* w, const float* u0,
@@ -634,16 +545,17 @@ int sm_fused_bwd(const float* a, const float* b, const float* w, const float* uT
                  void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return lam_hist != nullptr
-             ? launch_by_mg<BwdCluster, true>(mg, st, a, b, w, uT, traj, c2, c3, scale,
-                                              n_steps, lam_out, lam_hist)
-             : launch_by_mg<BwdCluster, false>(mg, st, a, b, w, uT, traj, c2, c3, scale,
-                                               n_steps, lam_out, lam_hist);
+             ? launch_by_mg<BwdCluster, true, kMaxR>(mg, st, a, b, w, uT, traj, c2, c3, scale,
+                                                     n_steps, lam_out, lam_hist)
+             : launch_by_mg<BwdCluster, false, kMaxR>(mg, st, a, b, w, uT, traj, c2, c3, scale,
+                                                      n_steps, lam_out, lam_hist);
 }
 
 // Clusters of sm_fused_bwd (with the lambda history when `hist`) that the
 // card can hold at once for this mg, as sm_fused_fwd_capacity.
 int sm_fused_bwd_capacity(int mg, int hist) {
-  return hist ? capacity_by_mg<BwdCluster, true>(mg) : capacity_by_mg<BwdCluster, false>(mg);
+  return hist ? capacity_by_mg<BwdCluster, true, kMaxR>(mg)
+              : capacity_by_mg<BwdCluster, false, kMaxR>(mg);
 }
 
 int sm_fused_bwd_block(const float* a, const float* b, const float* w, const float* uT,

@@ -24,58 +24,61 @@
 // step's stages. The TPU kernel keeps the whole 36^3 grid in VMEM; one
 // SM cannot hold it (560 KB against 227 KB), and it need not exist: the
 // transforms are separable, and after the x and y synthesis everything
-// up to the y analysis is local to one (a, b) pencil of the grid. What
-// the design does:
-//   * one persistent cooperative kernel per sweep, all blocks
-//     co-resident (two or so of 128 threads on each SM); the forward has
-//     a grid-wide barrier between the five stages of a step:
-//     x-synthesis | y-synthesis | per pencil: z-synthesis, cross
-//     product, z-analysis | y-analysis | x-analysis fused with the
-//     mode-space tail (curl, rhs, Leray, lhs_inv) and the energy;
-//   * the intermediates (well under 2 MB) go through global memory and
-//     stay in the 50 MB L2; the eight DFT matrices sit in shared memory;
-//   * J and the per-step energies are sums of per-block partials taken
-//     in a fixed order (no float atomics), and the Kahan accumulation
-//     over the steps lives in one thread with the pinned rounding of
-//     common.cuh, so J is the same from run to run.
-// The reverse sweep (sm_kdyn_bwd) has its own partition, with two
-// grid-wide barriers a step instead of five. The transforms are
-// separable, so the x-direction work and the y/z-direction work get
-// different owners, and the only exchanges through L2 are q1, g1 and r4:
-//   * stage X, by mode column (Y, z), tasks of two adjacent columns
+// up to the y analysis is local to one (a, b) pencil of the grid.
+//
+// Both sweeps are one persistent cooperative kernel with the same
+// partition and two grid-wide barriers a step. The x-direction work and
+// the y/z-direction work get different owners, and only three arrays
+// cross between them through L2:
+//   * stage X, by mode column (Y, z), tasks of kColChunk adjacent columns
 //     (adjacent in every array the stage reads and writes; 156 tasks at
-//     n = 24): r4 of the
-//     column -> x-synthesis^T plus the direct term (and the integrated
-//     cost's term) -> lambda_n; the head of the next transposed step
-//     (local to a mode, all three components at hand); the x-analysis^T
-//     of its p0 -> q1, and the x-synthesis of the next stored state -> g1
-//     (that chain does not depend on lambda);
+//     n = 24), all three components and every X of its columns at hand;
 //   * stage YZ, by x-grid slab a, split into S groups of <= 6 y-grid
 //     points b so that the ~216 tasks spread over the card (36 slabs
-//     alone would leave 96 of 132 SMs idle): the y-analysis^T of q1 and
-//     y-synthesis of g1 onto the group's b, the pencil work (z-stages,
-//     cross products, u_bar), the z-synthesis^T, and the group's share of
-//     the y-synthesis^T; stage X adds the S shares in group order.
-//   q2, g2 and r3 stay in shared memory. Blocks of 256 threads, two on an
-//   SM, one block per task of the larger stage: a block that has to run
-//   two tasks of a stage doubles that stage's time. Measured on an H100
-//   SXM at 700 W (n = 24, 2000 steps): 31.6 ms a sweep with 6 groups,
-//   two-column X tasks and one grid point a thread for all three
-//   components in the z-stage (34.3 ms with one output a thread); 3, 4
-//   or 9 groups, 1, 3 or 8 columns, or blocks of 384 or 512 threads took
-//   38.1-63.5 ms. The shape of the KDyn configuration
-//   (n = 24, mg = 36) has its own instance with the shape as constants:
-//   with run-time strides the stages were bound by integer address work
-//   (57 ms). A split by cluster
-//   (exchanging the shares through distributed shared memory) was not
-//   taken: it needs cluster dimensions and a cooperative launch in one
-//   launch, and the shares cost one read of S small planes a step.
-//   Every sum has a fixed order and no float atomics: the grid point
-//   (a, b, k) keeps its owner thread for the sweep, so u_bar accumulates
-//   without atomics, and two calls give the same bits. S follows from
-//   (n, mg) alone, not from the card.
-// Thread-block clusters with the state in distributed shared memory and
-// tensor-core transforms are the later, faster designs.
+//     alone would leave 96 of 132 SMs idle); the y-stage, the pencils'
+//     z-stages and cross products, and the group's share of the y-stage
+//     back to mode columns; stage X adds the S shares in group order
+//     (add_shares).
+// Forward (sm_kdyn_fwd, sm_kdyn_fwd_traj): stage X adds the shares of h4
+// (the y-analysed e), runs the x-analysis, the mode-space tail (curl, rhs,
+// Leray, lhs_inv: local to a mode, all three components at hand), writes
+// the new state (and the trajectory row), forms the chunk's energy, and
+// runs the x-synthesis of the new state -> g1; stage YZ runs the
+// y-synthesis of g1 onto its b, the pencils (z-synthesis, u x B,
+// z-analysis) and its share of the y-analysis -> h4. Only g1 and the
+// shares of h4 cross; g2 and h3 stay in shared memory.
+// Reverse (sm_kdyn_bwd): stage X: r4 of the column -> x-synthesis^T plus
+// the direct term (and the integrated cost's term) -> lambda_n; the head
+// of the next transposed step; the x-analysis^T of its p0 -> q1, and the
+// x-synthesis of the next stored state -> g1. Stage YZ: the y-analysis^T
+// of q1 and y-synthesis of g1 onto the group's b, the pencil work
+// (z-stages, cross products, u_bar), the z-synthesis^T, and the group's
+// share of the y-synthesis^T -> r4. q2, g2 and r3 stay in shared memory.
+//
+// Blocks of 256 threads, two on an SM, one block per task of the larger
+// stage: a block that has to run two tasks of a stage doubles that
+// stage's time. Measured on an H100 SXM at 700 W (n = 24, 2000 steps),
+// for the reverse: 31.6 ms a sweep with 6 groups, two-column X tasks and
+// one grid point a thread for all three components in the z-stage (34.3
+// ms with one output a thread); 3, 4 or 9 groups, 1, 3 or 8 columns, or
+// blocks of 384 or 512 threads took 38.1-63.5 ms; the forward takes
+// 28.4 ms a sweep (27.5 without the trajectory), against 50.5 ms with
+// one grid-wide stage per transform (five barriers a step). The shape
+// of the KDyn configuration (n = 24, mg = 36) has its own instance of
+// each sweep with the shape as constants: with run-time strides the
+// reverse's stages were bound by integer address work (57 ms). A split
+// by cluster (exchanging the shares through distributed shared memory)
+// was not taken: it needs cluster dimensions and a cooperative launch in
+// one launch, and the shares cost one read of S small planes a step.
+// Every sum has a fixed order and no float atomics, and none depends on
+// the number of blocks the card holds: S follows from (n, mg) alone; the
+// energies are per-chunk partials summed in chunk order by one warp, and
+// the Kahan accumulation over the steps lives in one thread with the
+// pinned rounding of common.cuh; the grid point (a, b, k) keeps its
+// owner thread for the sweep, so u_bar accumulates without atomics. Two
+// calls give the same bits. Thread-block clusters with the state in
+// distributed shared memory and tensor-core transforms are the later,
+// faster designs.
 //
 // The forward with and without the trajectory, and with and without the
 // integrated cost, are instantiations of one template.
@@ -96,41 +99,69 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// The forward kernels: small blocks, as many on an SM as the registers
-// allow. The sweeps are bound by latency, and the stages want ~170-190
-// registers a thread: a bound that forces fewer (two blocks of 256
-// threads, 128 registers) spills in the mode-space stage and slowed the
-// plain forward by 40 % on an H100; 128 threads with the registers left
-// free was the fastest of the sizes tried (64 to 1024). The reverse
-// sweep's blocks are below (kBwdThreads).
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBlocksPerSm = 4;  // at most; the occupancy query decides
-constexpr int kMaxBlocks = 4096;  // slots for the per-block energy partials
+// The partition of both sweeps (see the header). Stage YZ: task (a, grp)
+// owns the x-grid slab a and the y-grid points b0 .. b0 + nb - 1,
+// b0 = grp nb, of the S groups of a slab; stage X: task `chunk` owns the
+// kColChunk (Y, z) mode columns from chunk kColChunk. S and nb follow from
+// (n, mg) alone, so the sums' order does not depend on the card.
+constexpr int kPartThreads = 256;
+constexpr int kPartWarps = kPartThreads / 32;
+constexpr int kPartBlocksPerSm = 2;  // at most; the occupancy query decides
+constexpr int kPencilsPerTask = 6;   // y-grid points of a stage-YZ task, at most
+constexpr int kColChunk = 2;         // mode columns of a stage-X task
+constexpr int kPts = 2;              // grid points a thread holds in stage YZ
+constexpr int kMaxGroups = 16;       // groups S of a slab, at most (mg <= 96)
+constexpr int kLoads = 4;            // global loads a thread keeps in flight
 
 struct Dims {
   int n, mg, kz;
-  int nkz;           // n * kz
-  int s1;            // modes of one component: n * n * kz
-  int s;             // 3 * s1
-  int p1;            // 3 * mg * n * kz
-  int p2;            // 3 * mg * mg * kz
-  int mats;          // floats of the eight DFT matrices
-  int warp_scratch;  // floats of one warp's pencil scratch
+  int nkz;   // n * kz
+  int s1;    // modes of one component: n * n * kz
+  int s;     // 3 * s1
+  int p1;    // 3 * mg * n * kz
+  int mats;  // floats of the eight DFT matrices
   __host__ __device__ Dims(int n_, int mg_) : n(n_), mg(mg_), kz(n_ / 2 + 1) {
     nkz = n * kz;
     s1 = n * nkz;
     s = 3 * s1;
     p1 = 3 * mg * nkz;
-    p2 = 3 * mg * mg * kz;
     mats = 4 * n * mg + 4 * kz * mg;
-    warp_scratch = 12 * kz + 6 * mg;
   }
-  __host__ __device__ long long work_floats() const {  // the forward's scratch
-    return 4LL * s + 6LL * p1 + 6LL * p2 + kMaxBlocks;
+};
+
+struct PartDims : Dims {
+  int S, nb, tasks, chunks;
+  __host__ __device__ PartDims(int n_, int mg_) : Dims(n_, mg_) {
+    S = mg > 0 ? (mg + kPencilsPerTask - 1) / kPencilsPerTask : 1;
+    nb = (mg + S - 1) / S;
+    tasks = mg * S;
+    chunks = (nkz + kColChunk - 1) / kColChunk;
   }
-  __host__ __device__ size_t smem_bytes() const {
-    return (size_t)(mats + kWarps * warp_scratch) * sizeof(float);
+  // the state (2 s), g1 (2 p1), the S groups' shares of h4 (2 S p1), the
+  // chunks' energy partials of two steps (2 chunks)
+  __host__ __device__ long long fwd_work_floats() const {
+    return 2LL * s + 2LL * p1 + 2LL * S * p1 + 2LL * chunks;
+  }
+  // d (2 s), q1 and g1 (4 p1), the S groups' shares of r4 (2 S p1)
+  __host__ __device__ long long bwd_work_floats() const {
+    return 2LL * s + 4LL * p1 + 2LL * S * p1;
+  }
+  __host__ __device__ int fwd_yz_floats() const {
+    return 6 * nkz + 12 * nb * kz + 3 * nb * mg;
+  }
+  __host__ __device__ int fwd_x_floats() const { return kColChunk * (6 * mg + 18 * n); }
+  __host__ __device__ int bwd_yz_floats() const {
+    return 12 * nkz + 18 * nb * kz + 3 * nb * mg;
+  }
+  __host__ __device__ int bwd_x_floats() const { return kColChunk * (6 * mg + 30 * n); }
+  __host__ __device__ size_t smem_bytes(int yz, int x) const {
+    return (size_t)(mats + (yz > x ? yz : x)) * sizeof(float);
+  }
+  __host__ __device__ size_t fwd_smem_bytes() const {
+    return smem_bytes(fwd_yz_floats(), fwd_x_floats());
+  }
+  __host__ __device__ size_t bwd_smem_bytes() const {
+    return smem_bytes(bwd_yz_floats(), bwd_x_floats());
   }
 };
 
@@ -170,39 +201,19 @@ __device__ Factors factors(const float* consts, const Dims& d) {
   return f;
 }
 
-// Sum of the per-block partials in a fixed order, by one warp.
-__device__ float sum_partials(const float* epart, int nblocks, int lane) {
+// Sum of the per-chunk partials in a fixed order, by one warp.
+__device__ float sum_partials(const float* epart, int n, int lane) {
   float s = 0.f;
-  for (int b = lane; b < nblocks; b += 32) s += epart[b];
+  for (int b = lane; b < n; b += 32) s += epart[b];
   return smo::warp_sum(s);
 }
 
-// sum_j M_j x_j (or conj(M_j) x_j) of `len` complex terms: the matrix
-// entries `js` apart in shared memory, the operand `stride` apart.
-template <bool kConj>
-__device__ __forceinline__ void cdot(const float* mr, const float* mi, int js,
-                                     const float* xr, const float* xi, int stride,
-                                     int len, float& outr, float& outi) {
-  float r = 0.f, im = 0.f;
-  for (int j = 0; j < len; ++j) {
-    const float a = mr[j * js], b = mi[j * js];
-    const float x = xr[(size_t)j * stride], y = xi[(size_t)j * stride];
-    if constexpr (kConj) {
-      r += a * x + b * y;
-      im += a * y - b * x;
-    } else {
-      r += a * x - b * y;
-      im += a * y + b * x;
-    }
-  }
-  outr = r;
-  outi = im;
-}
-
-// cdot with four independent partial sums (terms j = 4 i + q go to sum
-// q; the sums meet as (s0 + s1) + (s2 + s3)), so that a thread's loads and
-// multiply-adds overlap instead of waiting on one chain: the reverse
-// sweep's stages are a few short dot products per thread.
+// sum_j M_j x_j (or conj(M_j) x_j) of `len` complex terms, the matrix
+// entries `js` apart in shared memory, the operand `stride` apart, with
+// four independent partial sums (terms j = 4 i + q go to sum q; the sums
+// meet as (s0 + s1) + (s2 + s3)), so that a thread's loads and
+// multiply-adds overlap instead of waiting on one chain: the stages are a
+// few short dot products per thread.
 template <bool kConj>
 __device__ __forceinline__ void cdot4(const float* mr, const float* mi, int js,
                                       const float* xr, const float* xi, int stride,
@@ -239,91 +250,88 @@ __device__ __forceinline__ void cdot4(const float* mr, const float* mi, int js,
   outi = (im[0] + im[1]) + (im[2] + im[3]);
 }
 
-// out[o, m, i] = sum_j M(m, j) in[o, j, i] over the whole grid, with
-// M(m, j) = M[m * ms + j * js] (conjugated when kConj): one complex DFT
-// stage along the middle axis of an (O, J, I) array.
-template <bool kConj>
-__device__ void caxis(const float* Mr, const float* Mi, int ms, int js,
-                      const float* inr, const float* ini, float* outr, float* outi,
-                      int O, int M, int J, int I, int gtid, int gthreads) {
-  const int total = O * M * I;
-  for (int idx = gtid; idx < total; idx += gthreads) {
-    const int i = idx % I, m = (idx / I) % M, o = idx / (I * M);
-    const int base = o * J * I + i;
-    float r, im;
-    cdot<kConj>(Mr + m * ms, Mi + m * ms, js, inr + base, ini + base, I, J, r, im);
-    outr[idx] = r;  // idx == (o * M + m) * I + i
-    outi[idx] = im;
-  }
-}
-
-// Forward pencil stage. For each (a, b): B = z-synthesis of g2[:, a, b, :]
-// (real output), e = u x B, h3[:, a, b, :] = z-analysis of e.
-__device__ void pencils_fwd(const Mats& M, const Dims& d, const float* u,
-                            const float* g2r, const float* g2i, float* h3r,
-                            float* h3i, float* ws, int gwarp, int gwarps, int lane) {
-  const int mg = d.mg, kz = d.kz;
-  const size_t grid1 = (size_t)mg * mg * mg;
-  float* sr = ws;  // [3][kz]
-  float* si = sr + 3 * kz;
-  float* gs = ws + 12 * kz;  // [3][mg]
-  float* es = gs + 3 * mg;   // [3][mg]
-  for (int p = gwarp; p < mg * mg; p += gwarps) {  // p = a * mg + b
-    for (int t = lane; t < 3 * kz; t += 32) {
-      const int c = t / kz, z = t % kz;
-      const size_t src = ((size_t)c * mg * mg + p) * kz + z;
-      sr[t] = g2r[src];
-      si[t] = g2i[src];
-    }
-    __syncwarp();
-    for (int t = lane; t < 3 * mg; t += 32) {
-      const int c = t / mg, k = t % mg;
-      float g = 0.f;
-      for (int z = 0; z < kz; ++z)
-        g += M.Bzr[k * kz + z] * sr[c * kz + z] - M.Bzi[k * kz + z] * si[c * kz + z];
-      gs[t] = g;
-    }
-    __syncwarp();
-    for (int k = lane; k < mg; k += 32) {
-      const size_t ui = (size_t)p * mg + k;
-      const float u0 = __ldg(u + ui), u1 = __ldg(u + grid1 + ui),
-                  u2 = __ldg(u + 2 * grid1 + ui);
-      const float b0 = gs[k], b1 = gs[mg + k], b2 = gs[2 * mg + k];
-      es[k] = u1 * b2 - u2 * b1;
-      es[mg + k] = u2 * b0 - u0 * b2;
-      es[2 * mg + k] = u0 * b1 - u1 * b0;
-    }
-    __syncwarp();
-    for (int t = lane; t < 3 * kz; t += 32) {
-      const int c = t / kz, z = t % kz;
-      float cr = 0.f, ci = 0.f;
-      for (int k = 0; k < mg; ++k) {
-        const float e = es[c * mg + k];
-        cr += M.Fzr[z * mg + k] * e;
-        ci += M.Fzi[z * mg + k] * e;
+// Stage YZ's input: the slab a of kP (3, mg, n, kz) arrays,
+// dst[q][c nkz + col] = src[q][(c mg + a) nkz + col], kLoads elements a
+// thread in flight at once.
+template <int kP>
+__device__ __forceinline__ void load_slab(const float* const* src, float* const* dst, int a,
+                                          int mg, int nkz) {
+  for (int i0 = threadIdx.x; i0 < 3 * nkz; i0 += kLoads * kPartThreads) {
+    float v[kLoads][kP];
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int i = i0 + q * kPartThreads;
+      if (i < 3 * nkz) {
+        const size_t at = ((size_t)(i / nkz) * mg + a) * nkz + i % nkz;
+#pragma unroll
+        for (int w = 0; w < kP; ++w) v[q][w] = src[w][at];
       }
-      const size_t dst = ((size_t)c * mg * mg + p) * kz + z;
-      h3r[dst] = cr;
-      h3i[dst] = ci;
     }
-    __syncwarp();  // the scratch is free for the next pencil
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int i = i0 + q * kPartThreads;
+      if (i < 3 * nkz) {
+#pragma unroll
+        for (int w = 0; w < kP; ++w) dst[w][i] = v[q][w];
+      }
+    }
   }
 }
 
-// Mode-space tail of the forward step at mode m: band mask, F = i k x e,
+// Stage X's input: the S groups' shares of a (3, mg, n, kz) array at the
+// chunk's nc columns from col0, added in group order:
+// (dr, di)[j 3 mg + c mg + a] = sum_g (shr, shi)[g][(c mg + a) nkz + col0 + j].
+__device__ __forceinline__ void add_shares(const PartDims& d, const float* shr,
+                                           const float* shi, int col0, int nc, float* dr,
+                                           float* di) {
+  for (int o = threadIdx.x; o < 3 * d.mg * nc; o += kPartThreads) {
+    const int j = o % nc, ca = o / nc;  // ca = c mg + a
+    const size_t src = (size_t)ca * d.nkz + col0 + j;
+    float sr[kMaxGroups], si[kMaxGroups];  // all loads in flight at once
+#pragma unroll
+    for (int g = 0; g < kMaxGroups; ++g) {
+      if (g < d.S) {
+        sr[g] = shr[(size_t)g * d.p1 + src];
+        si[g] = shi[(size_t)g * d.p1 + src];
+      }
+    }
+    float vr = 0.f, vi = 0.f;
+#pragma unroll
+    for (int g = 0; g < kMaxGroups; ++g) {
+      if (g < d.S) {
+        vr += sr[g];
+        vi += si[g];
+      }
+    }
+    dr[j * 3 * d.mg + ca] = vr;
+    di[j * 3 * d.mg + ca] = vi;
+  }
+}
+
+// The mode-space factors of mode m.
+struct ModeFactors {
+  float keep, k0, k1, k2, rf, lhs, ik2, mm;
+};
+
+__device__ __forceinline__ ModeFactors mode_factors(const Factors& F, int s1, int m) {
+  return {__ldg(F.keep + m),    __ldg(F.k + m),        __ldg(F.k + s1 + m),
+          __ldg(F.k + 2 * s1 + m), __ldg(F.rhs_fac + m), __ldg(F.lhs_inv + m),
+          __ldg(F.inv_k2 + m),  __ldg(F.mean_mask + m)};
+}
+
+// Mode-space tail of the forward step at one mode, from the state b and
+// the analysed e (three components each): band mask, F = i k x e,
 // rhs = rhs_fac b + F, Leray projection, lhs_inv, mean mode zeroed.
-__device__ __forceinline__ void step_tail(const Factors& F, int s1, int m,
-                                          const float* br, const float* bi,
-                                          float* er, float* ei, float* nr, float* ni) {
-  const float keep = __ldg(F.keep + m);
-  const float k0 = __ldg(F.k + m), k1 = __ldg(F.k + s1 + m),
-              k2 = __ldg(F.k + 2 * s1 + m);
-  const float rf = __ldg(F.rhs_fac + m), li = __ldg(F.lhs_inv + m),
-              ik2 = __ldg(F.inv_k2 + m), mm = __ldg(F.mean_mask + m);
+__device__ __forceinline__ void step_tail(const ModeFactors& f, const float* br,
+                                          const float* bi, const float* er_in,
+                                          const float* ei_in, float* nr, float* ni) {
+  const float k0 = f.k0, k1 = f.k1, k2 = f.k2, rf = f.rf, li = f.lhs, ik2 = f.ik2,
+              mm = f.mm;
+  float er[3], ei[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    er[c] *= keep;
-    ei[c] *= keep;
+    er[c] = er_in[c] * f.keep;
+    ei[c] = ei_in[c] * f.keep;
   }
   // multiplying by i maps (re, im) -> (-im, re)
   const float rr0 = rf * br[0] - (k1 * ei[2] - k2 * ei[1]);
@@ -342,20 +350,16 @@ __device__ __forceinline__ void step_tail(const Factors& F, int s1, int m,
   ni[2] = (ri2 - k2 * pi) * li * mm;
 }
 
+// pw |b|^2 of one mode, three components.
+__device__ __forceinline__ float mode_energy(float pw, const float* r, const float* i) {
+  return pw * (r[0] * r[0] + i[0] * i[0] + r[1] * r[1] + i[1] * i[1] + r[2] * r[2] +
+               i[2] * i[2]);
+}
+
 // Head of the transposed step at mode m, from lambda (three components):
 // t = mean mask, lhs_inv, k-projector; the direct term d = rhs_fac t; and
 // the cotangent of the analysed e, (e_r, e_i)_bar = (-k x t_i, k x t_r),
 // band-masked. Outputs three components each.
-struct ModeFactors {
-  float keep, k0, k1, k2, rf, lhs, ik2, mm;
-};
-
-__device__ __forceinline__ ModeFactors mode_factors(const Factors& F, int s1, int m) {
-  return {__ldg(F.keep + m),    __ldg(F.k + m),        __ldg(F.k + s1 + m),
-          __ldg(F.k + 2 * s1 + m), __ldg(F.rhs_fac + m), __ldg(F.lhs_inv + m),
-          __ldg(F.inv_k2 + m),  __ldg(F.mean_mask + m)};
-}
-
 __device__ __forceinline__ void adjoint_head(const ModeFactors& f, const float* lr,
                                              const float* li, float* dr, float* di,
                                              float* p0r, float* p0i) {
@@ -388,6 +392,10 @@ __device__ __forceinline__ void adjoint_head(const ModeFactors& f, const float* 
   p0i[2] = keep * (k0 * tr[1] - k1 * tr[0]);
 }
 
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
 struct FwdParams {
   const float *br0, *bi0, *u, *consts;
   int n, mg, n_steps;
@@ -395,117 +403,289 @@ struct FwdParams {
   float *brT, *biT, *J, *trr, *tri, *work;
 };
 
-// Forward: N steps from (br0, bi0). J = E(b_T), or with kIntegrated
-// dt * Kahan sum of E(b_0) .. E(b_{N-1}), then E(b_T). With kTraj row i of
-// (trr, tri) is the state before step i.
-template <bool kTraj, bool kIntegrated>
-__global__ void __launch_bounds__(kThreads, 1) kdyn_fwd_kernel(const FwdParams p) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float smem[];
-  __shared__ float red[kWarps];
-  const Dims d(p.n, p.mg);
-  const Mats M = load_mats<kThreads>(smem, p.consts, d);
-  const Factors F = factors(p.consts, d);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gtid = blockIdx.x * kThreads + tid, gthreads = gridDim.x * kThreads;
-  const int gwarp = blockIdx.x * kWarps + warp, gwarps = gridDim.x * kWarps;
-  const bool summer = blockIdx.x == 0 && warp == 0;
-  float* ws = smem + d.mats + warp * d.warp_scratch;
-  float* sr = p.work;  // the state
-  float* si = sr + d.s;
-  float* g1r = si + d.s;  // after the x synthesis (3, mg, n, kz)
-  float* g1i = g1r + d.p1;
-  float* g2r = g1i + d.p1;  // after the y synthesis (3, mg, mg, kz)
-  float* g2i = g2r + d.p2;
-  float* h3r = g2i + d.p2;  // after the z analysis (3, mg, mg, kz)
-  float* h3i = h3r + d.p2;
-  float* h4r = h3i + d.p2;  // after the y analysis (3, mg, n, kz)
-  float* h4i = h4r + d.p1;
-  float* epart = h4i + d.p1;  // per-block energy partials
+struct FwdCtx {
+  PartDims d;
+  Mats M;
+  Factors F;
+  const FwdParams* p;
+  float* buf;        // shared memory after the matrices
+  float* red;        // [kPartWarps] of shared memory, for block_sum
+  float *sr, *si;    // the state (3, n, n, kz)
+  float *g1r, *g1i;  // (3, mg, n, kz): x-synthesis of the state
+  float *h4r, *h4i;  // S x (3, mg, n, kz): each group's share of h4
+  float* epart;      // [2][chunks]: the chunks' energy partials, by step parity
+};
 
-  float part = 0.f;
-  for (int idx = gtid; idx < d.s; idx += gthreads) {
-    const float r = p.br0[idx], i = p.bi0[idx];
-    sr[idx] = r;
-    si[idx] = i;
-    if constexpr (kTraj) {
-      p.trr[idx] = r;
-      p.tri[idx] = i;
-    }
-    if constexpr (kIntegrated) part += __ldg(F.pw + idx % d.s1) * (r * r + i * i);
-  }
-  if constexpr (kIntegrated) {
-    const float total = smo::block_sum<kWarps>(part, red);
-    if (tid == 0) epart[blockIdx.x] = total;
-  }
-  grid.sync();
-
-  float acc = 0.f, comp = 0.f;  // live in lane 0 of the summer warp
-  for (int step = 0; step < p.n_steps; ++step) {
-    if constexpr (kIntegrated) {
-      if (summer) {
-        const float e = sum_partials(epart, gridDim.x, lane);  // E(b_step)
-        if (lane == 0) smo::kahan_add(acc, comp, e);
+// Stage YZ of a forward step: for each task (a, grp), the y-synthesis of
+// the slab a of g1 onto the task's y-grid points, the pencil work
+// (z-synthesis -> B, e = u x B, z-analysis -> h3) and the task's share of
+// the y-analysis, sum over its b of Ff(Y, b) h3.
+template <int kN, int kMG>
+__device__ __forceinline__ void fwd_stage_yz(const FwdCtx& x) {
+  const PartDims d = kN ? PartDims(kN, kMG) : x.d;  // constants in the specialised instance
+  const Mats& M = x.M;
+  const FwdParams& p = *x.p;
+  const int tid = threadIdx.x, mg = d.mg, n = d.n, kz = d.kz, nkz = d.nkz, nb = d.nb;
+  const size_t grid1 = (size_t)mg * mg * mg;
+  float* sg1r = x.buf;  // [3][nkz] each: the slab of g1
+  float* sg1i = sg1r + 3 * nkz;
+  float* g2r = sg1i + 3 * nkz;  // [3][nb][kz] each
+  float* g2i = g2r + 3 * nb * kz;
+  float* h3r = g2i + 3 * nb * kz;
+  float* h3i = h3r + 3 * nb * kz;
+  float* es = h3i + 3 * nb * kz;  // [3][nb][mg]: e = u x B
+  const int cs = nb * mg;         // its component stride
+  const float* src[2] = {x.g1r, x.g1i};
+  float* const dst[2] = {sg1r, sg1i};
+  for (int task = blockIdx.x; task < d.tasks; task += gridDim.x) {
+    const int a = task / d.S, grp = task % d.S;
+    const int b0 = grp * nb, nbl = min(nb, mg - b0), npts = nbl * mg;
+    // u at this thread's grid points (pt = bl mg + k), in flight during
+    // the y stage
+    float uu[kPts][3];
+#pragma unroll
+    for (int q = 0; q < kPts; ++q) {
+      const int pt = tid + q * kPartThreads;
+      if (pt < npts) {
+        const size_t gi = ((size_t)a * mg + b0) * mg + pt;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) uu[q][c] = __ldg(p.u + c * grid1 + gi);
       }
     }
-    caxis<false>(M.Bfr, M.Bfi, d.n, 1, sr, si, g1r, g1i, 3, d.mg, d.n, d.nkz, gtid,
-                 gthreads);
-    grid.sync();
-    caxis<false>(M.Bfr, M.Bfi, d.n, 1, g1r, g1i, g2r, g2i, 3 * d.mg, d.mg, d.n, d.kz,
-                 gtid, gthreads);
-    grid.sync();
-    pencils_fwd(M, d, p.u, g2r, g2i, h3r, h3i, ws, gwarp, gwarps, lane);
-    grid.sync();
-    caxis<false>(M.Ffr, M.Ffi, d.mg, 1, h3r, h3i, h4r, h4i, 3 * d.mg, d.n, d.mg, d.kz,
-                 gtid, gthreads);
-    grid.sync();
-    // x analysis, one thread per mode for all three components, then
-    // the mode-space tail
-    const bool last = step == p.n_steps - 1;
-    part = 0.f;
-    for (int m = gtid; m < d.s1; m += gthreads) {
-      const int X = m / d.nkz, yz = m % d.nkz;
-      float er[3], ei[3], br[3], bi[3], nr[3], ni[3];
+    load_slab<2>(src, dst, a, mg, nkz);
+    __syncthreads();
+    for (int o = tid; o < 3 * nbl * kz; o += kPartThreads) {
+      const int c = o / (nbl * kz), bl = (o / kz) % nbl, z = o % kz, b = b0 + bl;
+      const int at = (c * nb + bl) * kz + z;
+      cdot4<false>(M.Bfr + b * n, M.Bfi + b * n, 1, sg1r + c * nkz + z, sg1i + c * nkz + z,
+                   kz, n, g2r[at], g2i[at]);
+    }
+    __syncthreads();
+    // at this thread's grid points (bl, k): z-synthesis (real output) of
+    // all three components at once (the matrix entries shared), then
+    // e = u x B
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const int base = c * d.mg * d.nkz + yz;
-        cdot<false>(M.Ffr + X * d.mg, M.Ffi + X * d.mg, 1, h4r + base, h4i + base,
-                    d.nkz, d.mg, er[c], ei[c]);
-        br[c] = sr[c * d.s1 + m];
-        bi[c] = si[c * d.s1 + m];
+    for (int q = 0; q < kPts; ++q) {
+      const int pt = tid + q * kPartThreads;
+      if (pt < npts) {
+        const int bl = pt / mg, k = pt % mg;
+        float v[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+        for (int z = 0; z < kz; ++z) {
+          const float br = M.Bzr[k * kz + z], bi = M.Bzi[k * kz + z];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const int at = (c * nb + bl) * kz + z;
+            v[c] += br * g2r[at] - bi * g2i[at];
+          }
+        }
+        const float u0 = uu[q][0], u1 = uu[q][1], u2 = uu[q][2];
+        es[pt] = u1 * v[2] - u2 * v[1];
+        es[cs + pt] = u2 * v[0] - u0 * v[2];
+        es[2 * cs + pt] = u0 * v[1] - u1 * v[0];
       }
-      step_tail(F, d.s1, m, br, bi, er, ei, nr, ni);
+    }
+    __syncthreads();
+    // z-analysis: h3 = sum over k of Fz(z, k) e(k)
+    for (int o = tid; o < 3 * nbl * kz; o += kPartThreads) {
+      const int c = o / (nbl * kz), bl = (o / kz) % nbl, z = o % kz;
+      const float* e = es + c * cs + bl * mg;
+      const float* fr = M.Fzr + z * mg;
+      const float* fi = M.Fzi + z * mg;
+      float ar[4] = {0.f, 0.f, 0.f, 0.f}, ai[4] = {0.f, 0.f, 0.f, 0.f};  // k mod 4
+      int k = 0;
+#pragma unroll
+      for (; k + 4 <= mg; k += 4) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          ar[q] += fr[k + q] * e[k + q];
+          ai[q] += fi[k + q] * e[k + q];
+        }
+      }
+      for (int q = 0; k < mg; ++k, ++q) {
+        ar[q] += fr[k] * e[k];
+        ai[q] += fi[k] * e[k];
+      }
+      h3r[(c * nb + bl) * kz + z] = (ar[0] + ar[1]) + (ar[2] + ar[3]);
+      h3i[(c * nb + bl) * kz + z] = (ai[0] + ai[1]) + (ai[2] + ai[3]);
+    }
+    __syncthreads();
+    for (int o = tid; o < 3 * nkz; o += kPartThreads) {
+      const int c = o / nkz, col = o % nkz, Y = col / kz, z = col % kz;
+      float vr, vi;
+      cdot4<false>(M.Ffr + Y * mg + b0, M.Ffi + Y * mg + b0, 1, h3r + c * nb * kz + z,
+                   h3i + c * nb * kz + z, kz, nbl, vr, vi);
+      const size_t at = (size_t)grp * d.p1 + ((size_t)c * mg + a) * nkz + col;
+      x.h4r[at] = vr;
+      x.h4i[at] = vi;
+    }
+    __syncthreads();  // the buffers are free for the next task
+  }
+}
+
+// Stage X of forward step `step` (step = -1: the start of the sweep, from
+// b_0): for each task's mode columns, h4 (the groups' shares added in
+// group order), the x-analysis, the mode-space tail -> b_{step+1} (to the
+// state, the trajectory row step + 1, or b_T on the last step) and its
+// energy partial, then the x-synthesis of b_{step+1} -> g1. One warp of
+// the last block adds E(b_step) to the Kahan sum meanwhile (with
+// kIntegrated; the chunks write E(b_{step+1}) to the other half of epart).
+template <bool kTraj, bool kIntegrated, int kN, int kMG>
+__device__ __forceinline__ void fwd_stage_x(const FwdCtx& x, int step, float& acc,
+                                            float& comp) {
+  const PartDims d = kN ? PartDims(kN, kMG) : x.d;
+  const Mats& M = x.M;
+  const FwdParams& p = *x.p;
+  const int tid = threadIdx.x, mg = d.mg, n = d.n, nkz = d.nkz, s1 = d.s1;
+  const int tm = 3 * n;  // modes (c, X) of one column
+  const bool first = step < 0, last = step == p.n_steps - 1;
+  const bool energy = kIntegrated || last;
+  constexpr int CT = kColChunk;
+  float* h4sr = x.buf;  // [CT][3 mg] each
+  float* h4si = h4sr + CT * 3 * mg;
+  float* bsr = h4si + CT * 3 * mg;  // [CT][3 n] each, as are the rest: b_step
+  float* bsi = bsr + CT * tm;
+  float* er = bsi + CT * tm;  // the x-analysed e
+  float* ei = er + CT * tm;
+  float* bnr = ei + CT * tm;  // b_{step+1}
+  float* bni = bnr + CT * tm;
+  const float* inr = first ? p.br0 : x.sr;
+  const float* ini = first ? p.bi0 : x.si;
+  if (kIntegrated && !first && blockIdx.x == gridDim.x - 1 && tid < 32) {
+    const float e = sum_partials(x.epart + (step & 1) * d.chunks, d.chunks, tid);
+    if (tid == 0) smo::kahan_add(acc, comp, e);  // E(b_step)
+  }
+  float* epart = x.epart + ((step + 1) & 1) * d.chunks;
+  for (int chunk = blockIdx.x; chunk < d.chunks; chunk += gridDim.x) {
+    const int col0 = chunk * CT, nc = min(CT, nkz - col0);
+    // the tail's factors of this thread's mode (j, X), in flight early
+    const bool tailer = tid < n * nc;
+    const int hj = tid / n, hX = tid % n, hm = hX * nkz + col0 + hj;
+    ModeFactors hf{};
+    float hpw = 0.f;
+    if (tailer) {
+      if (!first) hf = mode_factors(x.F, s1, hm);
+      hpw = __ldg(x.F.pw + hm);
+    }
+    // the columns' state, (c, X, j) with j fastest
+    for (int o = tid; o < tm * nc; o += kPartThreads) {
+      const int j = o % nc, cx = o / nc, c = cx / n, X = cx % n;
+      const int idx = c * s1 + X * nkz + col0 + j, sl = j * tm + cx;
+      bsr[sl] = inr[idx];
+      bsi[sl] = ini[idx];
+    }
+    if (!first) add_shares(d, x.h4r, x.h4i, col0, nc, h4sr, h4si);
+    __syncthreads();
+    if (!first) {
+      for (int o = tid; o < tm * nc; o += kPartThreads) {
+        const int j = o / tm, cx = o % tm, c = cx / n, X = cx % n;
+        cdot4<false>(M.Ffr + X * mg, M.Ffi + X * mg, 1, h4sr + j * 3 * mg + c * mg,
+                     h4si + j * 3 * mg + c * mg, 1, mg, er[j * tm + cx], ei[j * tm + cx]);
+      }
+      __syncthreads();
+    }
+    float part = 0.f;
+    if (tailer) {
+      float b_r[3], b_i[3], nr[3], ni[3];
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        const int idx = c * d.s1 + m;
-        sr[idx] = nr[c];
-        si[idx] = ni[c];
-        if constexpr (kTraj) {
-          if (!last) {
+        b_r[c] = bsr[hj * tm + c * n + hX];
+        b_i[c] = bsi[hj * tm + c * n + hX];
+      }
+      if (first) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          nr[c] = b_r[c];
+          ni[c] = b_i[c];
+        }
+      } else {
+        float e_r[3], e_i[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          e_r[c] = er[hj * tm + c * n + hX];
+          e_i[c] = ei[hj * tm + c * n + hX];
+        }
+        step_tail(hf, b_r, b_i, e_r, e_i, nr, ni);
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const int idx = c * s1 + hm;
+        bnr[hj * tm + c * n + hX] = nr[c];
+        bni[hj * tm + c * n + hX] = ni[c];
+        if (last) {
+          p.brT[idx] = nr[c];
+          p.biT[idx] = ni[c];
+        } else {
+          x.sr[idx] = nr[c];
+          x.si[idx] = ni[c];
+          if constexpr (kTraj) {
             p.trr[(size_t)(step + 1) * d.s + idx] = nr[c];
             p.tri[(size_t)(step + 1) * d.s + idx] = ni[c];
           }
         }
       }
-      if (kIntegrated || last)
-        part += __ldg(F.pw + m) * (nr[0] * nr[0] + ni[0] * ni[0] + nr[1] * nr[1] +
-                                   ni[1] * ni[1] + nr[2] * nr[2] + ni[2] * ni[2]);
+      if (energy) part = mode_energy(hpw, nr, ni);
     }
-    if (kIntegrated || last) {
-      // the grid barrier below frees `red` for the next step
-      const float total = smo::block_sum<kWarps>(part, red);
-      if (tid == 0) epart[blockIdx.x] = total;
+    if (energy) {
+      // its __syncthreads also publishes b_{step+1}; the one at the end of
+      // the task frees `red`
+      const float total = smo::block_sum<kPartWarps>(part, x.red);
+      if (tid == 0) epart[chunk] = total;
+    } else {
+      __syncthreads();
     }
+    if (!last) {
+      for (int o = tid; o < 3 * mg * nc; o += kPartThreads) {
+        const int j = o % nc, ca = o / nc, c = ca / mg, a = ca % mg;
+        const int base = j * tm + c * n;
+        float gr, gi;
+        cdot4<false>(M.Bfr + a * n, M.Bfi + a * n, 1, bnr + base, bni + base, 1, n, gr, gi);
+        const size_t at = (size_t)ca * nkz + col0 + j;
+        x.g1r[at] = gr;
+        x.g1i[at] = gi;
+      }
+    }
+    __syncthreads();  // the buffers are free for the next task
+  }
+}
+
+// Forward: N steps from (br0, bi0). J = E(b_T), or with kIntegrated
+// dt * Kahan sum of E(b_0) .. E(b_{N-1}), then E(b_T). With kTraj row i of
+// (trr, tri) is the state before step i. Two grid-wide barriers a step:
+// after stage YZ and after stage X. (kN, kMG) as in kdyn_bwd_kernel.
+template <bool kTraj, bool kIntegrated, int kN, int kMG>
+__global__ void __launch_bounds__(kPartThreads, kPartBlocksPerSm)
+kdyn_fwd_kernel(const FwdParams p) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float smem[];
+  __shared__ float red[kPartWarps];
+  FwdCtx x{PartDims(p.n, p.mg)};
+  x.M = load_mats<kPartThreads>(smem, p.consts, x.d);
+  x.F = factors(p.consts, x.d);
+  x.p = &p;
+  x.buf = smem + x.d.mats;
+  x.red = red;
+  x.sr = p.work;
+  x.si = x.sr + x.d.s;
+  x.g1r = x.si + x.d.s;
+  x.g1i = x.g1r + x.d.p1;
+  x.h4r = x.g1i + x.d.p1;
+  x.h4i = x.h4r + (size_t)x.d.S * x.d.p1;
+  x.epart = x.h4i + (size_t)x.d.S * x.d.p1;
+
+  float acc = 0.f, comp = 0.f;  // live in thread 0 of the last block
+  fwd_stage_x<kTraj, kIntegrated, kN, kMG>(x, -1, acc, comp);
+  grid.sync();
+  for (int step = 0; step < p.n_steps; ++step) {
+    fwd_stage_yz<kN, kMG>(x);
+    grid.sync();
+    fwd_stage_x<kTraj, kIntegrated, kN, kMG>(x, step, acc, comp);
     grid.sync();
   }
-
-  for (int idx = gtid; idx < d.s; idx += gthreads) {
-    p.brT[idx] = sr[idx];
-    p.biT[idx] = si[idx];
-  }
-  if (summer) {
-    const float eT = sum_partials(epart, gridDim.x, lane);
-    if (lane == 0) {
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x < 32) {
+    const float eT = sum_partials(x.epart + (p.n_steps & 1) * x.d.chunks, x.d.chunks,
+                                  threadIdx.x);
+    if (threadIdx.x == 0) {
       if constexpr (kIntegrated) {
         smo::kahan_add(acc, comp, eT);
         *p.J = p.dt * acc;
@@ -516,6 +696,10 @@ __global__ void __launch_bounds__(kThreads, 1) kdyn_fwd_kernel(const FwdParams p
   }
 }
 
+// ---------------------------------------------------------------------------
+// reverse
+// ---------------------------------------------------------------------------
+
 struct BwdParams {
   const float *u, *brT, *biT, *gbar, *consts, *trr, *tri;
   int n, mg, n_steps;
@@ -523,41 +707,8 @@ struct BwdParams {
   float *b0r_bar, *b0i_bar, *ubar, *work;
 };
 
-// The reverse sweep's partition (see the header). Stage YZ: task (a, grp)
-// owns the x-grid slab a and the y-grid points b0 .. b0 + nb - 1,
-// b0 = grp nb, of the S groups of a slab; stage X: task `chunk` owns the
-// kColChunk (Y, z) mode columns from chunk kColChunk. S and nb follow from
-// (n, mg) alone, so the sums' order does not depend on the card.
-constexpr int kBwdThreads = 256;
-constexpr int kBwdBlocksPerSm = 2;   // at most; the occupancy query decides
-constexpr int kPencilsPerTask = 6;   // y-grid points of a stage-YZ task, at most
-constexpr int kColChunk = 2;         // mode columns of a stage-X task
-constexpr int kPts = 2;              // grid points a thread holds in stage YZ
-constexpr int kMaxGroups = 16;       // groups S of a slab, at most (mg <= 96)
-constexpr int kLoads = 4;            // global loads a thread keeps in flight
-
-struct BwdDims : Dims {
-  int S, nb, tasks, chunks;
-  __host__ __device__ BwdDims(int n_, int mg_) : Dims(n_, mg_) {
-    S = (mg + kPencilsPerTask - 1) / kPencilsPerTask;
-    nb = (mg + S - 1) / S;
-    tasks = mg * S;
-    chunks = (nkz + kColChunk - 1) / kColChunk;
-  }
-  // d (2 s), q1 and g1 (4 p1), the S groups' shares of r4 (2 S p1)
-  __host__ __device__ long long bwd_work_floats() const {
-    return 2LL * s + 4LL * p1 + 2LL * S * p1;
-  }
-  __host__ __device__ int yz_floats() const { return 12 * nkz + 18 * nb * kz + 3 * nb * mg; }
-  __host__ __device__ int x_floats() const { return kColChunk * (6 * mg + 30 * n); }
-  __host__ __device__ size_t bwd_smem_bytes() const {
-    const int buf = yz_floats() > x_floats() ? yz_floats() : x_floats();
-    return (size_t)(mats + buf) * sizeof(float);
-  }
-};
-
 struct BwdCtx {
-  BwdDims d;
+  PartDims d;
   Mats M;
   Factors F;
   const BwdParams* p;
@@ -575,7 +726,7 @@ struct BwdCtx {
 // share of the y-synthesis^T, sum over its b of conj(Bf(b, Y)) r3.
 template <int kN, int kMG>
 __device__ __forceinline__ void bwd_stage_yz(const BwdCtx& x) {
-  const BwdDims d = kN ? BwdDims(kN, kMG) : x.d;  // constants in the specialised instance
+  const PartDims d = kN ? PartDims(kN, kMG) : x.d;  // constants in the specialised instance
   const Mats& M = x.M;
   const BwdParams& p = *x.p;
   const int tid = threadIdx.x, mg = d.mg, n = d.n, kz = d.kz, nkz = d.nkz, nb = d.nb;
@@ -592,6 +743,8 @@ __device__ __forceinline__ void bwd_stage_yz(const BwdCtx& x) {
   float* r3i = r3r + 3 * nb * kz;
   float* eb = r3i + 3 * nb * kz;  // [3][nb][mg]: e_bar x u
   const int cs = nb * mg;         // its component stride
+  const float* src[4] = {x.q1r, x.q1i, x.g1r, x.g1i};
+  float* const dst[4] = {sq1r, sq1i, sg1r, sg1i};
   for (int task = blockIdx.x; task < d.tasks; task += gridDim.x) {
     const int a = task / d.S, grp = task % d.S;
     const int b0 = grp * nb, nbl = min(nb, mg - b0), npts = nbl * mg;
@@ -600,7 +753,7 @@ __device__ __forceinline__ void bwd_stage_yz(const BwdCtx& x) {
     float uu[kPts][3], ub[kPts][3];
 #pragma unroll
     for (int q = 0; q < kPts; ++q) {
-      const int pt = tid + q * kBwdThreads;
+      const int pt = tid + q * kPartThreads;
       if (pt < npts) {
         const size_t gi = ((size_t)a * mg + b0) * mg + pt;
 #pragma unroll
@@ -610,39 +763,15 @@ __device__ __forceinline__ void bwd_stage_yz(const BwdCtx& x) {
         }
       }
     }
-    // the slab of q1 and g1, kLoads elements a thread in flight at once
-    for (int i0 = tid; i0 < 3 * nkz; i0 += kLoads * kBwdThreads) {
-      float v[kLoads][4];
-#pragma unroll
-      for (int q = 0; q < kLoads; ++q) {
-        const int i = i0 + q * kBwdThreads;
-        if (i < 3 * nkz) {
-          const size_t src = ((size_t)(i / nkz) * mg + a) * nkz + i % nkz;
-          v[q][0] = x.q1r[src];
-          v[q][1] = x.q1i[src];
-          v[q][2] = x.g1r[src];
-          v[q][3] = x.g1i[src];
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kLoads; ++q) {
-        const int i = i0 + q * kBwdThreads;
-        if (i < 3 * nkz) {
-          sq1r[i] = v[q][0];
-          sq1i[i] = v[q][1];
-          sg1r[i] = v[q][2];
-          sg1i[i] = v[q][3];
-        }
-      }
-    }
+    load_slab<4>(src, dst, a, mg, nkz);
     __syncthreads();
-    for (int o = tid; o < 3 * nbl * kz; o += kBwdThreads) {
+    for (int o = tid; o < 3 * nbl * kz; o += kPartThreads) {
       const int c = o / (nbl * kz), bl = (o / kz) % nbl, z = o % kz, b = b0 + bl;
-      const int dst = (c * nb + bl) * kz + z;
+      const int at = (c * nb + bl) * kz + z;
       cdot4<true>(M.Ffr + b, M.Ffi + b, mg, sq1r + c * nkz + z, sq1i + c * nkz + z, kz, n,
-                 q2r[dst], q2i[dst]);
+                 q2r[at], q2i[at]);
       cdot4<false>(M.Bfr + b * n, M.Bfi + b * n, 1, sg1r + c * nkz + z, sg1i + c * nkz + z,
-                  kz, n, g2r[dst], g2i[dst]);
+                  kz, n, g2r[at], g2i[at]);
     }
     __syncthreads();
     // at this thread's grid points (bl, k): z-analysis^T -> e_bar and
@@ -650,7 +779,7 @@ __device__ __forceinline__ void bwd_stage_yz(const BwdCtx& x) {
     // entries shared), then u_bar += B_n x e_bar and e_bar x u
 #pragma unroll
     for (int q = 0; q < kPts; ++q) {
-      const int pt = tid + q * kBwdThreads;
+      const int pt = tid + q * kPartThreads;
       if (pt < npts) {
         const int bl = pt / mg, k = pt % mg;
         float e[3] = {0.f, 0.f, 0.f}, v[3] = {0.f, 0.f, 0.f};
@@ -660,9 +789,9 @@ __device__ __forceinline__ void bwd_stage_yz(const BwdCtx& x) {
           const float br = M.Bzr[k * kz + z], bi = M.Bzi[k * kz + z];
 #pragma unroll
           for (int c = 0; c < 3; ++c) {
-            const int src = (c * nb + bl) * kz + z;
-            e[c] += fr * q2r[src] + fi * q2i[src];
-            v[c] += br * g2r[src] - bi * g2i[src];
+            const int at = (c * nb + bl) * kz + z;
+            e[c] += fr * q2r[at] + fi * q2i[at];
+            v[c] += br * g2r[at] - bi * g2i[at];
           }
         }
         const float u0 = uu[q][0], u1 = uu[q][1], u2 = uu[q][2];
@@ -676,7 +805,7 @@ __device__ __forceinline__ void bwd_stage_yz(const BwdCtx& x) {
       }
     }
     __syncthreads();
-    for (int o = tid; o < 3 * nbl * kz; o += kBwdThreads) {
+    for (int o = tid; o < 3 * nbl * kz; o += kPartThreads) {
       const int c = o / (nbl * kz), bl = (o / kz) % nbl, z = o % kz;
       const float* gs = eb + c * cs + bl * mg;
       float ar[4] = {0.f, 0.f, 0.f, 0.f}, ai[4] = {0.f, 0.f, 0.f, 0.f};  // k mod 4
@@ -697,14 +826,14 @@ __device__ __forceinline__ void bwd_stage_yz(const BwdCtx& x) {
       r3i[(c * nb + bl) * kz + z] = (ai[0] + ai[1]) + (ai[2] + ai[3]);
     }
     __syncthreads();
-    for (int o = tid; o < 3 * nkz; o += kBwdThreads) {
+    for (int o = tid; o < 3 * nkz; o += kPartThreads) {
       const int c = o / nkz, col = o % nkz, Y = col / kz, z = col % kz;
       float vr, vi;
       cdot4<true>(M.Bfr + b0 * n + Y, M.Bfi + b0 * n + Y, n, r3r + c * nb * kz + z,
                  r3i + c * nb * kz + z, kz, nbl, vr, vi);
-      const size_t dst = (size_t)grp * d.p1 + ((size_t)c * mg + a) * nkz + col;
-      x.r4r[dst] = vr;
-      x.r4i[dst] = vi;
+      const size_t at = (size_t)grp * d.p1 + ((size_t)c * mg + a) * nkz + col;
+      x.r4r[at] = vr;
+      x.r4i[at] = vi;
     }
     __syncthreads();  // the buffers are free for the next task
   }
@@ -719,7 +848,7 @@ __device__ __forceinline__ void bwd_stage_yz(const BwdCtx& x) {
 // -> g1.
 template <bool kIntegrated, int kN, int kMG>
 __device__ __forceinline__ void bwd_stage_x(const BwdCtx& x, int kk) {
-  const BwdDims d = kN ? BwdDims(kN, kMG) : x.d;
+  const PartDims d = kN ? PartDims(kN, kMG) : x.d;
   const Mats& M = x.M;
   const Factors& F = x.F;
   const BwdParams& p = *x.p;
@@ -749,7 +878,7 @@ __device__ __forceinline__ void bwd_stage_x(const BwdCtx& x, int kk) {
     ModeFactors hf{};
     if (header) hf = mode_factors(F, s1, hm);
     // the columns' mode-space inputs, (c, X, j) with j fastest
-    for (int o = tid; o < tm * nc; o += kBwdThreads) {
+    for (int o = tid; o < tm * nc; o += kPartThreads) {
       const int j = o % nc, cx = o / nc, c = cx / n, X = cx % n;
       const int m = X * nkz + col0 + j, idx = c * s1 + m, sl = j * tm + cx;
       if (first) {
@@ -770,33 +899,10 @@ __device__ __forceinline__ void bwd_stage_x(const BwdCtx& x, int kk) {
         bni[sl] = p.tri[next + idx];
       }
     }
-    if (!first) {
-      for (int o = tid; o < 3 * mg * nc; o += kBwdThreads) {
-        const int j = o % nc, ca = o / nc;  // ca = c mg + a
-        const size_t src = (size_t)ca * nkz + col0 + j;
-        float sr[kMaxGroups], si[kMaxGroups];  // all loads in flight at once
-#pragma unroll
-        for (int g = 0; g < kMaxGroups; ++g) {
-          if (g < d.S) {
-            sr[g] = x.r4r[(size_t)g * d.p1 + src];
-            si[g] = x.r4i[(size_t)g * d.p1 + src];
-          }
-        }
-        float vr = 0.f, vi = 0.f;
-#pragma unroll
-        for (int g = 0; g < kMaxGroups; ++g) {
-          if (g < d.S) {
-            vr += sr[g];
-            vi += si[g];
-          }
-        }
-        r4sr[j * 3 * mg + ca] = vr;
-        r4si[j * 3 * mg + ca] = vi;
-      }
-    }
+    if (!first) add_shares(d, x.r4r, x.r4i, col0, nc, r4sr, r4si);
     __syncthreads();
     if (!first) {
-      for (int o = tid; o < tm * nc; o += kBwdThreads) {
+      for (int o = tid; o < tm * nc; o += kPartThreads) {
         const int j = o / tm, cx = o % tm, c = cx / n, X = cx % n;
         const int m = X * nkz + col0 + j, sl = j * tm + cx;
         float lr, li;
@@ -836,17 +942,17 @@ __device__ __forceinline__ void bwd_stage_x(const BwdCtx& x, int kk) {
         }
       }
       __syncthreads();
-      for (int o = tid; o < 3 * mg * nc; o += kBwdThreads) {
+      for (int o = tid; o < 3 * mg * nc; o += kPartThreads) {
         const int j = o % nc, ca = o / nc, c = ca / mg, a = ca % mg;
         const int base = j * tm + c * n;
         float qr, qi, gr, gi;
         cdot4<true>(M.Ffr + a, M.Ffi + a, mg, p0r + base, p0i + base, 1, n, qr, qi);
         cdot4<false>(M.Bfr + a * n, M.Bfi + a * n, 1, bnr + base, bni + base, 1, n, gr, gi);
-        const size_t dst = (size_t)ca * nkz + col0 + j;
-        x.q1r[dst] = qr;
-        x.q1i[dst] = qi;
-        x.g1r[dst] = gr;
-        x.g1i[dst] = gi;
+        const size_t at = (size_t)ca * nkz + col0 + j;
+        x.q1r[at] = qr;
+        x.q1i[at] = qi;
+        x.g1r[at] = gr;
+        x.g1i[at] = gi;
       }
     }
     __syncthreads();  // the buffers are free for the next task
@@ -861,12 +967,12 @@ __device__ __forceinline__ void bwd_stage_x(const BwdCtx& x, int kk) {
 // and the shape is a compile-time constant (strides and trip counts fold,
 // which cuts the stages' integer work about in half at n = 24).
 template <bool kIntegrated, int kN, int kMG>
-__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm)
+__global__ void __launch_bounds__(kPartThreads, kPartBlocksPerSm)
 kdyn_bwd_kernel(const BwdParams p) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
-  BwdCtx x{BwdDims(p.n, p.mg)};
-  x.M = load_mats<kBwdThreads>(smem, p.consts, x.d);
+  BwdCtx x{PartDims(p.n, p.mg)};
+  x.M = load_mats<kPartThreads>(smem, p.consts, x.d);
   x.F = factors(p.consts, x.d);
   x.p = &p;
   x.buf = smem + x.d.mats;
@@ -892,14 +998,19 @@ kdyn_bwd_kernel(const BwdParams p) {
   }
 }
 
-// Cooperative launch with every block co-resident: at most `per_sm`
-// blocks of `threads` on each SM, fewer if the kernel's resources allow
-// fewer, and at most `max_blocks`. `need` is the scratch the launch reads.
+// Cooperative launch of a sweep with every block co-resident: at most
+// kPartBlocksPerSm blocks of kPartThreads on each SM, fewer if the
+// kernel's resources allow fewer, and at most one per task of the larger
+// stage. `need` is the scratch the launch reads. Shapes past the
+// partition's limits (the pencil points of a task, the groups of a slab,
+// the modes of a stage-X task) give cudaErrorInvalidValue.
 template <typename Params>
-int launch(void (*kernel)(const Params), Params& params, int threads, int per_sm,
-           int max_blocks, size_t smem, long long need, long long work_floats,
-           void* stream) {
-  if (params.n < 2 || params.mg < params.n || params.n_steps < 1 || work_floats < need)
+int launch(void (*kernel)(const Params), Params& params, size_t smem, long long need,
+           long long work_floats, void* stream) {
+  const PartDims d(params.n, params.mg);
+  if (params.n < 2 || params.mg < params.n || params.n_steps < 1 || work_floats < need ||
+      d.nb * d.mg > kPts * kPartThreads || d.S > kMaxGroups ||
+      d.n * kColChunk > kPartThreads)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* fn = reinterpret_cast<const void*>(kernel);
   cudaError_t err = cudaSuccess;
@@ -912,38 +1023,41 @@ int launch(void (*kernel)(const Params), Params& params, int threads, int per_sm
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, threads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, kPartThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (occ < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  int blocks = sms * (occ < per_sm ? occ : per_sm);
+  int blocks = sms * (occ < kPartBlocksPerSm ? occ : kPartBlocksPerSm);
+  const int max_blocks = d.tasks > d.chunks ? d.tasks : d.chunks;
   if (blocks > max_blocks) blocks = max_blocks;
   void* args[] = {&params};
-  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), args, smem,
+  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kPartThreads), args, smem,
                                     static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// The KDyn configuration's shape (24^3 modes on the 36^3 grid) has its own
+// instance of each sweep.
+bool main_shape(int n, int mg) { return n == 24 && mg == 36; }
+
 template <bool kTraj>
 int launch_fwd(FwdParams& p, int integrated, long long work_floats, void* stream) {
-  const Dims d(p.n, p.mg);
-  const auto kernel = integrated ? kdyn_fwd_kernel<kTraj, true> : kdyn_fwd_kernel<kTraj, false>;
-  return launch(kernel, p, kThreads, kBlocksPerSm, kMaxBlocks, d.smem_bytes(),
-                d.work_floats(), work_floats, stream);
+  const PartDims d(p.n, p.mg);
+  const bool main = main_shape(p.n, p.mg);
+  const auto kernel = integrated ? (main ? kdyn_fwd_kernel<kTraj, true, 24, 36>
+                                         : kdyn_fwd_kernel<kTraj, true, 0, 0>)
+                                 : (main ? kdyn_fwd_kernel<kTraj, false, 24, 36>
+                                         : kdyn_fwd_kernel<kTraj, false, 0, 0>);
+  return launch(kernel, p, d.fwd_smem_bytes(), d.fwd_work_floats(), work_floats, stream);
 }
 
-// One block per task of the larger stage, at most.
 int launch_bwd(BwdParams& p, int integrated, long long work_floats, void* stream) {
-  const BwdDims d(p.n, p.mg);
-  if (d.nb * d.mg > kPts * kBwdThreads || d.S > kMaxGroups || d.n * kColChunk > kBwdThreads)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // the KDyn configuration's shape (24^3 modes on the 36^3 grid) has its
-  // own instance
-  const bool main = p.n == 24 && p.mg == 36;
-  const auto kernel = integrated ? (main ? kdyn_bwd_kernel<true, 24, 36> : kdyn_bwd_kernel<true, 0, 0>)
-                                 : (main ? kdyn_bwd_kernel<false, 24, 36> : kdyn_bwd_kernel<false, 0, 0>);
-  return launch(kernel, p, kBwdThreads, kBwdBlocksPerSm,
-                d.tasks > d.chunks ? d.tasks : d.chunks, d.bwd_smem_bytes(),
-                d.bwd_work_floats(), work_floats, stream);
+  const PartDims d(p.n, p.mg);
+  const bool main = main_shape(p.n, p.mg);
+  const auto kernel = integrated ? (main ? kdyn_bwd_kernel<true, 24, 36>
+                                         : kdyn_bwd_kernel<true, 0, 0>)
+                                 : (main ? kdyn_bwd_kernel<false, 24, 36>
+                                         : kdyn_bwd_kernel<false, 0, 0>);
+  return launch(kernel, p, d.bwd_smem_bytes(), d.bwd_work_floats(), work_floats, stream);
 }
 
 }  // namespace
@@ -953,7 +1067,8 @@ extern "C" {
 // Floats of scratch that a launch at (n, mg) needs (the larger of the
 // forward's and the reverse sweep's).
 int sm_kdyn_work_floats(int n, int mg) {
-  const long long f = Dims(n, mg).work_floats(), b = BwdDims(n, mg).bwd_work_floats();
+  const PartDims d(n, mg);
+  const long long f = d.fwd_work_floats(), b = d.bwd_work_floats();
   return static_cast<int>(f > b ? f : b);
 }
 

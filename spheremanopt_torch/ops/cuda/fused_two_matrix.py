@@ -16,7 +16,9 @@ PyTorch port of the JAX package's `ops/pallas/fused_two_matrix.py`:
     FusedObjectiveDiag <- `fused_objective_diag`
   shared-matrix form  u' = B (lin u + c2 u^2 + c3 u^3)  (SH23: B = M,
   lin = 1/dt)
-    fused_fwd_shared   <- `_run_fwd_shared` / `_fwd_kernel_shared`
+    fused_fwd_shared   <- `_run_fwd_shared` / `_fwd_kernel_shared` (has_traj,
+                          has_ser): a 16-CTA cluster up to mg = 896, one
+                          block above (`shared_fwd_route`)
     fused_bwd_shared   <- `_run_bwd_shared` / `_bwd_kernel_shared`
                           (op_grads=True: lambda history, then dB)
     FusedObjectiveShared     <- `fused_objective_shared`
@@ -40,10 +42,11 @@ problems, whose operators are fixed data, pass op_grads=False.
 Each wrapper takes its plain PyTorch version (`*_plain`) for tensors on
 the CPU and launches its kernel for CUDA tensors; a CUDA tensor never
 falls back. `LAUNCHES` counts kernel launches per wrapper (the series
-variants of the forwards, the two routes of the two-matrix sweeps and
-the lambda-history variants of the reverse sweeps apart; the one-block
-reverse counts both of its variants under `fused_bwd_block`). The kernels
-are f32 only; the plain versions take f32 or f64.
+variants of the forwards, the two routes of the two-matrix sweeps and of
+the shared-matrix forward, and the lambda-history variants of the
+reverse sweeps apart; the one-block reverse counts both of its variants
+under `fused_bwd_block`). The kernels are f32 only; the plain versions
+take f32 or f64.
 """
 
 from __future__ import annotations
@@ -57,6 +60,8 @@ from spheremanopt_torch.solvers.scan_utils import kahan_add, kahan_zero
 KERNEL_SOURCES = {
     "fused_fwd_shared": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_fwd_shared_ser": "spheremanopt_torch/csrc/fused_shared.cu",
+    "fused_fwd_shared_block": "spheremanopt_torch/csrc/fused_shared.cu",
+    "fused_fwd_shared_block_ser": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_bwd_shared": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_fwd": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_fwd_ser": "spheremanopt_torch/csrc/fused_two_matrix.cu",
@@ -313,14 +318,19 @@ def op_grads_product(lam_hist, traj, mode, c2, c3, lin=0.0):
 def fused_fwd_shared(b, w, u0, c2, c3, lin, n_steps, store_traj=True,
                      store_series=False):
     """(uT, J_sum, traj or None, series or None) of N steps of
-    u' = B(lin u + g(u))."""
+    u' = B(lin u + g(u)). On the card the route follows
+    `shared_fwd_route(mg)`; both give the same numbers bit for bit."""
     if u0.device.type == "cpu":
         return fused_fwd_shared_plain(b, w, u0, c2, c3, lin, n_steps,
                                       store_traj, store_series)
     mg = _check(n_steps, mats=[("b", b)], vecs=[("u0", u0), ("w", w)])
     uT, jsum, traj, ser = _fwd_outputs(u0, n_steps, store_traj, store_series)
-    _launch("sm_fused_fwd_shared",
-            "fused_fwd_shared_ser" if store_series else "fused_fwd_shared",
+    if shared_fwd_route(mg) == "cluster":
+        _check_cluster(u0.device, "sm_fused_fwd_shared", mg, bool(store_series))
+        symbol, counter = "sm_fused_fwd_shared", "fused_fwd_shared"
+    else:
+        symbol, counter = "sm_fused_fwd_shared_block", "fused_fwd_shared_block"
+    _launch(symbol, counter + "_ser" if store_series else counter,
             u0.device, b.data_ptr(), w.data_ptr(), u0.data_ptr(), c2, c3, lin,
             int(n_steps), mg, uT.data_ptr(), jsum.data_ptr(), _ptr(traj),
             _ptr(ser))
@@ -355,8 +365,18 @@ def fused_bwd_shared(b, w, uT, traj, c2, c3, lin, scale, n_steps,
 
 # The two-matrix sweeps' cluster routes keep A and B (rows forward,
 # columns in reverse) on 16 SMs: 2 mg^2 * 4 / 16 bytes must fit one SM's
-# shared memory.
+# shared memory. The shared-matrix forward's cluster keeps one matrix:
+# mg^2 * 4 / 16 bytes.
 CLUSTER_MG_MAX = 640
+SHARED_CLUSTER_MG_MAX = 896
+
+
+def shared_fwd_route(mg):
+    """The shared-matrix forward's kernel for width mg: "cluster" (16 CTAs
+    holding B's rows in shared memory, `sm_fused_fwd_shared`) up to
+    SHARED_CLUSTER_MG_MAX, else "block" (one thread block streaming B
+    from L2, `sm_fused_fwd_shared_block`). Both give the same bits."""
+    return "cluster" if mg <= SHARED_CLUSTER_MG_MAX else "block"
 
 
 def fwd_route(mg):
@@ -378,10 +398,10 @@ def bwd_route(mg):
 @functools.lru_cache(maxsize=None)
 def _check_cluster(device, symbol, mg, variant):
     """Raise unless the card can schedule the cluster kernel `symbol`
-    ("sm_fused_fwd" or "sm_fused_bwd") for this mg and template variant
-    (the series, the lambda history): `<symbol>_capacity`, the
-    cudaOccupancyMaxActiveClusters count, must be > 0. A pass is
-    remembered."""
+    ("sm_fused_fwd_shared", "sm_fused_fwd" or "sm_fused_bwd") for this mg
+    and template variant (the series, the lambda history):
+    `<symbol>_capacity`, the cudaOccupancyMaxActiveClusters count, must be
+    > 0. A pass is remembered."""
     from spheremanopt_torch.ops.cuda.build import load
 
     with torch.cuda.device(device):

@@ -509,6 +509,17 @@ def test_forward_route_by_width(mg):
 
 
 @pytest.mark.parametrize("mg", range(128, 2049, 128))
+def test_shared_forward_route_by_width(mg):
+    """The shared-matrix forward's cluster while B's rows fit 16 SMs'
+    shared memory (227 KB each: mg^2 4 / 16 bytes of rows and 4 mg + 32
+    floats of state), one block above."""
+    smem = mg * mg * 4 // 16 + 4 * mg * 4 + 128
+    assert fk.shared_fwd_route(mg) == (
+        "cluster" if mg <= fk.SHARED_CLUSTER_MG_MAX else "block")
+    assert (smem <= 232448) == (mg <= fk.SHARED_CLUSTER_MG_MAX)
+
+
+@pytest.mark.parametrize("mg", range(128, 2049, 128))
 def test_reverse_route_by_width(mg):
     """The reverse sweep's cluster while A's and B's columns fit 16 SMs'
     shared memory (227 KB each: 2 mg^2 4 / 16 bytes of columns, lambda
@@ -833,8 +844,86 @@ def test_reverse_route_by_width_on_card(cuda, mg):
     assert _rel(lam.cpu(), lam_p.cpu()) < 1e-4
 
 
+def _fwd_shared_block(b, w, u0, lin, n, store_series):
+    """The one-block shared-matrix forward kernel called directly, at any
+    mg."""
+    uT, jsum, traj, ser = fk._fwd_outputs(u0, n, True, store_series)
+    fk._launch("sm_fused_fwd_shared_block", "fused_fwd_shared_block", u0.device,
+               b.data_ptr(), w.data_ptr(), u0.data_ptr(), C2, C3, lin, n, b.shape[0],
+               uT.data_ptr(), jsum.data_ptr(), traj.data_ptr(), fk._ptr(ser))
+    return uT, jsum, traj, ser
+
+
+def _shared_inputs(cuda, mg):
+    """SH23's f32 step matrix and lin = 1/dt at width mg (npts = mg / 2),
+    w = 1 / mg, and a seeded u0 = 0.3 P x."""
+    p = TSH(TConfig(npts=mg // 2, dtype="float32", method="cuda"), device=cuda)
+    x = torch.as_tensor(np.random.RandomState(mg).randn(mg), dtype=torch.float32,
+                        device=cuda)
+    return (p._Mt.float().contiguous(), torch.full((mg,), 1.0 / mg, device=cuda),
+            torch.mv(p._Pt.float(), x) * 0.3, 1.0 / p.cfg.dt)
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("symbol", ["sm_fused_fwd", "sm_fused_bwd"])
+@pytest.mark.parametrize("mg", [128, 512, 896])
+def test_shared_cluster_forward_bitwise_the_block_forward_on_card(cuda, mg):
+    """The 16-CTA cluster forward of the shared-matrix step against the
+    one-block kernel on the same inputs: u_T, J, the trajectory and the
+    series bitwise; with and without the series bitwise; within 1e-4 of
+    plain f32."""
+    b, w, u0, lin = _shared_inputs(cuda, mg)
+    n = 300
+    fk.reset_launches()
+    k = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n)
+    ks = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n, store_series=True)
+    torch.cuda.synchronize()
+    assert {k_: v for k_, v in fk.LAUNCHES.items() if v} == {
+        "fused_fwd_shared": 1, "fused_fwd_shared_ser": 1}
+    blk = _fwd_shared_block(b, w, u0, lin, n, True)
+    torch.cuda.synchronize()
+    for x, y in zip(ks, blk):
+        assert torch.equal(x, y)
+    for x, y in zip(k[:3], ks[:3]):
+        assert torch.equal(x, y)
+    r = fk.fused_fwd_shared_plain(b, w, u0, C2, C3, lin, n, store_series=True)
+    for got, want in zip(ks, r):
+        assert _rel(got.cpu(), want.cpu()) < 1e-4
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mg", [512, 1024])
+def test_shared_forward_route_by_width_on_card(cuda, mg):
+    """`shared_fwd_route` picks the kernel by mg: the launch counters show
+    the cluster up to 896 and the one-block kernel above; u_T, J, the
+    trajectory and the series within 1e-4 of plain f32."""
+    b, w, u0, lin = _shared_inputs(cuda, mg)
+    n = 200
+    fk.reset_launches()
+    k = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n)
+    ks = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n, store_series=True)
+    torch.cuda.synchronize()
+    name = ("fused_fwd_shared" if fk.shared_fwd_route(mg) == "cluster"
+            else "fused_fwd_shared_block")
+    assert fk.shared_fwd_route(mg) == ("cluster" if mg <= 896 else "block")
+    assert {k_: v for k_, v in fk.LAUNCHES.items() if v} == {name: 1, name + "_ser": 1}
+    r = fk.fused_fwd_shared_plain(b, w, u0, C2, C3, lin, n, store_series=True)
+    for got, want in list(zip(k[:3], r[:3])) + [(ks[3], r[3])]:
+        assert _rel(got.cpu(), want.cpu()) < 1e-4
+    for x, y in zip(k[:3], ks[:3]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.requires_cuda
+def test_shared_forward_rejects_widths_neither_route_takes(cuda):
+    for mg in (96, 2176):
+        b = torch.zeros(mg, mg, device=cuda)
+        v = torch.zeros(mg, device=cuda)
+        with pytest.raises(ValueError, match="mg"):
+            fk.fused_fwd_shared(b, v, v, C2, C3, 20.0, 4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("symbol", ["sm_fused_fwd", "sm_fused_bwd", "sm_fused_fwd_shared"])
 def test_cluster_capacity_of_zero_raises(cuda, symbol, monkeypatch):
     """A cluster the card cannot schedule (capacity 0) raises; nothing
     falls back to the one-block kernel."""
@@ -853,6 +942,8 @@ def test_cluster_capacity_of_zero_raises(cuda, symbol, monkeypatch):
     with pytest.raises(RuntimeError, match="cannot be scheduled"):
         if symbol == "sm_fused_fwd":
             fk.fused_fwd(a, b, w, uT, C2B, C3B, 4)
+        elif symbol == "sm_fused_fwd_shared":
+            fk.fused_fwd_shared(b, w, uT, C2, C3, 20.0, 4)
         else:
             fk.fused_bwd(a, b, w, uT, traj, C2B, C3B, sc, 4)
     assert not any(fk.LAUNCHES.values())

@@ -29,6 +29,7 @@ import torch
 from spheremanopt_torch.ops.cuda import kdyn_step as kd
 from spheremanopt_torch.problems.kinematic_dynamo import KDynConfig as TConfig
 from spheremanopt_torch.problems.kinematic_dynamo import KinematicDynamo as TKDyn
+from spheremanopt_torch.solvers.scan_utils import kahan_add, kahan_zero
 
 NPTS, N, DT = 8, 12, 1e-3
 COSTS = [False, True]   # integrated
@@ -357,6 +358,109 @@ def test_reverse_kernel_partition_matches_step_planes_T_f64(jx, integrated):
         assert a.dtype == torch.float64 and _rel(a, b) < 1e-12, name
 
 
+def _two_stage_forward(br0, bi0, u, C, n_steps, integrated, dt):
+    """The forward kernel's partition, in plain complex torch: stage X by
+    mode column (the groups' shares of h4 added in group order, the
+    x-analysis, the mode-space tail, the chunk's energy partial, the
+    x-synthesis of the new state -> g1), stage YZ by x-grid slab and
+    group of y-grid points (y-synthesis of g1, the pencils' z-synthesis,
+    u x B and z-analysis, the group's share of the y-analysis). Only g1
+    and the shares of h4 cross between the stages; S, the group size and
+    the chunks of two columns are chosen as the kernel chooses them; the
+    energies are per-chunk partials added in chunk order, E(b_0) ..
+    E(b_{N-1}) Kahan-summed for the integrated cost. Returns (brT, biT, J,
+    trr, tri)."""
+    Ff = torch.complex(C["Ffr"], C["Ffi"])      # (n, mg)
+    Bf = torch.complex(C["Bfr"], C["Bfi"])      # (mg, n)
+    Fz = torch.complex(C["Fzr"], C["Fzi"])      # (kz, mg)
+    Bz = torch.complex(C["Bzr"], C["Bzi"])      # (mg, kz)
+    k, pw = C["k"], C["pw"]
+    mg, n = Bf.shape
+    kz = n // 2 + 1
+    S = -(-mg // 6)
+    nb = -(-mg // S)
+    chunks = [slice(c, c + 2) for c in range(0, n * kz, 2)]   # of the (Y, z) columns
+
+    def energy(b):
+        per_mode = (pw * (b.real ** 2 + b.imag ** 2)).sum(0).reshape(-1, n * kz)
+        total = b.real.new_zeros(())
+        for ch in chunks:                 # the chunks' partials, in chunk order
+            total = total + per_mode[:, ch].sum()
+        return total
+
+    def tail(b, h4):
+        e = torch.einsum("Xa,caYz->cXYz", Ff, h4) * C["keep"]
+        f = -kd._cross(k, e.imag) + 1j * kd._cross(k, e.real)   # i k x e
+        rhs = C["rhs_fac"] * b + f
+        div = torch.sum(k * rhs, dim=0) * C["inv_k2"]
+        return (rhs - k * div[None]) * C["lhs_inv"] * C["mean_mask"]
+
+    b = torch.complex(br0, bi0)
+    traj = [b]
+    acc = kahan_zero(br0.dtype, br0.device)
+    if integrated:
+        acc = kahan_add(acc, energy(b))
+    g1 = torch.einsum("aX,cXYz->caYz", Bf, b)
+    for step in range(n_steps):
+        shares = []
+        for grp in range(S):
+            bs = slice(grp * nb, min(mg, (grp + 1) * nb))
+            g2 = torch.einsum("bY,caYz->cabz", Bf[bs], g1)
+            bg = torch.einsum("kz,cabz->cabk", Bz, g2).real
+            e = kd._cross(u[:, :, bs], bg)
+            h3 = torch.einsum("zk,cabk->cabz", Fz, e.to(Fz.dtype))
+            shares.append(torch.einsum("Yb,cabz->caYz", Ff[:, bs], h3))
+        h4 = shares[0]
+        for sh in shares[1:]:
+            h4 = h4 + sh
+        b = tail(b, h4)
+        if step + 1 < n_steps:
+            traj.append(b)
+            if integrated:
+                acc = kahan_add(acc, energy(b))
+        g1 = torch.einsum("aX,cXYz->caYz", Bf, b)
+    eT = energy(b)
+    J = dt * kahan_add(acc, eT)[0] if integrated else eT
+    traj = torch.stack(traj)
+    return b.real, b.imag, J, traj.real, traj.imag
+
+
+@pytest.mark.parametrize("integrated", COSTS)
+def test_forward_kernel_partition_matches_step_planes_f64(jx, integrated):
+    """The two-stage partition of the forward kernel (stage boundaries,
+    the groups' shares of h4 added in group order, the energy at each
+    step from per-chunk partials), emulated in f64: rel 1e-12 against the
+    step-by-step `run_fwd_traj_plain` and against a sweep of the JAX
+    package's `step_planes`, for 4 steps at n = 8."""
+    import jax.numpy as jnp
+
+    from spheremanopt_tpu.ops.pallas import kdyn_step as jk
+
+    C64 = kd.make_consts(jx["p"], np.float64)
+    C = kd.consts_to_torch(C64, "cpu")
+    br0, bi0, u = _planes(jx, torch.float64)
+    n = 4
+    got = _two_stage_forward(br0, bi0, u, C, n, integrated, DT)
+    want = kd.run_fwd_traj_plain(br0, bi0, u, C, n, integrated, DT)
+    for name, a, b in zip(("brT", "biT", "J", "trr", "tri"), got, want):
+        assert a.dtype == torch.float64 and a.shape == b.shape, name
+        assert _rel(a, b) < 1e-12, name
+    # the JAX package's step, swept step by step
+    Cj = {key: jnp.asarray(v) for key, v in C64.items()}
+    bj_r, bj_i, uj = (jnp.asarray(a.numpy()) for a in (br0, bi0, u))
+    rows_r, rows_i, acc = [], [], 0.0
+    for _ in range(n):
+        rows_r.append(np.asarray(bj_r))
+        rows_i.append(np.asarray(bj_i))
+        acc += float(jk.energy_planes(bj_r, bj_i, Cj))
+        bj_r, bj_i = jk.step_planes(bj_r, bj_i, uj, Cj)
+    eT = float(jk.energy_planes(bj_r, bj_i, Cj))
+    J_j = DT * (acc + eT) if integrated else eT
+    for name, a, b in zip(("brT", "biT", "J", "trr", "tri"), got,
+                          (bj_r, bj_i, J_j, np.stack(rows_r), np.stack(rows_i))):
+        assert _rel(a, b) < 1e-12, name
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -379,26 +483,31 @@ def _card_case(cuda, integrated, npts=NPTS, n=N):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("npts", [8, 12])
+@pytest.mark.parametrize("npts", [8, 12, 24])
 @pytest.mark.parametrize("integrated", COSTS)
 def test_kernels_match_plain_on_card(cuda, integrated, npts):
     """The three kernels vs their plain f32 versions on the same card
-    inputs, rel 1e-4 (f32 sums in another order over the sweep); the
-    forward with and without the trajectory bitwise the same."""
+    inputs, rel 1e-4 (f32 sums in another order over the sweep), at two
+    small n and at the 24^3 width (the compile-time instances); the
+    forward with and without the trajectory bitwise the same, and two
+    calls of the forward bitwise equal."""
     p, br0, bi0, u = _card_case(cuda, integrated, npts, 40)
     C, n = p._consts, 40
     kd.reset_launches()
     k = kd.run_fwd_traj(br0, bi0, u, C, n, integrated, DT)
     k0 = kd.run_forward(br0, bi0, u, C, n, integrated, DT)
+    again = kd.run_fwd_traj(br0, bi0, u, C, n, integrated, DT)
     r = kd.run_fwd_traj_plain(br0, bi0, u, C, n, integrated, DT)
     g = torch.tensor(-1.0, device=cuda)
     bk = kd.run_bwd(u, k[0], k[1], g, k[3], k[4], C, n, integrated, DT)
     br = kd.run_bwd_plain(u, k[0], k[1], g, k[3], k[4], C, n, integrated, DT)
     torch.cuda.synchronize()
-    assert kd.LAUNCHES == {"kdyn_fwd": 1, "kdyn_fwd_traj": 1, "kdyn_bwd": 1}
+    assert kd.LAUNCHES == {"kdyn_fwd": 1, "kdyn_fwd_traj": 2, "kdyn_bwd": 1}
     for got, want in list(zip(k, r)) + list(zip(bk, br)):
         assert _rel(got.cpu(), want.cpu()) < 1e-4
     for a, b in zip(k0, k[:3]):
+        assert torch.equal(a, b)
+    for a, b in zip(k, again):
         assert torch.equal(a, b)
 
 

@@ -8,32 +8,37 @@ checkouts in turns on one card.
 `--root` is the checkout whose `spheremanopt_torch` is imported (default:
 this one); its kernels are built there at first use. By CUDA events over
 20 calls after 2 warm-up calls (5 for the longer calls) it times:
-  * at the SH23 width (B = M of `SH23Config()`, mg = 512, N = 1000) and
-    the SHB23 width (A, B of `SHB23Config()`, mg = 512, N = 2000) the
-    reverse sweep without the lambda history (`fused_bwd_shared`,
-    `fused_bwd`) and, where the checkout has it, with it (`lam_hist=`);
+  * at the SH23 width (B = M of `SH23Config()`, mg = 512, N = 1000) the
+    forward sweep (`fused_fwd_shared`, with the trajectory, and with the
+    series), and at the SH23 and the SHB23 width (A, B of `SHB23Config()`,
+    mg = 512, N = 2000) the reverse sweep without the lambda history
+    (`fused_bwd_shared`, `fused_bwd`) and, where the checkout has it, with
+    it (`lam_hist=`);
   * the SHB23 forward sweep (`fused_fwd`, with the trajectory, and with
     the series) at mg = 512, N = 2000, and at mg = 1024, N = 200 (SHB23's
     operators at npts = 1024: the one-block route where the checkout has
     two routes);
-  * the SHB23 fwd+grad unit (`objective_and_gradient`, method "cuda");
+  * the SH23 and SHB23 fwd+grad units (`objective_and_gradient`, method
+    "cuda", from `generate_ic(seed=42)`; 5 calls after 2);
   * `op_grads_product` at both widths on the sweeps' own lambda history,
     in a CUDA graph of 20 calls (device time) and per plain call (with
     the host's time), beside `torch.matmul` of the same operands;
-  * the KDyn reverse sweep (`run_bwd`, 24^3 modes, 2000 steps, cost
-    Final, from the pinned x0 of `baselines/kdyn_port_ref.npz`; 5 calls
-    after 1) and the KDyn fwd+grad unit (`objective_and_gradient`,
-    method "cuda"; 3 calls after 1);
-  * the largest |lambda_0 - plain f32| of the SHB23 reverse sweep and
-    |(b0_bar, u_bar) - plain f32| of the KDyn one (one plain sweep each,
-    ~10 s for KDyn).
+  * the KDyn forward sweeps (`run_forward` and `run_fwd_traj`) and the
+    reverse sweep (`run_bwd`), 24^3 modes, 2000 steps, cost Final, from
+    the pinned x0 of `baselines/kdyn_port_ref.npz` (5 calls after 1), and
+    the KDyn fwd+grad unit (`objective_and_gradient`, method "cuda"; 3
+    calls after 1);
+  * the largest difference from plain f32 of the SH23 forward
+    (|u_T|, |traj|), the SHB23 reverse sweep (|lambda_0|), the KDyn
+    forward (|(b_T, J, traj)|) and the KDyn reverse sweep
+    (|(b0_bar, u_bar)|) (one plain sweep each, ~10 s for each KDyn one).
 It prints one JSON line with the card's name and power limit. With
-`--save DIR` it writes the SHB23 forward's u_T and trajectory (mg = 512)
-and the SHB23 reverse sweep's lambda_0 to DIR/<tag>.npz, and with
-`--against NAME` it prints the largest |u_T - u_T(NAME)|,
-|traj - traj(NAME)| and |lambda_0 - lambda_0(NAME)| against
-DIR/NAME.npz. Run parent, change, change, parent, each in its own
-process, and compare within one call only.
+`--save DIR` it writes the SH23 forward's u_T and trajectory, the SHB23
+forward's u_T and trajectory (mg = 512) and the SHB23 reverse sweep's
+lambda_0 to DIR/<tag>.npz, and with `--against NAME` it prints the
+largest difference of each from DIR/NAME.npz (`max_abs_<what>_vs_NAME`).
+Run parent, change, change, parent, each in its own process, and compare
+within one call only.
 """
 
 import argparse
@@ -117,6 +122,14 @@ def main() -> int:
     x = torch.as_tensor(np.random.RandomState(1).randn(mg), dtype=torch.float32, device=dev)
     u0 = torch.mv(p._Pt.float(), x) * 0.3
     uT, _, tr, _ = fk.fused_fwd_shared(b, w, u0, 1.8, -1.0, lin, n)
+    out["sh23_fwd_ms"] = gpu_ms(lambda: fk.fused_fwd_shared(b, w, u0, 1.8, -1.0, lin, n))
+    out["sh23_fwd_ser_ms"] = gpu_ms(lambda: fk.fused_fwd_shared(
+        b, w, u0, 1.8, -1.0, lin, n, store_series=True))
+    uT_p, _, tr_p, _ = fk.fused_fwd_shared_plain(b, w, u0, 1.8, -1.0, lin, n)
+    out["sh23_fwd_max_abs_vs_plain"] = max(float((uT - uT_p).abs().max()),
+                                           float((tr - tr_p).abs().max()))
+    xs = p.generate_ic(seed=42)
+    out["sh23_unit_ms"] = gpu_ms(lambda: p.objective_and_gradient(xs), 5)
     sc = torch.tensor(-2.0 * p.cfg.dt, device=dev)
     out["sh23_bwd_ms"] = gpu_ms(lambda: fk.fused_bwd_shared(b, w, uT, tr, 1.8, -1.0, lin, sc, n))
     if has_hist:
@@ -155,7 +168,7 @@ def main() -> int:
     lam2_p = fk.fused_bwd_plain(a2, b2, w2, uT2, tr2, 2.0, -1.0, sc2, n2)[0]
     out["shb23_bwd_max_abs_vs_plain"] = float((lam2 - lam2_p).abs().max())
 
-    # the KDyn reverse sweep and the KDyn fwd+grad unit, from the pinned x0
+    # the KDyn sweeps and the KDyn fwd+grad unit, from the pinned x0
     from spheremanopt_torch.ops.cuda import kdyn_step as kd
     from spheremanopt_torch.problems.kinematic_dynamo import KDynConfig, KinematicDynamo
 
@@ -166,7 +179,14 @@ def main() -> int:
         b0_c, uk = pk._prepare(xk)
     br0, bi0, uk = b0_c.real.contiguous(), b0_c.imag.contiguous(), uk.contiguous()
     Ck, nk, dtk = pk._consts, pk.cfg.n_iters, pk.cfg.dt
-    brT, biT, _, trr, tri = kd.run_fwd_traj(br0, bi0, uk, Ck, nk, False, dtk)
+    fwd_k = kd.run_fwd_traj(br0, bi0, uk, Ck, nk, False, dtk)
+    brT, biT, _, trr, tri = fwd_k
+    out["kdyn_fwd_ms"] = gpu_ms(lambda: kd.run_forward(br0, bi0, uk, Ck, nk, False, dtk), 5, 1)
+    out["kdyn_fwd_traj_ms"] = gpu_ms(
+        lambda: kd.run_fwd_traj(br0, bi0, uk, Ck, nk, False, dtk), 5, 1)
+    want = kd.run_fwd_traj_plain(br0, bi0, uk, Ck, nk, False, dtk)
+    out["kdyn_fwd_max_abs_vs_plain"] = max(float((x - y).abs().max())
+                                           for x, y in zip(fwd_k, want))
     gk = torch.tensor(-1.0, device=dev)
     bwd_k = lambda: kd.run_bwd(uk, brT, biT, gk, trr, tri, Ck, nk, False, dtk)
     out["kdyn_bwd_ms"] = gpu_ms(bwd_k, 5, 1)
@@ -193,16 +213,13 @@ def main() -> int:
     uT2, _, tr2, _ = fk.fused_fwd(a2, b2, w2, u2, 2.0, -1.0, n2)
     if args.save:
         os.makedirs(args.save, exist_ok=True)
-        np.savez(os.path.join(args.save, f"{args.tag}.npz"), uT=uT2.cpu().numpy(),
-                 traj=tr2.cpu().numpy(), lam0=lam2.cpu().numpy())
+        saved = dict(sh23_uT=uT, sh23_traj=tr, uT=uT2, traj=tr2, lam0=lam2)
+        saved = {k: v.cpu().numpy() for k, v in saved.items()}
+        np.savez(os.path.join(args.save, f"{args.tag}.npz"), **saved)
         if args.against:
             ref = np.load(os.path.join(args.save, f"{args.against}.npz"))
-            out[f"max_abs_uT_vs_{args.against}"] = float(np.abs(uT2.cpu().numpy()
-                                                               - ref["uT"]).max())
-            out[f"max_abs_traj_vs_{args.against}"] = float(np.abs(tr2.cpu().numpy()
-                                                                 - ref["traj"]).max())
-            out[f"max_abs_lam0_vs_{args.against}"] = float(np.abs(lam2.cpu().numpy()
-                                                                 - ref["lam0"]).max())
+            for k, v in saved.items():
+                out[f"max_abs_{k}_vs_{args.against}"] = float(np.abs(v - ref[k]).max())
     print(json.dumps(out), flush=True)
     return 0
 
