@@ -31,22 +31,27 @@ Phases, one line each; any failure exits non-zero without a result line:
   A  card, power limit, torch/CUDA versions, TF32 flags (off)
   B  kernel build (nvcc, sm_90a, one process per source), timed
   C  SH23 kernels vs plain f32 vs plain f64 on the card, full width (mg =
-     512: the 16-CTA cluster route of the forward); the cluster forward's
-     u_T, J, trajectory and series bitwise the one-block kernel's
+     512: the 16-CTA cluster routes of the forward and the reverse sweep);
+     the cluster forward's u_T, J, trajectory and series, and the cluster
+     reverse's lambda_0 and history, bitwise the one-block kernels'
   D  SH23 CUDA-event timings: each sweep and the fwd+grad unit
   E  Taylor test of the SH23 f64 plain path (gamma2 within 0.05 of 2)
   F  SH23 f64 workload (method=matmul) vs the pinned JAX f64 trajectory
   G  SH23 f32 workload through the kernels (method=cuda): a main path,
      then a torch.profiler trace of a second run
   H  SHB23 kernels vs plain f32 vs plain f64, full width (mg = 512: the
-     16-CTA cluster routes of the forward and the reverse sweep); the
-     series variants of both forwards bitwise the plain ones (J, u_T,
-     lambda); the one-block routes (mg > 640) at mg = 1024, N = 200: a
-     main path of their own through the fused objectives, differentiated
-     in u0, against plain f32, bitwise across the series variants, timed;
-     the same for SH23's one-block forward route (mg > 896) at mg = 1024,
-     N = 200
-  I  CUDA-event timings: the SHB23 sweeps (cluster routes), both series
+     grid-wide forward, bitwise the one-block forward kernel called
+     directly, and the 16-CTA cluster reverse); the series variants of
+     both forwards bitwise the plain ones (J, u_T, lambda); above the
+     reverse cluster's width at mg = 1024, N = 200 the
+     grid-wide forward and the one-block reverse: a main path of their
+     own through the fused objectives, differentiated in u0, against
+     plain f32, bitwise across the series variants and (the forward)
+     bitwise the one-block forward kernel called directly, timed; the
+     one-block forward route (mg > 1792) at mg = 2048, N = 200, the same
+     way; the same for SH23's one-block routes of the forward and the
+     reverse sweep (mg > 896) at mg = 1024, N = 200
+  I  CUDA-event timings: the SHB23 sweeps (grid forward, cluster reverse), both series
      forwards and the SHB23 fwd+grad unit, kernel vs plain
   J  Taylor test of the SHB23 f64 plain path
   K  SHB23 f64 workload (method=matmul) vs the pinned JAX f64 trajectory
@@ -137,7 +142,9 @@ KDYN_BENCH_END = (10, 2.518)
 # H100 SXM data-sheet peaks (dense f32 outside the tensor cores, dense
 # TF32 on the tensor cores, HBM3)
 F32_PEAK, TF32_PEAK, HBM_RATE = 67e12, 495e12, 3.35e12
-BLOCK_MG, BLOCK_N = 1024, 200   # the one-block routes' check (H)
+# the routes above the clusters' width (H): SHB23's grid-wide forward and
+# the one-block routes at BLOCK_MG, SHB23's one-block forward at WIDE_MG
+BLOCK_MG, BLOCK_N, WIDE_MG = 1024, 200, 2048
 PALLAS = "spheremanopt_tpu/ops/pallas/fused_two_matrix.py"
 PALLAS_K = "spheremanopt_tpu/ops/pallas/kdyn_step.py"
 LAUNCH_TABLES = (fk, kd)   # modules that count their kernels' launches
@@ -148,10 +155,11 @@ REPLACES = {
     "fused_fwd_shared_block": f"{PALLAS}:150",  # same, mg > 896
     "fused_fwd_shared_block_ser": f"{PALLAS}:150",  # same, mg > 896, has_ser=True
     "fused_bwd_shared": f"{PALLAS}:185",        # _bwd_kernel_shared
-    "fused_fwd": f"{PALLAS}:60",                # _fwd_kernel
-    "fused_fwd_ser": f"{PALLAS}:60",            # same, has_ser=True
-    "fused_fwd_block": f"{PALLAS}:60",          # same, mg > 640
-    "fused_fwd_block_ser": f"{PALLAS}:60",      # same, mg > 640, has_ser=True
+    "fused_bwd_shared_block": f"{PALLAS}:185",  # same, mg > 896
+    "fused_fwd_grid": f"{PALLAS}:60",           # _fwd_kernel, mg <= 1792 (H100 SXM)
+    "fused_fwd_grid_ser": f"{PALLAS}:60",       # same, has_ser=True
+    "fused_fwd_block": f"{PALLAS}:60",          # same, mg > 1792
+    "fused_fwd_block_ser": f"{PALLAS}:60",      # same, mg > 1792, has_ser=True
     "fused_bwd": f"{PALLAS}:102",               # _bwd_kernel
     "fused_bwd_block": f"{PALLAS}:102",         # same, mg > 640
     "kdyn_fwd": f"{PALLAS_K}:411",              # _fwd_kernel
@@ -163,14 +171,17 @@ REPLACES = {
 }
 
 
-def fwd_shared_block(b, w, u0, lin, n):
-    """The one-block shared-matrix forward kernel called directly (any mg),
-    with the trajectory and the series."""
-    uT, jsum, traj, ser = fk._fwd_outputs(u0, n, True, True)
-    fk._launch("sm_fused_fwd_shared_block", "fused_fwd_shared_block_ser", u0.device,
-               b.data_ptr(), w.data_ptr(), u0.data_ptr(), C2, C3, lin, n, b.shape[0],
-               uT.data_ptr(), jsum.data_ptr(), traj.data_ptr(), ser.data_ptr())
-    return uT, jsum, traj, ser
+def two_matrix_objectives(a, b, w, u0, dt, n):
+    """A main path of the two-matrix sweeps at any width: J of
+    `FusedObjective` differentiated in u0, and `FusedObjectiveDiag`'s
+    (J, series, u_T); the operators are data (op_grads=False)."""
+    def path():
+        uu = u0.detach().requires_grad_(True)
+        J = fk.FusedObjective.apply(a, b, w, uu, C2B, C3B, dt, n, False)
+        (grad,) = torch.autograd.grad(J, uu)
+        return (J.detach(), grad,
+                fk.FusedObjectiveDiag.apply(a, b, w, u0, C2B, C3B, dt, n, False))
+    return path
 
 
 def reset_launches():
@@ -428,7 +439,7 @@ class Smoke:
                    f"launch counters moved: {launched}")
         # the cluster route against the one-block kernel on the same inputs
         ks = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n, store_series=True)
-        blk = fwd_shared_block(b, w, u0, lin, n)
+        blk = fk._fwd_shared_block(b, w, u0, C2, C3, lin, n, True, True)
         torch.cuda.synchronize()
         same = ([torch.equal(x, y) for x, y in zip(ks, blk)]
                 + [torch.equal(x, y) for x, y in zip((uT_k, js_k, tr_k), ks)])
@@ -437,6 +448,18 @@ class Smoke:
                    f"SH23 forward route {route!r}: u_T, J, trajectory and series "
                    f"bitwise the one-block kernel's, and the series variant's bitwise "
                    f"the plain one's: {same}")
+        # the reverse cluster against the one-block kernel on the same inputs
+        h_c, h_b = torch.empty_like(tr_k), torch.empty_like(tr_k)
+        lam_c = fk.fused_bwd_shared(b, w, uT_k, tr_k, C2, C3, lin, scale, n, lam_hist=h_c)[0]
+        lam_b = fk._bwd_shared_block(b, w, uT_k, tr_k, C2, C3, lin, scale, n)
+        lam_bh = fk._bwd_shared_block(b, w, uT_k, tr_k, C2, C3, lin, scale, n, h_b)
+        torch.cuda.synchronize()
+        same_r = [torch.equal(lam_k, x) for x in (lam_b, lam_bh, lam_c)] + [torch.equal(h_c, h_b)]
+        route_r = fk.shared_bwd_route(b.shape[0])
+        self.check("C", route_r == "cluster" and all(same_r),
+                   f"SH23 reverse route {route_r!r}: lambda_0 bitwise the one-block "
+                   f"kernel's with and without the history and the history variant's, "
+                   f"the history bitwise the one-block kernel's: {same_r}")
 
         # both f32 paths against plain f64 on the card, at the same x
         p64, x64, _ = cli.make_problem(problem_args("sh23", "float64", "matmul"),
@@ -562,22 +585,27 @@ class Smoke:
         lk = fk.fused_bwd(a, b, w, k[0], k[2], C2B, C3B, scale, n)[0]
         lks = fk.fused_bwd(a, b, w, ks[0], ks[2], C2B, C3B, scale, n)[0]
         lp = fk.fused_bwd_plain(a, b, w, k[0], k[2], C2B, C3B, scale, n)[0]
+        blk = fk._fwd_block(a, b, w, u0, C2B, C3B, n, True, True)
         torch.cuda.synchronize()
         fwd_pairs = list(zip(k[:3], r[:3]))
         ser_pairs = list(zip(ks, r))
         e_fwd = max(rel(x, y) for x, y in fwd_pairs)
         e_ser = max(rel(x, y) for x, y in ser_pairs)
         e_bwd = rel(lk, lp)
-        self.kernels["fused_fwd"]["max_abs_err"] = max_abs(fwd_pairs)
-        self.kernels["fused_fwd_ser"]["max_abs_err"] = max_abs(ser_pairs)
+        self.kernels["fused_fwd_grid"]["max_abs_err"] = max_abs(fwd_pairs)
+        self.kernels["fused_fwd_grid_ser"]["max_abs_err"] = max_abs(ser_pairs)
         self.kernels["fused_bwd"]["max_abs_err"] = max_abs([(lk, lp)])
         self.check("H", max(e_fwd, e_ser, e_bwd) <= TOL_VS_PLAIN,
                    f"SHB23 kernel vs plain f32 (mg={a.shape[0]}, N={n}): fwd "
                    f"(u_T, J, traj) rel {e_fwd:.2e}, with series {e_ser:.2e}, bwd "
                    f"rel {e_bwd:.2e}, tol {TOL_VS_PLAIN:g}")
         same = [torch.equal(x, y) for x, y in zip(k[:3], ks[:3])] + [torch.equal(lk, lks)]
-        self.check("H", all(same), f"two-matrix series variant bitwise the plain "
-                   f"one (u_T, J, traj, lambda): {same}")
+        same_blk = [torch.equal(x, y) for x, y in zip(ks, blk)]
+        route = fk.fwd_route(a.shape[0], fk._card(dev))
+        self.check("H", route == "grid" and all(same) and all(same_blk),
+                   f"two-matrix series variant bitwise the plain one (u_T, J, traj, "
+                   f"lambda): {same}; forward route {route!r} bitwise the one-block "
+                   f"kernel's (u_T, J, traj, series): {same_blk}")
 
         # the shared-matrix series variant, SH23 full width
         bs, ws, us, lin, ns = self.sweep_args
@@ -616,32 +644,32 @@ class Smoke:
                    f"(plain f32: rel_J {relJm:.3e} rel_g {relgm:.3e}), tol "
                    f"{TOL_VS_F64:g} / {TOL_G_VS_F64_SHB:g}")
         self.block_route(p.cfg.dt)
+        self.wide_route(p.cfg.dt)
         self.shared_block_route()
 
     def block_route(self, dt):
-        """The two-matrix sweeps above the clusters' width: SHB23's
-        operators at npts = 1024 take the one-block kernels. Their main
-        path is the fused objectives (J differentiated in u0, and J with
-        the series); then the kernels against plain f32 and across the
-        series variants, and their times."""
+        """The two-matrix sweeps above the reverse cluster's width: SHB23's
+        operators at npts = 1024 take the grid-wide forward and the
+        one-block reverse. Their main path is the fused objectives (J
+        differentiated in u0, and J with the series); then the kernels
+        against plain f32 and across the series variants, the grid forward
+        bitwise the one-block forward kernel called directly, and their
+        times. The kernels line keeps the grid's numbers from phase H's
+        and I's SHB23 width (mg = 512, N = 2000) and the reverse's from
+        here."""
         q, _, _ = cli.make_problem(problem_args("shb23", "float32", "cuda", "--npts",
                                                 str(BLOCK_MG)))
         ops = operators_to_torch(shb23_operators(q), q.device)
         a, b, w = ops["a32"], ops["b32"], ops["w32"]
         u0 = q.generate_ic(seed=42)[0]
         n = BLOCK_N
-
-        def path():
-            uu = u0.detach().requires_grad_(True)
-            J = fk.FusedObjective.apply(a, b, w, uu, C2B, C3B, dt, n, False)
-            (grad,) = torch.autograd.grad(J, uu)
-            return (J.detach(), grad,
-                    fk.FusedObjectiveDiag.apply(a, b, w, u0, C2B, C3B, dt, n, False))
-
         J, grad, (Jd, ser, _) = self.main_path(
-            "H", ("fused_fwd_block", "fused_fwd_block_ser", "fused_bwd_block"), path)
+            "H", ("fused_fwd_grid", "fused_fwd_grid_ser", "fused_bwd_block"),
+            two_matrix_objectives(a, b, w, u0, dt, n), record=("fused_bwd_block",))
         k = fk.fused_fwd(a, b, w, u0, C2B, C3B, n)
         ks = fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True)
+        blk = fk._fwd_block(a, b, w, u0, C2B, C3B, n)
+        blk_s = fk._fwd_block(a, b, w, u0, C2B, C3B, n, True, True)
         r = fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n, store_series=True)
         scale = torch.tensor(-2.0 * dt, dtype=torch.float32, device=u0.device)
         lk = fk.fused_bwd(a, b, w, k[0], k[2], C2B, C3B, scale, n)[0]
@@ -652,8 +680,8 @@ class Smoke:
         e_b = rel(lk, lp)
         same = ([torch.equal(x, y) for x, y in zip(k[:3], ks[:3])]
                 + [torch.equal(J, Jd), torch.equal(ser, ks[3]), torch.equal(grad, lk)])
-        self.kernels["fused_fwd_block"]["max_abs_err"] = max_abs(pairs)
-        self.kernels["fused_fwd_block_ser"]["max_abs_err"] = max_abs(ser_pairs)
+        same_blk = ([torch.equal(x, y) for x, y in zip(k[:3], blk[:3])]
+                    + [torch.equal(x, y) for x, y in zip(ks, blk_s)])
         self.kernels["fused_bwd_block"]["max_abs_err"] = max_abs([(lk, lp)])
         f_pl, f_k = interleaved_ms(
             lambda: fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n),
@@ -661,34 +689,80 @@ class Smoke:
         fs_pl, fs_k = interleaved_ms(
             lambda: fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n, store_series=True),
             lambda: fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True), 2, 10)
-        self.kernels["fused_fwd_block"].update(
-            ms=f_k, plain_ms=f_pl, work=sweep_work(BLOCK_MG, n, 2, fwd=True))
-        self.kernels["fused_fwd_block_ser"].update(
-            ms=fs_k, plain_ms=fs_pl,
-            work=sweep_work(BLOCK_MG, n, 2, fwd=True, ser=True))
+        fb_k = gpu_ms(lambda: fk._fwd_block(a, b, w, u0, C2B, C3B, n), 10)
+        fbs_k = gpu_ms(lambda: fk._fwd_block(a, b, w, u0, C2B, C3B, n, True, True), 10)
         b_pl, b_k = interleaved_ms(
             lambda: fk.fused_bwd_plain(a, b, w, k[0], k[2], C2B, C3B, scale, n),
             lambda: fk.fused_bwd(a, b, w, k[0], k[2], C2B, C3B, scale, n), 2, 10)
         self.kernels["fused_bwd_block"].update(
             ms=b_k, plain_ms=b_pl, work=sweep_work(BLOCK_MG, n, 2, fwd=False))
-        routes = (fk.fwd_route(BLOCK_MG), fk.bwd_route(BLOCK_MG))
-        self.check("H", routes == ("block", "block") and max(e, e_b) <= TOL_VS_PLAIN
-                   and all(same),
-                   f"[{self.card}] one-block routes (mg={a.shape[0]}, N={n}): forward "
+        routes = (fk.fwd_route(BLOCK_MG, fk._card(u0.device)), fk.bwd_route(BLOCK_MG))
+        self.check("H", routes == ("grid", "block") and max(e, e_b) <= TOL_VS_PLAIN
+                   and all(same) and all(same_blk),
+                   f"[{self.card}] routes {routes} (mg={a.shape[0]}, N={n}): forward "
                    f"vs plain f32 (u_T, J, traj, series, the objective's J) rel "
-                   f"{e:.2e}, reverse (lambda_0) rel {e_b:.2e} (tol {TOL_VS_PLAIN:g}); "
+                   f"{e:.2e} (abs {max_abs(pairs + ser_pairs):.2e}), reverse "
+                   f"(lambda_0) rel {e_b:.2e} (tol {TOL_VS_PLAIN:g}); "
                    f"series variant, the objectives and autograd's gradient bitwise "
-                   f"the wrappers': {same}; forward sweep {f_k:.3f} ms vs plain "
-                   f"{f_pl:.3f} ms, with series {fs_k:.3f} vs {fs_pl:.3f} ms; reverse "
-                   f"sweep {b_k:.3f} ms vs plain {b_pl:.3f} ms")
+                   f"the wrappers': {same}; grid forward bitwise the one-block "
+                   f"kernel's (u_T, J, traj; with the series): {same_blk}; grid "
+                   f"forward {f_k:.3f} ms vs plain {f_pl:.3f} ms, with series "
+                   f"{fs_k:.3f} vs {fs_pl:.3f} ms; one-block forward kernel "
+                   f"{fb_k:.3f} ms, with series {fbs_k:.3f} ms; reverse sweep "
+                   f"{b_k:.3f} ms vs plain {b_pl:.3f} ms")
+
+    def wide_route(self, dt):
+        """The two-matrix forward above the grid's width: SHB23's operators
+        at npts = 2048 take the one-block forward. Its main path is the
+        fused objectives (with the one-block reverse); then the kernel
+        against plain f32 and across the series variants, and its
+        times."""
+        q, _, _ = cli.make_problem(problem_args("shb23", "float32", "cuda", "--npts",
+                                                str(WIDE_MG)))
+        ops = operators_to_torch(shb23_operators(q), q.device)
+        a, b, w = ops["a32"], ops["b32"], ops["w32"]
+        u0 = q.generate_ic(seed=42)[0]
+        n = BLOCK_N
+        J, grad, (Jd, ser, _) = self.main_path(
+            "H", ("fused_fwd_block", "fused_fwd_block_ser", "fused_bwd_block"),
+            two_matrix_objectives(a, b, w, u0, dt, n),
+            record=("fused_fwd_block", "fused_fwd_block_ser"))
+        k = fk.fused_fwd(a, b, w, u0, C2B, C3B, n)
+        ks = fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True)
+        r = fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n, store_series=True)
+        torch.cuda.synchronize()
+        pairs, ser_pairs = list(zip(k[:3], r[:3])), list(zip(ks, r))
+        e = max(rel(x, y) for x, y in pairs + ser_pairs + [(J, -dt * r[1])])
+        same = ([torch.equal(x, y) for x, y in zip(k[:3], ks[:3])]
+                + [torch.equal(J, Jd), torch.equal(ser, ks[3])])
+        self.kernels["fused_fwd_block"]["max_abs_err"] = max_abs(pairs)
+        self.kernels["fused_fwd_block_ser"]["max_abs_err"] = max_abs(ser_pairs)
+        f_pl, f_k = interleaved_ms(
+            lambda: fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n),
+            lambda: fk.fused_fwd(a, b, w, u0, C2B, C3B, n), 1, 2, warm_plain=1)
+        fs_pl, fs_k = interleaved_ms(
+            lambda: fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n, store_series=True),
+            lambda: fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True), 1, 2,
+            warm_plain=1)
+        self.kernels["fused_fwd_block"].update(
+            ms=f_k, plain_ms=f_pl, work=sweep_work(WIDE_MG, n, 2, fwd=True))
+        self.kernels["fused_fwd_block_ser"].update(
+            ms=fs_k, plain_ms=fs_pl, work=sweep_work(WIDE_MG, n, 2, fwd=True, ser=True))
+        route = fk.fwd_route(WIDE_MG, fk._card(u0.device))
+        self.check("H", route == "block" and e <= TOL_VS_PLAIN and all(same),
+                   f"[{self.card}] forward route {route!r} (mg={a.shape[0]}, N={n}): vs "
+                   f"plain f32 (u_T, J, traj, series, the objective's J) rel {e:.2e} (tol "
+                   f"{TOL_VS_PLAIN:g}); series variant and the objectives bitwise the "
+                   f"wrappers': {same}; forward sweep {f_k:.3f} ms vs plain {f_pl:.3f} "
+                   f"ms, with series {fs_k:.3f} vs {fs_pl:.3f} ms")
 
     def shared_block_route(self):
-        """SH23's forward above its cluster's width: SH23's operators at
-        npts = 512 (mg = 1024) take the one-block kernel. Its main path is
-        the fused objectives (J differentiated in u0, and J with the
-        series); then the kernel against plain f32 and across the series
-        variants, the reverse sweep's lambda_0 against autograd's gradient,
-        and the forward's times."""
+        """SH23's sweeps above their clusters' width: SH23's operators at
+        npts = 512 (mg = 1024) take the one-block kernels. Their main path
+        is the fused objectives (J differentiated in u0, and J with the
+        series); then the kernels against plain f32 and the forward across
+        the series variants, the reverse sweep's lambda_0 against
+        autograd's gradient, and their times."""
         q, _, _ = cli.make_problem(problem_args("sh23", "float32", "cuda", "--npts",
                                                 str(BLOCK_MG // 2)))
         ops = operators_to_torch(sh23_operators(q), q.device)
@@ -704,16 +778,19 @@ class Smoke:
                     fk.FusedObjectiveSharedDiag.apply(b, w, u0, C2, C3, lin, dt, n, False))
 
         J, grad, (Jd, ser, _) = self.main_path(
-            "H", ("fused_fwd_shared_block", "fused_fwd_shared_block_ser", "fused_bwd_shared"),
-            path, record=("fused_fwd_shared_block", "fused_fwd_shared_block_ser"))
+            "H", ("fused_fwd_shared_block", "fused_fwd_shared_block_ser",
+                  "fused_bwd_shared_block"), path)
         k = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n)
         ks = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n, store_series=True)
         r = fk.fused_fwd_shared_plain(b, w, u0, C2, C3, lin, n, store_series=True)
         scale = torch.tensor(-2.0 * dt, dtype=torch.float32, device=u0.device)
         lk = fk.fused_bwd_shared(b, w, k[0], k[2], C2, C3, lin, scale, n)[0]
+        lp = fk.fused_bwd_shared_plain(b, w, k[0], k[2], C2, C3, lin, scale, n)[0]
         torch.cuda.synchronize()
         pairs, ser_pairs = list(zip(k[:3], r[:3])), list(zip(ks, r))
         e = max(rel(x, y) for x, y in pairs + ser_pairs + [(J, -dt * r[1])])
+        e_b = rel(lk, lp)
+        self.kernels["fused_bwd_shared_block"]["max_abs_err"] = max_abs([(lk, lp)])
         same = ([torch.equal(x, y) for x, y in zip(k[:3], ks[:3])]
                 + [torch.equal(J, Jd), torch.equal(ser, ks[3]), torch.equal(grad, lk)])
         self.kernels["fused_fwd_shared_block"]["max_abs_err"] = max_abs(pairs)
@@ -728,14 +805,21 @@ class Smoke:
             ms=f_k, plain_ms=f_pl, work=sweep_work(BLOCK_MG, n, 1, fwd=True))
         self.kernels["fused_fwd_shared_block_ser"].update(
             ms=fs_k, plain_ms=fs_pl, work=sweep_work(BLOCK_MG, n, 1, fwd=True, ser=True))
-        route = fk.shared_fwd_route(BLOCK_MG)
-        self.check("H", route == "block" and e <= TOL_VS_PLAIN and all(same),
-                   f"[{self.card}] SH23 one-block forward route (mg={b.shape[0]}, N={n}): "
-                   f"vs plain f32 (u_T, J, traj, series, the objective's J) rel {e:.2e} "
-                   f"(tol {TOL_VS_PLAIN:g}); series variant, the objectives and "
-                   f"autograd's gradient bitwise the wrappers': {same}; forward sweep "
-                   f"{f_k:.3f} ms vs plain {f_pl:.3f} ms, with series {fs_k:.3f} vs "
-                   f"{fs_pl:.3f} ms")
+        b_pl, b_k = interleaved_ms(
+            lambda: fk.fused_bwd_shared_plain(b, w, k[0], k[2], C2, C3, lin, scale, n),
+            lambda: fk.fused_bwd_shared(b, w, k[0], k[2], C2, C3, lin, scale, n), 2, 10)
+        self.kernels["fused_bwd_shared_block"].update(
+            ms=b_k, plain_ms=b_pl, work=sweep_work(BLOCK_MG, n, 1, fwd=False))
+        routes = (fk.shared_fwd_route(BLOCK_MG), fk.shared_bwd_route(BLOCK_MG))
+        self.check("H", routes == ("block", "block") and max(e, e_b) <= TOL_VS_PLAIN
+                   and all(same),
+                   f"[{self.card}] SH23 one-block routes (mg={b.shape[0]}, N={n}): "
+                   f"forward vs plain f32 (u_T, J, traj, series, the objective's J) rel "
+                   f"{e:.2e}, reverse (lambda_0) rel {e_b:.2e} (tol {TOL_VS_PLAIN:g}); "
+                   f"series variant, the objectives and autograd's gradient bitwise the "
+                   f"wrappers': {same}; forward sweep {f_k:.3f} ms vs plain {f_pl:.3f} "
+                   f"ms, with series {fs_k:.3f} vs {fs_pl:.3f} ms; reverse sweep "
+                   f"{b_k:.3f} ms vs plain {b_pl:.3f} ms")
 
     def phase_i(self):
         a, b, w, u0, n = self.shb_sweep
@@ -760,9 +844,9 @@ class Smoke:
             lambda: self.pb_plain32.objective_and_gradient(self.xb32),
             lambda: self.pb_cuda.objective_and_gradient(self.xb32), 2, 10)
         mg, mgs = a.shape[0], bs.shape[0]
-        self.kernels["fused_fwd"].update(
+        self.kernels["fused_fwd_grid"].update(
             ms=f_k, plain_ms=f_pl, work=sweep_work(mg, n, 2, fwd=True))
-        self.kernels["fused_fwd_ser"].update(
+        self.kernels["fused_fwd_grid_ser"].update(
             ms=fs_k, plain_ms=fs_pl, work=sweep_work(mg, n, 2, fwd=True, ser=True))
         self.kernels["fused_bwd"].update(
             ms=b_k, plain_ms=b_pl, work=sweep_work(mg, n, 2, fwd=False))
@@ -785,7 +869,7 @@ class Smoke:
         self.pinned_f64("K", "shb23", self.refb)
 
     def phase_l(self):
-        self.f32_workload("L", "shb23", self.refb, ("fused_fwd", "fused_bwd"),
+        self.f32_workload("L", "shb23", self.refb, ("fused_fwd_grid", "fused_bwd"),
                           lambda a, b: abs(a - b) <= FV0_RTOL * abs(b), (5, 50))
 
     # -- fused diagnostics -------------------------------------------------
@@ -799,9 +883,9 @@ class Smoke:
 
         # only the diagnostics calls run in the counted window; the plain
         # objective they are held to runs after it
-        outs = self.main_path("M", ("fused_fwd_shared_ser", "fused_fwd_ser",
+        outs = self.main_path("M", ("fused_fwd_shared_ser", "fused_fwd_grid_ser",
                                     "fused_bwd_shared", "fused_bwd"), diagnostics,
-                              record=("fused_fwd_shared_ser", "fused_fwd_ser"))
+                              record=("fused_fwd_shared_ser", "fused_fwd_grid_ser"))
         res = []
         for (p, x), ((Jgd, ggd, dg), (Jd, dd)) in zip(pairs, outs):
             J, g = p.objective_and_gradient(x)

@@ -1,6 +1,7 @@
 // The thread-block cluster machinery of the SBDF sweeps (fused_shared.cu,
 // fused_two_matrix.cu): the cluster's shape, the energy sum that stands in
-// for the one-block kernels' 1024-thread reduction tree, the launch of one
+// for the one-block kernels' 1024-thread reduction tree (also used by the
+// grid-wide forward), the reverse clusters' row phases, the launch of one
 // cluster and its capacity query, and the dispatch from a width mg to the
 // kernel instance of mg = 128 R.
 #pragma once
@@ -20,10 +21,11 @@ constexpr int kClusterWarps = kClusterThreads / 32;
 constexpr int kRefWarps = kThreads / 32;   // the one-block kernels' reduction tree
 
 // sum_j w_j u_j^2 as the one-block forwards' block_sum forms it (thread j
-// of 1024 holds w_j u_j^2, then warp sums, then a sum of the 32 warp
-// sums), with this block's warps standing in for the 1024-thread block's:
-// the warp sums go to red[32]. A __syncthreads must pass before red is
-// read. mg <= 1024.
+// of 1024 holds w_j u_j^2 and, above mg = 1024, adds w u^2 of j + 1024;
+// then warp sums, then a sum of the 32 warp sums), with this block's
+// kClusterThreads threads standing in for the 1024-thread block's: the
+// warp sums go to red[32]. A __syncthreads must pass before red is read.
+// mg <= 2048.
 __device__ __forceinline__ void energy_partials(const float* u, const float* ws, int mg,
                                                 float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -33,6 +35,7 @@ __device__ __forceinline__ void energy_partials(const float* u, const float* ws,
   for (int v = 0; v < kPer; ++v) {
     const int j = (warp + v * kClusterWarps) * 32 + lane;
     p[v] = j < mg ? add_energy(0.f, ws[j], u[j]) : 0.f;
+    if (j + kThreads < mg) p[v] = add_energy(p[v], ws[j + kThreads], u[j + kThreads]);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -42,6 +45,11 @@ __device__ __forceinline__ void energy_partials(const float* u, const float* ws,
 #pragma unroll
     for (int v = 0; v < kPer; ++v) red[warp + v * kClusterWarps] = p[v];
 }
+
+// The reverse clusters' row phases at mg = 128 R: the one-block reverse
+// kernels' P = 1024 / (mg / 4), so that thread (p, column) of a cluster
+// sums the rows p, p + P, ... of its column in the one-block kernel's order.
+__host__ __device__ constexpr int bwd_phases(int R) { return kThreads / (32 * R); }
 
 // The launch of one cluster of kClusterCtas CTAs of `threads` threads and
 // `smem` bytes of dynamic shared memory. The kernel's attributes are set

@@ -7,9 +7,12 @@
 //                           and has_ser as the traj / ser pointers): the
 //                           cluster route and the one-block route of the
 //                           same forward
-//   sm_fused_bwd_shared  <- _bwd_kernel_shared (_run_bwd_shared); with op_grads
-//                           it stores the lambda history that op_grads.cu
-//                           turns into dB (the `lam_hist` pointer)
+//   sm_fused_bwd_shared, sm_fused_bwd_shared_block
+//                        <- _bwd_kernel_shared (_run_bwd_shared): the cluster
+//                           route and the one-block route of the same
+//                           reverse sweep; with op_grads it stores the
+//                           lambda history that op_grads.cu turns into dB
+//                           (the `lam_hist` pointer)
 //
 // What bounds them on an H100: every step is a batch-1 GEMV with the
 // (mg, mg) f32 step matrix B (1 MiB at mg = 512), and the steps are
@@ -19,8 +22,7 @@
 // shared memory cannot hold it.
 //
 // sm_fused_fwd_shared (forward, mg <= 896): one thread-block cluster of
-// 16 CTAs on 16 SMs, the two-matrix forward cluster of fused_two_matrix.cu
-// with one matrix. CTA rank r keeps rows [r mg/16, (r+1) mg/16) of B in
+// 16 CTAs on 16 SMs. CTA rank r keeps rows [r mg/16, (r+1) mg/16) of B in
 // its shared memory (64 KB at mg = 512) for all N steps, and every CTA
 // keeps all of u (ping-pong), v and w. A step:
 //   * every CTA forms v = lin u + c2 u^2 + c3 u^3 from its full copy of u
@@ -47,9 +49,30 @@
 // row, float4 loads), bound by one SM's L2 read rate. The wrapper chooses
 // by shape; each route launches its kernel or fails.
 //
-// sm_fused_bwd_shared (reverse): one thread block. B stays in global
-// memory and, after the first step, in L2; the small state (lambda, the
-// partial sums, the weights) lives in shared memory.
+// sm_fused_bwd_shared (reverse, mg <= 896): the forward's cluster
+// transposed, the two-matrix reverse cluster of fused_two_matrix.cu with
+// one matrix. lambda_n = v'(u_n) (B^T lambda) + s w u_n needs columns of
+// B, so CTA rank r keeps columns [r mg/16, (r+1) mg/16) of B in its shared
+// memory (64 KB at mg = 512) for the whole sweep, and every CTA keeps all
+// of lambda (ping-pong). A step:
+//   * the CTA's P x (mg/16) threads (P = 1024 / (mg/4) row phases) form
+//     the column partial sums over rows p, p + P, ... in ascending order,
+//     exactly as the one-block kernel's threads (p, column group) do for
+//     each of their four columns;
+//   * each new entry adds the P partials in phase order and applies the
+//     pinned update of common.cuh, from the CTA's slice of the trajectory
+//     row (loaded while the partial sums run), and goes into every CTA's
+//     next-lambda buffer through distributed shared memory; one
+//     cluster.sync() a step publishes it;
+//   * with the lambda history, each CTA stores its slice of lambda_{n+1}.
+// With that order lambda_0 and the history are bitwise the one-block
+// kernel's. mg^2 4 / 16 bytes of columns and 2 mg + (P + 2) mg / 16 floats
+// of state fit 227 KB up to mg = 896, as for the forward's rows.
+// A larger mg takes sm_fused_bwd_shared_block: one thread block; B stays
+// in global memory and, after the first step, in L2; the small state
+// (lambda, the partial sums) lives in shared memory. Thread (p, column
+// group) sums rows p, p + P, ... of four columns. The wrapper chooses by
+// shape; each route launches its kernel or fails.
 //
 // The energy series is a template flag, chosen from the `ser` pointer at
 // launch: a runtime test of the pointer on thread 0's per-step path made
@@ -64,8 +87,8 @@
 // The launchers launch on the given stream, do not synchronise, and
 // return cudaGetLastError() (or the launch's error) so the caller can
 // raise on a refused launch. The caller guarantees mg % 128 == 0,
-// 128 <= mg <= 2048 (sm_fused_fwd_shared: mg <= 896), contiguous f32
-// buffers on one device.
+// 128 <= mg <= 2048 (sm_fused_fwd_shared and sm_fused_bwd_shared:
+// mg <= 896), contiguous f32 buffers on one device.
 
 #include <cooperative_groups.h>
 
@@ -76,14 +99,15 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using smo::bwd_phases;
 using smo::kClusterCtas;
 using smo::kClusterThreads;
 using smo::kClusterWarps;
 using smo::kThreads;
 using smo::kWarps;
 
-// The cluster holds B's rows while mg^2 4 / 16 bytes fit one SM:
-// instances for mg = 128 R, R <= kMaxR.
+// The clusters hold B's rows (forward) or columns (reverse) while
+// mg^2 4 / 16 bytes fit one SM: instances for mg = 128 R, R <= kMaxR.
 constexpr int kMaxR = 7;
 
 // v(u) = lin u + c2 u^2 + c3 u^3 and one float4 of a row's dot product
@@ -270,11 +294,13 @@ struct FwdSharedCluster {
   }
 };
 
-// Backward: lambda_N = s w u_N, then for n = N-1..0
+// Backward, one block (sm_fused_bwd_shared_block): lambda_N = s w u_N,
+// then for n = N-1..0
 //   lambda_n = (lin + 2 c2 u_n + 3 c3 u_n^2) * (B^T lambda_{n+1}) + s w u_n,
 // with s = *scale and u_n = traj row n. Thread (p, cg) sums rows
-// p, p + P, ... of column group cg (4 columns, one float4); the P
-// partial sums meet in shared memory.
+// p, p + P, ... of column group cg (4 columns, one float4), each product
+// one rounded multiply-add, pinned so that the cluster reproduces it; the
+// P partial sums meet in shared memory.
 // With kLamHist, step n also stores the lambda_{n+1} it consumes as row n
 // of lam_hist (N rows), for the operator cotangent dB = sum_n
 // lambda_{n+1} (x) v(u_n) (op_grads.cu).
@@ -298,7 +324,7 @@ fused_bwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w
   const float4* b4 = reinterpret_cast<const float4*>(b);
   const float s = *scale;
 
-  for (int j = tid; j < mg; j += kThreads) lam[j] = s * (w[j] * uT[j]);
+  for (int j = tid; j < mg; j += kThreads) lam[j] = smo::cost_term(s, w[j], uT[j]);
   __syncthreads();
 
   for (int k = 0; k < n_steps; ++k) {
@@ -310,10 +336,10 @@ fused_bwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w
       for (int i = p; i < mg; i += P) {
         const float4 bb = __ldg(b4 + (size_t)i * ncg + cg);
         const float l = lam[i];
-        a.x += bb.x * l;
-        a.y += bb.y * l;
-        a.z += bb.z * l;
-        a.w += bb.w * l;
+        a.x = __fmaf_rn(bb.x, l, a.x);
+        a.y = __fmaf_rn(bb.y, l, a.y);
+        a.z = __fmaf_rn(bb.z, l, a.z);
+        a.w = __fmaf_rn(bb.w, l, a.w);
       }
       part4[p * ncg + cg] = a;
     }
@@ -330,6 +356,99 @@ fused_bwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w
   }
   for (int j = tid; j < mg; j += kThreads) lam_out[j] = lam[j];
 }
+
+// Backward, one cluster (sm_fused_bwd_shared): the recurrence, lambda_0 and
+// the history of fused_bwd_shared_kernel on kClusterCtas CTAs of
+// kClusterThreads threads, mg = 128 R. CTA rank r owns the C = mg / 16
+// columns from c0 = r C; thread t < P C stands in for the one-block
+// kernel's thread (p, column group) for one column: p = t / C, column
+// c0 + t % C. Shared memory: B's columns (mg x C, row-major),
+// lambda[2][mg] (ping-pong), the partials (P x C), w and u_n of the
+// columns.
+__host__ __device__ constexpr size_t bwd_shared_cluster_smem_bytes(int R) {
+  return ((size_t)(128 * R) * (8 * R) + 2 * (size_t)(128 * R)
+          + (size_t)bwd_phases(R) * (8 * R) + 2 * (size_t)(8 * R)) * sizeof(float);
+}
+
+template <bool kLamHist, int R>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+fused_bwd_shared_cluster_kernel(const float* __restrict__ b, const float* __restrict__ w,
+                                const float* __restrict__ uT, const float* __restrict__ traj,
+                                float c2, float c3, float lin,
+                                const float* __restrict__ scale, int n_steps,
+                                float* __restrict__ lam_out, float* __restrict__ lam_hist) {
+  constexpr int mg = 128 * R, C = mg / kClusterCtas, P = bwd_phases(R);
+  static_assert(P * C <= kClusterThreads, "one thread per (phase, column)");
+  static_assert(P == kThreads / (mg / 4), "the one-block kernel's row phases");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int c0 = rank * C;
+  extern __shared__ float4 smem4[];
+  float* bs = reinterpret_cast<float*>(smem4);  // [mg][C]
+  float* lam = bs + mg * C;
+  float* lamn = lam + mg;
+  float* pb = lamn + mg;   // [P][C]
+  float* ws = pb + P * C;  // [C]
+  float* us = ws + C;      // [C]
+
+  for (int idx = tid; idx < mg * C; idx += kClusterThreads)
+    bs[idx] = __ldg(b + (size_t)(idx / C) * mg + c0 + idx % C);
+  const float s = *scale;
+  for (int j = tid; j < mg; j += kClusterThreads) lam[j] = smo::cost_term(s, w[j], uT[j]);
+  if (tid < C) ws[tid] = w[c0 + tid];
+  cluster.sync();  // every CTA has started and holds lambda_N before any remote store
+
+  const int p = tid / C, col = tid % C;
+  for (int k = 0; k < n_steps; ++k) {
+    const size_t row = (size_t)(n_steps - 1 - k) * mg;
+    const float un = tid < C ? traj[row + c0 + tid] : 0.f;  // in flight during the sums
+    if (tid < P * C) {
+      float sb = 0.f;
+#pragma unroll 4
+      for (int i = p; i < mg; i += P) sb = __fmaf_rn(bs[i * C + col], lam[i], sb);
+      pb[p * C + col] = sb;
+    }
+    if (tid < C) us[tid] = un;
+    __syncthreads();  // partials and u_n ready
+    // (column, destination rank) pairs: the entry is formed once per
+    // destination, consecutive threads store consecutive columns
+    for (int t = tid; t < kClusterCtas * C; t += kClusterThreads) {
+      const int c = t % C, dst = t / C;
+      float wb = 0.f;
+      for (int q = 0; q < P; ++q) wb += pb[q * C + c];
+      const float u = us[c];
+      const float vprime = smo::poly_prime(lin, 2.f * c2, 3.f * c3, u);
+      cluster.map_shared_rank(lamn, dst)[c0 + c] =
+          __fmaf_rn(vprime, wb, smo::cost_term(s, ws[c], u));
+      if constexpr (kLamHist) {
+        if (dst == rank) lam_hist[row + c0 + c] = lam[c0 + c];  // lambda_{n+1}
+      }
+    }
+    cluster.sync();  // lamn complete in every CTA; lam, partials and u_n free
+    float* t = lam;
+    lam = lamn;
+    lamn = t;
+  }
+  if (tid < C) lam_out[c0 + tid] = lam[c0 + tid];
+}
+
+template <bool kLamHist, int R>
+struct BwdSharedCluster {
+  static inline bool ready[smo::kMaxDevices] = {};
+  static int capacity() {
+    return smo::cluster_capacity(fused_bwd_shared_cluster_kernel<kLamHist, R>,
+                                 bwd_shared_cluster_smem_bytes(R), kClusterThreads, ready);
+  }
+  static int launch(cudaStream_t st, const float* b, const float* w, const float* uT,
+                    const float* traj, float c2, float c3, float lin, const float* scale,
+                    int n_steps, float* lam_out, float* lam_hist) {
+    return smo::cluster_launch(fused_bwd_shared_cluster_kernel<kLamHist, R>,
+                               bwd_shared_cluster_smem_bytes(R), kClusterThreads, ready, st,
+                               b, w, uT, traj, c2, c3, lin, scale, n_steps, lam_out,
+                               lam_hist);
+  }
+};
 
 }  // namespace
 
@@ -369,6 +488,26 @@ int sm_fused_bwd_shared(const float* b, const float* w, const float* uT,
                         const float* traj, float c2, float c3, float lin,
                         const float* scale, int n_steps, int mg, float* lam_out,
                         float* lam_hist, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return lam_hist != nullptr
+             ? smo::launch_by_mg<BwdSharedCluster, true, kMaxR>(
+                   mg, st, b, w, uT, traj, c2, c3, lin, scale, n_steps, lam_out, lam_hist)
+             : smo::launch_by_mg<BwdSharedCluster, false, kMaxR>(
+                   mg, st, b, w, uT, traj, c2, c3, lin, scale, n_steps, lam_out, lam_hist);
+}
+
+// Clusters of sm_fused_bwd_shared (with the lambda history when `hist`)
+// that the card can hold at once for this mg, as
+// sm_fused_fwd_shared_capacity.
+int sm_fused_bwd_shared_capacity(int mg, int hist) {
+  return hist ? smo::capacity_by_mg<BwdSharedCluster, true, kMaxR>(mg)
+              : smo::capacity_by_mg<BwdSharedCluster, false, kMaxR>(mg);
+}
+
+int sm_fused_bwd_shared_block(const float* b, const float* w, const float* uT,
+                              const float* traj, float c2, float c3, float lin,
+                              const float* scale, int n_steps, int mg, float* lam_out,
+                              float* lam_hist, void* stream) {
   const int ncg = mg / 4;
   const int P = kThreads / ncg;
   const size_t smem = ((size_t)mg + 4 * (size_t)P * ncg) * sizeof(float);

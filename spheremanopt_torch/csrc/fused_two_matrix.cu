@@ -2,9 +2,9 @@
 //
 // Replaces the TPU (Pallas) kernels of the JAX package's
 // ops/pallas/fused_two_matrix.py:
-//   sm_fused_fwd, sm_fused_fwd_block
+//   sm_fused_fwd_grid, sm_fused_fwd_block
 //                 <- _fwd_kernel (_run_fwd; has_traj and has_ser as the
-//                    traj / ser pointers): the cluster route and the
+//                    traj / ser pointers): the grid-wide route and the
 //                    one-block route of the same forward
 //   sm_fused_bwd, sm_fused_bwd_block
 //                 <- _bwd_kernel (_run_bwd): the cluster route and the
@@ -23,39 +23,45 @@
 // 2 * 2 mg^2 flop, takes ~16 ns at the card's f32 peak; the sweep's bound
 // is 31.5 us of operations.
 //
-// sm_fused_fwd (forward, mg <= 640): one thread-block cluster of 16 CTAs
-// on 16 SMs. The TPU kernel keeps both matrices in VMEM for the whole
-// solve; one SM's 227 KB of shared memory holds neither, but 16 SMs hold
-// both: CTA rank r keeps rows [r mg/16, (r+1) mg/16) of A and of B in its
-// shared memory (2 x 64 KB at mg = 512) for all N steps, and every CTA
-// keeps all of u (ping-pong), g and w. A step:
-//   * every CTA forms g = c2 u^2 + c3 u^3 from its full copy of u;
-//   * each warp computes its rows' dot products in the lane and k order
-//     of the one-block kernel below (fwd_dot4), so u, the trajectory and
-//     J come out bitwise equal to it;
-//   * each row's value goes into every CTA's next-u buffer through
-//     distributed shared memory (lane l < 16 stores to rank l), and one
-//     cluster.sync() a step publishes it (u is double-buffered, so one
-//     barrier is enough);
-//   * the trajectory: each CTA stores its own slice of the row; J and
-//     the series: rank 0, from its local u, with the one-block kernel's
-//     1024-thread reduction tree (energy_partials), its last level
-//     overlapped with rank 0's share of the product.
-// A and B are read once from device memory; a step reads ~160 KB of
-// shared memory per SM (the rows, then u and g once per warp) and passes
-// one cluster barrier: 2.2 us a step on an H100 SXM at 700 W, against
-// 21 us for the one-block kernel at mg = 512.
-// The cluster holds the operators while 2 mg^2 4 / 16 bytes fit one SM
-// (mg <= 640); a larger mg takes sm_fused_fwd_block, one thread block
-// that streams A and B from the 50 MB L2 every step (one warp per row,
-// float4 loads), bound by one SM's L2 read rate (~191 GB/s measured).
-// The wrapper chooses by shape; each route launches its kernel or fails.
-// The clusters' launch, capacity query, energy tree and dispatch by width
-// are in cluster.cuh, shared with fused_shared.cu's forward cluster.
+// sm_fused_fwd_grid (forward, mg up to the card's limit: 1792 on an H100
+// SXM's 132 SMs, 1664 on an H100 PCIe's 114). The TPU kernel keeps both
+// matrices in VMEM for the whole solve; one SM's 227 KB holds neither
+// (2 MB at mg = 512, 8 MB at 1024), but the card's ~30 MB of shared
+// memory holds both. One persistent cooperative kernel, one CTA on each
+// of up to all SMs: CTA b keeps `rows` = ceil(mg / SMs) contiguous rows
+// of A and of B (4 of each at mg = 512, 8 at 1024) in shared memory for
+// the whole solve. u crosses through L2 as tagged words: each warp
+// computes its rows' dot products in the one-block kernel's lane and k
+// order (fwd_dot4) and stores each entry of u_{n+1} with its step number
+// n + 1 as one 64-bit word into a global buffer of two slots (ping-pong);
+// every CTA reads all of u_{n+1} back with 64-bit loads, polling until
+// every word carries the tag, and forms g itself. The tag is the step's
+// barrier: a CTA that has seen all of u_{n+1} knows every CTA has
+// finished reading u_n (each CTA's stores of u_{n+1} depend on those
+// reads), so slot n & 1 is free for u_{n+2}. One grid.sync() per launch,
+// after the tags are cleared. Each CTA stores its slice of the trajectory
+// row; CTA 0 forms J and the series from the u it has read, with the
+// one-block kernel's reduction tree (energy_partials, which covers
+// mg <= 2048). u_T, J, the trajectory and the series are bitwise the
+// one-block kernel's. The wrapper computes the partition from the card's
+// SM count and raises if the card cannot hold the CTAs at once (the
+// polling needs every CTA resident: the launch is cooperative).
+// Why no cluster below mg = 640: a 16-CTA cluster holding the rows on 16
+// SMs with one cluster.sync() a step took 4.42 ms at mg = 512, N = 2000,
+// against 2.30 ms here (1.15 us a step); 3.09 / 3.78 / 5.74 ms against
+// 2.32 / 2.40 / 3.49 at mg = 256 / 384 / 640; only at mg = 128 (one row
+// a CTA) was it ahead, 2.38 against 2.84 ms. Why no grid.sync(): with
+// one a step in place of the tags the sweep took 0.49 ms at mg = 1024,
+// N = 200, against 0.43 ms tagged. (H100 SXM at 700 W,
+// tools/time_reverse_sweeps.py.)
+// A larger mg takes sm_fused_fwd_block, one thread block that streams A
+// and B from the 50 MB L2 every step (one warp per row, float4 loads),
+// bound by one SM's L2 read rate (~191 GB/s measured). The wrapper
+// chooses by shape; each route launches its kernel or fails.
 //
-// sm_fused_bwd (reverse, mg <= 640): the forward's cluster transposed.
-// lambda_n = A^T lambda + g'(u_n) (B^T lambda) + s w u_n needs columns of
-// A and B, so CTA rank r keeps columns [r mg/16, (r+1) mg/16) of A and of
+// sm_fused_bwd (reverse, mg <= 640): one thread-block cluster of 16 CTAs
+// on 16 SMs. lambda_n = A^T lambda + g'(u_n) (B^T lambda) + s w u_n needs
+// columns of A and B, so CTA rank r keeps columns [r mg/16, (r+1) mg/16) of A and of
 // B in its shared memory for the whole sweep, and every CTA keeps all of
 // lambda (ping-pong). A step:
 //   * the CTA's P x (mg/16) threads (P = 1024 / (mg/4) row phases) form
@@ -88,8 +94,11 @@
 //
 // The launchers launch on the given stream, do not synchronise, and
 // return cudaGetLastError() (or the launch's error). The caller
-// guarantees mg % 128 == 0, 128 <= mg <= 2048 (sm_fused_fwd and
-// sm_fused_bwd: mg <= 640), contiguous f32 buffers on one device.
+// guarantees mg % 128 == 0, 128 <= mg <= 2048 (sm_fused_bwd: mg <= 640),
+// contiguous f32 buffers on one device.
+// sm_fused_fwd_grid launches cooperatively, so a grid that the card
+// cannot hold at once fails at launch; a word that never gets its tag
+// traps (a launch failure), it does not hang.
 
 #include <cooperative_groups.h>
 
@@ -100,6 +109,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using smo::bwd_phases;
 using smo::capacity_by_mg;
 using smo::cluster_capacity;
 using smo::cluster_launch;
@@ -111,13 +121,13 @@ using smo::kThreads;
 using smo::kWarps;
 using smo::launch_by_mg;
 
-// The clusters hold A and B (rows forward, columns in reverse) while
-// 2 mg^2 4 / 16 bytes fit one SM: instances for mg = 128 R, R <= kMaxR.
+// The reverse cluster holds A's and B's columns while 2 mg^2 4 / 16
+// bytes fit one SM: instances for mg = 128 R, R <= kMaxR.
 constexpr int kMaxR = 5;
 
 // g(u) = c2 u^2 + c3 u^3 and one float4 of a row's dot products with u
-// and g(u): written once for both forward kernels, so the cluster's u
-// is bitwise the one-block kernel's.
+// and g(u): written once for both forward kernels, so the grid's u is
+// bitwise the one-block kernel's.
 __device__ __forceinline__ float g_poly(float c2, float c3, float u) {
   return c2 * u * u + c3 * u * u * u;
 }
@@ -206,92 +216,144 @@ fused_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-// Forward, one cluster (sm_fused_fwd): the same recurrence, J and
-// outputs as fused_fwd_kernel, on kClusterCtas CTAs of kClusterThreads
-// threads, mg = 128 R. Each warp owns R rows (rank's rows warp, warp + 8,
-// ...) and a lane R float4s of each: those of k = lane + 32 i, the
-// one-block kernel's k order. Shared memory: A rows, B rows (8 R x mg
-// each), u[2][mg], g[mg], w[mg], red[32].
-__host__ __device__ constexpr size_t cluster_smem_bytes(int R) {
-  return (2 * (size_t)(8 * R) * (128 * R) + 4 * (size_t)(128 * R) + 32) * sizeof(float);
+// Forward, grid-wide (sm_fused_fwd_grid): the recurrence, J and outputs of
+// fused_fwd_kernel on ceil(mg / rows) co-resident CTAs of kClusterThreads
+// threads; CTA b owns rows [b rows, min((b + 1) rows, mg)). ubuf (4 mg
+// floats) holds two slots of mg (value, tag) pairs: step n reads u_n (u0
+// at n = 0, else slot (n - 1) & 1, tag n) and writes u_{n+1} to slot
+// n & 1 with tag n + 1. Shared memory: A rows, B rows (rows x mg each),
+// u[mg], g[mg], w[mg], red[32].
+__host__ __device__ constexpr size_t grid_smem_bytes(int mg, int rows) {
+  return (2 * (size_t)rows * mg + 3 * (size_t)mg + 32) * sizeof(float);
 }
 
-template <bool kSeries, int R>
+// Polls before a wait counts as lost (~seconds): then the kernel traps.
+constexpr unsigned kMaxPolls = 1u << 22;
+
+// A (value, tag) pair is one 64-bit word, the value's bits low and the tag
+// high, stored and loaded as one 64-bit access: a single access is atomic
+// under the PTX memory model (a vector access is not), so a reader that
+// sees a tag sees the value stored with it.
+__device__ __forceinline__ void store_tagged(unsigned long long* pair, float x, unsigned tag) {
+  const unsigned long long v =
+      static_cast<unsigned long long>(tag) << 32 | __float_as_uint(x);
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(pair), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_tagged(const unsigned long long* pair) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(v) : "l"(pair));
+  return v;
+}
+
+// all of u from a slot of mg (value, tag) words, two words a thread a
+// round, each polled until it carries `tag`; with g != nullptr also
+// g = c2 u^2 + c3 u^3
+__device__ __forceinline__ void read_tagged(const unsigned long long* slot, unsigned tag, int mg,
+                                            float c2, float c3, float* u, float* g) {
+  for (int k = threadIdx.x; k < mg / 2; k += kClusterThreads) {
+    unsigned long long v0, v1;
+    unsigned polls = 0;
+    do {
+      v0 = load_tagged(slot + 2 * k);
+      v1 = load_tagged(slot + 2 * k + 1);
+      if (++polls > kMaxPolls) __trap();
+    } while (static_cast<unsigned>(v0 >> 32) != tag || static_cast<unsigned>(v1 >> 32) != tag);
+    const float x0 = __uint_as_float(static_cast<unsigned>(v0));
+    const float x1 = __uint_as_float(static_cast<unsigned>(v1));
+    u[2 * k] = x0;
+    u[2 * k + 1] = x1;
+    if (g != nullptr) {
+      g[2 * k] = g_poly(c2, c3, x0);
+      g[2 * k + 1] = g_poly(c2, c3, x1);
+    }
+  }
+}
+
+template <bool kSeries>
 __global__ void __launch_bounds__(kClusterThreads, 1)
-fused_fwd_cluster_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                         const float* __restrict__ w, const float* __restrict__ u0,
-                         float c2, float c3, int n_steps, float* __restrict__ uT,
-                         float* __restrict__ jsum, float* __restrict__ traj,
-                         float* __restrict__ ser) {
-  constexpr int mg = 128 * R, mg4 = mg / 4, rows = mg / kClusterCtas;
-  static_assert(rows == kClusterWarps * R, "one warp per R rows");
-  static_assert(mg <= kThreads, "one element per thread of the reduction tree");
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
+fused_fwd_grid_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                      const float* __restrict__ w, const float* __restrict__ u0, float c2,
+                      float c3, int n_steps, int mg, int rows, float* __restrict__ uT,
+                      float* __restrict__ jsum, float* __restrict__ traj,
+                      float* __restrict__ ser, float* __restrict__ ubuf) {
+  cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r0 = rank * rows;
+  const int mg4 = mg / 4, r0 = blockIdx.x * rows;
+  const int nr = min(rows, mg - r0);
+  const bool lead = blockIdx.x == 0;
   extern __shared__ float4 smem4[];
-  float4* as4 = smem4;                 // rows x mg4
-  float4* bs4 = as4 + rows * mg4;
-  float* u = reinterpret_cast<float*>(bs4 + rows * mg4);
-  float* un = u + mg;
-  float* g = un + mg;
+  float4* as4 = smem4;  // rows x mg4
+  float4* bs4 = as4 + (size_t)rows * mg4;
+  float4* u4 = bs4 + (size_t)rows * mg4;
+  float4* g4 = u4 + mg4;
+  float* u = reinterpret_cast<float*>(u4);
+  float* g = reinterpret_cast<float*>(g4);
   float* ws = g + mg;
   float* red = ws + mg;
-  const float4* g4 = reinterpret_cast<const float4*>(g);
+  auto* pairs = reinterpret_cast<unsigned long long*>(ubuf);  // [2][mg] (value, tag)
 
   const float4* a4 = reinterpret_cast<const float4*>(a) + (size_t)r0 * mg4;
   const float4* b4 = reinterpret_cast<const float4*>(b) + (size_t)r0 * mg4;
-  for (int i = tid; i < rows * mg4; i += kClusterThreads) {
+  for (int i = tid; i < nr * mg4; i += kClusterThreads) {
     as4[i] = __ldg(a4 + i);
     bs4[i] = __ldg(b4 + i);
   }
-  for (int j = tid; j < mg; j += kClusterThreads) {
-    u[j] = u0[j];
-    ws[j] = w[j];
-  }
-  cluster.sync();   // every CTA has started and holds u_0 before any remote store
+  if (lead)
+    for (int j = tid; j < mg; j += kClusterThreads) ws[j] = w[j];
+  for (int i = blockIdx.x * kClusterThreads + tid; i < 2 * mg; i += gridDim.x * kClusterThreads)
+    pairs[i] = 0ull;  // no tag: steps count from 1
+  grid.sync();      // the tags are clear before any CTA stores u_1
 
-  float acc = 0.f, comp = 0.f;  // live in rank 0's thread 0
+  float acc = 0.f, comp = 0.f;  // live in CTA 0's thread 0
   for (int n = 0; n < n_steps; ++n) {
-    for (int j = tid; j < mg; j += kClusterThreads) g[j] = g_poly(c2, c3, u[j]);
-    if (traj != nullptr && tid < rows) traj[(size_t)n * mg + r0 + tid] = u[r0 + tid];
-    if (rank == 0) energy_partials(u, ws, mg, red);
-    __syncthreads();   // g and red complete
-    const float4* u4 = reinterpret_cast<const float4*>(u);
-    float4 ur[R], gr[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      ur[i] = u4[lane + 32 * i];
-      gr[i] = g4[lane + 32 * i];
+    if (n == 0) {
+      const float4* src4 = reinterpret_cast<const float4*>(u0);
+      for (int k = tid; k < mg4; k += kClusterThreads) {
+        const float4 x = __ldg(src4 + k);
+        u4[k] = x;
+        g4[k] = make_float4(g_poly(c2, c3, x.x), g_poly(c2, c3, x.y), g_poly(c2, c3, x.z),
+                            g_poly(c2, c3, x.w));
+      }
+    } else {
+      read_tagged(pairs + (size_t)((n - 1) & 1) * mg, n, mg, c2, c3, u, g);
     }
-#pragma unroll
-    for (int q = 0; q < R; ++q) {
-      const int rl = warp + q * kClusterWarps;
-      const float4* arow = as4 + rl * mg4;
-      const float4* brow = bs4 + rl * mg4;
+    __syncthreads();  // u and g complete (and at n = 0 the rows and w)
+    if (traj != nullptr)
+      for (int i = tid; i < nr; i += kClusterThreads) traj[(size_t)n * mg + r0 + i] = u[r0 + i];
+    if (lead) {
+      energy_partials(u, ws, mg, red);
+      __syncthreads();  // red complete
+    }
+    unsigned long long* dst = pairs + (size_t)(n & 1) * mg;
+    for (int rl = warp; rl < nr; rl += kClusterWarps) {
+      const float4* arow = as4 + (size_t)rl * mg4;
+      const float4* brow = bs4 + (size_t)rl * mg4;
       float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-        s = fwd_dot4(s, arow[lane + 32 * i], ur[i], brow[lane + 32 * i], gr[i]);
-      s = smo::warp_sum(s);   // every lane holds the same sum
-      if (lane < kClusterCtas) cluster.map_shared_rank(un, lane)[r0 + rl] = s;
+#pragma unroll 4
+      for (int k = lane; k < mg4; k += 32) s = fwd_dot4(s, arow[k], u4[k], brow[k], g4[k]);
+      s = smo::warp_sum(s);
+      if (lane == 0) store_tagged(dst + r0 + rl, s, n + 1);
     }
-    if (rank == 0 && warp == 0) {
+    if (lead && warp == 0) {
       const float e = smo::warp_sum(red[lane]);
       if (lane == 0) {
         if constexpr (kSeries) ser[n] = e;
         smo::kahan_add(acc, comp, e);
       }
     }
-    cluster.sync();   // un complete in every CTA; u, g and red free
-    float* t = u;
-    u = un;
-    un = t;
+    __syncthreads();  // u, g and red free for the next step
   }
 
-  if (tid < rows) uT[r0 + tid] = u[r0 + tid];
-  if (rank == 0) {
+  // u_N: each CTA stores its rows of u_T; CTA 0 forms e_N and J
+  if (n_steps == 0) {
+    for (int j = tid; j < mg; j += kClusterThreads) u[j] = u0[j];
+  } else {
+    read_tagged(pairs + (size_t)((n_steps - 1) & 1) * mg, n_steps, mg, c2, c3, u, nullptr);
+  }
+  __syncthreads();
+  for (int i = tid; i < nr; i += kClusterThreads) uT[r0 + i] = u[r0 + i];
+  if (lead) {
     energy_partials(u, ws, mg, red);
     __syncthreads();
     if (warp == 0) {
@@ -305,21 +367,53 @@ fused_fwd_cluster_kernel(const float* __restrict__ a, const float* __restrict__ 
   }
 }
 
-template <bool kSeries, int R>
-struct FwdCluster {
-  static inline bool ready[smo::kMaxDevices] = {};
-  static int capacity() {
-    return cluster_capacity(fused_fwd_cluster_kernel<kSeries, R>, cluster_smem_bytes(R),
-                            kClusterThreads, ready);
-  }
-  static int launch(cudaStream_t st, const float* a, const float* b, const float* w,
-                    const float* u0, float c2, float c3, int n_steps, float* uT, float* jsum,
-                    float* traj, float* ser) {
-    return cluster_launch(fused_fwd_cluster_kernel<kSeries, R>, cluster_smem_bytes(R),
-                          kClusterThreads, ready, st, a, b, w, u0, c2, c3, n_steps, uT,
-                          jsum, traj, ser);
-  }
-};
+// The grid kernel's attributes: the largest dynamic shared memory the card
+// allows a block, set once per device (a launch's own size varies with mg).
+template <bool kSeries>
+cudaError_t grid_attributes(int& optin) {
+  static bool ready[smo::kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  return smo::set_once(ready, [&] {
+    return cudaFuncSetAttribute(fused_fwd_grid_kernel<kSeries>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  });
+}
+
+// CTAs of sm_fused_fwd_grid that the card can hold at once at (mg, rows)
+// (0 when one CTA's rows do not fit an SM), or -cudaError_t
+template <bool kSeries>
+int grid_capacity(int mg, int rows) {
+  int optin = 0, dev = 0, sms = 0, occ = 0;
+  cudaError_t err = grid_attributes<kSeries>(optin);
+  const size_t smem = grid_smem_bytes(mg, rows);
+  if (err == cudaSuccess && smem > (size_t)optin) return 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fused_fwd_grid_kernel<kSeries>,
+                                                        kClusterThreads, smem);
+  return err == cudaSuccess ? occ * sms : -static_cast<int>(err);
+}
+
+template <bool kSeries>
+int grid_launch(const float* a, const float* b, const float* w, const float* u0, float c2,
+                float c3, int n_steps, int mg, int rows, float* uT, float* jsum, float* traj,
+                float* ser, float* ubuf, cudaStream_t st) {
+  int optin = 0;
+  const cudaError_t err = grid_attributes<kSeries>(optin);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rows < 1 || rows > mg) return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&a, &b, &w, &u0, &c2, &c3, &n_steps, &mg, &rows, &uT, &jsum, &traj, &ser,
+                  &ubuf};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(fused_fwd_grid_kernel<kSeries>), dim3((mg + rows - 1) / rows),
+      dim3(kClusterThreads), args, grid_smem_bytes(mg, rows), st);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
 
 // Backward, one block (sm_fused_bwd_block): lambda_N = s w u_N, then for
 // n = N-1..0
@@ -407,8 +501,6 @@ fused_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // one-block kernel's P = 1024 / (mg / 4) row phases. Shared memory: A's
 // and B's columns (mg x C each, row-major), lambda[2][mg] (ping-pong),
 // the partials (P x C each), w and u_n of the columns.
-__host__ __device__ constexpr int bwd_phases(int R) { return kThreads / (32 * R); }
-
 __host__ __device__ constexpr size_t bwd_cluster_smem_bytes(int R) {
   return (2 * (size_t)(128 * R) * (8 * R) + 2 * (size_t)(128 * R)
           + 2 * (size_t)bwd_phases(R) * (8 * R) + 2 * (size_t)(8 * R)) * sizeof(float);
@@ -510,23 +602,34 @@ struct BwdCluster {
 
 extern "C" {
 
-int sm_fused_fwd(const float* a, const float* b, const float* w, const float* u0,
-                 float c2, float c3, int n_steps, int mg, float* uT, float* jsum,
-                 float* traj, float* ser, void* stream) {
+// The grid-wide forward at (mg, rows): ceil(mg / rows) CTAs, which the
+// card must hold at once; ubuf is 4 mg floats of scratch.
+int sm_fused_fwd_grid(const float* a, const float* b, const float* w, const float* u0,
+                      float c2, float c3, int n_steps, int mg, int rows, float* uT,
+                      float* jsum, float* traj, float* ser, float* ubuf, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return ser != nullptr
-             ? launch_by_mg<FwdCluster, true, kMaxR>(mg, st, a, b, w, u0, c2, c3, n_steps, uT,
-                                                     jsum, traj, ser)
-             : launch_by_mg<FwdCluster, false, kMaxR>(mg, st, a, b, w, u0, c2, c3, n_steps, uT,
-                                                      jsum, traj, ser);
+  return ser != nullptr ? grid_launch<true>(a, b, w, u0, c2, c3, n_steps, mg, rows, uT, jsum,
+                                            traj, ser, ubuf, st)
+                        : grid_launch<false>(a, b, w, u0, c2, c3, n_steps, mg, rows, uT, jsum,
+                                             traj, ser, ubuf, st);
 }
 
-// Clusters of sm_fused_fwd (with the series when `series`) that the card
-// can hold at once for this mg: 0 means it cannot be scheduled; a
-// negative value is -cudaError_t.
-int sm_fused_fwd_capacity(int mg, int series) {
-  return series ? capacity_by_mg<FwdCluster, true, kMaxR>(mg)
-                : capacity_by_mg<FwdCluster, false, kMaxR>(mg);
+// CTAs of sm_fused_fwd_grid (with the series when `series`) that the card
+// can hold at once at (mg, rows): fewer than ceil(mg / rows) means the
+// launch cannot run; a negative value is -cudaError_t.
+int sm_fused_fwd_grid_capacity(int mg, int rows, int series) {
+  return series ? grid_capacity<true>(mg, rows) : grid_capacity<false>(mg, rows);
+}
+
+// The dynamic shared memory (bytes) that a block may opt in to on the
+// current device, from which the wrapper works out the grid route's
+// widest mg; a negative value is -cudaError_t.
+int sm_smem_optin(void) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err == cudaSuccess ? optin : -static_cast<int>(err);
 }
 
 int sm_fused_fwd_block(const float* a, const float* b, const float* w, const float* u0,

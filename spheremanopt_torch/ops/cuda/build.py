@@ -42,15 +42,19 @@ _P, _F, _I, _L = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
 _FWD = [_P, _P, _P, _P, _F, _F, _I, _I, _P, _P, _P, _P, _P]
 _BWD = [_P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _P, _P, _P]
 _FWD_SHARED = [_P, _P, _P, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P]
+_BWD_SHARED = [_P, _P, _P, _P, _F, _F, _F, _P, _I, _I, _P, _P, _P]
 _KDYN_FWD = [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P]
 SIGNATURES = {
     "sm_fused_fwd_shared": _FWD_SHARED,
     "sm_fused_fwd_shared_block": _FWD_SHARED,
     "sm_fused_fwd_shared_capacity": [_I, _I],  # returns a count, not an error code
-    "sm_fused_bwd_shared": [_P, _P, _P, _P, _F, _F, _F, _P, _I, _I, _P, _P, _P],
-    "sm_fused_fwd": _FWD,
+    "sm_fused_bwd_shared": _BWD_SHARED,
+    "sm_fused_bwd_shared_block": _BWD_SHARED,
+    "sm_fused_bwd_shared_capacity": [_I, _I],  # returns a count, not an error code
     "sm_fused_fwd_block": _FWD,
-    "sm_fused_fwd_capacity": [_I, _I],  # returns a count, not an error code
+    "sm_fused_fwd_grid": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "sm_fused_fwd_grid_capacity": [_I, _I, _I],  # returns a count, not an error code
+    "sm_smem_optin": [],  # returns a size, not an error code
     "sm_fused_bwd": _BWD,
     "sm_fused_bwd_block": _BWD,
     "sm_fused_bwd_capacity": [_I, _I],  # returns a count, not an error code

@@ -5,8 +5,9 @@ PyTorch port of the JAX package's `ops/pallas/fused_two_matrix.py`:
 
   two-matrix form  u' = A u + B (c2 u^2 + c3 u^3)       (SHB23)
     fused_fwd          <- `_run_fwd` / `_fwd_kernel` (has_traj, has_ser): a
-                          16-CTA cluster up to mg = 640, one block above
-                          (`fwd_route`)
+                          grid-wide kernel over every SM while the rows
+                          fit (to mg = 1792 on an H100 SXM), one block
+                          above (`fwd_route`)
     fused_bwd          <- `_run_bwd` / `_bwd_kernel` (op_grads=True: the
                           sweep stores the lambda history, then
                           `op_grads_product` forms dA and dB): a 16-CTA
@@ -20,7 +21,9 @@ PyTorch port of the JAX package's `ops/pallas/fused_two_matrix.py`:
                           has_ser): a 16-CTA cluster up to mg = 896, one
                           block above (`shared_fwd_route`)
     fused_bwd_shared   <- `_run_bwd_shared` / `_bwd_kernel_shared`
-                          (op_grads=True: lambda history, then dB)
+                          (op_grads=True: lambda history, then dB): a
+                          16-CTA cluster up to mg = 896, one block above
+                          (`shared_bwd_route`)
     FusedObjectiveShared     <- `fused_objective_shared`
     FusedObjectiveSharedDiag <- `fused_objective_shared_diag`
 
@@ -42,10 +45,10 @@ problems, whose operators are fixed data, pass op_grads=False.
 Each wrapper takes its plain PyTorch version (`*_plain`) for tensors on
 the CPU and launches its kernel for CUDA tensors; a CUDA tensor never
 falls back. `LAUNCHES` counts kernel launches per wrapper (the series
-variants of the forwards, the two routes of the two-matrix sweeps and of
-the shared-matrix forward, and the lambda-history variants of the
-reverse sweeps apart; the one-block reverse counts both of its variants
-under `fused_bwd_block`). The kernels are f32 only; the plain versions
+variants of the forwards, the routes of each sweep, and the
+lambda-history variants of the reverse sweeps apart; each one-block
+reverse counts both of its variants, under `fused_bwd_block` and
+`fused_bwd_shared_block`). The kernels are f32 only; the plain versions
 take f32 or f64.
 """
 
@@ -63,8 +66,9 @@ KERNEL_SOURCES = {
     "fused_fwd_shared_block": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_fwd_shared_block_ser": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_bwd_shared": "spheremanopt_torch/csrc/fused_shared.cu",
-    "fused_fwd": "spheremanopt_torch/csrc/fused_two_matrix.cu",
-    "fused_fwd_ser": "spheremanopt_torch/csrc/fused_two_matrix.cu",
+    "fused_bwd_shared_block": "spheremanopt_torch/csrc/fused_shared.cu",
+    "fused_fwd_grid": "spheremanopt_torch/csrc/fused_two_matrix.cu",
+    "fused_fwd_grid_ser": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_fwd_block": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_fwd_block_ser": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_bwd": "spheremanopt_torch/csrc/fused_two_matrix.cu",
@@ -324,16 +328,32 @@ def fused_fwd_shared(b, w, u0, c2, c3, lin, n_steps, store_traj=True,
         return fused_fwd_shared_plain(b, w, u0, c2, c3, lin, n_steps,
                                       store_traj, store_series)
     mg = _check(n_steps, mats=[("b", b)], vecs=[("u0", u0), ("w", w)])
+    if shared_fwd_route(mg) == "block":
+        return _fwd_shared_block(b, w, u0, c2, c3, lin, n_steps, store_traj,
+                                 store_series)
+    _check_cluster(u0.device, "sm_fused_fwd_shared", mg, bool(store_series))
     uT, jsum, traj, ser = _fwd_outputs(u0, n_steps, store_traj, store_series)
-    if shared_fwd_route(mg) == "cluster":
-        _check_cluster(u0.device, "sm_fused_fwd_shared", mg, bool(store_series))
-        symbol, counter = "sm_fused_fwd_shared", "fused_fwd_shared"
-    else:
-        symbol, counter = "sm_fused_fwd_shared_block", "fused_fwd_shared_block"
-    _launch(symbol, counter + "_ser" if store_series else counter,
+    _launch("sm_fused_fwd_shared",
+            "fused_fwd_shared_ser" if store_series else "fused_fwd_shared",
             u0.device, b.data_ptr(), w.data_ptr(), u0.data_ptr(), c2, c3, lin,
             int(n_steps), mg, uT.data_ptr(), jsum.data_ptr(), _ptr(traj),
             _ptr(ser))
+    return uT, jsum, traj, ser
+
+
+def _fwd_shared_block(b, w, u0, c2, c3, lin, n_steps, store_traj=True,
+                      store_series=False):
+    """`fused_fwd_shared` on the one-block kernel
+    (`sm_fused_fwd_shared_block`) at any mg: the route above the
+    cluster's width, and the kernel the cluster is held to bit for bit.
+    The caller has checked the shapes."""
+    uT, jsum, traj, ser = _fwd_outputs(u0, n_steps, store_traj, store_series)
+    _launch("sm_fused_fwd_shared_block",
+            "fused_fwd_shared_block_ser" if store_series
+            else "fused_fwd_shared_block",
+            u0.device, b.data_ptr(), w.data_ptr(), u0.data_ptr(), c2, c3, lin,
+            int(n_steps), u0.shape[-1], uT.data_ptr(), jsum.data_ptr(),
+            _ptr(traj), _ptr(ser))
     return uT, jsum, traj, ser
 
 
@@ -344,7 +364,9 @@ def fused_bwd_shared(b, w, uT, traj, c2, c3, lin, scale, n_steps,
     `lam_hist` ((n_steps, mg), when given) receives the lambda_{n+1} that
     step n consumes: the kernel's history variant. With op_grads,
     dB = sum_n lambda_{n+1} (x) v(u_n): the sweep stores its lambda
-    history and `op_grads_product` forms dB."""
+    history and `op_grads_product` forms dB. On the card the route
+    follows `shared_bwd_route(mg)`; both give the same numbers bit for
+    bit."""
     if uT.device.type == "cpu":
         return fused_bwd_shared_plain(b, w, uT, traj, c2, c3, lin, scale,
                                       n_steps, op_grads, lam_hist)
@@ -352,23 +374,45 @@ def fused_bwd_shared(b, w, uT, traj, c2, c3, lin, scale, n_steps,
     hist = _lam_hist(uT, n_steps, op_grads, lam_hist)
     mg = _check(n_steps, mats=[("b", b)], vecs=[("uT", uT), ("w", w)],
                 traj=traj, scale=scale, hist=hist)
-    lam = torch.empty_like(uT)
-    _launch("sm_fused_bwd_shared",
-            "fused_bwd_shared" if hist is None else "fused_bwd_shared_ops",
-            uT.device, b.data_ptr(), w.data_ptr(), uT.data_ptr(), _ptr(traj),
-            c2, c3, lin, scale.data_ptr(), int(n_steps), mg, lam.data_ptr(),
-            _ptr(hist))
+    if shared_bwd_route(mg) == "block":
+        lam = _bwd_shared_block(b, w, uT, traj, c2, c3, lin, scale, n_steps,
+                                hist)
+    else:
+        _check_cluster(uT.device, "sm_fused_bwd_shared", mg, hist is not None)
+        lam = torch.empty_like(uT)
+        _launch("sm_fused_bwd_shared",
+                "fused_bwd_shared" if hist is None else "fused_bwd_shared_ops",
+                uT.device, b.data_ptr(), w.data_ptr(), uT.data_ptr(),
+                _ptr(traj), c2, c3, lin, scale.data_ptr(), int(n_steps), mg,
+                lam.data_ptr(), _ptr(hist))
     if not op_grads:
         return lam, None
     return lam, op_grads_product(hist, traj, "shared", c2, c3, lin)[0]
 
 
-# The two-matrix sweeps' cluster routes keep A and B (rows forward,
-# columns in reverse) on 16 SMs: 2 mg^2 * 4 / 16 bytes must fit one SM's
-# shared memory. The shared-matrix forward's cluster keeps one matrix:
-# mg^2 * 4 / 16 bytes.
+def _bwd_shared_block(b, w, uT, traj, c2, c3, lin, scale, n_steps,
+                      lam_hist=None):
+    """lambda_0 of `fused_bwd_shared` on the one-block kernel
+    (`sm_fused_bwd_shared_block`, counted under `fused_bwd_shared_block`
+    with or without the history) at any mg: the route above the
+    cluster's width, and the kernel the cluster is held to bit for bit.
+    `scale` is 0-dim; the caller has checked the shapes."""
+    lam = torch.empty_like(uT)
+    _launch("sm_fused_bwd_shared_block", "fused_bwd_shared_block", uT.device,
+            b.data_ptr(), w.data_ptr(), uT.data_ptr(), _ptr(traj), c2, c3, lin,
+            scale.data_ptr(), int(n_steps), uT.shape[-1], lam.data_ptr(),
+            _ptr(lam_hist))
+    return lam
+
+
+# The two-matrix reverse sweep's cluster keeps A's and B's columns on 16
+# SMs: 2 mg^2 * 4 / 16 bytes must fit one SM's shared memory. The
+# shared-matrix sweeps' clusters keep one matrix: mg^2 * 4 / 16 bytes.
 CLUSTER_MG_MAX = 640
 SHARED_CLUSTER_MG_MAX = 896
+# (SMs, opt-in shared memory per block in bytes) of an H100 SXM: the card
+# the routes are worked out for when none is given
+H100_SXM = (132, 227 * 1024)
 
 
 def shared_fwd_route(mg):
@@ -379,12 +423,41 @@ def shared_fwd_route(mg):
     return "cluster" if mg <= SHARED_CLUSTER_MG_MAX else "block"
 
 
-def fwd_route(mg):
-    """The two-matrix forward's kernel for width mg: "cluster" (16 CTAs
-    holding A's and B's rows in shared memory, `sm_fused_fwd`) up to
-    CLUSTER_MG_MAX, else "block" (one thread block streaming A and B
-    from L2, `sm_fused_fwd_block`). A choice by shape, not a fallback."""
-    return "cluster" if mg <= CLUSTER_MG_MAX else "block"
+def shared_bwd_route(mg):
+    """The shared-matrix reverse sweep's kernel for width mg: "cluster"
+    (16 CTAs holding B's columns in shared memory, `sm_fused_bwd_shared`)
+    up to SHARED_CLUSTER_MG_MAX, else "block"
+    (`sm_fused_bwd_shared_block`). Both give the same bits."""
+    return "cluster" if mg <= SHARED_CLUSTER_MG_MAX else "block"
+
+
+def fwd_grid_partition(mg, sms):
+    """(rows, ctas) of the grid route on a card of `sms` SMs: each CTA
+    holds `rows` = ceil(mg / sms) contiguous rows of A and B, CTA c rows
+    [c rows, min((c + 1) rows, mg)), and ceil(mg / rows) <= sms CTAs
+    cover all mg rows."""
+    rows = -(-mg // sms)
+    return rows, -(-mg // rows)
+
+
+def grid_smem_bytes(mg, rows):
+    """Shared memory of one CTA of the grid route: its rows of A and B,
+    u, g, w and 32 partial sums (csrc/fused_two_matrix.cu
+    `grid_smem_bytes`)."""
+    return 4 * (2 * rows * mg + 3 * mg + 32)
+
+
+def fwd_route(mg, card=H100_SXM):
+    """The two-matrix forward's kernel for width mg on a card of
+    `card` = (SMs, opt-in shared memory per block in bytes): "grid" (one
+    CTA on each SM holding its rows of A and B, `sm_fused_fwd_grid`)
+    while one CTA's rows fit its shared memory (to mg = 1792 on an H100
+    SXM's 132 SMs, 1664 on an H100 PCIe's 114), else "block" (one thread
+    block streaming A and B from L2, `sm_fused_fwd_block`). A choice by
+    shape, not a fallback: both give the same bits."""
+    sms, smem = card
+    rows, _ = fwd_grid_partition(mg, sms)
+    return "grid" if grid_smem_bytes(mg, rows) <= smem else "block"
 
 
 def bwd_route(mg):
@@ -396,10 +469,40 @@ def bwd_route(mg):
 
 
 @functools.lru_cache(maxsize=None)
+def _card(device):
+    """(SMs, opt-in shared memory per block in bytes) of `device`."""
+    from spheremanopt_torch.ops.cuda.build import load
+
+    with torch.cuda.device(device):
+        smem = load().sm_smem_optin()
+    if smem <= 0:
+        raise RuntimeError(f"cudaDevAttrMaxSharedMemoryPerBlockOptin failed: "
+                           f"cudaError_t {-smem}")
+    return torch.cuda.get_device_properties(device).multi_processor_count, smem
+
+
+@functools.lru_cache(maxsize=None)
+def _check_grid(device, mg, rows, ctas, series):
+    """Raise unless the card can hold the grid route's `ctas` CTAs of
+    `rows` rows at once (`sm_fused_fwd_grid_capacity`, the
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor count times the SMs).
+    A pass is remembered."""
+    from spheremanopt_torch.ops.cuda.build import load
+
+    with torch.cuda.device(device):
+        n = load().sm_fused_fwd_grid_capacity(mg, rows, int(series))
+    if n < ctas:
+        raise RuntimeError(
+            f"the grid-wide kernel sm_fused_fwd_grid (mg={mg}: {ctas} CTAs of {rows} "
+            f"rows) cannot be co-resident on {torch.cuda.get_device_name(device)}: it "
+            f"holds {n}" + ("" if n >= 0 else f" (cudaError_t {-n})"))
+
+
+@functools.lru_cache(maxsize=None)
 def _check_cluster(device, symbol, mg, variant):
     """Raise unless the card can schedule the cluster kernel `symbol`
-    ("sm_fused_fwd_shared", "sm_fused_fwd" or "sm_fused_bwd") for this mg
-    and template variant (the series, the lambda history):
+    ("sm_fused_fwd_shared", "sm_fused_bwd_shared" or "sm_fused_bwd") for
+    this mg and template variant (the series, the lambda history):
     `<symbol>_capacity`, the cudaOccupancyMaxActiveClusters count, must be
     > 0. A pass is remembered."""
     from spheremanopt_torch.ops.cuda.build import load
@@ -417,21 +520,47 @@ def fused_fwd(a, b, w, u0, c2, c3, n_steps, store_traj=True,
               store_series=False):
     """(uT, J_sum, traj or None, series or None) of N steps of
     u' = A u + B(c2 u^2 + c3 u^3). On the card the route follows
-    `fwd_route(mg)`; both give the same numbers bit for bit."""
+    `fwd_route(mg)` for that card; both give the same numbers bit for
+    bit."""
     if u0.device.type == "cpu":
         return fused_fwd_plain(a, b, w, u0, c2, c3, n_steps, store_traj,
                                store_series)
     mg = _check(n_steps, mats=[("a", a), ("b", b)],
                 vecs=[("u0", u0), ("w", w)])
+    if fwd_route(mg, _card(u0.device)) == "grid":
+        return _fwd_grid(a, b, w, u0, c2, c3, n_steps, store_traj, store_series)
+    return _fwd_block(a, b, w, u0, c2, c3, n_steps, store_traj, store_series)
+
+
+def _fwd_grid(a, b, w, u0, c2, c3, n_steps, store_traj=True,
+              store_series=False):
+    """`fused_fwd` on the grid-wide kernel (`sm_fused_fwd_grid`) at any mg
+    whose rows fit the card: raises if the card cannot hold its CTAs at
+    once. The caller has checked the shapes."""
+    mg = u0.shape[-1]
+    rows, ctas = fwd_grid_partition(mg, _card(u0.device)[0])
+    _check_grid(u0.device, mg, rows, ctas, bool(store_series))
     uT, jsum, traj, ser = _fwd_outputs(u0, n_steps, store_traj, store_series)
-    if fwd_route(mg) == "cluster":
-        _check_cluster(u0.device, "sm_fused_fwd", mg, bool(store_series))
-        symbol, counter = "sm_fused_fwd", "fused_fwd"
-    else:
-        symbol, counter = "sm_fused_fwd_block", "fused_fwd_block"
-    _launch(symbol, counter + "_ser" if store_series else counter,
+    # two slots of mg (value, step tag) words that carry u between CTAs
+    ubuf = torch.empty((4 * mg,), dtype=torch.float32, device=u0.device)
+    _launch("sm_fused_fwd_grid",
+            "fused_fwd_grid_ser" if store_series else "fused_fwd_grid",
             u0.device, a.data_ptr(), b.data_ptr(), w.data_ptr(), u0.data_ptr(),
-            c2, c3, int(n_steps), mg, uT.data_ptr(), jsum.data_ptr(),
+            c2, c3, int(n_steps), mg, rows, uT.data_ptr(), jsum.data_ptr(),
+            _ptr(traj), _ptr(ser), ubuf.data_ptr())
+    return uT, jsum, traj, ser
+
+
+def _fwd_block(a, b, w, u0, c2, c3, n_steps, store_traj=True,
+               store_series=False):
+    """`fused_fwd` on the one-block kernel (`sm_fused_fwd_block`) at any
+    mg: the route above the grid's width, and the kernel the grid is
+    held to bit for bit. The caller has checked the shapes."""
+    uT, jsum, traj, ser = _fwd_outputs(u0, n_steps, store_traj, store_series)
+    _launch("sm_fused_fwd_block",
+            "fused_fwd_block_ser" if store_series else "fused_fwd_block",
+            u0.device, a.data_ptr(), b.data_ptr(), w.data_ptr(), u0.data_ptr(),
+            c2, c3, int(n_steps), u0.shape[-1], uT.data_ptr(), jsum.data_ptr(),
             _ptr(traj), _ptr(ser))
     return uT, jsum, traj, ser
 
@@ -451,19 +580,32 @@ def fused_bwd(a, b, w, uT, traj, c2, c3, scale, n_steps, op_grads=False,
     hist = _lam_hist(uT, n_steps, op_grads, lam_hist)
     mg = _check(n_steps, mats=[("a", a), ("b", b)],
                 vecs=[("uT", uT), ("w", w)], traj=traj, scale=scale, hist=hist)
-    lam = torch.empty_like(uT)
-    if bwd_route(mg) == "cluster":
-        _check_cluster(uT.device, "sm_fused_bwd", mg, hist is not None)
-        symbol = "sm_fused_bwd"
-        counter = "fused_bwd" if hist is None else "fused_bwd_ops"
+    if bwd_route(mg) == "block":
+        lam = _bwd_block(a, b, w, uT, traj, c2, c3, scale, n_steps, hist)
     else:
-        symbol, counter = "sm_fused_bwd_block", "fused_bwd_block"
-    _launch(symbol, counter, uT.device, a.data_ptr(), b.data_ptr(),
-            w.data_ptr(), uT.data_ptr(), _ptr(traj), c2, c3, scale.data_ptr(),
-            int(n_steps), mg, lam.data_ptr(), _ptr(hist))
+        _check_cluster(uT.device, "sm_fused_bwd", mg, hist is not None)
+        lam = torch.empty_like(uT)
+        _launch("sm_fused_bwd", "fused_bwd" if hist is None else "fused_bwd_ops",
+                uT.device, a.data_ptr(), b.data_ptr(), w.data_ptr(),
+                uT.data_ptr(), _ptr(traj), c2, c3, scale.data_ptr(),
+                int(n_steps), mg, lam.data_ptr(), _ptr(hist))
     if not op_grads:
         return lam, None, None
     return (lam,) + op_grads_product(hist, traj, "two", c2, c3)
+
+
+def _bwd_block(a, b, w, uT, traj, c2, c3, scale, n_steps, lam_hist=None):
+    """lambda_0 of `fused_bwd` on the one-block kernel
+    (`sm_fused_bwd_block`, counted under `fused_bwd_block` with or
+    without the history) at any mg: the route above the cluster's width,
+    and the kernel the cluster is held to bit for bit. `scale` is 0-dim;
+    the caller has checked the shapes."""
+    lam = torch.empty_like(uT)
+    _launch("sm_fused_bwd_block", "fused_bwd_block", uT.device, a.data_ptr(),
+            b.data_ptr(), w.data_ptr(), uT.data_ptr(), _ptr(traj), c2, c3,
+            scale.data_ptr(), int(n_steps), uT.shape[-1], lam.data_ptr(),
+            _ptr(lam_hist))
+    return lam
 
 
 # ---------------------------------------------------------------------------

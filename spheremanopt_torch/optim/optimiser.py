@@ -222,7 +222,7 @@ def optimise_on_multi_sphere(
         raise ValueError(f"method must be sd|cg|lbfgs, got {method!r}")
     if checkpoint_path is not None:
         raise NotImplementedError(
-            "checkpoint_path is not ported yet (ROADMAP Queue 1 item 9)")
+            "checkpoint_path is not ported yet (ROADMAP Queue 1 item 7)")
     cg = method == "cg"
     use_wolfe = line_search == "wolfe"
     # The reference caps Wolfe at amax = alpha_0 (`Sphere_Grad_Descent.py`

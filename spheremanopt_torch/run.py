@@ -159,7 +159,7 @@ def optimise(problem, x0, defaults, args):
     if args.direction == "rtr":
         raise NotImplementedError(
             "--direction rtr: trust-region Newton is not ported yet "
-            "(ROADMAP Queue 1 item 13)")
+            "(ROADMAP Queue 1 item 3)")
     return optimise_on_multi_sphere(
         x0,
         problem.radii if hasattr(problem, "radii") else [1.0],

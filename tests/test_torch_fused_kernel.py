@@ -38,6 +38,7 @@ import torch
 
 from spheremanopt_torch.ops.cuda import build as kbuild
 from spheremanopt_torch.ops.cuda import fused_two_matrix as fk
+from spheremanopt_torch.solvers.scan_utils import kahan_add, kahan_zero
 from spheremanopt_torch.problems.swift_hohenberg import SH23Config as TConfig
 from spheremanopt_torch.problems.swift_hohenberg import SwiftHohenberg as TSH
 from spheremanopt_torch.problems.swift_hohenberg_bounded import (
@@ -498,14 +499,208 @@ def test_op_grads_split_covers_the_steps(mg, n_steps, n_out, blocks):
     assert tiles * splits == blocks
 
 
+def _grid_smem(mg, rows):
+    """Shared memory of one CTA of the grid forward (csrc/fused_two_matrix.cu
+    `grid_smem_bytes`): its rows of A and B, u, g and w, 32 warp sums."""
+    return 4 * (2 * rows * mg + 3 * mg + 32)
+
+
 @pytest.mark.parametrize("mg", range(128, 2049, 128))
 def test_forward_route_by_width(mg):
-    """The cluster while A's and B's rows fit 16 SMs' shared memory (227
-    KB each: 2 mg^2 4 / 16 bytes of rows and 4 mg floats of state), one
+    """The grid while ceil(mg / 132) rows of A and B and 3 mg + 32 floats
+    of state fit each of an H100 SXM's 132 SMs (227 KB); one block above
+    that."""
+    want = "grid" if _grid_smem(mg, -(-mg // 132)) <= 232448 else "block"
+    assert fk.fwd_route(mg) == want
+    assert (want == "grid") == (mg <= 1792)
+
+
+@pytest.mark.parametrize("mg", range(128, 2049, 128))
+def test_shared_reverse_route_by_width(mg):
+    """The shared-matrix reverse sweep's cluster while B's columns fit 16
+    SMs' shared memory (227 KB each: mg^2 4 / 16 bytes of columns, lambda
+    twice, the P x mg / 16 partial sums, w and u_n of the columns), one
     block above."""
-    smem = 2 * mg * mg * 4 // 16 + 4 * mg * 4 + 128
-    assert fk.fwd_route(mg) == ("cluster" if mg <= fk.CLUSTER_MG_MAX else "block")
-    assert (smem <= 232448) == (mg <= fk.CLUSTER_MG_MAX)
+    phases = 1024 // (mg // 4)
+    smem = 4 * (mg * mg // 16 + 2 * mg + phases * mg // 16 + 2 * mg // 16)
+    assert fk.shared_bwd_route(mg) == (
+        "cluster" if mg <= fk.SHARED_CLUSTER_MG_MAX else "block")
+    assert (smem <= 232448) == (mg <= fk.SHARED_CLUSTER_MG_MAX)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+@pytest.mark.parametrize("mg", range(128, 1793, 128))
+def test_forward_grid_partition_covers_every_row_once(mg, sms):
+    """The grid route's rows: ceil(mg / rows) <= sms CTAs of `rows`
+    contiguous rows (the last one short or full) cover 0 .. mg - 1 once;
+    on the H100 SXM's 132 SMs every width of the route fits a block's
+    shared memory."""
+    rows, ctas = fk.fwd_grid_partition(mg, sms)
+    assert 1 <= ctas <= sms
+    owned = [r for c in range(ctas) for r in range(c * rows, min((c + 1) * rows, mg))]
+    assert owned == list(range(mg))
+    assert all(min((c + 1) * rows, mg) > c * rows for c in range(ctas))
+    assert fk.grid_smem_bytes(mg, rows) == _grid_smem(mg, rows)
+    if sms == 132:
+        assert _grid_smem(mg, rows) <= 232448
+
+
+@pytest.mark.parametrize("sms,top", [(132, 1792), (114, 1664), (78, 1408)])
+def test_forward_grid_route_follows_the_card(sms, top):
+    """The grid route's widest mg depends on the card: it takes a width
+    while ceil(mg / SMs) rows of A and B and the state fit one block's
+    227 KB (an H100 SXM has 132 SMs, an H100 PCIe 114), and the one-block
+    kernel takes every width above it, never the grid."""
+    card = (sms, 232448)
+    for mg in range(128, 2049, 128):
+        rows, _ = fk.fwd_grid_partition(mg, sms)
+        fits = _grid_smem(mg, rows) <= 232448
+        assert fk.fwd_route(mg, card) == ("grid" if fits else "block")
+        assert fits == (mg <= top)
+
+
+@pytest.fixture
+def one_thread():
+    """Step loops of small torch ops: with several test workers on one
+    host, torch's intra-op threads fight over the cores. One thread is as
+    fast alone and does not degrade."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cluster_reverse(b, w, uT, traj, c2, c3, lin, scale, n, lam_hist):
+    """The shared-matrix reverse cluster (csrc/fused_shared.cu) in plain
+    torch: rank r of 16 owns columns [r C, (r + 1) C), C = mg / 16; its
+    thread (p, col) sums rows p, p + P, ... of its column in ascending
+    order (P = 1024 / (mg / 4), the one-block kernel's row phases); each
+    entry adds the P partials in phase order and applies the update from
+    the rank's slice of u_n. Row n of lam_hist gets lambda_{n+1}."""
+    mg = b.shape[0]
+    C, P = mg // 16, 1024 // (mg // 4)
+    assert P * C <= 256   # one thread of a 256-thread CTA per (phase, column)
+    lam = scale * (w * uT)
+    for k in range(n):
+        row = n - 1 - k
+        u = traj[row]
+        lam_hist[row] = lam
+        new = torch.empty_like(lam)
+        for r in range(16):
+            cols = slice(r * C, (r + 1) * C)
+            part = torch.zeros((P, C), dtype=lam.dtype)
+            for m in range(-(-mg // P)):   # the m-th term of each phase's chain
+                i = torch.arange(m * P, min((m + 1) * P, mg))
+                part[: len(i)] += b[i, cols] * lam[i, None]
+            wb = torch.zeros(C, dtype=lam.dtype)
+            for q in range(P):
+                wb = wb + part[q]
+            uc = u[cols]
+            new[cols] = (lin + 2.0 * c2 * uc + 3.0 * c3 * uc * uc) * wb + scale * (w[cols] * uc)
+        lam = new
+    return lam
+
+
+@pytest.mark.parametrize("mg", [128, 256])
+def test_shared_cluster_reverse_partition_matches_plain(mg, one_thread):
+    """The cluster reverse's column partition and summation order (plain
+    torch, f32) against `fused_bwd_shared_plain` on SH23's operators at
+    width mg (npts = mg / 2), N = 20: lambda_0 and the lambda history
+    within rel 1e-6 (f32 sums in another order over 20 steps)."""
+    p = TSH(TConfig(npts=mg // 2, dtype="float32", method="matmul"), device="cpu")
+    b = p._Mt.float().contiguous()
+    w = torch.full((mg,), 1.0 / mg)
+    x = torch.as_tensor(np.random.RandomState(mg).randn(mg), dtype=torch.float32)
+    u0 = torch.mv(p._Pt.float(), x) * 0.3
+    lin, n = 1.0 / p.cfg.dt, 20
+    uT, _, traj, _ = fk.fused_fwd_shared_plain(b, w, u0, C2, C3, lin, n)
+    scale = torch.tensor(-2.0 * p.cfg.dt, dtype=torch.float32)
+    hist_p, hist_c = torch.empty_like(traj), torch.empty_like(traj)
+    lam_p, _ = fk.fused_bwd_shared_plain(b, w, uT, traj, C2, C3, lin, scale, n,
+                                         lam_hist=hist_p)
+    lam_c = _cluster_reverse(b, w, uT, traj, C2, C3, lin, scale, n, hist_c)
+    assert _rel(lam_c, lam_p) < 1e-6 and _rel(hist_c, hist_p) < 1e-6
+
+
+def _lane_dots(arows, u, brows, g):
+    """Each row's A u + B g as a warp forms it (csrc/fused_two_matrix.cu
+    fwd_dot4): lane l sums the float4s k = l + 32 i in ascending i, each
+    float4 the four products of A and u, then those of B and g; then the
+    butterfly of warp_sum over the 32 lanes."""
+    nr, mg = arows.shape
+    cols = lambda t: t.reshape(-1, mg // 128, 32, 4)   # (rows, i, lane, 4)
+    a4, b4 = cols(arows), cols(brows)
+    u4, g4 = cols(u[None]), cols(g[None])
+    s = torch.zeros((nr, 32), dtype=arows.dtype)
+    for i in range(mg // 128):
+        pa, pb = a4[:, i] * u4[:, i], b4[:, i] * g4[:, i]
+        s = s + (((pa[..., 0] + pa[..., 1]) + pa[..., 2]) + pa[..., 3])
+        s = s + (((pb[..., 0] + pb[..., 1]) + pb[..., 2]) + pb[..., 3])
+    return _butterfly(s)[:, 0]
+
+
+def _butterfly(v):
+    """warp_sum over the last axis (32 lanes): v_l += v_{l xor off} for
+    off = 16, 8, 4, 2, 1; every lane ends with the same sum."""
+    lane = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[..., lane ^ off]
+    return v
+
+
+def _energy_tree(u, w):
+    """sum_j w_j u_j^2 as the one-block kernels' block_sum forms it (and
+    energy_partials reproduces it): reference thread j of 1024 holds
+    w u^2 of j, plus that of j + 1024 above mg = 1024; warp sums; the sum
+    of the 32 warp sums."""
+    mg = u.shape[0]
+    e = torch.zeros(2048, dtype=u.dtype)
+    e[:mg] = w * u * u
+    part = e[:1024] + e[1024:]
+    return _butterfly(_butterfly(part.reshape(32, 32))[:, 0])[0]
+
+
+def _grid_forward(a, b, w, u0, c2, c3, n, sms):
+    """The grid-wide forward (csrc/fused_two_matrix.cu) in plain torch:
+    CTA c of `fwd_grid_partition(mg, sms)` computes its rows of
+    u_{n+1} = A u_n + B g(u_n) from all of u_n; the energies by the
+    reduction tree, Kahan-summed. (u_T, J_sum, traj, series)."""
+    mg = a.shape[0]
+    rows, ctas = fk.fwd_grid_partition(mg, sms)
+    acc, u, traj, ser = kahan_zero(u0.dtype, u0.device), u0, [], []
+    for _ in range(n):
+        traj.append(u)
+        ser.append(_energy_tree(u, w))
+        acc = kahan_add(acc, ser[-1])
+        g = c2 * u * u + c3 * u * u * u
+        nxt = torch.empty_like(u)
+        for c in range(ctas):
+            r = slice(c * rows, min((c + 1) * rows, mg))
+            nxt[r] = _lane_dots(a[r], u, b[r], g)
+        u = nxt
+    ser.append(_energy_tree(u, w))
+    acc = kahan_add(acc, ser[-1])
+    return u, acc[0], torch.stack(traj), torch.stack(ser)
+
+
+def test_grid_forward_partition_matches_plain(one_thread):
+    """The grid forward's row partition on 132 SMs, lane order and energy
+    tree (plain torch, f32) against `fused_fwd_plain` on SHB23's operators
+    at mg = 768, N = 10: u_T, J, the trajectory and the series within rel
+    1e-6 (f32 sums in another order). The energy tree at mg = 1536 (two
+    terms a reference thread) within rel 1e-6 of the plain sum."""
+    p = TSHB(TBConfig(npts=768, dtype="float32", method="matmul"), device="cpu")
+    a, b = p._Alt.float().contiguous(), p._Ant.float().contiguous()
+    w = p._wt.float().contiguous()
+    u0 = torch.as_tensor(np.random.RandomState(3).randn(768), dtype=torch.float32)
+    u0 = u0 * torch.sqrt(p.cfg.m0 / torch.sum(w * u0 * u0))
+    got = _grid_forward(a, b, w, u0, C2B, C3B, 10, 132)
+    want = fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, 10, store_series=True)
+    for x, y in zip(got, want):
+        assert _rel(x, y) < 1e-6
+    rs = np.random.RandomState(4)
+    u, ww = (torch.as_tensor(rs.rand(1536), dtype=torch.float32) for _ in range(2))
+    assert _rel(_energy_tree(u, ww), torch.sum(ww * u * u)) < 1e-6
 
 
 @pytest.mark.parametrize("mg", range(128, 2049, 128))
@@ -589,9 +784,10 @@ def test_kernel_wrappers_reject_what_they_cannot_run(cuda):
 @pytest.mark.parametrize("npts", [128, 512])
 def test_op_grads_kernels_match_plain_on_card(cuda, npts):
     """op_grads=True on the card: the reverse kernel with its lambda
-    history, then the product kernel, vs the step-by-step plain f32 sweep
-    on the same inputs (rel 1e-4); lambda_0 bitwise that of the kernel
-    without the history."""
+    history (the cluster at mg = 256, the one-block route at mg = 1024),
+    then the product kernel, vs the step-by-step plain f32 sweep on the
+    same inputs (rel 1e-4); lambda_0 bitwise that of the kernel without
+    the history."""
     p = TSH(TConfig(npts=npts, dtype="float32", method="cuda"), device=cuda)
     mg = p.basis.n_grid
     x = torch.as_tensor(np.random.RandomState(1).randn(mg), dtype=torch.float32,
@@ -604,8 +800,9 @@ def test_op_grads_kernels_match_plain_on_card(cuda, npts):
     fk.reset_launches()
     lk, dbk = fk.fused_bwd_shared(b, w, uT, tr, C2, C3, lin, scale, n, op_grads=True)
     torch.cuda.synchronize()
-    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
-        "fused_bwd_shared_ops": 1, "op_grads": 1}
+    sweep = ("fused_bwd_shared_ops" if fk.shared_bwd_route(mg) == "cluster"
+             else "fused_bwd_shared_block")
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {sweep: 1, "op_grads": 1}
     l0, _ = fk.fused_bwd_shared(b, w, uT, tr, C2, C3, lin, scale, n)
     lr, dbr = fk.fused_bwd_shared_plain(b, w, uT, tr, C2, C3, lin, scale, n,
                                         op_grads=True)
@@ -640,7 +837,7 @@ def test_two_matrix_kernels_match_plain_on_card(cuda, npts):
     lr, _, _ = fk.fused_bwd_plain(a, b, w, k[0], k[2], C2B, C3B, scale, n)
     torch.cuda.synchronize()
     assert {k_: v for k_, v in fk.LAUNCHES.items() if v} == {
-        "fused_fwd": 1, "fused_fwd_ser": 1, "fused_bwd": 1}
+        "fused_fwd_grid": 1, "fused_fwd_grid_ser": 1, "fused_bwd": 1}
     for got, want in [(k[0], r[0]), (k[1], r[1]), (k[2], r[2]), (ks[3], r[3]),
                       (lk, lr)]:
         assert _rel(got.cpu(), want.cpu()) < 1e-4
@@ -731,37 +928,29 @@ def test_op_grads_product_matches_plain_on_card(cuda, mg, n, mode):
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
-def _fwd_block(a, b, w, u0, n, store_series):
-    """The one-block forward kernel called directly, at any mg."""
-    uT, jsum, traj, ser = fk._fwd_outputs(u0, n, True, store_series)
-    fk._launch("sm_fused_fwd_block", "fused_fwd_block", u0.device, a.data_ptr(),
-               b.data_ptr(), w.data_ptr(), u0.data_ptr(), C2B, C3B, n, a.shape[0],
-               uT.data_ptr(), jsum.data_ptr(), traj.data_ptr(), fk._ptr(ser))
-    return uT, jsum, traj, ser
-
-
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("npts,n", [(128, 300), (512, 300), (1024, 200)])
+@pytest.mark.parametrize("npts,n", [(128, 300), (512, 300), (1024, 200), (2048, 100)])
 def test_two_matrix_forward_routes_match_plain_on_card(cuda, npts, n):
-    """Both routes of the two-matrix forward (the cluster up to mg = 640,
-    one block above) against plain f32, rel 1e-4; with and without the
-    series J, u_T and the trajectory bitwise; the cluster's bitwise the
-    one-block kernel's on the same inputs."""
+    """The two routes of the two-matrix forward (the grid-wide kernel up
+    to mg = 1792 on an H100 SXM, so at 128, 512 and 1024, one block
+    above) against plain f32, rel 1e-4; with and without the series J,
+    u_T and the trajectory bitwise; each route's bitwise the one-block
+    kernel's on the same inputs."""
     a, b, w, u0 = _card_shb23(cuda, npts)
-    route = fk.fwd_route(npts)
+    route = fk.fwd_route(npts, fk._card(cuda))
     fk.reset_launches()
     k = fk.fused_fwd(a, b, w, u0, C2B, C3B, n)
     ks = fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True)
     torch.cuda.synchronize()
-    name = "fused_fwd" if route == "cluster" else "fused_fwd_block"
-    assert route == ("cluster" if npts <= 640 else "block")
+    name = {"grid": "fused_fwd_grid", "block": "fused_fwd_block"}[route]
+    assert route == ("grid" if npts <= 1792 else "block")
     assert {k_: v for k_, v in fk.LAUNCHES.items() if v} == {name: 1, name + "_ser": 1}
     r = fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n, store_series=True)
     for got, want in [(k[0], r[0]), (k[1], r[1]), (k[2], r[2]), (ks[3], r[3])]:
         assert _rel(got.cpu(), want.cpu()) < 1e-4
     for x, y in zip(k[:3], ks[:3]):
         assert torch.equal(x, y)
-    blk = _fwd_block(a, b, w, u0, n, True)
+    blk = fk._fwd_block(a, b, w, u0, C2B, C3B, n, True, True)
     for x, y in zip(ks, blk):
         assert torch.equal(x, y)
 
@@ -773,15 +962,6 @@ def test_two_matrix_forward_rejects_widths_neither_route_takes(cuda):
         v = torch.zeros(mg, device=cuda)
         with pytest.raises(ValueError, match="mg"):
             fk.fused_fwd(a, a, v, v, C2B, C3B, 4)
-
-
-def _bwd_block(a, b, w, uT, traj, scale, n, lam_hist=None):
-    """The one-block reverse kernel called directly, at any mg."""
-    lam = torch.empty_like(uT)
-    fk._launch("sm_fused_bwd_block", "fused_bwd_block", uT.device, a.data_ptr(),
-               b.data_ptr(), w.data_ptr(), uT.data_ptr(), traj.data_ptr(), C2B, C3B,
-               scale.data_ptr(), n, a.shape[0], lam.data_ptr(), fk._ptr(lam_hist))
-    return lam
 
 
 def _reverse_inputs(cuda, mg, n):
@@ -812,7 +992,7 @@ def test_cluster_reverse_bitwise_the_block_reverse_on_card(cuda, mg, hist):
     torch.cuda.synchronize()
     assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
         "fused_bwd_ops" if hist else "fused_bwd": 1}
-    lam_b = _bwd_block(a, b, w, uT, traj, sc, n, h_b)
+    lam_b = fk._bwd_block(a, b, w, uT, traj, C2B, C3B, sc, n, h_b)
     other = fk.fused_bwd(a, b, w, uT, traj, C2B, C3B, sc, n,
                          lam_hist=None if hist else torch.empty_like(traj))[0]
     torch.cuda.synchronize()
@@ -844,16 +1024,6 @@ def test_reverse_route_by_width_on_card(cuda, mg):
     assert _rel(lam.cpu(), lam_p.cpu()) < 1e-4
 
 
-def _fwd_shared_block(b, w, u0, lin, n, store_series):
-    """The one-block shared-matrix forward kernel called directly, at any
-    mg."""
-    uT, jsum, traj, ser = fk._fwd_outputs(u0, n, True, store_series)
-    fk._launch("sm_fused_fwd_shared_block", "fused_fwd_shared_block", u0.device,
-               b.data_ptr(), w.data_ptr(), u0.data_ptr(), C2, C3, lin, n, b.shape[0],
-               uT.data_ptr(), jsum.data_ptr(), traj.data_ptr(), fk._ptr(ser))
-    return uT, jsum, traj, ser
-
-
 def _shared_inputs(cuda, mg):
     """SH23's f32 step matrix and lin = 1/dt at width mg (npts = mg / 2),
     w = 1 / mg, and a seeded u0 = 0.3 P x."""
@@ -879,7 +1049,7 @@ def test_shared_cluster_forward_bitwise_the_block_forward_on_card(cuda, mg):
     torch.cuda.synchronize()
     assert {k_: v for k_, v in fk.LAUNCHES.items() if v} == {
         "fused_fwd_shared": 1, "fused_fwd_shared_ser": 1}
-    blk = _fwd_shared_block(b, w, u0, lin, n, True)
+    blk = fk._fwd_shared_block(b, w, u0, C2, C3, lin, n, True, True)
     torch.cuda.synchronize()
     for x, y in zip(ks, blk):
         assert torch.equal(x, y)
@@ -923,29 +1093,125 @@ def test_shared_forward_rejects_widths_neither_route_takes(cuda):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("symbol", ["sm_fused_fwd", "sm_fused_bwd", "sm_fused_fwd_shared"])
-def test_cluster_capacity_of_zero_raises(cuda, symbol, monkeypatch):
-    """A cluster the card cannot schedule (capacity 0) raises; nothing
-    falls back to the one-block kernel."""
+@pytest.mark.parametrize("symbol,mg", [
+    ("sm_fused_fwd_grid", 512), ("sm_fused_bwd", 128), ("sm_fused_fwd_shared", 128),
+    ("sm_fused_bwd_shared", 128), ("sm_fused_fwd_grid", 1024)])
+def test_cluster_capacity_of_zero_raises(cuda, symbol, mg, monkeypatch):
+    """A cluster the card cannot schedule (capacity 0), and a grid-wide
+    kernel whose CTAs the card cannot hold at once, raise; nothing falls
+    back to the one-block kernel. (The grid at SHB23's width replaces the
+    case of the cluster forward it replaced.)"""
     from spheremanopt_torch.ops.cuda import build
 
     class NoClusters:
         def __getattr__(self, name):
             if name.endswith("_capacity"):
-                return lambda mg, variant: 0
+                return lambda *args: 0
+            if name == "sm_smem_optin":
+                return lambda: 232448
             raise AssertionError(f"{name} must not be called")
 
     monkeypatch.setattr(build, "load", lambda: NoClusters())
-    fk._check_cluster.cache_clear()
-    a, b, w, uT, traj, sc = _reverse_inputs(cuda, 128, 4)
+    for cache in (fk._check_cluster, fk._check_grid, fk._card):
+        cache.cache_clear()
+    a, b, w, uT, traj, sc = _reverse_inputs(cuda, mg, 4)
     fk.reset_launches()
-    with pytest.raises(RuntimeError, match="cannot be scheduled"):
-        if symbol == "sm_fused_fwd":
+    with pytest.raises(RuntimeError, match="cannot be (scheduled|co-resident)"):
+        if symbol == "sm_fused_fwd_grid":
             fk.fused_fwd(a, b, w, uT, C2B, C3B, 4)
         elif symbol == "sm_fused_fwd_shared":
             fk.fused_fwd_shared(b, w, uT, C2, C3, 20.0, 4)
+        elif symbol == "sm_fused_bwd_shared":
+            fk.fused_bwd_shared(b, w, uT, traj, C2, C3, 20.0, sc, 4)
         else:
             fk.fused_bwd(a, b, w, uT, traj, C2B, C3B, sc, 4)
     assert not any(fk.LAUNCHES.values())
     monkeypatch.undo()
-    fk._check_cluster.cache_clear()
+    for cache in (fk._check_cluster, fk._check_grid, fk._card):
+        cache.cache_clear()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("hist", [False, True])
+@pytest.mark.parametrize("mg", [128, 512, 896])
+def test_shared_cluster_reverse_bitwise_the_block_reverse_on_card(cuda, mg, hist):
+    """The 16-CTA cluster reverse sweep of the shared-matrix step against
+    the one-block kernel on the same inputs: lambda_0 and the lambda
+    history bitwise; lambda_0 bitwise across the two history
+    instantiations; within 1e-4 of plain f32."""
+    b, w, u0, lin = _shared_inputs(cuda, mg)
+    n = 300
+    uT, _, traj, _ = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n)
+    sc = torch.tensor(-0.1, device=cuda)
+    h_c = torch.empty_like(traj) if hist else None
+    h_b = torch.empty_like(traj) if hist else None
+    fk.reset_launches()
+    lam_c = fk.fused_bwd_shared(b, w, uT, traj, C2, C3, lin, sc, n, lam_hist=h_c)[0]
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        "fused_bwd_shared_ops" if hist else "fused_bwd_shared": 1}
+    lam_b = fk._bwd_shared_block(b, w, uT, traj, C2, C3, lin, sc, n, h_b)
+    other = fk.fused_bwd_shared(b, w, uT, traj, C2, C3, lin, sc, n,
+                                lam_hist=None if hist else torch.empty_like(traj))[0]
+    torch.cuda.synchronize()
+    assert torch.equal(lam_c, lam_b) and torch.equal(lam_c, other)
+    if hist:
+        assert torch.equal(h_c, h_b)
+    lam_p = fk.fused_bwd_shared_plain(b, w, uT, traj, C2, C3, lin, sc, n)[0]
+    assert _rel(lam_c.cpu(), lam_p.cpu()) < 1e-4
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mg", [512, 1024])
+def test_shared_reverse_route_by_width_on_card(cuda, mg):
+    """`shared_bwd_route` picks the kernel by mg: the launch counters show
+    the cluster up to 896 and the one-block kernel above, both variants
+    of the latter under `fused_bwd_shared_block`; lambda within 1e-4 of
+    plain f32."""
+    b, w, u0, lin = _shared_inputs(cuda, mg)
+    n = 200
+    uT, _, traj, _ = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n)
+    sc = torch.tensor(-0.1, device=cuda)
+    fk.reset_launches()
+    lam = fk.fused_bwd_shared(b, w, uT, traj, C2, C3, lin, sc, n)[0]
+    lam_h = fk.fused_bwd_shared(b, w, uT, traj, C2, C3, lin, sc, n,
+                                lam_hist=torch.empty_like(traj))[0]
+    torch.cuda.synchronize()
+    assert fk.shared_bwd_route(mg) == ("cluster" if mg <= 896 else "block")
+    want = ({"fused_bwd_shared": 1, "fused_bwd_shared_ops": 1}
+            if fk.shared_bwd_route(mg) == "cluster" else {"fused_bwd_shared_block": 2})
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == want
+    assert torch.equal(lam, lam_h)
+    lam_p = fk.fused_bwd_shared_plain(b, w, uT, traj, C2, C3, lin, sc, n)[0]
+    assert _rel(lam.cpu(), lam_p.cpu()) < 1e-4
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("npts", [128, 512, 768, 1024, 1792])
+def test_grid_forward_bitwise_the_block_forward_on_card(cuda, npts):
+    """The grid-wide two-matrix forward against the one-block kernel on
+    the same inputs (SHB23's operators from one row a CTA at mg = 128 to
+    the route's top width on an H100 SXM): u_T, J, the trajectory and
+    the series bitwise, with and without the series; the same bits on a
+    second call; within 1e-4 of plain f32."""
+    a, b, w, u0 = _card_shb23(cuda, npts)
+    n = 200
+    assert fk.fwd_route(npts, fk._card(cuda)) == "grid"
+    fk.reset_launches()
+    k = fk.fused_fwd(a, b, w, u0, C2B, C3B, n)
+    ks = fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True)
+    torch.cuda.synchronize()
+    assert {k_: v for k_, v in fk.LAUNCHES.items() if v} == {
+        "fused_fwd_grid": 1, "fused_fwd_grid_ser": 1}
+    blk = fk._fwd_block(a, b, w, u0, C2B, C3B, n)
+    blk_s = fk._fwd_block(a, b, w, u0, C2B, C3B, n, True, True)
+    again = fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True)
+    torch.cuda.synchronize()
+    for x, y, z in zip(k[:3], blk[:3], ks[:3]):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    for x, y, z in zip(ks, blk_s, again):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    r = fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n, store_series=True)
+    for got, want in zip(ks, r):
+        assert _rel(got.cpu(), want.cpu()) < 1e-4
+

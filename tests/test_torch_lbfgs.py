@@ -209,5 +209,5 @@ def test_cli_direction_lbfgs_and_rtr(tmp_path):
     assert summary["iterations"] == 4
     args = run.build_parser().parse_args(base + ["--direction", "rtr"])
     p, x0, defaults = run.make_problem(args)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 3\)"):
         run.optimise(p, x0, defaults, args)

@@ -16,8 +16,10 @@ this one); its kernels are built there at first use. By CUDA events over
     it (`lam_hist=`);
   * the SHB23 forward sweep (`fused_fwd`, with the trajectory, and with
     the series) at mg = 512, N = 2000, and at mg = 1024, N = 200 (SHB23's
-    operators at npts = 1024: the one-block route where the checkout has
-    two routes);
+    operators at npts = 1024: the checkout's route at that width); where
+    the checkout has them, the one-block kernel `sm_fused_fwd_block`
+    called directly at mg = 1024; and `fused_fwd` at mg = 128, 256, 384
+    and 640 (N = 2000, seeded operators), on the checkout's route;
   * the SH23 and SHB23 fwd+grad units (`objective_and_gradient`, method
     "cuda", from `generate_ic(seed=42)`; 5 calls after 2);
   * `op_grads_product` at both widths on the sweeps' own lambda history,
@@ -33,10 +35,13 @@ this one); its kernels are built there at first use. By CUDA events over
     forward (|(b_T, J, traj)|) and the KDyn reverse sweep
     (|(b0_bar, u_bar)|) (one plain sweep each, ~10 s for each KDyn one).
 It prints one JSON line with the card's name and power limit. With
-`--save DIR` it writes the SH23 forward's u_T and trajectory, the SHB23
-forward's u_T and trajectory (mg = 512) and the SHB23 reverse sweep's
-lambda_0 to DIR/<tag>.npz, and with `--against NAME` it prints the
-largest difference of each from DIR/NAME.npz (`max_abs_<what>_vs_NAME`).
+`--save DIR` it writes the SH23 forward's u_T and trajectory, the SH23
+reverse sweep's lambda_0 and lambda history, the SHB23 forward's u_T and
+trajectory (mg = 512), the SHB23 reverse sweep's lambda_0, the SHB23
+forward's u_T, J, trajectory and series at mg = 1024 and the forward's
+u_T, J and series at mg = 128, 256, 384 and 640 to DIR/<tag>.npz,
+and with `--against NAME` it prints the largest difference of each from
+DIR/NAME.npz (`max_abs_<what>_vs_NAME`).
 Run parent, change, change, parent, each in its own process, and compare
 within one call only.
 """
@@ -162,6 +167,25 @@ def main() -> int:
                          device=dev)
     u3 = u3 * torch.sqrt(r.cfg.m0 / torch.sum(w3 * u3 * u3))
     out["shb23_fwd_1024_ms"] = gpu_ms(lambda: fk.fused_fwd(a3, b3, w3, u3, 2.0, -1.0, 200))
+    out["shb23_fwd_1024_ser_ms"] = gpu_ms(lambda: fk.fused_fwd(
+        a3, b3, w3, u3, 2.0, -1.0, 200, store_series=True))
+
+    if hasattr(fk, "_fwd_block"):   # else the checkout's route at mg = 1024 is the block
+        out["shb23_fwd_1024_block_ms"] = gpu_ms(
+            lambda: fk._fwd_block(a3, b3, w3, u3, 2.0, -1.0, 200))
+        out["shb23_fwd_1024_block_ser_ms"] = gpu_ms(
+            lambda: fk._fwd_block(a3, b3, w3, u3, 2.0, -1.0, 200, True, True))
+    # the forward's route at the other widths up to 640 (N = 2000), on
+    # seeded operators of spectral radius ~0.5
+    narrow = {}
+    for m in (128, 256, 384, 640):
+        rs = np.random.RandomState(m)
+        am, bm = (torch.as_tensor(0.5 * rs.randn(m, m) / np.sqrt(m), dtype=torch.float32,
+                                  device=dev) for _ in range(2))
+        wm = torch.full((m,), 1.0 / m, device=dev)
+        um = torch.as_tensor(0.3 * rs.randn(m), dtype=torch.float32, device=dev)
+        narrow[m] = (am, bm, wm, um, 2.0, -1.0, n2)
+        out[f"fwd_{m}_ms"] = gpu_ms(lambda o=narrow[m]: fk.fused_fwd(*o))
     x2 = q.generate_ic(seed=42)
     out["shb23_unit_ms"] = gpu_ms(lambda: q.objective_and_gradient(x2), 5)
     lam2 = fk.fused_bwd(a2, b2, w2, uT2, tr2, 2.0, -1.0, sc2, n2)[0]
@@ -214,6 +238,17 @@ def main() -> int:
     if args.save:
         os.makedirs(args.save, exist_ok=True)
         saved = dict(sh23_uT=uT, sh23_traj=tr, uT=uT2, traj=tr2, lam0=lam2)
+        wide = fk.fused_fwd(a3, b3, w3, u3, 2.0, -1.0, 200, store_series=True)
+        saved.update(zip(("wide_uT", "wide_J", "wide_traj", "wide_ser"), wide))
+        for m, opnds in narrow.items():
+            got = fk.fused_fwd(*opnds, store_traj=False, store_series=True)
+            saved.update({f"fwd_{m}_uT": got[0], f"fwd_{m}_J": got[1],
+                          f"fwd_{m}_ser": got[3]})
+        saved["sh23_lam0"] = fk.fused_bwd_shared(b, w, uT, tr, 1.8, -1.0, lin, sc, n)[0]
+        if has_hist:
+            hist = torch.empty_like(tr)
+            fk.fused_bwd_shared(b, w, uT, tr, 1.8, -1.0, lin, sc, n, lam_hist=hist)
+            saved["sh23_hist"] = hist
         saved = {k: v.cpu().numpy() for k, v in saved.items()}
         np.savez(os.path.join(args.save, f"{args.tag}.npz"), **saved)
         if args.against:
