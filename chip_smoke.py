@@ -31,8 +31,8 @@ Phases, one line each; any failure exits non-zero without a result line:
   A  card, power limit, torch/CUDA versions, TF32 flags (off)
   B  kernel build (nvcc, sm_90a, one process per source), timed
   C  SH23 kernels vs plain f32 vs plain f64 on the card, full width (mg =
-     512: the 16-CTA cluster routes of the forward and the reverse sweep);
-     the cluster forward's u_T, J, trajectory and series, and the cluster
+     512: the grid-wide forward and the 16-CTA cluster reverse sweep);
+     the grid forward's u_T, J, trajectory and series, and the cluster
      reverse's lambda_0 and history, bitwise the one-block kernels'
   D  SH23 CUDA-event timings: each sweep and the fwd+grad unit
   E  Taylor test of the SH23 f64 plain path (gamma2 within 0.05 of 2)
@@ -48,11 +48,12 @@ Phases, one line each; any failure exits non-zero without a result line:
      own through the fused objectives, differentiated in u0, against
      plain f32, bitwise across the series variants and (the forward)
      bitwise the one-block forward kernel called directly, timed; the
-     one-block forward route (mg > 1792) at mg = 2048, N = 200, the same
-     way; the same for SH23's one-block routes of the forward and the
-     reverse sweep (mg > 896) at mg = 1024, N = 200
+     grid-wide forward that reads the B rows that do not fit from L2
+     (mg > 1792) at mg = 2048, N = 200, the same way; the same for SH23's
+     grid-wide forward and one-block reverse (mg > 896) at mg = 1024,
+     N = 200, the forward bitwise the one-block kernel called directly
   I  CUDA-event timings: the SHB23 sweeps (grid forward, cluster reverse), both series
-     forwards and the SHB23 fwd+grad unit, kernel vs plain
+     forwards (grids) and the SHB23 fwd+grad unit, kernel vs plain
   J  Taylor test of the SHB23 f64 plain path
   K  SHB23 f64 workload (method=matmul) vs the pinned JAX f64 trajectory
   L  SHB23 f32 workload through the kernels (method=cuda): a main path,
@@ -83,9 +84,11 @@ Phases, one line each; any failure exits non-zero without a result line:
      the f64 workload (method=matmul) vs the pinned JAX f64 trajectory;
      the f64 continuous-adjoint gradient vs JAX's pinned one
 
-Each main path (G, L, M, R, S, T) runs with the launch counters set to 0 just
-before it and read just after; a kernel of that path that was not
-launched fails it. The last lines are the card, the kernels' JSON line
+Each main path (G, H, L, M, R, S, T) runs with the launch counters set to 0
+just before it and read just after; a kernel of that path that was not
+launched fails it. The kernels line lists the kernels of those paths;
+the one-block forward kernels, which no path reaches on an H100, are
+timed in phase H's line only. The last lines are the card, the kernels' JSON line
 and `{"ok": true, ...}`. Without CUDA it exits non-zero: there is no
 CPU path.
 """
@@ -142,24 +145,30 @@ KDYN_BENCH_END = (10, 2.518)
 # H100 SXM data-sheet peaks (dense f32 outside the tensor cores, dense
 # TF32 on the tensor cores, HBM3)
 F32_PEAK, TF32_PEAK, HBM_RATE = 67e12, 495e12, 3.35e12
-# the routes above the clusters' width (H): SHB23's grid-wide forward and
-# the one-block routes at BLOCK_MG, SHB23's one-block forward at WIDE_MG
+# the routes above the reverse clusters' widths (H): SHB23's grid-wide forward, its
+# one-block reverse and SH23's grid-wide forward and one-block reverse at
+# BLOCK_MG; SHB23's grid-wide forward with B rows from L2 at WIDE_MG
 BLOCK_MG, BLOCK_N, WIDE_MG = 1024, 200, 2048
 PALLAS = "spheremanopt_tpu/ops/pallas/fused_two_matrix.py"
 PALLAS_K = "spheremanopt_tpu/ops/pallas/kdyn_step.py"
 LAUNCH_TABLES = (fk, kd)   # modules that count their kernels' launches
-SOURCES = {**fk.KERNEL_SOURCES, **kd.KERNEL_SOURCES}
+# the one-block forward kernels are the route only on a card where a grid's
+# rows do not fit, so no main path on an H100 launches them: phase H holds
+# the grids to them bit for bit and prints their times, and they stay off
+# the kernels line
+REFERENCE_ONLY = ("fused_fwd_shared_block", "fused_fwd_shared_block_ser",
+                  "fused_fwd_block", "fused_fwd_block_ser")
+SOURCES = {k: v for k, v in {**fk.KERNEL_SOURCES, **kd.KERNEL_SOURCES}.items()
+           if k not in REFERENCE_ONLY}
 REPLACES = {
-    "fused_fwd_shared": f"{PALLAS}:150",        # _fwd_kernel_shared
-    "fused_fwd_shared_ser": f"{PALLAS}:150",    # same, has_ser=True
-    "fused_fwd_shared_block": f"{PALLAS}:150",  # same, mg > 896
-    "fused_fwd_shared_block_ser": f"{PALLAS}:150",  # same, mg > 896, has_ser=True
+    "fused_fwd_shared_grid": f"{PALLAS}:150",   # _fwd_kernel_shared
+    "fused_fwd_shared_grid_ser": f"{PALLAS}:150",   # same, has_ser=True
     "fused_bwd_shared": f"{PALLAS}:185",        # _bwd_kernel_shared
     "fused_bwd_shared_block": f"{PALLAS}:185",  # same, mg > 896
     "fused_fwd_grid": f"{PALLAS}:60",           # _fwd_kernel, mg <= 1792 (H100 SXM)
     "fused_fwd_grid_ser": f"{PALLAS}:60",       # same, has_ser=True
-    "fused_fwd_block": f"{PALLAS}:60",          # same, mg > 1792
-    "fused_fwd_block_ser": f"{PALLAS}:60",      # same, mg > 1792, has_ser=True
+    "fused_fwd_grid_stream": f"{PALLAS}:60",    # same, mg > 1792 (H100 SXM)
+    "fused_fwd_grid_stream_ser": f"{PALLAS}:60",    # same, mg > 1792, has_ser=True
     "fused_bwd": f"{PALLAS}:102",               # _bwd_kernel
     "fused_bwd_block": f"{PALLAS}:102",         # same, mg > 640
     "kdyn_fwd": f"{PALLAS_K}:411",              # _fwd_kernel
@@ -424,12 +433,12 @@ class Smoke:
         lam_k, _ = fk.fused_bwd_shared(b, w, uT_k, tr_k, C2, C3, lin, scale, n)
         lam_p, _ = fk.fused_bwd_shared_plain(b, w, uT_k, tr_k, C2, C3, lin, scale, n)
         torch.cuda.synchronize()
-        launched = {k: fk.LAUNCHES[k] for k in ("fused_fwd_shared", "fused_bwd_shared")}
+        launched = {k: fk.LAUNCHES[k] for k in ("fused_fwd_shared_grid", "fused_bwd_shared")}
         e_fwd = max(rel(uT_k, uT_p), rel(tr_k, tr_p), rel(js_k, js_p))
         e_bwd = rel(lam_k, lam_p)
         abs_fwd = max_abs([(uT_k, uT_p), (tr_k, tr_p), (js_k, js_p)])
         abs_bwd = max_abs([(lam_k, lam_p)])
-        self.kernels["fused_fwd_shared"]["max_abs_err"] = abs_fwd
+        self.kernels["fused_fwd_shared_grid"]["max_abs_err"] = abs_fwd
         self.kernels["fused_bwd_shared"]["max_abs_err"] = abs_bwd
         self.check("C", e_fwd <= TOL_VS_PLAIN and e_bwd <= TOL_VS_PLAIN,
                    f"kernel vs plain f32 (mg={b.shape[0]}, N={n}): fwd rel "
@@ -437,14 +446,14 @@ class Smoke:
                    f"(abs {abs_bwd:.2e}), tol {TOL_VS_PLAIN:g}")
         self.check("C", all(v > 0 for v in launched.values()),
                    f"launch counters moved: {launched}")
-        # the cluster route against the one-block kernel on the same inputs
+        # the grid route against the one-block kernel on the same inputs
         ks = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n, store_series=True)
         blk = fk._fwd_shared_block(b, w, u0, C2, C3, lin, n, True, True)
         torch.cuda.synchronize()
         same = ([torch.equal(x, y) for x, y in zip(ks, blk)]
                 + [torch.equal(x, y) for x, y in zip((uT_k, js_k, tr_k), ks)])
-        route = fk.shared_fwd_route(b.shape[0])
-        self.check("C", route == "cluster" and all(same),
+        route = fk.shared_fwd_route(b.shape[0], fk._card(dev))
+        self.check("C", route == "grid" and all(same),
                    f"SH23 forward route {route!r}: u_T, J, trajectory and series "
                    f"bitwise the one-block kernel's, and the series variant's bitwise "
                    f"the plain one's: {same}")
@@ -492,7 +501,7 @@ class Smoke:
             lambda: self.p_plain32.objective_and_gradient(self.x32),
             lambda: self.p_cuda.objective_and_gradient(self.x32), 3, 20)
         mg = b.shape[0]
-        self.kernels["fused_fwd_shared"].update(
+        self.kernels["fused_fwd_shared_grid"].update(
             ms=f_k, plain_ms=f_pl, work=sweep_work(mg, n, 1, fwd=True))
         self.kernels["fused_bwd_shared"].update(
             ms=b_k, plain_ms=b_pl, work=sweep_work(mg, n, 1, fwd=False))
@@ -566,7 +575,7 @@ class Smoke:
 
     def phase_g(self):
         self.f32_workload("G", "sh23", self.ref,
-                          ("fused_fwd_shared", "fused_bwd_shared"),
+                          ("fused_fwd_shared_grid", "fused_bwd_shared"),
                           lambda a, b: abs(a - b) <= FV0_ATOL, (5, 200))
 
     # -- SHB23 --------------------------------------------------------------
@@ -618,7 +627,7 @@ class Smoke:
         torch.cuda.synchronize()
         s_pairs = [(sks[0], sr[0]), (sks[1], sr[1]), (sks[2], sr[2]), (sks[3], sr[3])]
         e_s = max(rel(x, y) for x, y in s_pairs)
-        self.kernels["fused_fwd_shared_ser"]["max_abs_err"] = max_abs(s_pairs)
+        self.kernels["fused_fwd_shared_grid_ser"]["max_abs_err"] = max_abs(s_pairs)
         same_s = [torch.equal(x, y) for x, y in zip(sk[:3], sks[:3])] + [torch.equal(sl, sls)]
         self.check("H", e_s <= TOL_VS_PLAIN and all(same_s),
                    f"SH23 series variant vs plain f32 rel {e_s:.2e} (tol "
@@ -645,7 +654,7 @@ class Smoke:
                    f"{TOL_VS_F64:g} / {TOL_G_VS_F64_SHB:g}")
         self.block_route(p.cfg.dt)
         self.wide_route(p.cfg.dt)
-        self.shared_block_route()
+        self.shared_wide_route()
 
     def block_route(self, dt):
         """The two-matrix sweeps above the reverse cluster's width: SHB23's
@@ -712,11 +721,13 @@ class Smoke:
                    f"{b_k:.3f} ms vs plain {b_pl:.3f} ms")
 
     def wide_route(self, dt):
-        """The two-matrix forward above the grid's width: SHB23's operators
-        at npts = 2048 take the one-block forward. Its main path is the
-        fused objectives (with the one-block reverse); then the kernel
-        against plain f32 and across the series variants, and its
-        times."""
+        """The two-matrix forward above the width where all of a CTA's B
+        rows fit: SHB23's operators at npts = 2048 take the grid-wide
+        forward that reads the B rows that do not fit from L2. Its main
+        path is the fused objectives (with the one-block reverse); then
+        the kernel against plain f32, across the series variants and
+        bitwise the one-block forward kernel called directly, and their
+        times (the one-block kernel's in this phase's line only)."""
         q, _, _ = cli.make_problem(problem_args("shb23", "float32", "cuda", "--npts",
                                                 str(WIDE_MG)))
         ops = operators_to_torch(shb23_operators(q), q.device)
@@ -724,45 +735,60 @@ class Smoke:
         u0 = q.generate_ic(seed=42)[0]
         n = BLOCK_N
         J, grad, (Jd, ser, _) = self.main_path(
-            "H", ("fused_fwd_block", "fused_fwd_block_ser", "fused_bwd_block"),
+            "H", ("fused_fwd_grid_stream", "fused_fwd_grid_stream_ser", "fused_bwd_block"),
             two_matrix_objectives(a, b, w, u0, dt, n),
-            record=("fused_fwd_block", "fused_fwd_block_ser"))
+            record=("fused_fwd_grid_stream", "fused_fwd_grid_stream_ser"))
         k = fk.fused_fwd(a, b, w, u0, C2B, C3B, n)
         ks = fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True)
+        blk = fk._fwd_block(a, b, w, u0, C2B, C3B, n)
+        blk_s = fk._fwd_block(a, b, w, u0, C2B, C3B, n, True, True)
         r = fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n, store_series=True)
         torch.cuda.synchronize()
         pairs, ser_pairs = list(zip(k[:3], r[:3])), list(zip(ks, r))
         e = max(rel(x, y) for x, y in pairs + ser_pairs + [(J, -dt * r[1])])
         same = ([torch.equal(x, y) for x, y in zip(k[:3], ks[:3])]
                 + [torch.equal(J, Jd), torch.equal(ser, ks[3])])
-        self.kernels["fused_fwd_block"]["max_abs_err"] = max_abs(pairs)
-        self.kernels["fused_fwd_block_ser"]["max_abs_err"] = max_abs(ser_pairs)
+        same_blk = ([torch.equal(x, y) for x, y in zip(k[:3], blk[:3])]
+                    + [torch.equal(x, y) for x, y in zip(ks, blk_s)])
+        self.kernels["fused_fwd_grid_stream"]["max_abs_err"] = max_abs(pairs)
+        self.kernels["fused_fwd_grid_stream_ser"]["max_abs_err"] = max_abs(ser_pairs)
         f_pl, f_k = interleaved_ms(
             lambda: fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n),
-            lambda: fk.fused_fwd(a, b, w, u0, C2B, C3B, n), 1, 2, warm_plain=1)
+            lambda: fk.fused_fwd(a, b, w, u0, C2B, C3B, n), 1, 10, warm_plain=1)
         fs_pl, fs_k = interleaved_ms(
             lambda: fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n, store_series=True),
-            lambda: fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True), 1, 2,
+            lambda: fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True), 1, 10,
             warm_plain=1)
-        self.kernels["fused_fwd_block"].update(
+        fb_k = gpu_ms(lambda: fk._fwd_block(a, b, w, u0, C2B, C3B, n), 2, warm=1)
+        fbs_k = gpu_ms(lambda: fk._fwd_block(a, b, w, u0, C2B, C3B, n, True, True), 2, warm=1)
+        self.kernels["fused_fwd_grid_stream"].update(
             ms=f_k, plain_ms=f_pl, work=sweep_work(WIDE_MG, n, 2, fwd=True))
-        self.kernels["fused_fwd_block_ser"].update(
+        self.kernels["fused_fwd_grid_stream_ser"].update(
             ms=fs_k, plain_ms=fs_pl, work=sweep_work(WIDE_MG, n, 2, fwd=True, ser=True))
-        route = fk.fwd_route(WIDE_MG, fk._card(u0.device))
-        self.check("H", route == "block" and e <= TOL_VS_PLAIN and all(same),
-                   f"[{self.card}] forward route {route!r} (mg={a.shape[0]}, N={n}): vs "
-                   f"plain f32 (u_T, J, traj, series, the objective's J) rel {e:.2e} (tol "
+        card = fk._card(u0.device)
+        route, (rows, _, rows_b) = fk.fwd_route(WIDE_MG, card), fk.fwd_grid_partition(WIDE_MG, card)
+        self.check("H", route == "grid" and rows_b < rows and e <= TOL_VS_PLAIN and all(same)
+                   and all(same_blk),
+                   f"[{self.card}] forward route {route!r} (mg={a.shape[0]}, N={n}; "
+                   f"{rows_b} of {rows} B rows a CTA kept, the rest from L2): vs plain f32 "
+                   f"(u_T, J, traj, series, the objective's J) rel {e:.2e} (tol "
                    f"{TOL_VS_PLAIN:g}); series variant and the objectives bitwise the "
-                   f"wrappers': {same}; forward sweep {f_k:.3f} ms vs plain {f_pl:.3f} "
-                   f"ms, with series {fs_k:.3f} vs {fs_pl:.3f} ms")
+                   f"wrappers': {same}; bitwise the one-block kernel's (u_T, J, traj; with "
+                   f"the series): {same_blk}; forward sweep {f_k:.3f} ms vs plain {f_pl:.3f} "
+                   f"ms, with series {fs_k:.3f} vs {fs_pl:.3f} ms; one-block kernel "
+                   f"{fb_k:.3f} ms, with series {fbs_k:.3f} ms")
 
-    def shared_block_route(self):
-        """SH23's sweeps above their clusters' width: SH23's operators at
-        npts = 512 (mg = 1024) take the one-block kernels. Their main path
-        is the fused objectives (J differentiated in u0, and J with the
-        series); then the kernels against plain f32 and the forward across
-        the series variants, the reverse sweep's lambda_0 against
-        autograd's gradient, and their times."""
+    def shared_wide_route(self):
+        """SH23's sweeps above the reverse cluster's width: SH23's operators
+        at npts = 512 (mg = 1024) take the grid-wide forward and the
+        one-block reverse. Their main path is the fused objectives (J
+        differentiated in u0, and J with the series); then the kernels
+        against plain f32, the forward across the series variants and
+        bitwise the one-block forward kernel called directly (whose
+        times go to this phase's line only), the reverse sweep's lambda_0 against autograd's gradient, and their
+        times. The kernels line keeps the grid forward's numbers from the
+        SH23 width (mg = 512, phases C, D, G) and the reverse's from
+        here."""
         q, _, _ = cli.make_problem(problem_args("sh23", "float32", "cuda", "--npts",
                                                 str(BLOCK_MG // 2)))
         ops = operators_to_torch(sh23_operators(q), q.device)
@@ -778,10 +804,12 @@ class Smoke:
                     fk.FusedObjectiveSharedDiag.apply(b, w, u0, C2, C3, lin, dt, n, False))
 
         J, grad, (Jd, ser, _) = self.main_path(
-            "H", ("fused_fwd_shared_block", "fused_fwd_shared_block_ser",
-                  "fused_bwd_shared_block"), path)
+            "H", ("fused_fwd_shared_grid", "fused_fwd_shared_grid_ser",
+                  "fused_bwd_shared_block"), path, record=("fused_bwd_shared_block",))
         k = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n)
         ks = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n, store_series=True)
+        blk = fk._fwd_shared_block(b, w, u0, C2, C3, lin, n)
+        blk_s = fk._fwd_shared_block(b, w, u0, C2, C3, lin, n, True, True)
         r = fk.fused_fwd_shared_plain(b, w, u0, C2, C3, lin, n, store_series=True)
         scale = torch.tensor(-2.0 * dt, dtype=torch.float32, device=u0.device)
         lk = fk.fused_bwd_shared(b, w, k[0], k[2], C2, C3, lin, scale, n)[0]
@@ -793,32 +821,33 @@ class Smoke:
         self.kernels["fused_bwd_shared_block"]["max_abs_err"] = max_abs([(lk, lp)])
         same = ([torch.equal(x, y) for x, y in zip(k[:3], ks[:3])]
                 + [torch.equal(J, Jd), torch.equal(ser, ks[3]), torch.equal(grad, lk)])
-        self.kernels["fused_fwd_shared_block"]["max_abs_err"] = max_abs(pairs)
-        self.kernels["fused_fwd_shared_block_ser"]["max_abs_err"] = max_abs(ser_pairs)
+        same_blk = ([torch.equal(x, y) for x, y in zip(k[:3], blk[:3])]
+                    + [torch.equal(x, y) for x, y in zip(ks, blk_s)])
         f_pl, f_k = interleaved_ms(
             lambda: fk.fused_fwd_shared_plain(b, w, u0, C2, C3, lin, n),
             lambda: fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n), 2, 10)
         fs_pl, fs_k = interleaved_ms(
             lambda: fk.fused_fwd_shared_plain(b, w, u0, C2, C3, lin, n, store_series=True),
             lambda: fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n, store_series=True), 2, 10)
-        self.kernels["fused_fwd_shared_block"].update(
-            ms=f_k, plain_ms=f_pl, work=sweep_work(BLOCK_MG, n, 1, fwd=True))
-        self.kernels["fused_fwd_shared_block_ser"].update(
-            ms=fs_k, plain_ms=fs_pl, work=sweep_work(BLOCK_MG, n, 1, fwd=True, ser=True))
+        fb_k = gpu_ms(lambda: fk._fwd_shared_block(b, w, u0, C2, C3, lin, n), 10)
+        fbs_k = gpu_ms(lambda: fk._fwd_shared_block(b, w, u0, C2, C3, lin, n, True, True), 10)
         b_pl, b_k = interleaved_ms(
             lambda: fk.fused_bwd_shared_plain(b, w, k[0], k[2], C2, C3, lin, scale, n),
             lambda: fk.fused_bwd_shared(b, w, k[0], k[2], C2, C3, lin, scale, n), 2, 10)
         self.kernels["fused_bwd_shared_block"].update(
             ms=b_k, plain_ms=b_pl, work=sweep_work(BLOCK_MG, n, 1, fwd=False))
-        routes = (fk.shared_fwd_route(BLOCK_MG), fk.shared_bwd_route(BLOCK_MG))
-        self.check("H", routes == ("block", "block") and max(e, e_b) <= TOL_VS_PLAIN
-                   and all(same),
-                   f"[{self.card}] SH23 one-block routes (mg={b.shape[0]}, N={n}): "
+        routes = (fk.shared_fwd_route(BLOCK_MG, fk._card(u0.device)),
+                  fk.shared_bwd_route(BLOCK_MG))
+        self.check("H", routes == ("grid", "block") and max(e, e_b) <= TOL_VS_PLAIN
+                   and all(same) and all(same_blk),
+                   f"[{self.card}] SH23 routes {routes} (mg={b.shape[0]}, N={n}): "
                    f"forward vs plain f32 (u_T, J, traj, series, the objective's J) rel "
                    f"{e:.2e}, reverse (lambda_0) rel {e_b:.2e} (tol {TOL_VS_PLAIN:g}); "
                    f"series variant, the objectives and autograd's gradient bitwise the "
-                   f"wrappers': {same}; forward sweep {f_k:.3f} ms vs plain {f_pl:.3f} "
-                   f"ms, with series {fs_k:.3f} vs {fs_pl:.3f} ms; reverse sweep "
+                   f"wrappers': {same}; grid forward bitwise the one-block kernel's (u_T, J, "
+                   f"traj; with the series): {same_blk}; forward sweep {f_k:.3f} ms vs plain "
+                   f"{f_pl:.3f} ms, with series {fs_k:.3f} vs {fs_pl:.3f} ms; one-block "
+                   f"forward kernel {fb_k:.3f} ms, with series {fbs_k:.3f} ms; reverse sweep "
                    f"{b_k:.3f} ms vs plain {b_pl:.3f} ms")
 
     def phase_i(self):
@@ -850,7 +879,7 @@ class Smoke:
             ms=fs_k, plain_ms=fs_pl, work=sweep_work(mg, n, 2, fwd=True, ser=True))
         self.kernels["fused_bwd"].update(
             ms=b_k, plain_ms=b_pl, work=sweep_work(mg, n, 2, fwd=False))
-        self.kernels["fused_fwd_shared_ser"].update(
+        self.kernels["fused_fwd_shared_grid_ser"].update(
             ms=ss_k, plain_ms=ss_pl, work=sweep_work(mgs, ns, 1, fwd=True, ser=True))
         self.unit_ms_shb = (u_k, u_pl)
         self.check("I", True,
@@ -883,9 +912,9 @@ class Smoke:
 
         # only the diagnostics calls run in the counted window; the plain
         # objective they are held to runs after it
-        outs = self.main_path("M", ("fused_fwd_shared_ser", "fused_fwd_grid_ser",
+        outs = self.main_path("M", ("fused_fwd_shared_grid_ser", "fused_fwd_grid_ser",
                                     "fused_bwd_shared", "fused_bwd"), diagnostics,
-                              record=("fused_fwd_shared_ser", "fused_fwd_grid_ser"))
+                              record=("fused_fwd_shared_grid_ser", "fused_fwd_grid_ser"))
         res = []
         for (p, x), ((Jgd, ggd, dg), (Jd, dd)) in zip(pairs, outs):
             J, g = p.objective_and_gradient(x)
@@ -1227,7 +1256,7 @@ class Smoke:
     def phase_t(self):
         ref, ext = self.ref, self.refx
         p, res, wall = self.main_path(
-            "T", ("fused_fwd_shared", "fused_bwd_shared"),
+            "T", ("fused_fwd_shared_grid", "fused_bwd_shared"),
             lambda: self.workload("sh23", "float32", "cuda", [ref["x0_f32"]],
                                   "--direction", "lbfgs"), record=())
         fv = np.asarray(res.function_values)

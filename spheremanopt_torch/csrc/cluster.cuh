@@ -1,7 +1,7 @@
 // The thread-block cluster machinery of the SBDF sweeps (fused_shared.cu,
 // fused_two_matrix.cu): the cluster's shape, the energy sum that stands in
 // for the one-block kernels' 1024-thread reduction tree (also used by the
-// grid-wide forward), the reverse clusters' row phases, the launch of one
+// grid-wide forwards), the reverse clusters' row phases, the launch of one
 // cluster and its capacity query, and the dispatch from a width mg to the
 // kernel instance of mg = 128 R.
 #pragma once

@@ -2,10 +2,10 @@
 //
 // Replaces the TPU (Pallas) kernels of the JAX package's
 // ops/pallas/fused_two_matrix.py:
-//   sm_fused_fwd_shared, sm_fused_fwd_shared_block
+//   sm_fused_fwd_shared_grid, sm_fused_fwd_shared_block
 //                        <- _fwd_kernel_shared (_run_fwd_shared; has_traj
 //                           and has_ser as the traj / ser pointers): the
-//                           cluster route and the one-block route of the
+//                           grid-wide route and the one-block route of the
 //                           same forward
 //   sm_fused_bwd_shared, sm_fused_bwd_shared_block
 //                        <- _bwd_kernel_shared (_run_bwd_shared): the cluster
@@ -21,40 +21,36 @@
 // The TPU kernel keeps B in VMEM for the whole solve; one SM's 227 KB of
 // shared memory cannot hold it.
 //
-// sm_fused_fwd_shared (forward, mg <= 896): one thread-block cluster of
-// 16 CTAs on 16 SMs. CTA rank r keeps rows [r mg/16, (r+1) mg/16) of B in
-// its shared memory (64 KB at mg = 512) for all N steps, and every CTA
-// keeps all of u (ping-pong), v and w. A step:
-//   * every CTA forms v = lin u + c2 u^2 + c3 u^3 from its full copy of u
-//     (v_poly, shared with the one-block kernel);
-//   * each warp computes its rows' dot products in the lane and k order of
-//     the one-block kernel (shared_dot4), so u, the trajectory, J and the
-//     series come out bitwise equal to it;
-//   * each row's value goes into every CTA's next-u buffer through
-//     distributed shared memory (lane l < 16 stores to rank l), and one
-//     cluster.sync() a step publishes it;
-//   * each CTA stores its slice of the trajectory row; rank 0 forms J and
-//     the series with the one-block kernel's reduction tree
-//     (energy_partials, cluster.cuh).
-// One matrix fits a wider cluster than two: mg^2 4 / 16 bytes of rows and
-// 4 mg + 32 floats of state fit 227 KB up to mg = 896. 16 CTAs rather than
-// 8 (which would need no non-portable cluster size): 8 CTAs would hold
-// twice the rows each (128 KB at mg = 512) and stop at mg = 640, and each
-// warp would run twice the dot products a step: 2.36 ms a sweep against
-// 1.91 ms for 16 CTAs (mg = 512, N = 1000, H100 SXM at 700 W). The
-// cluster barrier and the remote stores are most of a step either way:
-// 1.9 us, against 12.7 us for the one-block kernel.
-// A larger mg takes sm_fused_fwd_shared_block: one block of 1024 threads
-// on one SM that streams B from the 50 MB L2 every step (one warp per
-// row, float4 loads), bound by one SM's L2 read rate. The wrapper chooses
-// by shape; each route launches its kernel or fails.
+// sm_fused_fwd_shared_grid (forward, every mg <= 2048 whose rows of B and
+// the state fit a CTA: every width on an H100 SXM and an H100 PCIe): the
+// two-matrix grid forward of fused_two_matrix.cu with one matrix. One
+// persistent cooperative kernel, one CTA on each of up to all SMs: CTA b
+// keeps rows = ceil(mg / SMs) contiguous rows of B (4 at mg = 512, 8 KB;
+// 8 at 1024, 32 KB; 16 at 2048, 128 KB) in shared memory for the whole
+// solve; u crosses through L2 as step-tagged 64-bit words (grid.cuh),
+// every CTA reads all of u_n and forms v itself (v_poly, shared with the
+// one-block kernel), each warp computes its rows' dot products in the
+// one-block kernel's lane and k order (shared_dot4), and CTA 0 forms J and
+// the series with the one-block kernel's reduction tree (energy_partials,
+// cluster.cuh). u_T, J, the trajectory and the series are bitwise the
+// one-block kernel's. The wrapper raises if the card cannot hold the CTAs
+// at once. It replaced a 16-CTA cluster that kept B's rows on 16 SMs and
+// passed u through distributed shared memory with one cluster.sync() a
+// step: at N = 200 the grid took 0.239 / 0.262 / 0.381 / 0.333 ms against
+// the cluster's 0.297 / 0.389 / 0.461 / 0.614 at mg = 256 / 512 / 640 /
+// 896 (H100 SXM at 700 W, tools/time_reverse_sweeps.py).
+// sm_fused_fwd_shared_block is one block of 1024 threads on one SM that
+// streams B from the 50 MB L2 every step (one warp per row, float4 loads),
+// bound by one SM's L2 read rate: the route where a CTA's rows do not fit,
+// and the kernel the grid is held to bit for bit. The wrapper chooses by
+// shape; each route launches its kernel or fails.
 //
-// sm_fused_bwd_shared (reverse, mg <= 896): the forward's cluster
-// transposed, the two-matrix reverse cluster of fused_two_matrix.cu with
-// one matrix. lambda_n = v'(u_n) (B^T lambda) + s w u_n needs columns of
-// B, so CTA rank r keeps columns [r mg/16, (r+1) mg/16) of B in its shared
-// memory (64 KB at mg = 512) for the whole sweep, and every CTA keeps all
-// of lambda (ping-pong). A step:
+// sm_fused_bwd_shared (reverse, mg <= 896): one thread-block cluster of
+// 16 CTAs on 16 SMs, the two-matrix reverse cluster of
+// fused_two_matrix.cu with one matrix. lambda_n = v'(u_n) (B^T lambda)
+// + s w u_n needs columns of B, so CTA rank r keeps columns
+// [r mg/16, (r+1) mg/16) of B in its shared memory (64 KB at mg = 512) for
+// the whole sweep, and every CTA keeps all of lambda (ping-pong). A step:
 //   * the CTA's P x (mg/16) threads (P = 1024 / (mg/4) row phases) form
 //     the column partial sums over rows p, p + P, ... in ascending order,
 //     exactly as the one-block kernel's threads (p, column group) do for
@@ -67,7 +63,7 @@
 //   * with the lambda history, each CTA stores its slice of lambda_{n+1}.
 // With that order lambda_0 and the history are bitwise the one-block
 // kernel's. mg^2 4 / 16 bytes of columns and 2 mg + (P + 2) mg / 16 floats
-// of state fit 227 KB up to mg = 896, as for the forward's rows.
+// of state fit 227 KB up to mg = 896.
 // A larger mg takes sm_fused_bwd_shared_block: one thread block; B stays
 // in global memory and, after the first step, in L2; the small state
 // (lambda, the partial sums) lives in shared memory. Thread (p, column
@@ -87,13 +83,17 @@
 // The launchers launch on the given stream, do not synchronise, and
 // return cudaGetLastError() (or the launch's error) so the caller can
 // raise on a refused launch. The caller guarantees mg % 128 == 0,
-// 128 <= mg <= 2048 (sm_fused_fwd_shared and sm_fused_bwd_shared:
-// mg <= 896), contiguous f32 buffers on one device.
+// 128 <= mg <= 2048 (sm_fused_bwd_shared: mg <= 896), contiguous f32
+// buffers on one device. sm_fused_fwd_shared_grid launches
+// cooperatively, so a grid that the card cannot hold at once fails at
+// launch; a word that never gets its tag traps (a launch failure), it
+// does not hang.
 
 #include <cooperative_groups.h>
 
 #include "cluster.cuh"
 #include "common.cuh"
+#include "grid.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -106,12 +106,12 @@ using smo::kClusterWarps;
 using smo::kThreads;
 using smo::kWarps;
 
-// The clusters hold B's rows (forward) or columns (reverse) while
-// mg^2 4 / 16 bytes fit one SM: instances for mg = 128 R, R <= kMaxR.
+// The reverse cluster holds B's columns while mg^2 4 / 16 bytes fit one
+// SM: instances for mg = 128 R, R <= kMaxR.
 constexpr int kMaxR = 7;
 
 // v(u) = lin u + c2 u^2 + c3 u^3 and one float4 of a row's dot product
-// with v: written once for both forward kernels, so that the cluster's u
+// with v: written once for both forward kernels, so that the grid's u
 // is bitwise the one-block kernel's.
 __device__ __forceinline__ float v_poly(float lin, float c2, float c3, float u) {
   return lin * u + c2 * u * u + c3 * u * u * u;
@@ -190,81 +190,97 @@ fused_fwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w
   }
 }
 
-// Forward, one cluster (sm_fused_fwd_shared): the same recurrence, J and
-// outputs as fused_fwd_shared_kernel, on kClusterCtas CTAs of
-// kClusterThreads threads, mg = 128 R. Each warp owns R rows (rank's rows
-// warp, warp + 8, ...) and a lane R float4s of each: those of
-// k = lane + 32 i, the one-block kernel's k order. Shared memory: B's rows
-// (8 R x mg), u[2][mg], v[mg], w[mg], red[32].
-__host__ __device__ constexpr size_t shared_cluster_smem_bytes(int R) {
-  return ((size_t)(8 * R) * (128 * R) + 4 * (size_t)(128 * R) + 32) * sizeof(float);
+// Forward, grid-wide (sm_fused_fwd_shared_grid): the recurrence, J and
+// outputs of fused_fwd_shared_kernel on ceil(mg / rows) co-resident CTAs
+// of kClusterThreads threads, the two-matrix grid forward of
+// fused_two_matrix.cu with one matrix; CTA b owns rows [b rows,
+// min((b + 1) rows, mg)), warp w its rows w, w + 8, ... ubuf (4 mg
+// floats) holds two slots of mg (value, tag) pairs (grid.cuh): step n
+// reads u_n (u0 at n = 0, else slot (n - 1) & 1, tag n) and writes u_{n+1}
+// to slot n & 1 with tag n + 1. Shared memory: B rows (rows x mg), u[mg],
+// v[mg], w[mg], red[32].
+__host__ __device__ constexpr size_t shared_grid_smem_bytes(int mg, int rows) {
+  return ((size_t)rows * mg + 3 * (size_t)mg + 32) * sizeof(float);
 }
 
-template <bool kSeries, int R>
+template <bool kSeries>
 __global__ void __launch_bounds__(kClusterThreads, 1)
-fused_fwd_shared_cluster_kernel(const float* __restrict__ b, const float* __restrict__ w,
-                                const float* __restrict__ u0, float c2, float c3, float lin,
-                                int n_steps, float* __restrict__ uT,
-                                float* __restrict__ jsum, float* __restrict__ traj,
-                                float* __restrict__ ser) {
-  constexpr int mg = 128 * R, mg4 = mg / 4, rows = mg / kClusterCtas;
-  static_assert(rows == kClusterWarps * R, "one warp per R rows");
-  static_assert(mg <= kThreads, "one element per thread of the reduction tree");
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
+fused_fwd_shared_grid_kernel(const float* __restrict__ b, const float* __restrict__ w,
+                             const float* __restrict__ u0, float c2, float c3, float lin,
+                             int n_steps, int mg, int rows, float* __restrict__ uT,
+                             float* __restrict__ jsum, float* __restrict__ traj,
+                             float* __restrict__ ser, float* __restrict__ ubuf) {
+  cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r0 = rank * rows;
+  const int mg4 = mg / 4, r0 = blockIdx.x * rows;
+  const int nr = min(rows, mg - r0);
+  const bool lead = blockIdx.x == 0;
   extern __shared__ float4 smem4[];
-  float4* bs4 = smem4;                 // rows x mg4
-  float* u = reinterpret_cast<float*>(bs4 + rows * mg4);
-  float* un = u + mg;
-  float* v = un + mg;
+  float4* bs4 = smem4;  // rows x mg4
+  float4* u4 = bs4 + (size_t)rows * mg4;
+  float4* v4 = u4 + mg4;
+  float* u = reinterpret_cast<float*>(u4);
+  float* v = reinterpret_cast<float*>(v4);
   float* ws = v + mg;
   float* red = ws + mg;
-  const float4* v4 = reinterpret_cast<const float4*>(v);
+  auto* pairs = reinterpret_cast<unsigned long long*>(ubuf);  // [2][mg] (value, tag)
+  const auto vp = [=](float x) { return v_poly(lin, c2, c3, x); };
 
   const float4* b4 = reinterpret_cast<const float4*>(b) + (size_t)r0 * mg4;
-  for (int i = tid; i < rows * mg4; i += kClusterThreads) bs4[i] = __ldg(b4 + i);
-  for (int j = tid; j < mg; j += kClusterThreads) {
-    u[j] = u0[j];
-    ws[j] = w[j];
-  }
-  cluster.sync();   // every CTA has started and holds u_0 before any remote store
+  for (int i = tid; i < nr * mg4; i += kClusterThreads) bs4[i] = __ldg(b4 + i);
+  if (lead)
+    for (int j = tid; j < mg; j += kClusterThreads) ws[j] = w[j];
+  for (int i = blockIdx.x * kClusterThreads + tid; i < 2 * mg; i += gridDim.x * kClusterThreads)
+    pairs[i] = 0ull;  // no tag: steps count from 1
+  grid.sync();      // the tags are clear before any CTA stores u_1
 
-  float acc = 0.f, comp = 0.f;  // live in rank 0's thread 0
+  float acc = 0.f, comp = 0.f;  // live in CTA 0's thread 0
   for (int n = 0; n < n_steps; ++n) {
-    for (int j = tid; j < mg; j += kClusterThreads) v[j] = v_poly(lin, c2, c3, u[j]);
-    if (traj != nullptr && tid < rows) traj[(size_t)n * mg + r0 + tid] = u[r0 + tid];
-    if (rank == 0) smo::energy_partials(u, ws, mg, red);
-    __syncthreads();   // v and red complete
-    float4 vr[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) vr[i] = v4[lane + 32 * i];
-#pragma unroll
-    for (int q = 0; q < R; ++q) {
-      const int rl = warp + q * kClusterWarps;
-      const float4* row = bs4 + rl * mg4;
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < R; ++i) s = shared_dot4(s, row[lane + 32 * i], vr[i]);
-      s = smo::warp_sum(s);   // every lane holds the same sum
-      if (lane < kClusterCtas) cluster.map_shared_rank(un, lane)[r0 + rl] = s;
+    if (n == 0) {
+      for (int j = tid; j < mg; j += kClusterThreads) {
+        const float x = u0[j];
+        u[j] = x;
+        v[j] = vp(x);
+      }
+    } else {
+      smo::read_tagged(pairs + (size_t)((n - 1) & 1) * mg, n, mg, vp, u, v);
     }
-    if (rank == 0 && warp == 0) {
+    __syncthreads();  // u and v complete (and at n = 0 the rows and w)
+    if (traj != nullptr)
+      for (int i = tid; i < nr; i += kClusterThreads) traj[(size_t)n * mg + r0 + i] = u[r0 + i];
+    if (lead) {
+      smo::energy_partials(u, ws, mg, red);
+      __syncthreads();  // red complete
+    }
+    unsigned long long* dst = pairs + (size_t)(n & 1) * mg;
+    for (int rl = warp; rl < nr; rl += kClusterWarps) {
+      const float4* row = bs4 + (size_t)rl * mg4;
+      float s = 0.f;
+#pragma unroll 4
+      for (int k = lane; k < mg4; k += 32) s = shared_dot4(s, row[k], v4[k]);
+      s = smo::warp_sum(s);
+      if (lane == 0) smo::store_tagged(dst + r0 + rl, s, n + 1);
+    }
+    if (lead && warp == 0) {
       const float e = smo::warp_sum(red[lane]);
       if (lane == 0) {
         if constexpr (kSeries) ser[n] = e;
         smo::kahan_add(acc, comp, e);
       }
     }
-    cluster.sync();   // un complete in every CTA; u, v and red free
-    float* t = u;
-    u = un;
-    un = t;
+    __syncthreads();  // u, v and red free for the next step
   }
 
-  if (tid < rows) uT[r0 + tid] = u[r0 + tid];
-  if (rank == 0) {
+  // u_N: each CTA stores its rows of u_T; CTA 0 forms e_N and J
+  if (n_steps == 0) {
+    for (int j = tid; j < mg; j += kClusterThreads) u[j] = u0[j];
+  } else {
+    smo::read_tagged(pairs + (size_t)((n_steps - 1) & 1) * mg, n_steps, mg, vp, u,
+                     static_cast<float*>(nullptr));
+  }
+  __syncthreads();
+  for (int i = tid; i < nr; i += kClusterThreads) uT[r0 + i] = u[r0 + i];
+  if (lead) {
     smo::energy_partials(u, ws, mg, red);
     __syncthreads();
     if (warp == 0) {
@@ -278,19 +294,19 @@ fused_fwd_shared_cluster_kernel(const float* __restrict__ b, const float* __rest
   }
 }
 
-template <bool kSeries, int R>
-struct FwdSharedCluster {
+template <bool kSeries>
+struct FwdSharedGrid {
   static inline bool ready[smo::kMaxDevices] = {};
-  static int capacity() {
-    return smo::cluster_capacity(fused_fwd_shared_cluster_kernel<kSeries, R>,
-                                 shared_cluster_smem_bytes(R), kClusterThreads, ready);
+  static int capacity(int mg, int rows) {
+    return smo::grid_capacity(fused_fwd_shared_grid_kernel<kSeries>,
+                              shared_grid_smem_bytes(mg, rows), ready);
   }
-  static int launch(cudaStream_t st, const float* b, const float* w, const float* u0, float c2,
-                    float c3, float lin, int n_steps, float* uT, float* jsum, float* traj,
-                    float* ser) {
-    return smo::cluster_launch(fused_fwd_shared_cluster_kernel<kSeries, R>,
-                               shared_cluster_smem_bytes(R), kClusterThreads, ready, st, b, w,
-                               u0, c2, c3, lin, n_steps, uT, jsum, traj, ser);
+  static int launch(const float* b, const float* w, const float* u0, float c2, float c3,
+                    float lin, int n_steps, int mg, int rows, float* uT, float* jsum,
+                    float* traj, float* ser, float* ubuf, cudaStream_t st) {
+    return smo::grid_launch(fused_fwd_shared_grid_kernel<kSeries>, (mg + rows - 1) / rows,
+                            shared_grid_smem_bytes(mg, rows), ready, st, b, w, u0, c2, c3, lin,
+                            n_steps, mg, rows, uT, jsum, traj, ser, ubuf);
   }
 };
 
@@ -454,23 +470,25 @@ struct BwdSharedCluster {
 
 extern "C" {
 
-int sm_fused_fwd_shared(const float* b, const float* w, const float* u0, float c2,
-                        float c3, float lin, int n_steps, int mg, float* uT,
-                        float* jsum, float* traj, float* ser, void* stream) {
+// The grid-wide forward at (mg, rows): ceil(mg / rows) CTAs, which the
+// card must hold at once; ubuf is 4 mg floats of scratch.
+int sm_fused_fwd_shared_grid(const float* b, const float* w, const float* u0, float c2,
+                             float c3, float lin, int n_steps, int mg, int rows, float* uT,
+                             float* jsum, float* traj, float* ser, float* ubuf, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return ser != nullptr
-             ? smo::launch_by_mg<FwdSharedCluster, true, kMaxR>(mg, st, b, w, u0, c2, c3, lin,
-                                                                n_steps, uT, jsum, traj, ser)
-             : smo::launch_by_mg<FwdSharedCluster, false, kMaxR>(mg, st, b, w, u0, c2, c3, lin,
-                                                                 n_steps, uT, jsum, traj, ser);
+  if (rows < 1 || rows > mg) return static_cast<int>(cudaErrorInvalidValue);
+  return ser != nullptr ? FwdSharedGrid<true>::launch(b, w, u0, c2, c3, lin, n_steps, mg, rows,
+                                                      uT, jsum, traj, ser, ubuf, st)
+                        : FwdSharedGrid<false>::launch(b, w, u0, c2, c3, lin, n_steps, mg, rows,
+                                                       uT, jsum, traj, ser, ubuf, st);
 }
 
-// Clusters of sm_fused_fwd_shared (with the series when `series`) that the
-// card can hold at once for this mg: 0 means it cannot be scheduled; a
-// negative value is -cudaError_t.
-int sm_fused_fwd_shared_capacity(int mg, int series) {
-  return series ? smo::capacity_by_mg<FwdSharedCluster, true, kMaxR>(mg)
-                : smo::capacity_by_mg<FwdSharedCluster, false, kMaxR>(mg);
+// CTAs of sm_fused_fwd_shared_grid (with the series when `series`) that the
+// card can hold at once at (mg, rows): fewer than ceil(mg / rows) means the
+// launch cannot run; a negative value is -cudaError_t.
+int sm_fused_fwd_shared_grid_capacity(int mg, int rows, int series) {
+  return series ? FwdSharedGrid<true>::capacity(mg, rows)
+                : FwdSharedGrid<false>::capacity(mg, rows);
 }
 
 int sm_fused_fwd_shared_block(const float* b, const float* w, const float* u0, float c2,

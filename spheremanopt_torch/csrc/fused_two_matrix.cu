@@ -23,14 +23,15 @@
 // 2 * 2 mg^2 flop, takes ~16 ns at the card's f32 peak; the sweep's bound
 // is 31.5 us of operations.
 //
-// sm_fused_fwd_grid (forward, mg up to the card's limit: 1792 on an H100
-// SXM's 132 SMs, 1664 on an H100 PCIe's 114). The TPU kernel keeps both
-// matrices in VMEM for the whole solve; one SM's 227 KB holds neither
-// (2 MB at mg = 512, 8 MB at 1024), but the card's ~30 MB of shared
-// memory holds both. One persistent cooperative kernel, one CTA on each
-// of up to all SMs: CTA b keeps `rows` = ceil(mg / SMs) contiguous rows
-// of A and of B (4 of each at mg = 512, 8 at 1024) in shared memory for
-// the whole solve. u crosses through L2 as tagged words: each warp
+// sm_fused_fwd_grid (forward, every mg <= 2048 whose rows of A and the
+// state fit a CTA: every width on an H100 SXM's 132 SMs and an H100 PCIe's
+// 114). The TPU kernel keeps both matrices in VMEM for the whole solve; one
+// SM's 227 KB holds neither (2 MB at mg = 512, 8 MB at 1024), but the
+// card's ~30 MB of shared memory holds both up to mg = 1792 (SXM; 1664 on
+// the PCIe card). One persistent cooperative kernel, one CTA on each of up
+// to all SMs: CTA b keeps `rows` = ceil(mg / SMs) contiguous rows of A and
+// of B (4 of each at mg = 512, 8 at 1024) in shared memory for the whole
+// solve. u crosses through L2 as tagged words (grid.cuh): each warp
 // computes its rows' dot products in the one-block kernel's lane and k
 // order (fwd_dot4) and stores each entry of u_{n+1} with its step number
 // n + 1 as one 64-bit word into a global buffer of two slots (ping-pong);
@@ -44,8 +45,20 @@
 // one-block kernel's reduction tree (energy_partials, which covers
 // mg <= 2048). u_T, J, the trajectory and the series are bitwise the
 // one-block kernel's. The wrapper computes the partition from the card's
-// SM count and raises if the card cannot hold the CTAs at once (the
-// polling needs every CTA resident: the launch is cooperative).
+// SM count and shared memory and raises if the card cannot hold the CTAs
+// at once (the polling needs every CTA resident: the launch is
+// cooperative).
+// Above the width where both matrices' rows fit (mg = 2048 on an H100
+// SXM: 16 rows of each, 256 KB, against 227), a template flag (kStreamB)
+// keeps all of the CTA's A rows and the first rows_b of its B rows that
+// fit beside them and the state (9 of 16 at mg = 2048), and reads the
+// other B rows from global memory every step: B (16 MB) stays in the
+// 50 MB L2, and 7.3 MB of it crosses to the SMs a step. Each warp loads
+// its first streamed row's float4s into registers before it waits for
+// u_n, so that read overlaps the exchange; the chain of each row keeps
+// fwd_dot4's order, so the bits do not change. The flag is a template
+// parameter, as the series is: the instance without it, which every
+// narrower mg runs, has no test on its per-step path.
 // Why no cluster below mg = 640: a 16-CTA cluster holding the rows on 16
 // SMs with one cluster.sync() a step took 4.42 ms at mg = 512, N = 2000,
 // against 2.30 ms here (1.15 us a step); 3.09 / 3.78 / 5.74 ms against
@@ -54,10 +67,11 @@
 // one a step in place of the tags the sweep took 0.49 ms at mg = 1024,
 // N = 200, against 0.43 ms tagged. (H100 SXM at 700 W,
 // tools/time_reverse_sweeps.py.)
-// A larger mg takes sm_fused_fwd_block, one thread block that streams A
-// and B from the 50 MB L2 every step (one warp per row, float4 loads),
-// bound by one SM's L2 read rate (~191 GB/s measured). The wrapper
-// chooses by shape; each route launches its kernel or fails.
+// sm_fused_fwd_block is one thread block that streams A and B from the
+// 50 MB L2 every step (one warp per row, float4 loads), bound by one SM's
+// L2 read rate (~191 GB/s measured): the route on a card where even A's
+// rows do not fit, and the kernel the grid is held to bit for bit. The
+// wrapper chooses by shape; each route launches its kernel or fails.
 //
 // sm_fused_bwd (reverse, mg <= 640): one thread-block cluster of 16 CTAs
 // on 16 SMs. lambda_n = A^T lambda + g'(u_n) (B^T lambda) + s w u_n needs
@@ -104,6 +118,7 @@
 
 #include "cluster.cuh"
 #include "common.cuh"
+#include "grid.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -218,65 +233,38 @@ fused_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 // Forward, grid-wide (sm_fused_fwd_grid): the recurrence, J and outputs of
 // fused_fwd_kernel on ceil(mg / rows) co-resident CTAs of kClusterThreads
-// threads; CTA b owns rows [b rows, min((b + 1) rows, mg)). ubuf (4 mg
-// floats) holds two slots of mg (value, tag) pairs: step n reads u_n (u0
-// at n = 0, else slot (n - 1) & 1, tag n) and writes u_{n+1} to slot
-// n & 1 with tag n + 1. Shared memory: A rows, B rows (rows x mg each),
-// u[mg], g[mg], w[mg], red[32].
-__host__ __device__ constexpr size_t grid_smem_bytes(int mg, int rows) {
-  return (2 * (size_t)rows * mg + 3 * (size_t)mg + 32) * sizeof(float);
+// threads; CTA b owns rows [b rows, min((b + 1) rows, mg)), warp w its
+// rows w, w + 8, ... ubuf (4 mg floats) holds two slots of mg (value, tag)
+// pairs: step n reads u_n (u0 at n = 0, else slot (n - 1) & 1, tag n) and
+// writes u_{n+1} to slot n & 1 with tag n + 1. Shared memory: A rows
+// (rows x mg), the first rows_b of the CTA's B rows (rows_b x mg),
+// u[mg], g[mg], w[mg], red[32]. Without kStreamB, rows_b = rows. With it,
+// the CTA's other B rows stay in global memory (B stays in L2) and are read
+// every step; they are a contiguous run of row indices, so the warps'
+// round-robin rows spread them within one row of each other.
+__host__ __device__ constexpr size_t grid_smem_bytes(int mg, int rows, int rows_b) {
+  return ((size_t)(rows + rows_b) * mg + 3 * (size_t)mg + 32) * sizeof(float);
 }
 
-// Polls before a wait counts as lost (~seconds): then the kernel traps.
-constexpr unsigned kMaxPolls = 1u << 22;
+// float4s of a row a lane takes (k = lane + 32 i) at mg <= 2048
+constexpr int kMaxLaneK = 2048 / 128;
 
-// A (value, tag) pair is one 64-bit word, the value's bits low and the tag
-// high, stored and loaded as one 64-bit access: a single access is atomic
-// under the PTX memory model (a vector access is not), so a reader that
-// sees a tag sees the value stored with it.
-__device__ __forceinline__ void store_tagged(unsigned long long* pair, float x, unsigned tag) {
-  const unsigned long long v =
-      static_cast<unsigned long long>(tag) << 32 | __float_as_uint(x);
-  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(pair), "l"(v) : "memory");
+// The lane's float4s of a row in global memory, all loads in flight at once
+__device__ __forceinline__ void load_lane_row(float4 (&dst)[kMaxLaneK], const float4* row,
+                                              int lane, int nk) {
+#pragma unroll
+  for (int i = 0; i < kMaxLaneK; ++i)
+    if (i < nk) dst[i] = __ldg(row + lane + 32 * i);
 }
 
-__device__ __forceinline__ unsigned long long load_tagged(const unsigned long long* pair) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(v) : "l"(pair));
-  return v;
-}
-
-// all of u from a slot of mg (value, tag) words, two words a thread a
-// round, each polled until it carries `tag`; with g != nullptr also
-// g = c2 u^2 + c3 u^3
-__device__ __forceinline__ void read_tagged(const unsigned long long* slot, unsigned tag, int mg,
-                                            float c2, float c3, float* u, float* g) {
-  for (int k = threadIdx.x; k < mg / 2; k += kClusterThreads) {
-    unsigned long long v0, v1;
-    unsigned polls = 0;
-    do {
-      v0 = load_tagged(slot + 2 * k);
-      v1 = load_tagged(slot + 2 * k + 1);
-      if (++polls > kMaxPolls) __trap();
-    } while (static_cast<unsigned>(v0 >> 32) != tag || static_cast<unsigned>(v1 >> 32) != tag);
-    const float x0 = __uint_as_float(static_cast<unsigned>(v0));
-    const float x1 = __uint_as_float(static_cast<unsigned>(v1));
-    u[2 * k] = x0;
-    u[2 * k + 1] = x1;
-    if (g != nullptr) {
-      g[2 * k] = g_poly(c2, c3, x0);
-      g[2 * k + 1] = g_poly(c2, c3, x1);
-    }
-  }
-}
-
-template <bool kSeries>
+template <bool kSeries, bool kStreamB>
 __global__ void __launch_bounds__(kClusterThreads, 1)
 fused_fwd_grid_kernel(const float* __restrict__ a, const float* __restrict__ b,
                       const float* __restrict__ w, const float* __restrict__ u0, float c2,
-                      float c3, int n_steps, int mg, int rows, float* __restrict__ uT,
-                      float* __restrict__ jsum, float* __restrict__ traj,
-                      float* __restrict__ ser, float* __restrict__ ubuf) {
+                      float c3, int n_steps, int mg, int rows, int rows_b,
+                      float* __restrict__ uT, float* __restrict__ jsum,
+                      float* __restrict__ traj, float* __restrict__ ser,
+                      float* __restrict__ ubuf) {
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int mg4 = mg / 4, r0 = blockIdx.x * rows;
@@ -285,19 +273,20 @@ fused_fwd_grid_kernel(const float* __restrict__ a, const float* __restrict__ b,
   extern __shared__ float4 smem4[];
   float4* as4 = smem4;  // rows x mg4
   float4* bs4 = as4 + (size_t)rows * mg4;
-  float4* u4 = bs4 + (size_t)rows * mg4;
+  float4* u4 = bs4 + (size_t)(kStreamB ? rows_b : rows) * mg4;
   float4* g4 = u4 + mg4;
   float* u = reinterpret_cast<float*>(u4);
   float* g = reinterpret_cast<float*>(g4);
   float* ws = g + mg;
   float* red = ws + mg;
   auto* pairs = reinterpret_cast<unsigned long long*>(ubuf);  // [2][mg] (value, tag)
+  const auto gp = [=](float x) { return g_poly(c2, c3, x); };
 
   const float4* a4 = reinterpret_cast<const float4*>(a) + (size_t)r0 * mg4;
   const float4* b4 = reinterpret_cast<const float4*>(b) + (size_t)r0 * mg4;
   for (int i = tid; i < nr * mg4; i += kClusterThreads) {
     as4[i] = __ldg(a4 + i);
-    bs4[i] = __ldg(b4 + i);
+    if (!kStreamB || i < rows_b * mg4) bs4[i] = __ldg(b4 + i);
   }
   if (lead)
     for (int j = tid; j < mg; j += kClusterThreads) ws[j] = w[j];
@@ -305,8 +294,17 @@ fused_fwd_grid_kernel(const float* __restrict__ a, const float* __restrict__ b,
     pairs[i] = 0ull;  // no tag: steps count from 1
   grid.sync();      // the tags are clear before any CTA stores u_1
 
+  // kStreamB: the warp's first streamed row (rs), whose B float4s are
+  // loaded before the wait for u_n, and the registers of a streamed row
+  const int nk = mg4 / 32;
+  const int rs = rows_b + ((warp - rows_b) % kClusterWarps + kClusterWarps) % kClusterWarps;
+  float4 bq[kMaxLaneK];
+
   float acc = 0.f, comp = 0.f;  // live in CTA 0's thread 0
   for (int n = 0; n < n_steps; ++n) {
+    if constexpr (kStreamB) {
+      if (rs < nr) load_lane_row(bq, b4 + (size_t)rs * mg4, lane, nk);
+    }
     if (n == 0) {
       const float4* src4 = reinterpret_cast<const float4*>(u0);
       for (int k = tid; k < mg4; k += kClusterThreads) {
@@ -316,7 +314,7 @@ fused_fwd_grid_kernel(const float* __restrict__ a, const float* __restrict__ b,
                             g_poly(c2, c3, x.w));
       }
     } else {
-      read_tagged(pairs + (size_t)((n - 1) & 1) * mg, n, mg, c2, c3, u, g);
+      smo::read_tagged(pairs + (size_t)((n - 1) & 1) * mg, n, mg, gp, u, g);
     }
     __syncthreads();  // u and g complete (and at n = 0 the rows and w)
     if (traj != nullptr)
@@ -328,12 +326,21 @@ fused_fwd_grid_kernel(const float* __restrict__ a, const float* __restrict__ b,
     unsigned long long* dst = pairs + (size_t)(n & 1) * mg;
     for (int rl = warp; rl < nr; rl += kClusterWarps) {
       const float4* arow = as4 + (size_t)rl * mg4;
-      const float4* brow = bs4 + (size_t)rl * mg4;
       float s = 0.f;
+      if (!kStreamB || rl < rows_b) {
+        const float4* brow = bs4 + (size_t)rl * mg4;
 #pragma unroll 4
-      for (int k = lane; k < mg4; k += 32) s = fwd_dot4(s, arow[k], u4[k], brow[k], g4[k]);
+        for (int k = lane; k < mg4; k += 32) s = fwd_dot4(s, arow[k], u4[k], brow[k], g4[k]);
+      } else {  // B's row from L2, then the same chain as above
+        if (rl != rs) load_lane_row(bq, b4 + (size_t)rl * mg4, lane, nk);
+#pragma unroll
+        for (int i = 0; i < kMaxLaneK; ++i) {
+          const int k = lane + 32 * i;
+          if (i < nk) s = fwd_dot4(s, arow[k], u4[k], bq[i], g4[k]);
+        }
+      }
       s = smo::warp_sum(s);
-      if (lane == 0) store_tagged(dst + r0 + rl, s, n + 1);
+      if (lane == 0) smo::store_tagged(dst + r0 + rl, s, n + 1);
     }
     if (lead && warp == 0) {
       const float e = smo::warp_sum(red[lane]);
@@ -349,7 +356,8 @@ fused_fwd_grid_kernel(const float* __restrict__ a, const float* __restrict__ b,
   if (n_steps == 0) {
     for (int j = tid; j < mg; j += kClusterThreads) u[j] = u0[j];
   } else {
-    read_tagged(pairs + (size_t)((n_steps - 1) & 1) * mg, n_steps, mg, c2, c3, u, nullptr);
+    smo::read_tagged(pairs + (size_t)((n_steps - 1) & 1) * mg, n_steps, mg, gp, u,
+                     static_cast<float*>(nullptr));
   }
   __syncthreads();
   for (int i = tid; i < nr; i += kClusterThreads) uT[r0 + i] = u[r0 + i];
@@ -367,52 +375,28 @@ fused_fwd_grid_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-// The grid kernel's attributes: the largest dynamic shared memory the card
-// allows a block, set once per device (a launch's own size varies with mg).
-template <bool kSeries>
-cudaError_t grid_attributes(int& optin) {
-  static bool ready[smo::kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  return smo::set_once(ready, [&] {
-    return cudaFuncSetAttribute(fused_fwd_grid_kernel<kSeries>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  });
-}
+template <bool kSeries, bool kStreamB>
+struct FwdGrid {
+  static inline bool ready[smo::kMaxDevices] = {};
+  static int capacity(int mg, int rows, int rows_b) {
+    return smo::grid_capacity(fused_fwd_grid_kernel<kSeries, kStreamB>,
+                              grid_smem_bytes(mg, rows, rows_b), ready);
+  }
+  static int launch(const float* a, const float* b, const float* w, const float* u0, float c2,
+                    float c3, int n_steps, int mg, int rows, int rows_b, float* uT, float* jsum,
+                    float* traj, float* ser, float* ubuf, cudaStream_t st) {
+    return smo::grid_launch(fused_fwd_grid_kernel<kSeries, kStreamB>, (mg + rows - 1) / rows,
+                            grid_smem_bytes(mg, rows, rows_b), ready, st, a, b, w, u0, c2, c3,
+                            n_steps, mg, rows, rows_b, uT, jsum, traj, ser, ubuf);
+  }
+};
 
-// CTAs of sm_fused_fwd_grid that the card can hold at once at (mg, rows)
-// (0 when one CTA's rows do not fit an SM), or -cudaError_t
-template <bool kSeries>
-int grid_capacity(int mg, int rows) {
-  int optin = 0, dev = 0, sms = 0, occ = 0;
-  cudaError_t err = grid_attributes<kSeries>(optin);
-  const size_t smem = grid_smem_bytes(mg, rows);
-  if (err == cudaSuccess && smem > (size_t)optin) return 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fused_fwd_grid_kernel<kSeries>,
-                                                        kClusterThreads, smem);
-  return err == cudaSuccess ? occ * sms : -static_cast<int>(err);
-}
-
-template <bool kSeries>
-int grid_launch(const float* a, const float* b, const float* w, const float* u0, float c2,
-                float c3, int n_steps, int mg, int rows, float* uT, float* jsum, float* traj,
-                float* ser, float* ubuf, cudaStream_t st) {
-  int optin = 0;
-  const cudaError_t err = grid_attributes<kSeries>(optin);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows < 1 || rows > mg) return static_cast<int>(cudaErrorInvalidValue);
-  void* args[] = {&a, &b, &w, &u0, &c2, &c3, &n_steps, &mg, &rows, &uT, &jsum, &traj, &ser,
-                  &ubuf};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(fused_fwd_grid_kernel<kSeries>), dim3((mg + rows - 1) / rows),
-      dim3(kClusterThreads), args, grid_smem_bytes(mg, rows), st);
-  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+// FwdGrid<kSeries, kStreamB>::f(args...) for the flags at run time:
+// kStreamB when fewer than `rows` B rows stay in shared memory
+template <template <bool, bool> class K, typename F>
+int by_flags(bool series, bool stream, F f) {
+  if (series) return stream ? f(K<true, true>{}) : f(K<true, false>{});
+  return stream ? f(K<false, true>{}) : f(K<false, false>{});
 }
 
 // Backward, one block (sm_fused_bwd_block): lambda_N = s w u_N, then for
@@ -602,23 +586,28 @@ struct BwdCluster {
 
 extern "C" {
 
-// The grid-wide forward at (mg, rows): ceil(mg / rows) CTAs, which the
-// card must hold at once; ubuf is 4 mg floats of scratch.
+// The grid-wide forward at (mg, rows, rows_b): ceil(mg / rows) CTAs, which
+// the card must hold at once, each keeping rows_b <= rows of its B rows in
+// shared memory (the kStreamB instance when rows_b < rows); ubuf is 4 mg
+// floats of scratch.
 int sm_fused_fwd_grid(const float* a, const float* b, const float* w, const float* u0,
-                      float c2, float c3, int n_steps, int mg, int rows, float* uT,
+                      float c2, float c3, int n_steps, int mg, int rows, int rows_b, float* uT,
                       float* jsum, float* traj, float* ser, float* ubuf, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return ser != nullptr ? grid_launch<true>(a, b, w, u0, c2, c3, n_steps, mg, rows, uT, jsum,
-                                            traj, ser, ubuf, st)
-                        : grid_launch<false>(a, b, w, u0, c2, c3, n_steps, mg, rows, uT, jsum,
-                                             traj, ser, ubuf, st);
+  if (rows < 1 || rows > mg || rows_b < 0 || rows_b > rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return by_flags<FwdGrid>(ser != nullptr, rows_b < rows, [&](auto k) {
+    return decltype(k)::launch(a, b, w, u0, c2, c3, n_steps, mg, rows, rows_b, uT, jsum, traj,
+                               ser, ubuf, st);
+  });
 }
 
 // CTAs of sm_fused_fwd_grid (with the series when `series`) that the card
-// can hold at once at (mg, rows): fewer than ceil(mg / rows) means the
-// launch cannot run; a negative value is -cudaError_t.
-int sm_fused_fwd_grid_capacity(int mg, int rows, int series) {
-  return series ? grid_capacity<true>(mg, rows) : grid_capacity<false>(mg, rows);
+// can hold at once at (mg, rows, rows_b): fewer than ceil(mg / rows) means
+// the launch cannot run; a negative value is -cudaError_t.
+int sm_fused_fwd_grid_capacity(int mg, int rows, int rows_b, int series) {
+  return by_flags<FwdGrid>(series != 0, rows_b < rows,
+                           [&](auto k) { return decltype(k)::capacity(mg, rows, rows_b); });
 }
 
 // The dynamic shared memory (bytes) that a block may opt in to on the

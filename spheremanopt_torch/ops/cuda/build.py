@@ -45,15 +45,15 @@ _FWD_SHARED = [_P, _P, _P, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P]
 _BWD_SHARED = [_P, _P, _P, _P, _F, _F, _F, _P, _I, _I, _P, _P, _P]
 _KDYN_FWD = [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P]
 SIGNATURES = {
-    "sm_fused_fwd_shared": _FWD_SHARED,
     "sm_fused_fwd_shared_block": _FWD_SHARED,
-    "sm_fused_fwd_shared_capacity": [_I, _I],  # returns a count, not an error code
     "sm_fused_bwd_shared": _BWD_SHARED,
     "sm_fused_bwd_shared_block": _BWD_SHARED,
     "sm_fused_bwd_shared_capacity": [_I, _I],  # returns a count, not an error code
     "sm_fused_fwd_block": _FWD,
-    "sm_fused_fwd_grid": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "sm_fused_fwd_grid_capacity": [_I, _I, _I],  # returns a count, not an error code
+    "sm_fused_fwd_grid": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "sm_fused_fwd_grid_capacity": [_I, _I, _I, _I],  # returns a count, not an error code
+    "sm_fused_fwd_shared_grid": [_P, _P, _P, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "sm_fused_fwd_shared_grid_capacity": [_I, _I, _I],  # returns a count, not an error code
     "sm_smem_optin": [],  # returns a size, not an error code
     "sm_fused_bwd": _BWD,
     "sm_fused_bwd_block": _BWD,

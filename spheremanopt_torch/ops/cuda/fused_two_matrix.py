@@ -5,8 +5,9 @@ PyTorch port of the JAX package's `ops/pallas/fused_two_matrix.py`:
 
   two-matrix form  u' = A u + B (c2 u^2 + c3 u^3)       (SHB23)
     fused_fwd          <- `_run_fwd` / `_fwd_kernel` (has_traj, has_ser): a
-                          grid-wide kernel over every SM while the rows
-                          fit (to mg = 1792 on an H100 SXM), one block
+                          grid-wide kernel over every SM while A's rows
+                          fit (every mg on an H100), with the B rows that
+                          do not fit beside them read from L2; one block
                           above (`fwd_route`)
     fused_bwd          <- `_run_bwd` / `_bwd_kernel` (op_grads=True: the
                           sweep stores the lambda history, then
@@ -18,8 +19,9 @@ PyTorch port of the JAX package's `ops/pallas/fused_two_matrix.py`:
   shared-matrix form  u' = B (lin u + c2 u^2 + c3 u^3)  (SH23: B = M,
   lin = 1/dt)
     fused_fwd_shared   <- `_run_fwd_shared` / `_fwd_kernel_shared` (has_traj,
-                          has_ser): a 16-CTA cluster up to mg = 896, one
-                          block above (`shared_fwd_route`)
+                          has_ser): a grid-wide kernel over every SM while
+                          B's rows fit (every mg on an H100), one block
+                          above (`shared_fwd_route`)
     fused_bwd_shared   <- `_run_bwd_shared` / `_bwd_kernel_shared`
                           (op_grads=True: lambda history, then dB): a
                           16-CTA cluster up to mg = 896, one block above
@@ -46,10 +48,11 @@ Each wrapper takes its plain PyTorch version (`*_plain`) for tensors on
 the CPU and launches its kernel for CUDA tensors; a CUDA tensor never
 falls back. `LAUNCHES` counts kernel launches per wrapper (the series
 variants of the forwards, the routes of each sweep, and the
-lambda-history variants of the reverse sweeps apart; each one-block
-reverse counts both of its variants, under `fused_bwd_block` and
-`fused_bwd_shared_block`). The kernels are f32 only; the plain versions
-take f32 or f64.
+lambda-history variants of the reverse sweeps apart, and the two-matrix
+grid's instance that reads B rows from L2 under `fused_fwd_grid_stream*`;
+each one-block reverse counts both of its variants, under
+`fused_bwd_block` and `fused_bwd_shared_block`). The kernels are f32
+only; the plain versions take f32 or f64.
 """
 
 from __future__ import annotations
@@ -61,14 +64,16 @@ import torch
 from spheremanopt_torch.solvers.scan_utils import kahan_add, kahan_zero
 
 KERNEL_SOURCES = {
-    "fused_fwd_shared": "spheremanopt_torch/csrc/fused_shared.cu",
-    "fused_fwd_shared_ser": "spheremanopt_torch/csrc/fused_shared.cu",
+    "fused_fwd_shared_grid": "spheremanopt_torch/csrc/fused_shared.cu",
+    "fused_fwd_shared_grid_ser": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_fwd_shared_block": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_fwd_shared_block_ser": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_bwd_shared": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_bwd_shared_block": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_fwd_grid": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_fwd_grid_ser": "spheremanopt_torch/csrc/fused_two_matrix.cu",
+    "fused_fwd_grid_stream": "spheremanopt_torch/csrc/fused_two_matrix.cu",
+    "fused_fwd_grid_stream_ser": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_fwd_block": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_fwd_block_ser": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_bwd": "spheremanopt_torch/csrc/fused_two_matrix.cu",
@@ -323,21 +328,36 @@ def fused_fwd_shared(b, w, u0, c2, c3, lin, n_steps, store_traj=True,
                      store_series=False):
     """(uT, J_sum, traj or None, series or None) of N steps of
     u' = B(lin u + g(u)). On the card the route follows
-    `shared_fwd_route(mg)`; both give the same numbers bit for bit."""
+    `shared_fwd_route(mg)` for that card; both give the same numbers bit
+    for bit."""
     if u0.device.type == "cpu":
         return fused_fwd_shared_plain(b, w, u0, c2, c3, lin, n_steps,
                                       store_traj, store_series)
     mg = _check(n_steps, mats=[("b", b)], vecs=[("u0", u0), ("w", w)])
-    if shared_fwd_route(mg) == "block":
-        return _fwd_shared_block(b, w, u0, c2, c3, lin, n_steps, store_traj,
-                                 store_series)
-    _check_cluster(u0.device, "sm_fused_fwd_shared", mg, bool(store_series))
+    if shared_fwd_route(mg, _card(u0.device)) == "grid":
+        return _fwd_shared_grid(b, w, u0, c2, c3, lin, n_steps, store_traj,
+                                store_series)
+    return _fwd_shared_block(b, w, u0, c2, c3, lin, n_steps, store_traj,
+                             store_series)
+
+
+def _fwd_shared_grid(b, w, u0, c2, c3, lin, n_steps, store_traj=True,
+                     store_series=False):
+    """`fused_fwd_shared` on the grid-wide kernel
+    (`sm_fused_fwd_shared_grid`) at any mg whose rows of B fit the card:
+    raises if the card cannot hold its CTAs at once. The caller has
+    checked the shapes."""
+    mg = u0.shape[-1]
+    rows, ctas = grid_partition(mg, _card(u0.device)[0])
+    _check_grid(u0.device, "sm_fused_fwd_shared_grid", (mg, rows), ctas,
+                bool(store_series))
     uT, jsum, traj, ser = _fwd_outputs(u0, n_steps, store_traj, store_series)
-    _launch("sm_fused_fwd_shared",
-            "fused_fwd_shared_ser" if store_series else "fused_fwd_shared",
+    slots = _tag_slots(u0)
+    _launch("sm_fused_fwd_shared_grid",
+            "fused_fwd_shared_grid_ser" if store_series else "fused_fwd_shared_grid",
             u0.device, b.data_ptr(), w.data_ptr(), u0.data_ptr(), c2, c3, lin,
-            int(n_steps), mg, uT.data_ptr(), jsum.data_ptr(), _ptr(traj),
-            _ptr(ser))
+            int(n_steps), mg, rows, uT.data_ptr(), jsum.data_ptr(), _ptr(traj),
+            _ptr(ser), slots.data_ptr())
     return uT, jsum, traj, ser
 
 
@@ -407,7 +427,8 @@ def _bwd_shared_block(b, w, uT, traj, c2, c3, lin, scale, n_steps,
 
 # The two-matrix reverse sweep's cluster keeps A's and B's columns on 16
 # SMs: 2 mg^2 * 4 / 16 bytes must fit one SM's shared memory. The
-# shared-matrix sweeps' clusters keep one matrix: mg^2 * 4 / 16 bytes.
+# shared-matrix reverse sweep's cluster keeps one matrix: mg^2 * 4 / 16
+# bytes.
 CLUSTER_MG_MAX = 640
 SHARED_CLUSTER_MG_MAX = 896
 # (SMs, opt-in shared memory per block in bytes) of an H100 SXM: the card
@@ -415,12 +436,16 @@ SHARED_CLUSTER_MG_MAX = 896
 H100_SXM = (132, 227 * 1024)
 
 
-def shared_fwd_route(mg):
-    """The shared-matrix forward's kernel for width mg: "cluster" (16 CTAs
-    holding B's rows in shared memory, `sm_fused_fwd_shared`) up to
-    SHARED_CLUSTER_MG_MAX, else "block" (one thread block streaming B
-    from L2, `sm_fused_fwd_shared_block`). Both give the same bits."""
-    return "cluster" if mg <= SHARED_CLUSTER_MG_MAX else "block"
+def shared_fwd_route(mg, card=H100_SXM):
+    """The shared-matrix forward's kernel for width mg on a card of
+    `card` = (SMs, opt-in shared memory per block in bytes): "grid" (one
+    CTA on each SM holding its rows of B, `sm_fused_fwd_shared_grid`)
+    while one CTA's rows and state fit its shared memory (every mg on an
+    H100 SXM and PCIe), else "block" (one thread block streaming B from
+    L2, `sm_fused_fwd_shared_block`). A choice by shape, not a fallback:
+    both give the same bits."""
+    rows, _ = grid_partition(mg, card[0])
+    return "grid" if shared_grid_smem_bytes(mg, rows) <= card[1] else "block"
 
 
 def shared_bwd_route(mg):
@@ -431,33 +456,51 @@ def shared_bwd_route(mg):
     return "cluster" if mg <= SHARED_CLUSTER_MG_MAX else "block"
 
 
-def fwd_grid_partition(mg, sms):
-    """(rows, ctas) of the grid route on a card of `sms` SMs: each CTA
-    holds `rows` = ceil(mg / sms) contiguous rows of A and B, CTA c rows
-    [c rows, min((c + 1) rows, mg)), and ceil(mg / rows) <= sms CTAs
-    cover all mg rows."""
+def grid_partition(mg, sms):
+    """(rows, ctas) of a grid route on a card of `sms` SMs: each CTA owns
+    `rows` = ceil(mg / sms) contiguous rows, CTA c rows
+    [c rows, min((c + 1) rows, mg)), and ceil(mg / rows) <= sms CTAs cover
+    all mg rows."""
     rows = -(-mg // sms)
     return rows, -(-mg // rows)
 
 
-def grid_smem_bytes(mg, rows):
-    """Shared memory of one CTA of the grid route: its rows of A and B,
-    u, g, w and 32 partial sums (csrc/fused_two_matrix.cu
-    `grid_smem_bytes`)."""
-    return 4 * (2 * rows * mg + 3 * mg + 32)
+def grid_smem_bytes(mg, rows, rows_b):
+    """Shared memory of one CTA of the two-matrix grid route: its rows of
+    A, `rows_b` of its rows of B, u, g, w and 32 partial sums
+    (csrc/fused_two_matrix.cu `grid_smem_bytes`)."""
+    return 4 * ((rows + rows_b) * mg + 3 * mg + 32)
+
+
+def shared_grid_smem_bytes(mg, rows):
+    """Shared memory of one CTA of the shared-matrix grid route: its rows
+    of B, u, v, w and 32 partial sums (csrc/fused_shared.cu
+    `shared_grid_smem_bytes`)."""
+    return 4 * (rows * mg + 3 * mg + 32)
+
+
+def fwd_grid_partition(mg, card):
+    """(rows, ctas, rows_b) of the two-matrix grid route on a card of
+    `card` = (SMs, opt-in shared memory per block in bytes): the CTAs'
+    rows as `grid_partition`, and the number of each CTA's B rows kept in
+    shared memory beside all its A rows and the state, at most `rows`
+    (the rest are read from L2 every step); negative when even the A
+    rows and the state do not fit."""
+    sms, smem = card
+    rows, ctas = grid_partition(mg, sms)
+    return rows, ctas, min(rows, (smem - grid_smem_bytes(mg, rows, 0)) // (4 * mg))
 
 
 def fwd_route(mg, card=H100_SXM):
     """The two-matrix forward's kernel for width mg on a card of
     `card` = (SMs, opt-in shared memory per block in bytes): "grid" (one
-    CTA on each SM holding its rows of A and B, `sm_fused_fwd_grid`)
-    while one CTA's rows fit its shared memory (to mg = 1792 on an H100
-    SXM's 132 SMs, 1664 on an H100 PCIe's 114), else "block" (one thread
-    block streaming A and B from L2, `sm_fused_fwd_block`). A choice by
-    shape, not a fallback: both give the same bits."""
-    sms, smem = card
-    rows, _ = fwd_grid_partition(mg, sms)
-    return "grid" if grid_smem_bytes(mg, rows) <= smem else "block"
+    CTA on each SM holding its rows of A and as many of B as fit,
+    `sm_fused_fwd_grid`) while one CTA's A rows and state fit its shared
+    memory (every mg on an H100 SXM's 132 SMs and an H100 PCIe's 114),
+    else "block" (one thread block streaming A and B from L2,
+    `sm_fused_fwd_block`). A choice by shape, not a fallback: both give
+    the same bits."""
+    return "grid" if fwd_grid_partition(mg, card)[2] >= 0 else "block"
 
 
 def bwd_route(mg):
@@ -482,27 +525,34 @@ def _card(device):
 
 
 @functools.lru_cache(maxsize=None)
-def _check_grid(device, mg, rows, ctas, series):
-    """Raise unless the card can hold the grid route's `ctas` CTAs of
-    `rows` rows at once (`sm_fused_fwd_grid_capacity`, the
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor count times the SMs).
-    A pass is remembered."""
+def _check_grid(device, symbol, shape, ctas, series):
+    """Raise unless the card can hold the `ctas` CTAs of the grid-wide
+    kernel `symbol` ("sm_fused_fwd_grid" with `shape` = (mg, rows,
+    rows_b), "sm_fused_fwd_shared_grid" with (mg, rows)) at once:
+    `<symbol>_capacity`, the cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    count times the SMs, must reach `ctas`. A pass is remembered."""
     from spheremanopt_torch.ops.cuda.build import load
 
     with torch.cuda.device(device):
-        n = load().sm_fused_fwd_grid_capacity(mg, rows, int(series))
+        n = getattr(load(), symbol + "_capacity")(*shape, int(series))
     if n < ctas:
         raise RuntimeError(
-            f"the grid-wide kernel sm_fused_fwd_grid (mg={mg}: {ctas} CTAs of {rows} "
+            f"the grid-wide kernel {symbol} (mg={shape[0]}: {ctas} CTAs of {shape[1]} "
             f"rows) cannot be co-resident on {torch.cuda.get_device_name(device)}: it "
             f"holds {n}" + ("" if n >= 0 else f" (cudaError_t {-n})"))
+
+
+def _tag_slots(u0):
+    """Scratch of a grid route: two slots of mg (value, step tag) 64-bit
+    words that carry u between the CTAs."""
+    return torch.empty((4 * u0.shape[-1],), dtype=torch.float32, device=u0.device)
 
 
 @functools.lru_cache(maxsize=None)
 def _check_cluster(device, symbol, mg, variant):
     """Raise unless the card can schedule the cluster kernel `symbol`
-    ("sm_fused_fwd_shared", "sm_fused_bwd_shared" or "sm_fused_bwd") for
-    this mg and template variant (the series, the lambda history):
+    ("sm_fused_bwd_shared" or "sm_fused_bwd") for this mg and template
+    variant (the lambda history):
     `<symbol>_capacity`, the cudaOccupancyMaxActiveClusters count, must be
     > 0. A pass is remembered."""
     from spheremanopt_torch.ops.cuda.build import load
@@ -535,27 +585,29 @@ def fused_fwd(a, b, w, u0, c2, c3, n_steps, store_traj=True,
 def _fwd_grid(a, b, w, u0, c2, c3, n_steps, store_traj=True,
               store_series=False):
     """`fused_fwd` on the grid-wide kernel (`sm_fused_fwd_grid`) at any mg
-    whose rows fit the card: raises if the card cannot hold its CTAs at
-    once. The caller has checked the shapes."""
+    whose A rows fit the card: raises if the card cannot hold its CTAs at
+    once. Where fewer than all of a CTA's B rows fit, the kernel's
+    instance that reads the others from L2 runs, counted under
+    `fused_fwd_grid_stream*`. The caller has checked the shapes."""
     mg = u0.shape[-1]
-    rows, ctas = fwd_grid_partition(mg, _card(u0.device)[0])
-    _check_grid(u0.device, mg, rows, ctas, bool(store_series))
+    rows, ctas, rows_b = fwd_grid_partition(mg, _card(u0.device))
+    _check_grid(u0.device, "sm_fused_fwd_grid", (mg, rows, rows_b), ctas,
+                bool(store_series))
     uT, jsum, traj, ser = _fwd_outputs(u0, n_steps, store_traj, store_series)
-    # two slots of mg (value, step tag) words that carry u between CTAs
-    ubuf = torch.empty((4 * mg,), dtype=torch.float32, device=u0.device)
-    _launch("sm_fused_fwd_grid",
-            "fused_fwd_grid_ser" if store_series else "fused_fwd_grid",
+    slots = _tag_slots(u0)
+    counter = "fused_fwd_grid" + ("_stream" if rows_b < rows else "")
+    _launch("sm_fused_fwd_grid", counter + ("_ser" if store_series else ""),
             u0.device, a.data_ptr(), b.data_ptr(), w.data_ptr(), u0.data_ptr(),
-            c2, c3, int(n_steps), mg, rows, uT.data_ptr(), jsum.data_ptr(),
-            _ptr(traj), _ptr(ser), ubuf.data_ptr())
+            c2, c3, int(n_steps), mg, rows, rows_b, uT.data_ptr(),
+            jsum.data_ptr(), _ptr(traj), _ptr(ser), slots.data_ptr())
     return uT, jsum, traj, ser
 
 
 def _fwd_block(a, b, w, u0, c2, c3, n_steps, store_traj=True,
                store_series=False):
     """`fused_fwd` on the one-block kernel (`sm_fused_fwd_block`) at any
-    mg: the route above the grid's width, and the kernel the grid is
-    held to bit for bit. The caller has checked the shapes."""
+    mg: the route where the grid's A rows do not fit, and the kernel the
+    grid is held to bit for bit. The caller has checked the shapes."""
     uT, jsum, traj, ser = _fwd_outputs(u0, n_steps, store_traj, store_series)
     _launch("sm_fused_fwd_block",
             "fused_fwd_block_ser" if store_series else "fused_fwd_block",

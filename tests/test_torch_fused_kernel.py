@@ -499,20 +499,25 @@ def test_op_grads_split_covers_the_steps(mg, n_steps, n_out, blocks):
     assert tiles * splits == blocks
 
 
-def _grid_smem(mg, rows):
+def _grid_smem(mg, rows, rows_b):
     """Shared memory of one CTA of the grid forward (csrc/fused_two_matrix.cu
-    `grid_smem_bytes`): its rows of A and B, u, g and w, 32 warp sums."""
-    return 4 * (2 * rows * mg + 3 * mg + 32)
+    `grid_smem_bytes`): its rows of A, rows_b of its rows of B, u, g and w,
+    32 warp sums."""
+    return 4 * ((rows + rows_b) * mg + 3 * mg + 32)
 
 
 @pytest.mark.parametrize("mg", range(128, 2049, 128))
 def test_forward_route_by_width(mg):
-    """The grid while ceil(mg / 132) rows of A and B and 3 mg + 32 floats
-    of state fit each of an H100 SXM's 132 SMs (227 KB); one block above
-    that."""
-    want = "grid" if _grid_smem(mg, -(-mg // 132)) <= 232448 else "block"
-    assert fk.fwd_route(mg) == want
-    assert (want == "grid") == (mg <= 1792)
+    """The grid at every width on an H100 SXM: ceil(mg / 132) rows of A
+    and 3 mg + 32 floats of state fit each of its 132 SMs (227 KB). All
+    of a CTA's B rows fit beside them up to mg = 1792; above, as many as
+    fit stay and the others are read from L2."""
+    rows = -(-mg // 132)
+    assert _grid_smem(mg, rows, 0) <= 232448
+    assert fk.fwd_route(mg) == "grid"
+    _, _, rows_b = fk.fwd_grid_partition(mg, fk.H100_SXM)
+    assert (rows_b == rows) == (mg <= 1792)
+    assert _grid_smem(mg, rows, rows_b) <= 232448
 
 
 @pytest.mark.parametrize("mg", range(128, 2049, 128))
@@ -533,30 +538,58 @@ def test_shared_reverse_route_by_width(mg):
 def test_forward_grid_partition_covers_every_row_once(mg, sms):
     """The grid route's rows: ceil(mg / rows) <= sms CTAs of `rows`
     contiguous rows (the last one short or full) cover 0 .. mg - 1 once;
-    on the H100 SXM's 132 SMs every width of the route fits a block's
-    shared memory."""
-    rows, ctas = fk.fwd_grid_partition(mg, sms)
+    on the H100 SXM's 132 SMs every width up to 1792 keeps all of a CTA's
+    rows of A and B in a block's shared memory."""
+    rows, ctas, rows_b = fk.fwd_grid_partition(mg, (sms, 232448))
+    assert (rows, ctas) == fk.grid_partition(mg, sms)
     assert 1 <= ctas <= sms
     owned = [r for c in range(ctas) for r in range(c * rows, min((c + 1) * rows, mg))]
     assert owned == list(range(mg))
     assert all(min((c + 1) * rows, mg) > c * rows for c in range(ctas))
-    assert fk.grid_smem_bytes(mg, rows) == _grid_smem(mg, rows)
+    assert fk.grid_smem_bytes(mg, rows, rows) == _grid_smem(mg, rows, rows)
     if sms == 132:
-        assert _grid_smem(mg, rows) <= 232448
+        assert rows_b == rows and _grid_smem(mg, rows, rows) <= 232448
 
 
 @pytest.mark.parametrize("sms,top", [(132, 1792), (114, 1664), (78, 1408)])
 def test_forward_grid_route_follows_the_card(sms, top):
-    """The grid route's widest mg depends on the card: it takes a width
-    while ceil(mg / SMs) rows of A and B and the state fit one block's
-    227 KB (an H100 SXM has 132 SMs, an H100 PCIe 114), and the one-block
-    kernel takes every width above it, never the grid."""
+    """The grid route's widths depend on the card: it takes a width while
+    ceil(mg / SMs) rows of A and the state fit one block's 227 KB (every
+    width on an H100 SXM's 132 SMs and an H100 PCIe's 114, up to 1920 on
+    78), and keeps all of a CTA's B rows beside them up to `top`; the
+    one-block kernel takes every width above the route, never the grid."""
     card = (sms, 232448)
     for mg in range(128, 2049, 128):
-        rows, _ = fk.fwd_grid_partition(mg, sms)
-        fits = _grid_smem(mg, rows) <= 232448
+        rows, _, rows_b = fk.fwd_grid_partition(mg, card)
+        fits = _grid_smem(mg, rows, 0) <= 232448
         assert fk.fwd_route(mg, card) == ("grid" if fits else "block")
-        assert fits == (mg <= top)
+        assert (fits and rows_b == rows) == (mg <= top)
+        if fits:
+            assert _grid_smem(mg, rows, rows_b) <= 232448
+            assert rows_b == rows or _grid_smem(mg, rows, rows_b + 1) > 232448
+    assert fk.fwd_route(2048, card) == ("block" if sms == 78 else "grid")
+
+
+@pytest.mark.parametrize("mg", range(128, 2049, 128))
+@pytest.mark.parametrize("card", [(132, 232448), (114, 232448)])
+def test_forward_grid_split_partition(card, mg):
+    """The grid route's split of B on an H100 SXM (132 SMs) and PCIe
+    (114): every row is owned once; a CTA's A rows, its first rows_b B
+    rows and the state fit one block's 227 KB; the B rows read from L2
+    (local rows rows_b .. nr - 1, warp w taking rows w, w + 8, ... of
+    the CTA's 8 warps) differ by at most one between the warps. At
+    mg = 2048: 9 of 16 rows kept on the SXM, 7 of 18 on the PCIe card."""
+    rows, ctas, rows_b = fk.fwd_grid_partition(mg, card)
+    assert 0 <= rows_b <= rows
+    owned = [r for c in range(ctas) for r in range(c * rows, min((c + 1) * rows, mg))]
+    assert owned == list(range(mg))
+    assert fk.grid_smem_bytes(mg, rows, rows_b) == _grid_smem(mg, rows, rows_b) <= card[1]
+    for c in range(ctas):
+        nr = min(rows, mg - c * rows)
+        per_warp = [sum(1 for rl in range(rows_b, nr) if rl % 8 == w) for w in range(8)]
+        assert max(per_warp) - min(per_warp) <= 1
+    if mg == 2048:
+        assert (rows, rows_b) == ((16, 9) if card[0] == 132 else (18, 7))
 
 
 @pytest.fixture
@@ -660,27 +693,36 @@ def _energy_tree(u, w):
     return _butterfly(_butterfly(part.reshape(32, 32))[:, 0])[0]
 
 
-def _grid_forward(a, b, w, u0, c2, c3, n, sms):
-    """The grid-wide forward (csrc/fused_two_matrix.cu) in plain torch:
-    CTA c of `fwd_grid_partition(mg, sms)` computes its rows of
-    u_{n+1} = A u_n + B g(u_n) from all of u_n; the energies by the
+def _grid_sweep(w, u0, n, sms, poly, dots):
+    """A grid-wide forward in plain torch: CTA c of
+    `grid_partition(mg, sms)` computes its rows r of u_{n+1} as
+    dots(r, u_n, poly(u_n)) from all of u_n; the energies by the
     reduction tree, Kahan-summed. (u_T, J_sum, traj, series)."""
-    mg = a.shape[0]
-    rows, ctas = fk.fwd_grid_partition(mg, sms)
+    mg = u0.shape[0]
+    rows, ctas = fk.grid_partition(mg, sms)
     acc, u, traj, ser = kahan_zero(u0.dtype, u0.device), u0, [], []
     for _ in range(n):
         traj.append(u)
         ser.append(_energy_tree(u, w))
         acc = kahan_add(acc, ser[-1])
-        g = c2 * u * u + c3 * u * u * u
+        f = poly(u)
         nxt = torch.empty_like(u)
         for c in range(ctas):
             r = slice(c * rows, min((c + 1) * rows, mg))
-            nxt[r] = _lane_dots(a[r], u, b[r], g)
+            nxt[r] = dots(r, u, f)
         u = nxt
     ser.append(_energy_tree(u, w))
     acc = kahan_add(acc, ser[-1])
     return u, acc[0], torch.stack(traj), torch.stack(ser)
+
+
+def _grid_forward(a, b, w, u0, c2, c3, n, sms):
+    """The two-matrix grid forward (csrc/fused_two_matrix.cu):
+    u_{n+1} = A u_n + B g(u_n), each row in the warp's lane order. The
+    partition of `fwd_grid_partition` (all B rows kept or some read from
+    L2) does not change the arithmetic."""
+    return _grid_sweep(w, u0, n, sms, lambda u: c2 * u * u + c3 * u * u * u,
+                       lambda r, u, g: _lane_dots(a[r], u, b[r], g))
 
 
 def test_grid_forward_partition_matches_plain(one_thread):
@@ -703,15 +745,56 @@ def test_grid_forward_partition_matches_plain(one_thread):
     assert _rel(_energy_tree(u, ww), torch.sum(ww * u * u)) < 1e-6
 
 
+def _shared_lane_dots(rows, v):
+    """Each row's B v as a warp forms it (csrc/fused_shared.cu
+    shared_dot4): lane l sums the float4s k = l + 32 i in ascending i, each
+    float4 its four products in order; then the butterfly of warp_sum."""
+    nr, mg = rows.shape
+    b4, v4 = rows.reshape(nr, mg // 128, 32, 4), v.reshape(1, mg // 128, 32, 4)
+    s = torch.zeros((nr, 32), dtype=rows.dtype)
+    for i in range(mg // 128):
+        p = b4[:, i] * v4[:, i]
+        s = s + (((p[..., 0] + p[..., 1]) + p[..., 2]) + p[..., 3])
+    return _butterfly(s)[:, 0]
+
+
+def _shared_grid_forward(b, w, u0, c2, c3, lin, n, sms):
+    """The shared-matrix grid forward (csrc/fused_shared.cu):
+    u_{n+1} = B v(u_n), each row in the warp's lane order."""
+    return _grid_sweep(w, u0, n, sms, lambda u: lin * u + c2 * u * u + c3 * u * u * u,
+                       lambda r, u, v: _shared_lane_dots(b[r], v))
+
+
+def test_shared_grid_forward_partition_matches_plain(one_thread):
+    """The shared-matrix grid forward's row partition on 132 SMs, lane
+    order and energy tree (plain torch, f32) against
+    `fused_fwd_shared_plain` on SH23's operators at mg = 768 (npts = 384),
+    N = 10: u_T, J, the trajectory and the series within rel 1e-6 (f32
+    sums in another order)."""
+    p = TSH(TConfig(npts=384, dtype="float32", method="matmul"), device="cpu")
+    b = p._Mt.float().contiguous()
+    w = torch.full((768,), 1.0 / 768)
+    x = torch.as_tensor(np.random.RandomState(768).randn(768), dtype=torch.float32)
+    u0 = torch.mv(p._Pt.float(), x) * 0.3
+    lin = 1.0 / p.cfg.dt
+    got = _shared_grid_forward(b, w, u0, C2, C3, lin, 10, 132)
+    want = fk.fused_fwd_shared_plain(b, w, u0, C2, C3, lin, 10, store_series=True)
+    for x_, y in zip(got, want):
+        assert _rel(x_, y) < 1e-6
+
+
 @pytest.mark.parametrize("mg", range(128, 2049, 128))
 def test_shared_forward_route_by_width(mg):
-    """The shared-matrix forward's cluster while B's rows fit 16 SMs'
-    shared memory (227 KB each: mg^2 4 / 16 bytes of rows and 4 mg + 32
-    floats of state), one block above."""
-    smem = mg * mg * 4 // 16 + 4 * mg * 4 + 128
-    assert fk.shared_fwd_route(mg) == (
-        "cluster" if mg <= fk.SHARED_CLUSTER_MG_MAX else "block")
-    assert (smem <= 232448) == (mg <= fk.SHARED_CLUSTER_MG_MAX)
+    """The shared-matrix forward's grid at every width on an H100 SXM (132
+    SMs) and PCIe (114): ceil(mg / SMs) rows of B and 3 mg + 32 floats of
+    state fit each SM's 227 KB. On a card of 16 SMs they stop fitting
+    above mg = 896, and the one-block kernel takes those widths."""
+    assert fk.shared_fwd_route(mg) == "grid"
+    for sms in (132, 114):
+        rows = -(-mg // sms)
+        assert fk.shared_grid_smem_bytes(mg, rows) == 4 * (rows * mg + 3 * mg + 32) <= 232448
+        assert fk.shared_fwd_route(mg, (sms, 232448)) == "grid"
+    assert fk.shared_fwd_route(mg, (16, 232448)) == ("grid" if mg <= 896 else "block")
 
 
 @pytest.mark.parametrize("mg", range(128, 2049, 128))
@@ -758,7 +841,7 @@ def test_kernels_match_plain_on_card(cuda, npts):
     lr, _ = fk.fused_bwd_shared_plain(b, w, k[0], k[2], C2, C3, lin, scale, n)
     torch.cuda.synchronize()
     assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
-        "fused_fwd_shared": 1, "fused_bwd_shared": 1}
+        "fused_fwd_shared_grid": 1, "fused_bwd_shared": 1}
     for got, want in [(k[0], r[0]), (k[1], r[1]), (k[2], r[2]), (lk, lr)]:
         assert _rel(got.cpu(), want.cpu()) < 1e-4
 
@@ -931,19 +1014,22 @@ def test_op_grads_product_matches_plain_on_card(cuda, mg, n, mode):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("npts,n", [(128, 300), (512, 300), (1024, 200), (2048, 100)])
 def test_two_matrix_forward_routes_match_plain_on_card(cuda, npts, n):
-    """The two routes of the two-matrix forward (the grid-wide kernel up
-    to mg = 1792 on an H100 SXM, so at 128, 512 and 1024, one block
-    above) against plain f32, rel 1e-4; with and without the series J,
-    u_T and the trajectory bitwise; each route's bitwise the one-block
-    kernel's on the same inputs."""
+    """The two-matrix forward's route on an H100 (the grid-wide kernel at
+    every width: all of a CTA's rows of A and B in shared memory up to
+    mg = 1792 on an H100 SXM, so at 128, 512 and 1024, and some of its B
+    rows read from L2 at 2048, counted as `fused_fwd_grid_stream`)
+    against plain f32, rel 1e-4; with and without the series J, u_T and
+    the trajectory bitwise; bitwise the one-block kernel's on the same
+    inputs."""
     a, b, w, u0 = _card_shb23(cuda, npts)
     route = fk.fwd_route(npts, fk._card(cuda))
     fk.reset_launches()
     k = fk.fused_fwd(a, b, w, u0, C2B, C3B, n)
     ks = fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True)
     torch.cuda.synchronize()
-    name = {"grid": "fused_fwd_grid", "block": "fused_fwd_block"}[route]
-    assert route == ("grid" if npts <= 1792 else "block")
+    rows, _, rows_b = fk.fwd_grid_partition(npts, fk._card(cuda))
+    name = "fused_fwd_grid" + ("_stream" if rows_b < rows else "")
+    assert route == "grid" and (rows_b < rows) == (npts > 1792)
     assert {k_: v for k_, v in fk.LAUNCHES.items() if v} == {name: 1, name + "_ser": 1}
     r = fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n, store_series=True)
     for got, want in [(k[0], r[0]), (k[1], r[1]), (k[2], r[2]), (ks[3], r[3])]:
@@ -1035,36 +1121,10 @@ def _shared_inputs(cuda, mg):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("mg", [128, 512, 896])
-def test_shared_cluster_forward_bitwise_the_block_forward_on_card(cuda, mg):
-    """The 16-CTA cluster forward of the shared-matrix step against the
-    one-block kernel on the same inputs: u_T, J, the trajectory and the
-    series bitwise; with and without the series bitwise; within 1e-4 of
-    plain f32."""
-    b, w, u0, lin = _shared_inputs(cuda, mg)
-    n = 300
-    fk.reset_launches()
-    k = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n)
-    ks = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n, store_series=True)
-    torch.cuda.synchronize()
-    assert {k_: v for k_, v in fk.LAUNCHES.items() if v} == {
-        "fused_fwd_shared": 1, "fused_fwd_shared_ser": 1}
-    blk = fk._fwd_shared_block(b, w, u0, C2, C3, lin, n, True, True)
-    torch.cuda.synchronize()
-    for x, y in zip(ks, blk):
-        assert torch.equal(x, y)
-    for x, y in zip(k[:3], ks[:3]):
-        assert torch.equal(x, y)
-    r = fk.fused_fwd_shared_plain(b, w, u0, C2, C3, lin, n, store_series=True)
-    for got, want in zip(ks, r):
-        assert _rel(got.cpu(), want.cpu()) < 1e-4
-
-
-@pytest.mark.requires_cuda
 @pytest.mark.parametrize("mg", [512, 1024])
 def test_shared_forward_route_by_width_on_card(cuda, mg):
-    """`shared_fwd_route` picks the kernel by mg: the launch counters show
-    the cluster up to 896 and the one-block kernel above; u_T, J, the
+    """`shared_fwd_route` picks the kernel by mg: on an H100 the launch
+    counters show the grid-wide kernel at every width; u_T, J, the
     trajectory and the series within 1e-4 of plain f32."""
     b, w, u0, lin = _shared_inputs(cuda, mg)
     n = 200
@@ -1072,15 +1132,44 @@ def test_shared_forward_route_by_width_on_card(cuda, mg):
     k = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n)
     ks = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n, store_series=True)
     torch.cuda.synchronize()
-    name = ("fused_fwd_shared" if fk.shared_fwd_route(mg) == "cluster"
-            else "fused_fwd_shared_block")
-    assert fk.shared_fwd_route(mg) == ("cluster" if mg <= 896 else "block")
-    assert {k_: v for k_, v in fk.LAUNCHES.items() if v} == {name: 1, name + "_ser": 1}
+    assert fk.shared_fwd_route(mg, fk._card(cuda)) == "grid"
+    assert {k_: v for k_, v in fk.LAUNCHES.items() if v} == {
+        "fused_fwd_shared_grid": 1, "fused_fwd_shared_grid_ser": 1}
     r = fk.fused_fwd_shared_plain(b, w, u0, C2, C3, lin, n, store_series=True)
     for got, want in list(zip(k[:3], r[:3])) + [(ks[3], r[3])]:
         assert _rel(got.cpu(), want.cpu()) < 1e-4
     for x, y in zip(k[:3], ks[:3]):
         assert torch.equal(x, y)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mg", [128, 512, 896, 1024, 1536, 1920, 2048])
+def test_shared_grid_forward_bitwise_the_block_forward_on_card(cuda, mg):
+    """The grid-wide forward of the shared-matrix step against the
+    one-block kernel on the same inputs (SH23's operators from one row a
+    CTA at mg = 128 to mg = 2048): u_T, J, the trajectory and the series
+    bitwise, with and without the series; the same bits on a second
+    call; within 1e-4 of plain f32."""
+    b, w, u0, lin = _shared_inputs(cuda, mg)
+    n = 200
+    assert fk.shared_fwd_route(mg, fk._card(cuda)) == "grid"
+    fk.reset_launches()
+    k = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n)
+    ks = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n, store_series=True)
+    torch.cuda.synchronize()
+    assert {k_: v for k_, v in fk.LAUNCHES.items() if v} == {
+        "fused_fwd_shared_grid": 1, "fused_fwd_shared_grid_ser": 1}
+    blk = fk._fwd_shared_block(b, w, u0, C2, C3, lin, n)
+    blk_s = fk._fwd_shared_block(b, w, u0, C2, C3, lin, n, True, True)
+    again = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n, store_series=True)
+    torch.cuda.synchronize()
+    for x, y, z in zip(k[:3], blk[:3], ks[:3]):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    for x, y, z in zip(ks, blk_s, again):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    r = fk.fused_fwd_shared_plain(b, w, u0, C2, C3, lin, n, store_series=True)
+    for got, want in zip(ks, r):
+        assert _rel(got.cpu(), want.cpu()) < 1e-4
 
 
 @pytest.mark.requires_cuda
@@ -1094,13 +1183,15 @@ def test_shared_forward_rejects_widths_neither_route_takes(cuda):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("symbol,mg", [
-    ("sm_fused_fwd_grid", 512), ("sm_fused_bwd", 128), ("sm_fused_fwd_shared", 128),
-    ("sm_fused_bwd_shared", 128), ("sm_fused_fwd_grid", 1024)])
+    ("sm_fused_fwd_grid", 512), ("sm_fused_bwd", 128), ("sm_fused_fwd_shared_grid", 128),
+    ("sm_fused_bwd_shared", 128), ("sm_fused_fwd_grid", 1024), ("sm_fused_fwd_grid", 2048),
+    ("sm_fused_fwd_shared_grid", 1024)])
 def test_cluster_capacity_of_zero_raises(cuda, symbol, mg, monkeypatch):
     """A cluster the card cannot schedule (capacity 0), and a grid-wide
     kernel whose CTAs the card cannot hold at once, raise; nothing falls
-    back to the one-block kernel. (The grid at SHB23's width replaces the
-    case of the cluster forward it replaced.)"""
+    back to the one-block kernel. (The grids replace the cases of the
+    cluster forwards they replaced; at mg = 2048 the two-matrix grid's
+    instance that reads B rows from L2.)"""
     from spheremanopt_torch.ops.cuda import build
 
     class NoClusters:
@@ -1119,7 +1210,7 @@ def test_cluster_capacity_of_zero_raises(cuda, symbol, mg, monkeypatch):
     with pytest.raises(RuntimeError, match="cannot be (scheduled|co-resident)"):
         if symbol == "sm_fused_fwd_grid":
             fk.fused_fwd(a, b, w, uT, C2B, C3B, 4)
-        elif symbol == "sm_fused_fwd_shared":
+        elif symbol == "sm_fused_fwd_shared_grid":
             fk.fused_fwd_shared(b, w, uT, C2, C3, 20.0, 4)
         elif symbol == "sm_fused_bwd_shared":
             fk.fused_bwd_shared(b, w, uT, traj, C2, C3, 20.0, sc, 4)
@@ -1187,22 +1278,24 @@ def test_shared_reverse_route_by_width_on_card(cuda, mg):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("npts", [128, 512, 768, 1024, 1792])
+@pytest.mark.parametrize("npts", [128, 512, 768, 1024, 1536, 1792, 1920, 2048])
 def test_grid_forward_bitwise_the_block_forward_on_card(cuda, npts):
     """The grid-wide two-matrix forward against the one-block kernel on
     the same inputs (SHB23's operators from one row a CTA at mg = 128 to
-    the route's top width on an H100 SXM): u_T, J, the trajectory and
-    the series bitwise, with and without the series; the same bits on a
-    second call; within 1e-4 of plain f32."""
+    mg = 2048; above 1792 on an H100 SXM the instance that reads the B
+    rows that do not fit from L2): u_T, J, the trajectory and the series
+    bitwise, with and without the series; the same bits on a second call;
+    within 1e-4 of plain f32."""
     a, b, w, u0 = _card_shb23(cuda, npts)
     n = 200
     assert fk.fwd_route(npts, fk._card(cuda)) == "grid"
+    rows, _, rows_b = fk.fwd_grid_partition(npts, fk._card(cuda))
+    name = "fused_fwd_grid" + ("_stream" if rows_b < rows else "")
     fk.reset_launches()
     k = fk.fused_fwd(a, b, w, u0, C2B, C3B, n)
     ks = fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True)
     torch.cuda.synchronize()
-    assert {k_: v for k_, v in fk.LAUNCHES.items() if v} == {
-        "fused_fwd_grid": 1, "fused_fwd_grid_ser": 1}
+    assert {k_: v for k_, v in fk.LAUNCHES.items() if v} == {name: 1, name + "_ser": 1}
     blk = fk._fwd_block(a, b, w, u0, C2B, C3B, n)
     blk_s = fk._fwd_block(a, b, w, u0, C2B, C3B, n, True, True)
     again = fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True)
@@ -1215,3 +1308,28 @@ def test_grid_forward_bitwise_the_block_forward_on_card(cuda, npts):
     for got, want in zip(ks, r):
         assert _rel(got.cpu(), want.cpu()) < 1e-4
 
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mg,rows,rows_b", [(2048, 18, 7), (2048, 16, 0), (512, 4, 1)])
+def test_grid_forward_any_split_bitwise_on_card(cuda, mg, rows, rows_b):
+    """The grid forward's instance that reads B rows from L2, launched
+    directly at splits its route does not choose on this card (the H100
+    PCIe's 114 CTAs of 18 rows, 7 of B kept; no B row kept; 1 of 4 kept
+    at mg = 512): u_T, J, the trajectory and the series bitwise the
+    one-block kernel's."""
+    from spheremanopt_torch.ops.cuda.build import load
+
+    a, b, w, u0 = _card_shb23(cuda, mg)
+    n = 100
+    assert load().sm_fused_fwd_grid_capacity(mg, rows, rows_b, 1) >= -(-mg // rows)
+    uT, jsum, traj, ser = fk._fwd_outputs(u0, n, True, True)
+    slots = fk._tag_slots(u0)
+    code = load().sm_fused_fwd_grid(
+        a.data_ptr(), b.data_ptr(), w.data_ptr(), u0.data_ptr(), C2B, C3B, n, mg, rows,
+        rows_b, uT.data_ptr(), jsum.data_ptr(), traj.data_ptr(), ser.data_ptr(),
+        slots.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert code == 0
+    blk = fk._fwd_block(a, b, w, u0, C2B, C3B, n, True, True)
+    torch.cuda.synchronize()
+    for x, y in zip((uT, jsum, traj, ser), blk):
+        assert torch.equal(x, y)

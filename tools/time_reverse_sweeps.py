@@ -30,6 +30,13 @@ this one); its kernels are built there at first use. By CUDA events over
     the pinned x0 of `baselines/kdyn_port_ref.npz` (5 calls after 1), and
     the KDyn fwd+grad unit (`objective_and_gradient`, method "cuda"; 3
     calls after 1);
+  * the forwards above the clusters' widths at N = 200, each on the
+    checkout's route and as the one-block kernel called directly, with
+    and without the series: SHB23 (`fused_fwd`) at mg = 1920 and 2048
+    (SHB23's operators at npts = mg) and SH23 (`fused_fwd_shared`) at
+    mg = 1024, 1536 and 2048 (SH23's operators at npts = mg / 2); and
+    the SH23 forward at mg = 128, 256, 512, 640 and 896 on the
+    checkout's route (10 calls after 2 each);
   * the largest difference from plain f32 of the SH23 forward
     (|u_T|, |traj|), the SHB23 reverse sweep (|lambda_0|), the KDyn
     forward (|(b_T, J, traj)|) and the KDyn reverse sweep
@@ -39,7 +46,9 @@ It prints one JSON line with the card's name and power limit. With
 reverse sweep's lambda_0 and lambda history, the SHB23 forward's u_T and
 trajectory (mg = 512), the SHB23 reverse sweep's lambda_0, the SHB23
 forward's u_T, J, trajectory and series at mg = 1024 and the forward's
-u_T, J and series at mg = 128, 256, 384 and 640 to DIR/<tag>.npz,
+u_T, J and series at mg = 128, 256, 384 and 640, and the u_T, J,
+trajectory and series of the forwards above at every width to
+DIR/<tag>.npz,
 and with `--against NAME` it prints the largest difference of each from
 DIR/NAME.npz (`max_abs_<what>_vs_NAME`).
 Run parent, change, change, parent, each in its own process, and compare
@@ -94,6 +103,56 @@ def graph_ms(fn, reps=20, replays=5):
         for _ in range(reps):
             fn()
     return gpu_ms(g.replay, replays) / reps
+
+
+def wide_forwards(fk, dev, out):
+    """Time the forwards above the clusters' widths and the SH23 grid
+    beside its cluster; return their outputs (u_T, J, trajectory and
+    series, each with the series) by name."""
+    import numpy as np
+    import torch
+
+    from spheremanopt_torch.problems.swift_hohenberg import SH23Config, SwiftHohenberg
+    from spheremanopt_torch.problems.swift_hohenberg_bounded import (
+        SHB23Config, SwiftHohenbergBounded)
+
+    saved = {}
+    for m in (1920, 2048):   # SHB23 forward, N = 200: the route and the one-block kernel
+        r = SwiftHohenbergBounded(SHB23Config(npts=m, dtype="float32", method="cuda"),
+                                  device=dev)
+        a, b, w = r._Alt.float().contiguous(), r._Ant.float().contiguous(), r._wt.float()
+        u = torch.as_tensor(np.random.RandomState(m).randn(m), dtype=torch.float32, device=dev)
+        u = u * torch.sqrt(r.cfg.m0 / torch.sum(w * u * u))
+        opnds = (a, b, w, u, 2.0, -1.0, 200)
+        out[f"shb23_fwd_{m}_ms"] = gpu_ms(lambda: fk.fused_fwd(*opnds), 10)
+        out[f"shb23_fwd_{m}_ser_ms"] = gpu_ms(lambda: fk.fused_fwd(*opnds, store_series=True), 10)
+        out[f"shb23_fwd_{m}_block_ms"] = gpu_ms(lambda: fk._fwd_block(*opnds), 10)
+        out[f"shb23_fwd_{m}_block_ser_ms"] = gpu_ms(lambda: fk._fwd_block(*opnds, True, True), 10)
+        got = fk.fused_fwd(*opnds, store_series=True)
+        saved.update(zip((f"shb23_{m}_uT", f"shb23_{m}_J", f"shb23_{m}_traj", f"shb23_{m}_ser"),
+                         got))
+        blk = fk._fwd_block(*opnds, True, True)
+        out[f"shb23_fwd_{m}_max_abs_vs_block"] = max(float((x - y).abs().max())
+                                                     for x, y in zip(got, blk))
+    for m in (128, 256, 512, 640, 896, 1024, 1536, 2048):   # SH23 forward, N = 200
+        p = SwiftHohenberg(SH23Config(npts=m // 2, dtype="float32", method="cuda"), device=dev)
+        b = p._Mt.float().contiguous()
+        w = torch.full((m,), 1.0 / m, device=dev)
+        x = torch.as_tensor(np.random.RandomState(m).randn(m), dtype=torch.float32, device=dev)
+        opnds = (b, w, torch.mv(p._Pt.float(), x) * 0.3, 1.8, -1.0, 1.0 / p.cfg.dt, 200)
+        out[f"sh23_fwd_{m}_ms"] = gpu_ms(lambda: fk.fused_fwd_shared(*opnds), 10)
+        got = fk.fused_fwd_shared(*opnds, store_series=True)
+        saved.update(zip((f"sh23_{m}_uT", f"sh23_{m}_J", f"sh23_{m}_traj", f"sh23_{m}_ser"), got))
+        if m > 896:
+            out[f"sh23_fwd_{m}_ser_ms"] = gpu_ms(
+                lambda: fk.fused_fwd_shared(*opnds, store_series=True), 10)
+            out[f"sh23_fwd_{m}_block_ms"] = gpu_ms(lambda: fk._fwd_shared_block(*opnds), 10)
+            out[f"sh23_fwd_{m}_block_ser_ms"] = gpu_ms(
+                lambda: fk._fwd_shared_block(*opnds, True, True), 10)
+            other = fk._fwd_shared_block(*opnds, True, True)
+            out[f"sh23_fwd_{m}_max_abs_vs_block"] = max(float((x - y).abs().max())
+                                                        for x, y in zip(got, other))
+    return saved
 
 
 def main() -> int:
@@ -235,9 +294,10 @@ def main() -> int:
             out[f"{tag}_matmul_call_us"] = 1e3 * gpu_ms(lib)
 
     uT2, _, tr2, _ = fk.fused_fwd(a2, b2, w2, u2, 2.0, -1.0, n2)
+    saved = wide_forwards(fk, dev, out)
     if args.save:
         os.makedirs(args.save, exist_ok=True)
-        saved = dict(sh23_uT=uT, sh23_traj=tr, uT=uT2, traj=tr2, lam0=lam2)
+        saved.update(sh23_uT=uT, sh23_traj=tr, uT=uT2, traj=tr2, lam0=lam2)
         wide = fk.fused_fwd(a3, b3, w3, u3, 2.0, -1.0, 200, store_series=True)
         saved.update(zip(("wide_uT", "wide_J", "wide_traj", "wide_ser"), wide))
         for m, opnds in narrow.items():
