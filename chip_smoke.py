@@ -43,15 +43,15 @@ Phases, one line each; any failure exits non-zero without a result line:
      grid-wide forward, bitwise the one-block forward kernel called
      directly, and the 16-CTA cluster reverse); the series variants of
      both forwards bitwise the plain ones (J, u_T, lambda); above the
-     reverse cluster's width at mg = 1024, N = 200 the
-     grid-wide forward and the one-block reverse: a main path of their
-     own through the fused objectives, differentiated in u0, against
-     plain f32, bitwise across the series variants and (the forward)
-     bitwise the one-block forward kernel called directly, timed; the
-     grid-wide forward that reads the B rows that do not fit from L2
-     (mg > 1792) at mg = 2048, N = 200, the same way; the same for SH23's
-     grid-wide forward and one-block reverse (mg > 896) at mg = 1024,
-     N = 200, the forward bitwise the one-block kernel called directly
+     reverse cluster's width at mg = 1024, N = 200 the grid-wide forward
+     and reverse: a main path of their own through the fused objectives,
+     differentiated in u0 (and in u0 and the operators: the reverse's
+     history variant), against plain f32, bitwise across the series and
+     history variants and bitwise the one-block kernels called directly,
+     timed beside them; the grid-wide forward and reverse that read the B
+     rows and columns that do not fit from L2 (mg > 1792) at mg = 2048,
+     N = 200, the same way; the same for SH23's grid-wide forward and
+     reverse (mg > 896) at mg = 1024, N = 200
   I  CUDA-event timings: the SHB23 sweeps (grid forward, cluster reverse), both series
      forwards (grids) and the SHB23 fwd+grad unit, kernel vs plain
   J  Taylor test of the SHB23 f64 plain path
@@ -87,8 +87,8 @@ Phases, one line each; any failure exits non-zero without a result line:
 Each main path (G, H, L, M, R, S, T) runs with the launch counters set to 0
 just before it and read just after; a kernel of that path that was not
 launched fails it. The kernels line lists the kernels of those paths;
-the one-block forward kernels, which no path reaches on an H100, are
-timed in phase H's line only. The last lines are the card, the kernels' JSON line
+the one-block kernels, which no path reaches on an H100, are timed in
+phase H's lines only. The last lines are the card, the kernels' JSON line
 and `{"ok": true, ...}`. Without CUDA it exits non-zero: there is no
 CPU path.
 """
@@ -145,51 +145,63 @@ KDYN_BENCH_END = (10, 2.518)
 # H100 SXM data-sheet peaks (dense f32 outside the tensor cores, dense
 # TF32 on the tensor cores, HBM3)
 F32_PEAK, TF32_PEAK, HBM_RATE = 67e12, 495e12, 3.35e12
-# the routes above the reverse clusters' widths (H): SHB23's grid-wide forward, its
-# one-block reverse and SH23's grid-wide forward and one-block reverse at
-# BLOCK_MG; SHB23's grid-wide forward with B rows from L2 at WIDE_MG
+# the routes above the reverse clusters' widths (H): SHB23's and SH23's
+# grid-wide sweeps at BLOCK_MG, held to the one-block kernels; SHB23's
+# grid-wide sweeps with B rows and columns from L2 at WIDE_MG
 BLOCK_MG, BLOCK_N, WIDE_MG = 1024, 200, 2048
 PALLAS = "spheremanopt_tpu/ops/pallas/fused_two_matrix.py"
 PALLAS_K = "spheremanopt_tpu/ops/pallas/kdyn_step.py"
 LAUNCH_TABLES = (fk, kd)   # modules that count their kernels' launches
-# the one-block forward kernels are the route only on a card where a grid's
-# rows do not fit, so no main path on an H100 launches them: phase H holds
-# the grids to them bit for bit and prints their times, and they stay off
-# the kernels line
+# the one-block kernels are the route only on a card where a grid's rows
+# or columns do not fit, so no main path on an H100 launches them: phase H
+# holds the grids to them bit for bit and prints their times, and they
+# stay off the kernels line
 REFERENCE_ONLY = ("fused_fwd_shared_block", "fused_fwd_shared_block_ser",
-                  "fused_fwd_block", "fused_fwd_block_ser")
+                  "fused_fwd_block", "fused_fwd_block_ser", "fused_bwd_block",
+                  "fused_bwd_shared_block")
 SOURCES = {k: v for k, v in {**fk.KERNEL_SOURCES, **kd.KERNEL_SOURCES}.items()
            if k not in REFERENCE_ONLY}
 REPLACES = {
     "fused_fwd_shared_grid": f"{PALLAS}:150",   # _fwd_kernel_shared
     "fused_fwd_shared_grid_ser": f"{PALLAS}:150",   # same, has_ser=True
-    "fused_bwd_shared": f"{PALLAS}:185",        # _bwd_kernel_shared
-    "fused_bwd_shared_block": f"{PALLAS}:185",  # same, mg > 896
+    "fused_bwd_shared": f"{PALLAS}:185",        # _bwd_kernel_shared, mg <= 896
+    "fused_bwd_shared_grid": f"{PALLAS}:185",   # same, mg > 896
     "fused_fwd_grid": f"{PALLAS}:60",           # _fwd_kernel, mg <= 1792 (H100 SXM)
     "fused_fwd_grid_ser": f"{PALLAS}:60",       # same, has_ser=True
     "fused_fwd_grid_stream": f"{PALLAS}:60",    # same, mg > 1792 (H100 SXM)
     "fused_fwd_grid_stream_ser": f"{PALLAS}:60",    # same, mg > 1792, has_ser=True
-    "fused_bwd": f"{PALLAS}:102",               # _bwd_kernel
-    "fused_bwd_block": f"{PALLAS}:102",         # same, mg > 640
+    "fused_bwd": f"{PALLAS}:102",               # _bwd_kernel, mg <= 640
+    "fused_bwd_grid": f"{PALLAS}:102",          # same, 640 < mg <= 1792 (H100 SXM)
+    "fused_bwd_grid_stream": f"{PALLAS}:102",   # same, mg > 1792 (H100 SXM), both variants
     "kdyn_fwd": f"{PALLAS_K}:411",              # _fwd_kernel
     "kdyn_fwd_traj": f"{PALLAS_K}:201",         # _fwd_traj_kernel
     "kdyn_bwd": f"{PALLAS_K}:247",              # _bwd_kernel
     "fused_bwd_shared_ops": f"{PALLAS}:203",    # _bwd_kernel_shared, op_grads
     "fused_bwd_ops": f"{PALLAS}:125",           # _bwd_kernel, op_grads
+    "fused_bwd_shared_grid_ops": f"{PALLAS}:203",   # _bwd_kernel_shared, op_grads, mg > 896
+    "fused_bwd_grid_ops": f"{PALLAS}:125",      # _bwd_kernel, op_grads, mg > 640
     "op_grads": f"{PALLAS}:125",                # its dA/dB (and :203-206's dB)
 }
 
 
-def two_matrix_objectives(a, b, w, u0, dt, n):
+def two_matrix_objectives(a, b, w, u0, dt, n, operators=False):
     """A main path of the two-matrix sweeps at any width: J of
     `FusedObjective` differentiated in u0, and `FusedObjectiveDiag`'s
-    (J, series, u_T); the operators are data (op_grads=False)."""
+    (J, series, u_T), the operators as data (op_grads=False); with
+    `operators`, also J's gradient in u0, A and B (the reverse's history
+    variant and the product)."""
     def path():
         uu = u0.detach().requires_grad_(True)
         J = fk.FusedObjective.apply(a, b, w, uu, C2B, C3B, dt, n, False)
         (grad,) = torch.autograd.grad(J, uu)
-        return (J.detach(), grad,
-                fk.FusedObjectiveDiag.apply(a, b, w, u0, C2B, C3B, dt, n, False))
+        out = (J.detach(), grad,
+               fk.FusedObjectiveDiag.apply(a, b, w, u0, C2B, C3B, dt, n, False))
+        if operators:
+            aa, bb = (m.detach().requires_grad_(True) for m in (a, b))
+            uu = u0.detach().requires_grad_(True)
+            J = fk.FusedObjective.apply(aa, bb, w, uu, C2B, C3B, dt, n)
+            out += (torch.autograd.grad(J, (uu, aa, bb)),)
+        return out
     return path
 
 
@@ -656,42 +668,64 @@ class Smoke:
         self.wide_route(p.cfg.dt)
         self.shared_wide_route()
 
+    @staticmethod
+    def reverse_pair(bwd, bwd_block, args, traj):
+        """The grid reverse `bwd` against the one-block kernel `bwd_block`
+        called directly on the same inputs `args` (trajectory `traj`):
+        lambda_0, the lambda history, and whether lambda_0 with the
+        history, the one-block kernel's lambda_0 without and with it, and
+        the two histories are bitwise lambda_0 and each other."""
+        hk, hb = torch.empty_like(traj), torch.empty_like(traj)
+        lk = bwd(*args)[0]
+        lkh = bwd(*args, lam_hist=hk)[0]
+        lb = bwd_block(*args)
+        lbh = bwd_block(*args, hb)
+        torch.cuda.synchronize()
+        return lk, hk, [torch.equal(lk, lkh), torch.equal(lk, lb), torch.equal(lk, lbh),
+                        torch.equal(hk, hb)]
+
     def block_route(self, dt):
-        """The two-matrix sweeps above the reverse cluster's width: SHB23's
-        operators at npts = 1024 take the grid-wide forward and the
-        one-block reverse. Their main path is the fused objectives (J
-        differentiated in u0, and J with the series); then the kernels
-        against plain f32 and across the series variants, the grid forward
-        bitwise the one-block forward kernel called directly, and their
-        times. The kernels line keeps the grid's numbers from phase H's
-        and I's SHB23 width (mg = 512, N = 2000) and the reverse's from
-        here."""
+        """The two-matrix sweeps at twice the reference's width: SHB23's
+        operators at npts = 1024 take the grid-wide forward and reverse.
+        Their main path is the fused objectives (J differentiated in u0,
+        J with the series, and J differentiated in u0, A and B: the
+        reverse's history variant); then the kernels against plain f32 and
+        across the series variants and the history, each grid bitwise the
+        one-block kernel called directly, and their times beside the
+        one-block kernels'. The kernels line keeps the grid forward's
+        numbers from phase H's and I's SHB23 width (mg = 512, N = 2000) and
+        the grid reverse's from here."""
         q, _, _ = cli.make_problem(problem_args("shb23", "float32", "cuda", "--npts",
                                                 str(BLOCK_MG)))
         ops = operators_to_torch(shb23_operators(q), q.device)
         a, b, w = ops["a32"], ops["b32"], ops["w32"]
         u0 = q.generate_ic(seed=42)[0]
         n = BLOCK_N
-        J, grad, (Jd, ser, _) = self.main_path(
-            "H", ("fused_fwd_grid", "fused_fwd_grid_ser", "fused_bwd_block"),
-            two_matrix_objectives(a, b, w, u0, dt, n), record=("fused_bwd_block",))
+        J, grad, (Jd, ser, _), g_ops = self.main_path(
+            "H", ("fused_fwd_grid", "fused_fwd_grid_ser", "fused_bwd_grid", "fused_bwd_grid_ops"),
+            two_matrix_objectives(a, b, w, u0, dt, n, operators=True),
+            record=("fused_bwd_grid", "fused_bwd_grid_ops"))
         k = fk.fused_fwd(a, b, w, u0, C2B, C3B, n)
         ks = fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True)
         blk = fk._fwd_block(a, b, w, u0, C2B, C3B, n)
         blk_s = fk._fwd_block(a, b, w, u0, C2B, C3B, n, True, True)
         r = fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n, store_series=True)
         scale = torch.tensor(-2.0 * dt, dtype=torch.float32, device=u0.device)
-        lk = fk.fused_bwd(a, b, w, k[0], k[2], C2B, C3B, scale, n)[0]
-        lp = fk.fused_bwd_plain(a, b, w, k[0], k[2], C2B, C3B, scale, n)[0]
+        rargs = (a, b, w, k[0], k[2], C2B, C3B, scale, n)
+        lk, hk, same_rev = self.reverse_pair(fk.fused_bwd, fk._bwd_block, rargs, k[2])
+        hp = torch.empty_like(k[2])
+        lp = fk.fused_bwd_plain(*rargs, lam_hist=hp)[0]
         torch.cuda.synchronize()
         pairs, ser_pairs = list(zip(k[:3], r[:3])), list(zip(ks, r))
         e = max(rel(x, y) for x, y in pairs + ser_pairs + [(J, -dt * r[1])])
-        e_b = rel(lk, lp)
+        e_b = max(rel(lk, lp), rel(hk, hp))
         same = ([torch.equal(x, y) for x, y in zip(k[:3], ks[:3])]
-                + [torch.equal(J, Jd), torch.equal(ser, ks[3]), torch.equal(grad, lk)])
+                + [torch.equal(J, Jd), torch.equal(ser, ks[3]), torch.equal(grad, lk),
+                   torch.equal(g_ops[0], lk)])
         same_blk = ([torch.equal(x, y) for x, y in zip(k[:3], blk[:3])]
                     + [torch.equal(x, y) for x, y in zip(ks, blk_s)])
-        self.kernels["fused_bwd_block"]["max_abs_err"] = max_abs([(lk, lp)])
+        self.kernels["fused_bwd_grid"]["max_abs_err"] = max_abs([(lk, lp)])
+        self.kernels["fused_bwd_grid_ops"]["max_abs_err"] = max_abs([(lk, lp), (hk, hp)])
         f_pl, f_k = interleaved_ms(
             lambda: fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n),
             lambda: fk.fused_fwd(a, b, w, u0, C2B, C3B, n), 2, 10)
@@ -700,58 +734,72 @@ class Smoke:
             lambda: fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True), 2, 10)
         fb_k = gpu_ms(lambda: fk._fwd_block(a, b, w, u0, C2B, C3B, n), 10)
         fbs_k = gpu_ms(lambda: fk._fwd_block(a, b, w, u0, C2B, C3B, n, True, True), 10)
-        b_pl, b_k = interleaved_ms(
-            lambda: fk.fused_bwd_plain(a, b, w, k[0], k[2], C2B, C3B, scale, n),
-            lambda: fk.fused_bwd(a, b, w, k[0], k[2], C2B, C3B, scale, n), 2, 10)
-        self.kernels["fused_bwd_block"].update(
+        b_pl, b_k = interleaved_ms(lambda: fk.fused_bwd_plain(*rargs),
+                                   lambda: fk.fused_bwd(*rargs), 2, 10)
+        bh_pl, bh_k = interleaved_ms(lambda: fk.fused_bwd_plain(*rargs, lam_hist=hp),
+                                     lambda: fk.fused_bwd(*rargs, lam_hist=hk), 2, 10)
+        bb_k = gpu_ms(lambda: fk._bwd_block(*rargs), 10)
+        self.kernels["fused_bwd_grid"].update(
             ms=b_k, plain_ms=b_pl, work=sweep_work(BLOCK_MG, n, 2, fwd=False))
-        routes = (fk.fwd_route(BLOCK_MG, fk._card(u0.device)), fk.bwd_route(BLOCK_MG))
-        self.check("H", routes == ("grid", "block") and max(e, e_b) <= TOL_VS_PLAIN
-                   and all(same) and all(same_blk),
+        self.kernels["fused_bwd_grid_ops"].update(
+            ms=bh_k, plain_ms=bh_pl, work=hist_work(BLOCK_MG, n, 2))
+        card = fk._card(u0.device)
+        routes = (fk.fwd_route(BLOCK_MG, card), fk.bwd_route(BLOCK_MG, card))
+        self.check("H", routes == ("grid", "grid") and max(e, e_b) <= TOL_VS_PLAIN
+                   and all(same) and all(same_blk) and all(same_rev),
                    f"[{self.card}] routes {routes} (mg={a.shape[0]}, N={n}): forward "
                    f"vs plain f32 (u_T, J, traj, series, the objective's J) rel "
                    f"{e:.2e} (abs {max_abs(pairs + ser_pairs):.2e}), reverse "
-                   f"(lambda_0) rel {e_b:.2e} (tol {TOL_VS_PLAIN:g}); "
-                   f"series variant, the objectives and autograd's gradient bitwise "
-                   f"the wrappers': {same}; grid forward bitwise the one-block "
-                   f"kernel's (u_T, J, traj; with the series): {same_blk}; grid "
-                   f"forward {f_k:.3f} ms vs plain {f_pl:.3f} ms, with series "
-                   f"{fs_k:.3f} vs {fs_pl:.3f} ms; one-block forward kernel "
-                   f"{fb_k:.3f} ms, with series {fbs_k:.3f} ms; reverse sweep "
-                   f"{b_k:.3f} ms vs plain {b_pl:.3f} ms")
+                   f"(lambda_0, history) rel {e_b:.2e} (abs {max_abs([(lk, lp)]):.2e}; tol "
+                   f"{TOL_VS_PLAIN:g}); series variant, the objectives and autograd's "
+                   f"gradients (in u0; in u0 and the operators) bitwise the wrappers': "
+                   f"{same}; grid forward bitwise the "
+                   f"one-block kernel's (u_T, J, traj; with the series): {same_blk}; grid "
+                   f"reverse's lambda_0 bitwise with the history, the one-block kernel's "
+                   f"without and with it, and the histories: {same_rev}; grid forward "
+                   f"{f_k:.3f} ms vs plain {f_pl:.3f} ms, with series {fs_k:.3f} vs "
+                   f"{fs_pl:.3f} ms; one-block forward kernel {fb_k:.3f} ms, with series "
+                   f"{fbs_k:.3f} ms; grid reverse {b_k:.3f} ms vs plain {b_pl:.3f} ms, "
+                   f"with the history {bh_k:.3f} vs {bh_pl:.3f} ms; one-block reverse "
+                   f"kernel {bb_k:.3f} ms")
 
     def wide_route(self, dt):
-        """The two-matrix forward above the width where all of a CTA's B
-        rows fit: SHB23's operators at npts = 2048 take the grid-wide
-        forward that reads the B rows that do not fit from L2. Its main
-        path is the fused objectives (with the one-block reverse); then
-        the kernel against plain f32, across the series variants and
-        bitwise the one-block forward kernel called directly, and their
-        times (the one-block kernel's in this phase's line only)."""
+        """The two-matrix sweeps above the width where all of a CTA's B rows
+        and columns fit: SHB23's operators at npts = 2048 take the grid-wide
+        forward and reverse that read the B rows and columns that do not
+        fit from L2. Their main path is the fused objectives; then the
+        kernels against plain f32, across the series variants and the
+        history and bitwise the one-block kernels called directly, and their
+        times (the one-block kernels' in this phase's line only)."""
         q, _, _ = cli.make_problem(problem_args("shb23", "float32", "cuda", "--npts",
                                                 str(WIDE_MG)))
         ops = operators_to_torch(shb23_operators(q), q.device)
         a, b, w = ops["a32"], ops["b32"], ops["w32"]
         u0 = q.generate_ic(seed=42)[0]
         n = BLOCK_N
+        kernels = ("fused_fwd_grid_stream", "fused_fwd_grid_stream_ser", "fused_bwd_grid_stream")
         J, grad, (Jd, ser, _) = self.main_path(
-            "H", ("fused_fwd_grid_stream", "fused_fwd_grid_stream_ser", "fused_bwd_block"),
-            two_matrix_objectives(a, b, w, u0, dt, n),
-            record=("fused_fwd_grid_stream", "fused_fwd_grid_stream_ser"))
+            "H", kernels, two_matrix_objectives(a, b, w, u0, dt, n))
         k = fk.fused_fwd(a, b, w, u0, C2B, C3B, n)
         ks = fk.fused_fwd(a, b, w, u0, C2B, C3B, n, store_series=True)
         blk = fk._fwd_block(a, b, w, u0, C2B, C3B, n)
         blk_s = fk._fwd_block(a, b, w, u0, C2B, C3B, n, True, True)
         r = fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n, store_series=True)
+        scale = torch.tensor(-2.0 * dt, dtype=torch.float32, device=u0.device)
+        rargs = (a, b, w, k[0], k[2], C2B, C3B, scale, n)
+        lk, _, same_rev = self.reverse_pair(fk.fused_bwd, fk._bwd_block, rargs, k[2])
+        lp = fk.fused_bwd_plain(*rargs)[0]
         torch.cuda.synchronize()
         pairs, ser_pairs = list(zip(k[:3], r[:3])), list(zip(ks, r))
         e = max(rel(x, y) for x, y in pairs + ser_pairs + [(J, -dt * r[1])])
+        e_b = rel(lk, lp)
         same = ([torch.equal(x, y) for x, y in zip(k[:3], ks[:3])]
-                + [torch.equal(J, Jd), torch.equal(ser, ks[3])])
+                + [torch.equal(J, Jd), torch.equal(ser, ks[3]), torch.equal(grad, lk)])
         same_blk = ([torch.equal(x, y) for x, y in zip(k[:3], blk[:3])]
                     + [torch.equal(x, y) for x, y in zip(ks, blk_s)])
         self.kernels["fused_fwd_grid_stream"]["max_abs_err"] = max_abs(pairs)
         self.kernels["fused_fwd_grid_stream_ser"]["max_abs_err"] = max_abs(ser_pairs)
+        self.kernels["fused_bwd_grid_stream"]["max_abs_err"] = max_abs([(lk, lp)])
         f_pl, f_k = interleaved_ms(
             lambda: fk.fused_fwd_plain(a, b, w, u0, C2B, C3B, n),
             lambda: fk.fused_fwd(a, b, w, u0, C2B, C3B, n), 1, 10, warm_plain=1)
@@ -761,33 +809,47 @@ class Smoke:
             warm_plain=1)
         fb_k = gpu_ms(lambda: fk._fwd_block(a, b, w, u0, C2B, C3B, n), 2, warm=1)
         fbs_k = gpu_ms(lambda: fk._fwd_block(a, b, w, u0, C2B, C3B, n, True, True), 2, warm=1)
+        b_pl, b_k = interleaved_ms(lambda: fk.fused_bwd_plain(*rargs),
+                                   lambda: fk.fused_bwd(*rargs), 1, 10, warm_plain=1)
+        bb_k = gpu_ms(lambda: fk._bwd_block(*rargs), 2, warm=1)
         self.kernels["fused_fwd_grid_stream"].update(
             ms=f_k, plain_ms=f_pl, work=sweep_work(WIDE_MG, n, 2, fwd=True))
         self.kernels["fused_fwd_grid_stream_ser"].update(
             ms=fs_k, plain_ms=fs_pl, work=sweep_work(WIDE_MG, n, 2, fwd=True, ser=True))
+        self.kernels["fused_bwd_grid_stream"].update(
+            ms=b_k, plain_ms=b_pl, work=sweep_work(WIDE_MG, n, 2, fwd=False))
         card = fk._card(u0.device)
-        route, (rows, _, rows_b) = fk.fwd_route(WIDE_MG, card), fk.fwd_grid_partition(WIDE_MG, card)
-        self.check("H", route == "grid" and rows_b < rows and e <= TOL_VS_PLAIN and all(same)
-                   and all(same_blk),
-                   f"[{self.card}] forward route {route!r} (mg={a.shape[0]}, N={n}; "
-                   f"{rows_b} of {rows} B rows a CTA kept, the rest from L2): vs plain f32 "
-                   f"(u_T, J, traj, series, the objective's J) rel {e:.2e} (tol "
-                   f"{TOL_VS_PLAIN:g}); series variant and the objectives bitwise the "
-                   f"wrappers': {same}; bitwise the one-block kernel's (u_T, J, traj; with "
-                   f"the series): {same_blk}; forward sweep {f_k:.3f} ms vs plain {f_pl:.3f} "
-                   f"ms, with series {fs_k:.3f} vs {fs_pl:.3f} ms; one-block kernel "
-                   f"{fb_k:.3f} ms, with series {fbs_k:.3f} ms")
+        rows, _, rows_b = fk.fwd_grid_partition(WIDE_MG, card)
+        cols, _, cols_b = fk.bwd_grid_partition(WIDE_MG, card)
+        routes = (fk.fwd_route(WIDE_MG, card), fk.bwd_route(WIDE_MG, card))
+        self.check("H", routes == ("grid", "grid") and rows_b < rows and cols_b < cols
+                   and max(e, e_b) <= TOL_VS_PLAIN and all(same) and all(same_blk)
+                   and all(same_rev),
+                   f"[{self.card}] routes {routes} (mg={a.shape[0]}, N={n}; {rows_b} of "
+                   f"{rows} B rows and {cols_b} of {cols} B columns a CTA kept, the rest "
+                   f"from L2): forward vs plain f32 (u_T, J, traj, series, the objective's "
+                   f"J) rel {e:.2e}, reverse (lambda_0) rel {e_b:.2e} (tol "
+                   f"{TOL_VS_PLAIN:g}); series variant, the objectives and autograd's "
+                   f"gradient bitwise the wrappers': {same}; forward bitwise the one-block "
+                   f"kernel's (u_T, J, traj; with the series): {same_blk}; reverse's "
+                   f"lambda_0 bitwise with the history, the one-block kernel's without and "
+                   f"with it, and the histories: {same_rev}; forward sweep {f_k:.3f} ms vs "
+                   f"plain {f_pl:.3f} ms, with series {fs_k:.3f} vs {fs_pl:.3f} ms; one-block "
+                   f"forward kernel {fb_k:.3f} ms, with series {fbs_k:.3f} ms; reverse sweep "
+                   f"{b_k:.3f} ms vs plain {b_pl:.3f} ms; one-block reverse kernel "
+                   f"{bb_k:.3f} ms")
 
     def shared_wide_route(self):
-        """SH23's sweeps above the reverse cluster's width: SH23's operators
-        at npts = 512 (mg = 1024) take the grid-wide forward and the
-        one-block reverse. Their main path is the fused objectives (J
-        differentiated in u0, and J with the series); then the kernels
-        against plain f32, the forward across the series variants and
-        bitwise the one-block forward kernel called directly (whose
-        times go to this phase's line only), the reverse sweep's lambda_0 against autograd's gradient, and their
+        """SH23's sweeps at twice the reference's width: SH23's operators
+        at npts = 512 (mg = 1024) take the grid-wide forward and reverse.
+        Their main path is the fused objectives (J differentiated in u0,
+        J with the series, and J differentiated in u0 and B: the reverse's
+        history variant); then the kernels against plain f32, across the
+        series variants and the history, each grid bitwise the one-block
+        kernel called directly (whose times go to this phase's line only),
+        the reverse's lambda_0 against autograd's gradients, and their
         times. The kernels line keeps the grid forward's numbers from the
-        SH23 width (mg = 512, phases C, D, G) and the reverse's from
+        SH23 width (mg = 512, phases C, D, G) and the grid reverse's from
         here."""
         q, _, _ = cli.make_problem(problem_args("sh23", "float32", "cuda", "--npts",
                                                 str(BLOCK_MG // 2)))
@@ -800,27 +862,36 @@ class Smoke:
             uu = u0.detach().requires_grad_(True)
             J = fk.FusedObjectiveShared.apply(b, w, uu, C2, C3, lin, dt, n, False)
             (grad,) = torch.autograd.grad(J, uu)
-            return (J.detach(), grad,
-                    fk.FusedObjectiveSharedDiag.apply(b, w, u0, C2, C3, lin, dt, n, False))
+            out = (J.detach(), grad,
+                   fk.FusedObjectiveSharedDiag.apply(b, w, u0, C2, C3, lin, dt, n, False))
+            bb, uu = b.detach().requires_grad_(True), u0.detach().requires_grad_(True)
+            J = fk.FusedObjectiveShared.apply(bb, w, uu, C2, C3, lin, dt, n)
+            return out + (torch.autograd.grad(J, (uu, bb)),)
 
-        J, grad, (Jd, ser, _) = self.main_path(
-            "H", ("fused_fwd_shared_grid", "fused_fwd_shared_grid_ser",
-                  "fused_bwd_shared_block"), path, record=("fused_bwd_shared_block",))
+        J, grad, (Jd, ser, _), g_ops = self.main_path(
+            "H", ("fused_fwd_shared_grid", "fused_fwd_shared_grid_ser", "fused_bwd_shared_grid",
+                  "fused_bwd_shared_grid_ops"), path,
+            record=("fused_bwd_shared_grid", "fused_bwd_shared_grid_ops"))
         k = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n)
         ks = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n, store_series=True)
         blk = fk._fwd_shared_block(b, w, u0, C2, C3, lin, n)
         blk_s = fk._fwd_shared_block(b, w, u0, C2, C3, lin, n, True, True)
         r = fk.fused_fwd_shared_plain(b, w, u0, C2, C3, lin, n, store_series=True)
         scale = torch.tensor(-2.0 * dt, dtype=torch.float32, device=u0.device)
-        lk = fk.fused_bwd_shared(b, w, k[0], k[2], C2, C3, lin, scale, n)[0]
-        lp = fk.fused_bwd_shared_plain(b, w, k[0], k[2], C2, C3, lin, scale, n)[0]
+        rargs = (b, w, k[0], k[2], C2, C3, lin, scale, n)
+        lk, hk, same_rev = self.reverse_pair(fk.fused_bwd_shared, fk._bwd_shared_block, rargs,
+                                             k[2])
+        hp = torch.empty_like(k[2])
+        lp = fk.fused_bwd_shared_plain(*rargs, lam_hist=hp)[0]
         torch.cuda.synchronize()
         pairs, ser_pairs = list(zip(k[:3], r[:3])), list(zip(ks, r))
         e = max(rel(x, y) for x, y in pairs + ser_pairs + [(J, -dt * r[1])])
-        e_b = rel(lk, lp)
-        self.kernels["fused_bwd_shared_block"]["max_abs_err"] = max_abs([(lk, lp)])
+        e_b = max(rel(lk, lp), rel(hk, hp))
         same = ([torch.equal(x, y) for x, y in zip(k[:3], ks[:3])]
-                + [torch.equal(J, Jd), torch.equal(ser, ks[3]), torch.equal(grad, lk)])
+                + [torch.equal(J, Jd), torch.equal(ser, ks[3]), torch.equal(grad, lk),
+                   torch.equal(g_ops[0], lk)])
+        self.kernels["fused_bwd_shared_grid"]["max_abs_err"] = max_abs([(lk, lp)])
+        self.kernels["fused_bwd_shared_grid_ops"]["max_abs_err"] = max_abs([(lk, lp), (hk, hp)])
         same_blk = ([torch.equal(x, y) for x, y in zip(k[:3], blk[:3])]
                     + [torch.equal(x, y) for x, y in zip(ks, blk_s)])
         f_pl, f_k = interleaved_ms(
@@ -831,24 +902,33 @@ class Smoke:
             lambda: fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n, store_series=True), 2, 10)
         fb_k = gpu_ms(lambda: fk._fwd_shared_block(b, w, u0, C2, C3, lin, n), 10)
         fbs_k = gpu_ms(lambda: fk._fwd_shared_block(b, w, u0, C2, C3, lin, n, True, True), 10)
-        b_pl, b_k = interleaved_ms(
-            lambda: fk.fused_bwd_shared_plain(b, w, k[0], k[2], C2, C3, lin, scale, n),
-            lambda: fk.fused_bwd_shared(b, w, k[0], k[2], C2, C3, lin, scale, n), 2, 10)
-        self.kernels["fused_bwd_shared_block"].update(
+        b_pl, b_k = interleaved_ms(lambda: fk.fused_bwd_shared_plain(*rargs),
+                                   lambda: fk.fused_bwd_shared(*rargs), 2, 10)
+        bh_pl, bh_k = interleaved_ms(lambda: fk.fused_bwd_shared_plain(*rargs, lam_hist=hp),
+                                     lambda: fk.fused_bwd_shared(*rargs, lam_hist=hk), 2, 10)
+        bb_k = gpu_ms(lambda: fk._bwd_shared_block(*rargs), 10)
+        self.kernels["fused_bwd_shared_grid"].update(
             ms=b_k, plain_ms=b_pl, work=sweep_work(BLOCK_MG, n, 1, fwd=False))
-        routes = (fk.shared_fwd_route(BLOCK_MG, fk._card(u0.device)),
-                  fk.shared_bwd_route(BLOCK_MG))
-        self.check("H", routes == ("grid", "block") and max(e, e_b) <= TOL_VS_PLAIN
-                   and all(same) and all(same_blk),
+        self.kernels["fused_bwd_shared_grid_ops"].update(
+            ms=bh_k, plain_ms=bh_pl, work=hist_work(BLOCK_MG, n, 1))
+        card = fk._card(u0.device)
+        routes = (fk.shared_fwd_route(BLOCK_MG, card), fk.shared_bwd_route(BLOCK_MG, card))
+        self.check("H", routes == ("grid", "grid") and max(e, e_b) <= TOL_VS_PLAIN
+                   and all(same) and all(same_blk) and all(same_rev),
                    f"[{self.card}] SH23 routes {routes} (mg={b.shape[0]}, N={n}): "
                    f"forward vs plain f32 (u_T, J, traj, series, the objective's J) rel "
-                   f"{e:.2e}, reverse (lambda_0) rel {e_b:.2e} (tol {TOL_VS_PLAIN:g}); "
-                   f"series variant, the objectives and autograd's gradient bitwise the "
-                   f"wrappers': {same}; grid forward bitwise the one-block kernel's (u_T, J, "
-                   f"traj; with the series): {same_blk}; forward sweep {f_k:.3f} ms vs plain "
-                   f"{f_pl:.3f} ms, with series {fs_k:.3f} vs {fs_pl:.3f} ms; one-block "
-                   f"forward kernel {fb_k:.3f} ms, with series {fbs_k:.3f} ms; reverse sweep "
-                   f"{b_k:.3f} ms vs plain {b_pl:.3f} ms")
+                   f"{e:.2e}, reverse (lambda_0, history) rel {e_b:.2e} (abs "
+                   f"{max_abs([(lk, lp)]):.2e}; tol {TOL_VS_PLAIN:g}); series variant, the "
+                   f"objectives and autograd's gradients (in u0; in u0 and B) bitwise the "
+                   f"wrappers': {same}; grid "
+                   f"forward bitwise the one-block kernel's (u_T, J, traj; with the series): "
+                   f"{same_blk}; grid reverse's lambda_0 bitwise with the history, the "
+                   f"one-block kernel's without and with it, and the histories: {same_rev}; "
+                   f"forward sweep {f_k:.3f} ms vs plain {f_pl:.3f} ms, with series "
+                   f"{fs_k:.3f} vs {fs_pl:.3f} ms; one-block forward kernel {fb_k:.3f} ms, "
+                   f"with series {fbs_k:.3f} ms; reverse sweep {b_k:.3f} ms vs plain "
+                   f"{b_pl:.3f} ms, with the history {bh_k:.3f} vs {bh_pl:.3f} ms; one-block "
+                   f"reverse kernel {bb_k:.3f} ms")
 
     def phase_i(self):
         a, b, w, u0, n = self.shb_sweep

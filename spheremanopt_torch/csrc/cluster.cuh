@@ -1,7 +1,7 @@
 // The thread-block cluster machinery of the SBDF sweeps (fused_shared.cu,
 // fused_two_matrix.cu): the cluster's shape, the energy sum that stands in
 // for the one-block kernels' 1024-thread reduction tree (also used by the
-// grid-wide forwards), the reverse clusters' row phases, the launch of one
+// grid-wide forwards), the reverse sweeps' row phases, the launch of one
 // cluster and its capacity query, and the dispatch from a width mg to the
 // kernel instance of mg = 128 R.
 #pragma once
@@ -46,10 +46,11 @@ __device__ __forceinline__ void energy_partials(const float* u, const float* ws,
     for (int v = 0; v < kPer; ++v) red[warp + v * kClusterWarps] = p[v];
 }
 
-// The reverse clusters' row phases at mg = 128 R: the one-block reverse
-// kernels' P = 1024 / (mg / 4), so that thread (p, column) of a cluster
-// sums the rows p, p + P, ... of its column in the one-block kernel's order.
-__host__ __device__ constexpr int bwd_phases(int R) { return kThreads / (32 * R); }
+// The one-block reverse kernels' row phases at width mg: their thread
+// (p, column group) of 1024 sums the rows p, p + P, ... of its columns; a
+// cluster's or a grid's thread (p, column) sums the same rows in the same
+// order.
+__host__ __device__ constexpr int row_phases(int mg) { return kThreads / (mg / 4); }
 
 // The launch of one cluster of kClusterCtas CTAs of `threads` threads and
 // `smem` bytes of dynamic shared memory. The kernel's attributes are set

@@ -7,12 +7,12 @@
 //                           and has_ser as the traj / ser pointers): the
 //                           grid-wide route and the one-block route of the
 //                           same forward
-//   sm_fused_bwd_shared, sm_fused_bwd_shared_block
+//   sm_fused_bwd_shared, sm_fused_bwd_shared_grid, sm_fused_bwd_shared_block
 //                        <- _bwd_kernel_shared (_run_bwd_shared): the cluster
-//                           route and the one-block route of the same
-//                           reverse sweep; with op_grads it stores the
-//                           lambda history that op_grads.cu turns into dB
-//                           (the `lam_hist` pointer)
+//                           route, the grid-wide route and the one-block
+//                           route of the same reverse sweep; with op_grads
+//                           it stores the lambda history that op_grads.cu
+//                           turns into dB (the `lam_hist` pointer)
 //
 // What bounds them on an H100: every step is a batch-1 GEMV with the
 // (mg, mg) f32 step matrix B (1 MiB at mg = 512), and the steps are
@@ -64,11 +64,28 @@
 // With that order lambda_0 and the history are bitwise the one-block
 // kernel's. mg^2 4 / 16 bytes of columns and 2 mg + (P + 2) mg / 16 floats
 // of state fit 227 KB up to mg = 896.
-// A larger mg takes sm_fused_bwd_shared_block: one thread block; B stays
-// in global memory and, after the first step, in L2; the small state
-// (lambda, the partial sums) lives in shared memory. Thread (p, column
-// group) sums rows p, p + P, ... of four columns. The wrapper chooses by
-// shape; each route launches its kernel or fails.
+// sm_fused_bwd_shared_grid (reverse, mg > 896 while a CTA's columns of B
+// and the state fit: every width on an H100 SXM and PCIe): the two-matrix
+// grid reverse of fused_two_matrix.cu with one matrix. CTA c keeps cols =
+// ceil(mg / SMs) contiguous columns of B (64 KB at mg = 1024, 128 KB at
+// 2048) in shared memory as its threads' chains, and lambda as each
+// phase's chain; the chains keep the one-block kernel's order, and lambda
+// crosses between the CTAs as step-tagged words. lambda_0 and the history
+// are bitwise the one-block kernel's. Why the cluster stays at mg <= 896:
+// at N = 200 the grid took 0.359 ms at mg = 512 against the cluster's
+// 0.294-0.300, and 0.39 / 0.34 / 0.37 against 0.19 / 0.18 / 0.28 at
+// mg = 128 / 256 / 384 (its exchange through L2 costs more a step than
+// the cluster's barrier); it was ahead from mg = 640 on, 0.408 / 0.407 /
+// 0.481 against 0.434-0.444 / 0.523-0.534 / 0.682-0.687 at mg = 640 / 768 /
+// 896, which stay the cluster's (H100 SXM at 700 W,
+// tools/time_reverse_sweeps.py).
+// sm_fused_bwd_shared_block: one thread block; B stays in global memory
+// and, after the first step, in L2; the small state (lambda, the partial
+// sums) lives in shared memory. Thread (p, column group) sums rows p,
+// p + P, ... of four columns. It is the route only where a grid's columns
+// do not fit, and the kernel the cluster and the grid are held to bit for
+// bit. The wrapper chooses by shape; each route launches its kernel or
+// fails.
 //
 // The energy series is a template flag, chosen from the `ser` pointer at
 // launch: a runtime test of the pointer on thread 0's per-step path made
@@ -84,10 +101,9 @@
 // return cudaGetLastError() (or the launch's error) so the caller can
 // raise on a refused launch. The caller guarantees mg % 128 == 0,
 // 128 <= mg <= 2048 (sm_fused_bwd_shared: mg <= 896), contiguous f32
-// buffers on one device. sm_fused_fwd_shared_grid launches
-// cooperatively, so a grid that the card cannot hold at once fails at
-// launch; a word that never gets its tag traps (a launch failure), it
-// does not hang.
+// buffers on one device. The grids launch cooperatively, so a grid that
+// the card cannot hold at once fails at launch; a word that never gets its
+// tag traps (a launch failure), it does not hang.
 
 #include <cooperative_groups.h>
 
@@ -99,7 +115,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-using smo::bwd_phases;
+using smo::row_phases;
 using smo::kClusterCtas;
 using smo::kClusterThreads;
 using smo::kClusterWarps;
@@ -315,8 +331,8 @@ struct FwdSharedGrid {
 //   lambda_n = (lin + 2 c2 u_n + 3 c3 u_n^2) * (B^T lambda_{n+1}) + s w u_n,
 // with s = *scale and u_n = traj row n. Thread (p, cg) sums rows
 // p, p + P, ... of column group cg (4 columns, one float4), each product
-// one rounded multiply-add, pinned so that the cluster reproduces it; the
-// P partial sums meet in shared memory.
+// one rounded multiply-add, pinned so that the cluster and the grid
+// reproduce it; the P partial sums meet in shared memory.
 // With kLamHist, step n also stores the lambda_{n+1} it consumes as row n
 // of lam_hist (N rows), for the operator cotangent dB = sum_n
 // lambda_{n+1} (x) v(u_n) (op_grads.cu).
@@ -373,6 +389,104 @@ fused_bwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w
   for (int j = tid; j < mg; j += kThreads) lam_out[j] = lam[j];
 }
 
+// Backward, grid-wide (sm_fused_bwd_shared_grid): the recurrence, lambda_0
+// and the history of fused_bwd_shared_kernel on ceil(mg / cols)
+// co-resident CTAs of kClusterThreads threads, the two-matrix grid reverse
+// of fused_two_matrix.cu with one matrix: CTA c owns the columns [c0, c0 +
+// nc), c0 = c cols; its thread t < P cols sums the rows p, p + P, ... of
+// column c0 + t % cols, p = t / cols, in the one-block kernel's order,
+// from its chain of B and lambda's chain of phase p, each contiguous in
+// shared memory (ts = chain_stride(ceil(mg / P)) floats a chain); lambda
+// crosses between the CTAs as step-tagged words in lbuf (4 mg floats:
+// step k reads slot (k - 1) & 1, tag k, and writes slot k & 1, tag k + 1).
+// Shared memory: B's chains [P][cols][ts], lambda [P][ts], the partials
+// (P x cols).
+__host__ __device__ constexpr size_t shared_bwd_grid_smem_bytes(int mg, int cols) {
+  const int P = smo::row_phases(mg);
+  const size_t ts = smo::chain_stride((mg + P - 1) / P);
+  return ((size_t)P * (cols + 1) * ts + (size_t)P * cols) * sizeof(float);
+}
+
+template <bool kLamHist>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+fused_bwd_shared_grid_kernel(const float* __restrict__ b, const float* __restrict__ w,
+                             const float* __restrict__ uT, const float* __restrict__ traj,
+                             float c2, float c3, float lin, const float* __restrict__ scale,
+                             int n_steps, int mg, int cols, float* __restrict__ lam_out,
+                             float* __restrict__ lam_hist, float* __restrict__ lbuf) {
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x;
+  const int P = smo::row_phases(mg), ts = smo::chain_stride((mg + P - 1) / P);
+  const int c0 = blockIdx.x * cols, nc = min(cols, mg - c0);
+  extern __shared__ float4 smem4[];
+  float* bs = reinterpret_cast<float*>(smem4);  // [P][cols][ts]
+  float* lam = bs + (size_t)P * cols * ts;      // [P][ts]
+  float* pb = lam + (size_t)P * ts;             // [P][cols]
+  auto* pairs = reinterpret_cast<unsigned long long*>(lbuf);  // [2][mg] (value, tag)
+
+  for (int idx = tid; idx < mg * cols; idx += kClusterThreads) {
+    const int i = idx / cols, c = idx % cols;
+    if (c < nc) bs[((i % P) * cols + c) * ts + i / P] = __ldg(b + (size_t)i * mg + c0 + c);
+  }
+  const float s = *scale;
+  for (int j = tid; j < mg; j += kClusterThreads)
+    lam[smo::lam_pos(j, P, ts)] = smo::cost_term(s, w[j], uT[j]);
+  const float wc = tid < nc ? w[c0 + tid] : 0.f;
+  const int kpos = tid < nc ? smo::lam_pos(c0 + tid, P, ts) : 0;
+  int pos[2 * smo::kMaxPairRounds];
+  smo::lambda_places(mg, P, ts, pos);
+  for (int i = blockIdx.x * kClusterThreads + tid; i < 2 * mg; i += gridDim.x * kClusterThreads)
+    pairs[i] = 0ull;  // no tag: steps count from 1
+  grid.sync();      // the tags are clear before any CTA stores lambda_{N-1}
+
+  const int p = tid / cols, col = tid % cols;
+  const bool active = p < P && col < nc;
+  const int nt = active ? (mg - p + P - 1) / P : 0;  // rows p, p + P, ... < mg
+  const float* const xs[1] = {bs + (active ? (size_t)(p * cols + col) * ts : 0)};
+  const float* lchain = lam + (active ? (size_t)p * ts : 0);
+  for (int k = 0; k < n_steps; ++k) {
+    const size_t row = (size_t)(n_steps - 1 - k) * mg;
+    const float un = tid < nc ? traj[row + c0 + tid] : 0.f;  // in flight during the wait
+    if (k > 0) smo::read_tagged_lambda(pairs + (size_t)((k - 1) & 1) * mg, k, mg, lam, pos);
+    __syncthreads();  // lambda_{n+1} complete
+    const float keep = tid < nc ? lam[kpos] : 0.f;  // lambda_{n+1} of the history
+    if (active) {
+      float sb[1] = {0.f};
+      smo::chain_sums<1>(xs, lchain, nt, sb);
+      pb[p * cols + col] = sb[0];
+    }
+    __syncthreads();  // partials ready; lambda_{n+1} read
+    if (tid < nc) {
+      float wb = 0.f;
+      for (int q = 0; q < P; ++q) wb += pb[q * cols + tid];
+      const float vprime = smo::poly_prime(lin, 2.f * c2, 3.f * c3, un);
+      const float x = __fmaf_rn(vprime, wb, smo::cost_term(s, wc, un));
+      if constexpr (kLamHist) lam_hist[row + c0 + tid] = keep;  // lambda_{n+1}
+      if (k + 1 < n_steps)
+        smo::store_tagged(pairs + (size_t)(k & 1) * mg + c0 + tid, x, k + 1);
+      else
+        lam_out[c0 + tid] = x;
+    }
+  }
+  if (n_steps == 0 && tid < nc) lam_out[c0 + tid] = lam[kpos];
+}
+
+template <bool kLamHist>
+struct BwdSharedGrid {
+  static inline bool ready[smo::kMaxDevices] = {};
+  static int capacity(int mg, int cols) {
+    return smo::grid_capacity(fused_bwd_shared_grid_kernel<kLamHist>,
+                              shared_bwd_grid_smem_bytes(mg, cols), ready);
+  }
+  static int launch(const float* b, const float* w, const float* uT, const float* traj,
+                    float c2, float c3, float lin, const float* scale, int n_steps, int mg,
+                    int cols, float* lam_out, float* lam_hist, float* lbuf, cudaStream_t st) {
+    return smo::grid_launch(fused_bwd_shared_grid_kernel<kLamHist>, (mg + cols - 1) / cols,
+                            shared_bwd_grid_smem_bytes(mg, cols), ready, st, b, w, uT, traj, c2,
+                            c3, lin, scale, n_steps, mg, cols, lam_out, lam_hist, lbuf);
+  }
+};
+
 // Backward, one cluster (sm_fused_bwd_shared): the recurrence, lambda_0 and
 // the history of fused_bwd_shared_kernel on kClusterCtas CTAs of
 // kClusterThreads threads, mg = 128 R. CTA rank r owns the C = mg / 16
@@ -383,7 +497,7 @@ fused_bwd_shared_kernel(const float* __restrict__ b, const float* __restrict__ w
 // columns.
 __host__ __device__ constexpr size_t bwd_shared_cluster_smem_bytes(int R) {
   return ((size_t)(128 * R) * (8 * R) + 2 * (size_t)(128 * R)
-          + (size_t)bwd_phases(R) * (8 * R) + 2 * (size_t)(8 * R)) * sizeof(float);
+          + (size_t)row_phases(128 * R) * (8 * R) + 2 * (size_t)(8 * R)) * sizeof(float);
 }
 
 template <bool kLamHist, int R>
@@ -393,9 +507,8 @@ fused_bwd_shared_cluster_kernel(const float* __restrict__ b, const float* __rest
                                 float c2, float c3, float lin,
                                 const float* __restrict__ scale, int n_steps,
                                 float* __restrict__ lam_out, float* __restrict__ lam_hist) {
-  constexpr int mg = 128 * R, C = mg / kClusterCtas, P = bwd_phases(R);
+  constexpr int mg = 128 * R, C = mg / kClusterCtas, P = row_phases(mg);
   static_assert(P * C <= kClusterThreads, "one thread per (phase, column)");
-  static_assert(P == kThreads / (mg / 4), "the one-block kernel's row phases");
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
@@ -520,6 +633,29 @@ int sm_fused_bwd_shared(const float* b, const float* w, const float* uT,
 int sm_fused_bwd_shared_capacity(int mg, int hist) {
   return hist ? smo::capacity_by_mg<BwdSharedCluster, true, kMaxR>(mg)
               : smo::capacity_by_mg<BwdSharedCluster, false, kMaxR>(mg);
+}
+
+// The grid-wide reverse sweep at (mg, cols): ceil(mg / cols) CTAs, which the
+// card must hold at once; lbuf is 4 mg floats of scratch.
+int sm_fused_bwd_shared_grid(const float* b, const float* w, const float* uT,
+                             const float* traj, float c2, float c3, float lin,
+                             const float* scale, int n_steps, int mg, int cols, float* lam_out,
+                             float* lam_hist, float* lbuf, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cols < 1 || cols > mg || smo::row_phases(mg) * cols > kClusterThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return lam_hist != nullptr
+             ? BwdSharedGrid<true>::launch(b, w, uT, traj, c2, c3, lin, scale, n_steps, mg,
+                                           cols, lam_out, lam_hist, lbuf, st)
+             : BwdSharedGrid<false>::launch(b, w, uT, traj, c2, c3, lin, scale, n_steps, mg,
+                                            cols, lam_out, lam_hist, lbuf, st);
+}
+
+// CTAs of sm_fused_bwd_shared_grid (with the lambda history when `hist`)
+// that the card can hold at once at (mg, cols), as
+// sm_fused_fwd_shared_grid_capacity.
+int sm_fused_bwd_shared_grid_capacity(int mg, int cols, int hist) {
+  return hist ? BwdSharedGrid<true>::capacity(mg, cols) : BwdSharedGrid<false>::capacity(mg, cols);
 }
 
 int sm_fused_bwd_shared_block(const float* b, const float* w, const float* uT,

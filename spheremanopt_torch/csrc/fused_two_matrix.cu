@@ -6,11 +6,12 @@
 //                 <- _fwd_kernel (_run_fwd; has_traj and has_ser as the
 //                    traj / ser pointers): the grid-wide route and the
 //                    one-block route of the same forward
-//   sm_fused_bwd, sm_fused_bwd_block
-//                 <- _bwd_kernel (_run_bwd): the cluster route and the
-//                    one-block route of the same reverse sweep; with
-//                    op_grads it stores the lambda history that op_grads.cu
-//                    turns into dA and dB (the `lam_hist` pointer)
+//   sm_fused_bwd, sm_fused_bwd_grid, sm_fused_bwd_block
+//                 <- _bwd_kernel (_run_bwd): the cluster route, the
+//                    grid-wide route and the one-block route of the same
+//                    reverse sweep; with op_grads it stores the lambda
+//                    history that op_grads.cu turns into dA and dB (the
+//                    `lam_hist` pointer)
 //
 // SHB23's step has two dense (mg, mg) f32 propagators: A = A_lin (the
 // Chebyshev-tau solve of the linear operator, entries ~1/dt) and
@@ -92,11 +93,47 @@
 // kernel's. The cost: only P x (mg/16) = 240-256 threads a CTA, each a
 // dependent chain of mg / P multiply-adds per matrix (64 at mg = 512),
 // reading 2 mg^2 4 / 16 bytes of shared memory a step.
-// A larger mg takes sm_fused_bwd_block: one thread block; A and B stay in
-// global memory and L2. It computes A^T lambda and B^T lambda in a
-// column-partitioned loop (thread (p, column group) sums rows p, p + P,
-// ... of four columns), with one lambda read per row for both products;
-// the state (lambda, partials) lives in shared memory.
+// sm_fused_bwd_grid (reverse, mg > 640 while a CTA's columns of A and the
+// state fit: every width on an H100 SXM and PCIe): the forward grid's
+// machinery with the cluster's column partition spread over every SM.
+// CTA c keeps cols = ceil(mg / SMs) contiguous columns of A and of B (8 of
+// each at mg = 1024) in shared memory, each thread's chain (rows p, p + P,
+// ... of its column) contiguous and each phase's chain of lambda too, so
+// that a thread reads float4s (chain_sums, grid.cuh, each batch loaded
+// while the one before it is summed); the chains keep the one-block
+// kernel's order, each entry adds the P partials in phase order and
+// applies the pinned update of common.cuh, and goes out as one step-tagged
+// 64-bit word; every CTA reads all of lambda_n back, polling every word
+// of its rounds at once, which is the step's barrier, as in the forward.
+// lambda_N is formed by every CTA, so no exchange precedes the first step;
+// each CTA loads its slice of u_n before it waits for lambda. lambda_0
+// and the history are bitwise the one-block kernel's. The cost: one
+// dependent chain of mg / P multiply-adds per matrix and thread (256 at
+// mg = 1024, 1024 at 2048, fixed by the bits) on ~32 threads of the CTA,
+// and the exchange. Above the width where both matrices' columns fit
+// (mg = 1920 and 2048 on an H100 SXM), a template flag (kStreamB) keeps
+// all of the CTA's A columns and the first cols_b of its B columns that
+// fit beside them, the state and the stages (8 of 16 at mg = 2048 on the
+// SXM), and stages the other B columns from L2 a chunk of kStageRows rows
+// at a time, kStages chunks deep, with 16-byte cp.async from a copy of B
+// with each column's chains contiguous (`bperm`, made by the wrapper once a
+// call); the chunks run ahead across the steps, so the first ones of a step
+// arrive while the CTA waits for lambda. The chains keep their order, so
+// the bits do not change; the instance without the flag, which every
+// narrower mg runs, has no test on its per-step path.
+// Why the cluster stays at mg <= 640: at N = 200 the grid took 0.377 /
+// 0.383 ms at mg = 512 against the cluster's 0.365-0.370, and 0.41 / 0.35
+// / 0.39 against 0.19 / 0.23 / 0.33 at mg = 128 / 256 / 384: the exchange
+// through L2 costs ~1 us a step, the cluster's barrier less; at mg = 640
+// the grid was ahead, 0.437 against 0.557-0.565 ms, and that width stays
+// the cluster's (H100 SXM at 700 W, tools/time_reverse_sweeps.py).
+// sm_fused_bwd_block: one thread block; A and B stay in global memory and
+// L2. It computes A^T lambda and B^T lambda in a column-partitioned loop
+// (thread (p, column group) sums rows p, p + P, ... of four columns), with
+// one lambda read per row for both products; the state (lambda, partials)
+// lives in shared memory. It is the route only where a grid's A columns
+// do not fit, and the kernel the cluster and the grid are held to bit for
+// bit.
 //
 // The energy series is a template flag, chosen from the `ser` pointer at
 // launch, as in fused_shared.cu (a runtime test sits on thread 0's
@@ -109,10 +146,9 @@
 // The launchers launch on the given stream, do not synchronise, and
 // return cudaGetLastError() (or the launch's error). The caller
 // guarantees mg % 128 == 0, 128 <= mg <= 2048 (sm_fused_bwd: mg <= 640),
-// contiguous f32 buffers on one device.
-// sm_fused_fwd_grid launches cooperatively, so a grid that the card
-// cannot hold at once fails at launch; a word that never gets its tag
-// traps (a launch failure), it does not hang.
+// contiguous f32 buffers on one device. The grids launch cooperatively,
+// so a grid that the card cannot hold at once fails at launch; a word
+// that never gets its tag traps (a launch failure), it does not hang.
 
 #include <cooperative_groups.h>
 
@@ -124,7 +160,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-using smo::bwd_phases;
+using smo::row_phases;
 using smo::capacity_by_mg;
 using smo::cluster_capacity;
 using smo::cluster_launch;
@@ -477,6 +513,196 @@ fused_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
   for (int j = tid; j < mg; j += kThreads) lam_out[j] = lam[j];
 }
 
+// Backward, grid-wide (sm_fused_bwd_grid): the recurrence, lambda_0 and the
+// history of fused_bwd_kernel on ceil(mg / cols) co-resident CTAs of
+// kClusterThreads threads. CTA c owns the columns [c0, c0 + nc), c0 =
+// c cols; its thread t < P cols stands in for the one-block kernel's thread
+// (p, column group) for one column: p = t / cols, column c0 + t % cols,
+// with the one-block kernel's P = 1024 / (mg / 4) row phases (row_phases).
+// Each thread's chain (rows p, p + P, ... of its column) is contiguous in
+// shared memory, ts = chain_stride(ceil(mg / P)) floats a chain, and so is
+// each phase's chain of lambda (lam_pos). lbuf (4 mg floats) holds two
+// slots of mg (value, tag) words (grid.cuh): step k (lambda_{n+1} ->
+// lambda_n, n = N - 1 - k) reads lambda_{n+1} (lambda_N, which every CTA
+// forms itself, at k = 0; else slot (k - 1) & 1, tag k) and writes
+// lambda_n to slot k & 1 with tag k + 1; the last step writes lambda_0 to
+// lam_out. Shared memory: A's chains [P][cols][ts], the chains of the
+// first cols_b of the CTA's B columns [P][cols_b][ts], lambda [P][ts],
+// with kStreamB (cols_b < cols) kStages stages of kStageRows rows of the
+// other B columns, [P][cols - cols_b][tsc], tsc = chain_stride(kStageRows
+// / P), then the partials (P x cols of each matrix). Without kStreamB,
+// cols_b = cols; with it, P divides kStageRows / 2 (the last chunk of a
+// step may be half of one), and the stages are copied from bperm, B with
+// each column's chains contiguous: B[p + P m][c] at (c P + p) (mg / P) +
+// m, so that a chunk of a chain is whole 16-byte pieces.
+constexpr int kStageRows = 256, kStages = 3;
+
+__host__ __device__ constexpr size_t bwd_grid_smem_bytes(int mg, int cols, int cols_b) {
+  const int P = smo::row_phases(mg);
+  const size_t ts = smo::chain_stride((mg + P - 1) / P);
+  const size_t staged =
+      cols_b < cols ? (size_t)kStages * P * (cols - cols_b) * smo::chain_stride(kStageRows / P)
+                    : 0;
+  return ((size_t)P * (cols + cols_b + 1) * ts + staged + 2 * (size_t)P * cols) * sizeof(float);
+}
+
+// 16 bytes from global to shared memory without a register (cp.async)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+template <bool kLamHist, bool kStreamB>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+fused_bwd_grid_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                      const float* __restrict__ bperm, const float* __restrict__ w,
+                      const float* __restrict__ uT,
+                      const float* __restrict__ traj, float c2, float c3,
+                      const float* __restrict__ scale, int n_steps, int mg, int cols,
+                      int cols_b, float* __restrict__ lam_out, float* __restrict__ lam_hist,
+                      float* __restrict__ lbuf) {
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x;
+  const int P = smo::row_phases(mg), ts = smo::chain_stride((mg + P - 1) / P);
+  const int c0 = blockIdx.x * cols, nc = min(cols, mg - c0);
+  const int nb = kStreamB ? cols_b : cols;             // B columns kept
+  const int ns = kStreamB ? max(nc - cols_b, 0) : 0;   // B columns staged from L2
+  const int tpc = kStageRows / P, tsc = smo::chain_stride(tpc);  // a chunk's terms a chain
+  extern __shared__ float4 smem4[];
+  float* as = reinterpret_cast<float*>(smem4);  // [P][cols][ts]
+  float* bs = as + (size_t)P * cols * ts;       // [P][nb][ts]
+  float* lam = bs + (size_t)P * nb * ts;        // [P][ts]
+  float* stage = lam + (size_t)P * ts;          // [kStages][P][ns][tsc]
+  float* pa = stage + (kStreamB ? (size_t)kStages * P * (cols - cols_b) * tsc : 0);  // [P][cols]
+  float* pb = pa + P * cols;                                                          // [P][cols]
+  auto* pairs = reinterpret_cast<unsigned long long*>(lbuf);  // [2][mg] (value, tag)
+
+  for (int idx = tid; idx < mg * cols; idx += kClusterThreads) {
+    const int i = idx / cols, c = idx % cols;
+    if (c < nc) {
+      const size_t src = (size_t)i * mg + c0 + c;
+      const int q = i % P, m = i / P;
+      as[(q * cols + c) * ts + m] = __ldg(a + src);
+      if (c < nb) bs[(q * nb + c) * ts + m] = __ldg(b + src);
+    }
+  }
+  const float s = *scale;
+  for (int j = tid; j < mg; j += kClusterThreads)
+    lam[smo::lam_pos(j, P, ts)] = smo::cost_term(s, w[j], uT[j]);
+  const float wc = tid < nc ? w[c0 + tid] : 0.f;
+  const int kpos = tid < nc ? smo::lam_pos(c0 + tid, P, ts) : 0;
+  int pos[2 * smo::kMaxPairRounds];
+  smo::lambda_places(mg, P, ts, pos);
+  for (int i = blockIdx.x * kClusterThreads + tid; i < 2 * mg; i += gridDim.x * kClusterThreads)
+    pairs[i] = 0ull;  // no tag: steps count from 1
+  grid.sync();      // the tags are clear before any CTA stores lambda_{N-1}
+
+  // kStreamB: the chunks of the staged columns (chunk j: rows j kStageRows
+  // on, terms(j) = min(kStageRows, mg - j kStageRows) / P of each of their
+  // chains) go to the stages in turn, kStages - 1 chunks ahead of the sums
+  // and across the steps (B does not change), so the first chunks of a
+  // step are in flight while the CTA waits for lambda. The threads of the
+  // first warp, which sum chains, copy nothing; terms(j) / 4 and P (powers
+  // of 2): shifts.
+  const int nch = (mg + kStageRows - 1) / kStageRows, lp = __ffs(P) - 1;
+  const auto terms = [&](int j) { return min(kStageRows, mg - j * kStageRows) / P; };
+  int next = 0;  // the chunk of a step that the next copy fetches
+  const auto issue = [&](int g) {  // chunk g of the sweep: chunk `next` of a step
+    if constexpr (kStreamB) {
+      if (tid >= 32) {
+        float* dst = stage + (size_t)(g % kStages) * ns * P * tsc;
+        const float* src = bperm + (size_t)(c0 + cols_b) * mg + (size_t)next * tpc;
+        const int lq = __ffs(terms(next) / 4) - 1;
+        for (int e = tid - 32; e < (ns * P) << lq; e += kClusterThreads - 32) {
+          const int chain = e >> lq, q4 = e & ((1 << lq) - 1);  // chain = c P + p
+          const int to = ((chain & (P - 1)) * ns + (chain >> lp)) * tsc;  // phase-major
+          cp_async16(dst + to + 4 * q4, src + (size_t)chain * (mg / P) + 4 * q4);
+        }
+      }
+      asm volatile("cp.async.commit_group;" ::: "memory");
+      next = next + 1 == nch ? 0 : next + 1;
+    }
+  };
+  int g = 0;
+  for (int q = 0; q < kStages - 1; ++q) issue(q);
+
+  const int p = tid / cols, col = tid % cols;
+  const bool active = p < P && col < nc;
+  const int nt = active ? (mg - p + P - 1) / P : 0;  // rows p, p + P, ... < mg
+  const float* achain = as + (active ? (size_t)(p * cols + col) * ts : 0);
+  const float* lchain = lam + (active ? (size_t)p * ts : 0);
+  for (int k = 0; k < n_steps; ++k) {
+    const size_t row = (size_t)(n_steps - 1 - k) * mg;
+    const float un = tid < nc ? traj[row + c0 + tid] : 0.f;  // in flight during the wait
+    if (k > 0) smo::read_tagged_lambda(pairs + (size_t)((k - 1) & 1) * mg, k, mg, lam, pos);
+    __syncthreads();  // lambda_{n+1} complete
+    const float keep = tid < nc ? lam[kpos] : 0.f;  // lambda_{n+1} of the history
+    float sab[2] = {0.f, 0.f};
+    if constexpr (!kStreamB) {
+      if (active) {
+        const float* const xs[2] = {achain, bs + (size_t)(p * cols + col) * ts};
+        smo::chain_sums<2>(xs, lchain, nt, sab);
+      }
+    } else {  // the same chains, a chunk of kStageRows rows at a time
+      for (int j = 0; j < nch; ++j, ++g) {
+        asm volatile("cp.async.wait_group %0;" ::"n"(kStages - 2) : "memory");
+        __syncthreads();  // chunk g staged; the stage of chunk g - 1 free
+        issue(g + kStages - 1);
+        if (active) {
+          const int m0 = j * tpc;
+          const float* bchain =
+              col < cols_b
+                  ? bs + (size_t)(p * cols_b + col) * ts + m0
+                  : stage + ((size_t)(g % kStages) * P * ns + p * ns + col - cols_b) * tsc;
+          const float* const xs[2] = {achain + m0, bchain};
+          smo::chain_sums<2>(xs, lchain + m0, terms(j), sab);
+        }
+      }
+    }
+    if (active) {
+      pa[p * cols + col] = sab[0];
+      pb[p * cols + col] = sab[1];
+    }
+    __syncthreads();  // partials ready; lambda_{n+1} read
+    if (tid < nc) {
+      float wa = 0.f, wb = 0.f;
+      for (int q = 0; q < P; ++q) {
+        wa += pa[q * cols + tid];
+        wb += pb[q * cols + tid];
+      }
+      const float gprime = smo::poly_prime(0.f, 2.f * c2, 3.f * c3, un);
+      const float x = __fadd_rn(__fmaf_rn(gprime, wb, wa), smo::cost_term(s, wc, un));
+      if constexpr (kLamHist) lam_hist[row + c0 + tid] = keep;  // lambda_{n+1}
+      if (k + 1 < n_steps)
+        smo::store_tagged(pairs + (size_t)(k & 1) * mg + c0 + tid, x, k + 1);
+      else
+        lam_out[c0 + tid] = x;
+    }
+  }
+  if (n_steps == 0 && tid < nc) lam_out[c0 + tid] = lam[kpos];
+  if constexpr (kStreamB) asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+template <bool kLamHist, bool kStreamB>
+struct BwdGrid {
+  static inline bool ready[smo::kMaxDevices] = {};
+  static int capacity(int mg, int cols, int cols_b) {
+    return smo::grid_capacity(fused_bwd_grid_kernel<kLamHist, kStreamB>,
+                              bwd_grid_smem_bytes(mg, cols, cols_b), ready);
+  }
+  static int launch(const float* a, const float* b, const float* bperm, const float* w,
+                    const float* uT, const float* traj, float c2, float c3, const float* scale,
+                    int n_steps, int mg, int cols, int cols_b, float* lam_out, float* lam_hist,
+                    float* lbuf, cudaStream_t st) {
+    return smo::grid_launch(fused_bwd_grid_kernel<kLamHist, kStreamB>, (mg + cols - 1) / cols,
+                            bwd_grid_smem_bytes(mg, cols, cols_b), ready, st, a, b, bperm, w, uT,
+                            traj, c2, c3, scale, n_steps, mg, cols, cols_b, lam_out, lam_hist,
+                            lbuf);
+  }
+};
+
 // Backward, one cluster (sm_fused_bwd): the recurrence, lambda_0 and the
 // history of fused_bwd_kernel on kClusterCtas CTAs of kClusterThreads
 // threads, mg = 128 R. CTA rank r owns the C = mg / 16 columns from
@@ -487,7 +713,7 @@ fused_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // the partials (P x C each), w and u_n of the columns.
 __host__ __device__ constexpr size_t bwd_cluster_smem_bytes(int R) {
   return (2 * (size_t)(128 * R) * (8 * R) + 2 * (size_t)(128 * R)
-          + 2 * (size_t)bwd_phases(R) * (8 * R) + 2 * (size_t)(8 * R)) * sizeof(float);
+          + 2 * (size_t)row_phases(128 * R) * (8 * R) + 2 * (size_t)(8 * R)) * sizeof(float);
 }
 
 template <bool kLamHist, int R>
@@ -497,9 +723,8 @@ fused_bwd_cluster_kernel(const float* __restrict__ a, const float* __restrict__ 
                          const float* __restrict__ traj, float c2, float c3,
                          const float* __restrict__ scale, int n_steps,
                          float* __restrict__ lam_out, float* __restrict__ lam_hist) {
-  constexpr int mg = 128 * R, C = mg / kClusterCtas, P = bwd_phases(R);
+  constexpr int mg = 128 * R, C = mg / kClusterCtas, P = row_phases(mg);
   static_assert(P * C <= kClusterThreads, "one thread per (phase, column)");
-  static_assert(P == kThreads / (mg / 4), "the one-block kernel's row phases");
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
@@ -648,6 +873,33 @@ int sm_fused_bwd(const float* a, const float* b, const float* w, const float* uT
 int sm_fused_bwd_capacity(int mg, int hist) {
   return hist ? capacity_by_mg<BwdCluster, true, kMaxR>(mg)
               : capacity_by_mg<BwdCluster, false, kMaxR>(mg);
+}
+
+// The grid-wide reverse sweep at (mg, cols, cols_b): ceil(mg / cols) CTAs,
+// which the card must hold at once, each keeping cols_b <= cols of its B
+// columns in shared memory (the kStreamB instance when cols_b < cols,
+// which stages the others from bperm, B in phase order, and needs it;
+// the other instance takes null); lbuf is 4 mg floats of scratch.
+int sm_fused_bwd_grid(const float* a, const float* b, const float* bperm, const float* w,
+                      const float* uT, const float* traj, float c2, float c3, const float* scale,
+                      int n_steps, int mg, int cols, int cols_b, float* lam_out, float* lam_hist,
+                      float* lbuf, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int P = smo::row_phases(mg);
+  if (cols < 1 || cols > mg || cols_b < 0 || cols_b > cols || P * cols > kClusterThreads
+      || (cols_b < cols && ((kStageRows / 2) % P != 0 || bperm == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return by_flags<BwdGrid>(lam_hist != nullptr, cols_b < cols, [&](auto k) {
+    return decltype(k)::launch(a, b, bperm, w, uT, traj, c2, c3, scale, n_steps, mg, cols,
+                               cols_b, lam_out, lam_hist, lbuf, st);
+  });
+}
+
+// CTAs of sm_fused_bwd_grid (with the lambda history when `hist`) that the
+// card can hold at once at (mg, cols, cols_b), as sm_fused_fwd_grid_capacity.
+int sm_fused_bwd_grid_capacity(int mg, int cols, int cols_b, int hist) {
+  return by_flags<BwdGrid>(hist != 0, cols_b < cols,
+                           [&](auto k) { return decltype(k)::capacity(mg, cols, cols_b); });
 }
 
 int sm_fused_bwd_block(const float* a, const float* b, const float* w, const float* uT,

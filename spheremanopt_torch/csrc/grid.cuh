@@ -1,8 +1,10 @@
-// The grid-wide forwards' machinery (fused_two_matrix.cu, fused_shared.cu):
-// u crosses between the CTAs through L2 as step-tagged 64-bit words, and
-// the kernels run as one cooperative launch of co-resident CTAs of
-// kClusterThreads threads, with a capacity query that tells the wrapper
-// whether the card can hold them at once.
+// The grid-wide sweeps' machinery (fused_two_matrix.cu, fused_shared.cu):
+// u (lambda in a reverse sweep) crosses between the CTAs through L2 as
+// step-tagged 64-bit words, and the kernels run as one cooperative launch
+// of co-resident CTAs of kClusterThreads threads, with a capacity query
+// that tells the wrapper whether the card can hold them at once; the
+// reverse sweeps' layout of their chains in shared memory and the chains'
+// sums.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,6 +13,17 @@
 #include "common.cuh"
 
 namespace smo {
+
+// The reverse grids keep each thread's chain (the entries of rows p,
+// p + P, ... of one column, and the same rows of lambda) contiguous in
+// shared memory, so that it reads them as float4s: floats between two
+// chains of `terms` entries, rounded up to an odd number of float4s, so
+// that eight consecutive chains start in eight different bank groups.
+__host__ __device__ constexpr int chain_stride(int terms) { return 4 * (((terms + 3) / 4) | 1); }
+
+// Where the reverse grids keep lambda_j: in row j's phase's chain, at
+// (j mod P) ts + j / P.
+__device__ __forceinline__ int lam_pos(int j, int P, int ts) { return (j % P) * ts + j / P; }
 
 // Polls before a wait counts as lost (~seconds): then the kernel traps.
 constexpr unsigned kMaxPolls = 1u << 22;
@@ -53,6 +66,123 @@ __device__ __forceinline__ void read_tagged(const unsigned long long* slot, unsi
       f[2 * k] = poly(x0);
       f[2 * k + 1] = poly(x1);
     }
+  }
+}
+
+// Rounds of a CTA's threads over the mg / 2 word pairs of a slot, mg <= 2048
+constexpr int kMaxPairRounds = 2048 / 2 / kClusterThreads;
+
+// All of lambda from a slot of mg (value, tag) words into the reverse
+// grids' layout: pos[2 r] and pos[2 r + 1] are this thread's places
+// (lam_pos) of words 2k and 2k + 1, k = tid + r kClusterThreads. Unlike
+// read_tagged, a thread's loads of all its rounds are in flight at once,
+// and only the words without the tag are loaded again.
+__device__ __forceinline__ void read_tagged_lambda(const unsigned long long* slot, unsigned tag,
+                                                   int mg, float* lam,
+                                                   const int (&pos)[2 * kMaxPairRounds]) {
+  unsigned long long v[2 * kMaxPairRounds];
+  const int k0 = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < kMaxPairRounds; ++r) {
+    const int k = k0 + r * kClusterThreads;
+    v[2 * r] = v[2 * r + 1] = 0ull;
+    if (k < mg / 2) {
+      v[2 * r] = load_tagged(slot + 2 * k);
+      v[2 * r + 1] = load_tagged(slot + 2 * k + 1);
+    }
+  }
+  for (unsigned polls = 0;; ++polls) {
+    bool done = true;
+#pragma unroll
+    for (int r = 0; r < kMaxPairRounds; ++r) {
+      const int k = k0 + r * kClusterThreads;
+      if (k < mg / 2
+          && (static_cast<unsigned>(v[2 * r] >> 32) != tag
+              || static_cast<unsigned>(v[2 * r + 1] >> 32) != tag)) {
+        done = false;
+        v[2 * r] = load_tagged(slot + 2 * k);
+        v[2 * r + 1] = load_tagged(slot + 2 * k + 1);
+      }
+    }
+    if (done) break;
+    if (polls > kMaxPolls) __trap();
+  }
+#pragma unroll
+  for (int r = 0; r < kMaxPairRounds; ++r) {
+    if (k0 + r * kClusterThreads < mg / 2) {
+      lam[pos[2 * r]] = __uint_as_float(static_cast<unsigned>(v[2 * r]));
+      lam[pos[2 * r + 1]] = __uint_as_float(static_cast<unsigned>(v[2 * r + 1]));
+    }
+  }
+}
+
+// pos of read_tagged_lambda for this thread
+__device__ __forceinline__ void lambda_places(int mg, int P, int ts,
+                                              int (&pos)[2 * kMaxPairRounds]) {
+#pragma unroll
+  for (int r = 0; r < kMaxPairRounds; ++r) {
+    const int j = 2 * (threadIdx.x + r * kClusterThreads);
+    pos[2 * r] = j < mg ? lam_pos(j, P, ts) : 0;
+    pos[2 * r + 1] = j < mg ? lam_pos(j + 1, P, ts) : 0;
+  }
+}
+
+// Float4s of a reverse chain loaded one batch ahead of the sums
+constexpr int kChainQuads = 4;
+
+// s[v] += x[v][m] l[m] for m = 0 .. nt - 1 and each of the kN operands,
+// in that order, each product one rounded multiply-add (__fmaf_rn) as in
+// the one-block reverse kernels' column sums; x[v] and l 16-byte aligned.
+// Whole float4s go in batches of kChainQuads, each loaded while the batch
+// before it is summed (whole pairs of batches without a test on the sums:
+// a test there cost a branch a float4); the last nt mod 4 terms one by
+// one.
+template <int kN>
+__device__ __forceinline__ void chain_sums(const float* const (&x)[kN], const float* l, int nt,
+                                           float (&s)[kN]) {
+  const int nq = nt / 4;
+  float4 xa[kN][kChainQuads], la[kChainQuads], xb[kN][kChainQuads], lb[kChainQuads];
+  const auto load = [&](float4 (&xv)[kN][kChainQuads], float4 (&lv)[kChainQuads], int q0) {
+#pragma unroll
+    for (int u = 0; u < kChainQuads; ++u) {
+      if (q0 + u < nq) {
+        lv[u] = reinterpret_cast<const float4*>(l)[q0 + u];
+#pragma unroll
+        for (int v = 0; v < kN; ++v) xv[v][u] = reinterpret_cast<const float4*>(x[v])[q0 + u];
+      }
+    }
+  };
+  const auto sum = [&](const float4 (&xv)[kN][kChainQuads], const float4 (&lv)[kChainQuads],
+                       int left) {  // the first min(left, kChainQuads) float4s
+#pragma unroll
+    for (int u = 0; u < kChainQuads; ++u) {
+      if (u < left) {
+#pragma unroll
+        for (int v = 0; v < kN; ++v) {
+          s[v] = __fmaf_rn(xv[v][u].x, lv[u].x, s[v]);
+          s[v] = __fmaf_rn(xv[v][u].y, lv[u].y, s[v]);
+          s[v] = __fmaf_rn(xv[v][u].z, lv[u].z, s[v]);
+          s[v] = __fmaf_rn(xv[v][u].w, lv[u].w, s[v]);
+        }
+      }
+    }
+  };
+  load(xa, la, 0);
+  int q0 = 0;
+  for (; q0 + 2 * kChainQuads <= nq; q0 += 2 * kChainQuads) {
+    load(xb, lb, q0 + kChainQuads);
+    sum(xa, la, kChainQuads);
+    load(xa, la, q0 + 2 * kChainQuads);
+    sum(xb, lb, kChainQuads);
+  }
+  if (q0 < nq) {  // fewer than 2 kChainQuads float4s left
+    load(xb, lb, q0 + kChainQuads);
+    sum(xa, la, nq - q0);
+    sum(xb, lb, nq - q0 - kChainQuads);
+  }
+  for (int m = 4 * nq; m < nt; ++m) {
+#pragma unroll
+    for (int v = 0; v < kN; ++v) s[v] = __fmaf_rn(x[v][m], l[m], s[v]);
   }
 }
 

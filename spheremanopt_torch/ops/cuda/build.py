@@ -49,6 +49,8 @@ SIGNATURES = {
     "sm_fused_bwd_shared": _BWD_SHARED,
     "sm_fused_bwd_shared_block": _BWD_SHARED,
     "sm_fused_bwd_shared_capacity": [_I, _I],  # returns a count, not an error code
+    "sm_fused_bwd_shared_grid": [_P, _P, _P, _P, _F, _F, _F, _P, _I, _I, _I, _P, _P, _P, _P],
+    "sm_fused_bwd_shared_grid_capacity": [_I, _I, _I],  # returns a count, not an error code
     "sm_fused_fwd_block": _FWD,
     "sm_fused_fwd_grid": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "sm_fused_fwd_grid_capacity": [_I, _I, _I, _I],  # returns a count, not an error code
@@ -58,6 +60,9 @@ SIGNATURES = {
     "sm_fused_bwd": _BWD,
     "sm_fused_bwd_block": _BWD,
     "sm_fused_bwd_capacity": [_I, _I],  # returns a count, not an error code
+    "sm_fused_bwd_grid": [_P, _P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I, _P, _P, _P,
+                          _P],
+    "sm_fused_bwd_grid_capacity": [_I, _I, _I, _I],  # returns a count, not an error code
     "sm_op_grads": [_P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P, _P, _P],
     "sm_kdyn_work_floats": [_I, _I],   # returns a count, not an error code
     "sm_kdyn_fwd": _KDYN_FWD + [_P, _L, _P],

@@ -12,8 +12,11 @@ PyTorch port of the JAX package's `ops/pallas/fused_two_matrix.py`:
     fused_bwd          <- `_run_bwd` / `_bwd_kernel` (op_grads=True: the
                           sweep stores the lambda history, then
                           `op_grads_product` forms dA and dB): a 16-CTA
-                          cluster up to mg = 640, one block above
-                          (`bwd_route`)
+                          cluster up to mg = 640, above it a grid-wide
+                          kernel over every SM while A's columns fit
+                          (every mg on an H100), with the B columns that
+                          do not fit beside them staged from L2; one block
+                          where they do not (`bwd_route`)
     FusedObjective     <- `fused_objective` (custom_vjp)
     FusedObjectiveDiag <- `fused_objective_diag`
   shared-matrix form  u' = B (lin u + c2 u^2 + c3 u^3)  (SH23: B = M,
@@ -24,8 +27,10 @@ PyTorch port of the JAX package's `ops/pallas/fused_two_matrix.py`:
                           above (`shared_fwd_route`)
     fused_bwd_shared   <- `_run_bwd_shared` / `_bwd_kernel_shared`
                           (op_grads=True: lambda history, then dB): a
-                          16-CTA cluster up to mg = 896, one block above
-                          (`shared_bwd_route`)
+                          16-CTA cluster up to mg = 896, above it a
+                          grid-wide kernel over every SM while B's columns
+                          fit (every mg on an H100), one block where they
+                          do not (`shared_bwd_route`)
     FusedObjectiveShared     <- `fused_objective_shared`
     FusedObjectiveSharedDiag <- `fused_objective_shared_diag`
 
@@ -48,11 +53,12 @@ Each wrapper takes its plain PyTorch version (`*_plain`) for tensors on
 the CPU and launches its kernel for CUDA tensors; a CUDA tensor never
 falls back. `LAUNCHES` counts kernel launches per wrapper (the series
 variants of the forwards, the routes of each sweep, and the
-lambda-history variants of the reverse sweeps apart, and the two-matrix
-grid's instance that reads B rows from L2 under `fused_fwd_grid_stream*`;
-each one-block reverse counts both of its variants, under
-`fused_bwd_block` and `fused_bwd_shared_block`). The kernels are f32
-only; the plain versions take f32 or f64.
+lambda-history variants of the cluster and grid reverses apart (`*_ops`),
+and the two-matrix grids' instances that read B from L2 under
+`fused_fwd_grid_stream*` and `fused_bwd_grid_stream`; that reverse
+instance and each one-block reverse count both of their variants, under
+`fused_bwd_grid_stream`, `fused_bwd_block` and `fused_bwd_shared_block`).
+The kernels are f32 only; the plain versions take f32 or f64.
 """
 
 from __future__ import annotations
@@ -69,6 +75,8 @@ KERNEL_SOURCES = {
     "fused_fwd_shared_block": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_fwd_shared_block_ser": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_bwd_shared": "spheremanopt_torch/csrc/fused_shared.cu",
+    "fused_bwd_shared_grid": "spheremanopt_torch/csrc/fused_shared.cu",
+    "fused_bwd_shared_grid_ops": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_bwd_shared_block": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_fwd_grid": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_fwd_grid_ser": "spheremanopt_torch/csrc/fused_two_matrix.cu",
@@ -77,6 +85,9 @@ KERNEL_SOURCES = {
     "fused_fwd_block": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_fwd_block_ser": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_bwd": "spheremanopt_torch/csrc/fused_two_matrix.cu",
+    "fused_bwd_grid": "spheremanopt_torch/csrc/fused_two_matrix.cu",
+    "fused_bwd_grid_ops": "spheremanopt_torch/csrc/fused_two_matrix.cu",
+    "fused_bwd_grid_stream": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_bwd_block": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "fused_bwd_shared_ops": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_bwd_ops": "spheremanopt_torch/csrc/fused_two_matrix.cu",
@@ -364,9 +375,9 @@ def _fwd_shared_grid(b, w, u0, c2, c3, lin, n_steps, store_traj=True,
 def _fwd_shared_block(b, w, u0, c2, c3, lin, n_steps, store_traj=True,
                       store_series=False):
     """`fused_fwd_shared` on the one-block kernel
-    (`sm_fused_fwd_shared_block`) at any mg: the route above the
-    cluster's width, and the kernel the cluster is held to bit for bit.
-    The caller has checked the shapes."""
+    (`sm_fused_fwd_shared_block`) at any mg: the route where the grid's
+    rows do not fit, and the kernel the grid is held to bit for bit. The
+    caller has checked the shapes."""
     uT, jsum, traj, ser = _fwd_outputs(u0, n_steps, store_traj, store_series)
     _launch("sm_fused_fwd_shared_block",
             "fused_fwd_shared_block_ser" if store_series
@@ -385,8 +396,8 @@ def fused_bwd_shared(b, w, uT, traj, c2, c3, lin, scale, n_steps,
     step n consumes: the kernel's history variant. With op_grads,
     dB = sum_n lambda_{n+1} (x) v(u_n): the sweep stores its lambda
     history and `op_grads_product` forms dB. On the card the route
-    follows `shared_bwd_route(mg)`; both give the same numbers bit for
-    bit."""
+    follows `shared_bwd_route(mg)` for that card; both give the same
+    numbers bit for bit."""
     if uT.device.type == "cpu":
         return fused_bwd_shared_plain(b, w, uT, traj, c2, c3, lin, scale,
                                       n_steps, op_grads, lam_hist)
@@ -394,10 +405,8 @@ def fused_bwd_shared(b, w, uT, traj, c2, c3, lin, scale, n_steps,
     hist = _lam_hist(uT, n_steps, op_grads, lam_hist)
     mg = _check(n_steps, mats=[("b", b)], vecs=[("uT", uT), ("w", w)],
                 traj=traj, scale=scale, hist=hist)
-    if shared_bwd_route(mg) == "block":
-        lam = _bwd_shared_block(b, w, uT, traj, c2, c3, lin, scale, n_steps,
-                                hist)
-    else:
+    route = shared_bwd_route(mg, _card(uT.device))
+    if route == "cluster":
         _check_cluster(uT.device, "sm_fused_bwd_shared", mg, hist is not None)
         lam = torch.empty_like(uT)
         _launch("sm_fused_bwd_shared",
@@ -405,18 +414,43 @@ def fused_bwd_shared(b, w, uT, traj, c2, c3, lin, scale, n_steps,
                 uT.device, b.data_ptr(), w.data_ptr(), uT.data_ptr(),
                 _ptr(traj), c2, c3, lin, scale.data_ptr(), int(n_steps), mg,
                 lam.data_ptr(), _ptr(hist))
+    else:
+        bwd = _bwd_shared_grid if route == "grid" else _bwd_shared_block
+        lam = bwd(b, w, uT, traj, c2, c3, lin, scale, n_steps, hist)
     if not op_grads:
         return lam, None
     return lam, op_grads_product(hist, traj, "shared", c2, c3, lin)[0]
+
+
+def _bwd_shared_grid(b, w, uT, traj, c2, c3, lin, scale, n_steps,
+                     lam_hist=None):
+    """lambda_0 of `fused_bwd_shared` on the grid-wide kernel
+    (`sm_fused_bwd_shared_grid`, counted under `fused_bwd_shared_grid`,
+    with the history under `fused_bwd_shared_grid_ops`) at any mg whose
+    columns of B fit the card: the route above the cluster's width. Raises
+    if the card cannot hold its CTAs at once. `scale` is 0-dim; the caller
+    has checked the shapes."""
+    mg = uT.shape[-1]
+    cols, ctas = grid_partition(mg, _card(uT.device)[0])
+    _check_grid(uT.device, "sm_fused_bwd_shared_grid", (mg, cols), ctas,
+                lam_hist is not None)
+    lam = torch.empty_like(uT)
+    _launch("sm_fused_bwd_shared_grid",
+            "fused_bwd_shared_grid" + ("" if lam_hist is None else "_ops"),
+            uT.device, b.data_ptr(), w.data_ptr(), uT.data_ptr(), _ptr(traj),
+            c2, c3, lin, scale.data_ptr(), int(n_steps), mg, cols,
+            lam.data_ptr(), _ptr(lam_hist), _tag_slots(uT).data_ptr())
+    return lam
 
 
 def _bwd_shared_block(b, w, uT, traj, c2, c3, lin, scale, n_steps,
                       lam_hist=None):
     """lambda_0 of `fused_bwd_shared` on the one-block kernel
     (`sm_fused_bwd_shared_block`, counted under `fused_bwd_shared_block`
-    with or without the history) at any mg: the route above the
-    cluster's width, and the kernel the cluster is held to bit for bit.
-    `scale` is 0-dim; the caller has checked the shapes."""
+    with or without the history) at any mg: the route where the grid's
+    columns do not fit, and the kernel the cluster and the grid are held
+    to bit for bit. `scale` is 0-dim; the caller has checked the
+    shapes."""
     lam = torch.empty_like(uT)
     _launch("sm_fused_bwd_shared_block", "fused_bwd_shared_block", uT.device,
             b.data_ptr(), w.data_ptr(), uT.data_ptr(), _ptr(traj), c2, c3, lin,
@@ -428,7 +462,9 @@ def _bwd_shared_block(b, w, uT, traj, c2, c3, lin, scale, n_steps,
 # The two-matrix reverse sweep's cluster keeps A's and B's columns on 16
 # SMs: 2 mg^2 * 4 / 16 bytes must fit one SM's shared memory. The
 # shared-matrix reverse sweep's cluster keeps one matrix: mg^2 * 4 / 16
-# bytes.
+# bytes. Below these widths the clusters beat the grid reverses, whose
+# exchange through L2 costs more a step than the cluster's barrier
+# (csrc/fused_two_matrix.cu, csrc/fused_shared.cu).
 CLUSTER_MG_MAX = 640
 SHARED_CLUSTER_MG_MAX = 896
 # (SMs, opt-in shared memory per block in bytes) of an H100 SXM: the card
@@ -448,12 +484,21 @@ def shared_fwd_route(mg, card=H100_SXM):
     return "grid" if shared_grid_smem_bytes(mg, rows) <= card[1] else "block"
 
 
-def shared_bwd_route(mg):
-    """The shared-matrix reverse sweep's kernel for width mg: "cluster"
-    (16 CTAs holding B's columns in shared memory, `sm_fused_bwd_shared`)
-    up to SHARED_CLUSTER_MG_MAX, else "block"
-    (`sm_fused_bwd_shared_block`). Both give the same bits."""
-    return "cluster" if mg <= SHARED_CLUSTER_MG_MAX else "block"
+def shared_bwd_route(mg, card=H100_SXM):
+    """The shared-matrix reverse sweep's kernel for width mg on a card of
+    `card` = (SMs, opt-in shared memory per block in bytes): "cluster" (16
+    CTAs holding B's columns in shared memory, `sm_fused_bwd_shared`) up
+    to SHARED_CLUSTER_MG_MAX; above, "grid" (one CTA on each SM holding its
+    columns of B, `sm_fused_bwd_shared_grid`) while one CTA's columns and
+    state fit its shared memory and its threads cover the row phases
+    (every mg on an H100 SXM and PCIe), else "block" (one thread block
+    streaming B from L2, `sm_fused_bwd_shared_block`). A choice by shape,
+    not a fallback: all give the same bits."""
+    if mg <= SHARED_CLUSTER_MG_MAX:
+        return "cluster"
+    cols, _ = grid_partition(mg, card[0])
+    fits = shared_bwd_grid_smem_bytes(mg, cols) <= card[1]
+    return "grid" if fits and row_phases(mg) * cols <= GRID_THREADS else "block"
 
 
 def grid_partition(mg, sms):
@@ -477,6 +522,68 @@ def shared_grid_smem_bytes(mg, rows):
     of B, u, v, w and 32 partial sums (csrc/fused_shared.cu
     `shared_grid_smem_bytes`)."""
     return 4 * (rows * mg + 3 * mg + 32)
+
+
+# threads of a grid route's CTA (csrc/cluster.cuh kClusterThreads)
+GRID_THREADS = 256
+# the two-matrix grid reverse's stages of the B columns it reads from L2:
+# kStages stages of kStageRows rows (csrc/fused_two_matrix.cu)
+STAGES, STAGE_ROWS = 3, 256
+
+
+def row_phases(mg):
+    """The one-block reverse kernels' row phases P = 1024 / (mg / 4)
+    (csrc/grid.cuh `row_phases`): their thread (p, column group) sums the
+    rows p, p + P, ... of its columns; a grid reverse's thread (p, column)
+    sums the same rows in the same order."""
+    return 1024 // (mg // 4)
+
+
+def chain_stride(terms):
+    """Floats between two chains of `terms` entries in a grid reverse's
+    shared memory: whole float4s, an odd number of them
+    (csrc/grid.cuh `chain_stride`)."""
+    return 4 * (-(-terms // 4) | 1)
+
+
+def bwd_grid_smem_bytes(mg, cols, cols_b):
+    """Shared memory of one CTA of the two-matrix grid reverse: the P x cols
+    chains of its columns of A and P x cols_b of B, lambda's P chains, with
+    cols_b < cols the stages of the other B columns, and the P x cols
+    partial sums of each matrix (csrc/fused_two_matrix.cu
+    `bwd_grid_smem_bytes`)."""
+    P = row_phases(mg)
+    ts = chain_stride(-(-mg // P))
+    staged = (STAGES * P * (cols - cols_b) * chain_stride(STAGE_ROWS // P)
+              if cols_b < cols else 0)
+    return 4 * (P * (cols + cols_b + 1) * ts + staged + 2 * P * cols)
+
+
+def shared_bwd_grid_smem_bytes(mg, cols):
+    """Shared memory of one CTA of the shared-matrix grid reverse: the
+    P x cols chains of its columns of B, lambda's P chains and the P x cols
+    partial sums (csrc/fused_shared.cu `shared_bwd_grid_smem_bytes`)."""
+    P = row_phases(mg)
+    return 4 * (P * (cols + 1) * chain_stride(-(-mg // P)) + P * cols)
+
+
+def bwd_grid_partition(mg, card):
+    """(cols, ctas, cols_b) of the two-matrix grid reverse on a card of
+    `card` = (SMs, opt-in shared memory per block in bytes): each CTA owns
+    `cols` = ceil(mg / SMs) contiguous columns (CTA c columns [c cols,
+    min((c + 1) cols, mg)), as `grid_partition`), and keeps all its A
+    columns and the first `cols_b` <= cols of its B columns in shared
+    memory beside the state (the rest are staged from L2 every step, in
+    chunks of STAGE_ROWS rows or, the last one, half of that, whose rows
+    the P phases share evenly); cols_b is negative when even the A
+    columns do not fit or the CTA's threads do not cover its (phase,
+    column) pairs."""
+    sms, smem = card
+    cols, ctas = grid_partition(mg, sms)
+    fits = [x for x in range(cols, -1, -1) if bwd_grid_smem_bytes(mg, cols, x) <= smem
+            and (x == cols or STAGE_ROWS // 2 % row_phases(mg) == 0)]
+    ok = fits and row_phases(mg) * cols <= GRID_THREADS
+    return cols, ctas, fits[0] if ok else -1
 
 
 def fwd_grid_partition(mg, card):
@@ -503,12 +610,19 @@ def fwd_route(mg, card=H100_SXM):
     return "grid" if fwd_grid_partition(mg, card)[2] >= 0 else "block"
 
 
-def bwd_route(mg):
-    """The two-matrix reverse sweep's kernel for width mg: "cluster" (16
+def bwd_route(mg, card=H100_SXM):
+    """The two-matrix reverse sweep's kernel for width mg on a card of
+    `card` = (SMs, opt-in shared memory per block in bytes): "cluster" (16
     CTAs holding A's and B's columns in shared memory, `sm_fused_bwd`) up
-    to CLUSTER_MG_MAX, else "block" (`sm_fused_bwd_block`). Both give the
-    same bits."""
-    return "cluster" if mg <= CLUSTER_MG_MAX else "block"
+    to CLUSTER_MG_MAX; above, "grid" (one CTA on each SM holding its
+    columns of A and as many of B as fit, `sm_fused_bwd_grid`) while one
+    CTA's A columns and state fit its shared memory (every mg on an H100
+    SXM and PCIe), else "block" (one thread block streaming A and B from
+    L2, `sm_fused_bwd_block`). A choice by shape, not a fallback: all give
+    the same bits."""
+    if mg <= CLUSTER_MG_MAX:
+        return "cluster"
+    return "grid" if bwd_grid_partition(mg, card)[2] >= 0 else "block"
 
 
 @functools.lru_cache(maxsize=None)
@@ -525,26 +639,29 @@ def _card(device):
 
 
 @functools.lru_cache(maxsize=None)
-def _check_grid(device, symbol, shape, ctas, series):
+def _check_grid(device, symbol, shape, ctas, variant):
     """Raise unless the card can hold the `ctas` CTAs of the grid-wide
     kernel `symbol` ("sm_fused_fwd_grid" with `shape` = (mg, rows,
-    rows_b), "sm_fused_fwd_shared_grid" with (mg, rows)) at once:
-    `<symbol>_capacity`, the cudaOccupancyMaxActiveBlocksPerMultiprocessor
-    count times the SMs, must reach `ctas`. A pass is remembered."""
+    rows_b), "sm_fused_bwd_grid" with (mg, cols, cols_b), the shared-matrix
+    grids with (mg, rows) or (mg, cols)) at once, in its template
+    `variant` (the series or the lambda history): `<symbol>_capacity`,
+    the cudaOccupancyMaxActiveBlocksPerMultiprocessor count times the SMs,
+    must reach `ctas`. A pass is remembered."""
     from spheremanopt_torch.ops.cuda.build import load
 
     with torch.cuda.device(device):
-        n = getattr(load(), symbol + "_capacity")(*shape, int(series))
+        n = getattr(load(), symbol + "_capacity")(*shape, int(variant))
     if n < ctas:
         raise RuntimeError(
             f"the grid-wide kernel {symbol} (mg={shape[0]}: {ctas} CTAs of {shape[1]} "
-            f"rows) cannot be co-resident on {torch.cuda.get_device_name(device)}: it "
-            f"holds {n}" + ("" if n >= 0 else f" (cudaError_t {-n})"))
+            f"rows or columns) cannot be co-resident on "
+            f"{torch.cuda.get_device_name(device)}: it holds {n}"
+            + ("" if n >= 0 else f" (cudaError_t {-n})"))
 
 
 def _tag_slots(u0):
     """Scratch of a grid route: two slots of mg (value, step tag) 64-bit
-    words that carry u between the CTAs."""
+    words that carry u (lambda in a reverse sweep) between the CTAs."""
     return torch.empty((4 * u0.shape[-1],), dtype=torch.float32, device=u0.device)
 
 
@@ -623,8 +740,8 @@ def fused_bwd(a, b, w, uT, traj, c2, c3, scale, n_steps, op_grads=False,
     sweep; `scale` is a 0-dim tensor float32(-2 dt) * gbar; `lam_hist` as
     in `fused_bwd_shared`. With op_grads, dA = sum_n lambda_{n+1} (x) u_n
     and dB = sum_n lambda_{n+1} (x) g(u_n), from the sweep's lambda
-    history. On the card the route follows `bwd_route(mg)`; both give
-    the same numbers bit for bit."""
+    history. On the card the route follows `bwd_route(mg)` for that card;
+    both give the same numbers bit for bit."""
     if uT.device.type == "cpu":
         return fused_bwd_plain(a, b, w, uT, traj, c2, c3, scale, n_steps,
                                op_grads, lam_hist)
@@ -632,26 +749,64 @@ def fused_bwd(a, b, w, uT, traj, c2, c3, scale, n_steps, op_grads=False,
     hist = _lam_hist(uT, n_steps, op_grads, lam_hist)
     mg = _check(n_steps, mats=[("a", a), ("b", b)],
                 vecs=[("uT", uT), ("w", w)], traj=traj, scale=scale, hist=hist)
-    if bwd_route(mg) == "block":
-        lam = _bwd_block(a, b, w, uT, traj, c2, c3, scale, n_steps, hist)
-    else:
+    route = bwd_route(mg, _card(uT.device))
+    if route == "cluster":
         _check_cluster(uT.device, "sm_fused_bwd", mg, hist is not None)
         lam = torch.empty_like(uT)
         _launch("sm_fused_bwd", "fused_bwd" if hist is None else "fused_bwd_ops",
                 uT.device, a.data_ptr(), b.data_ptr(), w.data_ptr(),
                 uT.data_ptr(), _ptr(traj), c2, c3, scale.data_ptr(),
                 int(n_steps), mg, lam.data_ptr(), _ptr(hist))
+    else:
+        bwd = _bwd_grid if route == "grid" else _bwd_block
+        lam = bwd(a, b, w, uT, traj, c2, c3, scale, n_steps, hist)
     if not op_grads:
         return lam, None, None
     return (lam,) + op_grads_product(hist, traj, "two", c2, c3)
 
 
+def _bwd_grid(a, b, w, uT, traj, c2, c3, scale, n_steps, lam_hist=None):
+    """lambda_0 of `fused_bwd` on the grid-wide kernel (`sm_fused_bwd_grid`,
+    counted under `fused_bwd_grid`, with the history under
+    `fused_bwd_grid_ops`) at any mg whose A columns fit the card: the
+    route above the cluster's width. Raises if the card cannot hold its
+    CTAs at once. Where fewer than all of a CTA's B columns fit, the
+    kernel's instance that stages the others from L2 runs (from B's
+    `phase_ordered` copy), counted under `fused_bwd_grid_stream` with or
+    without the history. `scale` is 0-dim; the caller has checked the
+    shapes."""
+    mg = uT.shape[-1]
+    cols, ctas, cols_b = bwd_grid_partition(mg, _card(uT.device))
+    _check_grid(uT.device, "sm_fused_bwd_grid", (mg, cols, cols_b), ctas,
+                lam_hist is not None)
+    lam = torch.empty_like(uT)
+    bperm = phase_ordered(b) if cols_b < cols else None
+    counter = ("fused_bwd_grid_stream" if cols_b < cols
+               else "fused_bwd_grid" + ("" if lam_hist is None else "_ops"))
+    _launch("sm_fused_bwd_grid", counter, uT.device, a.data_ptr(), b.data_ptr(),
+            _ptr(bperm), w.data_ptr(), uT.data_ptr(), _ptr(traj), c2, c3,
+            scale.data_ptr(), int(n_steps), mg, cols, cols_b, lam.data_ptr(),
+            _ptr(lam_hist), _tag_slots(uT).data_ptr())
+    return lam
+
+
+def phase_ordered(b):
+    """B with each column's rows in the reverse's phase order: B[p + P m, c]
+    at (c P + p) (mg / P) + m, P = row_phases(mg) (which divides mg where
+    the grid reverse stages B's columns). The grid reverse's instance that
+    stages B columns from L2 copies whole 16-byte pieces of it; made once a
+    call, a layout of the operand and no arithmetic."""
+    mg = b.shape[-1]
+    P = row_phases(mg)
+    return b.t().reshape(mg, mg // P, P).transpose(1, 2).contiguous()
+
+
 def _bwd_block(a, b, w, uT, traj, c2, c3, scale, n_steps, lam_hist=None):
     """lambda_0 of `fused_bwd` on the one-block kernel
     (`sm_fused_bwd_block`, counted under `fused_bwd_block` with or
-    without the history) at any mg: the route above the cluster's width,
-    and the kernel the cluster is held to bit for bit. `scale` is 0-dim;
-    the caller has checked the shapes."""
+    without the history) at any mg: the route where the grid's A columns
+    do not fit, and the kernel the cluster and the grid are held to bit
+    for bit. `scale` is 0-dim; the caller has checked the shapes."""
     lam = torch.empty_like(uT)
     _launch("sm_fused_bwd_block", "fused_bwd_block", uT.device, a.data_ptr(),
             b.data_ptr(), w.data_ptr(), uT.data_ptr(), _ptr(traj), c2, c3,

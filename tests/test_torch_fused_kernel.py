@@ -231,6 +231,16 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+def test_signatures_name_the_exported_functions():
+    """Every C function that csrc/*.cu exports has a ctypes signature, and
+    every signature names one: `load` binds each of them."""
+    import re
+
+    exported = {m for src in kbuild.CSRC.glob("*.cu")
+                for m in re.findall(r"^int (sm_\w+)\(", src.read_text(), re.M)}
+    assert exported == set(kbuild.SIGNATURES)
+
+
 def test_library_path_tracks_sources_and_flags(monkeypatch):
     base = kbuild.library_path()
     assert base.parent.parent == kbuild.BUILD_ROOT
@@ -524,13 +534,25 @@ def test_forward_route_by_width(mg):
 def test_shared_reverse_route_by_width(mg):
     """The shared-matrix reverse sweep's cluster while B's columns fit 16
     SMs' shared memory (227 KB each: mg^2 4 / 16 bytes of columns, lambda
-    twice, the P x mg / 16 partial sums, w and u_n of the columns), one
-    block above."""
+    twice, the P x mg / 16 partial sums, w and u_n of the columns); above,
+    the grid on an H100 SXM (132 SMs) and PCIe (114): the P x cols chains
+    of B's ceil(mg / SMs) columns, lambda's P chains and the P x cols
+    partial sums fit each SM's 227 KB, and a CTA's 256 threads cover its
+    (phase, column) pairs. On a card of 16 SMs the grid's columns do not
+    fit above mg = 896, and the one-block kernel takes those widths."""
     phases = 1024 // (mg // 4)
     smem = 4 * (mg * mg // 16 + 2 * mg + phases * mg // 16 + 2 * mg // 16)
-    assert fk.shared_bwd_route(mg) == (
-        "cluster" if mg <= fk.SHARED_CLUSTER_MG_MAX else "block")
     assert (smem <= 232448) == (mg <= fk.SHARED_CLUSTER_MG_MAX)
+    want = "cluster" if mg <= fk.SHARED_CLUSTER_MG_MAX else "grid"
+    assert fk.shared_bwd_route(mg) == want
+    ts = _chain(-(-mg // phases))
+    for sms in (132, 114):
+        cols = -(-mg // sms)
+        smem = 4 * (phases * (cols + 1) * ts + phases * cols)
+        assert fk.shared_bwd_grid_smem_bytes(mg, cols) == smem <= 232448
+        assert phases * cols <= 256
+        assert fk.shared_bwd_route(mg, (sms, 232448)) == want
+    assert fk.shared_bwd_route(mg, (16, 232448)) == ("cluster" if mg <= 896 else "block")
 
 
 @pytest.mark.parametrize("sms", [132, 114, 78])
@@ -653,6 +675,139 @@ def test_shared_cluster_reverse_partition_matches_plain(mg, one_thread):
                                          lam_hist=hist_p)
     lam_c = _cluster_reverse(b, w, uT, traj, C2, C3, lin, scale, n, hist_c)
     assert _rel(lam_c, lam_p) < 1e-6 and _rel(hist_c, hist_p) < 1e-6
+
+
+def _cta_columns(flat, mg, cols, ctas, first, count, rows):
+    """Each CTA's `count` columns from its column `first` on, rows
+    `rows`, gathered from the flat row-major (mg, mg) matrix by the
+    kernels' index arithmetic (row i, column c0 + c at i mg + c0 + c),
+    zero past column mg: (ctas, len(rows), count)."""
+    c0 = torch.arange(ctas)[:, None, None] * cols
+    c = first + torch.arange(count)[None, None, :]
+    idx = rows[None, :, None] * mg + c0 + c
+    return torch.where(c0 + c < mg, flat[idx.clamp(max=mg * mg - 1)], 0.0)
+
+
+def _staged_chunk(bperm, mg, cols, ctas, cols_b, j):
+    """Chunk j (rows j STAGE_ROWS on, STAGE_ROWS of them or what is left)
+    of each CTA's staged B columns as the kernel copies it from
+    `phase_ordered` B: term t of the chain of phase p of staged column c
+    at (c0 + cols_b) mg + (c P + p) (mg / P) + j (STAGE_ROWS / P) + t, put
+    back in row order: (ctas, rows, cols - cols_b), zero past column mg."""
+    P, R = fk.row_phases(mg), fk.STAGE_ROWS
+    ns, tpc = cols - cols_b, R // P
+    r = torch.arange(min(R, mg - j * R))
+    c = torch.arange(ns)
+    c0 = torch.arange(ctas)[:, None, None] * cols
+    idx = ((c0 + cols_b) * mg + (c[None, None, :] * P + (r % P)[None, :, None]) * (mg // P)
+           + j * tpc + (r // P)[None, :, None])
+    inside = c0 + cols_b + c[None, None, :] < mg
+    return torch.where(inside, bperm.reshape(-1)[torch.where(inside, idx, 0)], 0.0)
+
+
+def _grid_reverse(mode, mats, w, uT, traj, c2, c3, lin, scale, n, sms, cols_b, lam_hist):
+    """A grid reverse (csrc/fused_two_matrix.cu, csrc/fused_shared.cu) in
+    plain torch, vectorised over the CTAs of `grid_partition(mg, sms)`:
+    CTA k keeps its columns of each matrix but the last, and the first
+    cols_b of its columns of the last (B); the other B columns are staged
+    a chunk of STAGE_ROWS rows at a time from `phase_ordered` B (where P
+    divides STAGE_ROWS / 2). Its thread (p, col) sums rows
+    p, p + P, ... of its column in ascending order, a chunk at a time, from
+    the kept columns or the stage (P = 1024 / (mg / 4), the one-block
+    kernel's row phases); each entry adds the P partials in phase order
+    and applies the update ("shared": v'(u) B^T lambda; "two":
+    A^T lambda + g'(u) B^T lambda). Row n of lam_hist gets lambda_{n+1}."""
+    mg, R = w.shape[0], fk.STAGE_ROWS
+    cols, ctas = fk.grid_partition(mg, sms)
+    P = fk.row_phases(mg)
+    assert P * cols <= 256   # one thread of a 256-thread CTA per (phase, column)
+    flats = [m.reshape(-1) for m in mats]
+    every = torch.arange(mg)
+    kept = [_cta_columns(f, mg, cols, ctas, 0, cols, every) for f in flats[:-1]]
+    kept.append(_cta_columns(flats[-1], mg, cols, ctas, 0, cols_b, every))
+    bperm = fk.phase_ordered(mats[-1]) if cols_b < cols else None
+    lam = scale * (w * uT)
+    for k in range(n):
+        row = n - 1 - k
+        lam_hist[row] = lam
+        parts = [torch.zeros((ctas, P, cols), dtype=lam.dtype) for _ in mats]
+        for r0 in range(0, mg, R):   # one chunk of rows
+            last = kept[-1][:, r0:r0 + R]
+            if bperm is not None:
+                stage = _staged_chunk(bperm, mg, cols, ctas, cols_b, r0 // R)
+                last = torch.cat([last, stage], dim=2)
+            srcs = [m[:, r0:r0 + R] for m in kept[:-1]] + [last]
+            rr = min(R, mg - r0)
+            for m in range(-(-rr // P)):   # the next term of each phase's chain
+                i = torch.arange(m * P, min((m + 1) * P, rr))
+                li = lam[r0 + i][None, :, None]
+                for part, src in zip(parts, srcs):
+                    part.index_add_(1, (r0 + i) % P, src[:, i] * li)
+        sums = []
+        for part in parts:
+            s = torch.zeros((ctas, cols), dtype=lam.dtype)
+            for q in range(P):
+                s = s + part[:, q]
+            sums.append(s.reshape(-1)[:mg])
+        u = traj[row]
+        if mode == "shared":
+            lam = (lin + 2.0 * c2 * u + 3.0 * c3 * u * u) * sums[0] + scale * (w * u)
+        else:
+            lam = sums[0] + (2.0 * c2 * u + 3.0 * c3 * u * u) * sums[1] + scale * (w * u)
+    return lam
+
+
+def test_phase_ordered_keeps_each_chain_together():
+    """`phase_ordered` B holds B[p + P m, c] at (c P + p) (mg / P) + m, for
+    P = 16 (mg = 256) and 2 (mg = 2048)."""
+    for mg in (256, 2048):
+        b = torch.as_tensor(np.random.RandomState(mg).randn(mg, mg), dtype=torch.float32)
+        P = fk.row_phases(mg)
+        bp = fk.phase_ordered(b)
+        assert bp.is_contiguous() and bp.numel() == mg * mg
+        c, p, m = (torch.as_tensor(np.random.RandomState(1).randint(0, k, 64))
+                   for k in (mg, P, mg // P))
+        assert torch.equal(bp.reshape(-1)[(c * P + p) * (mg // P) + m], b[p + P * m, c])
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+@pytest.mark.parametrize("mode", ["shared", "two"])
+def test_grid_reverse_partition_matches_plain(mode, sms, one_thread):
+    """The grid reverses' column partition, chunked summation order and
+    (two matrices) split of B into kept and staged columns, in plain torch
+    (f32), against `fused_bwd_shared_plain` / `fused_bwd_plain` on SH23's
+    / SHB23's operators at mg = 256, N = 20, on cards of 132, 114 and 78
+    SMs: lambda_0 and the lambda history within rel 1e-6 (f32 sums in
+    another order over 20 steps); the two-matrix case with all B columns
+    kept and with half of them staged."""
+    mg, n = 256, 20
+    if mode == "shared":
+        p = TSH(TConfig(npts=mg // 2, dtype="float32", method="matmul"), device="cpu")
+        mats, w = (p._Mt.float().contiguous(),), torch.full((mg,), 1.0 / mg)
+        x = torch.as_tensor(np.random.RandomState(mg).randn(mg), dtype=torch.float32)
+        u0, c, lin = torch.mv(p._Pt.float(), x) * 0.3, (C2, C3), 1.0 / p.cfg.dt
+        uT, _, traj, _ = fk.fused_fwd_shared_plain(*mats, w, u0, *c, lin, n)
+        args = (*mats, w, uT, traj, *c, lin)
+        plain, splits = fk.fused_bwd_shared_plain, (None,)
+    else:
+        p = TSHB(TBConfig(npts=mg, dtype="float32", method="matmul"), device="cpu")
+        mats = (p._Alt.float().contiguous(), p._Ant.float().contiguous())
+        w = p._wt.float().contiguous()
+        u0 = torch.as_tensor(np.random.RandomState(mg).randn(mg), dtype=torch.float32)
+        u0, c, lin = u0 * torch.sqrt(p.cfg.m0 / torch.sum(w * u0 * u0)), (C2B, C3B), 0.0
+        uT, _, traj, _ = fk.fused_fwd_plain(*mats, w, u0, *c, n)
+        args = (*mats, w, uT, traj, *c)
+        cols = fk.grid_partition(mg, sms)[0]
+        plain, splits = fk.fused_bwd_plain, (cols, cols // 2)
+    scale = torch.tensor(-2.0 * p.cfg.dt, dtype=torch.float32)
+    hist_p = torch.empty_like(traj)
+    lam_p = plain(*args, scale, n, lam_hist=hist_p)[0]
+    for cols_b in splits:
+        cols_b = fk.grid_partition(mg, sms)[0] if cols_b is None else cols_b
+        hist_g = torch.empty_like(traj)
+        lam_g = _grid_reverse(mode, mats, w, uT, traj, *c, lin, scale, n, sms, cols_b,
+                              hist_g)
+        assert _rel(lam_g, lam_p) < 1e-6 and _rel(hist_g, hist_p) < 1e-6
 
 
 def _lane_dots(arows, u, brows, g):
@@ -797,15 +952,88 @@ def test_shared_forward_route_by_width(mg):
     assert fk.shared_fwd_route(mg, (16, 232448)) == ("grid" if mg <= 896 else "block")
 
 
+def _chain(terms):
+    """Floats of a chain of `terms` entries in a grid reverse's shared
+    memory: whole float4s, an odd number of them."""
+    quads = -(-terms // 4)
+    return 4 * (quads if quads % 2 else quads + 1)
+
+
+def _bwd_smem(mg, cols, cols_b):
+    """Shared memory of one CTA of the grid reverse (csrc/fused_two_matrix.cu
+    `bwd_grid_smem_bytes`): a chain of each phase of each of its columns
+    of A and of cols_b of its columns of B, and of lambda; below cols_b =
+    cols 3 stages of 256 rows of the other B columns (256 / P terms a
+    chain); the P x cols partial sums of each matrix."""
+    phases = 1024 // (mg // 4)
+    ts = _chain(-(-mg // phases))
+    staged = 3 * phases * (cols - cols_b) * _chain(256 // phases) if cols_b < cols else 0
+    return 4 * (phases * (cols + cols_b + 1) * ts + staged + 2 * phases * cols)
+
+
 @pytest.mark.parametrize("mg", range(128, 2049, 128))
 def test_reverse_route_by_width(mg):
     """The reverse sweep's cluster while A's and B's columns fit 16 SMs'
     shared memory (227 KB each: 2 mg^2 4 / 16 bytes of columns, lambda
-    twice, and the partial sums), one block above."""
+    twice, and the partial sums); above, the grid on an H100 SXM: the
+    chains of ceil(mg / 132) columns of A, lambda's and the partial sums
+    fit each of its 132 SMs (227 KB). All of a CTA's B columns fit beside
+    them up to mg = 1792; above, as many as fit beside the stages stay
+    and the others are staged from L2."""
     phases = 1024 // (mg // 4)
     smem = 4 * (2 * mg * mg // 16 + 2 * mg + 2 * phases * mg // 16 + 2 * mg // 16)
-    assert fk.bwd_route(mg) == ("cluster" if mg <= fk.CLUSTER_MG_MAX else "block")
     assert (smem <= 232448) == (mg <= fk.CLUSTER_MG_MAX)
+    cols = -(-mg // 132)
+    assert _bwd_smem(mg, cols, 0) <= 232448
+    assert fk.bwd_route(mg) == ("cluster" if mg <= fk.CLUSTER_MG_MAX else "grid")
+    _, _, cols_b = fk.bwd_grid_partition(mg, fk.H100_SXM)
+    assert (cols_b == cols) == (mg <= 1792)
+    assert _bwd_smem(mg, cols, cols_b) <= 232448
+
+
+@pytest.mark.parametrize("mg", range(128, 2049, 128))
+@pytest.mark.parametrize("card", [(132, 232448), (114, 232448)])
+def test_reverse_grid_partition_covers_every_column_once(card, mg):
+    """The grid reverses' columns on an H100 SXM (132 SMs) and PCIe (114):
+    ceil(mg / cols) <= SMs CTAs of `cols` contiguous columns (the last one
+    short or full) cover 0 .. mg - 1 once; a CTA's 256 threads cover its
+    P x cols (phase, column) pairs; the shared-matrix grid's columns and
+    state fit one block's 227 KB, and both reverses take the grid above
+    their clusters' widths."""
+    cols, ctas, cols_b = fk.bwd_grid_partition(mg, card)
+    assert (cols, ctas) == fk.grid_partition(mg, card[0]) and 1 <= ctas <= card[0]
+    owned = [c for k in range(ctas) for c in range(k * cols, min((k + 1) * cols, mg))]
+    assert owned == list(range(mg))
+    phases = 1024 // (mg // 4)
+    assert fk.row_phases(mg) == phases and phases * cols <= 256
+    ts = _chain(-(-mg // phases))
+    assert fk.chain_stride(-(-mg // phases)) == ts >= -(-mg // phases) and ts % 8 == 4
+    smem = 4 * (phases * (cols + 1) * ts + phases * cols)
+    assert fk.shared_bwd_grid_smem_bytes(mg, cols) == smem <= card[1]
+    assert fk.bwd_route(mg, card) == ("cluster" if mg <= fk.CLUSTER_MG_MAX else "grid")
+    assert fk.shared_bwd_route(mg, card) == (
+        "cluster" if mg <= fk.SHARED_CLUSTER_MG_MAX else "grid")
+    assert 0 <= cols_b <= cols
+
+
+@pytest.mark.parametrize("mg", range(128, 2049, 128))
+@pytest.mark.parametrize("card", [(132, 232448), (114, 232448)])
+def test_reverse_grid_split_partition(card, mg):
+    """The two-matrix grid reverse's split of B on an H100 SXM and PCIe:
+    a CTA's A columns, its first cols_b B columns, the state and the
+    stages of the other B columns fit one block's 227 KB; cols_b is the
+    most that fit; the stages cut every column into chunks of 256 rows,
+    the last one of 256 or 128. All kept up to mg = 1792 on the SXM and
+    1664 on the PCIe card; at mg = 2048 8 of 16 kept on the SXM, 3 of 18
+    on the PCIe card."""
+    cols, _, cols_b = fk.bwd_grid_partition(mg, card)
+    smem = fk.bwd_grid_smem_bytes(mg, cols, cols_b)
+    assert smem == _bwd_smem(mg, cols, cols_b) <= card[1]
+    assert cols_b == cols or _bwd_smem(mg, cols, cols_b + 1) > card[1]
+    assert (fk.STAGES, fk.STAGE_ROWS) == (3, 256) and mg % (fk.STAGE_ROWS // 2) == 0
+    assert (cols_b == cols) == (mg <= (1792 if card[0] == 132 else 1664))
+    if mg == 2048:
+        assert (cols, cols_b) == ((16, 8) if card[0] == 132 else (18, 3))
 
 
 # ---------------------------------------------------------------------------
@@ -867,10 +1095,10 @@ def test_kernel_wrappers_reject_what_they_cannot_run(cuda):
 @pytest.mark.parametrize("npts", [128, 512])
 def test_op_grads_kernels_match_plain_on_card(cuda, npts):
     """op_grads=True on the card: the reverse kernel with its lambda
-    history (the cluster at mg = 256, the one-block route at mg = 1024),
-    then the product kernel, vs the step-by-step plain f32 sweep on the
-    same inputs (rel 1e-4); lambda_0 bitwise that of the kernel without
-    the history."""
+    history (the cluster at mg = 256, the grid at mg = 1024), then the
+    product kernel, vs the step-by-step plain f32 sweep on the same inputs
+    (rel 1e-4); lambda_0 bitwise that of the kernel without the
+    history."""
     p = TSH(TConfig(npts=npts, dtype="float32", method="cuda"), device=cuda)
     mg = p.basis.n_grid
     x = torch.as_tensor(np.random.RandomState(1).randn(mg), dtype=torch.float32,
@@ -884,7 +1112,7 @@ def test_op_grads_kernels_match_plain_on_card(cuda, npts):
     lk, dbk = fk.fused_bwd_shared(b, w, uT, tr, C2, C3, lin, scale, n, op_grads=True)
     torch.cuda.synchronize()
     sweep = ("fused_bwd_shared_ops" if fk.shared_bwd_route(mg) == "cluster"
-             else "fused_bwd_shared_block")
+             else "fused_bwd_shared_grid_ops")
     assert {k: v for k, v in fk.LAUNCHES.items() if v} == {sweep: 1, "op_grads": 1}
     l0, _ = fk.fused_bwd_shared(b, w, uT, tr, C2, C3, lin, scale, n)
     lr, dbr = fk.fused_bwd_shared_plain(b, w, uT, tr, C2, C3, lin, scale, n,
@@ -1089,12 +1317,84 @@ def test_cluster_reverse_bitwise_the_block_reverse_on_card(cuda, mg, hist):
     assert _rel(lam_c.cpu(), lam_p.cpu()) < 1e-4
 
 
+def _reverse_counter(mg, card, hist):
+    """The launch counter of the two-matrix grid reverse at width mg."""
+    cols, _, cols_b = fk.bwd_grid_partition(mg, card)
+    if cols_b < cols:
+        return "fused_bwd_grid_stream"
+    return "fused_bwd_grid_ops" if hist else "fused_bwd_grid"
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("hist", [False, True])
+@pytest.mark.parametrize("mg", [128, 512, 640, 768, 1024, 1536, 1920, 2048])
+def test_grid_reverse_bitwise_the_block_reverse_on_card(cuda, mg, hist):
+    """The grid-wide reverse sweep (`_bwd_grid`, called directly at the
+    clusters' widths, the route above) against the one-block kernel on the
+    same inputs, from one column a CTA at mg = 128 to mg = 2048 (above 1792
+    on an H100 SXM the instance that stages the B columns that do not fit
+    from L2): lambda_0 and the lambda history bitwise; lambda_0 bitwise
+    across the two history instantiations and the route's; within 1e-4 of
+    plain f32."""
+    a, b, w, uT, traj, sc = _reverse_inputs(cuda, mg, 300 if mg <= 1024 else 100)
+    n = traj.shape[0]
+    h_c = torch.empty_like(traj) if hist else None
+    h_b = torch.empty_like(traj) if hist else None
+    assert fk.bwd_route(mg, fk._card(cuda)) == ("cluster" if mg <= 640 else "grid")
+    fk.reset_launches()
+    lam_c = fk._bwd_grid(a, b, w, uT, traj, C2B, C3B, sc, n, h_c)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        _reverse_counter(mg, fk._card(cuda), hist): 1}
+    lam_b = fk._bwd_block(a, b, w, uT, traj, C2B, C3B, sc, n, h_b)
+    other = fk._bwd_grid(a, b, w, uT, traj, C2B, C3B, sc, n,
+                         None if hist else torch.empty_like(traj))
+    route = fk.fused_bwd(a, b, w, uT, traj, C2B, C3B, sc, n)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(lam_c, lam_b) and torch.equal(lam_c, other)
+    assert torch.equal(lam_c, route)
+    if hist:
+        assert torch.equal(h_c, h_b)
+    lam_p = fk.fused_bwd_plain(a, b, w, uT, traj, C2B, C3B, sc, n)[0]
+    assert _rel(lam_c.cpu(), lam_p.cpu()) < 1e-4
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mg,cols,cols_b", [(2048, 18, 3), (2048, 16, 0), (512, 4, 1)])
+def test_grid_reverse_any_split_bitwise_on_card(cuda, mg, cols, cols_b):
+    """The grid reverse's instance that stages B columns from L2, launched
+    directly at splits its route does not choose on this card (the H100
+    PCIe's 114 CTAs of 18 columns, 3 of B kept; no B column kept; 1 of 4
+    kept at mg = 512), with and without the history: lambda_0 and the
+    history bitwise the one-block kernel's."""
+    from spheremanopt_torch.ops.cuda.build import load
+
+    a, b, w, uT, traj, sc = _reverse_inputs(cuda, mg, 100)
+    n = traj.shape[0]
+    for hist in (False, True):
+        assert load().sm_fused_bwd_grid_capacity(mg, cols, cols_b, int(hist)) >= -(-mg // cols)
+        lam, h = torch.empty_like(uT), torch.empty_like(traj) if hist else None
+        bperm = fk.phase_ordered(b)
+        code = load().sm_fused_bwd_grid(
+            a.data_ptr(), b.data_ptr(), bperm.data_ptr(), w.data_ptr(), uT.data_ptr(),
+            traj.data_ptr(), C2B, C3B, sc.data_ptr(), n, mg, cols, cols_b, lam.data_ptr(),
+            fk._ptr(h), fk._tag_slots(uT).data_ptr(), torch.cuda.current_stream().cuda_stream)
+        assert code == 0
+        h_b = torch.empty_like(traj) if hist else None
+        lam_b = fk._bwd_block(a, b, w, uT, traj, C2B, C3B, sc, n, h_b)
+        torch.cuda.synchronize()
+        assert torch.equal(lam, lam_b)
+        if hist:
+            assert torch.equal(h, h_b)
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("mg", [512, 1024])
 def test_reverse_route_by_width_on_card(cuda, mg):
     """`bwd_route` picks the kernel by mg: the launch counters show the
-    cluster up to 640 and the one-block kernel above, both variants of the
-    latter under `fused_bwd_block`; lambda within 1e-4 of plain f32."""
+    cluster up to 640 and the grid-wide kernel above, the history
+    variants under `fused_bwd_ops` and `fused_bwd_grid_ops`; lambda within
+    1e-4 of plain f32."""
     a, b, w, uT, traj, sc = _reverse_inputs(cuda, mg, 200)
     n = traj.shape[0]
     fk.reset_launches()
@@ -1102,9 +1402,10 @@ def test_reverse_route_by_width_on_card(cuda, mg):
     lam_h = fk.fused_bwd(a, b, w, uT, traj, C2B, C3B, sc, n,
                          lam_hist=torch.empty_like(traj))[0]
     torch.cuda.synchronize()
-    want = ({"fused_bwd": 1, "fused_bwd_ops": 1} if fk.bwd_route(mg) == "cluster"
-            else {"fused_bwd_block": 2})
-    assert {k: v for k, v in fk.LAUNCHES.items() if v} == want
+    route = fk.bwd_route(mg, fk._card(cuda))
+    assert route == ("cluster" if mg <= 640 else "grid")
+    name = "fused_bwd" if route == "cluster" else "fused_bwd_grid"
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {name: 1, name + "_ops": 1}
     assert torch.equal(lam, lam_h)
     lam_p = fk.fused_bwd_plain(a, b, w, uT, traj, C2B, C3B, sc, n)[0]
     assert _rel(lam.cpu(), lam_p.cpu()) < 1e-4
@@ -1185,13 +1486,14 @@ def test_shared_forward_rejects_widths_neither_route_takes(cuda):
 @pytest.mark.parametrize("symbol,mg", [
     ("sm_fused_fwd_grid", 512), ("sm_fused_bwd", 128), ("sm_fused_fwd_shared_grid", 128),
     ("sm_fused_bwd_shared", 128), ("sm_fused_fwd_grid", 1024), ("sm_fused_fwd_grid", 2048),
-    ("sm_fused_fwd_shared_grid", 1024)])
+    ("sm_fused_fwd_shared_grid", 1024), ("sm_fused_bwd_grid", 1024), ("sm_fused_bwd_grid", 2048),
+    ("sm_fused_bwd_shared_grid", 1024), ("sm_fused_bwd_shared_grid", 2048)])
 def test_cluster_capacity_of_zero_raises(cuda, symbol, mg, monkeypatch):
     """A cluster the card cannot schedule (capacity 0), and a grid-wide
     kernel whose CTAs the card cannot hold at once, raise; nothing falls
     back to the one-block kernel. (The grids replace the cases of the
-    cluster forwards they replaced; at mg = 2048 the two-matrix grid's
-    instance that reads B rows from L2.)"""
+    cluster forwards they replaced; at mg = 2048 the two-matrix grids'
+    instances that read B from L2.)"""
     from spheremanopt_torch.ops.cuda import build
 
     class NoClusters:
@@ -1212,7 +1514,7 @@ def test_cluster_capacity_of_zero_raises(cuda, symbol, mg, monkeypatch):
             fk.fused_fwd(a, b, w, uT, C2B, C3B, 4)
         elif symbol == "sm_fused_fwd_shared_grid":
             fk.fused_fwd_shared(b, w, uT, C2, C3, 20.0, 4)
-        elif symbol == "sm_fused_bwd_shared":
+        elif symbol in ("sm_fused_bwd_shared", "sm_fused_bwd_shared_grid"):
             fk.fused_bwd_shared(b, w, uT, traj, C2, C3, 20.0, sc, 4)
         else:
             fk.fused_bwd(a, b, w, uT, traj, C2B, C3B, sc, 4)
@@ -1253,12 +1555,47 @@ def test_shared_cluster_reverse_bitwise_the_block_reverse_on_card(cuda, mg, hist
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("hist", [False, True])
+@pytest.mark.parametrize("mg", [128, 512, 896, 1024, 2048])
+def test_shared_grid_reverse_bitwise_the_block_reverse_on_card(cuda, mg, hist):
+    """The grid-wide reverse sweep of the shared-matrix step
+    (`_bwd_shared_grid`, called directly at the cluster's widths, the
+    route above) against the one-block kernel on the same inputs (SH23's
+    operators from one column a CTA at mg = 128 to mg = 2048): lambda_0
+    and the lambda history bitwise; lambda_0 bitwise across the two
+    history instantiations and the route's; within 1e-4 of plain f32."""
+    b, w, u0, lin = _shared_inputs(cuda, mg)
+    n = 300
+    uT, _, traj, _ = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n)
+    sc = torch.tensor(-0.1, device=cuda)
+    h_c = torch.empty_like(traj) if hist else None
+    h_b = torch.empty_like(traj) if hist else None
+    assert fk.shared_bwd_route(mg, fk._card(cuda)) == ("cluster" if mg <= 896 else "grid")
+    fk.reset_launches()
+    lam_c = fk._bwd_shared_grid(b, w, uT, traj, C2, C3, lin, sc, n, h_c)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        "fused_bwd_shared_grid_ops" if hist else "fused_bwd_shared_grid": 1}
+    lam_b = fk._bwd_shared_block(b, w, uT, traj, C2, C3, lin, sc, n, h_b)
+    other = fk._bwd_shared_grid(b, w, uT, traj, C2, C3, lin, sc, n,
+                                None if hist else torch.empty_like(traj))
+    route = fk.fused_bwd_shared(b, w, uT, traj, C2, C3, lin, sc, n)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(lam_c, lam_b) and torch.equal(lam_c, other)
+    assert torch.equal(lam_c, route)
+    if hist:
+        assert torch.equal(h_c, h_b)
+    lam_p = fk.fused_bwd_shared_plain(b, w, uT, traj, C2, C3, lin, sc, n)[0]
+    assert _rel(lam_c.cpu(), lam_p.cpu()) < 1e-4
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("mg", [512, 1024])
 def test_shared_reverse_route_by_width_on_card(cuda, mg):
     """`shared_bwd_route` picks the kernel by mg: the launch counters show
-    the cluster up to 896 and the one-block kernel above, both variants
-    of the latter under `fused_bwd_shared_block`; lambda within 1e-4 of
-    plain f32."""
+    the cluster up to 896 and the grid-wide kernel above, the history
+    variants under `fused_bwd_shared_ops` and `fused_bwd_shared_grid_ops`;
+    lambda within 1e-4 of plain f32."""
     b, w, u0, lin = _shared_inputs(cuda, mg)
     n = 200
     uT, _, traj, _ = fk.fused_fwd_shared(b, w, u0, C2, C3, lin, n)
@@ -1268,10 +1605,10 @@ def test_shared_reverse_route_by_width_on_card(cuda, mg):
     lam_h = fk.fused_bwd_shared(b, w, uT, traj, C2, C3, lin, sc, n,
                                 lam_hist=torch.empty_like(traj))[0]
     torch.cuda.synchronize()
-    assert fk.shared_bwd_route(mg) == ("cluster" if mg <= 896 else "block")
-    want = ({"fused_bwd_shared": 1, "fused_bwd_shared_ops": 1}
-            if fk.shared_bwd_route(mg) == "cluster" else {"fused_bwd_shared_block": 2})
-    assert {k: v for k, v in fk.LAUNCHES.items() if v} == want
+    route = fk.shared_bwd_route(mg, fk._card(cuda))
+    assert route == ("cluster" if mg <= 896 else "grid")
+    name = "fused_bwd_shared" if route == "cluster" else "fused_bwd_shared_grid"
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {name: 1, name + "_ops": 1}
     assert torch.equal(lam, lam_h)
     lam_p = fk.fused_bwd_shared_plain(b, w, uT, traj, C2, C3, lin, sc, n)[0]
     assert _rel(lam.cpu(), lam_p.cpu()) < 1e-4

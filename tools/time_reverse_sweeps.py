@@ -37,6 +37,15 @@ this one); its kernels are built there at first use. By CUDA events over
     mg = 1024, 1536 and 2048 (SH23's operators at npts = mg / 2); and
     the SH23 forward at mg = 128, 256, 512, 640 and 896 on the
     checkout's route (10 calls after 2 each);
+  * the reverse sweeps at N = 200 (`fused_bwd`, `fused_bwd_shared`), each
+    with and without the lambda history, on the checkout's route at
+    mg = 128, 256, 384, 512, 640, 768, 896, 1024 and 2048 (SHB23's
+    operators at npts = mg from 1024 on, seeded operators below; SH23's
+    operators at npts = mg / 2), where the checkout has them as the grid
+    kernels called directly at each of those widths (`_bwd_grid`,
+    `_bwd_shared_grid`), and at mg = 1024 and 2048 also as the one-block
+    kernels called directly (`_bwd_block`, `_bwd_shared_block`; 10 calls
+    after 2, 3 after 2 for the one-block kernels at 2048);
   * the largest difference from plain f32 of the SH23 forward
     (|u_T|, |traj|), the SHB23 reverse sweep (|lambda_0|), the KDyn
     forward (|(b_T, J, traj)|) and the KDyn reverse sweep
@@ -47,7 +56,8 @@ reverse sweep's lambda_0 and lambda history, the SHB23 forward's u_T and
 trajectory (mg = 512), the SHB23 reverse sweep's lambda_0, the SHB23
 forward's u_T, J, trajectory and series at mg = 1024 and the forward's
 u_T, J and series at mg = 128, 256, 384 and 640, and the u_T, J,
-trajectory and series of the forwards above at every width to
+trajectory and series of the forwards above at every width, and the
+lambda_0 and lambda history of every reverse sweep at N = 200 above, to
 DIR/<tag>.npz,
 and with `--against NAME` it prints the largest difference of each from
 DIR/NAME.npz (`max_abs_<what>_vs_NAME`).
@@ -152,6 +162,63 @@ def wide_forwards(fk, dev, out):
             other = fk._fwd_shared_block(*opnds, True, True)
             out[f"sh23_fwd_{m}_max_abs_vs_block"] = max(float((x - y).abs().max())
                                                         for x, y in zip(got, other))
+    return saved
+
+
+def reverses(fk, dev, out):
+    """Time the reverse sweeps at N = 200 on the checkout's route, with
+    and without the lambda history, and at mg = 1024 and 2048 the
+    one-block kernels beside them; return each route's lambda_0 and
+    history by name."""
+    import numpy as np
+    import torch
+
+    from spheremanopt_torch.problems.swift_hohenberg import SH23Config, SwiftHohenberg
+    from spheremanopt_torch.problems.swift_hohenberg_bounded import (
+        SHB23Config, SwiftHohenbergBounded)
+
+    def timed(tag, m, bwd, block, grid, args, traj):
+        hist = torch.empty_like(traj)
+        out[f"{tag}_bwd_{m}_ms"] = gpu_ms(lambda: bwd(*args), 10)
+        out[f"{tag}_bwd_{m}_hist_ms"] = gpu_ms(lambda: bwd(*args, lam_hist=hist), 10)
+        if grid is not None:
+            out[f"{tag}_bwd_{m}_grid_ms"] = gpu_ms(lambda: grid(*args), 10)
+            out[f"{tag}_bwd_{m}_grid_hist_ms"] = gpu_ms(lambda: grid(*args, hist), 10)
+        lam = bwd(*args, lam_hist=hist)[0]
+        if m >= 1024:
+            out[f"{tag}_bwd_{m}_block_ms"] = gpu_ms(lambda: block(*args), 10 if m == 1024 else 3)
+            out[f"{tag}_bwd_{m}_max_abs_vs_block"] = float((lam - block(*args)).abs().max())
+        return {f"{tag}_bwd_{m}_lam": lam, f"{tag}_bwd_{m}_hist": hist}
+
+    saved = {}
+    for m in (128, 256, 384, 512, 640, 768, 896, 1024, 2048):
+        rs = np.random.RandomState(m + 1)
+        if m >= 1024:   # SHB23's operators
+            r = SwiftHohenbergBounded(SHB23Config(npts=m, dtype="float32", method="cuda"),
+                                      device=dev)
+            a, b, w = r._Alt.float().contiguous(), r._Ant.float().contiguous(), r._wt.float()
+            u = torch.as_tensor(rs.randn(m), dtype=torch.float32, device=dev)
+            u = u * torch.sqrt(r.cfg.m0 / torch.sum(w * u * u))
+        else:           # seeded operators of spectral radius ~0.5
+            a, b = (torch.as_tensor(0.5 * rs.randn(m, m) / np.sqrt(m), dtype=torch.float32,
+                                    device=dev) for _ in range(2))
+            w = torch.full((m,), 1.0 / m, device=dev)
+            u = torch.as_tensor(0.3 * rs.randn(m), dtype=torch.float32, device=dev)
+        uT, _, tr, _ = fk.fused_fwd(a, b, w, u, 2.0, -1.0, 200)
+        sc = torch.tensor(-0.02, device=dev)
+        saved.update(timed("shb23", m, fk.fused_bwd, fk._bwd_block, getattr(fk, "_bwd_grid", None),
+                           (a, b, w, uT, tr, 2.0, -1.0, sc, 200), tr))
+        p = SwiftHohenberg(SH23Config(npts=m // 2, dtype="float32", method="cuda"), device=dev)
+        bs = p._Mt.float().contiguous()
+        ws = torch.full((m,), 1.0 / m, device=dev)
+        x = torch.as_tensor(rs.randn(m), dtype=torch.float32, device=dev)
+        lin = 1.0 / p.cfg.dt
+        uT, _, tr, _ = fk.fused_fwd_shared(bs, ws, torch.mv(p._Pt.float(), x) * 0.3, 1.8, -1.0,
+                                           lin, 200)
+        sc = torch.tensor(-2.0 * p.cfg.dt, device=dev)
+        saved.update(timed("sh23", m, fk.fused_bwd_shared, fk._bwd_shared_block,
+                           getattr(fk, "_bwd_shared_grid", None),
+                           (bs, ws, uT, tr, 1.8, -1.0, lin, sc, 200), tr))
     return saved
 
 
@@ -295,6 +362,7 @@ def main() -> int:
 
     uT2, _, tr2, _ = fk.fused_fwd(a2, b2, w2, u2, 2.0, -1.0, n2)
     saved = wide_forwards(fk, dev, out)
+    saved.update(reverses(fk, dev, out))
     if args.save:
         os.makedirs(args.save, exist_ok=True)
         saved.update(sh23_uT=uT, sh23_traj=tr, uT=uT2, traj=tr2, lam0=lam2)
