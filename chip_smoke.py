@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port (`spheremanopt_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only uvwx     # phases A, B and the ones named
 
 Drives the port's main paths through the same entry points as the
 command line (`spheremanopt_torch.run.make_problem` and `run.optimise`),
@@ -19,10 +20,16 @@ holding each against its plain PyTorch version on the card:
   * the operator cotangents of `FusedObjectiveShared` / `FusedObjective`
     at the SH23 and SHB23 widths (the lambda-history variants of both
     reverse kernels and the op_grads product kernel);
-  * SH23 with L-BFGS (`--direction lbfgs`) and the continuous adjoint.
+  * SH23 with L-BFGS (`--direction lbfgs`) and the continuous adjoint;
+  * the device-resident loop (`--device-loop`: the line search and the
+    SD/CG/L-BFGS loop on the device, each step a CUDA graph, one flag
+    read per step) on the SH23, SHB23 and KDyn kernel workloads and on
+    the f64 plain paths, and trust-region Newton (`--direction rtr`) on
+    the host and on the device.
 
 Inputs come from `baselines/sh23_port_ref.npz`,
-`baselines/sh23_ext_port_ref.npz`, `baselines/shb23_port_ref.npz`,
+`baselines/sh23_ext_port_ref.npz`, `baselines/sh23_rtr_port_ref.npz`,
+`baselines/shb23_port_ref.npz`,
 `baselines/kdyn_port_ref.npz` and `baselines/kdyn24_truth.npz` (the JAX
 package's seed-42 initial conditions, trajectories and f64 values; this
 script imports no JAX).
@@ -83,8 +90,23 @@ Phases, one line each; any failure exits non-zero without a result line:
   T  SH23 L-BFGS: the f32 kernel workload (method=cuda, a main path) and
      the f64 workload (method=matmul) vs the pinned JAX f64 trajectory;
      the f64 continuous-adjoint gradient vs JAX's pinned one
+  U  SH23 f32 kernels through `--device-loop` (Wolfe + hybrid CG): a main
+     path (warm-up, capture, replays); a call of replays only, whose
+     counted launches must equal the replayed graphs' launches; the same
+     steps run eagerly (graphs=False), bitwise; the first value against
+     JAX's f32 one; launches per iteration beside phase G's host loop; a
+     torch.profiler trace of a third call
+  V  the same for SHB23 (L) and KDyn (R) at full size, and KDyn's armijo
+     mode (its J-only backtracking trials: the kdyn_fwd kernel)
+  W  the f64 plain device loop vs the pinned JAX f64 trajectories: SH23
+     (Wolfe + CG), SH23 L-BFGS, KDyn at 200 steps
+  X  trust-region Newton, SH23 f64: the host loop (its first 3
+     iterations) and the device loop (to convergence) vs the pinned JAX
+     f64 trajectories and counts; `spheremanopt_torch.run sh23
+     --direction rtr` (its `main`) at the CUDA default prints the
+     substitution notice and runs
 
-Each main path (G, H, L, M, R, S, T) runs with the launch counters set to 0
+Each main path (G, H, L, M, R, S, T, U, V) runs with the launch counters set to 0
 just before it and read just after; a kernel of that path that was not
 launched fails it. The kernels line lists the kernels of those paths;
 the one-block kernels, which no path reaches on an H100, are timed in
@@ -93,7 +115,9 @@ and `{"ok": true, ...}`. Without CUDA it exits non-zero: there is no
 CPU path.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -122,6 +146,7 @@ REF_X = os.path.join(HERE, "baselines", "sh23_ext_port_ref.npz")
 REF_B = os.path.join(HERE, "baselines", "shb23_port_ref.npz")
 REF_K = os.path.join(HERE, "baselines", "kdyn_port_ref.npz")
 TRUTH_K = os.path.join(HERE, "baselines", "kdyn24_truth.npz")
+REF_R = os.path.join(HERE, "baselines", "sh23_rtr_port_ref.npz")
 OUT = os.path.join(HERE, "build", "chip_smoke")   # run logs (git-ignored)
 C2, C3 = 1.8, -1.0     # SH23:  g(u) = 1.8 u^2 - u^3
 C2B, C3B = 2.0, -1.0   # SHB23: g(u) = 2 u^2 - u^3
@@ -366,9 +391,11 @@ class Smoke:
     def __init__(self):
         self.ref, self.refb, self.refx = np.load(REF), np.load(REF_B), np.load(REF_X)
         self.refk, self.truthk = np.load(REF_K), np.load(TRUTH_K)
+        self.refr = np.load(REF_R)
         self.failures = []
         self.kernels = {name: {} for name in SOURCES}
         self.card = ""
+        self.launched, self.host_iters = {}, {}   # main paths' launches, iterations
 
     def check(self, phase, ok, msg):
         print(f"[{phase}] {'ok' if ok else 'FAIL'}: {msg}", flush=True)
@@ -383,6 +410,7 @@ class Smoke:
         out = fn()
         torch.cuda.synchronize()
         launched = {k: launches()[k] for k in kernels}
+        self.launched[phase] = launched
         for k in (kernels if record is None else record):
             self.kernels[k]["launches"] = launched[k]
         self.check(phase, all(v > 0 for v in launched.values()),
@@ -398,6 +426,7 @@ class Smoke:
         print(f"[{phase}] trace of {what}: wall {1e3 * wall:.3f} ms, device busy "
               f"{1e3 * busy:.3f} ms, idle share {idle}; by kernel: {top} "
               f"({len(rows)} kernel names) [{self.card}]", flush=True)
+        return wall, busy, rows
 
     def report_trace(self, phase, problem, x0):
         """Trace a second run of the f32 kernel workload (the optimisation
@@ -567,6 +596,7 @@ class Smoke:
             lambda: self.workload(problem, "float32", "cuda", [ref["x0_f32"]]))
         fv = np.asarray(res.function_values)
         x = res.x_opt[0]
+        self.host_iters[phase] = res.iterations
         sphere = abs(float(p.inner_product(x, x)) / p.radii[0] - 1.0)
         fv0_ref = float(ref["fv_f32_matmul"][0])
         ok = (iters[0] <= res.iterations <= iters[1]
@@ -1165,6 +1195,7 @@ class Smoke:
             "R", tuple(kd.KERNEL_SOURCES),
             lambda: self.workload("kdyn", "float32", "cuda", x0))
         fv = np.asarray(res.function_values)
+        self.host_iters["R"] = res.iterations
         spheres = [abs(float(p.inner_product(x, x)) / r - 1.0)
                    for x, r in zip(res.x_opt, p.radii)]
         fv0_ref = float(self.refk["fv0_f32_full"])
@@ -1380,8 +1411,199 @@ class Smoke:
                    f"sh23 f64 continuous-adjoint gradient vs JAX's pinned one: rel "
                    f"{e:.2e} (tol {TOL_CONT_F64:g}), {wall:.2f} s")
 
-    def run(self):
-        for name in "abcdefghijklmnopqrst":
+    # -- the device-resident loop (U-X) --------------------------------------
+
+    def device_loop_f32(self, phase, problem, x0, kernels, fv0_ok, fv0_ref,
+                        iters, host_phase):
+        """The f32 kernel workload through `--device-loop`: a main path (the
+        first call warms up, captures the loop's CUDA graphs and replays
+        them), a second call of replays only, whose launches must be the
+        graphs' launches times their replays, the same steps run eagerly
+        (`graphs=False`), bitwise, and a trace of a third call."""
+        args = problem_args(problem, "float32", "cuda", "--device-loop")
+        p, x, defaults = cli.make_problem(args, x0=x0)
+        opt = cli.device_optimiser(p, defaults, args)
+        t0 = time.perf_counter()
+        r = self.main_path(phase, kernels, lambda: opt(x), record=())
+        first = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        r2 = opt(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted = {k: v for k, v in launches().items() if v}
+        loop = opt.last_loop
+        held = {}
+        for step, n in loop.replays.items():
+            for k, d in loop.graph_launches(step).items():
+                held[k] = held.get(k, 0) + n * d
+        self.check(phase, counted == held and all(held.get(k, 0) > 0 for k in kernels),
+                   f"{problem} device loop, a call of graph replays only: launches "
+                   f"counted {counted}, held by the replayed graphs {held}; steps "
+                   f"replayed {dict(loop.replays)}")
+        re = cli.optimise(p, x, defaults, args, graphs=False)
+        torch.cuda.synchronize()
+        same = [torch.equal(r.function_values, re.function_values),
+                torch.equal(r.step_sizes, re.step_sizes),
+                all(torch.equal(a, b) for a, b in zip(r.x_opt, re.x_opt)),
+                torch.equal(r.function_values, r2.function_values)]
+        self.check(phase, all(same),
+                   f"{problem} device loop on CUDA graphs against the same steps run "
+                   f"eagerly: J history, step sizes and x_opt bitwise, and the "
+                   f"replay-only call bitwise the first: {same}")
+        k = int(r.iterations)
+        fv = r.function_values[:k].cpu().numpy()
+        spheres = [abs(float(p.inner_product(xo, xo)) / rad - 1.0)
+                   for xo, rad in zip(r.x_opt, p.radii)]
+        ok = (iters[0] <= k <= iters[1] and bool(np.all(np.diff(fv) >= 0))
+              and fv0_ok(float(fv[0]), fv0_ref) and max(spheres) <= SPHERE_TOL)
+        self.check(phase, ok,
+                   f"{problem} f32 kernel device loop: {k} iterations ({iters[0]}-"
+                   f"{iters[1]}), values {[float(v) for v in fv]}, first "
+                   f"{float(fv[0])!r} vs JAX f32 {fv0_ref!r}, |<x,x>/r-1| "
+                   f"{[f'{v:.1e}' for v in spheres]}, J_final {float(fv[-1])!r}; "
+                   f"wall {first:.3f} s with the warm-up and capture, {wall:.3f} s "
+                   f"replaying [{self.card}]")
+        trials = sum(n for st, n in loop.replays.items() if "trial" in st)
+        hk, hl = self.host_iters.get(host_phase), self.launched.get(host_phase, {})
+        host = ({kk: round(v / hk, 2) for kk, v in hl.items()} if hk else "not run")
+        print(f"[{phase}] launches per iteration: device loop "
+              f"{ {kk: round(v / k, 2) for kk, v in counted.items()} } over {k} "
+              f"iterations and {trials} line-search trials; host loop ({host_phase}) "
+              f"{host} over {hk} iterations", flush=True)
+        wall_t, busy, rows = self.print_trace(phase, "a third call (graph replays)",
+                                              lambda: opt(x))
+        steps = sum(loop.replays.values())
+        n_kernels = sum(n for _, _, n in rows)
+        print(f"[{phase}] idle time (wall - device busy) per step replayed: "
+              f"{1e6 * (wall_t - busy) / steps:.1f} us over {steps} steps "
+              f"({1e6 * (wall_t - busy) / max(trials, 1):.1f} us per trial); "
+              f"{n_kernels} kernel launches in the call, {n_kernels / steps:.1f} a step, "
+              f"{1e6 * (wall_t - busy) / n_kernels:.2f} us of idle time a launch",
+              flush=True)
+        return r
+
+    def phase_u(self):
+        self.device_loop_f32(
+            "U", "sh23", [self.ref["x0_f32"]],
+            ("fused_fwd_shared_grid", "fused_bwd_shared"),
+            lambda a, b: abs(a - b) <= FV0_ATOL, float(self.ref["fv_f32_matmul"][0]),
+            (5, 200), "G")
+
+    def phase_v(self):
+        self.device_loop_f32(
+            "V", "shb23", [self.refb["x0_f32"]], ("fused_fwd_grid", "fused_bwd"),
+            lambda a, b: abs(a - b) <= FV0_RTOL * abs(b),
+            float(self.refb["fv_f32_matmul"][0]), (5, 50), "L")
+        self.device_loop_f32(
+            "V", "kdyn", self.kdyn_x0(np.float32), ("kdyn_fwd_traj", "kdyn_bwd"),
+            lambda a, b: abs(a - b) <= TOL_KDYN_VS_F64 * abs(b),
+            float(self.refk["fv0_f32_full"]), (5, 10), "R")
+        # the J-only forward serves the backtracking trials of armijo mode
+        args = problem_args("kdyn", "float32", "cuda", "--device-loop", "--ls",
+                            "armijo", "--max-iters", "2")
+        p, x, defaults = cli.make_problem(args, x0=self.kdyn_x0(np.float32))
+        opt = cli.device_optimiser(p, defaults, args)
+        opt(x)
+        r = self.main_path("V", ("kdyn_fwd", "kdyn_fwd_traj", "kdyn_bwd"),
+                           lambda: opt(x), record=())
+        fv = r.function_values[:int(r.iterations)].tolist()
+        self.check("V", int(r.iterations) >= 1 and all(np.isfinite(fv)),
+                   f"kdyn f32 kernel device loop, armijo mode (2 iterations, graph "
+                   f"replays only): values {fv}, steps replayed "
+                   f"{dict(opt.last_loop.replays)}")
+
+    def device_loop_f64(self, phase, what, problem, method, x0, pin_fv, pin_k,
+                        pin_steps=None, *extra):
+        args = problem_args(problem, "float64", method, "--device-loop", *extra)
+        p, x, defaults = cli.make_problem(args, x0=x0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = cli.optimise(p, x, defaults, args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k = int(r.iterations)
+        fv = r.function_values[:k].cpu().numpy()
+        worst = float("inf")
+        if k == len(pin_fv):
+            worst = float(np.max(np.abs(fv - pin_fv) / np.abs(pin_fv)))
+            if pin_steps is not None:
+                st = r.step_sizes[:k].cpu().numpy()
+                worst = max(worst, float(np.max(np.abs(st - pin_steps) / np.abs(pin_steps))))
+        self.check(phase, k == pin_k and worst <= TRAJ_F64_RTOL,
+                   f"{what} f64 device loop: {k} iterations (JAX host loop {pin_k}), "
+                   f"J_final {float(fv[-1]) if k else None!r} (JAX {float(pin_fv[-1])!r}), "
+                   f"worst rel {worst:.2e} (tol {TRAJ_F64_RTOL:g}), {wall:.2f} s "
+                   "with the warm-up and capture")
+
+    def phase_w(self):
+        ref, ext = self.ref, self.refx
+        self.device_loop_f64("W", "sh23 (Wolfe + CG)", "sh23", "matmul",
+                             [ref["x0_f64"]], ref["fv_f64_matmul"],
+                             int(ref["iters_f64_matmul"]))
+        self.device_loop_f64("W", "sh23 L-BFGS", "sh23", "matmul", [ref["x0_f64"]],
+                             ext["fv_f64_lbfgs"], int(ext["iters_f64_lbfgs"]),
+                             ext["steps_f64_lbfgs"], "--direction", "lbfgs")
+        self.device_loop_f64("W", f"kdyn at N={KDYN_CUT}", "kdyn", "plain",
+                             self.kdyn_x0(np.float64), self.refk["fv200_f64"],
+                             int(self.refk["iters200_f64"]), None, "--n-iters",
+                             str(KDYN_CUT))
+
+    def phase_x(self):
+        pin = self.refr
+        os.makedirs(OUT, exist_ok=True)
+        # the host loop's eager forward-over-reverse products cost ~4 s each
+        # at full depth, so it runs the first 3 iterations (the full run's
+        # first 3: the same decisions); the device loop runs to convergence
+        for loop, extra in (("host", ("--max-iters", "3")),
+                            ("device", ("--device-loop",))):
+            args = problem_args("sh23", "float64", "matmul", "--direction", "rtr", *extra)
+            p, x, defaults = cli.make_problem(args, x0=[self.ref["x0_f64"]])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = cli.optimise(p, x, defaults, args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if loop == "host":
+                k, fv, st = r.iterations, np.asarray(r.function_values), np.asarray(r.step_sizes)
+                counts = dict(hvp=r.hvp_evals)
+                want = dict(hvp=int(pin["hvp_f64_rtr3"]))
+                pfv, pst, pk = pin["fv_f64_rtr3"], pin["steps_f64_rtr3"], 3
+            else:
+                k = int(r.iterations)
+                fv, st = r.function_values[:k].cpu().numpy(), r.step_sizes[:k].cpu().numpy()
+                counts = dict(hvp=int(r.hvp_evals), trials=int(r.trials))
+                want = dict(hvp=int(pin["hvp_f64_jrtr"]), trials=int(pin["trials_f64_jrtr"]))
+                pfv, pst, pk = pin["fv_f64_jrtr"], pin["steps_f64_jrtr"], int(pin["iters_f64_jrtr"])
+            worst = (max(float(np.max(np.abs(fv - pfv) / np.abs(pfv))),
+                         float(np.max(np.abs(st - pst) / np.abs(pst))))
+                     if k == len(pfv) else float("inf"))
+            self.check("X", k == pk and worst <= TRAJ_F64_RTOL and counts == want,
+                       f"sh23 f64 RTR, {loop} loop: {k} iterations (JAX {pk}), counts "
+                       f"{counts} (JAX {want}), J_final {float(fv[-1]) if k else None!r}, "
+                       f"worst rel over values and steps {worst:.2e} (tol "
+                       f"{TRAJ_F64_RTOL:g}), {wall:.2f} s")
+        # the command line's own entry point, in this process
+        out = os.path.join(OUT, "rtr_cli")
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(["sh23", "--direction", "rtr", "--max-iters", "1",
+                           "--quiet", "--out-dir", out])
+        summary = os.path.join(out, "summary.json")
+        s = json.load(open(summary)) if os.path.exists(summary) else {}
+        notice = "substituting" in printed.getvalue()
+        self.check("X", rc == 0 and notice and s.get("iterations", 0) >= 1,
+                   f"`spheremanopt_torch.run sh23 --direction rtr --max-iters 1` at "
+                   f"the CUDA default: rc {rc}, notice {notice}, summary "
+                   f"{s.get('iterations')} iterations to J {s.get('J_final')!r}, method "
+                   f"{s.get('config', {}).get('method')!r}, "
+                   f"{time.perf_counter() - t0:.1f} s")
+
+    def run(self, only=None):
+        for name in "abcdefghijklmnopqrstuvwx":
+            if only and name not in "ab" + only:
+                continue
             phase = getattr(self, f"phase_{name}")
             t0 = time.perf_counter()
             try:
@@ -1412,10 +1634,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port has no CPU path here",
               file=sys.stderr)
         return 2
+    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
     smoke = Smoke()
-    if not smoke.run():
+    if not smoke.run(only):
         print("chip_smoke FAILED: " + "; ".join(smoke.failures), file=sys.stderr)
         return 1
+    if only:   # a part of the phases: no kernels line and no result line
+        return 0
     kernels = smoke.kernel_records()
     print(smoke.card)
     print(json.dumps({"kernels": kernels}))

@@ -12,7 +12,9 @@ Layering (bottom-up), mirroring the JAX package:
               PyTorch versions, autograd Functions, the nvcc build
   solvers/    Kahan accumulation helpers
   manifold/   sphere geometry: retraction, tangent projection, transport
-  optim/      Armijo + strong-Wolfe line searches, SD/CG optimiser
+  optim/      Armijo + strong-Wolfe line searches, SD/CG/L-BFGS host
+              loop, the device-resident loop (CUDA graphs on the card)
+              and trust-region Newton (host and device)
   grad/       Taylor-remainder adjoint verification
   problems/   PCA, Swift-Hohenberg periodic (SH23) and bounded (SHB23),
               kinematic dynamo (KDyn, two spheres)

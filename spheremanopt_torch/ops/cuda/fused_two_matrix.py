@@ -827,8 +827,9 @@ def _dw(gbar, dt, traj, uT):
 
 def _scale(dt, gbar, like):
     """float32(-2 dt) * gbar in the working dtype (JAX:
-    jnp.float32(-2.0 * dt) * gbar), left on the device: no sync."""
-    return torch.tensor(-2.0 * dt, dtype=like.dtype, device=like.device) * gbar
+    jnp.float32(-2.0 * dt) * gbar), left on the device: no sync. A fill,
+    not a copy from the host, so a CUDA graph can capture it."""
+    return torch.full((), -2.0 * dt, dtype=like.dtype, device=like.device) * gbar
 
 
 class FusedObjective(torch.autograd.Function):

@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 # config dtype names -> torch dtypes
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -78,11 +79,23 @@ def riesz_gradient(objective: Callable, weights) -> Callable:
     return gradient
 
 
+def _leaf(x):
+    """`x` as a fresh autograd leaf; a forward-mode (dual) tensor keeps its
+    tangent."""
+    primal, tangent = fwAD.unpack_dual(x)
+    if tangent is None:
+        return x.detach().requires_grad_(True)
+    return fwAD.make_dual(primal.detach(), tangent).requires_grad_(True)
+
+
 def value_and_raw_gradient(objective: Callable, x_list):
     """(objective(xs), [d objective / d x_i]) from one forward+backward:
     reverse-mode autograd of the discrete forward (the discrete
-    adjoint)."""
-    xs = [x.detach().requires_grad_(True) for x in x_list]
+    adjoint). Inputs that carry forward-mode tangents
+    (`torch.autograd.forward_ad` dual tensors) keep them, so the
+    gradient's tangent is the Hessian-vector product: forward over
+    reverse, as `optim/rtr.py` uses it."""
+    xs = [_leaf(x) for x in x_list]
     with torch.enable_grad():
         J = objective(xs)
         grads = torch.autograd.grad(J, xs)

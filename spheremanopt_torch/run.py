@@ -11,6 +11,8 @@ of the JAX package's `run.py`.
     python -m spheremanopt_torch.run kdyn --cost Final     # kernels, f32, on a GPU
     python -m spheremanopt_torch.run kdyn --dtype float64 --n-iters 200
     python -m spheremanopt_torch.run pca --dim 100
+    python -m spheremanopt_torch.run sh23 --device-loop    # the loop on CUDA graphs
+    python -m spheremanopt_torch.run sh23 --direction rtr [--device-loop]
 
 `--device` defaults to `cuda` and fails when no GPU is found; it never
 drops to the CPU on its own (`--device cpu` asks for it). On CUDA the
@@ -19,6 +21,16 @@ cuda`, f32), as the JAX CLI defaults to its Pallas kernels on a TPU for
 SH23 and SHB23. (For KDyn the JAX CLI defaults to `xla`, only because its
 Pallas kernel took a quarter of an hour to compile there; the CUDA
 kernels build in seconds.) TF32 is off: f32 matmuls run in full f32.
+
+`--device-loop` runs the SD/CG/L-BFGS loop with its line search on the
+device (`optim/jit_driver.py`, on CUDA graphs on a GPU); with
+`--direction rtr`, the trust-region loop (`optim/jit_rtr.py`). Trust-region
+Newton needs forward-mode derivatives of the gradient, which the CUDA
+kernels' autograd Functions do not have: with `--direction rtr` a
+`--method cuda` (given or the GPU default) becomes the same
+discretisation's plain method (`matmul` for sh23 and shb23, `plain` for
+kdyn), with a printed notice, as the JAX CLI substitutes its XLA path for
+its Pallas kernels.
 """
 
 from __future__ import annotations
@@ -63,9 +75,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--direction", choices=["sd", "cg", "lbfgs", "rtr"],
                     default=None,
                     help="search direction (default: cg, or sd with --sd; "
-                         "lbfgs = Riemannian L-BFGS; rtr is not ported yet)")
+                         "lbfgs = Riemannian L-BFGS and rtr = trust-region "
+                         "Newton with forward-over-reverse Hessian-vector "
+                         "products, both beyond the reference)")
     ap.add_argument("--lbfgs-memory", type=int, default=8,
                     help="curvature-pair history length for --direction lbfgs")
+    ap.add_argument("--tr-delta0", type=float, default=None,
+                    help="rtr: initial trust radius (default: sphere "
+                         "scale / 4)")
+    ap.add_argument("--tr-max-cg", type=int, default=50,
+                    help="rtr: cap on truncated-CG iterations per "
+                         "subproblem")
+    ap.add_argument("--device-loop", action="store_true",
+                    help="run the optimisation loop on the device "
+                         "(optim.jit_driver / optim.jit_rtr: CUDA graphs on "
+                         "a GPU, one flag read per step)")
     ap.add_argument("--test-grad", action="store_true", help="Taylor test, then exit")
     ap.add_argument("--test-grad-eps", type=float, default=1e-4)
     ap.add_argument("--quiet", action="store_true")
@@ -117,6 +141,16 @@ def make_problem(args, x0=None):
         raise SystemExit(f"--method {method}: {args.problem} takes "
                          f"{'|'.join(_METHODS[args.problem])}")
     dtype = args.dtype or ("float32" if method == "cuda" else "float64")
+    if args.direction == "rtr" and method == "cuda":
+        # RTR's Hessian-vector products are forward over reverse; the
+        # kernels' autograd Functions define reverse rules only, so the
+        # same discretisation's plain method serves the trust-region path
+        method = _METHODS[args.problem][0]
+        print(f"[{args.problem}] --direction rtr: the CUDA kernels define "
+              "reverse (autograd.Function) rules only - substituting the "
+              f"equivalent method={method!r} plain objective for the "
+              "HVP-linearizable trust-region path (same discretisation)",
+              flush=True)
     kw = dict(dtype=dtype, method=method)
     for name, val in (("npts", args.npts), ("n_iters", args.n_iters),
                       ("dt", args.dt)):
@@ -152,25 +186,78 @@ def make_problem(args, x0=None):
     return p, x0, defaults
 
 
-def optimise(problem, x0, defaults, args):
-    """The host-loop optimisation exactly as `main` runs it."""
+def _settings(defaults, args):
+    """(err_tol, max_iters, alpha0): the CLI's values, else the problem's
+    defaults."""
+    return (args.err_tol if args.err_tol is not None
+            else defaults.get("err_tol", 1e-6),
+            args.max_iters if args.max_iters is not None
+            else defaults["max_iters"],
+            args.alpha if args.alpha is not None else defaults["alpha"])
+
+
+def device_optimiser(problem, defaults, args, graphs=None):
+    """The device loop's `optimise(x0_list)` for the parsed `args`:
+    `jit_optimise_rtr` for `--direction rtr`, else
+    `jit_optimise_on_multi_sphere`. Its CUDA graphs are captured at its
+    first call and replayed at later calls. `graphs=False` runs the same
+    steps eagerly (to hold the graphs against)."""
+    radii = problem.radii if hasattr(problem, "radii") else [1.0]
+    err_tol, max_iters, alpha = _settings(defaults, args)
+    if args.direction == "rtr":
+        from spheremanopt_torch.optim.jit_rtr import jit_optimise_rtr
+
+        return jit_optimise_rtr(
+            problem.objective, problem.gradient, problem.inner_product,
+            radii, max_iters=max_iters, err_tol=err_tol,
+            delta0=args.tr_delta0, max_cg=args.tr_max_cg, graphs=graphs)
+    if args.direction == "lbfgs" and args.ls != "wolfe":
+        raise SystemExit("--direction lbfgs needs --ls wolfe in the device "
+                         "loop")
+    from spheremanopt_torch.optim.jit_driver import jit_optimise_on_multi_sphere
+
+    f_and_g = getattr(problem, "objective_and_gradient", None)
+    if f_and_g is None:
+        def f_and_g(xs):
+            return problem.objective(xs), problem.gradient(xs)
+    return jit_optimise_on_multi_sphere(
+        f_and_g, problem.inner_product, radii, max_iters=max_iters,
+        alpha0=float(alpha), err_tol=err_tol, cg=not args.sd,
+        line_search=args.ls, direction=args.direction,
+        lbfgs_memory=args.lbfgs_memory, f=problem.objective, graphs=graphs)
+
+
+def optimise(problem, x0, defaults, args, graphs=None):
+    """The optimisation exactly as `main` runs it: the host loop, or with
+    `--device-loop` the device loop (a `JitOptResult`, or a
+    `JitRTRResult` for `--direction rtr`; `graphs` as in
+    `device_optimiser`)."""
+    radii = problem.radii if hasattr(problem, "radii") else [1.0]
+    err_tol, max_iters, alpha = _settings(defaults, args)
+    if args.device_loop:
+        return device_optimiser(problem, defaults, args, graphs)(x0)
+    if args.direction == "rtr":
+        from spheremanopt_torch.optim.rtr import optimise_rtr
+
+        # trust-region Newton: no line search (--ls/--alpha unused)
+        return optimise_rtr(
+            x0, radii, problem.objective, problem.gradient,
+            problem.inner_product, err_tol=err_tol, max_iters=max_iters,
+            delta0=args.tr_delta0, max_cg=args.tr_max_cg,
+            verbose=not args.quiet,
+            log_path=os.path.join(args.out_dir, "optimize_result.txt"))
+
     from spheremanopt_torch.optim.optimiser import optimise_on_multi_sphere
 
-    if args.direction == "rtr":
-        raise NotImplementedError(
-            "--direction rtr: trust-region Newton is not ported yet "
-            "(ROADMAP Queue 1 item 3)")
     return optimise_on_multi_sphere(
         x0,
-        problem.radii if hasattr(problem, "radii") else [1.0],
+        radii,
         problem.objective,
         problem.gradient,
         problem.inner_product,
-        err_tol=args.err_tol if args.err_tol is not None
-        else defaults.get("err_tol", 1e-6),
-        max_iters=args.max_iters if args.max_iters is not None
-        else defaults["max_iters"],
-        alpha_k=args.alpha if args.alpha is not None else defaults["alpha"],
+        err_tol=err_tol,
+        max_iters=max_iters,
+        alpha_k=alpha,
         line_search=args.ls,
         cg=not args.sd,
         method=args.direction,
@@ -209,6 +296,31 @@ def main(argv=None) -> int:
                                              and abs(r.gamma2 - 2.0) < 0.1)
         print(f"gradient test {'PASSED' if ok else 'FAILED'}")
         return 0 if ok else 1
+
+    if args.device_loop:
+        t0 = time.perf_counter()
+        r = optimise(problem, x0, defaults, args)
+        k = int(r.iterations)
+        summary = {
+            "problem": args.problem,
+            "device": args.device,
+            "driver": ("device-resident (CUDA graphs)" if args.device == "cuda"
+                       else "device-resident (eager steps)"),
+            "iterations": k,
+            # k == 0: history slot 0 holds its zero fill, not a result
+            "J_final": float(r.function_values[k - 1]) if k > 0 else None,
+            "residuals_final": (r.residuals[k - 1].tolist() if k > 0
+                                else None),
+            "wall_time_total_s": round(time.perf_counter() - t0, 3),
+        }
+        if hasattr(r, "converged"):   # JitRTRResult extras
+            summary["converged"] = bool(r.converged)
+            summary["trust_region_trials"] = int(r.trials)
+            summary["hvp_evals"] = int(r.hvp_evals)
+        with open(os.path.join(args.out_dir, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=2)
+        print(json.dumps(summary))
+        return 0
 
     res = optimise(problem, x0, defaults, args)
     summary = {

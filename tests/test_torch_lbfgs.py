@@ -207,7 +207,10 @@ def test_cli_direction_lbfgs_and_rtr(tmp_path):
     assert run.main(base + ["--direction", "lbfgs", "--lbfgs-memory", "3"]) == 0
     summary = json.loads((tmp_path / "summary.json").read_text())
     assert summary["iterations"] == 4
+    # trust-region Newton runs through the same entry point
     args = run.build_parser().parse_args(base + ["--direction", "rtr"])
     p, x0, defaults = run.make_problem(args)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 3\)"):
-        run.optimise(p, x0, defaults, args)
+    res = run.optimise(p, x0, defaults, args)
+    assert 1 <= res.iterations <= 4 and res.hvp_evals > 0
+    assert all(b >= a for a, b in zip(res.function_values,
+                                      res.function_values[1:]))
