@@ -25,12 +25,17 @@ holding each against its plain PyTorch version on the card:
     SD/CG/L-BFGS loop on the device, each step a CUDA graph, one flag
     read per step) on the SH23, SHB23 and KDyn kernel workloads and on
     the f64 plain paths, and trust-region Newton (`--direction rtr`) on
-    the host and on the device.
+    the host and on the device;
+  * optimal mixing (no kernel of its own): 2D Boussinesq, 256 Fourier x
+    128 Chebyshev modes, 1000 SBDF1 steps at dt = 5e-3, s = 1 (mix-norm),
+    E0 = 0.02, the reference workload (Wolfe + hybrid CG, alpha0 = 100,
+    max_iters = 200) on the host and device loops.
 
 Inputs come from `baselines/sh23_port_ref.npz`,
 `baselines/sh23_ext_port_ref.npz`, `baselines/sh23_rtr_port_ref.npz`,
 `baselines/shb23_port_ref.npz`,
-`baselines/kdyn_port_ref.npz` and `baselines/kdyn24_truth.npz` (the JAX
+`baselines/kdyn_port_ref.npz`, `baselines/kdyn24_truth.npz`,
+`baselines/mixing_port_ref.npz` and `baselines/mixing256_truth.npz` (the JAX
 package's seed-42 initial conditions, trajectories and f64 values; this
 script imports no JAX).
 
@@ -105,6 +110,20 @@ Phases, one line each; any failure exits non-zero without a result line:
      f64 trajectories and counts; `spheremanopt_torch.run sh23
      --direction rtr` (its `main`) at the CUDA default prints the
      substitution notice and runs
+  Y  mixing's fwd+grad unit at full width and depth from
+     mixing256_truth's x0: f64 J and gradient against the pinned f64
+     truth, f32 against the same truth; the fused diagnostics' J bitwise
+     `objective`, the wall residuals at roundoff; CUDA-event times of the
+     f64 and f32 units beside the operator-stream bound, and a
+     torch.profiler trace of an f32 unit at N = 100
+  Z  mixing workloads: the f64 host loop at N = 100 vs the pinned JAX f64
+     trajectory; the f32 reference workload through `--device-loop` to
+     its end (the operator stacks as the loop's aux operand), its first
+     value against JAX's f64 one, and a trace of one Wolfe-trial graph
+     replay; the same workload's first 3 iterations through the host loop
+     (a launch-bound eager unit takes seconds); the loop's graphs bitwise
+     its eager steps at N = 100; one RTR iteration through
+     `spheremanopt_torch.run mixing` (its `main`) at N = 100
 
 Each main path (G, H, L, M, R, S, T, U, V) runs with the launch counters set to 0
 just before it and read just after; a kernel of that path that was not
@@ -147,6 +166,8 @@ REF_B = os.path.join(HERE, "baselines", "shb23_port_ref.npz")
 REF_K = os.path.join(HERE, "baselines", "kdyn_port_ref.npz")
 TRUTH_K = os.path.join(HERE, "baselines", "kdyn24_truth.npz")
 REF_R = os.path.join(HERE, "baselines", "sh23_rtr_port_ref.npz")
+REF_M = os.path.join(HERE, "baselines", "mixing_port_ref.npz")
+TRUTH_M = os.path.join(HERE, "baselines", "mixing256_truth.npz")
 OUT = os.path.join(HERE, "build", "chip_smoke")   # run logs (git-ignored)
 C2, C3 = 1.8, -1.0     # SH23:  g(u) = 1.8 u^2 - u^3
 C2B, C3B = 2.0, -1.0   # SHB23: g(u) = 2 u^2 - u^3
@@ -167,6 +188,16 @@ TOL_CONT_F64 = 1e-10
 # the JAX package's bench record (iterations, J): another workload, with
 # unprojected gradients through its device-resident optimiser loop
 KDYN_BENCH_END = (10, 2.518)
+# Mixing at 256x128 x 1000 against mixing256_truth.npz: f64 J to roundoff,
+# the gradient stored in f32 (~6e-8); f32 J at the class of the JAX
+# package's 6-pass f32 solves (1.9e-5); the f32 gradient, from full-f32
+# products (no TF32), reads 5.5e-5 of the truth on an H100, and 1e-3
+# holds it with a margin of ~18 (the TPU's bf16-pass solves sat at
+# several 1e-2, a wrong adjoint gives O(1)); the wall residuals of f64
+# solves at roundoff.
+TOL_MIX_J64, TOL_MIX_G64, TOL_MIX_J32, TOL_MIX_G32, TOL_MIX_BC = 1e-10, 1e-6, 1e-4, 1e-3, 1e-10
+MIX_CUT = 100   # steps of the depth-cut phases (a tenth of the horizon)
+MIX_HOST_ITERS = 3   # iterations of the f32 workload's host loop
 # H100 SXM data-sheet peaks (dense f32 outside the tensor cores, dense
 # TF32 on the tensor cores, HBM3)
 F32_PEAK, TF32_PEAK, HBM_RATE = 67e12, 495e12, 3.35e12
@@ -392,6 +423,7 @@ class Smoke:
         self.ref, self.refb, self.refx = np.load(REF), np.load(REF_B), np.load(REF_X)
         self.refk, self.truthk = np.load(REF_K), np.load(TRUTH_K)
         self.refr = np.load(REF_R)
+        self.refm, self.truthm = np.load(REF_M), np.load(TRUTH_M)
         self.failures = []
         self.kernels = {name: {} for name in SOURCES}
         self.card = ""
@@ -1600,8 +1632,194 @@ class Smoke:
                    f"{s.get('config', {}).get('method')!r}, "
                    f"{time.perf_counter() - t0:.1f} s")
 
+    # -- optimal mixing (Y, Z) -------------------------------------------------
+
+    def mixing(self, dtype, *extra):
+        """(problem, x0, defaults, args) of `spheremanopt_torch.run mixing`
+        at the reference config, from mixing256_truth's x0."""
+        args = cli.build_parser().parse_args(
+            ["mixing", "--device", "cuda", "--dtype", dtype, "--quiet",
+             "--out-dir", OUT, *extra])
+        os.makedirs(OUT, exist_ok=True)
+        return cli.make_problem(args, x0=[self.truthm["x0"]]) + (args,)
+
+    def phase_y(self):
+        truth = self.truthm
+        J_t = truth["J"]   # f64: rel() keeps numpy's dtype, not a Python float's
+        t0 = time.perf_counter()
+        p64, x64, _, _ = self.mixing("float64")
+        p32, x32, _, _ = self.mixing("float32")
+        setup = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        J, g = p64.objective_and_gradient(x64)
+        first = time.perf_counter() - t0
+        eJ, eg = rel(J.cpu(), J_t), rel(g[0].cpu(), truth["g"])
+        ok = (g[0].shape == truth["g"].shape and bool(torch.isfinite(g[0]).all()))
+        self.check("Y", ok and eJ <= TOL_MIX_J64 and eg <= TOL_MIX_G64,
+                   f"mixing f64 fwd+grad (256x128, N=1000, s=1) at mixing256_truth's "
+                   f"x0: J {float(J)!r} vs {float(J_t)!r}, rel {eJ:.2e} (tol "
+                   f"{TOL_MIX_J64:g}); gradient rel {eg:.2e} (tol {TOL_MIX_G64:g}); "
+                   f"problem set-up (operator assembly, cache) {setup:.1f} s, first "
+                   f"unit {first:.1f} s")
+        J32, g32 = p32.objective_and_gradient(x32)
+        eJ32, eg32 = rel(J32.cpu(), J_t), rel(g32[0].cpu(), truth["g"])
+        step = p32._step(p32._ops, p32._initial(x32[0]))
+        dtypes = (p32._ops["S"].dtype, p32._ops["MN"].dtype, step.dtype, J32.dtype,
+                  g32[0].dtype)
+        want = (torch.complex64, torch.complex64, torch.float32, torch.float32,
+                torch.float32)
+        self.check("Y", eJ32 <= TOL_MIX_J32 and eg32 < TOL_MIX_G32 and dtypes == want,
+                   f"mixing f32 fwd+grad vs the f64 truth: J {float(J32)!r}, rel "
+                   f"{eJ32:.2e} (tol {TOL_MIX_J32:g}); gradient rel {eg32:.2e} (tol "
+                   f"{TOL_MIX_G32:g}); dtypes {dtypes}")
+        for tag, p, x in (("f64", p64, x64), ("f32", p32, x32)):
+            t0 = time.perf_counter()
+            Jd, d = p.objective_and_diagnostics(x)
+            t_diag = time.perf_counter() - t0
+            bc = float(d["bc_residuals"][1:].max())
+            t0 = time.perf_counter()
+            same = torch.equal(Jd, p.objective(x))
+            t_obj = time.perf_counter() - t0
+            ok = same and (bc <= TOL_MIX_BC if tag == "f64" else np.isfinite(bc))
+            self.check("Y", ok,
+                       f"mixing {tag} fused diagnostics: J bitwise objective {same}; "
+                       f"wall residuals after the first solve max {bc:.2e}"
+                       + (f" (tol {TOL_MIX_BC:g})" if tag == "f64" else " (f32 roundoff)")
+                       + f"; series {tuple(d['kinetic_energy'].shape)}; forward "
+                       f"{t_obj:.2f} s, with the diagnostics {t_diag:.2f} s")
+        # one unit reads the parity-blocked S three times a step (forward,
+        # recompute, transposed); the transforms' flop stay below that
+        n = p32.cfg.n_iters
+        for tag, p, x in (("f64", p64, x64), ("f32", p32, x32)):
+            s_bytes = p._ops["S"].numel() * p._ops["S"].element_size()
+            bound_ms = 1e3 * 3 * n * s_bytes / HBM_RATE
+            ms = gpu_ms(lambda: p.objective_and_gradient(x), reps=2, warm=0)
+            print(f"[Y] mixing {tag} fwd+grad unit: {ms:.1f} ms (CUDA events, mean "
+                  f"of 2 after an earlier call); operator-stream bound {bound_ms:.1f} ms "
+                  f"(3 x {n} reads of S, {s_bytes / 1e6:.1f} MB, at "
+                  f"{HBM_RATE / 1e12:g} TB/s) [{self.card}]", flush=True)
+        # the profiler's own cost grows with the ~85 host-side ops a step:
+        # trace a unit at a tenth of the horizon
+        pc, xc, _, _ = self.mixing("float32", "--n-iters", str(MIX_CUT))
+        pc.objective_and_gradient(xc)
+        wall, busy, rows = self.print_trace("Y", f"an f32 fwd+grad unit at N={MIX_CUT}",
+                                            lambda: pc.objective_and_gradient(xc))
+        n_k = sum(c for _, _, c in rows)
+        print(f"[Y] f32 unit at N={MIX_CUT}: {n_k} kernel launches, "
+              f"{n_k / MIX_CUT:.1f} a step, {1e6 * (wall - busy) / max(n_k, 1):.2f} us "
+              "of idle time a launch", flush=True)
+
+    def phase_z(self):
+        ref = self.refm
+        # f64 host loop at a tenth of the horizon vs the pinned JAX trajectory
+        p, x, d, args = self.mixing("float64", "--n-iters", str(MIX_CUT),
+                                    "--max-iters", "3")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli.optimise(p, x, d, args)
+        wall = time.perf_counter() - t0
+        pin_fv, pin_st = ref["fv_full100"], ref["steps_full100"]
+        pin_k = int(ref["iters_full100"])
+        fv, st = np.asarray(res.function_values), np.asarray(res.step_sizes)
+        worst = (max(float(np.max(np.abs(fv - pin_fv) / np.abs(pin_fv))),
+                     float(np.max(np.abs(st - pin_st) / np.abs(pin_st))))
+                 if len(fv) == len(pin_fv) else float("inf"))
+        self.check("Z", res.iterations == pin_k and worst <= TRAJ_F64_RTOL,
+                   f"mixing f64 host loop at N={MIX_CUT}: {res.iterations} iterations "
+                   f"(JAX {pin_k}), values {fv.tolist()}, worst rel over values and "
+                   f"steps {worst:.2e} (tol {TRAJ_F64_RTOL:g}), {wall:.2f} s")
+
+        # the f32 reference workload (bench.py mixing_workload's settings)
+        # through the device loop, to its end
+        fv0_ref, J_t = float(ref["fv_full"][0]), float(self.truthm["J"])
+        p, x, d, args = self.mixing("float32", "--device-loop")
+        opt, aux = cli.device_optimiser(p, d, args), cli.loop_aux(p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = opt(x, aux=aux)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k = int(r.iterations)
+        fvd = r.function_values[:k].cpu().numpy()
+        sphere = abs(float(p.inner_product(r.x_opt[0], r.x_opt[0])) / p.radii[0] - 1)
+        loop = opt.last_loop
+        ok = (k >= 1 and bool(np.all(np.diff(fvd) >= 0)) and sphere <= SPHERE_TOL
+              and abs(fvd[0] - fv0_ref) <= TOL_MIX_J32 * abs(fv0_ref)
+              and bool(torch.isfinite(r.x_opt[0]).all()))
+        self.check("Z", ok,
+                   f"mixing f32 reference workload, device loop on CUDA graphs: {k} "
+                   f"iterations to J {float(fvd[-1]) if k else None!r}, first "
+                   f"{float(fvd[0])!r} vs JAX f64 {fv0_ref!r} (rel tol "
+                   f"{TOL_MIX_J32:g}; J(x0) = {J_t!r}), |<x,x>/r-1| {sphere:.1e}; "
+                   f"steps replayed {dict(loop.replays)}; {wall:.2f} s with the warm-up "
+                   f"and capture [{self.card}]")
+        print(f"[Z] device-loop values: {[float(v) for v in fvd]}", flush=True)
+        # one Wolfe trial (a fwd+grad unit and the search's transition) replayed
+        wall_t, busy, rows = self.print_trace("Z", "one Wolfe-trial graph replay",
+                                              lambda: loop.run("trial"))
+        n_k = sum(c for _, _, c in rows)
+        print(f"[Z] the trial graph: {n_k} kernel launches, "
+              f"{1e6 * (wall_t - busy) / max(n_k, 1):.2f} us of idle time a launch; "
+              "its device time by kernel: " + "; ".join(
+                  f"{k[:90]} {ms:.3f} ms x{c}" for k, ms, c in rows[:12]), flush=True)
+
+        # the host loop: the same workload's first iterations (a host-loop
+        # unit is launch-bound, ~3 s; the whole run would take minutes)
+        p, x, d, args = self.mixing("float32", "--max-iters", str(MIX_HOST_ITERS))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli.optimise(p, x, d, args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fv = np.asarray(res.function_values)
+        sphere = abs(float(p.inner_product(res.x_opt[0], res.x_opt[0])) / p.radii[0] - 1)
+        ok = (res.iterations == MIX_HOST_ITERS and bool(np.all(np.diff(fv) >= 0))
+              and abs(fv[0] - fv0_ref) <= TOL_MIX_J32 * abs(fv0_ref)
+              and sphere <= SPHERE_TOL)
+        self.check("Z", ok,
+                   f"mixing f32 reference workload, host loop, its first "
+                   f"{MIX_HOST_ITERS} iterations: values {[float(v) for v in fv]} "
+                   f"(device loop {[float(v) for v in fvd[:MIX_HOST_ITERS]]}), first vs "
+                   f"JAX f64 {fv0_ref!r}, |<x,x>/r-1| {sphere:.1e}, {res.function_evals} "
+                   f"evaluations, {wall:.2f} s [{self.card}]")
+
+        # the device loop's graphs against the same steps run eagerly, at a
+        # tenth of the horizon (the eager loop at full depth is launch-bound)
+        p, x, d, args = self.mixing("float32", "--device-loop", "--n-iters",
+                                    str(MIX_CUT), "--max-iters", "3")
+        opt, aux = cli.device_optimiser(p, d, args), cli.loop_aux(p)
+        r = opt(x, aux=aux)
+        r2 = opt(x, aux=aux)
+        re = cli.optimise(p, x, d, args, graphs=False)
+        torch.cuda.synchronize()
+        same = [torch.equal(r.function_values, re.function_values),
+                torch.equal(r.step_sizes, re.step_sizes),
+                all(torch.equal(a, b) for a, b in zip(r.x_opt, re.x_opt)),
+                torch.equal(r.function_values, r2.function_values),
+                int(r.iterations) == 3]
+        self.check("Z", all(same),
+                   f"mixing f32 device loop at N={MIX_CUT}, 3 iterations, on CUDA graphs "
+                   f"against the same steps run eagerly: J history, step sizes and "
+                   f"x_opt bitwise, a replay-only call bitwise the first, 3 "
+                   f"iterations: {same}")
+
+        # trust-region Newton through the command line's own entry point
+        out = os.path.join(OUT, "mixing_rtr_cli")
+        t0 = time.perf_counter()
+        rc = cli.main(["mixing", "--direction", "rtr", "--max-iters", "1",
+                       "--n-iters", str(MIX_CUT), "--quiet", "--out-dir", out])
+        summary = os.path.join(out, "summary.json")
+        sj = json.load(open(summary)) if os.path.exists(summary) else {}
+        self.check("Z", rc == 0 and sj.get("iterations", 0) >= 1
+                   and sj.get("config", {}).get("dtype") == "float32"
+                   and np.isfinite(sj.get("J_final") or np.nan),
+                   f"`spheremanopt_torch.run mixing --direction rtr --max-iters 1 "
+                   f"--n-iters {MIX_CUT}` at the CUDA default: rc {rc}, "
+                   f"{sj.get('iterations')} iterations to J {sj.get('J_final')!r}, "
+                   f"{sj.get('message')!r}, {time.perf_counter() - t0:.1f} s")
+
     def run(self, only=None):
-        for name in "abcdefghijklmnopqrstuvwx":
+        for name in "abcdefghijklmnopqrstuvwxyz":
             if only and name not in "ab" + only:
                 continue
             phase = getattr(self, f"phase_{name}")

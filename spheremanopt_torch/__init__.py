@@ -16,10 +16,12 @@ Layering (bottom-up), mirroring the JAX package:
               loop, the device-resident loop (CUDA graphs on the card)
               and trust-region Newton (host and device)
   grad/       Taylor-remainder adjoint verification
+  utils/      the content-keyed on-disk cache of assembled operators
   problems/   PCA, Swift-Hohenberg periodic (SH23) and bounded (SHB23),
-              kinematic dynamo (KDyn, two spheres)
+              kinematic dynamo (KDyn, two spheres), optimal mixing (2D
+              Boussinesq, Fourier x Chebyshev-tau)
   convert.py  numpy bridge for data shared with the JAX package
-  run.py      command line (sh23, shb23, kdyn, pca)
+  run.py      command line (sh23, shb23, kdyn, mixing, pca)
 
 Gradients are discrete adjoints: reverse-mode autograd of the forward
 solve, or the kernels' own reverse sweep.

@@ -15,6 +15,10 @@ Neither side imports the other: data crosses as numpy arrays.
     wavenumbers `k`, `inv_k2`, the CNAB1 factors `lhs_inv`, `rhs_fac`,
     the band mask `keep` and the Parseval weights `pw`) — all numpy;
     what `ops/cuda/kdyn_step.make_consts` reads.
+  * `mixing_operators(problem)`: the per-kx tau solve stacks of either
+    package's `OptimalMixing`: `S`, `MN`, and `SA` under
+    adjoint="continuous" (exact f64 complex, full (kxn, m, m) form) — all
+    numpy; what the port's `OptimalMixing(operators=...)` takes.
   * `operators_to_torch(ops, device, dtype)`: those arrays as tensors
     on `device`.
   * `state_to_torch(xs, device, dtype)` / `state_to_numpy`: state lists
@@ -58,6 +62,15 @@ def kdyn_operators(problem) -> Dict[str, np.ndarray]:
     names = ("Ff", "Fz", "Bf", "Bz", "k", "inv_k2", "lhs_inv", "rhs_fac",
              "keep", "pw")
     return {name: np.asarray(getattr(problem, "_" + name)) for name in names}
+
+
+def mixing_operators(problem) -> Dict[str, np.ndarray]:
+    """The solve stacks of an `OptimalMixing` of either package."""
+    out = {"S": np.asarray(problem._S_np), "MN": np.asarray(problem._MN_np)}
+    if problem.cfg.adjoint == "continuous":
+        out["SA"] = np.asarray(
+            problem._build_operators(adjoint=True, build_mixnorm=False)[0])
+    return out
 
 
 def operators_to_torch(ops: Dict[str, np.ndarray], device,

@@ -1,5 +1,5 @@
-"""Command line of the port: the `sh23`, `shb23`, `kdyn` and `pca` subset
-of the JAX package's `run.py`.
+"""Command line of the port: the `sh23`, `shb23`, `kdyn`, `mixing` and `pca`
+subset of the JAX package's `run.py`.
 
     python -m spheremanopt_torch.run sh23 --device cuda --method cuda --dtype float32
     python -m spheremanopt_torch.run sh23 --device cuda --dtype float64
@@ -11,6 +11,8 @@ of the JAX package's `run.py`.
     python -m spheremanopt_torch.run kdyn --cost Final     # kernels, f32, on a GPU
     python -m spheremanopt_torch.run kdyn --dtype float64 --n-iters 200
     python -m spheremanopt_torch.run pca --dim 100
+    python -m spheremanopt_torch.run mixing --device-loop  # 256x128, s=1, f32
+    python -m spheremanopt_torch.run mixing --dtype float64 --adjoint continuous
     python -m spheremanopt_torch.run sh23 --device-loop    # the loop on CUDA graphs
     python -m spheremanopt_torch.run sh23 --direction rtr [--device-loop]
 
@@ -20,11 +22,16 @@ SH23, SHB23 and KDyn default is the hand-written kernel path (`--method
 cuda`, f32), as the JAX CLI defaults to its Pallas kernels on a TPU for
 SH23 and SHB23. (For KDyn the JAX CLI defaults to `xla`, only because its
 Pallas kernel took a quarter of an hour to compile there; the CUDA
-kernels build in seconds.) TF32 is off: f32 matmuls run in full f32.
+kernels build in seconds.) Mixing has one method, `plain` (torch products;
+f32 on a GPU, f64 on the CPU by default); the JAX CLI's `--precision`
+modes are TPU solve modes and are refused: `--dtype float64` is the
+accuracy mode on the H100. TF32 is off: f32 matmuls run in full f32.
 
 `--device-loop` runs the SD/CG/L-BFGS loop with its line search on the
 device (`optim/jit_driver.py`, on CUDA graphs on a GPU); with
-`--direction rtr`, the trust-region loop (`optim/jit_rtr.py`). Trust-region
+`--direction rtr`, the trust-region loop (`optim/jit_rtr.py`). A problem
+with `objective_and_gradient_aux` (mixing) hands its operator stacks to
+the loop as its `aux` operand. Trust-region
 Newton needs forward-mode derivatives of the gradient, which the CUDA
 kernels' autograd Functions do not have: with `--direction rtr` a
 `--method cuda` (given or the GPU default) becomes the same
@@ -48,13 +55,16 @@ from spheremanopt_torch.convert import state_to_torch
 from spheremanopt_torch.problems.base import DTYPES
 
 _METHODS = {"sh23": ("matmul", "fft", "cuda"), "shb23": ("matmul", "cuda"),
-            "kdyn": ("plain", "cuda")}
+            "kdyn": ("plain", "cuda"), "mixing": ("plain",)}
+# the JAX CLI's --precision names (TPU solve modes, df64); none is ported
+_TPU_PRECISIONS = ("bfloat16", "compensated", "compensated2", "high",
+                   "highest", "df64", "default")
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="spheremanopt_torch.run",
                                  description=__doc__.splitlines()[0])
-    ap.add_argument("problem", choices=["sh23", "shb23", "kdyn", "pca"])
+    ap.add_argument("problem", choices=["sh23", "shb23", "kdyn", "mixing", "pca"])
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--out-dir", default="runs/latest")
     ap.add_argument("--seed", type=int, default=42)
@@ -63,8 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--method", default=None,
                     choices=sorted({m for ms in _METHODS.values() for m in ms}),
                     help="step method (sh23: matmul|fft|cuda, shb23: "
-                         "matmul|cuda, kdyn: plain|cuda; default: cuda on a "
-                         "GPU in f32, else matmul, or plain for kdyn)")
+                         "matmul|cuda, kdyn: plain|cuda, mixing: plain; "
+                         "default: cuda on a GPU in f32, else matmul, or "
+                         "plain for kdyn and mixing)")
     ap.add_argument("--cost", choices=["Final", "Integrated"], default="Final",
                     help="kdyn cost functional")
     ap.add_argument("--max-iters", type=int, default=None)
@@ -104,6 +115,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-iters", type=int, default=None, help="time steps")
     ap.add_argument("--dt", type=float, default=None, help="time step")
     ap.add_argument("--dim", type=int, default=100, help="PCA dimension")
+    ap.add_argument("--s", type=int, choices=[0, 1], default=1,
+                    help="mixing objective: 0 time-averaged KE (maximised), "
+                         "1 mix-norm (minimised)")
+    ap.add_argument("--nx", type=int, default=None, help="mixing Fourier modes")
+    ap.add_argument("--nz", type=int, default=None, help="mixing Chebyshev modes")
+    ap.add_argument("--precision", choices=_TPU_PRECISIONS, default=None,
+                    help="the JAX package's TPU solve modes: not ported "
+                         "(refused; use --dtype float64 for accuracy)")
     return ap
 
 
@@ -117,6 +136,11 @@ def set_precision() -> None:
 def make_problem(args, x0=None):
     """(problem, x0, defaults) for the parsed `args`. `x0` (a list of
     arrays, e.g. pinned inputs) replaces the seeded initial condition."""
+    if args.precision is not None:
+        raise SystemExit(f"--precision {args.precision}: the TPU's solve "
+                         "modes (bf16 and compensated products, df64) are "
+                         "not ported; on the H100 use --dtype float64 as "
+                         "the accuracy mode")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA GPU found (use --device cpu "
                          "to run on the CPU)")
@@ -132,6 +156,8 @@ def make_problem(args, x0=None):
             x0 = [np.random.RandomState(args.seed).rand(args.dim)]
         return p, state_to_torch(x0, device, dtype), dict(alpha=1.0, max_iters=2000)
 
+    if args.problem == "mixing":
+        return _make_mixing(args, device, x0)
     method = args.method
     if method is None:
         method = "cuda" if (args.device == "cuda"
@@ -186,6 +212,31 @@ def make_problem(args, x0=None):
     return p, x0, defaults
 
 
+def _make_mixing(args, device, x0):
+    from spheremanopt_torch.problems.optimal_mixing import (MixingConfig,
+                                                            OptimalMixing)
+
+    if args.method not in (None, "plain"):
+        raise SystemExit(f"--method {args.method}: mixing takes plain")
+    dtype = args.dtype or ("float32" if args.device == "cuda" else "float64")
+    kw = dict(dtype=dtype, s=args.s, adjoint=args.adjoint)
+    for name, val in (("nx", args.nx), ("nz", args.nz), ("dt", args.dt),
+                      ("n_iters", args.n_iters)):
+        if val is not None:
+            kw[name] = val
+    p = OptimalMixing(MixingConfig(**kw), device=device)
+    x0 = (p.generate_ic(seed=args.seed) if x0 is None
+          else state_to_torch(x0, device, p.dtype))
+    return p, x0, dict(alpha=100.0, max_iters=200)
+
+
+def loop_aux(problem):
+    """The device loop's `aux` operand of `problem` (its operator stacks),
+    or None."""
+    pair = getattr(problem, "objective_and_gradient_aux", None)
+    return None if pair is None else pair[1]
+
+
 def _settings(defaults, args):
     """(err_tol, max_iters, alpha0): the CLI's values, else the problem's
     defaults."""
@@ -201,14 +252,19 @@ def device_optimiser(problem, defaults, args, graphs=None):
     `jit_optimise_rtr` for `--direction rtr`, else
     `jit_optimise_on_multi_sphere`. Its CUDA graphs are captured at its
     first call and replayed at later calls. `graphs=False` runs the same
-    steps eagerly (to hold the graphs against)."""
+    steps eagerly (to hold the graphs against). A problem with
+    `objective_and_gradient_aux` is called as `f(aux, xs)`: pass
+    `aux=loop_aux(problem)` to the returned optimiser."""
     radii = problem.radii if hasattr(problem, "radii") else [1.0]
     err_tol, max_iters, alpha = _settings(defaults, args)
+    with_aux = loop_aux(problem) is not None
     if args.direction == "rtr":
         from spheremanopt_torch.optim.jit_rtr import jit_optimise_rtr
 
         return jit_optimise_rtr(
-            problem.objective, problem.gradient, problem.inner_product,
+            problem.objective_ops if with_aux else problem.objective,
+            problem.gradient_ops if with_aux else problem.gradient,
+            problem.inner_product,
             radii, max_iters=max_iters, err_tol=err_tol,
             delta0=args.tr_delta0, max_cg=args.tr_max_cg, graphs=graphs)
     if args.direction == "lbfgs" and args.ls != "wolfe":
@@ -216,7 +272,10 @@ def device_optimiser(problem, defaults, args, graphs=None):
                          "loop")
     from spheremanopt_torch.optim.jit_driver import jit_optimise_on_multi_sphere
 
-    f_and_g = getattr(problem, "objective_and_gradient", None)
+    if with_aux:
+        f_and_g, f = problem.objective_and_gradient_aux[0], problem.objective_ops
+    else:
+        f_and_g, f = getattr(problem, "objective_and_gradient", None), problem.objective
     if f_and_g is None:
         def f_and_g(xs):
             return problem.objective(xs), problem.gradient(xs)
@@ -224,7 +283,7 @@ def device_optimiser(problem, defaults, args, graphs=None):
         f_and_g, problem.inner_product, radii, max_iters=max_iters,
         alpha0=float(alpha), err_tol=err_tol, cg=not args.sd,
         line_search=args.ls, direction=args.direction,
-        lbfgs_memory=args.lbfgs_memory, f=problem.objective, graphs=graphs)
+        lbfgs_memory=args.lbfgs_memory, f=f, graphs=graphs)
 
 
 def optimise(problem, x0, defaults, args, graphs=None):
@@ -235,7 +294,8 @@ def optimise(problem, x0, defaults, args, graphs=None):
     radii = problem.radii if hasattr(problem, "radii") else [1.0]
     err_tol, max_iters, alpha = _settings(defaults, args)
     if args.device_loop:
-        return device_optimiser(problem, defaults, args, graphs)(x0)
+        return device_optimiser(problem, defaults, args, graphs)(
+            x0, aux=loop_aux(problem))
     if args.direction == "rtr":
         from spheremanopt_torch.optim.rtr import optimise_rtr
 

@@ -36,6 +36,10 @@ def test_port_imports_without_jax():
         "q = SwiftHohenbergBounded(SHB23Config(npts=16, n_iters=3, method='cuda', dtype='float32'), device='cpu'); "
         "q.objective_gradient_and_diagnostics(q.generate_ic()); "
         "chebyshev.cheb_to_coeff_fft(q.generate_ic()[0]); "
+        "from spheremanopt_torch.utils import opcache; "
+        "from spheremanopt_torch.problems.optimal_mixing import OptimalMixing, MixingConfig; "
+        "m = OptimalMixing(MixingConfig(nx=8, nz=8, n_iters=2, prep_steps=2), device='cpu'); "
+        "m.objective_and_gradient(m.generate_ic()); "
         "assert not any(m.startswith(('jax', 'spheremanopt_tpu')) "
         "for m, v in sys.modules.items() if v is not None), 'JAX imported'; "
         "print('isolated')")

@@ -10,7 +10,11 @@ recorded function value must agree.
   * SH23 at npts=128, n_iters=100, max_iters=6 (Wolfe + CG, alpha0=pi,
     fused f_and_g as `run.py` drives it): rel 1e-9 — 100 nonlinear steps
     per solve amplify ulp differences a little more.
+  * A trial with a non-finite J ends the run as the JAX loop's guard does:
+    the same message, iteration and best-so-far iterate (rel 1e-14).
 """
+
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -125,3 +129,33 @@ def test_log_path_records_each_iteration(tmp_path):
                    tp.gradient, tp.inner_product, max_iters=4, verbose=False,
                    log_path=str(log))
     assert log.read_text().count("Total iterations") == r.iterations == 4
+
+
+def test_nonfinite_trial_ends_the_run_as_jax_does():
+    """A runaway trial whose J is NaN (the Wolfe search 'accepts' it, as
+    every NaN comparison is False) ends the run at the best-so-far
+    iterate, at the JAX host loop's iteration and with its message."""
+    def run(optimise, ip, asarray):
+        calls = {"n": 0}
+
+        def f(xs):
+            calls["n"] += 1
+            return float("nan") if calls["n"] > 4 else -float(np.asarray(xs[0])[0])
+
+        def g(xs):
+            return [asarray(np.asarray([-1.0, 0.0, 0.0]))]
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return optimise([asarray(np.asarray([0.1, 0.7, 0.7]))], [1.0], f, g, ip,
+                            max_iters=10, alpha_k=1.0, line_search="wolfe", cg=True,
+                            verbose=False)
+
+    rj = run(j_optimise, lambda a, b: jnp.sum(a * b), jnp.asarray)
+    rt = run(t_optimise, lambda a, b: torch.sum(a * b), torch.as_tensor)
+    assert "non-finite" in rt.message and rt.message == rj.message
+    assert rt.iterations == rj.iterations
+    np.testing.assert_allclose(rt.function_values, rj.function_values, rtol=1e-14)
+    assert np.isfinite(rt.function_values).all()
+    np.testing.assert_allclose(np.asarray(rt.x_opt[0]), np.asarray(rj.x_opt[0]),
+                               rtol=1e-14)
