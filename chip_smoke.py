@@ -124,8 +124,32 @@ Phases, one line each; any failure exits non-zero without a result line:
      (a launch-bound eager unit takes seconds); the loop's graphs bitwise
      its eager steps at N = 100; one RTR iteration through
      `spheremanopt_torch.run mixing` (its `main`) at N = 100
+  1  KDyn's continuous adjoint: f64 at N = 200, both costs, the gradient
+     and the invariant series (max|div G|, max|div nu|, |<G>|) against
+     JAX's pinned ones (`baselines/kdyn_ext_port_ref.npz`); the card's
+     default route (method=cuda f32: J from the kdyn_fwd kernel, a main
+     path, and the f32 continuous sweep) at the full 2000 steps against
+     the port's f64 run; the wall time of one continuous gradient in f32
+     and f64 and its launches a step (traced at N = 200); the continuous
+     gradient against the discrete truth (reported)
+  2  KDyn's remat modes (step, nested, offload, store-all) on the plain
+     f32 path, cost Final at 2000 steps and Integrated at 1000: J and
+     both gradients against step remat, and each mode's peak device
+     memory above the resident
+  3  df64 (the f32 config's solves in float64): KDyn at full depth and
+     mixing at full depth against the truths (J via objective_f64, the
+     gradients), KDyn with --df-adjoint at N = 200 against the pinned
+     values there; each gradient equal to the f64 config's cast to f32;
+     two iterations of each on the device loop (the aux form; KDyn at
+     N = 100, mixing at N = 100) against the host loop's
+  4  KDyn's Rm route: f64 at N = 200, Wolfe + CG, alpha0 = 100, 4
+     iterations at Rm = 1 and 4 through one device-loop object (one
+     capture), each against a loop (eager steps) on a problem built at
+     that Rm;
+     `spheremanopt_torch.run kdyn` (its `main`) for one iteration with
+     `--adjoint continuous` and with `--remat nested` at N = 200
 
-Each main path (G, H, L, M, R, S, T, U, V) runs with the launch counters set to 0
+Each main path (G, H, L, M, R, S, T, U, V, 1) runs with the launch counters set to 0
 just before it and read just after; a kernel of that path that was not
 launched fails it. The kernels line lists the kernels of those paths;
 the one-block kernels, which no path reaches on an H100, are timed in
@@ -167,6 +191,7 @@ REF_K = os.path.join(HERE, "baselines", "kdyn_port_ref.npz")
 TRUTH_K = os.path.join(HERE, "baselines", "kdyn24_truth.npz")
 REF_R = os.path.join(HERE, "baselines", "sh23_rtr_port_ref.npz")
 REF_M = os.path.join(HERE, "baselines", "mixing_port_ref.npz")
+REF_KX = os.path.join(HERE, "baselines", "kdyn_ext_port_ref.npz")
 TRUTH_M = os.path.join(HERE, "baselines", "mixing256_truth.npz")
 OUT = os.path.join(HERE, "build", "chip_smoke")   # run logs (git-ignored)
 C2, C3 = 1.8, -1.0     # SH23:  g(u) = 1.8 u^2 - u^3
@@ -198,6 +223,25 @@ KDYN_BENCH_END = (10, 2.518)
 TOL_MIX_J64, TOL_MIX_G64, TOL_MIX_J32, TOL_MIX_G32, TOL_MIX_BC = 1e-10, 1e-6, 1e-4, 1e-3, 1e-10
 MIX_CUT = 100   # steps of the depth-cut phases (a tenth of the horizon)
 MIX_HOST_ITERS = 3   # iterations of the f32 workload's host loop
+# KDyn's continuous adjoint (1): f64 against JAX's pinned gradient as the
+# SH23 one (T); the adjoint invariants at Leray roundoff, as in the JAX
+# package's test (below 1e-10 of max|k| max|G|). The f32 route against
+# the port's own f64 run at full depth holds KDyn's f32 limit.
+TOL_KCONT_INV = 1e-10
+# remat modes (2): nested and offload against step remat in f32 (the same
+# step arithmetic; the nested sum and recompute order may differ at f32
+# roundoff); each mode's own peak device memory below a quarter of step's
+TOL_REMAT32, MEM_FRACTION = 1e-6, 0.25
+# df64 (3) against the f64 truths: J to f64 roundoff; the truths store
+# their gradients in f32 (the port's exact f64 mixing gradient reads
+# 5.62e-8), so 1e-7 is the f32 storage floor. The device loop's first
+# values against the host loop's, the JAX package's test tolerance.
+TOL_DF_J, TOL_DF_G, TOL_DF_LOOP = 1e-10, 1e-7, 2e-6
+RM_ITERS, RM_VALUES, TOL_RM = 4, (1.0, 4.0), 1e-12   # Rm route (4)
+# depths: the remat modes' Integrated units at half the horizon (an eager
+# unit takes ~20 s at 2000 steps); the df64 device loop's KDyn at N = 100
+REMAT_STEPS = {"Final": 2000, "Integrated": 1000}
+KDYN_LOOP_CUT = 100
 # H100 SXM data-sheet peaks (dense f32 outside the tensor cores, dense
 # TF32 on the tensor cores, HBM3)
 F32_PEAK, TF32_PEAK, HBM_RATE = 67e12, 495e12, 3.35e12
@@ -280,6 +324,25 @@ def rel(a, b):
     """max |a - b| / max |b| over tensors (or 0-dim values)."""
     a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
     return float((a - b).abs().max() / b.abs().max())
+
+
+def crel(a, b):
+    """rel() of complex tensors or arrays."""
+    a, b = torch.as_tensor(a).to(torch.complex128), torch.as_tensor(b).to(torch.complex128)
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def nrel(a, b):
+    """||a - b|| / ||b|| in f64."""
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double().to(a.device)
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def _no_loop(args):
+    """A copy of the parsed `args` with --device-loop off."""
+    out = type(args)(**vars(args))
+    out.device_loop = False
+    return out
 
 
 def max_abs(pairs):
@@ -424,6 +487,7 @@ class Smoke:
         self.refk, self.truthk = np.load(REF_K), np.load(TRUTH_K)
         self.refr = np.load(REF_R)
         self.refm, self.truthm = np.load(REF_M), np.load(TRUTH_M)
+        self.refkx = np.load(REF_KX)
         self.failures = []
         self.kernels = {name: {} for name in SOURCES}
         self.card = ""
@@ -1137,8 +1201,9 @@ class Smoke:
                       J64, g64)
         e_p = against(*unprojected(problem_args("kdyn", "float32", "plain"), np.float32),
                       J64, g64)
-        e_d = against(*unprojected(problem_args("kdyn", "float64", "plain"), np.float64),
-                      J64, g64)
+        d64 = unprojected(problem_args("kdyn", "float64", "plain"), np.float64)
+        self.kdyn_g64 = d64[1]   # phase 3's f64-config gradient
+        e_d = against(*d64, J64, g64)
         fmt = "rel_J {:.3e} rel_gB {:.3e} rel_gU {:.3e}".format
         self.check("N", max(e_k) <= TOL_KDYN_VS_F64,
                    f"KDyn full depth vs pinned f64: method=cuda {fmt(*e_k)} (plain "
@@ -1653,6 +1718,7 @@ class Smoke:
         t0 = time.perf_counter()
         J, g = p64.objective_and_gradient(x64)
         first = time.perf_counter() - t0
+        self.mix_g64 = g   # phase 3's f64-config gradient
         eJ, eg = rel(J.cpu(), J_t), rel(g[0].cpu(), truth["g"])
         ok = (g[0].shape == truth["g"].shape and bool(torch.isfinite(g[0]).all()))
         self.check("Y", ok and eJ <= TOL_MIX_J64 and eg <= TOL_MIX_G64,
@@ -1818,8 +1884,280 @@ class Smoke:
                    f"{sj.get('iterations')} iterations to J {sj.get('J_final')!r}, "
                    f"{sj.get('message')!r}, {time.perf_counter() - t0:.1f} s")
 
+    # -- KDyn: continuous adjoint, remat modes, df64, Rm route (1-4) ------------
+
+    def phase_1(self):
+        ext = self.refkx
+        np.testing.assert_array_equal(ext["b0"], self.truthk["b0"])
+        np.testing.assert_array_equal(ext["u0"], self.truthk["u0"])
+        for cost in ("Final", "Integrated"):
+            args = problem_args("kdyn", "float64", "plain", "--n-iters", str(KDYN_CUT),
+                                "--cost", cost, "--adjoint", "continuous")
+            p, x, _ = cli.make_problem(args, x0=self.kdyn_x0(np.float64))
+            t0 = time.perf_counter()
+            d = p.adjoint_diagnostics(x)
+            wall = time.perf_counter() - t0
+            gc = [p.to_coeff(g).cpu() for g in d["gradient"]]
+            e = max(crel(a, ext[f"gc{k}_{cost}"]) for a, k in zip(gc, "bu"))
+            scale = float(p._kt.abs().max()) * float(gc[0].abs().max())
+            inv = {k: float(d[k].max()) for k in ("max_div_G", "max_div_nu", "max_flux_G")}
+            pin = {k: float(ext[f"{n}_{cost}"].max())
+                   for k, n in (("max_div_G", "div_g"), ("max_div_nu", "div_nu"),
+                                ("max_flux_G", "flux_g"))}
+            ok = (e <= TOL_CONT_F64 and d["max_div_G"].shape == (KDYN_CUT,)
+                  and max(inv["max_div_G"], inv["max_div_nu"]) < TOL_KCONT_INV * scale
+                  and inv["max_flux_G"] == 0.0)
+            self.check("1", ok,
+                       f"kdyn f64 continuous adjoint, cost={cost}, N={KDYN_CUT}: "
+                       f"gradient vs JAX's pinned one rel {e:.2e} (tol {TOL_CONT_F64:g}); "
+                       f"invariant series max {inv} (JAX {pin}; tol "
+                       f"{TOL_KCONT_INV:g} x {scale:.3e}, flux exactly 0); {wall:.2f} s")
+
+        # the card's default route: J from the forward kernel (row 5), the
+        # gradient from the f32 continuous sweep, at full depth, against the
+        # port's f64 continuous run; each gradient's wall time
+        args = problem_args("kdyn", "float32", "cuda", "--adjoint", "continuous")
+        p32, x32, _ = cli.make_problem(args, x0=self.kdyn_x0(np.float32))
+        t0 = time.perf_counter()
+        J32, g32 = self.main_path("1", ("kdyn_fwd",),
+                                  lambda: p32.objective_and_gradient(x32), record=())
+        walls = {"f32": time.perf_counter() - t0}
+        p64, x64, _ = cli.make_problem(
+            problem_args("kdyn", "float64", "plain", "--adjoint", "continuous"),
+            x0=self.kdyn_x0(np.float64))
+        J64 = p64.objective(x64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g64 = p64.gradient(x64)
+        torch.cuda.synchronize()
+        walls["f64"] = time.perf_counter() - t0
+        e = (abs(float(J32) - float(J64)) / abs(float(J64)),
+             *(nrel(a, b) for a, b in zip(g32, g64)))
+        fmt = "rel_J {:.3e} rel_gB {:.3e} rel_gU {:.3e}".format
+        finite = all(bool(torch.isfinite(g).all()) for g in g32)
+        self.check("1", max(e) <= TOL_KDYN_VS_F64 and finite,
+                   f"kdyn f32 method=cuda continuous (J from kdyn_fwd, N="
+                   f"{p32.cfg.n_iters}) vs the port's f64 continuous run: {fmt(*e)} "
+                   f"(tol {TOL_KDYN_VS_F64:g})")
+        truth = [torch.as_tensor(self.truthk[k], device=g64[0].device).double()
+                 for k in ("gb", "gu")]
+        print(f"[1] continuous vs discrete (kdyn24_truth, unprojected) at full "
+              f"depth, f64: rel_gB {nrel(g64[0], truth[0]):.3e}, rel_gU "
+              f"{nrel(g64[1], truth[1]):.3e} (reported, not gated: the continuous "
+              "adjoint is first order in dt)", flush=True)
+        for tag, dtype, method in (("f32", "float32", "cuda"), ("f64", "float64", "plain")):
+            pc, xc, _ = cli.make_problem(
+                problem_args("kdyn", dtype, method, "--adjoint", "continuous",
+                             "--n-iters", str(KDYN_CUT)),
+                x0=self.kdyn_x0(np.float32 if tag == "f32" else np.float64))
+            pc.gradient(xc)
+            wt, busy, rows = trace(lambda: pc.gradient(xc))
+            n_k = sum(c for _, _, c in rows)
+            print(f"[1] one continuous gradient, {tag}, N={p32.cfg.n_iters}: "
+                  f"{walls[tag]:.3f} s wall" + (" (with J from kdyn_fwd)" if tag == "f32"
+                                               else "") +
+                  f"; traced at N={KDYN_CUT}: {n_k} kernel launches ({n_k / KDYN_CUT:.1f}"
+                  f" a step of forward and adjoint), device busy {1e3 * busy:.1f} of "
+                  f"{1e3 * wt:.1f} ms, idle share {100 * (1 - busy / wt):.1f} % "
+                  f"[{self.card}]", flush=True)
+
+    def phase_2(self):
+        x0 = self.kdyn_x0(np.float32)
+        modes = ("step", "nested", "offload", "none")
+        for cost, n in REMAT_STEPS.items():
+            out = {}
+            for mode in modes:
+                args = problem_args("kdyn", "float32", "plain", "--cost", cost,
+                                    "--remat", mode, "--n-iters", str(n))
+                p, x, _ = cli.make_problem(args, x0=x0)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                J, g = p.objective_and_gradient(x)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated()
+                out[mode] = (J, g, peak - base, peak, wall)
+                del p, x
+            J0, g0 = out["step"][:2]
+            lines, ok = [], True
+            for mode in modes:
+                J, g, own, peak, wall = out[mode]
+                e = max(rel(J, J0), *(rel(a, b) for a, b in zip(g, g0)))
+                bitwise = torch.equal(J, J0) and all(torch.equal(a, b) for a, b in zip(g, g0))
+                ok &= e <= TOL_REMAT32 and all(bool(torch.isfinite(a).all()) for a in g)
+                if mode in ("nested", "offload"):
+                    ok &= own < MEM_FRACTION * out["step"][2]
+                lines.append(f"{mode}: rel vs step {e:.2e} (bitwise {bitwise}), peak "
+                             f"{own / 1e6:.1f} MB above the {(peak - own) / 1e6:.1f} MB "
+                             f"resident, {wall:.2f} s")
+            self.check("2", ok,
+                       f"kdyn f32 plain fwd+grad, cost={cost}, N={n}, by remat "
+                       f"mode: " + "; ".join(lines) + f" (tol {TOL_REMAT32:g}; nested and "
+                       f"offload peaks below {MEM_FRACTION:g} of step's) [{self.card}]")
+
+    def df64_loops(self, what, args, x0):
+        """Two iterations of a df64 problem on the device loop (its aux form)
+        against the host loop's (J at f64)."""
+        os.makedirs(args.out_dir, exist_ok=True)
+        p, x, defaults = cli.make_problem(args, x0=x0)
+        opt, aux = cli.device_optimiser(p, defaults, args), cli.loop_aux(p)
+        t0 = time.perf_counter()
+        r = opt(x, aux=aux)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        host = cli.optimise(p, x, defaults, _no_loop(args))
+        k = int(r.iterations)
+        fv = r.function_values[:k].double().cpu().numpy()
+        fh = np.asarray(host.function_values)
+        worst = (float(np.max(np.abs(fv - fh) / np.abs(fh)))
+                 if k == host.iterations >= 1 else float("inf"))
+        ok = (r.function_values.dtype == torch.float32 and aux is not None
+              and bool(np.all(np.isfinite(fv))) and worst <= TOL_DF_LOOP)
+        self.check("3", ok,
+                   f"{what} df64 on the device loop (aux form, f32 search state): {k} "
+                   f"iterations (host loop {host.iterations}, of 2 asked), values {fv.tolist()} vs the host loop's (J at f64) "
+                   f"{fh.tolist()}, worst rel {worst:.2e} (tol {TOL_DF_LOOP:g}); "
+                   f"steps replayed {dict(opt.last_loop.replays)}; {wall:.2f} s with the "
+                   "warm-up and capture")
+
+    def phase_3(self):
+        truth, refk = self.truthk, self.refk
+        x32 = self.kdyn_x0(np.float32)
+        J_t = float(truth["J"])
+        g_t = [torch.as_tensor(truth[k]).double() for k in ("gb", "gu")]
+        # the truths' gradients are unprojected: compare unprojected ones,
+        # and the f64 config's (phase N's, if it ran)
+        g64 = getattr(self, "kdyn_g64", None)
+        if g64 is None:
+            p64, x64, _ = cli.make_problem(problem_args("kdyn", "float64", "plain"),
+                                           x0=self.kdyn_x0(np.float64))
+            g64 = KinematicDynamo(dataclasses.replace(p64.cfg, project_gradients=False),
+                                  device=p64.device).objective_and_gradient(x64)[1]
+        # --df-adjoint runs the same f64 sweep: held at N = 200 against the
+        # pinned values there (projected gradients, stored in f32)
+        for extra, n in (((), None), (("--df-adjoint",), KDYN_CUT)):
+            cut = () if n is None else ("--n-iters", str(n))
+            p, x, _ = cli.make_problem(
+                problem_args("kdyn", "float32", "plain", "--precision", "df64", *extra,
+                             *cut), x0=x32)
+            if n is None:
+                q = KinematicDynamo(dataclasses.replace(p.cfg, project_gradients=False),
+                                    device=p.device)
+                want_J, want_g, want_64 = J_t, g_t, g64
+            else:
+                q = p
+                want_J = float(refk["J200_Final"])
+                want_g = [torch.as_tensor(refk[f"{k}200_Final"]).double()
+                          for k in ("gb", "gu")]
+                p64, x64, _ = cli.make_problem(
+                    problem_args("kdyn", "float64", "plain", *cut),
+                    x0=self.kdyn_x0(np.float64))
+                want_64 = p64.gradient(x64)
+            t0 = time.perf_counter()
+            J = q.objective_f64(x)
+            g = q.gradient(x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            eJ = abs(J - want_J) / abs(want_J)
+            eg = [nrel(a.cpu(), b) for a, b in zip(g, want_g)]
+            same = all(torch.equal(a, b.float()) for a, b in zip(g, want_64))
+            ok = (eJ <= TOL_DF_J and max(eg) <= TOL_DF_G and same
+                  and all(a.dtype == torch.float32 for a in g)
+                  and q.objective(x).dtype == torch.float32)
+            self.check("3", ok,
+                       f"kdyn f32 config, --precision df64 {' '.join(extra)}, N="
+                       f"{q.cfg.n_iters}, vs "
+                       + ("kdyn24_truth (unprojected)" if n is None else
+                          "kdyn_port_ref's pinned f64 values (projected)")
+                       + f": J {J!r} rel {eJ:.2e} (tol {TOL_DF_J:g}); gradients rel "
+                       f"{eg[0]:.2e} / {eg[1]:.2e} (tol {TOL_DF_G:g}); equal to the f64 "
+                       f"config's cast to f32: {same}; {wall:.2f} s")
+        tm = self.truthm
+        p, x, _, _ = self.mixing("float32", "--precision", "df64")
+        t0 = time.perf_counter()
+        J = p.objective_f64(x)
+        g = p.gradient(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        g64 = getattr(self, "mix_g64", None)   # phase Y's, if it ran
+        if g64 is None:
+            p64, x64, _, _ = self.mixing("float64")
+            g64 = p64.gradient(x64)
+        eJ = abs(J - float(tm["J"])) / abs(float(tm["J"]))
+        eg = nrel(g[0].cpu(), torch.as_tensor(tm["g"]).double())
+        same = torch.equal(g[0], g64[0].float())
+        self.check("3", eJ <= TOL_DF_J and eg <= TOL_DF_G and same
+                   and g[0].dtype == torch.float32,
+                   f"mixing f32 config, --precision df64, full depth, vs mixing256_truth: "
+                   f"J {J!r} rel {eJ:.2e} (tol {TOL_DF_J:g}); gradient rel {eg:.2e} (tol "
+                   f"{TOL_DF_G:g}); equal to the f64 config's cast to f32: {same}; "
+                   f"{wall:.2f} s")
+        self.df64_loops("kdyn", problem_args(
+            "kdyn", "float32", "plain", "--precision", "df64", "--device-loop",
+            "--n-iters", str(KDYN_LOOP_CUT), "--max-iters", "2"), x32)
+        self.df64_loops("mixing", cli.build_parser().parse_args(
+            ["mixing", "--device", "cuda", "--dtype", "float32", "--precision", "df64",
+             "--device-loop", "--n-iters", str(MIX_CUT), "--max-iters", "2", "--quiet",
+             "--out-dir", OUT]), [self.truthm["x0"]])
+
+    def phase_4(self):
+        from spheremanopt_torch.optim.jit_driver import jit_optimise_on_multi_sphere
+
+        args = problem_args("kdyn", "float64", "plain", "--n-iters", str(KDYN_CUT))
+        p, x, _ = cli.make_problem(args, x0=self.kdyn_x0(np.float64))
+        fg, make_ops = p.objective_and_gradient_rm
+        same = all(torch.equal(make_ops(p.cfg.rm)[k], t)
+                   for k, t in (("lhs_inv", p._lhs_invt), ("rhs_fac", p._rhs_fact)))
+
+        def loop(f_and_g, graphs=None):
+            return jit_optimise_on_multi_sphere(
+                f_and_g, p.inner_product, p.radii, max_iters=RM_ITERS, alpha0=100.0,
+                cg=True, line_search="wolfe", err_tol=1e-12, graphs=graphs)
+
+        opt = loop(fg)
+        lines, ok, values = [], same, {}
+        t0 = time.perf_counter()
+        for rm in RM_VALUES:
+            r = opt(x, aux=make_ops(rm))
+            q = KinematicDynamo(dataclasses.replace(p.cfg, rm=rm), device=p.device)
+            # the reference loops run their steps eagerly (graphs replay the
+            # eager steps bitwise: U, V)
+            rq = loop(q.objective_and_gradient, graphs=False)(x)
+            k = int(r.iterations)
+            e = max(rel(r.function_values[:k], rq.function_values[:k]),
+                    rel(r.step_sizes[:k], rq.step_sizes[:k]))
+            ok &= k == RM_ITERS == int(rq.iterations) and e <= TOL_RM
+            values[rm] = float(r.function_values[k - 1]) if k else None
+            lines.append(f"Rm={rm:g}: {k} iterations to {values[rm]!r}, worst rel vs a "
+                         f"loop on a problem built at that Rm (eager steps) {e:.2e}")
+        ok &= len(opt.loops) == 1 and values[RM_VALUES[0]] != values[RM_VALUES[1]]
+        self.check("4", ok,
+                   f"kdyn f64 Rm route (N={KDYN_CUT}, Wolfe + CG, alpha0 100): make_ops("
+                   f"cfg.rm) bitwise the problem's factors {same}; one optimise object, "
+                   f"{len(opt.loops)} capture(s) for {len(RM_VALUES)} Rm values: "
+                   + "; ".join(lines) + f" (tol {TOL_RM:g}); "
+                   f"{time.perf_counter() - t0:.1f} s")
+        for extra in (("--adjoint", "continuous"),
+                      ("--dtype", "float64", "--remat", "nested")):
+            out = os.path.join(OUT, "kdyn_cli_" + extra[-1])
+            t0 = time.perf_counter()
+            rc = cli.main(["kdyn", *extra, "--max-iters", "1", "--n-iters",
+                           str(KDYN_CUT), "--quiet", "--out-dir", out])
+            summary = os.path.join(out, "summary.json")
+            sj = json.load(open(summary)) if os.path.exists(summary) else {}
+            cfg = sj.get("config", {})
+            self.check("4", rc == 0 and sj.get("iterations", 0) >= 1
+                       and np.isfinite(sj.get("J_final") or np.nan),
+                       f"`spheremanopt_torch.run kdyn {' '.join(extra)} --max-iters 1 "
+                       f"--n-iters {KDYN_CUT}`: rc {rc}, {sj.get('iterations')} iterations "
+                       f"to J {sj.get('J_final')!r}, method {cfg.get('method')!r}, dtype "
+                       f"{cfg.get('dtype')!r}, adjoint {cfg.get('adjoint')!r}, remat "
+                       f"{cfg.get('remat')!r}, {time.perf_counter() - t0:.1f} s")
+
     def run(self, only=None):
-        for name in "abcdefghijklmnopqrstuvwxyz":
+        for name in "abcdefghijklmnopqrstuvwxyz1234":
             if only and name not in "ab" + only:
                 continue
             phase = getattr(self, f"phase_{name}")

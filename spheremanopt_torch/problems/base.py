@@ -34,6 +34,12 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def to_f64(x_list):
+    """A state list in float64 (df64 mode: an f32 state for the f64 twin
+    problem; f32 values are exact in f64)."""
+    return [torch.as_tensor(x).to(torch.float64) for x in x_list]
+
+
 def check_choice(field: str, value, allowed) -> None:
     """Loud validation for string config switches: an unrecognised value
     must not silently select a fallback compute path."""

@@ -27,23 +27,41 @@ CNAB1 timestepping with 3/2-rule dealiasing (ref `:211-216,443`).
 `method` maps onto the JAX package's:
   * "plain" (JAX "xla"): a Python loop over the complex CNAB1 step,
     differentiated by autograd; f32 or f64, `transform` "matmul"
-    (per-axis DFT einsums) or "fft" (`torch.fft.rfftn`). `remat=True`
-    (default) checkpoints every step (the stored state is one
-    coefficient field per step); `remat=False` stores every intermediate.
+    (per-axis DFT einsums) or "fft" (`torch.fft.rfftn`). `remat` sets
+    the reverse sweep's trajectory memory: True or "step" (default)
+    checkpoints every step (one stored coefficient field per step on the
+    device), "nested" checkpoints sqrt(N) chunks of sqrt(N) steps
+    (O(sqrt N) stored fields, one extra recompute), "offload" stores each
+    step's field in pinned host memory (O(1) on the device), False stores
+    every intermediate.
   * "cuda" (JAX "pallas"): the whole solve and its hand-transposed
     reverse sweep as one CUDA kernel launch each
     (`ops/cuda/kdyn_step.py`); f32 and `transform="matmul"` only. On CPU
     tensors the wrappers run their plain versions. It has no fused
     diagnostics (the objective is a closed kernel), as in JAX.
 
+`adjoint="continuous"` integrates the reference's adjoint PDE system
+backward along the stored forward (`gradient`, `adjoint_diagnostics`);
+J still comes from `objective` (under "cuda", the forward kernel).
+`objective_and_gradient_rm` takes Rm's CNAB1 factors as an operand, so
+one device loop serves every Rm.
+
+`solve_precision="df64"` with dtype="float32" is the JAX package's f64
+accuracy mode of an f32 problem (there a double-float emulation, which
+the TPU needs for lack of f64): here the solve and its reverse sweep run
+in torch.float64 on an f64 twin of the problem, from the f32 state, and
+return the JAX package's forms (an f32 `objective`, `objective_f64`, f32
+gradients). Diagnostics and initial conditions stay on the f32 solve.
+
 The f32 path is full f32 (TF32 off); the JAX package's
 `matmul_precision`, `carry` and `unroll` are TPU pass-count and layout
-settings and have no counterpart here.
+settings, and its `df_n_bits`, `df_slice_dtype` and `df_batched_einsums`
+the emulation's; they have no counterpart here.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List, Optional
 
 import numpy as np
@@ -52,8 +70,12 @@ from torch.utils.checkpoint import checkpoint
 
 from spheremanopt_torch.problems.base import (DTYPES, SegmentAdvance,
                                               check_choice, resolve_device,
-                                              value_and_raw_gradient)
-from spheremanopt_torch.solvers.scan_utils import kahan_add, kahan_zero
+                                              to_f64, value_and_raw_gradient)
+from spheremanopt_torch.solvers.scan_utils import (kahan_add, kahan_zero,
+                                                   nested_checkpoint_scan,
+                                                   offload_checkpoint)
+
+_REMATS = (True, "step", "nested", "offload", False)
 
 
 @dataclass(frozen=True)
@@ -68,8 +90,14 @@ class KDynConfig:
     cost: str = "Final"          # "Final" | "Integrated" (ref :655-673)
     pad_factor: float = 1.5      # Dedalus dealias=3/2
     dtype: str = "float64"
-    remat: bool = True           # per-step checkpointing | store-all
+    remat: object = True         # True/"step": per-step checkpointing |
+                                 # "nested": sqrt(N) two-level | "offload":
+                                 # per-step carries in pinned host memory
+                                 # | False: store-all
     transform: str = "matmul"    # "matmul" | "fft"
+    adjoint: str = "discrete"    # "discrete" (autograd) | "continuous"
+                                 # (the ref's adjoint system,
+                                 # `FWD_Solve_KDyn.py:766-1004`)
     method: str = "plain"        # "plain" | "cuda" (f32 kernels)
     project_gradients: bool = True
     # Leray-project dJ/dB0 and dJ/dU onto divergence-free fields. The
@@ -77,6 +105,16 @@ class KDynConfig:
     # constraints, so its gradients are solenoidal and the optimiser
     # stays on the div-free manifold; raw autodiff gradients carry a
     # compressible component (exact for unconstrained perturbations).
+    solve_precision: str = "native"
+    # "native": the config's dtype | "df64": under dtype="float32", the
+    # solve and its reverse sweep in float64 from the f32 state (a no-op
+    # under dtype="float64"); discrete adjoint, transform="matmul",
+    # method="plain" and remat True/"step"/False only, as in the JAX
+    # package
+    df_adjoint: bool = False
+    # df64 only: the JAX package's hand-written double-float reverse
+    # sweep, which lifts its gradient to the f32-output class. The f64
+    # reverse sweep is already of that class, so this runs the same sweep.
 
 
 def _cross(a, b):
@@ -95,8 +133,33 @@ class KinematicDynamo:
         check_choice("dtype", cfg.dtype, tuple(DTYPES))
         check_choice("method", cfg.method, ("plain", "cuda"))
         check_choice("transform", cfg.transform, ("matmul", "fft"))
+        check_choice("adjoint", cfg.adjoint, ("discrete", "continuous"))
         check_choice("cost", cfg.cost, ("Final", "Integrated"))
-        check_choice("remat", cfg.remat, (True, False))
+        if cfg.remat not in _REMATS:
+            raise ValueError(f"remat must be one of {_REMATS!r}, got {cfg.remat!r}")
+        check_choice("solve_precision", cfg.solve_precision, ("native", "df64"))
+        # df64 is an f32 accuracy mode; under dtype='float64' it is a no-op
+        self._df64 = (cfg.solve_precision == "df64"
+                      and cfg.dtype == "float32")
+        if self._df64:
+            if cfg.adjoint != "discrete":
+                raise ValueError(
+                    "solve_precision='df64' pairs with adjoint='discrete' "
+                    "only (its gradient is the reverse sweep of the f64 "
+                    "forward; the continuous adjoint integrates its own "
+                    "f32 PDE and would discard the f64 accuracy)")
+            if cfg.transform != "matmul":
+                raise ValueError(
+                    "solve_precision='df64' requires transform='matmul', "
+                    "as in the JAX package")
+            if cfg.method != "plain":
+                raise ValueError(
+                    "solve_precision='df64' requires method='plain' (the "
+                    "CUDA kernels are closed f32 integrators)")
+            if cfg.remat not in (True, "step", False):
+                raise ValueError(
+                    "solve_precision='df64' supports remat=True|'step'|"
+                    f"False (got {cfg.remat!r}), as in the JAX package")
         if cfg.method == "cuda":
             if cfg.dtype != "float32":
                 raise ValueError(
@@ -123,7 +186,7 @@ class KinematicDynamo:
              np.broadcast_to(kr[None, None, :], (n, n, nr))]
         )
         self._k = k64.astype(rdtype)
-        k2 = (self._k ** 2).sum(axis=0)   # from the rdtype-cast k
+        k2 = self._k2 = (self._k ** 2).sum(axis=0)   # from the rdtype-cast k
         with np.errstate(divide="ignore", invalid="ignore"):
             inv_k2 = np.where(k2 > 0, 1.0 / k2, 0.0)
         self._inv_k2 = inv_k2.astype(rdtype)
@@ -184,6 +247,12 @@ class KinematicDynamo:
                 consts_to_torch, make_consts)
 
             self._consts = consts_to_torch(make_consts(self), self.device)
+        # df64: the f64 twin that runs the solves (same constants as an f64
+        # problem, so its gradient cast to f32 is this mode's gradient)
+        self._df = (KinematicDynamo(replace(cfg, dtype="float64",
+                                            solve_precision="native",
+                                            df_adjoint=False), self.device)
+                    if self._df64 else None)
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
@@ -244,35 +313,84 @@ class KinematicDynamo:
         e_c = self.to_coeff(_cross(u_grid, self.to_grid(b_c)))
         return 1j * _cross(self._kt, e_c)
 
-    def _cnab1_step(self, b_c: torch.Tensor, u_grid: torch.Tensor) -> torch.Tensor:
+    def _cnab1_step(self, b_c: torch.Tensor, u_grid: torch.Tensor,
+                    ops: Optional[dict] = None) -> torch.Tensor:
         """CNAB1: (1/dt + k^2/2Rm) B' = (1/dt - k^2/2Rm) B + F, with the
         tau-pressure divergence constraint as Leray projection and the
-        mean mode pinned to zero (ref equations :431-440)."""
-        rhs = self._rhs_fact * b_c + self._induction(b_c, u_grid)
+        mean mode pinned to zero (ref equations :431-440). `ops`
+        optionally replaces the Rm-dependent factors {"lhs_inv",
+        "rhs_fac"} (see `objective_and_gradient_rm`)."""
+        lhs_inv, rhs_fac = ((self._lhs_invt, self._rhs_fact) if ops is None
+                            else (ops["lhs_inv"], ops["rhs_fac"]))
+        rhs = rhs_fac * b_c + self._induction(b_c, u_grid)
         # lhs_inv[0,0,0] is finite, so the mean mode (k=0) is masked
-        return self._leray(rhs) * self._lhs_invt * self._mean_maskt
+        return self._leray(rhs) * lhs_inv * self._mean_maskt
 
-    def _remat_step(self, b, u_grid):
-        """One step under the configured trajectory-memory policy."""
-        if self.cfg.remat and torch.is_grad_enabled():
-            return checkpoint(self._cnab1_step, b, u_grid, use_reentrant=False)
-        return self._cnab1_step(b, u_grid)
+    def _remat_step(self, step):
+        """`step(b, u)` under the configured trajectory-memory policy: the
+        one place that applies it, for `_integrate` and so for the plain
+        objective, the fused diagnostics and the Rm route alike. "nested"
+        wraps whole chunks in `_integrate` instead."""
+        remat = self.cfg.remat
+        if remat is True or remat == "step":
+            def checkpointed(b, u):
+                if torch.is_grad_enabled():
+                    return checkpoint(step, b, u, use_reentrant=False)
+                return step(b, u)
 
-    def _integrate(self, b0_c, u_grid, n_steps: int, series: bool = False):
+            return checkpointed
+        if remat == "offload":
+            return offload_checkpoint(step)
+        return step
+
+    def _integrate(self, b0_c, u_grid, n_steps: int, series: bool = False,
+                   ops: Optional[dict] = None):
         """(b_T, J) of n_steps of CNAB1, and with `series` the per-step
         energies E(b_0..b_N) of the same solve (the J arithmetic does
-        not depend on that flag)."""
+        not depend on that flag). The Integrated cost is Kahan-summed,
+        or under remat="nested" summed per chunk, then across chunks, as
+        `nested_checkpoint_scan` does: J = dt (sum + E(b_N)). Under
+        "offload" the per-step energies are offloaded too (their reverse
+        needs b_n, which would otherwise stay on the device)."""
         integrated = self.cfg.cost == "Integrated"
+        step = self._remat_step(
+            self._cnab1_step if ops is None
+            else (lambda b, u: self._cnab1_step(b, u, ops)))
+        energy = (offload_checkpoint(self._energy)
+                  if self.cfg.remat == "offload" else self._energy)
+
+        def step_energy(b):
+            """E(b_n) for the sum (recorded) or the series only (not)."""
+            if integrated:
+                return energy(b)
+            with torch.no_grad():
+                return self._energy(b)
+
+        if self.cfg.remat == "nested":
+            def one(b):
+                e = (step_energy(b) if integrated or series
+                     else b.real.new_zeros(()))
+                return step(b, u_grid), e
+
+            out = nested_checkpoint_scan(one, b0_c, n_steps,
+                                         return_series=series)
+            b, tot = out[0], out[1]
+            eN = self._energy(b)
+            J = self.cfg.dt * (tot + eN) if integrated else eN
+            if series:
+                return b, J, torch.cat([out[2], eN[None]]).detach()
+            return b, J
+
         b = b0_c
         acc = kahan_zero(self.dtype, self.device)
         es = []
         for _ in range(n_steps):
             if integrated or series:
-                e = self._energy(b)
+                e = step_energy(b)
                 es.append(e)
             if integrated:
                 acc = kahan_add(acc, e)
-            b = self._remat_step(b, u_grid)
+            b = step(b, u_grid)
         eN = self._energy(b)
         J = self.cfg.dt * kahan_add(acc, eN)[0] if integrated else eN
         if series:
@@ -300,6 +418,10 @@ class KinematicDynamo:
                 self.cfg.cost == "Integrated", self.cfg.dt)
         return -self._integrate(b0_c, u_bl, self.cfg.n_iters)[1]
 
+    def _objective_rm_impl(self, ops, x_list) -> torch.Tensor:
+        b0_c, u_bl = self._prepare(x_list)
+        return -self._integrate(b0_c, u_bl, self.cfg.n_iters, ops=ops)[1]
+
     def _objective_aux_impl(self, x_list):
         """(-J, diagnostics) captured from one forward solve — the ME
         series + div-B invariant the reference's GlobalFlowProperty
@@ -312,6 +434,61 @@ class KinematicDynamo:
         div_b = torch.abs(torch.sum(self._kt * b, dim=0)).max()
         return -J, {"magnetic_energy": energies, "max_div_B": div_b,
                     "B_final": self.to_grid(b)}
+
+    # ------------------------------------------------------------------
+    # continuous adjoint (ref `FWD_Solve_KDyn.py:766-1004`)
+    # ------------------------------------------------------------------
+
+    def _curl_cross(self, a_c: torch.Tensor, b_grid: torch.Tensor) -> torch.Tensor:
+        """F(A, B) = (curl A) x B on the padded grid, truncated (the
+        reference's F_x/F_y/F_z substitutions, `:841-848`)."""
+        w = self.to_grid(1j * _cross(self._kt, a_c))
+        return self.to_coeff(_cross(w, b_grid))
+
+    def _gradient_continuous_impl(self, x_list):
+        """Continuous adjoint: the reference's 8-variable coupled system
+        (`FWD_Solve_KDyn.py:855-895,903-908`), integrated
+
+            dt(G) - (1/Rm) lap G - grad Pi = (curl G) x U [- 2 B_f]
+            dt(nu) + grad P = -(curl G) x B_f,   div G = div nu = 0
+
+        backward along the stored forward b_1..b_N (one stacked tensor),
+        G(T) = -2 B(T) ("Final") or 0 ("Integrated", with the -2 B_f
+        forcing), CNAB1 with Leray projection for G and forward Euler
+        with projection for nu, the mean mode pinned. Returns ([dJ/dB0,
+        dJ/dU] = [G(0), nu(0)] on the grid, stats): stats (3, N) holds
+        max|div G|, max|div nu| and |<G>| after each step, in forward
+        time order (t = dt..T). First order in dt; adjoint="discrete"
+        is Taylor-exact."""
+        cfg = self.cfg
+        n = cfg.n_iters
+        with torch.no_grad():
+            b, u = self._prepare(list(x_list))
+            snaps = b.new_empty((n,) + tuple(b.shape))
+            for i in range(n):
+                b = self._cnab1_step(b, u)
+                snaps[i] = b
+            integrated = cfg.cost == "Integrated"
+            g = torch.zeros_like(b) if integrated else -2.0 * b
+            nu = torch.zeros_like(b)
+            stats = torch.empty((3, n), dtype=self.dtype, device=self.device)
+            for i in range(n - 1, -1, -1):
+                bf_c = snaps[i]
+                f_g = self._curl_cross(g, u)
+                if integrated:
+                    f_g = f_g - 2.0 * bf_c
+                g_new = (self._leray(self._rhs_fact * g + f_g) * self._lhs_invt
+                         * self._mean_maskt)
+                # nu has no diffusion: forward Euler + projection
+                f_nu = -self._curl_cross(g, self.to_grid(bf_c))
+                nu = (nu + cfg.dt * self._leray(f_nu)) * self._mean_maskt
+                g = g_new
+                # the solenoidality and flux invariants the reference logs
+                # every adjoint step (`:941-973`): Leray roundoff
+                stats[0, i] = torch.abs(torch.sum(self._kt * g, dim=0)).max()
+                stats[1, i] = torch.abs(torch.sum(self._kt * nu, dim=0)).max()
+                stats[2, i] = torch.abs(g[:, 0, 0, 0]).max()
+            return [self.to_grid(g), self.to_grid(nu)], stats
 
     # ------------------------------------------------------------------
     # PDE-state restart (ref `IVP_FWD.load_state`, FWD_Solve_SH23.py:459-460)
@@ -354,16 +531,112 @@ class KinematicDynamo:
         return out
 
     def objective(self, x_list):
+        if self._df is not None:
+            return self._df.objective(to_f64(x_list)).float()
         with torch.no_grad():
             return self._objective_impl(list(x_list))
 
+    def objective_f64(self, x_list) -> float:
+        """df64 mode only: -J of the f64 solve as a Python float (the f32
+        `objective` rounds it to ~ulp(J), which swamps Taylor remainders
+        and fine line-search comparisons)."""
+        if self._df is None:
+            raise RuntimeError("objective_f64 requires solve_precision='df64'"
+                               " with dtype='float32'")
+        return float(self._df.objective(to_f64(x_list)))
+
     def gradient(self, x_list):
+        if self._df is not None:
+            return [g.float() for g in self._df.gradient(to_f64(x_list))]
+        if self.cfg.adjoint == "continuous":
+            return self._gradient_continuous_impl(x_list)[0]
         return self.objective_and_gradient(x_list)[1]
 
     def objective_and_gradient(self, x_list):
-        """Fused (J, [dJ/dB0, dJ/dU])."""
+        """Fused (J, [dJ/dB0, dJ/dU]). Under adjoint='continuous' there is
+        no fused form (the continuous adjoint is its own backward PDE
+        integration, not the reverse sweep of the forward), so the mode's
+        gradient is paired with `objective`'s J. Under df64, J is the f64
+        solve's, as a Python float (host consumers compare it at f64)."""
+        if self._df is not None:
+            J, g = self._df.objective_and_gradient(to_f64(x_list))
+            return float(J), [a.float() for a in g]
+        if self.cfg.adjoint == "continuous":
+            return (self.objective(x_list),
+                    self._gradient_continuous_impl(x_list)[0])
         J, raw = value_and_raw_gradient(self._objective_impl, list(x_list))
         return J, self._riesz(raw)
+
+    def adjoint_diagnostics(self, x_list) -> dict:
+        """Invariant monitoring of the continuous-adjoint sweep: the
+        per-step max|div G|, max|div nu| and mean flux |<G>| (numpy, in
+        forward time order t = dt..T) and the gradient the sweep produced
+        (the reference logs them every adjoint step, `FWD_Solve_KDyn.py:
+        941-973`). They sit at Leray-projection roundoff; a drift flags a
+        broken projector or operator. Requires adjoint='continuous'."""
+        if self.cfg.adjoint != "continuous":
+            raise ValueError(
+                "adjoint_diagnostics monitors the continuous-adjoint "
+                "integration; construct with adjoint='continuous' (the "
+                "discrete mode's correctness surface is the Taylor test)")
+        grads, stats = self._gradient_continuous_impl(x_list)
+        stats = stats.cpu().numpy()
+        return {
+            "adj_sim_time": self.cfg.dt * np.arange(1, self.cfg.n_iters + 1),
+            "max_div_G": stats[0],
+            "max_div_nu": stats[1],
+            "max_flux_G": stats[2],
+            "gradient": grads,
+        }
+
+    # The device loop's `aux` forms: `objective_and_gradient_aux` is
+    # (fg(ops, xs), ops), and `objective_ops` / `gradient_ops` its J-only
+    # and gradient-only counterparts. KDyn has no operand stacks: under
+    # df64 the pair is (fg, {}) with an f32 0-dim J (the loop's search
+    # state is f32); otherwise (None, None), and the loop calls
+    # `objective_and_gradient` directly.
+
+    def objective_ops(self, ops, x_list):
+        return self.objective(x_list)
+
+    def gradient_ops(self, ops, x_list):
+        return self.gradient(x_list)
+
+    @property
+    def objective_and_gradient_aux(self):
+        if self._df is None:
+            return None, None
+
+        def fg(ops, xs):
+            J, g = self._df.objective_and_gradient(to_f64(xs))
+            return J.float(), [a.float() for a in g]
+
+        return fg, {}
+
+    @property
+    def objective_and_gradient_rm(self):
+        """(fg(ops, xs), make_ops(rm)): the fused objective and gradient
+        with Rm's CNAB1 factors as an operand, the plain step at any
+        method, so one device loop (one set of captured graphs) serves
+        every magnetic Reynolds number (`examples/kdyn_critical_rm.py`;
+        the reference reruns its whole workload per Rm,
+        `FWD_Solve_KDyn.py:1028-1036`). `make_ops(rm)` builds the factors
+        with the constructor's arithmetic, on the device: at cfg.rm they
+        are bitwise the problem's own."""
+
+        def fg(ops, xs):
+            J, raw = value_and_raw_gradient(
+                lambda xs_: self._objective_rm_impl(ops, xs_), list(xs))
+            return J, self._riesz(raw)
+
+        def make_ops(rm: float) -> dict:
+            a = 1.0 / self.cfg.dt
+            nu = 1.0 / (2.0 * float(rm))
+            k2, dtype = self._k2, self._lhs_inv.dtype
+            return {"lhs_inv": self._t((1.0 / (a + nu * k2)).astype(dtype)),
+                    "rhs_fac": self._t((a - nu * k2).astype(dtype))}
+
+        return fg, make_ops
 
     def inner_product(self, x, y):
         """(1/V) int f . g dV = sum over components of grid means
@@ -402,8 +675,13 @@ class KinematicDynamo:
         return J, self._diag_host(diag)
 
     def objective_gradient_and_diagnostics(self, x_list):
-        """(J, grads, diagnostics) from one fused fwd+bwd solve."""
+        """(J, grads, diagnostics) from one fused fwd+bwd solve (under
+        adjoint='continuous', the mode's own gradient next to the
+        diagnostics-carrying forward, as `objective_and_gradient`)."""
         self._need_fused_diagnostics()
+        if self.cfg.adjoint == "continuous":
+            J, diag = self.objective_and_diagnostics(x_list)
+            return J, self._gradient_continuous_impl(x_list)[0], diag
         out = {}
 
         def objective(xs):

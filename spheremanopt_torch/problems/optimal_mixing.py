@@ -32,15 +32,22 @@ The realisation:
     integrates the reference's adjoint system (`ADJ_Solve_Cnts`)
     backward along the stored trajectory
 
-The JAX package's TPU solve modes (`solve_precision`: bf16 and
-compensated products, the df64 engine of `mixing_df.py`) have no
-counterpart: on the H100, dtype="float64" is the accuracy mode. At f32
-the inner product accumulates in f64 (the role of JAX's `df_dot`).
+`solve_precision` is "native" (the config's dtype) or "df64": with
+dtype="float32", the JAX package's f64 accuracy mode (there a
+double-float emulation, `mixing_df.py`, which the TPU needs for lack of
+f64) runs the solve and its reverse sweep in torch.float64 on an f64
+twin of the problem, from the f32 state, and returns the JAX package's
+forms (an f32 `objective`, `objective_f64`, f32 gradients); diagnostics,
+archiving and IC prep stay on the f32 solve, as JAX runs them
+"compensated". JAX's TPU pass modes (bf16 and compensated products) and
+the emulation's knobs (`df_n_bits`, `df_slice_dtype`,
+`df_batched_einsums`) have no counterpart. At f32 the inner product
+accumulates in f64 (the role of JAX's `df_dot`).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -52,7 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from spheremanopt_torch.ops.chebyshev import ChebyshevBasis1D
 from spheremanopt_torch.problems.base import (DTYPES, SegmentAdvance,
                                               check_choice, resolve_device,
-                                              value_and_raw_gradient)
+                                              to_f64, value_and_raw_gradient)
 from spheremanopt_torch.solvers.scan_utils import kahan_add, kahan_zero
 from spheremanopt_torch.utils.opcache import cached_arrays, source_digest
 
@@ -78,6 +85,16 @@ class MixingConfig:
                                  # `FWD_Solve_Poiseuille.py:1161-1319`)
     prep_steps: int = 100        # IC prep: LINEAR solve iterations
     prep_dt: float = 1e-4        # (ref FWD_Solve_IVP_Prep :520)
+    solve_precision: str = "native"
+                                 # "native" | "df64": under dtype="float32",
+                                 # the solve and its reverse sweep in
+                                 # float64 from the f32 state (a no-op under
+                                 # dtype="float64"); discrete adjoint only
+    df_adjoint: bool = False     # df64 only: the JAX package's hand-written
+                                 # double-float reverse sweep, which lifts
+                                 # its gradient to the f32-output class; the
+                                 # f64 reverse sweep is already of that
+                                 # class, so this runs the same sweep
 
 
 def _cheb_mult_T(coeffs_of_factor: np.ndarray, n: int) -> np.ndarray:
@@ -147,6 +164,15 @@ class OptimalMixing:
         check_choice("adjoint", cfg.adjoint, ("discrete", "continuous"))
         check_choice("s", cfg.s, (0, 1))
         check_choice("remat", cfg.remat, (True, False))
+        check_choice("solve_precision", cfg.solve_precision, ("native", "df64"))
+        self._df64 = (cfg.solve_precision == "df64"
+                      and cfg.dtype == "float32")
+        if self._df64 and cfg.adjoint != "discrete":
+            raise ValueError(
+                "solve_precision='df64' pairs with adjoint='discrete' (its "
+                "gradient is the reverse sweep of the f64 forward; the "
+                "continuous adjoint integrates its own PDE at the config's "
+                "precision)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
@@ -238,6 +264,13 @@ class OptimalMixing:
                             np.einsum("kj,jz->kz", Fx64, rho0_grid))
                   * self._xmask[:, None]).astype(self._cnp)
         self._rho0 = t(np.stack([rho0_c.real, rho0_c.imag], 1)[:, :, None, :])
+        # df64: the f64 twin that runs the solves, on the same f64 numpy
+        # operators (so its gradient cast to f32 is this mode's gradient)
+        self._df = (OptimalMixing(replace(cfg, dtype="float64",
+                                          solve_precision="native",
+                                          df_adjoint=False), self.device,
+                                  operators={"S": S, "MN": MN})
+                    if self._df64 else None)
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
@@ -644,7 +677,14 @@ class OptimalMixing:
     def _riesz(self, raw):
         return [g / self._w for g in raw]
 
+    def _solve_ops(self):
+        """The operator stacks of the core solves: the f64 twin's under
+        df64, else this problem's."""
+        return self._ops if self._df is None else self._df._ops
+
     def objective_ops(self, ops, x_list):
+        if self._df is not None:
+            return self._df.objective_ops(ops, to_f64(x_list)).float()
         with torch.no_grad():
             return self._integrate(ops, list(x_list))[0]
 
@@ -652,7 +692,11 @@ class OptimalMixing:
         """Fused (J, gradient). Under adjoint='continuous' the gradient
         is the adjoint PDE's, paired with a separate forward: the two
         gradient definitions (and their inner products) never mix in one
-        search."""
+        search. Under df64, the f64 twin's with `ops` its stacks, J as an
+        f32 0-dim tensor (the device loop's search state is f32)."""
+        if self._df is not None:
+            J, g = self._df.objective_and_gradient_ops(ops, to_f64(x_list))
+            return J.float(), [a.float() for a in g]
         if self.cfg.adjoint == "continuous":
             return (self.objective_ops(ops, x_list),
                     self._gradient_continuous_impl(ops, list(x_list)))
@@ -661,25 +705,42 @@ class OptimalMixing:
         return J, self._riesz(raw)
 
     def gradient_ops(self, ops, x_list):
+        if self._df is not None:
+            return [g.float() for g in self._df.gradient_ops(ops, to_f64(x_list))]
         if self.cfg.adjoint == "continuous":
             return self._gradient_continuous_impl(ops, list(x_list))
         return self.objective_and_gradient_ops(ops, x_list)[1]
 
     def objective(self, x_list):
-        return self.objective_ops(self._ops, x_list)
+        return self.objective_ops(self._solve_ops(), x_list)
+
+    def objective_f64(self, x_list) -> float:
+        """df64 mode only: J of the f64 solve as a Python float (the f32
+        `objective` rounds it to ~ulp(J), which swamps Taylor
+        remainders)."""
+        if self._df is None:
+            raise RuntimeError("objective_f64 requires solve_precision='df64'"
+                               " with dtype='float32'")
+        return float(self._df.objective(to_f64(x_list)))
 
     def gradient(self, x_list):
-        return self.gradient_ops(self._ops, x_list)
+        return self.gradient_ops(self._solve_ops(), x_list)
 
     def objective_and_gradient(self, x_list):
+        """Fused (J, gradient); under df64, J of the f64 solve as a Python
+        float (host consumers compare it at f64)."""
+        if self._df is not None:
+            J, g = self._df.objective_and_gradient(to_f64(x_list))
+            return float(J), [a.float() for a in g]
         return self.objective_and_gradient_ops(self._ops, x_list)
 
     @property
     def objective_and_gradient_aux(self):
         """(callable(ops, xs), ops): the fused objective and gradient with
         the operator stacks as an explicit operand, for the device loop's
-        `aux`."""
-        return self.objective_and_gradient_ops, self._ops
+        `aux` (`objective_ops` and `gradient_ops` are its J-only and
+        gradient-only counterparts)."""
+        return self.objective_and_gradient_ops, self._solve_ops()
 
     def inner_product(self, x, y):
         """(1/V) int x . y dV with the mode's weights; at f32 the weighted

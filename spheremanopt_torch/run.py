@@ -10,9 +10,13 @@ subset of the JAX package's `run.py`.
     python -m spheremanopt_torch.run shb23 --dtype float64 --adjoint continuous
     python -m spheremanopt_torch.run kdyn --cost Final     # kernels, f32, on a GPU
     python -m spheremanopt_torch.run kdyn --dtype float64 --n-iters 200
+    python -m spheremanopt_torch.run kdyn --adjoint continuous  # kernel J, adjoint PDE gradient
+    python -m spheremanopt_torch.run kdyn --dtype float64 --remat nested
+    python -m spheremanopt_torch.run kdyn --precision df64   # f32 problem, f64 solves
     python -m spheremanopt_torch.run pca --dim 100
     python -m spheremanopt_torch.run mixing --device-loop  # 256x128, s=1, f32
     python -m spheremanopt_torch.run mixing --dtype float64 --adjoint continuous
+    python -m spheremanopt_torch.run mixing --precision df64 [--df-adjoint]
     python -m spheremanopt_torch.run sh23 --device-loop    # the loop on CUDA graphs
     python -m spheremanopt_torch.run sh23 --direction rtr [--device-loop]
 
@@ -23,15 +27,25 @@ cuda`, f32), as the JAX CLI defaults to its Pallas kernels on a TPU for
 SH23 and SHB23. (For KDyn the JAX CLI defaults to `xla`, only because its
 Pallas kernel took a quarter of an hour to compile there; the CUDA
 kernels build in seconds.) Mixing has one method, `plain` (torch products;
-f32 on a GPU, f64 on the CPU by default); the JAX CLI's `--precision`
-modes are TPU solve modes and are refused: `--dtype float64` is the
-accuracy mode on the H100. TF32 is off: f32 matmuls run in full f32.
+f32 on a GPU, f64 on the CPU by default). TF32 is off: f32 matmuls run
+in full f32.
+
+`--precision df64` (kdyn, mixing) is the JAX CLI's accuracy mode of an
+f32 problem: the solves and their reverse sweeps run in float64 from the
+f32 state (`solve_precision="df64"`; `--df-adjoint` is accepted and runs
+the same f64 sweep; kdyn then defaults to `--method plain`). The host
+loop compares J at f64 (`objective_f64`), `--test-grad` tests against
+it, and the device loop takes the problem's aux form (an f32 J beside the
+f32 search state). The JAX CLI's other `--precision` names are TPU solve
+modes and are refused: `--dtype float64` is the accuracy mode on the
+H100. `--remat step|nested|offload|none` sets KDyn's trajectory memory on
+the plain method.
 
 `--device-loop` runs the SD/CG/L-BFGS loop with its line search on the
 device (`optim/jit_driver.py`, on CUDA graphs on a GPU); with
 `--direction rtr`, the trust-region loop (`optim/jit_rtr.py`). A problem
-with `objective_and_gradient_aux` (mixing) hands its operator stacks to
-the loop as its `aux` operand. Trust-region
+whose `objective_and_gradient_aux` has an operand (mixing's operator
+stacks; KDyn's empty one under df64) runs the loop on that form. Trust-region
 Newton needs forward-mode derivatives of the gradient, which the CUDA
 kernels' autograd Functions do not have: with `--direction rtr` a
 `--method cuda` (given or the GPU default) becomes the same
@@ -56,9 +70,11 @@ from spheremanopt_torch.problems.base import DTYPES
 
 _METHODS = {"sh23": ("matmul", "fft", "cuda"), "shb23": ("matmul", "cuda"),
             "kdyn": ("plain", "cuda"), "mixing": ("plain",)}
-# the JAX CLI's --precision names (TPU solve modes, df64); none is ported
+# the JAX CLI's --precision names: df64 (kdyn, mixing) runs in float64;
+# the others are TPU solve modes and are refused
 _TPU_PRECISIONS = ("bfloat16", "compensated", "compensated2", "high",
                    "highest", "df64", "default")
+_DF64_PROBLEMS = ("kdyn", "mixing")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -121,8 +137,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--nx", type=int, default=None, help="mixing Fourier modes")
     ap.add_argument("--nz", type=int, default=None, help="mixing Chebyshev modes")
     ap.add_argument("--precision", choices=_TPU_PRECISIONS, default=None,
-                    help="the JAX package's TPU solve modes: not ported "
-                         "(refused; use --dtype float64 for accuracy)")
+                    help="df64 (kdyn, mixing): the f32 problem's solves in "
+                         "float64; the other names are the JAX package's "
+                         "TPU solve modes, refused (use --dtype float64)")
+    ap.add_argument("--df-adjoint", action="store_true",
+                    help="df64 only: the JAX package's double-float reverse "
+                         "sweep; here the same f64 sweep")
+    ap.add_argument("--remat", choices=["step", "nested", "offload", "none"],
+                    default=None,
+                    help="kdyn trajectory memory of the plain method's "
+                         "reverse sweep: per-step device remat | sqrt(N) "
+                         "nested | pinned-host offload | store-all "
+                         "(default: step)")
     return ap
 
 
@@ -133,14 +159,38 @@ def set_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def check_precision(args) -> None:
+    """The JAX CLI's checks of --precision and --df-adjoint. With
+    --direction rtr, df64 is dropped with a notice (its objective has no
+    forward-mode rule in the JAX package; the same discretisation runs)."""
+    if args.direction == "rtr" and args.precision == "df64":
+        print(f"[{args.problem}] --direction rtr: the df64 Ozaki ops define "
+              "reverse (custom_vjp) rules only in the JAX package - "
+              "substituting the standard-precision objective for the "
+              "trust-region path (same discretisation; RTR's rho acceptance "
+              "needs no df64 Wolfe bracketing)", flush=True)
+        args.precision = None
+        args.df_adjoint = False   # rides the df64 mode being dropped
+    if args.df_adjoint:
+        if args.problem not in _DF64_PROBLEMS:
+            raise SystemExit(
+                "--df-adjoint applies to the df64 modes (mixing, kdyn) - "
+                f"{args.problem} has no df64 mode")
+        if args.precision != "df64":
+            raise SystemExit("--df-adjoint requires --precision df64 (it is "
+                             "the df64 mode's reverse-sweep option)")
+    if args.precision is not None and (args.precision != "df64"
+                                       or args.problem not in _DF64_PROBLEMS):
+        raise SystemExit(f"--precision {args.precision}: the TPU's solve "
+                         "modes (bf16 and compensated products) are not "
+                         "ported, and df64 applies to kdyn and mixing; on "
+                         "the H100 use --dtype float64 as the accuracy mode")
+
+
 def make_problem(args, x0=None):
     """(problem, x0, defaults) for the parsed `args`. `x0` (a list of
     arrays, e.g. pinned inputs) replaces the seeded initial condition."""
-    if args.precision is not None:
-        raise SystemExit(f"--precision {args.precision}: the TPU's solve "
-                         "modes (bf16 and compensated products, df64) are "
-                         "not ported; on the H100 use --dtype float64 as "
-                         "the accuracy mode")
+    check_precision(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA GPU found (use --device cpu "
                          "to run on the CPU)")
@@ -159,14 +209,17 @@ def make_problem(args, x0=None):
     if args.problem == "mixing":
         return _make_mixing(args, device, x0)
     method = args.method
+    gpu_f32 = args.device == "cuda" and args.dtype in (None, "float32")
     if method is None:
-        method = "cuda" if (args.device == "cuda"
-                            and args.dtype in (None, "float32")) \
-            else _METHODS[args.problem][0]
+        # df64 solves on the plain method (the kernels are f32)
+        method = ("cuda" if gpu_f32 and args.precision != "df64"
+                  else _METHODS[args.problem][0])
     if method not in _METHODS[args.problem]:
         raise SystemExit(f"--method {method}: {args.problem} takes "
                          f"{'|'.join(_METHODS[args.problem])}")
-    dtype = args.dtype or ("float32" if method == "cuda" else "float64")
+    dtype = args.dtype or ("float32" if method == "cuda"
+                           or (gpu_f32 and args.precision == "df64")
+                           else "float64")
     if args.direction == "rtr" and method == "cuda":
         # RTR's Hessian-vector products are forward over reverse; the
         # kernels' autograd Functions define reverse rules only, so the
@@ -186,9 +239,12 @@ def make_problem(args, x0=None):
         from spheremanopt_torch.problems.kinematic_dynamo import (
             KDynConfig, KinematicDynamo)
 
-        if args.adjoint != "discrete":
-            raise SystemExit("--adjoint continuous: not ported for kdyn")
-        p = KinematicDynamo(KDynConfig(cost=args.cost, **kw), device=device)
+        kw.update(cost=args.cost, adjoint=args.adjoint)
+        if args.precision == "df64":
+            kw.update(solve_precision="df64", df_adjoint=args.df_adjoint)
+        if args.remat is not None:
+            kw["remat"] = False if args.remat == "none" else args.remat
+        p = KinematicDynamo(KDynConfig(**kw), device=device)
         x0 = (p.generate_ic(seed=args.seed) if x0 is None
               else state_to_torch(x0, device, p.dtype))
         return p, x0, dict(alpha=100.0, max_iters=10)
@@ -220,6 +276,8 @@ def _make_mixing(args, device, x0):
         raise SystemExit(f"--method {args.method}: mixing takes plain")
     dtype = args.dtype or ("float32" if args.device == "cuda" else "float64")
     kw = dict(dtype=dtype, s=args.s, adjoint=args.adjoint)
+    if args.precision == "df64":
+        kw.update(solve_precision="df64", df_adjoint=args.df_adjoint)
     for name, val in (("nx", args.nx), ("nz", args.nz), ("dt", args.dt),
                       ("n_iters", args.n_iters)):
         if val is not None:
@@ -230,9 +288,14 @@ def _make_mixing(args, device, x0):
     return p, x0, dict(alpha=100.0, max_iters=200)
 
 
+def df64(problem) -> bool:
+    """Whether `problem` runs its solves in df64 mode (f64 from f32)."""
+    return getattr(problem, "_df", None) is not None
+
+
 def loop_aux(problem):
-    """The device loop's `aux` operand of `problem` (its operator stacks),
-    or None."""
+    """The device loop's `aux` operand of `problem` (mixing's operator
+    stacks, KDyn's empty dict under df64), or None."""
     pair = getattr(problem, "objective_and_gradient_aux", None)
     return None if pair is None else pair[1]
 
@@ -253,8 +316,10 @@ def device_optimiser(problem, defaults, args, graphs=None):
     `jit_optimise_on_multi_sphere`. Its CUDA graphs are captured at its
     first call and replayed at later calls. `graphs=False` runs the same
     steps eagerly (to hold the graphs against). A problem with
-    `objective_and_gradient_aux` is called as `f(aux, xs)`: pass
-    `aux=loop_aux(problem)` to the returned optimiser."""
+    `objective_and_gradient_aux` operand is called as `f(aux, xs)`, with
+    the problem's `objective_ops` / `gradient_ops` as its J-only and
+    gradient-only forms: pass `aux=loop_aux(problem)` to the returned
+    optimiser."""
     radii = problem.radii if hasattr(problem, "radii") else [1.0]
     err_tol, max_iters, alpha = _settings(defaults, args)
     with_aux = loop_aux(problem) is not None
@@ -309,10 +374,12 @@ def optimise(problem, x0, defaults, args, graphs=None):
 
     from spheremanopt_torch.optim.optimiser import optimise_on_multi_sphere
 
+    # df64: the host search compares J at f64 (the f32 scalar rounds every
+    # trial to ~ulp(J))
     return optimise_on_multi_sphere(
         x0,
         radii,
-        problem.objective,
+        problem.objective_f64 if df64(problem) else problem.objective,
         problem.gradient,
         problem.inner_product,
         err_tol=err_tol,
@@ -336,8 +403,11 @@ def taylor_test(problem, x0, args):
                                dtype=x0[0].dtype, device=x0[0].device)]
     else:
         dx0 = problem.generate_ic(seed=args.seed + 1)
+    # df64: the f32 objective rounds J to ~ulp(J), which swamps the Taylor
+    # increments; test against J at f64
     return adjoint_gradient_test(
-        x0, dx0, problem.objective, problem.gradient, problem.inner_product,
+        x0, dx0, problem.objective_f64 if df64(problem) else problem.objective,
+        problem.gradient, problem.inner_product,
         epsilon=args.test_grad_eps, verbose=not args.quiet,
         save_path=os.path.join(args.out_dir, "eps_TestR_TestR2_h_h2.npy"))
 

@@ -48,6 +48,42 @@ def test_port_imports_without_jax():
     assert "isolated" in r.stdout
 
 
+def test_kdyn_rest_and_df64_run_without_jax():
+    """The continuous adjoint, the nested and offload remat modes, the Rm
+    route and the df64 modes of KDyn and mixing, with JAX blocked."""
+    code = _BLOCK_JAX + (
+        "import torch; "
+        "from spheremanopt_torch.solvers.scan_utils import nested_checkpoint_scan, "
+        "offload_checkpoint; "
+        "from spheremanopt_torch.problems.kinematic_dynamo import KinematicDynamo, "
+        "KDynConfig; "
+        "from spheremanopt_torch.problems.optimal_mixing import OptimalMixing, "
+        "MixingConfig; "
+        "kw = dict(npts=8, n_iters=4, dt=1e-3); "
+        "x = KinematicDynamo(KDynConfig(**kw), device='cpu').generate_ic(); "
+        "d = KinematicDynamo(KDynConfig(adjoint='continuous', **kw), "
+        "device='cpu').adjoint_diagnostics(x); "
+        "assert d['max_flux_G'].max() == 0.0; "
+        "[KinematicDynamo(KDynConfig(remat=r, **kw), device='cpu')"
+        ".objective_and_gradient(x) for r in ('nested', 'offload')]; "
+        "p = KinematicDynamo(KDynConfig(**kw), device='cpu'); "
+        "fg, make_ops = p.objective_and_gradient_rm; fg(make_ops(2.0), x); "
+        "q = KinematicDynamo(KDynConfig(dtype='float32', solve_precision='df64', "
+        "**kw), device='cpu'); "
+        "x32 = [a.float() for a in x]; assert isinstance(q.objective_f64(x32), float); "
+        "assert q.gradient(x32)[0].dtype == torch.float32; "
+        "m = OptimalMixing(MixingConfig(nx=8, nz=8, n_iters=2, prep_steps=2, "
+        "dtype='float32', solve_precision='df64'), device='cpu'); "
+        "J, g = m.objective_and_gradient(m.generate_ic()); "
+        "assert isinstance(J, float) and g[0].dtype == torch.float32; "
+        "assert not any(m.startswith(('jax', 'spheremanopt_tpu')) "
+        "for m, v in sys.modules.items() if v is not None), 'JAX imported'; "
+        "print('isolated')")
+    r = _python(code)
+    assert r.returncode == 0, r.stderr
+    assert "isolated" in r.stdout
+
+
 @pytest.mark.parametrize("pattern", ["import jax", "from jax", "spheremanopt_tpu"])
 def test_no_package_file_names_jax(pattern):
     files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu"))

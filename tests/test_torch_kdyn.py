@@ -309,7 +309,7 @@ def test_cuda_method_config_errors():
     with pytest.raises(ValueError, match="method"):
         _t(method="pallas")
     with pytest.raises(ValueError, match="remat"):
-        _t(remat="nested")
+        _t(remat="sqrt")
     with pytest.raises(ValueError, match="cost"):
         _t(cost="Mean")
 
@@ -422,5 +422,7 @@ def test_cli_kdyn_taylor_and_method_cuda_on_cpu(tmp_path, capsys):
     assert not any(kd.LAUNCHES.values())
     with pytest.raises(SystemExit):
         run.main(base + ["--method", "matmul"])
-    with pytest.raises(SystemExit):
-        run.main(base + ["--adjoint", "continuous"])
+    # the TPU's pass-count modes stay refused (df64 and --adjoint
+    # continuous run: tests/test_torch_precision.py, test_torch_kdyn_continuous.py)
+    with pytest.raises(SystemExit, match="--dtype float64"):
+        run.main(base + ["--precision", "high"])
