@@ -148,8 +148,26 @@ Phases, one line each; any failure exits non-zero without a result line:
      that Rm;
      `spheremanopt_torch.run kdyn` (its `main`) for one iteration with
      `--adjoint continuous` and with `--remat nested` at N = 200
+  5  sweeps over rows (`DeviceOptimiser.sweep`) at full width: SH23 f32
+     kernels (no native rows: one row at a time on the unbatched loop),
+     B = 8, E0 = linspace(0.02, 0.10), 30 Wolfe + CG iterations, every
+     row bitwise its unbatched run, batched and sequential wall times, a
+     main path of a warm sweep, its trace (idle share, launches a replay)
+     beside a trial of the native f32 matmul rows at N = 200 (cut), and
+     that optimiser's sweep of one row against its unbatched call (walls,
+     launches of a trial replay); SH23 f64 matmul (native rows), B = 3, N = 200
+     and 5 iterations (cut), within rtol 1e-10; mixing 256x128 at N = 100
+     (cut) with one shared stack operand, B = 4, 3 iterations, f64 within
+     1e-10, f32 reported; the device RTR on SH23 f64 at N = 100 (cut),
+     B = 3, per-row iterations,
+     trials, HVPs and `converged` equal to the unbatched runs
+  6  the server (`spheremanopt_torch.serve`) in a thread on a socket in a
+     temporary directory: status; optimise sh23 f32 `cuda` at full width,
+     5 Wolfe iterations, cold then warm; a sweep of 8 seeds with e0 (row 0
+     bitwise the optimise reply); a sweep on mixing (N = 100); save; an
+     error reply; status answered while a sweep is busy; shutdown
 
-Each main path (G, H, L, M, R, S, T, U, V, 1) runs with the launch counters set to 0
+Each main path (G, H, L, M, R, S, T, U, V, 1, 5) runs with the launch counters set to 0
 just before it and read just after; a kernel of that path that was not
 launched fails it. The kernels line lists the kernels of those paths;
 the one-block kernels, which no path reaches on an H100, are timed in
@@ -238,6 +256,16 @@ TOL_REMAT32, MEM_FRACTION = 1e-6, 0.25
 # values against the host loop's, the JAX package's test tolerance.
 TOL_DF_J, TOL_DF_G, TOL_DF_LOOP = 1e-10, 1e-7, 2e-6
 RM_ITERS, RM_VALUES, TOL_RM = 4, (1.0, 4.0), 1e-12   # Rm route (4)
+# sweeps (5): SH23 f32 kernels B = 8 over E0 = linspace(0.02, 0.10), 30
+# iterations, rows bitwise their unbatched runs (no native rows: each row
+# runs on the unbatched loop); the native f64 rows (products of R columns: another
+# summation order) within ROW_RTOL; mixing's f32 native rows reported
+# against theirs (f32 roundoff of the other order); the depth cuts keep
+# phases 5 and 6 near 150 s
+SWEEP_B, SWEEP_ITERS, SWEEP_F64_ITERS, ROW_RTOL = 8, 30, 5, 1e-10
+SWEEP_CUT = 200   # steps of the native-row SH23 sweeps (their captures are eager)
+MIX_SWEEP_E0, MIX_SWEEP_ITERS = (0.005, 0.01, 0.02, 0.04), 3
+RTR_SWEEP_CUT = 100
 # depths: the remat modes' Integrated units at half the horizon (an eager
 # unit takes ~20 s at 2000 steps); the df64 device loop's KDyn at N = 100
 REMAT_STEPS = {"Final": 2000, "Integrated": 1000}
@@ -364,8 +392,15 @@ def gpu_ms(fn, reps, warm=2):
     return start.elapsed_time(end) / reps
 
 
-def interleaved_ms(plain, kernel, reps_plain, reps_kernel, warm_plain=2):
-    """(plain ms, kernel ms), measured plain, kernel, kernel, plain."""
+def interleaved_ms(plain, kernel, reps_plain, reps_kernel, warm_plain=2,
+                   plain_once=False):
+    """(plain ms, kernel ms), measured plain, kernel, kernel, plain; with
+    `plain_once` (plain versions that take seconds), kernel, plain,
+    kernel."""
+    if plain_once:
+        t = [gpu_ms(kernel, reps_kernel), gpu_ms(plain, reps_plain, warm_plain),
+             gpu_ms(kernel, reps_kernel)]
+        return t[1], (t[0] + t[2]) / 2
     t = [gpu_ms(plain, reps_plain, warm_plain), gpu_ms(kernel, reps_kernel),
          gpu_ms(kernel, reps_kernel), gpu_ms(plain, reps_plain, warm_plain)]
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
@@ -1241,19 +1276,19 @@ class Smoke:
         brT, biT, _, trr, tri = kd.run_fwd_traj(br0, bi0, u, C, n, False, dt)
         gbar = torch.tensor(-1.0, dtype=torch.float32, device=u.device)
         # the plain versions take seconds a sweep and were run in phase N:
-        # one call each way, no warm-up
+        # one call of each, no warm-up, between two kernel timings
         f_pl, f_k = interleaved_ms(
             lambda: kd.run_forward_plain(br0, bi0, u, C, n, False, dt),
-            lambda: kd.run_forward(br0, bi0, u, C, n, False, dt), 1, 5, 0)
+            lambda: kd.run_forward(br0, bi0, u, C, n, False, dt), 1, 5, 0, plain_once=True)
         t_pl, t_k = interleaved_ms(
             lambda: kd.run_fwd_traj_plain(br0, bi0, u, C, n, False, dt),
-            lambda: kd.run_fwd_traj(br0, bi0, u, C, n, False, dt), 1, 5, 0)
+            lambda: kd.run_fwd_traj(br0, bi0, u, C, n, False, dt), 1, 5, 0, plain_once=True)
         b_pl, b_k = interleaved_ms(
             lambda: kd.run_bwd_plain(u, brT, biT, gbar, trr, tri, C, n, False, dt),
-            lambda: kd.run_bwd(u, brT, biT, gbar, trr, tri, C, n, False, dt), 1, 5, 0)
+            lambda: kd.run_bwd(u, brT, biT, gbar, trr, tri, C, n, False, dt), 1, 5, 0, plain_once=True)
         u_pl, u_k = interleaved_ms(
             lambda: self.pk_plain32.objective_and_gradient(self.xk32),
-            lambda: self.pk_cuda.objective_and_gradient(self.xk32), 1, 5, 0)
+            lambda: self.pk_cuda.objective_and_gradient(self.xk32), 1, 5, 0, plain_once=True)
         npts, mg = br0.shape[1], u.shape[1]
         self.kernels["kdyn_fwd"].update(
             ms=f_k, plain_ms=f_pl, work=kdyn_work(npts, mg, n, fwd=True, traj=False))
@@ -2156,8 +2191,289 @@ class Smoke:
                        f"{cfg.get('dtype')!r}, adjoint {cfg.get('adjoint')!r}, remat "
                        f"{cfg.get('remat')!r}, {time.perf_counter() - t0:.1f} s")
 
+    # -- sweeps over rows (5) and the server (6) ---------------------------------
+
+    def sweep_case(self, what, opt, x0, radii, aux=None, rtol=None, counts=(),
+                   gate=True):
+        """A sweep (warm-up and capture, then a call of replays only) against
+        each row's unbatched run on the same optimiser (its own capture, then
+        replays): bitwise (rtol None) or to rtol, equal iteration counts and
+        the result fields in `counts`; with `gate` False, the comparison is
+        reported only. Returns (sweep result, first sweep s, warm sweep s,
+        sequential s, worst difference)."""
+        R = x0[0].shape[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.sweep(x0, radii, aux=aux)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rb = opt.sweep(x0, radii, aux=aux)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        rows = [[x[i] for x in x0] for i in range(R)]
+        opt(rows[0], radii_dyn=list(radii[0]), aux=aux)   # the unbatched capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        singles = [opt(rows[i], radii_dyn=list(radii[i]), aux=aux) for i in range(R)]
+        torch.cuda.synchronize()
+        seq = time.perf_counter() - t0
+        worst, same = 0.0, True
+        for i, r1 in enumerate(singles):
+            same &= int(rb.iterations[i]) == int(r1.iterations)
+            same &= all(int(getattr(rb, c)[i]) == int(getattr(r1, c)) for c in counts)
+            pairs = [(rb.function_values[i], r1.function_values),
+                     (rb.step_sizes[i], r1.step_sizes)]
+            pairs += [(xb[i], x1) for xb, x1 in zip(rb.x_opt, r1.x_opt)]
+            for a, b in pairs:
+                if rtol is None:
+                    same &= torch.equal(a, b)
+                worst = max(worst, rel(a, b) if float(b.abs().max()) > 0 else
+                            float(a.abs().max()))
+        ok = (same and (rtol is None or worst <= rtol)) or not gate
+        its = [int(v) for v in rb.iterations]
+        single_its = [int(r1.iterations) for r1 in singles]
+        extra = "".join(f", {c} {[int(v) for v in getattr(rb, c)]}" for c in counts)
+        want = ("bitwise" if rtol is None else f"within rtol {rtol:g} of") if gate \
+            else "reported against"
+        self.check("5", ok and all(np.isfinite(rb.function_values.cpu().numpy().ravel())),
+                   f"{what}: B = {R}, iterations {its} (unbatched {single_its}){extra}; "
+                   f"every row {want} its unbatched run ({same}), worst rel "
+                   f"{worst:.2e}; sweep {first:.3f} s "
+                   f"with the warm-up and capture, {warm:.3f} s replaying; sequential "
+                   f"{seq:.3f} s replaying [{self.card}]")
+        return rb, first, warm, seq, worst
+
+    def phase_5(self):
+        from spheremanopt_torch.optim.jit_driver import jit_optimise_on_multi_sphere
+        from spheremanopt_torch.optim.jit_rtr import jit_optimise_rtr
+        from spheremanopt_torch.problems.base import row_forms
+        from spheremanopt_torch.problems.optimal_mixing import MixingConfig, OptimalMixing
+        from spheremanopt_torch.problems.swift_hohenberg import SH23Config, SwiftHohenberg
+
+        cli.set_precision()
+        e0 = np.linspace(0.02, 0.10, SWEEP_B)
+        # SH23 f32 kernels at full width: no native rows, so the sweep runs
+        # each row on the unbatched loop's graphs, which launch its two sweeps
+        p = SwiftHohenberg(SH23Config(dtype="float32", method="cuda"), device="cuda")
+        x0 = [torch.stack([p.generate_ic(seed=s)[0] for s in range(SWEEP_B)])]
+        radii = [[float(r)] for r in e0]
+        forms = row_forms(p)
+        opt = jit_optimise_on_multi_sphere(
+            p.objective_and_gradient, p.inner_product, p.radii, max_iters=SWEEP_ITERS,
+            alpha0=float(np.pi), cg=True, line_search="wolfe", f=p.objective,
+            rows=forms)
+        self.check("5", forms is None and not opt.native_rows,
+                   f"sh23 method=cuda has no native rows ({forms}): its sweep runs "
+                   f"one row at a time on the unbatched loop")
+        rb, first, warm, seq, _ = self.sweep_case(
+            f"sh23 f32 kernels (method=cuda, one row at a time) at full width, E0 = "
+            f"linspace(0.02, 0.10), {SWEEP_ITERS} Wolfe + CG iterations", opt, x0, radii)
+        # a warm sweep is the main path: graph replays only
+        self.main_path("5", ("fused_fwd_shared_grid", "fused_bwd_shared"),
+                       lambda: opt.sweep(x0, radii), record=())
+        loop = opt.last_loop
+        print(f"[5] sh23 f32 sweep of {SWEEP_B}: batched {warm:.3f} s, sequential "
+              f"{seq:.3f} s ({seq / warm:.2f}x); J_final "
+              f"{[float(rb.function_values[i, max(int(rb.iterations[i]) - 1, 0)]) for i in range(SWEEP_B)]} "
+              f"[{self.card}]", flush=True)
+        wall_t, busy, rows_t = self.print_trace("5", "a warm sh23 f32 sweep (graph replays)",
+                                                lambda: opt.sweep(x0, radii))
+        steps = sum(opt.last_replays.values())
+        n_k = sum(c for _, _, c in rows_t)
+        held = sum(sum(loop.graph_launches(st).values()) * n
+                   for st, n in opt.last_replays.items())
+        print(f"[5] sh23 sweep: {steps} graph replays, {n_k} kernel launches, "
+              f"{n_k / steps:.1f} a replay ({held / steps:.1f} of them the two "
+              f"sweeps); idle share {100 * (1 - busy / wall_t):.1f} %, "
+              f"{1e6 * (wall_t - busy) / steps:.1f} us of idle time a replay; "
+              f"replays by step {dict(opt.last_replays)}", flush=True)
+        # the same sweep on SH23's native f32 matmul rows (one product of R
+        # columns a step, no kernel), at SWEEP_CUT steps (an eager step of
+        # the warm-up and a capture record ~36 launches a step): a warm
+        # sweep timed and one trial replay traced
+        pm = SwiftHohenberg(SH23Config(dtype="float32", n_iters=SWEEP_CUT), device="cuda")
+        optm = jit_optimise_on_multi_sphere(
+            pm.objective_and_gradient, pm.inner_product, pm.radii,
+            max_iters=SWEEP_ITERS, alpha0=float(np.pi), cg=True, line_search="wolfe",
+            f=pm.objective, rows=row_forms(pm))
+        optm.sweep(x0, radii)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rm = optm.sweep(x0, radii)
+        torch.cuda.synchronize()
+        wm = time.perf_counter() - t0
+        steps_m = sum(optm.last_replays.values())
+        wall_m, busy_m, rows_m = self.print_trace(
+            "5", f"one trial replay of the sh23 f32 matmul sweep (native rows, N = "
+            f"{SWEEP_CUT})", lambda: optm.last_loop.run("trial"))
+        n_m = sum(c for _, _, c in rows_m)
+        print(f"[5] sh23 f32 matmul native-row sweep of {SWEEP_B} at N = {SWEEP_CUT} "
+              f"(cut from 1000): {wm:.3f} s replaying {steps_m} steps, iterations "
+              f"{[int(v) for v in rm.iterations]}; a trial replay {n_m} kernel launches "
+              f"({n_m / SWEEP_CUT:.1f} a time step; the kernel sweep's trial at N = 1000: "
+              f"{n_k / steps:.1f} a replay), {1e3 * wall_m:.3f} ms, idle share "
+              f"{100 * (1 - busy_m / wall_m):.1f} % [{self.card}]", flush=True)
+        # what the row masks cost: a sweep of one row on the native forms
+        # against the unbatched call of the same optimiser (warm walls, and
+        # the launches of one trial replay of each)
+        x1, r1 = [x0[0][:1]], radii[:1]
+        walls, trial = {}, {}
+        for tag, fn in (("sweep R=1", lambda: optm.sweep(x1, r1)),
+                        ("unbatched", lambda: optm([x0[0][0]], radii_dyn=r1[0]))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r1_res = fn()
+            torch.cuda.synchronize()
+            walls[tag] = (time.perf_counter() - t0, int(r1_res.iterations.reshape(-1)[0]),
+                          sum(optm.last_replays.values()))
+            trial[tag] = sum(c for _, _, c in trace(lambda: optm.last_loop.run("trial"))[2])
+        print("[5] sh23 f32 matmul at N = {0}, the row masks' cost: ".format(SWEEP_CUT)
+              + "; ".join(f"{t}: {w:.3f} s for {k} iterations ({n} replays), a trial "
+                          f"replay {trial[t]} kernel launches"
+                          for t, (w, k, n) in walls.items())
+              + f" [{self.card}]", flush=True)
+
+        # SH23 f64 matmul at full width: native rows (one product of R columns
+        # a step); the optimisation cut to SWEEP_F64_ITERS, the solve to
+        # SWEEP_CUT steps
+        q = SwiftHohenberg(SH23Config(n_iters=SWEEP_CUT), device="cuda")
+        e3 = [[0.02], [0.0725], [0.1]]
+        xq = [torch.stack([q.generate_ic(seed=s)[0] for s in range(3)])]
+        optq = jit_optimise_on_multi_sphere(
+            q.objective_and_gradient, q.inner_product, q.radii,
+            max_iters=SWEEP_F64_ITERS, alpha0=float(np.pi), cg=True,
+            line_search="wolfe", f=q.objective, rows=row_forms(q))
+        self.sweep_case(
+            f"sh23 f64 matmul (native rows) at full width, N = {SWEEP_CUT} (cut from "
+            f"1000), {SWEEP_F64_ITERS} Wolfe + CG iterations (cut from {SWEEP_ITERS})",
+            optq, xq, e3, rtol=ROW_RTOL)
+
+        # mixing at 256 x 128, one shared operator-stack operand, depth cut
+        e4 = [[v] for v in MIX_SWEEP_E0]
+        for dtype in ("float64", "float32"):
+            m = OptimalMixing(MixingConfig(dtype=dtype, n_iters=MIX_CUT),
+                              device="cuda")
+            fg, ops = m.objective_and_gradient_aux
+            xm = [torch.stack([m.generate_ic(seed=s)[0] for s in range(len(e4))])]
+            optm = jit_optimise_on_multi_sphere(
+                fg, m.inner_product, m.radii, max_iters=MIX_SWEEP_ITERS, alpha0=100.0,
+                cg=True, line_search="wolfe", f=m.objective_ops,
+                rows=row_forms(m, aux=True))
+            worst = self.sweep_case(
+                f"mixing {dtype} 256x128 at N = {MIX_CUT} (cut from 1000), native rows, "
+                f"one shared stack operand, E0 {MIX_SWEEP_E0}, {MIX_SWEEP_ITERS} "
+                f"iterations", optm, xm, e4, aux=ops,
+                rtol=ROW_RTOL, gate=dtype == "float64")[-1]
+            print(f"[5] mixing {dtype} sweep: the stacks are one operand of the "
+                  f"loop ({sum(t.numel() for t in ops.values())} elements, once), "
+                  f"worst rel vs the unbatched rows {worst:.3e}", flush=True)
+
+        # device RTR on SH23 f64: per-row decisions
+        r = SwiftHohenberg(SH23Config(n_iters=RTR_SWEEP_CUT), device="cuda")
+        xr = [torch.stack([r.generate_ic(seed=s)[0] for s in (1, 2, 42)])]
+        optr = jit_optimise_rtr(r.objective, r.gradient, r.inner_product, r.radii,
+                                err_tol=1e-6, max_iters=100, rows=row_forms(r))
+        self.sweep_case(
+            f"sh23 f64 device RTR (native rows) at N = {RTR_SWEEP_CUT} (cut from 1000)",
+            optr, xr, [[r.radii[0]]] * 3, rtol=ROW_RTOL,
+            counts=("trials", "hvp_evals", "converged"))
+
+    def phase_6(self):
+        import tempfile
+        import threading
+
+        from spheremanopt_torch import serve as srv
+
+        tmp = tempfile.mkdtemp(prefix="smo_serve_")
+        sock = os.path.join(tmp, "smo.sock")
+        ready = threading.Event()
+        t = threading.Thread(target=srv.serve, args=(sock,),
+                             kwargs={"ready_event": ready, "device": "cuda"},
+                             daemon=True)
+        t.start()
+        self.check("6", ready.wait(60), f"server listening on {sock}")
+        st = srv.request(sock, {"cmd": "status"})
+        self.check("6", st["ok"] and st["executables"] == [] and st["busy"] is None,
+                   f"status: {st}")
+        cfg = {"dtype": "float32", "method": "cuda"}
+        driver = {"max_iters": 5, "line_search": "wolfe", "cg": True,
+                  "alpha0": float(np.pi)}
+        req = {"cmd": "optimise", "problem": "sh23", "config": cfg, "driver": driver,
+               "seed": 0}
+        cold = srv.request(sock, req)
+        reset_launches()
+        warm = srv.request(sock, req)
+        n = launches()
+        self.check("6", cold["ok"] and warm["ok"] and not cold["cache_hit"]
+                   and warm["cache_hit"] and warm["J"] == cold["J"]
+                   and n["fused_fwd_shared_grid"] > 0 and n["fused_bwd_shared"] > 0,
+                   f"optimise sh23 f32 cuda at full width, 5 Wolfe iterations: cold "
+                   f"{cold.get('wall_s')} s (cache_hit {cold.get('cache_hit')}), warm "
+                   f"{warm.get('wall_s')} s (cache_hit {warm.get('cache_hit')}), "
+                   f"{warm.get('iterations')} iterations to J "
+                   f"{warm.get('J', [None])[-1]!r}, the warm call's launches "
+                   f"fwd {n['fused_fwd_shared_grid']} bwd {n['fused_bwd_shared']} "
+                   f"[{self.card}]")
+        sweep = {"cmd": "sweep", "problem": "sh23", "config": cfg, "driver": driver,
+                 "seeds": list(range(SWEEP_B)),
+                 "e0": [0.0725] + [float(v) for v in np.linspace(0.02, 0.10, SWEEP_B - 1)]}
+        sw = srv.request(sock, sweep)
+        sw2 = srv.request(sock, sweep)
+        ok = sw["ok"] and sw2["ok"] and len(sw["points"]) == SWEEP_B
+        row0 = sw["points"][0] if ok else {}
+        self.check("6", ok and row0["J"] == warm["J"]
+                   and row0["iterations"] == warm["iterations"]
+                   and sw2["points"] == sw["points"],
+                   f"sweep of {SWEEP_B} seeds with e0: row 0 equals the optimise reply "
+                   f"bitwise, iterations {[r['iterations'] for r in sw.get('points', [])]}; "
+                   f"cold {sw.get('wall_s')} s, warm {sw2.get('wall_s')} s [{self.card}]")
+        mix = {"cmd": "sweep", "problem": "mixing", "config": {"n_iters": MIX_CUT},
+               "driver": {"max_iters": 2, "line_search": "wolfe", "cg": True,
+                          "alpha0": 100.0}, "seeds": [0, 1]}
+        mx = srv.request(sock, mix)
+        self.check("6", mx["ok"] and all(r["iterations"] >= 1 and np.all(np.isfinite(r["J"]))
+                                         for r in mx.get("points", [])),
+                   f"sweep on mixing (256x128 f64, N = {MIX_CUT}, 2 seeds, 2 iterations): "
+                   f"{[(r['iterations'], r['J'][-1]) for r in mx.get('points', [])]} "
+                   f"in {mx.get('wall_s')} s {mx.get('error', '')}")
+        path = os.path.join(tmp, "out.npz")
+        sv = srv.request(sock, dict(req, save=path))
+        dat = np.load(path) if sv.get("saved") == path else {}
+        self.check("6", sv["ok"] and sorted(getattr(dat, "files", [])) == [
+            "function_values", "iterations", "residuals", "step_sizes", "x_opt_0"]
+            and int(dat["iterations"]) == sv["iterations"],
+            f"save: {path} with {sorted(getattr(dat, 'files', []))}")
+        bad = srv.request(sock, {"cmd": "optimise", "problem": "nope"})
+        self.check("6", not bad["ok"] and "unknown problem" in bad["error"],
+                   f"an error reply: {bad}")
+        done = {}
+        th = threading.Thread(target=lambda: done.update(srv.request(sock, sweep)),
+                              daemon=True)
+        th.start()
+        seen, lat = None, []
+        while th.is_alive():
+            t0 = time.perf_counter()
+            s2 = srv.request(sock, {"cmd": "status"})
+            lat.append(time.perf_counter() - t0)
+            if s2.get("busy"):
+                seen = s2["busy"]
+            time.sleep(0.01)
+        th.join()
+        self.check("6", seen is not None and seen["cmd"] == "sweep" and done.get("ok")
+                   and max(lat) < 1.0,
+                   f"status answered while a sweep is busy: busy {seen}, {len(lat)} "
+                   f"status replies, slowest {1e3 * max(lat):.1f} ms")
+        st = srv.request(sock, {"cmd": "status"})
+        bye = srv.request(sock, {"cmd": "shutdown"})
+        t.join(30)
+        self.check("6", bye["ok"] and not t.is_alive() and not os.path.exists(sock),
+                   f"shutdown; {st['requests']} requests, {st['cache_hits']} cache hits, "
+                   f"{len(st['executables'])} cached loops")
+
     def run(self, only=None):
-        for name in "abcdefghijklmnopqrstuvwxyz1234":
+        for name in "abcdefghijklmnopqrstuvwxyz123456":
             if only and name not in "ab" + only:
                 continue
             phase = getattr(self, f"phase_{name}")

@@ -14,14 +14,19 @@ Layering (bottom-up), mirroring the JAX package:
   manifold/   sphere geometry: retraction, tangent projection, transport
   optim/      Armijo + strong-Wolfe line searches, SD/CG/L-BFGS host
               loop, the device-resident loop (CUDA graphs on the card)
-              and trust-region Newton (host and device)
+              and trust-region Newton (host and device), each device
+              loop also over rows (`sweep`: R optimisations at once)
   grad/       Taylor-remainder adjoint verification
   utils/      the content-keyed on-disk cache of assembled operators
   problems/   PCA, Swift-Hohenberg periodic (SH23) and bounded (SHB23),
               kinematic dynamo (KDyn, two spheres), optimal mixing (2D
-              Boussinesq, Fourier x Chebyshev-tau)
+              Boussinesq, Fourier x Chebyshev-tau); the native forms
+              over rows of PCA, SH23 (matmul, fft) and mixing
   convert.py  numpy bridge for data shared with the JAX package
   run.py      command line (sh23, shb23, kdyn, mixing, pca)
+  serve.py    the warm optimisation server: device loops kept on their
+              CUDA graphs, answering optimise / sweep / status / shutdown
+              requests over a Unix socket
 
 Gradients are discrete adjoints: reverse-mode autograd of the forward
 solve, or the kernels' own reverse sweep.

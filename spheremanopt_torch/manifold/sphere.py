@@ -15,6 +15,12 @@ All functions are plain tensor code and autograd-safe. The inner product
 is a callable `(x, y) -> 0-dim tensor`; problems supply
 quadrature-weighted versions so the geometry is metric-consistent with
 the PDE objective (`FWD_Solve_SH23.py:158-172`).
+
+Rows. The same functions serve a batch of independent points with a
+leading row axis (a sweep): `x` is (R, ...), the inner product returns
+one value per row, (R,), and radii and step sizes are (R,) or scalars.
+`per_row` aligns such a per-row value with the row axis of a state
+tensor.
 """
 
 from __future__ import annotations
@@ -26,29 +32,38 @@ import torch
 InnerProduct = Callable[..., torch.Tensor]
 
 
+def per_row(s, like):
+    """`s` shaped to broadcast against `like` along its leading axes: a
+    per-row value (R,) becomes (R, 1, ...); a 0-dim tensor or a Python
+    number is returned as it is."""
+    if not isinstance(s, torch.Tensor) or s.dim() == 0 or s.dim() >= like.dim():
+        return s
+    return s.reshape(s.shape + (1,) * (like.dim() - s.dim()))
+
+
 def normalise_sphere(x, radius, inner: InnerProduct):
     """Scale `x` onto the sphere <x,x> = radius
     (`Sphere_Grad_Descent.py:734`)."""
-    return x * torch.sqrt(radius / inner(x, x))
+    return x * per_row(torch.sqrt(radius / inner(x, x)), x)
 
 
 def retract(x, alpha, d, radius, inner: InnerProduct):
     """Retraction-based update: sqrt(radius)*(x + alpha*d)/||x + alpha*d||
     (`Update_vector`, `Sphere_Grad_Descent.py:661-690`)."""
-    y = x + alpha * d
-    return y * torch.sqrt(radius / inner(y, y))
+    y = x + per_row(alpha, d) * d
+    return y * per_row(torch.sqrt(radius / inner(y, y)), y)
 
 
 def tangent_project(x, v, inner: InnerProduct):
     """Project Euclidean (co)vector `v` onto the tangent plane at `x`
     (`tangent_vector`, `Sphere_Grad_Descent.py:644-659`)."""
-    return v - (inner(x, v) / inner(x, x)) * x
+    return v - per_row(inner(x, v) / inner(x, x), x) * x
 
 
 def transport(x, v, inner: InnerProduct):
     """Transport a tangent vector from the previous iterate's plane to x's
     (`transport_vector`, `Sphere_Grad_Descent.py:625-642`)."""
-    return v - (inner(x, v) / inner(x, x)) * x
+    return v - per_row(inner(x, v) / inner(x, x), x) * x
 
 
 # ---------------------------------------------------------------------------

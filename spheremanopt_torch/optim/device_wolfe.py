@@ -11,7 +11,7 @@ fused (phi, derphi) evaluation in front of it, in a CUDA graph; the loop
 there reads one flag, the phase, per trial.
 
 The searches mirror the host implementations (`optim/linesearch.py`,
-Nocedal & Wright Algorithms 3.5/3.6 as the reference embeds them,
+    Nocedal & Wright Algorithms 3.5/3.6 as the reference embeds them,
 `Sphere_Grad_Descent.py:344-613`) evaluation-for-evaluation: each trial
 is one fused (phi, derphi) evaluation at the point the same
 bracketing/zoom interpolation rules choose (cubic -> quadratic ->
@@ -28,6 +28,14 @@ counters bound the loop either way.
 The interpolants are computed in phi0's dtype, as in the JAX package.
 At f32 a device search therefore differs from the host search, whose
 arithmetic is Python floats, after the first interpolated trial.
+
+Rows. Every transition is elementwise, so the same code steps R
+independent searches at once: phi0, derphi0 and every field of the state
+are then (R,) tensors and the aux tensors carry a leading row axis. A
+row whose search has ended must not be stepped again; `freeze(mask, new,
+old)` keeps the rows outside `mask` as they were (the masking of
+`jax.vmap` over the JAX package's `lax.while_loop`), and the loops below
+run while any row's search is live.
 """
 
 from __future__ import annotations
@@ -42,10 +50,20 @@ _BRACKET, _ZOOM, _DONE, _FAIL = 0, 1, 2, 3
 
 def tree_where(cond, a, b):
     """`torch.where(cond, a, b)` over matching (nested) lists and tuples
-    of tensors."""
+    of tensors; a per-row `cond` (R,) selects along their leading axis."""
     if isinstance(a, (list, tuple)):
         return type(a)(tree_where(cond, x, y) for x, y in zip(a, b))
+    if cond.dim() and cond.dim() < a.dim():
+        cond = cond.reshape(cond.shape + (1,) * (a.dim() - cond.dim()))
     return torch.where(cond, a, b)
+
+
+def freeze(mask, new, old):
+    """`new` (a search state, or a dict of state entries) in the rows
+    where `mask` holds and `old` elsewhere."""
+    if isinstance(new, dict):
+        return {k: tree_where(mask, v, old[k]) for k, v in new.items()}
+    return type(new)(*(tree_where(mask, a, b) for a, b in zip(new, old)))
 
 
 def _quad_min(a, fa, dfa, b, fb):
@@ -97,8 +115,8 @@ def _as(v, like):
 def wolfe_init(phi0, derphi0, old_phi0, has_old_phi0, aux0, *,
                amax: float = 1.0) -> WolfeState:
     """The search's state before its first trial. phi0, derphi0 and
-    old_phi0 are 0-dim tensors of one dtype (old_phi0 is read only where
-    the 0-dim bool `has_old_phi0` holds)."""
+    old_phi0 are tensors of one dtype and shape, 0-dim or one value a row
+    (old_phi0 is read only where the bool `has_old_phi0` holds)."""
     has_old = torch.as_tensor(has_old_phi0, device=phi0.device)
     # initial trial: interpolate from the previous objective decrease
     # (host lines 183-192)
@@ -111,9 +129,9 @@ def wolfe_init(phi0, derphi0, old_phi0, has_old_phi0, aux0, *,
     a1 = torch.where(a1 < 0.0, 1.0, a1)
     a1 = torch.clamp(a1, max=amax)
     z = torch.zeros_like(phi0)
-    zi = torch.zeros((), dtype=torch.int64, device=phi0.device)
+    zi = torch.zeros(phi0.shape, dtype=torch.int64, device=phi0.device)
     return WolfeState(
-        phase=zi + _BRACKET, last=torch.zeros((), dtype=torch.bool,
+        phase=zi + _BRACKET, last=torch.zeros(phi0.shape, dtype=torch.bool,
                                               device=phi0.device),
         i=zi, j=zi,
         alpha_prev=z, phi_prev=phi0, derphi_prev=derphi0, alpha_cur=a1,
@@ -254,7 +272,8 @@ def device_wolfe(eval_fn: Callable, phi0, derphi0, aux0, old_phi0,
     retracted iterate and its tangent gradient) of the ACCEPTED
     evaluation is returned, the reference's gradient-reuse handoff
     (`Sphere_Grad_Descent.py:336-341`). Returns (alpha_star, phi_star,
-    aux_star, ok) with ok a 0-dim bool tensor.
+    aux_star, ok) with ok a bool tensor of phi0's shape. With (R,) inputs
+    the R searches run together, each row frozen once its search ends.
     """
     phi0 = torch.as_tensor(phi0)
     if not phi0.is_floating_point():
@@ -263,9 +282,10 @@ def device_wolfe(eval_fn: Callable, phi0, derphi0, aux0, old_phi0,
     st = wolfe_init(phi0, derphi0, old_phi0, has_old_phi0, aux0, amax=amax)
     kw = dict(phi0=phi0, derphi0=derphi0, c1=c1, c2=c2, amax=amax,
               maxiter=maxiter, max_zoom=max_zoom)
-    while int(st.phase) < _DONE:
+    while bool((st.phase < _DONE).any()):
+        live = st.phase < _DONE
         phi_t, derphi_t, aux_t = eval_fn(wolfe_trial(st))
-        st = wolfe_step(st, phi_t, derphi_t, aux_t, **kw)
+        st = freeze(live, wolfe_step(st, phi_t, derphi_t, aux_t, **kw), st)
     return st.a_star, st.phi_star, st.aux, st.phase == _DONE
 
 
@@ -289,10 +309,12 @@ class ArmijoState(NamedTuple):
 
 
 def armijo_init(phi0, aux0, *, alpha0: float = 1.0) -> ArmijoState:
-    """The backtracking search's state before its first trial."""
-    a = torch.full((), alpha0, dtype=phi0.dtype, device=phi0.device)
+    """The backtracking search's state before its first trial (0-dim, or
+    one value a row as phi0)."""
+    a = torch.full(phi0.shape, alpha0, dtype=phi0.dtype, device=phi0.device)
     return ArmijoState(
-        phase=torch.full((), _A_FIRST, dtype=torch.int64, device=phi0.device),
+        phase=torch.full(phi0.shape, _A_FIRST, dtype=torch.int64,
+                         device=phi0.device),
         trial=a, a0=a, phi_a0=phi0, a1=a, phi_a1=phi0,
         a_star=torch.zeros_like(phi0), phi_star=phi0, aux=aux0)
 
@@ -363,8 +385,9 @@ def device_armijo(eval_fn: Callable, phi0, derphi0, aux0, *,
         phi0 = phi0.double()
     derphi0 = _as(derphi0, phi0)
     st = armijo_init(phi0, aux0, alpha0=alpha0)
-    while int(st.phase) < _A_DONE:
+    while bool((st.phase < _A_DONE).any()):
+        live = st.phase < _A_DONE
         phi_t, _derphi_t, aux_t = eval_fn(st.trial)
-        st = armijo_step(st, phi_t, aux_t, phi0=phi0, derphi0=derphi0,
-                         c1=c1, amin=amin)
+        st = freeze(live, armijo_step(st, phi_t, aux_t, phi0=phi0, derphi0=derphi0,
+                                      c1=c1, amin=amin), st)
     return st.a_star, st.phi_star, st.aux, st.phase == _A_DONE

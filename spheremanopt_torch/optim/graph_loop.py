@@ -210,7 +210,8 @@ class GraphLoop:
 
 def load_inputs(S, x0, radii, aux_leaves):
     """Write one call's inputs into the state: the starting point, the
-    radii as 0-dim tensors in x0's dtype, and the aux operands."""
+    radii in x0's dtype (each a 0-dim tensor, or over rows an (R,) tensor
+    of per-row radii), and the aux operands."""
     like = x0[0]
     vals = {
         "x0": x0,
@@ -226,28 +227,70 @@ def load_inputs(S, x0, radii, aux_leaves):
             S[k] = [t.clone() for t in v]
 
 
-class DeviceOptimiser:
-    """`optimise(x0_list, radii_dyn=None, aux=None)` of a device loop.
+def row_radii(radii, radii_rows, n_rows):
+    """Per-sphere (R,) radii of a sweep: the columns of `radii_rows` (R,
+    n_spheres), or each static radius repeated R times."""
+    if radii_rows is None:
+        return [torch.full((n_rows,), float(r), dtype=torch.float64) for r in radii]
+    rr = torch.as_tensor(radii_rows, dtype=torch.float64)
+    if rr.shape != (n_rows, len(radii)):
+        raise ValueError(f"radii_rows must be ({n_rows}, {len(radii)}), got "
+                         f"{tuple(rr.shape)}")
+    return list(rr.unbind(1))
 
-    `make_steps(aux_obj)` builds the loop's steps for one aux operand
-    object, `drive(loop)` runs them from the start, `result(S)` reads the
-    result from the state. On the card (unless `graphs=False`) the first
-    call for a given set of shapes builds and captures a `GraphLoop`
-    (kept, and replayed by later calls with those shapes); otherwise each
-    call runs the steps eagerly. `last_loop` is the loop of the last call
-    (steps run, launches a replay holds).
+
+class DeviceOptimiser:
+    """`optimise(x0_list, radii_dyn=None, aux=None)` of a device loop, and
+    `optimise.sweep(x0_rows, radii_rows=None, aux=None)` over rows.
+
+    `make_steps(aux_obj, batched)` builds the loop's steps for one aux
+    operand object (with `batched`, over rows), `drive(loop)` runs them
+    from the start, `result(S)` reads the result from the state. On the
+    card (unless `graphs=False`) the first call for a given set of shapes
+    (a sweep's include its R) builds and captures a `GraphLoop` (kept, and
+    replayed by later calls with those shapes); otherwise each call runs
+    the steps eagerly. `last_loop` is the loop of the last call (steps
+    run, launches a replay holds), `last_replays` the steps that call ran
+    (over all its rows).
+
+    `native_rows` says that the problem has batched forms (the loop's
+    steps over rows); without them a sweep runs its rows one after
+    another on the unbatched loop, each row exactly its unbatched run.
     """
 
-    def __init__(self, make_steps, order, drive, result, radii, graphs=None):
+    def __init__(self, make_steps, order, drive, result, radii, graphs=None,
+                 native_rows=False):
         self.make_steps, self.order = make_steps, tuple(order)
         self.drive, self.result = drive, result
         self.radii, self.graphs = tuple(radii), graphs
+        self.native_rows = native_rows
         self.loops = {}
         self.last_loop = None
+        self.last_replays = {}
 
     def __call__(self, x0_list, radii_dyn=None, aux=None):
-        x0 = [torch.as_tensor(x) for x in x0_list]
         rr = self.radii if radii_dyn is None else list(radii_dyn)
+        self.last_replays = {}
+        return self._run(x0_list, rr, aux, False)
+
+    def sweep(self, x0_rows, radii_rows=None, aux=None):
+        """R optimisations: each x0 tensor is (R, ...), the result's fields
+        carry the row axis. The aux operand is one object shared by every
+        row."""
+        x0 = [torch.as_tensor(x) for x in x0_rows]
+        n_rows = x0[0].shape[0]
+        rr = row_radii(self.radii, radii_rows, n_rows)
+        self.last_replays = {}
+        if self.native_rows:
+            return self._run(x0, rr, aux, True)
+        outs = [self._run([x[i] for x in x0], [float(r[i]) for r in rr], aux, False)
+                for i in range(n_rows)]
+        return type(outs[0])(*(
+            [torch.stack(c) for c in zip(*vals)] if isinstance(vals[0], list)
+            else torch.stack(vals) for vals in zip(*outs)))
+
+    def _run(self, x0_list, rr, aux, batched):
+        x0 = [torch.as_tensor(x) for x in x0_list]
         leaves, rebuild = tree_flatten(aux)
         on_card = x0[0].device.type == "cuda"
         use_graphs = on_card if self.graphs is None else bool(self.graphs)
@@ -256,19 +299,23 @@ class DeviceOptimiser:
         if use_graphs:
             key = (tuple((tuple(x.shape), x.dtype, x.device) for x in x0),
                    tuple((tuple(a.shape), a.dtype, a.device) for a in leaves))
+            if batched:
+                key = ("rows",) + key
             L = self.loops.get(key)
             if L is None:
                 L = GraphLoop(None, self.order, graphs=True)
                 load_inputs(L.S, x0, rr, leaves)
                 L.steps = self.make_steps(None if aux is None
-                                          else rebuild(L.S["aux"]))
+                                          else rebuild(L.S["aux"]), batched)
                 L.build()
                 self.loops[key] = L
             load_inputs(L.S, x0, rr, leaves)
         else:
-            L = GraphLoop(self.make_steps(aux), self.order, graphs=False)
+            L = GraphLoop(self.make_steps(aux, batched), self.order, graphs=False)
             load_inputs(L.S, x0, rr, [])
         L.replays.clear()
         self.drive(L)
         self.last_loop = L
+        for k, v in L.replays.items():
+            self.last_replays[k] = self.last_replays.get(k, 0) + v
         return self.result(L.S)

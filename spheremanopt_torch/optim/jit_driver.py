@@ -43,6 +43,7 @@ from typing import Callable, List, NamedTuple, Sequence
 import torch
 
 from spheremanopt_torch.manifold import sphere as geom
+from spheremanopt_torch.manifold.sphere import per_row
 from spheremanopt_torch.optim.device_wolfe import (
     _A_DONE,
     _DONE,
@@ -50,15 +51,19 @@ from spheremanopt_torch.optim.device_wolfe import (
     WolfeState,
     armijo_init,
     armijo_step,
+    freeze,
+    tree_where,
     wolfe_init,
     wolfe_step,
     wolfe_trial,
 )
 from spheremanopt_torch.optim.graph_loop import DeviceOptimiser
 from spheremanopt_torch.optim.optimiser import _curv_eps
+from spheremanopt_torch.problems.base import RowForms
 
 
 class JitOptResult(NamedTuple):
+    """A sweep's result carries a leading row axis of R on every field."""
     x_opt: List[torch.Tensor]
     function_values: torch.Tensor   # (max_iters,) -J_k (reference convention)
     residuals: torch.Tensor         # (max_iters, n_spheres)
@@ -67,13 +72,19 @@ class JitOptResult(NamedTuple):
 
 
 def where_list(c, a, b):
-    return [torch.where(c, x, y) for x, y in zip(a, b)]
+    return tree_where(c, list(a), list(b))
 
 
 def set_row(hist, it, val):
-    """`hist` with row `it` (a 0-dim int tensor) replaced by `val`."""
-    m = torch.arange(hist.shape[0], device=hist.device) == it
-    return torch.where(m.view((-1,) + (1,) * (hist.dim() - 1)), val, hist)
+    """`hist` with row `it` (a 0-dim int tensor) replaced by `val`; with
+    a leading row axis, `it` is (R,) and each row's history gets its own
+    row."""
+    m = torch.arange(hist.shape[it.dim()], device=hist.device) == (
+        it.unsqueeze(-1) if it.dim() else it)
+    if it.dim() == 0:
+        return torch.where(m.view((-1,) + (1,) * (hist.dim() - 1)), val, hist)
+    m = m.reshape(m.shape + (1,) * (hist.dim() - 2))
+    return torch.where(m, val.unsqueeze(1), hist)
 
 
 def put_state(prefix, st) -> dict:
@@ -91,6 +102,18 @@ def put_state(prefix, st) -> dict:
 def get_state(prefix, cls, S):
     return cls(**{k: ((S[prefix + "xs"], S[prefix + "gs"]) if k == "aux"
                       else S[prefix + k]) for k in cls._fields})
+
+
+def drop_inputs(T) -> dict:
+    return {k: v for k, v in T.items() if k not in ("x0", "radii", "aux")}
+
+
+def commit_rows(S, T, live):
+    """A commit's outputs over rows: each row that was not `live` keeps
+    its whole state (a finished row is frozen, as under `jax.vmap`)."""
+    T = drop_inputs(T)
+    return dict(freeze(live, {k: v for k, v in T.items() if k in S}, S),
+                **{k: v for k, v in T.items() if k not in S})
 
 
 def jit_optimise_on_multi_sphere(
@@ -112,6 +135,7 @@ def jit_optimise_on_multi_sphere(
     lbfgs_memory: int = 8,
     f: Callable = None,
     graphs: bool = None,
+    rows: RowForms = None,
 ) -> Callable:
     """Build `optimise(x0_list, radii_dyn=None, aux=None) -> JitOptResult`.
 
@@ -128,6 +152,18 @@ def jit_optimise_on_multi_sphere(
     eagerly on the card, to hold the graphs against. The returned
     `DeviceOptimiser`'s `last_loop` is the `GraphLoop` of its last call
     (steps run, launches a replay holds).
+
+    `optimise.sweep(x0_rows, radii_rows=None, aux=None)` runs R
+    optimisations at once, the batched form of the JAX package's
+    `jax.vmap(lambda x, r: optimise([x], radii_dyn=[r]))`: each x0 tensor
+    and each field of the result carries a leading row axis of R, and
+    `radii_rows` is (R, n_spheres). Every row makes its unbatched run's
+    decisions: the loop runs while any row is live, a line search's trials
+    step only the rows whose search is still open, and a row that has
+    stopped keeps its state (its history is zeros past its last
+    iteration). `rows` gives the problem's native callables over rows
+    (`RowForms`, from `problems.base.row_forms`); without them (None) the
+    sweep runs its rows one after another on the unbatched loop.
     """
     if direction is None:
         direction = "cg" if cg else "sd"
@@ -143,103 +179,121 @@ def jit_optimise_on_multi_sphere(
     mlb = int(lbfgs_memory)
     n = len(radii)
     radii = tuple(float(r) for r in radii)
-    ips = geom._as_list(inner_prod, n)
     amax = alpha0 * (16.0 if use_lbfgs else 1.0)
 
-    def tangent(xs, nabs):
-        return [geom.tangent_project(x, v, ip) for x, v, ip in zip(xs, nabs, ips)]
-
-    def slope(gs, ds):
-        return sum(ip(g, d) for g, d, ip in zip(gs, ds, ips))
-
-    def residuals(gs):
-        return torch.stack([torch.sqrt(ip(g, g)) for g, ip in zip(gs, ips)])
-
-    def retract(xs, alpha, ds, rr):
-        return [geom.retract(x, alpha, d, r, ip)
-                for x, d, r, ip in zip(xs, ds, rr, ips)]
-
-    def cg_direction(xs, gs, gs_old, ds_old):
-        beta_fr = 0.0
-        beta_pr = 0.0
-        tds = []
-        for x, g, g_old, d_old, ip in zip(xs, gs, gs_old, ds_old, ips):
-            gg = ip(g, g)
-            gg_old = ip(g_old, g_old)
-            beta_fr = beta_fr + gg / gg_old
-            tg = geom.transport(x, g_old, ip)
-            beta_pr = beta_pr + (gg - ip(g, tg)) / gg_old
-            tds.append(geom.transport(x, d_old, ip))
-        beta = torch.clamp(torch.minimum(beta_fr, beta_pr), min=0.0)
-        return [-g + beta * td for g, td in zip(gs, tds)]
-
-    # ---- L-BFGS (direction="lbfgs"): the host driver's transported-pair
-    # two-loop with ring buffers of `mlb` slots per component, newest pair
-    # last, and a validity mask; invalid slots are exact no-ops (rho = a =
-    # 0), so the recursion matches the host's variable-length one to
-    # roundoff.
-
-    def lbfgs_two_loop(xs, gs, Sb, Yb, valid, gamma):
-        """d = -H.g (Nocedal & Wright Alg. 7.4); returns (d, <g,d>)."""
-        q = list(gs)
-        coeffs = []
-        for j in range(mlb - 1, -1, -1):           # newest -> oldest
-            s_j = [Sc[j] for Sc in Sb]
-            y_j = [Yc[j] for Yc in Yb]
-            sy_j = slope(y_j, s_j)
-            rho = torch.where(valid[j], 1.0 / torch.where(valid[j], sy_j, 1.0),
-                              0.0)
-            a = rho * slope(s_j, q)
-            q = [qi - a * yi for qi, yi in zip(q, y_j)]
-            coeffs.append((j, rho, a))
-        r = [gamma * qi for qi in q]
-        for (j, rho, a) in reversed(coeffs):       # oldest -> newest
-            s_j = [Sc[j] for Sc in Sb]
-            y_j = [Yc[j] for Yc in Yb]
-            b = rho * slope(y_j, r)
-            r = [ri + (a - b) * si for ri, si in zip(r, s_j)]
-        d = tangent(xs, [-ri for ri in r])
-        return d, slope(gs, d)
-
-    def lbfgs_update(xs, gs, gs_old, ds_old, alpha_prev, stepped_prev,
-                     Sb, Yb, valid, gamma):
-        """Pair formation and history transport at the current iterate,
-        masked by whether the previous iteration stepped."""
-        s_new = tangent(xs, [alpha_prev * d for d in ds_old])
-        tg = tangent(xs, gs_old)
-        y_new = [gn - t for gn, t in zip(gs, tg)]
-        sy = slope(s_new, y_new)
-        yy = slope(y_new, y_new)
-        ss = slope(s_new, s_new)
-        keep = stepped_prev & (
-            sy > _curv_eps(sy.dtype)
-            * torch.sqrt(torch.clamp(ss, min=0.0) * torch.clamp(yy, min=0.0))) & (
-            yy > 0.0)
-        S2, Y2 = [], []
-        for x, Sc, Yc, s_c, y_c, ip in zip(xs, Sb, Yb, s_new, y_new, ips):
-            def tr(M, _x=x, _ip=ip):
-                return torch.stack([geom.tangent_project(_x, v, _ip) for v in M])
-            St = torch.where(stepped_prev, tr(Sc), Sc)
-            Yt = torch.where(stepped_prev, tr(Yc), Yc)
-            S2.append(torch.where(keep, torch.cat([St[1:], s_c[None]], 0), St))
-            Y2.append(torch.where(keep, torch.cat([Yt[1:], y_c[None]], 0), Yt))
-        valid2 = torch.where(keep, torch.cat([valid[1:], torch.ones_like(valid[:1])]),
-                             valid)
-        gamma2 = torch.where(keep, sy / torch.where(yy > 0.0, yy, 1.0), gamma)
-        return S2, Y2, valid2, gamma2
-
-    def flag_of(b):
-        return b.to(torch.int64)
-
-    def make_steps(aux_obj):
-        """The loop's steps, bound to one aux operand object."""
-        if aux_obj is None:
-            fg, fj = f_and_g, f
+    def make_steps(aux_obj, batched=False):
+        """The loop's steps, bound to one aux operand object; with
+        `batched`, over rows (`rows`' callables, per-row masks)."""
+        if batched:
+            fg0, f0, ips = rows.f_and_g, rows.f, geom._as_list(rows.inner_product, n)
         else:
-            fg = lambda xs: f_and_g(aux_obj, xs)   # noqa: E731
-            fj = None if f is None else (lambda xs: f(aux_obj, xs))  # noqa: E731
+            fg0, f0, ips = f_and_g, f, geom._as_list(inner_prod, n)
+        if aux_obj is None:
+            fg, fj = fg0, f0
+        else:
+            fg = lambda xs: fg0(aux_obj, xs)   # noqa: E731
+            fj = None if f0 is None else (lambda xs: f0(aux_obj, xs))  # noqa: E731
         if fj is None:
             fj = lambda xs: fg(xs)[0]   # noqa: E731
+        # L-BFGS slots: (mlb, ...) per component, (R, mlb, ...) over rows
+        sa = 1 if batched else 0
+
+        def slot(M, j):
+            return M[:, j] if batched else M[j]
+
+        def tangent(xs, nabs):
+            return [geom.tangent_project(x, v, ip) for x, v, ip in zip(xs, nabs, ips)]
+
+        def slope(gs, ds):
+            return sum(ip(g, d) for g, d, ip in zip(gs, ds, ips))
+
+        def residuals(gs):
+            return torch.stack([torch.sqrt(ip(g, g)) for g, ip in zip(gs, ips)], -1)
+
+        def retract(xs, alpha, ds, rr):
+            return [geom.retract(x, alpha, d, r, ip)
+                    for x, d, r, ip in zip(xs, ds, rr, ips)]
+
+        def flag_of(b):
+            """The host's word: over rows, whether any row holds `b`."""
+            return (b.any() if batched else b).to(torch.int64)
+
+        def all_of(b):
+            """The host's word: over rows, whether every row holds `b`."""
+            return (b.all() if batched else b).to(torch.int64)
+
+        def cg_direction(xs, gs, gs_old, ds_old):
+            beta_fr = 0.0
+            beta_pr = 0.0
+            tds = []
+            for x, g, g_old, d_old, ip in zip(xs, gs, gs_old, ds_old, ips):
+                gg = ip(g, g)
+                gg_old = ip(g_old, g_old)
+                beta_fr = beta_fr + gg / gg_old
+                tg = geom.transport(x, g_old, ip)
+                beta_pr = beta_pr + (gg - ip(g, tg)) / gg_old
+                tds.append(geom.transport(x, d_old, ip))
+            beta = torch.clamp(torch.minimum(beta_fr, beta_pr), min=0.0)
+            return [-g + per_row(beta, td) * td for g, td in zip(gs, tds)]
+
+        # ---- L-BFGS (direction="lbfgs"): the host driver's transported-pair
+        # two-loop with ring buffers of `mlb` slots per component, newest
+        # pair last, and a validity mask; invalid slots are exact no-ops
+        # (rho = a = 0), so the recursion matches the host's variable-length
+        # one to roundoff.
+
+        def lbfgs_two_loop(xs, gs, Sb, Yb, valid, gamma):
+            """d = -H.g (Nocedal & Wright Alg. 7.4); returns (d, <g,d>)."""
+            q = list(gs)
+            coeffs = []
+            for j in range(mlb - 1, -1, -1):           # newest -> oldest
+                s_j = [slot(Sc, j) for Sc in Sb]
+                y_j = [slot(Yc, j) for Yc in Yb]
+                v_j = valid[..., j]
+                sy_j = slope(y_j, s_j)
+                rho = torch.where(v_j, 1.0 / torch.where(v_j, sy_j, 1.0), 0.0)
+                a = rho * slope(s_j, q)
+                q = [qi - per_row(a, yi) * yi for qi, yi in zip(q, y_j)]
+                coeffs.append((j, rho, a))
+            r = [per_row(gamma, qi) * qi for qi in q]
+            for (j, rho, a) in reversed(coeffs):       # oldest -> newest
+                s_j = [slot(Sc, j) for Sc in Sb]
+                y_j = [slot(Yc, j) for Yc in Yb]
+                b = rho * slope(y_j, r)
+                r = [ri + per_row(a - b, si) * si for ri, si in zip(r, s_j)]
+            d = tangent(xs, [-ri for ri in r])
+            return d, slope(gs, d)
+
+        def lbfgs_update(xs, gs, gs_old, ds_old, alpha_prev, stepped_prev,
+                         Sb, Yb, valid, gamma):
+            """Pair formation and history transport at the current iterate,
+            masked by whether the previous iteration stepped."""
+            s_new = tangent(xs, [per_row(alpha_prev, d) * d for d in ds_old])
+            tg = tangent(xs, gs_old)
+            y_new = [gn - t for gn, t in zip(gs, tg)]
+            sy = slope(s_new, y_new)
+            yy = slope(y_new, y_new)
+            ss = slope(s_new, s_new)
+            keep = stepped_prev & (
+                sy > _curv_eps(sy.dtype)
+                * torch.sqrt(torch.clamp(ss, min=0.0) * torch.clamp(yy, min=0.0))) & (
+                yy > 0.0)
+            S2, Y2 = [], []
+            for x, Sc, Yc, s_c, y_c, ip in zip(xs, Sb, Yb, s_new, y_new, ips):
+                def tr(M, _x=x, _ip=ip):
+                    return torch.stack([geom.tangent_project(_x, v, _ip)
+                                        for v in M.unbind(sa)], sa)
+                St = tree_where(stepped_prev, tr(Sc), Sc)
+                Yt = tree_where(stepped_prev, tr(Yc), Yc)
+                S2.append(tree_where(keep, torch.cat(
+                    [St[:, 1:] if batched else St[1:], s_c.unsqueeze(sa)], sa), St))
+                Y2.append(tree_where(keep, torch.cat(
+                    [Yt[:, 1:] if batched else Yt[1:], y_c.unsqueeze(sa)], sa), Yt))
+            valid2 = tree_where(keep, torch.cat([valid[..., 1:],
+                                                 torch.ones_like(valid[..., :1])], -1),
+                                valid)
+            gamma2 = torch.where(keep, sy / torch.where(yy > 0.0, yy, 1.0), gamma)
+            return S2, Y2, valid2, gamma2
 
         def begin(S):
             """Normalise x0 onto the spheres, J and the tangent gradient
@@ -249,12 +303,12 @@ def jit_optimise_on_multi_sphere(
                   for x, r, ip in zip(S["x0"], rr, ips)]
             J0, nab0 = fg(xs)
             g0 = tangent(xs, nab0)
-            z = torch.zeros(max_iters, dtype=J0.dtype, device=J0.device)
+            z = torch.zeros(J0.shape + (max_iters,), dtype=J0.dtype, device=J0.device)
             return dict(xs=xs, J=J0, J0=J0, g0=g0, gs=g0,
                         J_hist=z, a_hist=z,
-                        r_hist=torch.zeros((max_iters, n), dtype=J0.dtype,
+                        r_hist=torch.zeros(J0.shape + (max_iters, n), dtype=J0.dtype,
                                            device=J0.device),
-                        it=torch.zeros((), dtype=torch.int64, device=J0.device))
+                        it=torch.zeros(J0.shape, dtype=torch.int64, device=J0.device))
 
         # ---- wolfe mode ----------------------------------------------------
 
@@ -272,10 +326,10 @@ def jit_optimise_on_multi_sphere(
                 # host semantics: the two-loop only with a non-empty history
                 # AND a descent result; otherwise steepest descent and (when
                 # non-descent with pairs) a history reset
-                has_pairs = valid.any()
+                has_pairs = valid.any(-1)
                 ok_dir = has_pairs & (slope_lb < 0)
                 reset = has_pairs & ~(slope_lb < 0)
-                valid = valid & ~reset
+                valid = valid & ~per_row(reset, valid)
                 gamma = torch.where(reset, 1.0, gamma)
                 ds = where_list(ok_dir, d_lb, ds_sd)
                 slope0 = torch.where(ok_dir, slope_lb, slope(gs, ds_sd))
@@ -300,18 +354,21 @@ def jit_optimise_on_multi_sphere(
             ds0 = [-g for g in T["g0"]]
             slope00 = slope(T["g0"], ds0)
             st = armijo_init(T["J0"], (T["xs"], T["g0"]), alpha0=alpha0)
-            return dict(T, ds=ds0, slope0=slope00, flag=torch.zeros_like(st.phase),
-                        **put_state("a_", st))
+            flag = torch.zeros((), dtype=torch.int64, device=st.phase.device)
+            return dict(T, ds=ds0, slope0=slope00, flag=flag, **put_state("a_", st))
 
         def w_armijo_trial(S):
-            """One trial of the iteration-0 interpolated Armijo search."""
+            """One trial of the iteration-0 interpolated Armijo search (over
+            rows, of the rows whose search is open)."""
             st = get_state("a_", ArmijoState, S)
             xs_t = retract(S["xs"], st.trial, S["ds"], S["radii"])
             J_t, nab_t = fg(xs_t)
             gs_t = tangent(xs_t, nab_t)
-            st = armijo_step(st, J_t, (xs_t, gs_t), phi0=S["J0"],
-                             derphi0=S["slope0"], c1=c1)
-            return dict(flag=flag_of(st.phase >= _A_DONE), **put_state("a_", st))
+            new = armijo_step(st, J_t, (xs_t, gs_t), phi0=S["J0"],
+                              derphi0=S["slope0"], c1=c1)
+            if batched:
+                new = freeze(st.phase < _A_DONE, new, st)
+            return dict(flag=all_of(new.phase >= _A_DONE), **put_state("a_", new))
 
         def w_commit0(S):
             """Iteration 0's commit (the host's pass-2 gradient is the
@@ -320,7 +377,7 @@ def jit_optimise_on_multi_sphere(
             ok0 = st.phase == _A_DONE
             J = torch.where(ok0, st.phi_star, S["J0"])
             res0 = residuals(S["g0"])
-            active = ok0 & (res0.max() > err_tol)
+            active = ok0 & (res0.amax(-1) > err_tol)
             T = dict(S)
             T.update(
                 xs=where_list(ok0, st.aux[0], S["xs"]), J=J,
@@ -333,21 +390,24 @@ def jit_optimise_on_multi_sphere(
                 has_old=torch.zeros_like(ok0), active=active,
                 it=S["it"] + 1)
             if use_lbfgs:
-                T.update(lb_S=[torch.zeros((mlb,) + g.shape, dtype=g.dtype,
-                                           device=g.device) for g in S["g0"]],
-                         lb_Y=[torch.zeros((mlb,) + g.shape, dtype=g.dtype,
-                                           device=g.device) for g in S["g0"]],
-                         lb_valid=torch.zeros(mlb, dtype=torch.bool,
+                def ring(g):
+                    shape = (g.shape[:1] + (mlb,) + g.shape[1:] if batched
+                             else (mlb,) + g.shape)
+                    return torch.zeros(shape, dtype=g.dtype, device=g.device)
+                T.update(lb_S=[ring(g) for g in S["g0"]],
+                         lb_Y=[ring(g) for g in S["g0"]],
+                         lb_valid=torch.zeros(J.shape + (mlb,), dtype=torch.bool,
                                               device=J.device),
                          lb_gamma=torch.ones_like(J), lb_alpha=st.a_star,
                          lb_stepped=ok0)
             T.update(w_direction(T))
             T["flag"] = flag_of(active)
-            return {k: v for k, v in T.items() if k not in ("x0", "radii", "aux")}
+            return drop_inputs(T)
 
         def w_trial(S):
             """One Wolfe trial: retract at the state's alpha, f_and_g,
-            tangent gradient, slope, the search's transition."""
+            tangent gradient, slope, the search's transition (over rows, of
+            the live rows whose search is open)."""
             st = get_state("w_", WolfeState, S)
             a_t = wolfe_trial(st)
             xs_t = retract(S["xs"], a_t, S["ds"], S["radii"])
@@ -357,10 +417,14 @@ def jit_optimise_on_multi_sphere(
                 g_t = geom.tangent_project(x_t, nb, ip)
                 gs_t.append(g_t)
                 slope_t = slope_t + ip(g_t, geom.transport(x_t, d, ip))
-            st = wolfe_step(st, J_t, slope_t, (xs_t, gs_t), phi0=S["J"],
-                            derphi0=S["slope0"], c1=c1, c2=c2, amax=amax,
-                            a_t=a_t)
-            return dict(flag=flag_of(st.phase >= _DONE), **put_state("w_", st))
+            new = wolfe_step(st, J_t, slope_t, (xs_t, gs_t), phi0=S["J"],
+                             derphi0=S["slope0"], c1=c1, c2=c2, amax=amax,
+                             a_t=a_t)
+            if not batched:
+                return dict(flag=flag_of(new.phase >= _DONE), **put_state("w_", new))
+            new = freeze(S["active"] & (st.phase < _DONE), new, st)
+            return dict(flag=all_of(~S["active"] | (new.phase >= _DONE)),
+                        **put_state("w_", new))
 
         def w_commit(S):
             """An iteration's commit (a masked no-op on a failed search),
@@ -384,14 +448,15 @@ def jit_optimise_on_multi_sphere(
                 J_old=torch.where(step, S["J"], S["J_old"]),
                 has_old=S["has_old"] | step,
                 J=torch.where(step, st.phi_star, S["J"]),
-                active=S["active"] & ok & (res.max() > err_tol),
+                active=S["active"] & ok & (res.amax(-1) > err_tol),
                 it=it + 1)
             if use_lbfgs:
                 T.update(lb_alpha=torch.where(step, st.a_star, S["lb_alpha"]),
                          lb_stepped=step)
             T.update(w_direction(T))
+            T = commit_rows(S, T, S["active"]) if batched else drop_inputs(T)
             T["flag"] = flag_of(T["active"])
-            return {k: v for k, v in T.items() if k not in ("x0", "radii", "aux")}
+            return T
 
         # ---- armijo mode ---------------------------------------------------
 
@@ -407,16 +472,19 @@ def jit_optimise_on_multi_sphere(
             else:
                 ds = ds_sd
             alpha = torch.clamp(T["alpha_prev"] * grow, max=alpha0 * 1e3)
-            return dict(ds=ds, slope0=slope(gs, ds), b_alpha=alpha, b_a=alpha,
-                        b_J=T["J"], b_k=torch.zeros_like(T["it"]))
+            out = dict(ds=ds, slope0=slope(gs, ds), b_alpha=alpha, b_a=alpha,
+                       b_J=T["J"], b_k=torch.zeros_like(T["it"]))
+            if batched:   # over rows: whose backtracking is still open
+                out["b_more"] = torch.ones_like(T["active"])
+            return out
 
         def a_start(S):
             T = begin(S)
             J0 = T["J0"]
             T.update(gs_old=T["g0"], ds_old=[-g for g in T["g0"]],
-                     alpha_prev=torch.full((), alpha0 / 2.0, dtype=J0.dtype,
+                     alpha_prev=torch.full(J0.shape, alpha0 / 2.0, dtype=J0.dtype,
                                            device=J0.device),
-                     active=torch.ones((), dtype=torch.bool, device=J0.device))
+                     active=torch.ones(J0.shape, dtype=torch.bool, device=J0.device))
             T.update(a_direction(T))
             T["flag"] = flag_of(T["active"])
             return T
@@ -427,10 +495,13 @@ def jit_optimise_on_multi_sphere(
             J_t = fj(retract(S["xs"], alpha, S["ds"], S["radii"]))
             insufficient = J_t > S["J"] + c1 * alpha * S["slope0"]
             more = insufficient & (S["b_k"] < max_backtracks)
-            return dict(b_a=alpha, b_J=J_t,
-                        b_alpha=torch.where(more, alpha * shrink, alpha),
-                        b_k=S["b_k"] + more.to(S["b_k"].dtype),
-                        flag=flag_of(~more))
+            out = dict(b_a=alpha, b_J=J_t,
+                       b_alpha=torch.where(more, alpha * shrink, alpha),
+                       b_k=S["b_k"] + more.to(S["b_k"].dtype))
+            if not batched:
+                return dict(out, flag=flag_of(~more))
+            out = freeze(S["active"] & S["b_more"], dict(out, b_more=more), S)
+            return dict(out, flag=all_of(~S["active"] | ~out["b_more"]))
 
         def a_commit(S):
             alpha, J_new = S["b_a"], S["b_J"]
@@ -451,12 +522,13 @@ def jit_optimise_on_multi_sphere(
                 a_hist=set_row(S["a_hist"], it, torch.where(step, alpha, 0.0)),
                 gs_old=S["gs"], ds_old=S["ds"],
                 gs=where_list(step, tangent(xs, nab), S["gs"]),
-                active=S["active"] & ok & (res.max() > err_tol),
+                active=S["active"] & ok & (res.amax(-1) > err_tol),
                 alpha_prev=torch.where(step, alpha, S["alpha_prev"]),
                 it=it + 1)
             T.update(a_direction(T))
+            T = commit_rows(S, T, S["active"]) if batched else drop_inputs(T)
             T["flag"] = flag_of(T["active"])
-            return {k: v for k, v in T.items() if k not in ("x0", "radii", "aux")}
+            return T
 
         if wolfe:
             return dict(start=w_start, arm_trial=w_armijo_trial,
@@ -467,6 +539,9 @@ def jit_optimise_on_multi_sphere(
              else ("start", "trial", "commit"))
 
     def drive(L):
+        """The loop on the host: one flag read a step. Over rows, a trial's
+        flag says that no live row's search is open, and a commit's that
+        some row is still live."""
         if wolfe:
             L.run("start")
             while not L.run("arm_trial"):
@@ -485,6 +560,7 @@ def jit_optimise_on_multi_sphere(
     def result(S):
         return JitOptResult([x.clone() for x in S["xs"]], S["J_hist"].clone(),
                             S["r_hist"].clone(), S["a_hist"].clone(),
-                            (S["a_hist"] > 0).sum())
+                            (S["a_hist"] > 0).sum(-1))
 
-    return DeviceOptimiser(make_steps, order, drive, result, radii, graphs)
+    return DeviceOptimiser(make_steps, order, drive, result, radii, graphs,
+                           native_rows=rows is not None)

@@ -28,6 +28,12 @@ Histories are recorded per ACCEPTED iterate, residuals from the
 pre-update gradient (Sphere_Grad_Descent.py:796). At the max_iters cap
 the final pass computes the gradient and residuals only (no tCG), and
 pays the trial's forward solve, as the JAX device loop does.
+
+`optimise.sweep(x0_rows, radii_rows=None, aux=None)` runs R trust-region
+optimisations at once over a leading row axis, as `jax.vmap` of the JAX
+package's loop: `live` gates every state mutation of a row, a row's tCG
+steps only while its own subproblem is open, and the loop runs while any
+row is live; `iterations`, `trials` and `converged` are per row.
 """
 
 from __future__ import annotations
@@ -38,9 +44,11 @@ import numpy as np
 import torch
 
 from spheremanopt_torch.manifold import sphere as geom
+from spheremanopt_torch.optim.device_wolfe import freeze, tree_where
 from spheremanopt_torch.optim.graph_loop import DeviceOptimiser
 from spheremanopt_torch.optim.jit_driver import set_row
 from spheremanopt_torch.optim.rtr import build_full_step
+from spheremanopt_torch.problems.base import RowForms
 
 _TCG = ("eta", "r", "p", "rr", "mval", "j", "done", "hit", "err", "coeff",
         "stop")
@@ -74,6 +82,7 @@ def jit_optimise_rtr(
     max_cg: int = 50,
     max_trials: Optional[int] = None,
     graphs: bool = None,
+    rows: RowForms = None,
 ) -> Callable:
     """Build `optimise(x0_list, radii_dyn=None, aux=None) -> JitRTRResult`.
 
@@ -85,22 +94,32 @@ def jit_optimise_rtr(
     4x per reject and collapses below delta_min after ~17 consecutive
     ones, so the bound is not the binding stop in practice. `graphs` as
     in `jit_optimise_on_multi_sphere`; the returned `DeviceOptimiser`'s
-    `last_loop` is the `GraphLoop` of its last call.
+    `last_loop` is the `GraphLoop` of its last call. `rows` gives the
+    problem's native callables over rows (`RowForms`: its `f` and `grad`);
+    without them (None) a sweep runs its rows one after another on the
+    unbatched loop.
     """
     n = len(radii)
     radii_static = tuple(float(r) for r in radii)
-    ips = geom._as_list(inner_prod, n)
     sphere_scale = float(np.sqrt(sum(radii_static)))
     dmax_s = 2.0 * sphere_scale if delta_max is None else float(delta_max)
     d0_s = dmax_s / 8.0 if delta0 is None else float(delta0)
     hi = int(max_trials) if max_trials is not None else 2 * max_iters + 64
 
-    def make_steps(aux_obj):
-        if aux_obj is None:
-            f_b, g_b = f, grad_f
+    def make_steps(aux_obj, batched=False):
+        if batched:
+            f0, g0, ips = rows.f, rows.grad, geom._as_list(rows.inner_product, n)
         else:
-            f_b = lambda xs: f(aux_obj, xs)        # noqa: E731
-            g_b = lambda xs: grad_f(aux_obj, xs)   # noqa: E731
+            f0, g0, ips = f, grad_f, geom._as_list(inner_prod, n)
+        if aux_obj is None:
+            f_b, g_b = f0, g0
+        else:
+            f_b = lambda xs: f0(aux_obj, xs)        # noqa: E731
+            g_b = lambda xs: g0(aux_obj, xs)   # noqa: E731
+
+        def flag_of(b):
+            """The host's word: over rows, whether any row holds `b`."""
+            return (b.any() if batched else b).to(torch.int64)
 
         def full_step(S):
             return build_full_step(S["radii"], ips, f_b, g_b, theta, kappa,
@@ -113,30 +132,35 @@ def jit_optimise_rtr(
             xs = [geom.normalise_sphere(x, r, ip)
                   for x, r, ip in zip(S["x0"], S["radii"], ips)]
             J0 = f_b(xs)
-            dev, dt = J0.device, J0.dtype
-            zi = torch.zeros((), dtype=torch.int64, device=dev)
-            z = torch.zeros(max_iters, dtype=dt, device=dev)
-            return dict(xs=xs, J=J0, delta=torch.full((), d0_s, dtype=dt,
+            dev, dt, sh = J0.device, J0.dtype, J0.shape
+            zi = torch.zeros(sh, dtype=torch.int64, device=dev)
+            z = torch.zeros(sh + (max_iters,), dtype=dt, device=dev)
+            return dict(xs=xs, J=J0, delta=torch.full(sh, d0_s, dtype=dt,
                                                       device=dev),
-                        live=torch.ones((), dtype=torch.bool, device=dev),
-                        k=zi, conv=torch.zeros((), dtype=torch.bool, device=dev),
+                        live=torch.ones(sh, dtype=torch.bool, device=dev),
+                        k=zi, conv=torch.zeros(sh, dtype=torch.bool, device=dev),
                         nhvp=zi, t=zi, J_hist=z, s_hist=z,
-                        r_hist=torch.zeros((max_iters, n), dtype=dt, device=dev),
-                        flag=zi + 1)
+                        r_hist=torch.zeros(sh + (max_iters, n), dtype=dt, device=dev),
+                        flag=torch.ones((), dtype=torch.int64, device=dev))
 
         def grad(S):
             K = full_step(S)
             st = K.begin(S["xs"], check_only=S["k"] >= max_iters)
+            if batched:   # a row that is not live takes no tCG step
+                st["done"] = st["done"] | ~S["live"]
             out = {"c_" + k: v for k, v in st.items()}
-            out["flag"] = K.more(st).to(torch.int64)
+            out["flag"] = flag_of(K.more(st))
             return out
 
         def cg(S):
             K = full_step(S)
             st = tcg_state(S)
-            st.update(K.cg(S["xs"], st, S["delta"]))
+            if batched:   # only the rows whose subproblem is open step
+                st = freeze(K.more(st), dict(st, **K.cg(S["xs"], st, S["delta"])), st)
+            else:
+                st.update(K.cg(S["xs"], st, S["delta"]))
             out = {"c_" + k: v for k, v in st.items()}
-            out["flag"] = K.more(st).to(torch.int64)
+            out["flag"] = flag_of(K.more(st))
             return out
 
         def decide(S):
@@ -149,7 +173,7 @@ def jit_optimise_rtr(
             nhvp = S["nhvp"] + torch.where(live, n_hvp, 0)
 
             # host decision ladder, in order (module docstring)
-            converged = torch.max(err) <= err_tol
+            converged = err.amax(-1) <= err_tol
             pred_bad = (pred <= 0.0) | ~torch.isfinite(pred)
             pred_noise = pred < 4.0 * j_eps * (1.0 + torch.abs(J))
             stop_now = converged | pred_bad | pred_noise
@@ -168,15 +192,15 @@ def jit_optimise_rtr(
             delta = torch.where(live & ~stop_now & ~at_cap, delta_new, delta)
 
             accept = live & ~at_cap & (rho > rho_accept) & ~stop_now
-            xs = [torch.where(accept, xt, x) for xt, x in zip(x_trial, S["xs"])]
+            xs = tree_where(accept, list(x_trial), list(S["xs"]))
             # record the accepted iterate at slot k (pre-update residuals,
             # -J per the reference convention)
-            J_hist = torch.where(accept, set_row(S["J_hist"], k, -J_trial),
-                                 S["J_hist"])
-            r_hist = torch.where(accept, set_row(S["r_hist"], k, err),
-                                 S["r_hist"])
-            s_hist = torch.where(accept, set_row(S["s_hist"], k, eta_norm),
-                                 S["s_hist"])
+            J_hist = tree_where(accept, set_row(S["J_hist"], k, -J_trial),
+                                S["J_hist"])
+            r_hist = tree_where(accept, set_row(S["r_hist"], k, err),
+                                S["r_hist"])
+            s_hist = tree_where(accept, set_row(S["s_hist"], k, eta_norm),
+                                S["s_hist"])
             J = torch.where(accept, J_trial, J)
             k = k + accept.to(k.dtype)
 
@@ -190,9 +214,10 @@ def jit_optimise_rtr(
             # that runs out as k reaches the cap still runs the final
             # convergence check the host driver always performs
             more = active & ((t < hi) | (k >= max_iters))
-            return dict(xs=xs, J=J, delta=delta, live=active, k=k, conv=conv,
-                        nhvp=nhvp, t=t, J_hist=J_hist, r_hist=r_hist,
-                        s_hist=s_hist, flag=more.to(torch.int64))
+            # over rows a row lives on only while its own loop would
+            return dict(xs=xs, J=J, delta=delta, live=more if batched else active,
+                        k=k, conv=conv, nhvp=nhvp, t=t, J_hist=J_hist,
+                        r_hist=r_hist, s_hist=s_hist, flag=flag_of(more))
 
         return dict(start=start, grad=grad, cg=cg, decide=decide)
 
@@ -212,4 +237,5 @@ def jit_optimise_rtr(
                             S["k"].clone(), S["conv"].clone(), S["t"].clone(),
                             S["nhvp"].clone())
 
-    return DeviceOptimiser(make_steps, order, drive, result, radii_static, graphs)
+    return DeviceOptimiser(make_steps, order, drive, result, radii_static, graphs,
+                           native_rows=rows is not None)

@@ -48,6 +48,7 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from spheremanopt_torch.manifold import sphere as geom
+from spheremanopt_torch.manifold.sphere import per_row
 from spheremanopt_torch.optim.optimiser import OptimiseResult
 
 
@@ -91,6 +92,11 @@ class FullStep:
     True) the trial objective is not evaluated (J_trial = +inf, never
     consumed). The device loop passes a tensor flag and pays the trial's
     forward solve, as the JAX device loop does.
+
+    The parts are elementwise in the per-component scalars, so with a
+    leading row axis on the state (and per-row inner products and radii)
+    they step R independent subproblems; the device loop masks the rows
+    whose tCG has stopped.
     """
 
     def __init__(self, radii, inner_prod, f: Callable, grad_f: Callable,
@@ -114,7 +120,7 @@ class FullStep:
         ||eta|| <= delta."""
         nab = self.grad_f(list(xs))
         g = self._tangent(xs, nab)
-        err = torch.stack([torch.sqrt(ip(gi, gi)) for gi, ip in zip(g, self.ips)])
+        err = torch.stack([torch.sqrt(ip(gi, gi)) for gi, ip in zip(g, self.ips)], -1)
         coeff = [ip(x, nb) / ip(x, x) for x, nb, ip in zip(xs, nab, self.ips)]
         rr0 = self._slope(g, g)
         norm_r0 = torch.sqrt(rr0)
@@ -122,13 +128,13 @@ class FullStep:
         stop = norm_r0 * torch.clamp(norm_r0 ** self.theta, max=self.kappa)
         # skip the subproblem when the outer loop is about to declare
         # convergence (the host's predicate), or on the check-only pass
-        done = (norm_r0 == 0.0) | (torch.max(err) <= self.err_tol)
+        done = (norm_r0 == 0.0) | (err.amax(-1) <= self.err_tol)
         if check_only is not False:    # Python True, or a tensor flag
             done = done | torch.as_tensor(check_only, device=done.device)
         return dict(err=err, coeff=coeff, stop=stop,
                     eta=[torch.zeros_like(gi) for gi in g], r=list(g),
                     p=[-gi for gi in g], rr=rr0, mval=torch.zeros_like(rr0),
-                    j=torch.zeros((), dtype=torch.int64, device=rr0.device),
+                    j=torch.zeros(rr0.shape, dtype=torch.int64, device=rr0.device),
                     done=done, hit=torch.zeros_like(done))
 
     def more(self, st):
@@ -140,7 +146,7 @@ class FullStep:
         eta, r, p, rr, mval = st["eta"], st["r"], st["p"], st["rr"], st["mval"]
         _, dnab = gradient_jvp(self.grad_f, list(xs), p)
         pdn = self._tangent(xs, dnab)
-        hp = [pd - c * v for pd, c, v in zip(pdn, st["coeff"], p)]
+        hp = [pd - per_row(c, v) * v for pd, c, v in zip(pdn, st["coeff"], p)]
         php = self._slope(p, hp)
         pp = self._slope(p, p)
         ep = self._slope(eta, p)
@@ -153,15 +159,15 @@ class FullStep:
         ee_after = ee + 2.0 * alpha * ep + alpha * alpha * pp
         boundary = (php <= 0.0) | (ee_after >= delta * delta)
         step = torch.where(boundary, tau, alpha)
-        eta2 = [e + step * pi for e, pi in zip(eta, p)]
+        eta2 = [e + per_row(step, pi) * pi for e, pi in zip(eta, p)]
         # model change along p, computed directly (robust to CG
         # orthogonality drift): step*<p,r> + 0.5 step^2 <p,Hp>
         mval2 = mval + step * pr + 0.5 * step * step * php
-        r2 = [ri + step * hi for ri, hi in zip(r, hp)]
+        r2 = [ri + per_row(step, hi) * hi for ri, hi in zip(r, hp)]
         rr2 = self._slope(r2, r2)
         small = torch.sqrt(rr2) <= st["stop"]
         beta = rr2 / rr
-        p2 = [-r2i + beta * pi for r2i, pi in zip(r2, p)]
+        p2 = [-r2i + per_row(beta, pi) * pi for r2i, pi in zip(r2, p)]
         return dict(eta=eta2, r=r2, p=p2, rr=rr2, mval=mval2, j=st["j"] + 1,
                     done=boundary | small, hit=st["hit"] | boundary)
 
@@ -172,7 +178,7 @@ class FullStep:
         xn = [geom.retract(x, 1.0, e, r, ip)
               for x, e, r, ip in zip(xs, eta, self.radii, self.ips)]
         if skip_f:
-            J_trial = torch.full((), float("inf"), dtype=eta_norm.dtype,
+            J_trial = torch.full(eta_norm.shape, float("inf"), dtype=eta_norm.dtype,
                                  device=eta_norm.device)
         else:
             J_trial = self.f(xn)

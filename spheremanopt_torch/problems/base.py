@@ -10,11 +10,17 @@ tensors, together with the sphere radii and IC generation:
     x0 = p.generate_ic(seed=42)
     res = optimise_on_multi_sphere(x0, p.radii, p.objective, p.gradient,
                                    p.inner_product, ...)
+
+Rows. A sweep runs R independent optimisations at once, each state
+tensor with a leading row axis (R, ...). `row_forms(problem)` gives the
+callables it needs (`RowForms`): the problem's native batched forms where
+it has them (`problem.row_forms()`), else None, and the sweep then runs
+its rows one after another on the unbatched loop.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.autograd.forward_ad as fwAD
@@ -100,9 +106,38 @@ def value_and_raw_gradient(objective: Callable, x_list):
     adjoint). Inputs that carry forward-mode tangents
     (`torch.autograd.forward_ad` dual tensors) keep them, so the
     gradient's tangent is the Hessian-vector product: forward over
-    reverse, as `optim/rtr.py` uses it."""
+    reverse, as `optim/rtr.py` uses it.
+
+    An objective of rows returns J of shape (R,): the rows are
+    independent, so the gradient of J.sum() is each row's gradient."""
     xs = [_leaf(x) for x in x_list]
     with torch.enable_grad():
         J = objective(xs)
-        grads = torch.autograd.grad(J, xs)
+        grads = torch.autograd.grad(
+            J, xs, grad_outputs=None if J.dim() == 0 else torch.ones_like(J))
     return J.detach(), list(grads)
+
+
+# ---------------------------------------------------------------------------
+# rows: R independent points with a leading row axis
+# ---------------------------------------------------------------------------
+
+
+class RowForms(NamedTuple):
+    """A problem's callables over rows. `f_and_g(xs) -> (J (R,), [g (R,
+    ...)])`, `f` (J only) and `grad` (gradient only; None where a driver
+    does not need it) take `(aux, xs)` when the problem's loop has an aux
+    operand; `inner_product` is one per-row callable `(x, y) -> (R,)` or
+    a list of them, one per sphere."""
+    f_and_g: Callable
+    f: Optional[Callable]
+    grad: Optional[Callable]
+    inner_product: object
+
+
+def row_forms(problem, aux: bool = False) -> Optional[RowForms]:
+    """The native row forms of `problem` (`problem.row_forms(aux)`, with
+    `aux` the forms that take the loop's aux operand), or None where the
+    problem or its configuration has none."""
+    native = getattr(problem, "row_forms", None)
+    return None if native is None else native(aux)

@@ -71,7 +71,9 @@ from torch.utils.checkpoint import checkpoint
 from spheremanopt_torch.problems.base import (DTYPES, SegmentAdvance,
                                               check_choice, resolve_device,
                                               to_f64, value_and_raw_gradient)
-from spheremanopt_torch.solvers.scan_utils import (kahan_add, kahan_zero,
+from spheremanopt_torch.solvers.scan_utils import (checkpoint_on_host,
+                                                   host_copy, kahan_add,
+                                                   kahan_zero,
                                                    nested_checkpoint_scan,
                                                    offload_checkpoint)
 
@@ -351,13 +353,17 @@ class KinematicDynamo:
         or under remat="nested" summed per chunk, then across chunks, as
         `nested_checkpoint_scan` does: J = dt (sum + E(b_N)). Under
         "offload" the per-step energies are offloaded too (their reverse
-        needs b_n, which would otherwise stay on the device)."""
+        needs b_n, which would otherwise stay on the device): b_n's energy
+        and its step share one host copy, so b_n's two cotangents meet in
+        host memory (with a copy each, one of them would wait on the device
+        for the other, as many as the autograd engine's threads let run
+        ahead: up to a state a step)."""
         integrated = self.cfg.cost == "Integrated"
-        step = self._remat_step(
-            self._cnab1_step if ops is None
-            else (lambda b, u: self._cnab1_step(b, u, ops)))
-        energy = (offload_checkpoint(self._energy)
-                  if self.cfg.remat == "offload" else self._energy)
+        raw_step = (self._cnab1_step if ops is None
+                    else (lambda b, u: self._cnab1_step(b, u, ops)))
+        step = self._remat_step(raw_step)
+        energy = self._energy
+        shared = integrated and self.cfg.remat == "offload"
 
         def step_energy(b):
             """E(b_n) for the sum (recorded) or the series only (not)."""
@@ -385,6 +391,13 @@ class KinematicDynamo:
         acc = kahan_zero(self.dtype, self.device)
         es = []
         for _ in range(n_steps):
+            if shared and torch.is_grad_enabled() and b.requires_grad:
+                h = host_copy(b)
+                e = checkpoint_on_host(energy, h, b.device)
+                es.append(e)
+                acc = kahan_add(acc, e)
+                b = checkpoint_on_host(raw_step, h, b.device, u_grid)
+                continue
             if integrated or series:
                 e = step_energy(b)
                 es.append(e)

@@ -32,6 +32,15 @@ The realisation:
     integrates the reference's adjoint system (`ADJ_Solve_Cnts`)
     backward along the stored trajectory
 
+Rows (a sweep of R starting points, `row_forms`): the forward solve
+takes a state of R rows, (R, 2, mgx, mgz), as planes (kxn, 2, R, 3, nz)
+and returns J of each row (R,). A step keeps its launches whatever R is:
+its transforms are the same products with R times the columns, and its
+implicit solve multiplies each operator block by R right-hand sides, so
+the operator stacks, one operand shared by every row, are read once a
+step for all of them. The continuous adjoint and df64 have no batched
+form: a sweep runs their rows one after another on the unbatched loop.
+
 `solve_precision` is "native" (the config's dtype) or "df64": with
 dtype="float32", the JAX package's f64 accuracy mode (there a
 double-float emulation, `mixing_df.py`, which the TPU needs for lack of
@@ -57,9 +66,10 @@ from scipy.special import erf
 from torch.utils.checkpoint import checkpoint
 
 from spheremanopt_torch.ops.chebyshev import ChebyshevBasis1D
-from spheremanopt_torch.problems.base import (DTYPES, SegmentAdvance,
-                                              check_choice, resolve_device,
-                                              to_f64, value_and_raw_gradient)
+from spheremanopt_torch.problems.base import (DTYPES, RowForms,
+                                              SegmentAdvance, check_choice,
+                                              resolve_device, to_f64,
+                                              value_and_raw_gradient)
 from spheremanopt_torch.solvers.scan_utils import kahan_add, kahan_zero
 from spheremanopt_torch.utils.opcache import cached_arrays, source_digest
 
@@ -468,23 +478,24 @@ class OptimalMixing:
 
     # ------------------------------------------------------------------
     # transforms. Planes: (kxn, 2, F, nz) real, (kx, re|im, field, mode);
-    # grids: (mgx, F, mgz)
+    # grids: (mgx, F, mgz). Over rows, planes (kxn, 2, R, F, nz) and grids
+    # (mgx, R, F, mgz): the field axis is always the one before the last
     # ------------------------------------------------------------------
 
     def _analysis(self, g: torch.Tensor) -> torch.Tensor:
-        """(mgx, F, mgz) grid fields -> (kxn, 2, F, nz) coefficient planes."""
-        f = g.shape[1]
+        """(mgx, [R,] F, mgz) grid fields -> (kxn, 2, [R,] F, nz) coefficient
+        planes."""
         c = (self._Fx2 @ g.reshape(self.mgx, -1)).view(-1, self.mgz) @ self._AzT
-        return c.view(self.kxn, 2, f, self.cfg.nz)
+        return c.view((self.kxn, 2) + g.shape[1:-1] + (self.cfg.nz,))
 
     def _synthesis(self, p: torch.Tensor) -> torch.Tensor:
-        """(kxn, 2, F, nz) coefficient planes -> (mgx, F, mgz) grid fields."""
-        f = p.shape[2]
+        """(kxn, 2, [R,] F, nz) coefficient planes -> (mgx, [R,] F, mgz) grid
+        fields."""
         g = (p.reshape(-1, self.cfg.nz) @ self._VzT).view(2 * self.kxn, -1)
-        return (self._Bx2 @ g).view(self.mgx, f, self.mgz)
+        return (self._Bx2 @ g).view((self.mgx,) + p.shape[2:-1] + (self.mgz,))
 
     def _dx(self, p):
-        return p.flip(1) * self._kxs
+        return p.flip(1) * self._kxs.view(self._kxs.shape[:2] + (1,) * (p.dim() - 2))
 
     def _dz(self, p):
         return p @ self._DzT
@@ -505,30 +516,39 @@ class OptimalMixing:
         return g.transpose(0, 1).reshape(lead + (self.mgx, self.mgz))
 
     # ------------------------------------------------------------------
-    # dynamics on the planes state X = (kxn, 2, 3, nz): fields (u, w, rho)
+    # dynamics on the planes state X = (kxn, 2, [R,] 3, nz): fields
+    # (u, w, rho)
     # ------------------------------------------------------------------
 
     def _solve(self, op: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-        """Apply a per-kx solve operator to planes (kxn, 2, F, nz). A
-        parity-blocked op (kxn, 2, h, h) takes the (u, w, rho) rhs in its
-        family order: family A = (u even, w odd, rho odd), B = the mirror.
-        The output is in the config's dtype (complex products of the
-        config's complex dtype)."""
+        """Apply a per-kx solve operator to planes (kxn, 2, [R,] F, nz):
+        each operator block times the R rows' right-hand sides as R
+        columns. A parity-blocked op (kxn, 2, h, h) takes the (u, w, rho)
+        rhs in its family order: family A = (u even, w odd, rho odd), B =
+        the mirror. The output is in the config's dtype (complex products
+        of the config's complex dtype)."""
         kxn = rhs.shape[0]
-        r = rhs.reshape(kxn, 2, -1)
+        R = rhs.shape[2] if rhs.dim() == 5 else 1
+        r = rhs.reshape(kxn, 2, R, -1)
         if op.dim() == 4:
-            r = r.index_select(2, self._perm)
-            out = (op @ torch.complex(r[:, 0], r[:, 1]).view(kxn, 2, -1, 1))
-            out = out.view(kxn, -1).index_select(1, self._iperm)
+            r = r.index_select(3, self._perm)
+            c = torch.complex(r[:, 0], r[:, 1]).view(kxn, R, 2, -1)
+            # (kxn, 2, h, R); one state's is the plain view (R columns in
+            # a permuted layout would change the product's summation)
+            c = c.permute(0, 2, 3, 1) if rhs.dim() == 5 else c.view(kxn, 2, -1, 1)
+            out = (op @ c).permute(0, 3, 1, 2).reshape(kxn, R, -1)
+            out = out.index_select(2, self._iperm)
         else:
-            out = (op @ torch.complex(r[:, 0], r[:, 1]).unsqueeze(-1)).view(kxn, -1)
+            c = torch.complex(r[:, 0], r[:, 1])               # (kxn, R, m)
+            out = (op @ c.transpose(1, 2)).transpose(1, 2)
         return torch.stack([out.real, out.imag], 1).view(rhs.shape)
 
     def _nonlinear(self, x: torch.Tensor) -> torch.Tensor:
         """to_coeff((u.grad)(u, w, rho)) on the 3/2 grid, as planes: the
         grids of u, w and of dx, dz of each field in one synthesis."""
-        g = self._synthesis(torch.cat([x[:, :, :2], self._dx(x), self._dz(x)], 2))
-        adv = torch.addcmul(g[:, 0:1] * g[:, 2:5], g[:, 1:2], g[:, 5:8])
+        g = self._synthesis(torch.cat([x[..., :2, :], self._dx(x), self._dz(x)], -2))
+        adv = torch.addcmul(g[..., 0:1, :] * g[..., 2:5, :], g[..., 1:2, :],
+                            g[..., 5:8, :])
         return self._analysis(adv)
 
     def _step(self, ops, x: torch.Tensor) -> torch.Tensor:
@@ -547,11 +567,18 @@ class OptimalMixing:
                               preserve_rng_state=False)
         return self._step(ops, x)
 
+    def _grid_energy(self, g):
+        """(1/V) int (a^2 + b^2) of the two grid fields g (mgx, [R,] 2,
+        mgz): a 0-dim tensor, or one value a row (R,)."""
+        e = g[..., 0, :] * g[..., 0, :] + g[..., 1, :] * g[..., 1, :]
+        if e.dim() == 2:
+            return torch.sum(self._w * e)
+        return torch.sum(self._w[:, None] * e, (0, 2))
+
     def _ke(self, x):
         """(1/V) int (u^2 + w^2): the rectangle-rule IP on the grid
         (the reference's Inner_Prod_Discrete, `:282-299`)."""
-        g = self._synthesis(x[:, :, :2])
-        return torch.sum(self._w * (g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1]))
+        return self._grid_energy(self._synthesis(x[..., :2, :]))
 
     def _de(self, x):
         """(1/V) int rho^2: the buoyancy-variance series."""
@@ -559,9 +586,9 @@ class OptimalMixing:
         return torch.sum(self._w * rg * rg)
 
     def _mixnorm(self, ops, x):
-        psi = self._solve(ops["MN"], x[:, :, 2:3])
-        g = self._synthesis(torch.cat([self._dx(psi), self._dz(psi)], 2))
-        return 0.5 * torch.sum(self._w * (g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1]))
+        psi = self._solve(ops["MN"], x[..., 2:3, :])
+        return 0.5 * self._grid_energy(
+            self._synthesis(torch.cat([self._dx(psi), self._dz(psi)], -2)))
 
     def _bc_residual(self, x):
         """Wall residuals of one state, (2, 3): rows (z=-1, z=+1), cols
@@ -574,14 +601,18 @@ class OptimalMixing:
         return g.abs().amax(0).transpose(0, 1)
 
     def _initial(self, x0: torch.Tensor) -> torch.Tensor:
-        """Planes of (u0, w0) from the (2, mgx, mgz) grid state, with rho(0)."""
-        uw = self._analysis(x0.to(self.dtype).transpose(0, 1))
-        return torch.cat([uw, self._rho0], 2)
+        """Planes of (u0, w0) from the ([R,] 2, mgx, mgz) grid state, with
+        rho(0)."""
+        uw = self._analysis(x0.to(self.dtype).movedim(-2, 0))
+        rho0 = self._rho0.view(self._rho0.shape[:2] + (1,) * (uw.dim() - 4)
+                               + self._rho0.shape[2:])
+        return torch.cat([uw, rho0.expand(uw.shape[:-2] + rho0.shape[-2:])], -2)
 
     def _integrate(self, ops, x_list, series: bool = False):
         """(J, X_T) of the forward solve, and with `series` the per-step
         (KE, buoyancy variance, BC residual) lists of the same solve (the
-        J arithmetic does not depend on that flag)."""
+        J arithmetic does not depend on that flag). Over rows (without
+        `series`), J is (R,)."""
         cfg = self.cfg
         x = self._initial(x_list[0])
         acc = kahan_zero(self.dtype, self.device)
@@ -619,6 +650,29 @@ class OptimalMixing:
         return J, {"kinetic_energy": ke, "buoyancy_energy": de,
                    "rho_final": g[:, 2], "vorticity_final": g[:, 3],
                    "bc_residuals": bc, "u_final": g[:, 0], "w_final": g[:, 1]}
+
+    # ------------------------------------------------------------------
+    # rows: the forms above on R states (R, 2, mgx, mgz)
+    # ------------------------------------------------------------------
+
+    def inner_product_rows(self, x, y):
+        dims = tuple(range(1, x.dim()))
+        if self.dtype == torch.float32:
+            return torch.sum(self._w_acc * x.double() * y.double(), dims).float()
+        return torch.sum(self._w * x * y, dims)
+
+    def row_forms(self, aux=False):
+        """The native forms over rows, with the operator stacks as the aux
+        operand (`aux`) or this problem's own; None under the continuous
+        adjoint and df64."""
+        if self._df is not None or self.cfg.adjoint == "continuous":
+            return None
+        fg, f, g = (self.objective_and_gradient_ops, self.objective_ops,
+                    self.gradient_ops)
+        if not aux:
+            ops = self._ops
+            fg, f, g = ((lambda xs, _m=m: _m(ops, xs)) for m in (fg, f, g))
+        return RowForms(fg, f, g, self.inner_product_rows)
 
     # ------------------------------------------------------------------
     # continuous adjoint (ref `ADJ_Solve_Cnts`, :1161-1319)

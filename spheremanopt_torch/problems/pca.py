@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spheremanopt_torch.problems.base import resolve_device
+from spheremanopt_torch.problems.base import RowForms, resolve_device
 
 
 def random_spd_matrix(dim: int, seed: int = 0, dtype=np.float64) -> np.ndarray:
@@ -50,6 +50,29 @@ class PCAProblem:
 
     def inner_product(self, x, y):
         return torch.dot(x, y)
+
+    # -- rows: (R, dim) states, M applied to R columns at once -------------
+
+    def objective_rows(self, x_list):
+        x = x_list[0]
+        return -0.5 * torch.sum(x * torch.mm(self.m, x.T).T, -1)
+
+    def gradient_rows(self, x_list):
+        return [-torch.mm(self.m, x_list[0].T).T]
+
+    def objective_and_gradient_rows(self, x_list):
+        mx = torch.mm(self.m, x_list[0].T).T
+        return -0.5 * torch.sum(x_list[0] * mx, -1), [-mx]
+
+    def inner_product_rows(self, x, y):
+        return torch.sum(x * y, -1)
+
+    def row_forms(self, aux=False):
+        """The native forms over rows (`problems.base.row_forms`)."""
+        if aux:
+            return None
+        return RowForms(self.objective_and_gradient_rows, self.objective_rows,
+                        self.gradient_rows, self.inner_product_rows)
 
     def ground_truth(self) -> np.ndarray:
         """Leading eigenvector via LAPACK (`PCA_example.py:123-129`)."""

@@ -21,6 +21,12 @@ as the JAX package):
     `ops/cuda/fused_two_matrix.py` (f32; the counterpart of the JAX
     package's "pallas"); on a CPU tensor it runs their plain versions
 
+Rows (a sweep of R starting points, `row_forms`): "matmul" steps all rows
+with one product of R columns a step, so the operator is read once a step
+for every row; "fft" transforms the rows together; "cuda" and the
+continuous adjoint have no batched form: a sweep runs their rows one
+after another on the unbatched loop.
+
 The fused diagnostics (`objective_and_diagnostics`,
 `objective_gradient_and_diagnostics`) record the energy series and the
 final state from the optimisation's own solve, every `diag_stride`
@@ -48,9 +54,9 @@ from spheremanopt_torch.ops.fourier import (
     filter_coeff_fraction,
     nyquist_mask_rfft,
 )
-from spheremanopt_torch.problems.base import (DTYPES, SegmentAdvance,
-                                              check_choice, resolve_device,
-                                              riesz_gradient,
+from spheremanopt_torch.problems.base import (DTYPES, RowForms,
+                                              SegmentAdvance, check_choice,
+                                              resolve_device, riesz_gradient,
                                               value_and_raw_gradient)
 from spheremanopt_torch.solvers.scan_utils import (kahan_add, kahan_zero,
                                                    strided_energy_scan,
@@ -198,14 +204,27 @@ class SwiftHohenberg:
         rhs = u / self.cfg.dt + 1.8 * u * u - u * u * u
         return torch.mv(self._Mt, rhs)
 
-    def _integrate(self, s0, n_steps: int, use_matmul: bool):
+    def _matmul_rows_step(self, u: torch.Tensor) -> torch.Tensor:
+        """`_matmul_step` of R states held as the columns of u (mg, R)."""
+        rhs = u / self.cfg.dt + 1.8 * u * u - u * u * u
+        return torch.mm(self._Mt, rhs)
+
+    def _integrate(self, s0, n_steps: int, use_matmul: bool, rows: bool = False):
         """Run n_steps of SBDF1, accumulating J = dt * sum_n E(u_n)
         (energies of u_0..u_{n_steps}; Euler quadrature per ref :528-529).
 
         State is rfft coefficients ("fft" path) or band-limited
-        oversampled grid values ("matmul" path; E = grid mean of u^2)."""
-        step = self._matmul_step if use_matmul else self._sbdf1_step
-        energy = (lambda u: torch.mean(u * u)) if use_matmul else self._energy
+        oversampled grid values ("matmul" path; E = grid mean of u^2).
+        With `rows`, R states at once: the grid values as the columns of
+        (mg, R), the coefficients as the rows of (R, K); J is (R,)."""
+        if rows:
+            step = self._matmul_rows_step if use_matmul else self._sbdf1_step
+            energy = ((lambda u: torch.mean(u * u, 0)) if use_matmul
+                      else (lambda c: torch.sum(self._parseval * (c.real ** 2
+                                                                  + c.imag ** 2), -1)))
+        else:
+            step = self._matmul_step if use_matmul else self._sbdf1_step
+            energy = (lambda u: torch.mean(u * u)) if use_matmul else self._energy
         s = s0
         acc = kahan_zero(self.dtype, self.device)
         for _ in range(n_steps):
@@ -223,6 +242,17 @@ class SwiftHohenberg:
         else:
             c0 = self.basis.to_coeff(x)
             _, J = self._integrate(c0, self.cfg.n_iters, False)
+        return -J
+
+    def _objective_rows_impl(self, x_list) -> torch.Tensor:
+        """-J of each row of x_list[0] (R, n_grid), (R,)."""
+        x = x_list[0].to(self.dtype)
+        if self.cfg.method == "matmul":
+            _, J = self._integrate(torch.mm(self._Pt, x.T), self.cfg.n_iters,
+                                   True, rows=True)
+        else:
+            _, J = self._integrate(self.basis.to_coeff(x), self.cfg.n_iters,
+                                   False, rows=True)
         return -J
 
     def _integrate_aux(self, s0, n_steps: int, use_matmul: bool):
@@ -309,6 +339,31 @@ class SwiftHohenberg:
     @property
     def inner_products(self):
         return self.inner_product
+
+    # -- rows: (R, n_grid) states (see the module docstring) ---------------
+
+    def objective_rows(self, x_list):
+        with torch.no_grad():
+            return self._objective_rows_impl(list(x_list))
+
+    def gradient_rows(self, x_list):
+        raw = value_and_raw_gradient(self._objective_rows_impl, list(x_list))[1]
+        return [g / (1.0 / self.basis.n_grid) for g in raw]
+
+    def objective_and_gradient_rows(self, x_list):
+        J, raw = value_and_raw_gradient(self._objective_rows_impl, list(x_list))
+        return J, [g * self.basis.n_grid for g in raw]
+
+    def inner_product_rows(self, x, y):
+        return torch.mean(x * y, -1)
+
+    def row_forms(self, aux=False):
+        """The native forms over rows, or None where this configuration has
+        none ("cuda", the continuous adjoint)."""
+        if aux or self.cfg.method == "cuda" or self.cfg.adjoint == "continuous":
+            return None
+        return RowForms(self.objective_and_gradient_rows, self.objective_rows,
+                        self.gradient_rows, self.inner_product_rows)
 
     # ------------------------------------------------------------------
     # fused diagnostics: the energy series and final state from the

@@ -319,10 +319,14 @@ def device_optimiser(problem, defaults, args, graphs=None):
     `objective_and_gradient_aux` operand is called as `f(aux, xs)`, with
     the problem's `objective_ops` / `gradient_ops` as its J-only and
     gradient-only forms: pass `aux=loop_aux(problem)` to the returned
-    optimiser."""
+    optimiser. Its `sweep` runs the problem's native forms over rows where
+    it has them (`problems.base.row_forms`)."""
+    from spheremanopt_torch.problems.base import row_forms
+
     radii = problem.radii if hasattr(problem, "radii") else [1.0]
     err_tol, max_iters, alpha = _settings(defaults, args)
     with_aux = loop_aux(problem) is not None
+    rows = row_forms(problem, aux=with_aux)
     if args.direction == "rtr":
         from spheremanopt_torch.optim.jit_rtr import jit_optimise_rtr
 
@@ -331,7 +335,8 @@ def device_optimiser(problem, defaults, args, graphs=None):
             problem.gradient_ops if with_aux else problem.gradient,
             problem.inner_product,
             radii, max_iters=max_iters, err_tol=err_tol,
-            delta0=args.tr_delta0, max_cg=args.tr_max_cg, graphs=graphs)
+            delta0=args.tr_delta0, max_cg=args.tr_max_cg, graphs=graphs,
+            rows=rows)
     if args.direction == "lbfgs" and args.ls != "wolfe":
         raise SystemExit("--direction lbfgs needs --ls wolfe in the device "
                          "loop")
@@ -348,7 +353,7 @@ def device_optimiser(problem, defaults, args, graphs=None):
         f_and_g, problem.inner_product, radii, max_iters=max_iters,
         alpha0=float(alpha), err_tol=err_tol, cg=not args.sd,
         line_search=args.ls, direction=args.direction,
-        lbfgs_memory=args.lbfgs_memory, f=f, graphs=graphs)
+        lbfgs_memory=args.lbfgs_memory, f=f, graphs=graphs, rows=rows)
 
 
 def optimise(problem, x0, defaults, args, graphs=None):

@@ -114,42 +114,52 @@ def nested_checkpoint_scan(step: Callable, carry, length: int,
     return carry, total, torch.cat(series)
 
 
+def host_copy(carry):
+    """A copy of `carry` in host memory (pinned when it is on a CUDA device;
+    a failed pinning raises), differentiable in `carry`, laid out with its
+    strides: a reduction over a copy laid out otherwise may sum in another
+    order."""
+    try:
+        host = torch.empty_strided(carry.shape, carry.stride(), dtype=carry.dtype,
+                                   pin_memory=carry.is_cuda)
+    except RuntimeError as e:
+        raise RuntimeError(
+            "remat offload: allocating pinned host memory for a step's "
+            f"carry failed ({e}); there is no fallback to per-step "
+            "device remat") from e
+    host.copy_(carry, non_blocking=True)   # differentiable in carry
+    return host
+
+
+def checkpoint_on_host(fn: Callable, host, device, *rest):
+    """`fn(host brought to `device`, *rest)`, checkpointed on the host copy:
+    its reverse recomputes `fn` from that copy."""
+    def on_device(h, *r):
+        return fn(h.to(device, non_blocking=True), *r)
+
+    return checkpoint(on_device, host, *rest, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def offload_checkpoint(step: Callable) -> Callable:
     """`step(carry, *rest)` as per-step remat whose stored carry lives in
-    host memory: the carry is copied to host memory (pinned when it is on
-    a CUDA device; a failed pinning raises, there is no fallback to
-    device remat; on the CPU a plain copy), and the step is checkpointed
-    on that host copy, which it brings back to the device when it runs.
-    So the reverse sweep recomputes each step from its host copy and the
-    device holds O(1) state in the trajectory length, at the price of the
-    host link's bandwidth every step. The checkpoint is the "step" mode's
-    (the same graph around the step), so the gradients are bitwise
+    host memory (`host_copy`; on the CPU a plain copy), and the step is
+    checkpointed on that host copy, which it brings back to the device when
+    it runs. So the reverse sweep recomputes each step from its host copy
+    and the device holds O(1) state in the trajectory length, at the price
+    of the host link's bandwidth every step. The checkpoint is the "step"
+    mode's (the same graph around the step), so the gradients are bitwise
     step remat's; the cotangent of the carry crosses the link back.
-    Without autograd recording, the step runs as it is."""
+    Without autograd recording, the step runs as it is. A caller that
+    applies two functions to one carry shares one `host_copy` between them
+    (`checkpoint_on_host`), so that the carry's two cotangents meet in
+    host memory."""
 
     def wrapped(carry, *rest):
         if not (torch.is_grad_enabled()
                 and any(t.requires_grad for t in (carry,) + rest)):
             return step(carry, *rest)
-        device = carry.device
-        try:
-            # the carry's own strides: a reduction over a copy laid out
-            # otherwise may sum in another order
-            host = torch.empty_strided(carry.shape, carry.stride(),
-                                       dtype=carry.dtype,
-                                       pin_memory=carry.is_cuda)
-        except RuntimeError as e:
-            raise RuntimeError(
-                "remat offload: allocating pinned host memory for a step's "
-                f"carry failed ({e}); there is no fallback to per-step "
-                "device remat") from e
-        host.copy_(carry, non_blocking=True)   # differentiable in carry
-
-        def on_device(h, *r):
-            return step(h.to(device, non_blocking=True), *r)
-
-        return checkpoint(on_device, host, *rest, use_reentrant=False,
-                          preserve_rng_state=False)
+        return checkpoint_on_host(step, host_copy(carry), carry.device, *rest)
 
     return wrapped
 

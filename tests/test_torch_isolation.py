@@ -24,7 +24,8 @@ def _python(code, cwd=ROOT, timeout=120):
 def test_port_imports_without_jax():
     code = _BLOCK_JAX + (
         "import spheremanopt_torch, spheremanopt_torch.run, "
-        "spheremanopt_torch.convert, spheremanopt_torch.problems.pca; "
+        "spheremanopt_torch.convert, spheremanopt_torch.problems.pca, "
+        "spheremanopt_torch.serve; "
         "from spheremanopt_torch.problems.swift_hohenberg import SwiftHohenberg, SH23Config; "
         "from spheremanopt_torch.ops.cuda import build, fused_two_matrix; "
         "from spheremanopt_torch.ops import chebyshev; "
@@ -40,6 +41,25 @@ def test_port_imports_without_jax():
         "from spheremanopt_torch.problems.optimal_mixing import OptimalMixing, MixingConfig; "
         "m = OptimalMixing(MixingConfig(nx=8, nz=8, n_iters=2, prep_steps=2), device='cpu'); "
         "m.objective_and_gradient(m.generate_ic()); "
+        "assert not any(m.startswith(('jax', 'spheremanopt_tpu')) "
+        "for m, v in sys.modules.items() if v is not None), 'JAX imported'; "
+        "print('isolated')")
+    r = _python(code)
+    assert r.returncode == 0, r.stderr
+    assert "isolated" in r.stdout
+
+
+def test_server_answers_optimise_and_sweep_without_jax():
+    """The port's server (`spheremanopt_torch.serve`) and the sweeps over
+    rows it runs, with JAX blocked."""
+    code = _BLOCK_JAX + (
+        "from spheremanopt_torch.serve import OptimisationService; "
+        "s = OptimisationService(device='cpu'); "
+        "cfg = dict(npts=16, n_iters=4); drv = dict(max_iters=2, line_search='wolfe'); "
+        "a = s.handle(dict(cmd='optimise', problem='sh23', config=cfg, driver=drv)); "
+        "b = s.handle(dict(cmd='sweep', problem='sh23', config=cfg, driver=drv, "
+        "seeds=[1, 2], e0=[0.05, 0.1])); "
+        "assert a['ok'] and b['ok'] and len(b['points']) == 2, (a, b); "
         "assert not any(m.startswith(('jax', 'spheremanopt_tpu')) "
         "for m, v in sys.modules.items() if v is not None), 'JAX imported'; "
         "print('isolated')")

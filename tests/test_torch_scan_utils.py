@@ -6,7 +6,9 @@ the JAX package's, live on the CPU, on the JAX tests' toy recurrence:
     flat step order; its gradient vs store-all and vs JAX's rel 1e-11;
   * `offload_checkpoint` bitwise per-step checkpointing, and vs
     store-all: value bitwise, gradient rel 1e-12; on the CPU its host copy
-    is a plain copy.
+    is a plain copy;
+  * one `host_copy` shared by two checkpointed functions of a carry: the
+    carry's cotangents summed on the host copy, the gradient store-all's.
 """
 
 import jax
@@ -16,7 +18,9 @@ import pytest
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from spheremanopt_torch.solvers.scan_utils import (nested_checkpoint_scan,
+from spheremanopt_torch.solvers.scan_utils import (checkpoint_on_host,
+                                                   host_copy,
+                                                   nested_checkpoint_scan,
                                                    offload_checkpoint)
 from spheremanopt_tpu.solvers.scan_utils import \
     nested_checkpoint_scan as j_nested
@@ -140,3 +144,37 @@ def test_offload_recomputes_from_a_host_copy_and_runs_plainly_without_grad():
         assert f(c0).grad_fn is None
     assert f(torch.ones(4)).grad_fn is None   # nothing to differentiate
     assert [s[0] for s in seen] != [] and seen[0][0] == c0.data_ptr()
+
+
+def test_one_host_copy_serves_two_functions_of_a_carry():
+    """A carry's energy and its step checkpointed on one shared host copy
+    (the Integrated cost under remat="offload"): the value and the gradient
+    as store-all's, and the carry's two cotangents summed on the host copy
+    (the device never holds one of them waiting for the other)."""
+    def step(c):
+        return 0.97 * c + 0.05 * torch.tanh(c)
+
+    def energy(c):
+        return torch.sum(c * c)
+
+    out = []
+    for shared in (True, False):
+        c0 = torch.tensor(_c0(), requires_grad=True)
+        c, J, hosts = c0, 0.0, []
+        for _ in range(6):
+            if shared:
+                h = host_copy(c)
+                h.register_hook(lambda g, _h=h: hosts.append(g.device.type))
+                J = J + checkpoint_on_host(energy, h, c.device)
+                c = checkpoint_on_host(step, h, c.device)
+            else:
+                J = J + energy(c)
+                c = step(c)
+        J = J + energy(c)
+        out.append((J.detach(), torch.autograd.grad(J, c0)[0]))
+        if shared:
+            assert hosts == ["cpu"] * 6
+    (J1, g1), (J2, g2) = out
+    assert torch.equal(J1, J2)
+    assert _rel(g1, g2) < 1e-12
+
