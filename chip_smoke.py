@@ -166,8 +166,23 @@ Phases, one line each; any failure exits non-zero without a result line:
      5 Wolfe iterations, cold then warm; a sweep of 8 seeds with e0 (row 0
      bitwise the optimise reply); a sweep on mixing (N = 100); save; an
      error reply; status answered while a sweep is busy; shutdown
+  7  I/O and --resume through `spheremanopt_torch.run.main` in-process:
+     SH23 f32 `cuda` at full width, 5 iterations from the pinned x0,
+     plain, with `--archive-full` (FusedArchiver), with `--archive-every
+     1` (LightArchiver; `--h5` where h5py is installed) and plain again,
+     each a main path: the archived run launches the series forward as
+     often as the plain run the plain forward, the plain forward never,
+     the reverse as often, J histories bitwise, no recompute, the last
+     archive's u_initial bitwise the checkpoint's x_opt_0; the
+     optimisation walls and the archiving overhead; SHB23 likewise (3
+     iterations); `--resume` of the SH23 checkpoint for 2 iterations (x0
+     bitwise); KDyn f32 `cuda` 2 iterations and a resume for 1 (both
+     spheres bitwise); `--regrid` from 512 to 1024 points (on the
+     sphere); `--solve-steps` a + a bitwise one run of 2a (SH23 and SHB23
+     at a = 500, KDyn 100, mixing 50); the native SMO1 writer's round
+     trip with CRCs on this host
 
-Each main path (G, H, L, M, R, S, T, U, V, 1, 5) runs with the launch counters set to 0
+Each main path (G, H, L, M, R, S, T, U, V, 1, 5, 7) runs with the launch counters set to 0
 just before it and read just after; a kernel of that path that was not
 launched fails it. The kernels line lists the kernels of those paths;
 the one-block kernels, which no path reaches on an H100, are timed in
@@ -181,6 +196,7 @@ import dataclasses
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -277,6 +293,8 @@ F32_PEAK, TF32_PEAK, HBM_RATE = 67e12, 495e12, 3.35e12
 # grid-wide sweeps at BLOCK_MG, held to the one-block kernels; SHB23's
 # grid-wide sweeps with B rows and columns from L2 at WIDE_MG
 BLOCK_MG, BLOCK_N, WIDE_MG = 1024, 200, 2048
+# the run.main flags of phase 7's three SH23 runs
+ARCHIVE_FLAGS = {"plain": [], "light": ["--archive-every", "1"], "fused": ["--archive-full"]}
 PALLAS = "spheremanopt_tpu/ops/pallas/fused_two_matrix.py"
 PALLAS_K = "spheremanopt_tpu/ops/pallas/kdyn_step.py"
 LAUNCH_TABLES = (fk, kd)   # modules that count their kernels' launches
@@ -2472,8 +2490,208 @@ class Smoke:
                    f"shutdown; {st['requests']} requests, {st['cache_hits']} cache hits, "
                    f"{len(st['executables'])} cached loops")
 
+    # -- I/O and --resume ----------------------------------------------------
+
+    def cli_main(self, tag, argv, x0=None):
+        """`spheremanopt_torch.run.main(argv)` in-process with its printing
+        captured: (the `out` dict, stdout, wall s, summary.json or None)."""
+        d = os.path.join(OUT, "io", tag)
+        shutil.rmtree(d, ignore_errors=True)
+        out, buf = {}, io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(argv) + ["--out-dir", d, "--quiet"], x0=x0, out=out)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        path = os.path.join(d, "summary.json")
+        summary = json.load(open(path)) if os.path.exists(path) else None
+        out.update(rc=rc, dir=d)
+        return out, buf.getvalue(), wall, summary
+
+    def archived_pair(self, what, argv, x0, fwd, bwd, light=False):
+        """A plain run and an `--archive-full` run (and, with `light`, an
+        `--archive-every 1` run), each a main path:
+        the archived run launches the series forward as often as the plain
+        run the plain forward, the plain forward never, the reverse as
+        often; J histories bitwise; no recompute; the last archive's
+        u_initial bitwise the checkpoint's x_opt_0."""
+        from spheremanopt_torch.io.checkpoint import load_progress
+
+        ser = fwd + "_ser"
+        runs, counts = {}, {}
+        for tag in ("plain", "fused", "light") if light else ("plain", "fused"):
+            extra = ARCHIVE_FLAGS[tag]
+            if tag == "light" and not self.no_h5py:
+                extra = extra + ["--h5"]
+            kernels = (ser, bwd) if tag == "fused" else (fwd, bwd)
+            runs[tag] = self.main_path("7", kernels, lambda: self.cli_main(
+                f"{what}_{tag}", argv + extra, x0), record=(ser,) if tag == "fused" else ())
+            counts[tag] = launches()
+        (po, _, pw, ps), (fo, _, fw, fs) = runs["plain"], runs["fused"]
+        lp, lf = counts["plain"], counts["fused"]
+        arch = fo.get("archiver")
+        ck = load_progress(os.path.join(fo["dir"], "DAL_PROGRESS.npz"))
+        with np.load(arch.paths[-1]) as last:
+            u_init = last["u_initial"]
+        fv_p, fv_f = po["result"].function_values, fo["result"].function_values
+        ok = (po["rc"] == fo["rc"] == 0 and lf[ser] == lp[fwd] > 0 and lf[fwd] == 0
+              and lf[bwd] == lp[bwd] and type(arch).__name__ == "FusedArchiver"
+              and arch.fallback_recomputes == 0 and fv_f == fv_p
+              and len(arch.paths) == fo["result"].iterations
+              and u_init.dtype == ck.x_opt[0].dtype and np.array_equal(u_init, ck.x_opt[0]))
+        self.check("7", ok,
+                   f"{what} --archive-full: {fo['result'].iterations} iterations, launches "
+                   f"{ser} {lf[ser]} / {fwd} {lf[fwd]} / {bwd} {lf[bwd]} against the "
+                   f"plain run's {fwd} {lp[fwd]} / {bwd} {lp[bwd]}; J history bitwise "
+                   f"{fv_f == fv_p}; fallback_recomputes {arch.fallback_recomputes}; "
+                   f"{len(arch.paths)} archives; last u_initial bitwise the checkpoint's "
+                   f"x_opt_0 {bool(np.array_equal(u_init, ck.x_opt[0]))}")
+        return runs
+
+    def phase_7(self):
+        import importlib.util
+
+        from spheremanopt_torch.io import native_io
+        from spheremanopt_torch.io.checkpoint import load_pde_state, load_progress
+
+        self.no_h5py = importlib.util.find_spec("h5py") is None
+        no_mpl = importlib.util.find_spec("matplotlib") is None
+        sh = ["sh23", "--device", "cuda", "--dtype", "float32", "--method", "cuda"]
+        shb = ["shb23", "--device", "cuda", "--dtype", "float32", "--method", "cuda"]
+        x_sh, x_shb = [self.ref["x0_f32"]], [self.refb["x0_f32"]]
+
+        # SH23: plain, --archive-full, --archive-every 1 (with --h5)
+        argv = sh + ["--max-iters", "5"]
+        runs = self.archived_pair("sh23", argv, x_sh, "fused_fwd_shared_grid",
+                                  "fused_bwd_shared", light=True)
+        lo, lout, lw, ls = runs["light"]
+        light = lo["archiver"]
+        self.check("7", lo["rc"] == 0 and type(light).__name__ == "LightArchiver"
+                   and len(light.paths) == lo["result"].iterations
+                   and lo["result"].function_values == runs["plain"][0]["result"].function_values,
+                   f"sh23 --archive-every 1: {len(light.paths)} light archives, J history "
+                   "bitwise the plain run's"
+                   + ("" if self.no_h5py else f"; --h5 wrote {sorted(lo['outputs']['h5'])}"))
+        # the walls of warm runs, in the order plain, light, fused, fused,
+        # light, plain (the runs above include first-use costs)
+        walls = {tag: [] for tag in ARCHIVE_FLAGS}
+        for tag in ("plain", "light", "fused", "fused", "light", "plain"):
+            o, _, w, summary = self.cli_main(f"sh23_time_{tag}", argv + ARCHIVE_FLAGS[tag],
+                                             x_sh)
+            walls[tag].append((w, summary["optimise_wall_s"], o["result"].iterations))
+        mean = {t: np.mean([v[1] for v in ws]) for t, ws in walls.items()}
+        print("[7] sh23 f32 cuda, 5 iterations, warm runs: " + "; ".join(
+            f"{t} run.main {', '.join(f'{v[0]:.4f}' for v in ws)} s, optimisation (with "
+            f"callbacks, checkpoints, writes flushed) {', '.join(f'{v[1]:.4f}' for v in ws)} s"
+            f" ({', '.join(str(v[2]) for v in ws)} iterations)" for t, ws in walls.items())
+            + f"; archiving overhead of the optimisation wall: LightArchiver "
+            f"{100 * (mean['light'] / mean['plain'] - 1):+.1f} %, FusedArchiver "
+            f"{100 * (mean['fused'] / mean['plain'] - 1):+.1f} % [{self.card}]", flush=True)
+        if self.no_h5py or no_mpl:
+            print(f"[7] not installed on this machine: "
+                  f"{', '.join(m for m, n in (('h5py', self.no_h5py), ('matplotlib', no_mpl)) if n)}"
+                  f" (--h5 not run; the CLI's line: "
+                  f"{[ln for ln in lout.splitlines() if 'not written' in ln]})", flush=True)
+
+        # SHB23: plain and --archive-full, 3 iterations
+        self.archived_pair("shb23", shb + ["--max-iters", "3"], x_shb, "fused_fwd_grid",
+                           "fused_bwd")
+
+        # --resume the SH23 run for 2 more iterations
+        first = runs["fused"][0]
+        ck_path = os.path.join(first["dir"], "DAL_PROGRESS.npz")
+        ck = load_progress(ck_path)
+        ro, rout, _, _ = self.cli_main("sh23_resume", sh + ["--max-iters", "2", "--resume",
+                                                              ck_path])
+        x0 = ro["x0"][0].cpu().numpy()
+        fv0, fvr = first["result"].function_values, ro["result"].function_values
+        self.check("7", ro["rc"] == 0 and "warm-starting from iteration 5" in rout
+                   and x0.dtype == ck.x_opt[0].dtype and np.array_equal(x0, ck.x_opt[0])
+                   and ro["result"].iterations == 2 and min(fvr) >= fv0[-1],
+                   f"sh23 --resume: '{rout.splitlines()[0]}', x0 bitwise the checkpoint's "
+                   f"{bool(np.array_equal(x0, ck.x_opt[0]))}, J {fvr} after {fv0[-1]!r}")
+
+        # KDyn (rows 5-7): 2 iterations, then --resume for 1
+        kd = ["kdyn", "--device", "cuda", "--dtype", "float32", "--method", "cuda"]
+        ko, _, kw, _ = self.main_path("7", ("kdyn_fwd", "kdyn_fwd_traj", "kdyn_bwd"),
+                                      lambda: self.cli_main("kdyn", kd + ["--max-iters", "2"],
+                                                            self.kdyn_x0(np.float32)),
+                                      record=())
+        kpath = os.path.join(ko["dir"], "DAL_PROGRESS.npz")
+        kck = load_progress(kpath)
+        kr, kout, krw, _ = self.cli_main("kdyn_resume", kd + ["--max-iters", "1", "--resume",
+                                                              kpath])
+        res_x = [x.cpu().numpy() for x in ko["result"].x_opt]
+        got = [x.cpu().numpy() for x in kr["x0"]]
+        same = [np.array_equal(a, b) and np.array_equal(b, c) and a.dtype == c.dtype
+                for a, b, c in zip(res_x, kck.x_opt, got)]
+        self.check("7", ko["rc"] == kr["rc"] == 0 and len(same) == 2 and all(same)
+                   and f"warm-starting from iteration {ko['result'].iterations}" in kout
+                   and kr["result"].iterations == 1,
+                   f"kdyn f32 cuda: {ko['result'].iterations} iterations ({kw:.1f} s), then "
+                   f"--resume for {kr['result'].iterations} ({krw:.1f} s); x_opt_0 / x_opt_1 "
+                   f"result -> checkpoint -> x0 bitwise {same}")
+
+        # --regrid: the resumed SH23 run (npts 256) continued at npts 512
+        go, gout, gw, _ = self.cli_main(
+            "sh23_regrid", sh + ["--npts", "512", "--max-iters", "1", "--resume",
+                                 os.path.join(ro["dir"], "DAL_PROGRESS.npz"), "--regrid"])
+        p = go["problem"]
+        spheres = [abs(float(p.inner_product(x, x)) / p.radii[0] - 1.0)
+                   for x in (go["x0"][0], go["result"].x_opt[0])]
+        self.check("7", go["rc"] == 0 and tuple(go["x0"][0].shape) == (1024,)
+                   and max(spheres) <= SPHERE_TOL and go["result"].iterations == 1,
+                   f"sh23 --regrid 512 -> 1024 points: "
+                   f"'{[ln for ln in gout.splitlines() if 'regridded' in ln]}', |<x,x>/r-1| "
+                   f"of x0 and the iterate {spheres[0]:.1e}, {spheres[1]:.1e} (tol "
+                   f"{SPHERE_TOL:g}), {gw:.1f} s")
+
+        # --solve-steps restarts: a + b steps bitwise one run of a + b
+        cases = (("sh23", sh, x_sh, 500), ("shb23", shb, x_shb, 500),
+                 ("kdyn", kd, self.kdyn_x0(np.float32), KDYN_CUT // 2),
+                 ("mixing", ["mixing", "--device", "cuda", "--dtype", "float32"],
+                  [self.truthm["x0"]], MIX_CUT // 2))
+        for name, argv, x0, half in cases:
+            t0 = time.perf_counter()
+            d = os.path.join(OUT, "io", f"{name}_state")
+            os.makedirs(d, exist_ok=True)
+            a, b, c = (os.path.join(d, f"{t}.npz") for t in "abc")
+            outs = [self.cli_main(f"{name}_solve_{i}", argv + extra, x0=x)
+                    for i, (extra, x) in enumerate((
+                        (["--solve-steps", str(half), "--state-out", a], x0),
+                        (["--solve-steps", str(half), "--state-in", a, "--state-out", b],
+                         None),
+                        (["--solve-steps", str(2 * half), "--state-out", c], x0)))]
+            lines = [json.loads([ln for ln in o[1].splitlines() if ln.startswith("{")][-1])
+                     for o in outs]
+            sb, nb, _ = load_pde_state(b)
+            sc, nc, _ = load_pde_state(c)
+            same = {k: bool(np.array_equal(sb[k], sc[k])) for k in sc}
+            self.check("7", all(o[0]["rc"] == 0 for o in outs) and nb == nc == 2 * half
+                       and all(same.values()) and sorted(sb) == sorted(sc)
+                       and lines[1]["field_norms"] == lines[2]["field_norms"],
+                       f"{name} --solve-steps {half} + --state-in {half} bitwise one run "
+                       f"of {2 * half}: {same}; steps {[(ln['from_step'], ln['to_step']) for ln in lines]}"
+                       f", {time.perf_counter() - t0:.1f} s for the three runs")
+
+        # the native record writer on this host, on the SH23 archive's arrays
+        path = os.path.join(OUT, "io", "archive.smo")
+        with np.load(runs["fused"][0]["archiver"].paths[-1]) as arch:
+            recs = {k: arch[k] for k in arch.files}
+        with native_io.AsyncRecordWriter(path) as w:
+            for k, v in recs.items():
+                w.write(k, v)
+            w.flush()
+        back = native_io.read_records(path, verify_crc=True)
+        ok = sorted(back) == sorted(recs) and all(
+            back[k].dtype == v.dtype and np.array_equal(back[k], v) for k, v in recs.items())
+        self.check("7", ok, f"native SMO1 round trip of {len(recs)} arrays "
+                   f"({os.path.getsize(path)} bytes), CRC verified; built with "
+                   f"'{native_io.compiler_version()}'")
+
     def run(self, only=None):
-        for name in "abcdefghijklmnopqrstuvwxyz123456":
+        for name in "abcdefghijklmnopqrstuvwxyz1234567":
             if only and name not in "ab" + only:
                 continue
             phase = getattr(self, f"phase_{name}")

@@ -36,6 +36,7 @@ from typing import Any, Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from spheremanopt_torch.io.checkpoint import save_progress
 from spheremanopt_torch.manifold import sphere as geom
 from spheremanopt_torch.optim import linesearch as ls
 
@@ -220,9 +221,6 @@ def optimise_on_multi_sphere(
         method = "cg" if cg else "sd"
     if method not in ("sd", "cg", "lbfgs"):
         raise ValueError(f"method must be sd|cg|lbfgs, got {method!r}")
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "checkpoint_path is not ported yet (ROADMAP Queue 1 item 7)")
     cg = method == "cg"
     use_wolfe = line_search == "wolfe"
     # The reference caps Wolfe at amax = alpha_0 (`Sphere_Grad_Descent.py`
@@ -397,6 +395,9 @@ def optimise_on_multi_sphere(
 
         if callback is not None:
             callback(R.iterations, R)
+
+        if checkpoint_path is not None:
+            save_progress(checkpoint_path, R)
 
         if verbose:
             print(R, flush=True)

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 
+from spheremanopt_torch.io.checkpoint import save_progress
 from spheremanopt_torch.manifold import sphere as geom
 from spheremanopt_torch.manifold.sphere import per_row
 from spheremanopt_torch.optim.optimiser import OptimiseResult
@@ -238,9 +239,6 @@ def optimise_rtr(
     the pre-update tangent gradient, step_sizes hold ||eta||_x).
     `hvp_evals` counts Hessian-vector products across all tCG solves.
     """
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "checkpoint_path is not ported yet (ROADMAP Queue 1 item 7)")
     n = len(radii)
     sphere_scale = float(np.sqrt(sum(float(r) for r in radii)))
     if delta_max is None:
@@ -335,6 +333,8 @@ def optimise_rtr(
             t_iter = time.perf_counter()
             if callback is not None:
                 callback(R.iterations, R)
+            if checkpoint_path is not None:
+                save_progress(checkpoint_path, R)
             if verbose:
                 print(R, flush=True)
             if log_file is not None:

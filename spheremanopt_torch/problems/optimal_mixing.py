@@ -212,6 +212,8 @@ class OptimalMixing:
         Vz64 = np.asarray(zfull.synthesis[:, :nz], np.float64)      # (mgz, nz)
         self._Dz_np = self.zbasis.diff_matrix                       # (nz, nz)
         self._kx = (2.0 * np.pi * kxi / cfg.lx).astype(np.float64)
+        # the exact f64 transforms, for regridding and the exports
+        self._Fx64, self._Bx64, self._Az64, self._Vz64 = Fx64, Bx64, Az64, Vz64
 
         # the same matrices on the plane layout (kx, re|im) of the state:
         # x analysis rows (k, re|im) with the Nyquist mask folded in, and
@@ -263,16 +265,17 @@ class OptimalMixing:
             wz = np.empty(mgz)
             wz[0] = z[1] - z[0]
             wz[1:] = z[1:] - z[:-1]
-        w64 = np.broadcast_to(wz[None, :], (mgx, mgz)) * dx / vol
+        w64 = self._w64 = np.broadcast_to(wz[None, :], (mgx, mgz)) * dx / vol
         self._w = t(w64.astype(rdtype))
         self._w_acc = self._w.double()   # f32 inner products sum in f64
 
         # rho(0) = -erf(z/delta)/2, truncated to the nz band (ref :920-925)
         rho0_grid = np.broadcast_to(-0.5 * erf(z / cfg.delta)[None, :],
                                     (mgx, mgz))
-        rho0_c = (np.einsum("nz,kz->kn", Az64,
-                            np.einsum("kj,jz->kz", Fx64, rho0_grid))
-                  * self._xmask[:, None]).astype(self._cnp)
+        self._rho0_c64 = (np.einsum("nz,kz->kn", Az64,
+                                    np.einsum("kj,jz->kz", Fx64, rho0_grid))
+                          * self._xmask[:, None])
+        rho0_c = self._rho0_c64.astype(self._cnp)
         self._rho0 = t(np.stack([rho0_c.real, rho0_c.imag], 1)[:, :, None, :])
         # df64: the f64 twin that runs the solves, on the same f64 numpy
         # operators (so its gradient cast to f32 is this mode's gradient)

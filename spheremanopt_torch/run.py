@@ -19,6 +19,24 @@ subset of the JAX package's `run.py`.
     python -m spheremanopt_torch.run mixing --precision df64 [--df-adjoint]
     python -m spheremanopt_torch.run sh23 --device-loop    # the loop on CUDA graphs
     python -m spheremanopt_torch.run sh23 --direction rtr [--device-loop]
+    python -m spheremanopt_torch.run sh23 --archive-full --h5
+    python -m spheremanopt_torch.run sh23 --resume runs/latest/DAL_PROGRESS.npz
+    python -m spheremanopt_torch.run sh23 --npts 512 --resume coarse.npz --regrid
+    python -m spheremanopt_torch.run kdyn --solve-steps 500 --state-out s.npz
+    python -m spheremanopt_torch.run kdyn --solve-steps 500 --state-in s.npz
+
+Outputs in `--out-dir`, as the JAX CLI writes them: `summary.json`,
+`optimize_result.txt`, the progress checkpoint `DAL_PROGRESS.npz` after
+every iteration of the host loop and host RTR (`--resume` reads it, or a
+reference `DAL_PROGRESS.h5`, or the JAX package's), the per-iteration
+archives (`--archive-every N`: `progress_iter_<k>.npz`, the histories and
+the iterate; `--archive-full`: `diag_iter_<k>.npz`, the full diagnostics,
+from the optimisation's own solves where the problem has a fused form),
+`convergence.pdf` and the problem's figures (matplotlib), and with `--h5`
+the reference's h5 files (h5py). Without matplotlib a line says which
+files were not written; `--h5` without h5py fails. `--solve-steps`
+advances the PDE state from x0 (or `--state-in`) and saves it, with no
+optimisation.
 
 `--device` defaults to `cuda` and fails when no GPU is found; it never
 drops to the CPU on its own (`--device cpu` asks for it). On CUDA the
@@ -66,6 +84,7 @@ import numpy as np
 import torch
 
 from spheremanopt_torch.convert import state_to_torch
+from spheremanopt_torch.io.checkpoint import to_numpy
 from spheremanopt_torch.problems.base import DTYPES
 
 _METHODS = {"sh23": ("matmul", "fft", "cuda"), "shb23": ("matmul", "cuda"),
@@ -149,7 +168,46 @@ def build_parser() -> argparse.ArgumentParser:
                          "reverse sweep: per-step device remat | sqrt(N) "
                          "nested | pinned-host offload | store-all "
                          "(default: step)")
+    ap.add_argument("--resume", default=None,
+                    help="warm-start from a DAL_PROGRESS checkpoint (.npz, "
+                         "or a reference-format DAL_PROGRESS.h5)")
+    ap.add_argument("--regrid", action="store_true",
+                    help="with --resume: re-express the saved state on this "
+                         "config's grid (coarse-to-fine continuation)")
+    ap.add_argument("--archive-every", type=int, default=0,
+                    help="archive every N iterations (0 = off); by default "
+                         "the histories and the iterate, no extra solve")
+    ap.add_argument("--archive-full", action="store_true",
+                    help="archive the full diagnostics (alone: every "
+                         "iteration); from the optimisation's own solves "
+                         "where the problem has a fused form, else a "
+                         "re-run of diagnostics()")
+    ap.add_argument("--no-archive", action="store_true",
+                    help="no archives (--archive-every 0)")
+    ap.add_argument("--h5", action="store_true",
+                    help="also export the reference's h5 files "
+                         "(DAL_PROGRESS.h5, scalar_data_s1.h5, "
+                         "CheckPoints_s1.h5 and the Dedalus-layout "
+                         "*_iter_0.h5) into --out-dir; needs h5py")
+    ap.add_argument("--solve-steps", type=int, default=None,
+                    help="forward-solve mode: advance the PDE state this "
+                         "many steps (no optimisation) and save it")
+    ap.add_argument("--state-in", default=None,
+                    help="--solve-steps: start from this saved state")
+    ap.add_argument("--state-out", default=None,
+                    help="--solve-steps: where to save the state (default "
+                         "<out-dir>/pde_state.npz)")
     return ap
+
+
+def normalise_archive_flags(args) -> None:
+    """--no-archive turns archiving off; --archive-full alone archives
+    every iteration."""
+    if args.no_archive:
+        args.archive_every = 0
+        args.archive_full = False
+    elif args.archive_full and args.archive_every == 0:
+        args.archive_every = 1
 
 
 def set_precision() -> None:
@@ -190,6 +248,28 @@ def check_precision(args) -> None:
 def make_problem(args, x0=None):
     """(problem, x0, defaults) for the parsed `args`. `x0` (a list of
     arrays, e.g. pinned inputs) replaces the seeded initial condition."""
+    problem, defaults = build_problem(args)
+    return problem, initial_point(problem, args, x0), defaults
+
+
+def _device_dtype(problem):
+    if hasattr(problem, "device"):
+        return problem.device, problem.dtype
+    return problem.m.device, problem.m.dtype   # PCA
+
+
+def initial_point(problem, args, x0=None):
+    """`x0` (a list of arrays) as tensors on the problem's device in its
+    dtype, or the seeded initial condition when it is None."""
+    if x0 is None:
+        if args.problem != "pca":
+            return problem.generate_ic(seed=args.seed)
+        x0 = [np.random.RandomState(args.seed).rand(args.dim)]
+    return state_to_torch(x0, *_device_dtype(problem))
+
+
+def build_problem(args):
+    """(problem, defaults) for the parsed `args`."""
     check_precision(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA GPU found (use --device cpu "
@@ -202,12 +282,10 @@ def make_problem(args, x0=None):
         dtype = DTYPES[args.dtype or "float64"]
         p = PCAProblem(random_spd_matrix(args.dim, seed=args.seed),
                        device=device, dtype=dtype)
-        if x0 is None:
-            x0 = [np.random.RandomState(args.seed).rand(args.dim)]
-        return p, state_to_torch(x0, device, dtype), dict(alpha=1.0, max_iters=2000)
+        return p, dict(alpha=1.0, max_iters=2000)
 
     if args.problem == "mixing":
-        return _make_mixing(args, device, x0)
+        return _make_mixing(args, device)
     method = args.method
     gpu_f32 = args.device == "cuda" and args.dtype in (None, "float32")
     if method is None:
@@ -244,10 +322,8 @@ def make_problem(args, x0=None):
             kw.update(solve_precision="df64", df_adjoint=args.df_adjoint)
         if args.remat is not None:
             kw["remat"] = False if args.remat == "none" else args.remat
-        p = KinematicDynamo(KDynConfig(**kw), device=device)
-        x0 = (p.generate_ic(seed=args.seed) if x0 is None
-              else state_to_torch(x0, device, p.dtype))
-        return p, x0, dict(alpha=100.0, max_iters=10)
+        return KinematicDynamo(KDynConfig(**kw), device=device), dict(
+            alpha=100.0, max_iters=10)
     kw["adjoint"] = args.adjoint
     if args.diag_stride is not None:
         kw["diag_stride"] = args.diag_stride
@@ -263,12 +339,10 @@ def make_problem(args, x0=None):
 
         p = SwiftHohenberg(SH23Config(**kw), device=device)
         defaults = dict(alpha=np.pi, max_iters=200)
-    x0 = (p.generate_ic(seed=args.seed) if x0 is None
-          else state_to_torch(x0, device, p.dtype))
-    return p, x0, defaults
+    return p, defaults
 
 
-def _make_mixing(args, device, x0):
+def _make_mixing(args, device):
     from spheremanopt_torch.problems.optimal_mixing import (MixingConfig,
                                                             OptimalMixing)
 
@@ -282,10 +356,8 @@ def _make_mixing(args, device, x0):
                       ("n_iters", args.n_iters)):
         if val is not None:
             kw[name] = val
-    p = OptimalMixing(MixingConfig(**kw), device=device)
-    x0 = (p.generate_ic(seed=args.seed) if x0 is None
-          else state_to_torch(x0, device, p.dtype))
-    return p, x0, dict(alpha=100.0, max_iters=200)
+    return OptimalMixing(MixingConfig(**kw), device=device), dict(
+        alpha=100.0, max_iters=200)
 
 
 def df64(problem) -> bool:
@@ -356,16 +428,57 @@ def device_optimiser(problem, defaults, args, graphs=None):
         lbfgs_memory=args.lbfgs_memory, f=f, graphs=graphs, rows=rows)
 
 
+def make_archiver(problem, args):
+    """The per-iteration archiver `main` runs for `args`, or None
+    (`--archive-every 0`). `--archive-full` takes `FusedArchiver` where the
+    problem has a fused-diagnostics form, and `IterationArchiver` (a re-run
+    of `diagnostics`) where it has none, under df64 (whose objective is
+    the f64 twin's) and under RTR (which calls the plain forms only);
+    else `LightArchiver`."""
+    from spheremanopt_torch.io.timeseries import (FusedArchiver,
+                                                  IterationArchiver,
+                                                  LightArchiver)
+
+    if args.archive_every <= 0:
+        return None
+    if args.archive_full and (df64(problem) or args.direction == "rtr"):
+        if not hasattr(problem, "diagnostics"):
+            raise SystemExit("--archive-full needs problem.diagnostics on the "
+                             "df64 and rtr paths")
+        return IterationArchiver("diag", problem.diagnostics, args.out_dir)
+    if args.archive_full and getattr(problem, "has_fused_diagnostics", False):
+        return FusedArchiver("diag", problem, args.out_dir)
+    if args.archive_full and hasattr(problem, "diagnostics"):
+        return IterationArchiver("diag", problem.diagnostics, args.out_dir)
+    return LightArchiver("progress", args.out_dir)
+
+
 def optimise(problem, x0, defaults, args, graphs=None):
     """The optimisation exactly as `main` runs it: the host loop, or with
     `--device-loop` the device loop (a `JitOptResult`, or a
     `JitRTRResult` for `--direction rtr`; `graphs` as in
-    `device_optimiser`)."""
+    `device_optimiser`). On the host loops, `args.archiver` (an archiver
+    of `io.timeseries`, called every `args.archive_every` iterations; a
+    `FusedArchiver` also supplies the objective forms) and
+    `args.checkpoint_path` (written after every iteration) are used when
+    present: `main` sets them, other callers need not."""
     radii = problem.radii if hasattr(problem, "radii") else [1.0]
     err_tol, max_iters, alpha = _settings(defaults, args)
     if args.device_loop:
         return device_optimiser(problem, defaults, args, graphs)(
             x0, aux=loop_aux(problem))
+    archiver = getattr(args, "archiver", None)
+    callback = None
+    if archiver is not None:
+        every = max(1, getattr(args, "archive_every", 1))
+
+        def callback(k, result):
+            if k % every == 0:
+                archiver(k, result)
+    hooks = dict(callback=callback,
+                 checkpoint_path=getattr(args, "checkpoint_path", None),
+                 verbose=not args.quiet,
+                 log_path=os.path.join(args.out_dir, "optimize_result.txt"))
     if args.direction == "rtr":
         from spheremanopt_torch.optim.rtr import optimise_rtr
 
@@ -373,19 +486,25 @@ def optimise(problem, x0, defaults, args, graphs=None):
         return optimise_rtr(
             x0, radii, problem.objective, problem.gradient,
             problem.inner_product, err_tol=err_tol, max_iters=max_iters,
-            delta0=args.tr_delta0, max_cg=args.tr_max_cg,
-            verbose=not args.quiet,
-            log_path=os.path.join(args.out_dir, "optimize_result.txt"))
+            delta0=args.tr_delta0, max_cg=args.tr_max_cg, **hooks)
 
+    from spheremanopt_torch.io.timeseries import FusedArchiver
     from spheremanopt_torch.optim.optimiser import optimise_on_multi_sphere
 
-    # df64: the host search compares J at f64 (the f32 scalar rounds every
-    # trial to ~ulp(J))
+    if isinstance(archiver, FusedArchiver):
+        # every solve of the run also gives its diagnostics
+        f, grad_f, f_and_g = archiver.f, archiver.grad_f, archiver.f_and_g
+    else:
+        # df64: the host search compares J at f64 (the f32 scalar rounds
+        # every trial to ~ulp(J))
+        f = problem.objective_f64 if df64(problem) else problem.objective
+        grad_f = problem.gradient
+        f_and_g = getattr(problem, "objective_and_gradient", None)
     return optimise_on_multi_sphere(
         x0,
         radii,
-        problem.objective_f64 if df64(problem) else problem.objective,
-        problem.gradient,
+        f,
+        grad_f,
         problem.inner_product,
         err_tol=err_tol,
         max_iters=max_iters,
@@ -394,9 +513,8 @@ def optimise(problem, x0, defaults, args, graphs=None):
         cg=not args.sd,
         method=args.direction,
         lbfgs_memory=args.lbfgs_memory,
-        verbose=not args.quiet,
-        log_path=os.path.join(args.out_dir, "optimize_result.txt"),
-        f_and_g=getattr(problem, "objective_and_gradient", None),
+        f_and_g=f_and_g,
+        **hooks,
     )
 
 
@@ -417,13 +535,139 @@ def taylor_test(problem, x0, args):
         save_path=os.path.join(args.out_dir, "eps_TestR_TestR2_h_h2.npy"))
 
 
-def main(argv=None) -> int:
+def resume_point(problem, args):
+    """x0 from the `--resume` checkpoint (a flat reference vector shaped
+    to the problem's layout; with `--regrid` re-expressed on its grid)."""
+    from spheremanopt_torch.io.checkpoint import load_progress_any
+    from spheremanopt_torch.utils.regrid import regrid_state, reshape_flat_state
+
+    loaded = load_progress_any(args.resume)
+    try:
+        xs = reshape_flat_state(problem, loaded.x_opt)
+    except ValueError as e:
+        raise SystemExit(f"--resume {args.resume}: {e}")
+    print(f"[resume] warm-starting from iteration {loaded.iterations}")
+    if args.regrid:
+        shapes_in = [tuple(x.shape) for x in xs]
+        xs = regrid_state(problem, xs)
+        print(f"[resume] regridded {shapes_in} -> {[tuple(x.shape) for x in xs]}")
+    return initial_point(problem, args, xs)
+
+
+def solve_forward(problem, x0, args) -> dict:
+    """`--solve-steps`: advance the PDE state from x0 (or `--state-in`) and
+    save it; restartable, advance(s, a + b) == advance(advance(s, a), b)
+    bit for bit (the reference's `IVP_FWD.load_state`,
+    `FWD_Solve_SH23.py:459-460`)."""
+    from spheremanopt_torch.io.checkpoint import load_pde_state, save_pde_state
+
+    if not hasattr(problem, "advance_state"):
+        raise SystemExit(f"--solve-steps: {args.problem} has no PDE state")
+    if args.state_in:
+        state_np, step0, _ = load_pde_state(args.state_in)
+        device = _device_dtype(problem)[0]
+        state = {k: torch.as_tensor(v, device=device) for k, v in state_np.items()}
+    else:
+        state, step0 = problem.initial_state(x0), 0
+    state = problem.advance_state(state, args.solve_steps)
+    step1 = step0 + args.solve_steps
+    out_path = args.state_out or os.path.join(args.out_dir, "pde_state.npz")
+    save_pde_state(out_path, state, step1, meta={"problem": args.problem})
+    norms = {k: float(np.linalg.norm(to_numpy(v)))
+             for k, v in problem.state_fields(state).items()}
+    return {"mode": "forward-solve", "problem": args.problem,
+            "from_step": step0, "to_step": step1, "state_path": out_path,
+            "field_norms": norms}
+
+
+def write_outputs(problem, result, args) -> dict:
+    """`convergence.pdf`, the problem's figures and, with `--h5`, the
+    reference's h5 files for a finished run (`result`: an OptimiseResult,
+    or the device loop's record as one). Returns {kind: path}. Without
+    matplotlib one line names the files not written; `--h5` without h5py
+    raises ImportError."""
+    import importlib.util
+
+    from spheremanopt_torch.io.figures import PROBLEM_FIGURES, plot_energy_series
+    from spheremanopt_torch.optim.plotting import plot_optimisation
+
+    out = {}
+    if importlib.util.find_spec("matplotlib") is None:
+        figures = (args.problem in PROBLEM_FIGURES
+                   or hasattr(problem, "diagnostics"))
+        print(f"[{args.problem}] not written: convergence.pdf"
+              + (f", the {args.problem} figures" if figures else "")
+              + " (matplotlib is not installed)", flush=True)
+    else:
+        out["convergence"] = plot_optimisation(
+            result, save_path=os.path.join(args.out_dir, "convergence.pdf"))
+        if args.problem in PROBLEM_FIGURES:
+            # the reference's per-problem figures (plot_figure_*.py)
+            out["figures"] = PROBLEM_FIGURES[args.problem](
+                problem, result.x_opt, args.out_dir)
+        elif hasattr(problem, "diagnostics"):
+            out["figures"] = [plot_energy_series(
+                problem.diagnostics(result.x_opt),
+                os.path.join(args.out_dir, "energy_series.pdf"))]
+    if args.h5:
+        from spheremanopt_torch.io.dedalus_export import export_dedalus_h5
+        from spheremanopt_torch.io.h5compat import export_run_h5
+
+        diag = (problem.diagnostics(result.x_opt)
+                if hasattr(problem, "diagnostics") else {})
+        paths = export_run_h5(args.out_dir, args.problem, result, diag)
+        paths.update(export_dedalus_h5(args.out_dir, args.problem, problem,
+                                       result, diag))
+        out["h5"] = paths
+        if not args.quiet:
+            print("h5 exports:", json.dumps(paths))
+    return out
+
+
+def _loop_record(r, n_spheres):
+    """The device loop's result as the host OptimiseResult's fields that
+    the outputs read (histories cut to the iterations taken). The device
+    loop counts no line-search trials: the evaluation counts are the
+    iterations (a lower bound)."""
+    import types
+
+    k = int(r.iterations)
+    res = to_numpy(r.residuals)
+    return types.SimpleNamespace(
+        iterations=k, x_opt=list(r.x_opt), n_components=len(r.x_opt),
+        function_evals=k, gradient_evals=k,
+        residuals=[res[:k, i] for i in range(n_spheres)],
+        step_sizes=to_numpy(r.step_sizes)[:k],
+        function_values=to_numpy(r.function_values)[:k])
+
+
+def main(argv=None, x0=None, out=None) -> int:
+    """The command line. In-process callers may pass `x0` (a list of
+    arrays, in place of the seeded initial condition) and a dict `out`,
+    which receives the run's problem, x0, result and archiver."""
     args = build_parser().parse_args(argv)
+    normalise_archive_flags(args)
+    if args.regrid and not args.resume:
+        raise SystemExit("--regrid requires --resume <state file>")
+    if args.h5:
+        from spheremanopt_torch.io.h5compat import _h5py
+
+        _h5py()   # fail before the run, not after it
     os.makedirs(args.out_dir, exist_ok=True)
+    out = {} if out is None else out
     t0 = time.time()
-    problem, x0, defaults = make_problem(args)
+    problem, defaults = build_problem(args)
+    if args.resume:
+        x0 = resume_point(problem, args)
+    elif x0 is not None or not (args.solve_steps is not None and args.state_in):
+        x0 = initial_point(problem, args, x0)
+    out.update(problem=problem, x0=x0)
     print(f"[{args.problem}] setup {time.time()-t0:.1f}s on {args.device}"
           + (f" ({torch.cuda.get_device_name(0)})" if args.device == "cuda" else ""))
+
+    if args.solve_steps is not None:
+        print(json.dumps(solve_forward(problem, x0, args)))
+        return 0
 
     if args.test_grad:
         r = taylor_test(problem, x0, args)
@@ -435,6 +679,7 @@ def main(argv=None) -> int:
     if args.device_loop:
         t0 = time.perf_counter()
         r = optimise(problem, x0, defaults, args)
+        out["result"] = r
         k = int(r.iterations)
         summary = {
             "problem": args.problem,
@@ -455,9 +700,19 @@ def main(argv=None) -> int:
         with open(os.path.join(args.out_dir, "summary.json"), "w") as f:
             json.dump(summary, f, indent=2)
         print(json.dumps(summary))
+        n = len(problem.radii) if hasattr(problem, "radii") else 1
+        out["outputs"] = write_outputs(problem, _loop_record(r, n), args)
         return 0
 
+    archiver = args.archiver = out["archiver"] = make_archiver(problem, args)
+    args.checkpoint_path = os.path.join(args.out_dir, "DAL_PROGRESS.npz")
+    t0 = time.perf_counter()
     res = optimise(problem, x0, defaults, args)
+    if hasattr(archiver, "flush"):
+        archiver.flush()   # the archive writes have landed
+    wall = time.perf_counter() - t0
+    out["result"] = res
+    out["outputs"] = write_outputs(problem, res, args)
     summary = {
         "problem": args.problem,
         "device": args.device,
@@ -469,7 +724,14 @@ def main(argv=None) -> int:
         "J_final": res.function_values[-1] if res.function_values else None,
         "residuals_final": [r[-1] for r in res.residuals if r],
         "wall_time_total_s": round(sum(res.wall_times), 3),
+        # the loop with its callbacks and checkpoints, archive writes flushed
+        "optimise_wall_s": wall,
     }
+    if archiver is not None:
+        summary["archive"] = {
+            "kind": type(archiver).__name__, "every": args.archive_every,
+            "files": len(archiver.paths),
+            "fallback_recomputes": getattr(archiver, "fallback_recomputes", None)}
     with open(os.path.join(args.out_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
     print(json.dumps(summary))

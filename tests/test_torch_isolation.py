@@ -104,9 +104,34 @@ def test_kdyn_rest_and_df64_run_without_jax():
     assert "isolated" in r.stdout
 
 
+def test_io_and_resume_run_without_jax(tmp_path):
+    """The I/O modules, regrid and the plotting module import with JAX
+    blocked, and `run.main` archives (`--archive-full`), checkpoints and
+    resumes on the CPU."""
+    out = str(tmp_path)
+    code = _BLOCK_JAX + (
+        "import spheremanopt_torch.io.checkpoint, spheremanopt_torch.io.timeseries, "
+        "spheremanopt_torch.io.h5compat, spheremanopt_torch.io.dedalus_export, "
+        "spheremanopt_torch.io.figures, spheremanopt_torch.io.native_io, "
+        "spheremanopt_torch.utils.regrid, spheremanopt_torch.optim.plotting; "
+        "from spheremanopt_torch import run; "
+        "base = ['sh23', '--device', 'cpu', '--npts', '16', '--n-iters', '4', "
+        f"'--quiet', '--max-iters', '2', '--out-dir', {out!r}]; "
+        "o = {}; assert run.main(base + ['--archive-full'], out=o) == 0; "
+        "assert type(o['archiver']).__name__ == 'FusedArchiver' and o['archiver'].paths; "
+        f"assert run.main(base + ['--resume', {out!r} + '/DAL_PROGRESS.npz']) == 0; "
+        "assert not any(m.startswith(('jax', 'spheremanopt_tpu')) "
+        "for m, v in sys.modules.items() if v is not None), 'JAX imported'; "
+        "print('isolated')")
+    r = _python(code)
+    assert r.returncode == 0, r.stderr
+    assert "isolated" in r.stdout and "[resume] warm-starting from iteration" in r.stdout
+
+
 @pytest.mark.parametrize("pattern", ["import jax", "from jax", "spheremanopt_tpu"])
 def test_no_package_file_names_jax(pattern):
-    files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu"))
+    files = (sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu"))
+             + sorted(PKG.rglob("*.cpp")))
     assert len(files) > 10
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern in f.read_text()]
     assert not offenders, f"{pattern!r} in {offenders}"

@@ -112,16 +112,6 @@ def test_sh23_host_loop_trajectory_matches_jax(one_thread):
     assert abs(float(tp.inner_product(rt.x_opt[0], rt.x_opt[0])) - tp.cfg.e0) < 1e-15
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(checkpoint_path="DAL_PROGRESS.npz"), "checkpoint_path"),
-])
-def test_unported_options_raise(kw, match):
-    tp = TPCA(t_spd(8, seed=0), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        t_optimise([torch.ones(8, dtype=torch.float64)], [1.0], tp.objective,
-                   tp.gradient, tp.inner_product, verbose=False, **kw)
-
-
 def test_log_path_records_each_iteration(tmp_path):
     tp = TPCA(t_spd(16, seed=1), device="cpu")
     log = tmp_path / "optimize_result.txt"
