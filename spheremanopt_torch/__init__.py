@@ -32,23 +32,31 @@ Gradients are discrete adjoints: reverse-mode autograd of the forward
 solve, or the kernels' own reverse sweep.
 """
 
-from spheremanopt_torch.manifold.sphere import (
-    normalise_sphere,
-    retract,
-    tangent_project,
-    transport,
-)
-from spheremanopt_torch.optim.optimiser import (
-    OptimiseResult,
-    optimise_on_multi_sphere,
-)
-from spheremanopt_torch.grad.testgrad import adjoint_gradient_test
-from spheremanopt_torch.problems.kinematic_dynamo import (
-    KDynConfig,
-    KinematicDynamo,
-)
-
 __version__ = "0.1.0"
+
+# the public names, each imported from its module on first use, so that
+# importing a light submodule (`run doctor`'s report) does not import torch
+_EXPORTS = {
+    "normalise_sphere": "spheremanopt_torch.manifold.sphere",
+    "retract": "spheremanopt_torch.manifold.sphere",
+    "tangent_project": "spheremanopt_torch.manifold.sphere",
+    "transport": "spheremanopt_torch.manifold.sphere",
+    "OptimiseResult": "spheremanopt_torch.optim.optimiser",
+    "optimise_on_multi_sphere": "spheremanopt_torch.optim.optimiser",
+    "adjoint_gradient_test": "spheremanopt_torch.grad.testgrad",
+    "KDynConfig": "spheremanopt_torch.problems.kinematic_dynamo",
+    "KinematicDynamo": "spheremanopt_torch.problems.kinematic_dynamo",
+}
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module 'spheremanopt_torch' has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(module), name)
+
 
 __all__ = [
     "normalise_sphere",

@@ -245,7 +245,8 @@ class DeviceOptimiser:
 
     `make_steps(aux_obj, batched)` builds the loop's steps for one aux
     operand object (with `batched`, over rows), `drive(loop)` runs them
-    from the start, `result(S)` reads the result from the state. On the
+    from the start, `result(S)` reads the result from the state. A DTensor
+    x0 is gathered and comes back as a DTensor x_opt. On the
     card (unless `graphs=False`) the first call for a given set of shapes
     (a sweep's include its R) builds and captures a `GraphLoop` (kept, and
     replayed by later calls with those shapes); otherwise each call runs
@@ -290,6 +291,16 @@ class DeviceOptimiser:
             else torch.stack(vals) for vals in zip(*outs)))
 
     def _run(self, x0_list, rr, aux, batched):
+        from spheremanopt_torch.parallel.sharded import Layout
+
+        layout = Layout.of(x0_list)
+        if layout is not None:
+            # DTensor state: gathered once, the loop run whole on every
+            # rank, x_opt cut back to x0's placements (parallel/sharded.py)
+            if batched:
+                raise ValueError("sweep: rows of DTensor state are not supported")
+            out = self._run(layout.gather(x0_list), rr, aux, False)
+            return out._replace(x_opt=layout.shard(out.x_opt))
         x0 = [torch.as_tensor(x) for x in x0_list]
         leaves, rebuild = tree_flatten(aux)
         on_card = x0[0].device.type == "cuda"

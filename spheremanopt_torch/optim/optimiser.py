@@ -206,7 +206,10 @@ def optimise_on_multi_sphere(
     per-component callables `(x, y) -> 0-dim tensor`.
 
     Returns an OptimiseResult; `result.function_values` holds -J(X_k)
-    (the reference's sign convention for maximisation problems).
+    (the reference's sign convention for maximisation problems). A state
+    of DTensors (`parallel.mesh.shard_fields`) is gathered once, optimised
+    whole on every rank, and x_opt comes back with x0's placements
+    (`parallel/sharded.py`).
 
     `method` selects the search direction: "sd" (steepest descent), "cg"
     (the reference's hybrid FR/PR conjugate gradient — the default when
@@ -216,6 +219,11 @@ def optimise_on_multi_sphere(
     the Armijo search, which gives no curvature guarantee: more pairs are
     skipped and the direction degrades toward SD, as in the JAX package.
     """
+    from spheremanopt_torch.parallel.sharded import Layout
+
+    layout = Layout.of(x0)
+    if layout is not None:
+        x0 = layout.gather(x0)
     n = len(radii)
     if method is None:
         method = "cg" if cg else "sd"
@@ -410,4 +418,6 @@ def optimise_on_multi_sphere(
         R.message = R.message or "Converged: residual below err_tol."
     elif not R.message:
         R.message = "Stopped: max_iters reached."
+    if layout is not None:
+        R.x_opt = layout.shard(R.x_opt)
     return R

@@ -40,6 +40,19 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+class MeshForms:
+    """`problem.on_mesh(mesh)`: the problem's state forms over DTensor
+    state sharded on `mesh`, its operators replicated on every rank
+    (`parallel.sharded.ShardedProblem`). An adapter: each evaluation
+    gathers the state and runs the whole solve on every rank, so it
+    splits neither memory nor work."""
+
+    def on_mesh(self, mesh):
+        from spheremanopt_torch.parallel.sharded import ShardedProblem
+
+        return ShardedProblem(self, mesh)
+
+
 def to_f64(x_list):
     """A state list in float64 (df64 mode: an f32 state for the f64 twin
     problem; f32 values are exact in f64)."""

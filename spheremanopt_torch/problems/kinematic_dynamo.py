@@ -40,6 +40,19 @@ CNAB1 timestepping with 3/2-rule dealiasing (ref `:211-216,443`).
     tensors the wrappers run their plain versions. It has no fused
     diagnostics (the objective is a closed kernel), as in JAX.
 
+`transform="distributed"` (the JAX package's) runs the transforms as the
+slab or 2-D pencil distributed FFTs of `parallel/fft.py` over a process
+mesh (`torch.distributed`: NCCL on GPUs, gloo on CPUs): `n_shards`
+ranks in a slab (0: the whole group), or `mesh_shape=(px, py)` for a
+pencil. Each rank holds its shard of the state: (c, mg/P, mg, mg) grid
+fields for a slab, (c, mg/px, mg/py, mg) for a pencil (`shard_state`
+cuts full fields, `gather_state` joins them). The coefficients take the
+full oversampled layout (c, mg, mg/P, mg//2+1), the band kept by a mask,
+so the step, Leray and energy code serves both layouts; energies and
+inner products are summed over the ranks, so every rank's optimiser sees
+the same scalars and makes the same decisions. Without a process group
+the constructor starts a one-rank group (`parallel.mesh.init_distributed`).
+
 `adjoint="continuous"` integrates the reference's adjoint PDE system
 backward along the stored forward (`gradient`, `adjoint_diagnostics`);
 J still comes from `objective` (under "cuda", the forward kernel).
@@ -68,7 +81,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from spheremanopt_torch.problems.base import (DTYPES, SegmentAdvance,
+from spheremanopt_torch.problems.base import (MeshForms, DTYPES, SegmentAdvance,
                                               check_choice, resolve_device,
                                               to_f64, value_and_raw_gradient)
 from spheremanopt_torch.solvers.scan_utils import (checkpoint_on_host,
@@ -96,7 +109,11 @@ class KDynConfig:
                                  # "nested": sqrt(N) two-level | "offload":
                                  # per-step carries in pinned host memory
                                  # | False: store-all
-    transform: str = "matmul"    # "matmul" | "fft"
+    transform: str = "matmul"    # "matmul" | "fft" | "distributed"
+    n_shards: int = 0            # transform="distributed": slab ranks
+                                 # (0 = the whole process group)
+    mesh_shape: tuple = ()       # transform="distributed": () = 1-D slab;
+                                 # (px, py) = 2-D pencil decomposition
     adjoint: str = "discrete"    # "discrete" (autograd) | "continuous"
                                  # (the ref's adjoint system,
                                  # `FWD_Solve_KDyn.py:766-1004`)
@@ -127,14 +144,14 @@ def _cross(a, b):
     ])
 
 
-class KinematicDynamo:
+class KinematicDynamo(MeshForms):
     """Two-sphere problem: X = [B (3,m,m,m), U (3,m,m,m)], on `device`
     in `cfg.dtype`."""
 
-    def __init__(self, cfg: KDynConfig = KDynConfig(), device="cuda"):
+    def __init__(self, cfg: KDynConfig = KDynConfig(), device="cuda", mesh=None):
         check_choice("dtype", cfg.dtype, tuple(DTYPES))
         check_choice("method", cfg.method, ("plain", "cuda"))
-        check_choice("transform", cfg.transform, ("matmul", "fft"))
+        check_choice("transform", cfg.transform, ("matmul", "fft", "distributed"))
         check_choice("adjoint", cfg.adjoint, ("discrete", "continuous"))
         check_choice("cost", cfg.cost, ("Final", "Integrated"))
         if cfg.remat not in _REMATS:
@@ -170,6 +187,16 @@ class KinematicDynamo:
             if cfg.transform != "matmul":
                 raise ValueError(
                     "method='cuda' supports transform='matmul' only")
+        self._dist = cfg.transform == "distributed"
+        if self._dist:
+            if cfg.adjoint != "discrete":
+                raise ValueError(
+                    "transform='distributed' runs the discrete adjoint only "
+                    "(the continuous sweep is not sharded)")
+            if cfg.mesh_shape and len(cfg.mesh_shape) != 2:
+                raise ValueError(
+                    "mesh_shape must be a (px, py) pair for the 2-D "
+                    f"pencil decomposition, got {cfg.mesh_shape!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
@@ -177,15 +204,21 @@ class KinematicDynamo:
         self.mg = int(round(n * cfg.pad_factor))
         self.radii = [cfg.m0, cfg.e0]
         rdtype = np.dtype(cfg.dtype)
+        if self._dist:
+            self._setup_mesh(mesh)
 
         # --- numpy constant tensors (the JAX package's expressions) ---
-        kfull = 2 * np.pi * np.fft.fftfreq(n, 1.0 / n) / cfg.length
-        kr = 2 * np.pi * np.fft.rfftfreq(n, 1.0 / n) / cfg.length
-        nr = n // 2 + 1
+        # For transform="distributed" the coefficient layout is the full
+        # oversampled rfftn layout (mg, mg, mg//2+1): truncation becomes a
+        # band mask, so the distributed FFT needs no band gather
+        M = self.mg if self._dist else n
+        kfull = 2 * np.pi * np.fft.fftfreq(M, 1.0 / M) / cfg.length
+        kr = 2 * np.pi * np.fft.rfftfreq(M, 1.0 / M) / cfg.length
+        nr = M // 2 + 1
         k64 = np.stack(
-            [np.broadcast_to(kfull[:, None, None], (n, n, nr)),
-             np.broadcast_to(kfull[None, :, None], (n, n, nr)),
-             np.broadcast_to(kr[None, None, :], (n, n, nr))]
+            [np.broadcast_to(kfull[:, None, None], (M, M, nr)),
+             np.broadcast_to(kfull[None, :, None], (M, M, nr)),
+             np.broadcast_to(kr[None, None, :], (M, M, nr))]
         )
         self._k = k64.astype(rdtype)
         k2 = self._k2 = (self._k ** 2).sum(axis=0)   # from the rdtype-cast k
@@ -194,9 +227,10 @@ class KinematicDynamo:
         self._inv_k2 = inv_k2.astype(rdtype)
 
         # Nyquist-free keep mask (Dedalus keeps |k| < n/2 of the NPTS
-        # band); the mean is zeroed by the step's mean mask
+        # band); the mean is zeroed by the step's mean mask. The same
+        # retained mode set in both layouts.
         nyq = n // 2
-        fidx = np.abs(np.fft.fftfreq(n) * n)
+        fidx = np.abs(np.fft.fftfreq(M) * M)
         full_keep = fidx < nyq
         r_keep = np.arange(nr) < nyq
         self._keep = (full_keep[:, None, None] & full_keep[None, :, None]
@@ -205,9 +239,9 @@ class KinematicDynamo:
         # rfftn Hermitian double-count weights for Parseval energies
         wz = np.full(nr, 2.0)
         wz[0] = 1.0
-        if n % 2 == 0:
+        if M % 2 == 0:
             wz[-1] = 1.0
-        self._pw = np.broadcast_to(wz[None, None, :], (n, n, nr)).astype(rdtype)
+        self._pw = np.broadcast_to(wz[None, None, :], (M, M, nr)).astype(rdtype)
 
         # CNAB1 diagonal factors: (1/dt -+ k^2/(2Rm))
         a = 1.0 / cfg.dt
@@ -226,21 +260,28 @@ class KinematicDynamo:
         self._Ff = (np.exp(-2j * np.pi * np.outer(freqs, j) / mg) / mg).astype(cdt)
         self._Fz = (np.exp(-2j * np.pi * np.outer(np.arange(n // 2 + 1), j) / mg)
                     / mg).astype(cdt)
+        # (wz_n: the doubling weights of the truncated n-band layout; wz
+        # above is the coefficient layout's, the mg grid's when distributed)
+        wz_n = np.full(n // 2 + 1, 2.0)
+        wz_n[0] = 1.0
+        if n % 2 == 0:
+            wz_n[-1] = 1.0
         self._Bf = np.exp(2j * np.pi * np.outer(j, freqs) / mg).astype(cdt)
         self._Bz = (np.exp(2j * np.pi * np.outer(j, np.arange(n // 2 + 1)) / mg)
-                    * wz[None, :]).astype(cdt)
+                    * wz_n[None, :]).astype(cdt)
 
-        # --- the same constants on the device ---
-        t = self._t
-        self._kt, self._inv_k2t = t(self._k), t(self._inv_k2)
-        self._keept, self._pwt = t(self._keep), t(self._pw)
-        self._lhs_invt, self._rhs_fact = t(self._lhs_inv), t(self._rhs_fac)
+        # --- the same constants on the device (this rank's coefficient
+        # shard under transform="distributed") ---
+        t, c = self._t, self._local_coeff
+        self._kt, self._inv_k2t = t(c(self._k)), t(c(self._inv_k2))
+        self._keept, self._pwt = t(c(self._keep)), t(c(self._pw))
+        self._lhs_invt, self._rhs_fact = t(c(self._lhs_inv)), t(c(self._rhs_fac))
         self._Fft, self._Fzt = t(self._Ff), t(self._Fz)
         self._Bft, self._Bzt = t(self._Bf), t(self._Bz)
         self._cdtype = self._Fft.dtype
-        mean_mask = np.ones((n, n, nr), rdtype)
+        mean_mask = np.ones((M, M, nr), rdtype)
         mean_mask[0, 0, 0] = 0.0
-        self._mean_maskt = t(mean_mask)
+        self._mean_maskt = t(c(mean_mask))
         self._czero = torch.zeros((), dtype=self._cdtype, device=self.device)
         self._w = 1.0 / self.mg ** 3  # IP weight: sum over comps of grid means
 
@@ -260,11 +301,109 @@ class KinematicDynamo:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
     # ------------------------------------------------------------------
+    # transform="distributed": the mesh and this rank's shards
+    # ------------------------------------------------------------------
+
+    def _setup_mesh(self, mesh):
+        """The process mesh (`mesh`, else one made from the config, in the
+        group `init_distributed` starts when there is none) and this
+        rank's blocks: the grid's X (and Y for a pencil) block, and the
+        coefficients' Y block (slab: the rank; pencil: iy * px + ix, the
+        split order of `distributed_rfftn_2d`)."""
+        from spheremanopt_torch.parallel.mesh import (init_distributed,
+                                                      make_mesh, make_mesh2d)
+
+        cfg, mg = self.cfg, self.mg
+        init_distributed(self.device)
+        if mesh is None:
+            mesh = (make_mesh2d(*cfg.mesh_shape) if cfg.mesh_shape
+                    else make_mesh(cfg.n_shards or None))
+        self._mesh = mesh
+        if cfg.mesh_shape:
+            px, py = cfg.mesh_shape
+            ix, iy = mesh.get_coordinate()
+            self._grid_blocks = ((ix, px), (iy, py))
+            cblock = iy * px + ix
+        else:
+            px, py = mesh.size(), 1
+            (ix,) = mesh.get_coordinate()
+            self._grid_blocks = ((ix, px),)
+            cblock = ix
+        P = px * py
+        if mg % P:
+            raise ValueError(
+                f"transform='distributed' needs the grid extent {mg} divisible "
+                f"by the {P} ranks (npts={cfg.npts}, pad_factor={cfg.pad_factor})")
+        self._cslice = slice(cblock * (mg // P), (cblock + 1) * (mg // P))
+
+    def _local_coeff(self, a):
+        """This rank's Y block of a (..., M, M, Mr) coefficient-layout
+        array (all of it unless distributed)."""
+        return a[..., self._cslice, :] if self._dist else a
+
+    def shard_state(self, x_list):
+        """This rank's shards of full (c, mg, mg, mg) state fields (the
+        fields themselves unless distributed)."""
+        if not self._dist:
+            return list(x_list)
+        out = []
+        for x in x_list:
+            x = torch.as_tensor(x)
+            for d, (i, p) in enumerate(self._grid_blocks):
+                b = x.shape[-3 + d] // p
+                x = x.narrow(x.dim() - 3 + d, i * b, b)
+            out.append(x.to(self.device).contiguous())
+        return out
+
+    @property
+    def state_placements(self):
+        """DTensor placements of a state field over the mesh."""
+        from torch.distributed.tensor import Shard
+
+        if not self._dist:
+            raise ValueError("state_placements: transform='distributed' only")
+        return (Shard(1), Shard(2)) if self.cfg.mesh_shape else (Shard(1),)
+
+    def gather_state(self, x_list):
+        """Full (c, mg, mg, mg) fields from this rank's shards (an all-gather
+        over the mesh; the fields themselves unless distributed)."""
+        if not self._dist:
+            return list(x_list)
+        from torch.distributed.tensor import DTensor
+
+        return [DTensor.from_local(x, self._mesh, self.state_placements,
+                                   run_check=False).full_tensor() for x in x_list]
+
+    def _sum_ranks(self, x):
+        if not self._dist:
+            return x
+        from spheremanopt_torch.parallel.fft import sum_over_ranks
+
+        return sum_over_ranks(x)
+
+    def _max_ranks(self, x):
+        if not self._dist:
+            return x
+        from spheremanopt_torch.parallel.fft import max_over_ranks
+
+        return max_over_ranks(x)
+
+    # ------------------------------------------------------------------
     # transforms (batched over the leading component axis)
     # ------------------------------------------------------------------
 
     def to_coeff(self, v_grid: torch.Tensor) -> torch.Tensor:
-        """(c, mg, mg, mg) grid -> truncated coeffs (c, n, n, n//2+1)."""
+        """(c, mg, mg, mg) grid -> truncated coeffs (c, n, n, n//2+1);
+        distributed: this rank's grid shard -> its band-masked shard of
+        the (c, mg, mg, mg//2+1) coefficients."""
+        if self._dist:
+            from spheremanopt_torch.parallel import fft as pfft
+
+            if self.cfg.mesh_shape:
+                c = pfft.distributed_rfftn_2d(v_grid, self._mesh)
+            else:
+                c = pfft.distributed_rfftn(v_grid, self._mesh)
+            return torch.where(self._keept, c / (self.mg ** 3), self._czero)
         if self.cfg.transform == "matmul":
             c = torch.einsum("Zk,...abk->...abZ", self._Fzt,
                              v_grid.to(self._cdtype))
@@ -280,8 +419,15 @@ class KinematicDynamo:
         return torch.where(self._keept, c, self._czero)
 
     def to_grid(self, c: torch.Tensor) -> torch.Tensor:
-        """Truncated coeffs -> (c, mg, mg, mg) oversampled grid."""
+        """Truncated coeffs -> (c, mg, mg, mg) oversampled grid (this
+        rank's shards of each, distributed)."""
         n, mg = self.cfg.npts, self.mg
+        if self._dist:
+            from spheremanopt_torch.parallel import fft as pfft
+
+            if self.cfg.mesh_shape:
+                return pfft.distributed_irfftn_2d(c * (mg ** 3), self._mesh, n_z=mg)
+            return pfft.distributed_irfftn(c * (mg ** 3), self._mesh, n_z=mg)
         if self.cfg.transform == "matmul":
             g = torch.einsum("aX,...XYZ->...aYZ", self._Bft, c)
             g = torch.einsum("bY,...aYZ->...abZ", self._Bft, g)
@@ -301,8 +447,9 @@ class KinematicDynamo:
     # ------------------------------------------------------------------
 
     def _energy(self, c: torch.Tensor) -> torch.Tensor:
-        """(1/V) int |B|^2 via Parseval over the 3 components."""
-        return torch.sum(self._pwt * (c.real ** 2 + c.imag ** 2))
+        """(1/V) int |B|^2 via Parseval over the 3 components (summed over
+        the ranks, distributed)."""
+        return self._sum_ranks(torch.sum(self._pwt * (c.real ** 2 + c.imag ** 2)))
 
     def _leray(self, c: torch.Tensor) -> torch.Tensor:
         """Mode-wise projection onto divergence-free fields (the i
@@ -444,7 +591,7 @@ class KinematicDynamo:
         b, J, energies = self._integrate(b0_c, u_bl, self.cfg.n_iters,
                                          series=True)
         b = b.detach()
-        div_b = torch.abs(torch.sum(self._kt * b, dim=0)).max()
+        div_b = self._max_ranks(torch.abs(torch.sum(self._kt * b, dim=0)).max())
         return -J, {"magnetic_energy": energies, "max_div_B": div_b,
                     "B_final": self.to_grid(b)}
 
@@ -537,7 +684,10 @@ class KinematicDynamo:
         out = []
         with torch.no_grad():
             for g in raw:
-                g = g / self._w
+                # in the problem's dtype (a state given in f32 to an f64
+                # problem has f32 leaf gradients; the FFT transforms would
+                # then project in complex64)
+                g = g.to(self.dtype) / self._w
                 if self.cfg.project_gradients:
                     g = self.to_grid(self._leray(self.to_coeff(g)))
                 out.append(g)
@@ -645,7 +795,7 @@ class KinematicDynamo:
         def make_ops(rm: float) -> dict:
             a = 1.0 / self.cfg.dt
             nu = 1.0 / (2.0 * float(rm))
-            k2, dtype = self._k2, self._lhs_inv.dtype
+            k2, dtype = self._local_coeff(self._k2), self._lhs_inv.dtype
             return {"lhs_inv": self._t((1.0 / (a + nu * k2)).astype(dtype)),
                     "rhs_fac": self._t((a - nu * k2).astype(dtype))}
 
@@ -653,7 +803,15 @@ class KinematicDynamo:
 
     def inner_product(self, x, y):
         """(1/V) int f . g dV = sum over components of grid means
-        (ref `Inner_Prod_3`, `FWD_Solve_KDyn.py:173-181`)."""
+        (ref `Inner_Prod_3`, `FWD_Solve_KDyn.py:173-181`); distributed,
+        this rank's shards' sum, summed over the ranks."""
+        if self._dist:
+            return self._sum_ranks(torch.sum(x * y)) / self.mg ** 3
+        return self.full_inner_product(x, y)
+
+    @staticmethod
+    def full_inner_product(x, y):
+        """The inner product of full (c, mg, mg, mg) fields."""
         return torch.sum(torch.mean(x * y, dim=(-3, -2, -1)))
 
     @property
@@ -716,7 +874,7 @@ class KinematicDynamo:
                 energies.append(self._energy(b))
                 b = self._cnab1_step(b, u_bl)
             energies.append(self._energy(b))
-            div_b = torch.abs(torch.sum(self._kt * b, dim=0)).max()
+            div_b = self._max_ranks(torch.abs(torch.sum(self._kt * b, dim=0)).max())
             return {
                 "sim_time": self.cfg.dt * np.arange(self.cfg.n_iters + 1),
                 "magnetic_energy": torch.stack(energies),
@@ -731,15 +889,17 @@ class KinematicDynamo:
     def _curl_of_noise(self, noise: torch.Tensor, frac=0.25) -> torch.Tensor:
         """curl-like combination of filtered-noise potential derivatives
         (ref takes B = curl-ish of (phi_y - phi_z, ...), :240-243)."""
-        c = self.to_coeff(noise[None])[0]
+        c = self.to_coeff(self.shard_state([noise[None]])[0])[0]
         # low-pass: keep the lowest `frac` of mode indices per axis (ref
-        # filter_field frac=0.25, :30-55)
+        # filter_field frac=0.25, :30-55), on the coefficient layout (the
+        # same retained mode set in the truncated and full layouts)
         n = self.cfg.npts
-        idx = np.abs(np.fft.fftfreq(n) * n) / (n // 2)
-        idxr = np.arange(n // 2 + 1) / (n // 2)
+        M = self.mg if self._dist else n
+        idx = np.abs(np.fft.fftfreq(M) * M) / (n // 2)
+        idxr = np.arange(M // 2 + 1) / (n // 2)
         keep = ((idx[:, None, None] <= frac) & (idx[None, :, None] <= frac)
                 & (idxr[None, None, :] <= frac))
-        c = torch.where(self._t(keep), c, self._czero)
+        c = torch.where(self._t(self._local_coeff(keep)), c, self._czero)
         dx, dy, dz = 1j * self._kt[0] * c, 1j * self._kt[1] * c, 1j * self._kt[2] * c
         return self.to_grid(torch.stack([dy - dz, dz - dx, dx - dy]))
 
@@ -753,7 +913,8 @@ class KinematicDynamo:
 
         B is prep-smoothed by 100 CNAB1 steps at dt=1e-3 (ref :297-302;
         the reference accidentally passes the module globals Rm, dt — a
-        known bug that is not replicated)."""
+        known bug that is not replicated). Distributed, every rank draws
+        the same full noise and returns its shards."""
         shape = (self.mg,) * 3
         if noise is None:
             gen = torch.Generator(device="cpu").manual_seed(seed)
@@ -767,7 +928,8 @@ class KinematicDynamo:
             npts=self.cfg.npts, length=self.cfg.length, rm=1.0, dt=1e-3,
             n_iters=100, cost="Final", pad_factor=self.cfg.pad_factor,
             dtype=self.cfg.dtype, remat=False, transform=self.cfg.transform,
-        ), device=self.device)
+            n_shards=self.cfg.n_shards, mesh_shape=self.cfg.mesh_shape,
+        ), device=self.device, mesh=getattr(self, "_mesh", None))
         with torch.no_grad():
             b = self._curl_of_noise(noise[0].to(self.device))
             if u_noise:
@@ -777,11 +939,11 @@ class KinematicDynamo:
                 xs = np.arange(self.mg) * self.cfg.length / self.mg
                 X, Y, Z = np.meshgrid(xs, xs, xs, indexing="ij")
                 s3 = np.sqrt(3.0)
-                u = self._t(np.stack([
+                u = self.shard_state([self._t(np.stack([
                     0.5 * np.sin(Y) * np.cos(Z) / s3,
                     0.5 * np.sin(Z) * np.cos(X) / s3,
                     0.5 * np.sin(X) * np.cos(Y) / s3,
-                ]).astype(np.dtype(self.cfg.dtype)))
+                ]).astype(np.dtype(self.cfg.dtype)))])[0]
             u = u * torch.sqrt(self.cfg.e0 / self.inner_product(u, u))
             b_c, _ = prep._integrate(prep.to_coeff(b), u, 100)
             b = self.to_grid(b_c)

@@ -66,7 +66,7 @@ from scipy.special import erf
 from torch.utils.checkpoint import checkpoint
 
 from spheremanopt_torch.ops.chebyshev import ChebyshevBasis1D
-from spheremanopt_torch.problems.base import (DTYPES, RowForms,
+from spheremanopt_torch.problems.base import (MeshForms, DTYPES, RowForms,
                                               SegmentAdvance, check_choice,
                                               resolve_device, to_f64,
                                               value_and_raw_gradient)
@@ -162,7 +162,7 @@ def _block_solve(A, E, col_a, bc_pairs):
     return X
 
 
-class OptimalMixing:
+class OptimalMixing(MeshForms):
     """Mixing problem: X = [(2, mgx, mgz) velocity grid fields (u, w)],
     on `device` in `cfg.dtype`. `operators` (numpy "S", "MN" and, for
     adjoint="continuous", "SA": e.g. `convert.mixing_operators` of either

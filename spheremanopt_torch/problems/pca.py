@@ -78,3 +78,14 @@ class PCAProblem:
         """Leading eigenvector via LAPACK (`PCA_example.py:123-129`)."""
         vals, vecs = np.linalg.eigh(self.m_np)
         return vecs[:, -1]
+
+    def sd_rate(self) -> float:
+        """The reference's printed SD 'theoretical rate' ((k-1)/(k+1))^2
+        with kappa = cond(M), reproduced verbatim for parity
+        (`PCA_example.py:149-150`). Caveat inherited with it: cond() of
+        an (almost surely indefinite) symmetrised Gaussian is
+        |lambda|max/|lambda|min, not the eigenvalue-gap ratio the SD
+        rate formula assumes; treat it as the reference's diagnostic, not
+        a sharp bound."""
+        kappa = np.linalg.cond(self.m_np)
+        return ((kappa - 1.0) / (kappa + 1.0)) ** 2

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from spheremanopt_torch.ops.chebyshev import ChebyshevBasis1D
-from spheremanopt_torch.problems.base import (DTYPES, SegmentAdvance,
+from spheremanopt_torch.problems.base import (MeshForms, DTYPES, SegmentAdvance,
                                               check_choice, resolve_device,
                                               value_and_raw_gradient)
 from spheremanopt_torch.solvers.scan_utils import (kahan_add, kahan_zero,
@@ -69,7 +69,7 @@ class SHB23Config:
                                  # stays per-step)
 
 
-class SwiftHohenbergBounded:
+class SwiftHohenbergBounded(MeshForms):
     """SHB23 problem: callable triple + IC generation for the optimiser,
     on `device` in `cfg.dtype`."""
 

@@ -24,6 +24,10 @@ subset of the JAX package's `run.py`.
     python -m spheremanopt_torch.run sh23 --npts 512 --resume coarse.npz --regrid
     python -m spheremanopt_torch.run kdyn --solve-steps 500 --state-out s.npz
     python -m spheremanopt_torch.run kdyn --solve-steps 500 --state-in s.npz
+    python -m spheremanopt_torch.run doctor                # environment report
+    python -m spheremanopt_torch.run sh23 --profile-dir runs/trace
+    torchrun --nproc-per-node 2 -m spheremanopt_torch.run kdyn --shards 2
+    torchrun --nproc-per-node 4 -m spheremanopt_torch.run kdyn --mesh-shape 2,2
 
 Outputs in `--out-dir`, as the JAX CLI writes them: `summary.json`,
 `optimize_result.txt`, the progress checkpoint `DAL_PROGRESS.npz` after
@@ -59,6 +63,24 @@ modes and are refused: `--dtype float64` is the accuracy mode on the
 H100. `--remat step|nested|offload|none` sets KDyn's trajectory memory on
 the plain method.
 
+`doctor` prints an environment report as JSON (versions, a CPU and a
+GPU probe in child processes, nvcc and g++, whether the kernels' library
+and the g++ record writer are built for the current sources, the build and operator-cache
+directories) and exits 0 when the CPU path works; it builds nothing and
+initialises no CUDA in its own process. `--profile-dir DIR` writes a
+torch.profiler Chrome trace of the optimisation (not the problem build)
+into DIR (`utils/profiling.py`).
+
+`--shards N` (kdyn) runs the transforms as the slab distributed FFT over
+N processes (`transform="distributed"`, `parallel/fft.py`), `--mesh-shape
+PX,PY` as the 2-D pencil over PX x PY; launch with `torchrun
+--nproc-per-node N` (NCCL on GPUs, gloo with `--device cpu`); without
+torchrun a one-rank group is made, so only `--shards 1` runs. N must be
+the number of processes. Every rank optimises its shards of the state;
+rank 0 alone prints and writes `--out-dir` (`summary.json` with the J
+history); across more than one rank there are no checkpoints, archives
+or figures (the state is sharded).
+
 `--device-loop` runs the SD/CG/L-BFGS loop with its line search on the
 device (`optim/jit_driver.py`, on CUDA graphs on a GPU); with
 `--direction rtr`, the trust-region loop (`optim/jit_rtr.py`). A problem
@@ -80,12 +102,19 @@ import os
 import sys
 import time
 
-import numpy as np
-import torch
+if __name__ == "__main__" and sys.argv[1:] == ["doctor"]:
+    # the report starts its probes before this process imports torch,
+    # which takes seconds and may be what is broken
+    from spheremanopt_torch.utils.doctor import run_doctor
 
-from spheremanopt_torch.convert import state_to_torch
-from spheremanopt_torch.io.checkpoint import to_numpy
-from spheremanopt_torch.problems.base import DTYPES
+    sys.exit(0 if run_doctor()["cpu_ok"] else 1)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from spheremanopt_torch.convert import state_to_torch  # noqa: E402
+from spheremanopt_torch.io.checkpoint import to_numpy  # noqa: E402
+from spheremanopt_torch.problems.base import DTYPES  # noqa: E402
 
 _METHODS = {"sh23": ("matmul", "fft", "cuda"), "shb23": ("matmul", "cuda"),
             "kdyn": ("plain", "cuda"), "mixing": ("plain",)}
@@ -99,7 +128,10 @@ _DF64_PROBLEMS = ("kdyn", "mixing")
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="spheremanopt_torch.run",
                                  description=__doc__.splitlines()[0])
-    ap.add_argument("problem", choices=["sh23", "shb23", "kdyn", "mixing", "pca"])
+    ap.add_argument("problem", choices=["sh23", "shb23", "kdyn", "mixing", "pca",
+                                        "doctor"],
+                    help="problem to run, or 'doctor' for an environment "
+                         "report (CPU and GPU probes, compilers, caches)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--out-dir", default="runs/latest")
     ap.add_argument("--seed", type=int, default=42)
@@ -168,6 +200,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "reverse sweep: per-step device remat | sqrt(N) "
                          "nested | pinned-host offload | store-all "
                          "(default: step)")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="kdyn: 1-D slab distributed FFT over this many "
+                         "processes (transform='distributed'; launch with "
+                         "torchrun --nproc-per-node N)")
+    ap.add_argument("--mesh-shape", default=None, metavar="PX,PY",
+                    help="kdyn: 2-D pencil decomposition over a PX x PY "
+                         "process mesh (overrides --shards)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace of the optimisation "
+                         "here (trace.json, Chrome format)")
     ap.add_argument("--resume", default=None,
                     help="warm-start from a DAL_PROGRESS checkpoint (.npz, "
                          "or a reference-format DAL_PROGRESS.h5)")
@@ -265,7 +307,9 @@ def initial_point(problem, args, x0=None):
         if args.problem != "pca":
             return problem.generate_ic(seed=args.seed)
         x0 = [np.random.RandomState(args.seed).rand(args.dim)]
-    return state_to_torch(x0, *_device_dtype(problem))
+    xs = state_to_torch(x0, *_device_dtype(problem))
+    # distributed KDyn: this rank's shards of the full fields
+    return problem.shard_state(xs) if hasattr(problem, "shard_state") else xs
 
 
 def build_problem(args):
@@ -276,6 +320,8 @@ def build_problem(args):
                          "to run on the CPU)")
     set_precision()
     device = torch.device(args.device)
+    if sharded(args):
+        device = _init_shards(args, device)
     if args.problem == "pca":
         from spheremanopt_torch.problems.pca import PCAProblem, random_spd_matrix
 
@@ -289,9 +335,10 @@ def build_problem(args):
     method = args.method
     gpu_f32 = args.device == "cuda" and args.dtype in (None, "float32")
     if method is None:
-        # df64 solves on the plain method (the kernels are f32)
+        # df64 and the distributed transforms solve on the plain method
+        # (the kernels are f32 matmul-transform integrators)
         method = ("cuda" if gpu_f32 and args.precision != "df64"
-                  else _METHODS[args.problem][0])
+                  and not sharded(args) else _METHODS[args.problem][0])
     if method not in _METHODS[args.problem]:
         raise SystemExit(f"--method {method}: {args.problem} takes "
                          f"{'|'.join(_METHODS[args.problem])}")
@@ -322,6 +369,10 @@ def build_problem(args):
             kw.update(solve_precision="df64", df_adjoint=args.df_adjoint)
         if args.remat is not None:
             kw["remat"] = False if args.remat == "none" else args.remat
+        if args.mesh_shape is not None:
+            kw.update(transform="distributed", mesh_shape=_mesh_shape(args))
+        elif args.shards:
+            kw.update(transform="distributed", n_shards=args.shards)
         return KinematicDynamo(KDynConfig(**kw), device=device), dict(
             alpha=100.0, max_iters=10)
     kw["adjoint"] = args.adjoint
@@ -340,6 +391,54 @@ def build_problem(args):
         p = SwiftHohenberg(SH23Config(**kw), device=device)
         defaults = dict(alpha=np.pi, max_iters=200)
     return p, defaults
+
+
+def sharded(args) -> bool:
+    """Whether `args` ask for the distributed transforms."""
+    return bool(args.shards) or args.mesh_shape is not None
+
+
+def _mesh_shape(args):
+    try:
+        px, py = (int(v) for v in args.mesh_shape.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh-shape {args.mesh_shape!r}: expected PX,PY")
+    return px, py
+
+
+def _init_shards(args, device):
+    """The process group of a sharded run (torchrun's, or one rank), its
+    size checked against --shards / --mesh-shape; this rank's device."""
+    import torch.distributed as dist
+
+    from spheremanopt_torch.parallel.mesh import init_distributed
+
+    if args.problem != "kdyn":
+        raise SystemExit("--shards / --mesh-shape apply to kdyn (its "
+                         "distributed FFT transform)")
+    want = (np.prod(_mesh_shape(args)) if args.mesh_shape is not None
+            else args.shards)
+    device = init_distributed(device)
+    world = dist.get_world_size()
+    if world != want:
+        raise SystemExit(
+            f"--{'mesh-shape' if args.mesh_shape else 'shards'}: {want} ranks "
+            f"asked for, but {world} process(es) run; launch with torchrun "
+            f"--nproc-per-node {want}")
+    return device
+
+
+def rank0() -> bool:
+    """Whether this process is rank 0 (or the only process)."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def _make_mixing(args, device):
@@ -461,7 +560,17 @@ def optimise(problem, x0, defaults, args, graphs=None):
     of `io.timeseries`, called every `args.archive_every` iterations; a
     `FusedArchiver` also supplies the objective forms) and
     `args.checkpoint_path` (written after every iteration) are used when
-    present: `main` sets them, other callers need not."""
+    present: `main` sets them, other callers need not. With
+    `args.profile_dir`, the optimisation runs under `profiling.trace`."""
+    if getattr(args, "profile_dir", None):
+        from spheremanopt_torch.utils.profiling import trace
+
+        with trace(args.profile_dir):
+            return _optimise(problem, x0, defaults, args, graphs)
+    return _optimise(problem, x0, defaults, args, graphs)
+
+
+def _optimise(problem, x0, defaults, args, graphs):
     radii = problem.radii if hasattr(problem, "radii") else [1.0]
     err_tol, max_iters, alpha = _settings(defaults, args)
     if args.device_loop:
@@ -477,8 +586,9 @@ def optimise(problem, x0, defaults, args, graphs=None):
                 archiver(k, result)
     hooks = dict(callback=callback,
                  checkpoint_path=getattr(args, "checkpoint_path", None),
-                 verbose=not args.quiet,
-                 log_path=os.path.join(args.out_dir, "optimize_result.txt"))
+                 verbose=not args.quiet and rank0(),
+                 log_path=(os.path.join(args.out_dir, "optimize_result.txt")
+                           if rank0() else None))
     if args.direction == "rtr":
         from spheremanopt_torch.optim.rtr import optimise_rtr
 
@@ -646,6 +756,11 @@ def main(argv=None, x0=None, out=None) -> int:
     arrays, in place of the seeded initial condition) and a dict `out`,
     which receives the run's problem, x0, result and archiver."""
     args = build_parser().parse_args(argv)
+    if args.problem == "doctor":
+        # diagnostics only: no problem, no CUDA in this process
+        from spheremanopt_torch.utils.doctor import run_doctor
+
+        return 0 if run_doctor()["cpu_ok"] else 1
     normalise_archive_flags(args)
     if args.regrid and not args.resume:
         raise SystemExit("--regrid requires --resume <state file>")
@@ -653,17 +768,26 @@ def main(argv=None, x0=None, out=None) -> int:
         from spheremanopt_torch.io.h5compat import _h5py
 
         _h5py()   # fail before the run, not after it
-    os.makedirs(args.out_dir, exist_ok=True)
     out = {} if out is None else out
     t0 = time.time()
     problem, defaults = build_problem(args)
+    many = world_size() > 1
+    if many and (args.resume or args.archive_every or args.h5 or args.device_loop
+                 or args.solve_steps is not None or args.test_grad):
+        raise SystemExit(f"--shards over {world_size()} ranks: the host loop only "
+                         "(no --resume, archives, --h5, --device-loop, "
+                         "--solve-steps or --test-grad across ranks)")
+    if rank0():
+        os.makedirs(args.out_dir, exist_ok=True)
     if args.resume:
         x0 = resume_point(problem, args)
     elif x0 is not None or not (args.solve_steps is not None and args.state_in):
         x0 = initial_point(problem, args, x0)
     out.update(problem=problem, x0=x0)
-    print(f"[{args.problem}] setup {time.time()-t0:.1f}s on {args.device}"
-          + (f" ({torch.cuda.get_device_name(0)})" if args.device == "cuda" else ""))
+    if rank0():
+        print(f"[{args.problem}] setup {time.time()-t0:.1f}s on {args.device}"
+              + (f" ({torch.cuda.get_device_name(0)})" if args.device == "cuda"
+                 else "") + (f", {world_size()} ranks" if many else ""))
 
     if args.solve_steps is not None:
         print(json.dumps(solve_forward(problem, x0, args)))
@@ -705,14 +829,22 @@ def main(argv=None, x0=None, out=None) -> int:
         return 0
 
     archiver = args.archiver = out["archiver"] = make_archiver(problem, args)
-    args.checkpoint_path = os.path.join(args.out_dir, "DAL_PROGRESS.npz")
+    args.checkpoint_path = (None if many
+                            else os.path.join(args.out_dir, "DAL_PROGRESS.npz"))
     t0 = time.perf_counter()
     res = optimise(problem, x0, defaults, args)
     if hasattr(archiver, "flush"):
         archiver.flush()   # the archive writes have landed
     wall = time.perf_counter() - t0
     out["result"] = res
-    out["outputs"] = write_outputs(problem, res, args)
+    if many:
+        # every rank made the same decisions; rank 0 reports them
+        if not rank0():
+            return 0
+        print(f"[{args.problem}] {world_size()} ranks: no checkpoint, archive "
+              "or figures (the state is sharded)", flush=True)
+    else:
+        out["outputs"] = write_outputs(problem, res, args)
     summary = {
         "problem": args.problem,
         "device": args.device,
@@ -722,6 +854,7 @@ def main(argv=None, x0=None, out=None) -> int:
         "converged": res.converged,
         "message": res.message,
         "J_final": res.function_values[-1] if res.function_values else None,
+        "function_values": list(res.function_values),
         "residuals_final": [r[-1] for r in res.residuals if r],
         "wall_time_total_s": round(sum(res.wall_times), 3),
         # the loop with its callbacks and checkpoints, archive writes flushed

@@ -83,10 +83,13 @@ def _cheb_pad(c: np.ndarray, n_dst: int, axis: int = -1) -> np.ndarray:
 
 
 def _renormalise(problem, xs):
+    # the inner product of full fields (a distributed KDyn's own takes
+    # its rank's shards)
+    ip = getattr(problem, "full_inner_product", problem.inner_product)
     out = []
     for x, r in zip(xs, problem.radii):
         t = torch.as_tensor(x, device=problem.device)
-        n = float(problem.inner_product(t, t))
+        n = float(ip(t, t))
         out.append(x * np.sqrt(r / n))
     return out
 
@@ -163,6 +166,8 @@ def regrid_state(problem, x_list, renormalise: bool = True):
         xs = [_fourier_resample(x_list[0], (problem.basis.n_grid,))]
 
     elif kind == "KinematicDynamo":
+        # distributed targets too: the output is the full (c, mg, mg, mg)
+        # grid layout (the optimiser's caller shards it, `shard_state`)
         xs = [_fourier_resample(x, (problem.mg,) * 3) for x in x_list]
 
     elif kind == "SwiftHohenbergBounded":

@@ -68,6 +68,37 @@ def test_server_answers_optimise_and_sweep_without_jax():
     assert "isolated" in r.stdout
 
 
+def test_profiling_doctor_and_sharding_run_without_jax():
+    """utils/profiling.py, utils/doctor.py, parallel/mesh.py,
+    parallel/fft.py and parallel/sharded.py, with JAX blocked: a one-rank
+    gloo group, KDyn's distributed transform against the matmul one, and
+    a DTensor state through `on_mesh`."""
+    code = _BLOCK_JAX + (
+        "import torch; "
+        "from spheremanopt_torch.utils import profiling, doctor; "
+        "from spheremanopt_torch.parallel import mesh, fft, sharded; "
+        "assert profiling.bound_ms(*profiling.sh23_cost_model(16, 4))[0] > 0; "
+        "assert doctor._gpu_probe_ok({'ok': True, 'out': 'cuda|H|1|1|16384.0'}); "
+        "mesh.init_distributed('cpu'); m = mesh.make_mesh(); "
+        "from spheremanopt_torch.problems.kinematic_dynamo import KinematicDynamo, "
+        "KDynConfig; "
+        "cfg = dict(npts=8, n_iters=2, dt=1e-3); "
+        "pm = KinematicDynamo(KDynConfig(**cfg), device='cpu'); "
+        "pd = KinematicDynamo(KDynConfig(transform='distributed', **cfg), device='cpu'); "
+        "x = pm.generate_ic(); "
+        "a = float(pm.objective(x)); b = float(pd.objective(pd.shard_state(x))); "
+        "assert abs(a - b) < 1e-12 * abs(a), (a, b); "
+        "xs = mesh.shard_fields(m, x, 1); "
+        "J, g = pm.on_mesh(m).objective_and_gradient(xs); "
+        "assert float(J) == a and type(g[0]).__name__ == 'DTensor'; "
+        "assert not any(m.startswith(('jax', 'spheremanopt_tpu')) "
+        "for m, v in sys.modules.items() if v is not None), 'JAX imported'; "
+        "print('isolated')")
+    r = _python(code)
+    assert r.returncode == 0, r.stderr
+    assert "isolated" in r.stdout
+
+
 def test_kdyn_rest_and_df64_run_without_jax():
     """The continuous adjoint, the nested and offload remat modes, the Rm
     route and the df64 modes of KDyn and mixing, with JAX blocked."""

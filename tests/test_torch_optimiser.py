@@ -54,6 +54,16 @@ def test_random_spd_matrix_is_the_jax_one():
     np.testing.assert_array_equal(t_spd(DIM, seed=3), j_spd(DIM, seed=3))
 
 
+@pytest.mark.parametrize("dim, seed", [(6, 0), (40, 3)])
+def test_pca_sd_rate_matches_jax(dim, seed):
+    """The reference's printed SD rate ((k-1)/(k+1))^2, kappa = cond(M),
+    on the same M (`PCA_example.py:149-150`)."""
+    m = t_spd(dim, seed=seed)
+    got = TPCA(m, device="cpu").sd_rate()
+    assert got == pytest.approx(JPCA(jnp.asarray(m)).sd_rate(), rel=1e-12)
+    assert 0.0 <= got < 1.0
+
+
 @pytest.mark.parametrize("ls", ["wolfe", "armijo"])
 @pytest.mark.parametrize("cg", [False, True], ids=["sd", "cg"])
 def test_pca_trajectory_matches_jax(ls, cg):

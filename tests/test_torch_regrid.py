@@ -7,7 +7,9 @@ regridded coarse to fine and fine to coarse by both packages agrees to
 trip returns the renormalised source. `reshape_flat_state` shapes the
 flat vectors of a reference `DAL_PROGRESS.h5` as JAX's does, passes
 shaped and regrid-source states through, and refuses a wrong size.
-KDyn's distributed target waits for the port of sharding.
+KDyn's distributed target (a 2-rank gloo world) gives the full grid
+layout, and its objective at the regridded state matches the matmul
+target's.
 """
 
 import numpy as np
@@ -138,3 +140,25 @@ def test_reshape_flat_state_regrid_sources_and_refusals(problems):
     assert np.array_equal(treg.reshape_flat_state(p, [np.ones(6)])[0], np.ones(6))
     with pytest.raises(ValueError, match="no rule"):
         treg.regrid_state(p, [np.ones(6)])
+
+
+def test_kdyn_distributed_target(tmp_path):
+    """A replicated fft-config state regridded onto a DISTRIBUTED target
+    (slab over 2 ranks): the output is the same full (c, mg, mg, mg) grid
+    layout as onto an fft target (the caller shards it), and the
+    distributed objective at the regridded state matches the fft
+    objective at the equally regridded state (JAX's
+    `tests/test_regrid.py::test_kdyn_distributed_target`)."""
+    import torch_dist_cases as cases
+    from spheremanopt_tpu.problems.kinematic_dynamo import KDynConfig, KinematicDynamo
+
+    p = KinematicDynamo(KDynConfig(npts=8, n_iters=4, dtype="float64", transform="fft"))
+    x = [np.asarray(a) for a in p.generate_ic(seed=3)]
+    with cases.LocalWorld(2, str(tmp_path)) as w:
+        outs = w.run(cases.regrid_distributed_target, x)
+    xd, xm, Jd, Jm, mg = outs[0]
+    for a, b in zip(xd, xm):
+        assert a.shape == (3, mg, mg, mg)
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-14)
+    assert np.isclose(Jd, Jm, rtol=1e-10), (Jd, Jm)
+    assert outs[1][2] == Jd
