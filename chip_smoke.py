@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only uvwx     # phases A, B and the ones named
     python3 chip_smoke.py --only 89       # profiling, the doctor, sharding
+    python3 chip_smoke.py --only 0        # the example studies
 
 Drives the port's main paths through the same entry points as the
 command line (`spheremanopt_torch.run.make_problem` and `run.optimise`),
@@ -143,12 +144,13 @@ Phases, one line each; any failure exits non-zero without a result line:
      values there; each gradient equal to the f64 config's cast to f32;
      two iterations of each on the device loop (the aux form; KDyn at
      N = 100, mixing at N = 100) against the host loop's
-  4  KDyn's Rm route: f64 at N = 200, Wolfe + CG, alpha0 = 100, 4
+  4  KDyn's Rm route: f64 at N = 100, Wolfe + CG, alpha0 = 100, 4
      iterations at Rm = 1 and 4 through one device-loop object (one
      capture), each against a loop (eager steps) on a problem built at
      that Rm;
      `spheremanopt_torch.run kdyn` (its `main`) for one iteration with
-     `--adjoint continuous` and with `--remat nested` at N = 200
+     `--adjoint continuous` and with `--remat nested` at N = 100 (the
+     phase cut from N = 200 for the 1200 s limit)
   5  sweeps over rows (`DeviceOptimiser.sweep`) at full width: SH23 f32
      kernels (no native rows: one row at a time on the unbatched loop),
      B = 8, E0 = linspace(0.02, 0.10), 30 Wolfe + CG iterations, every
@@ -157,7 +159,7 @@ Phases, one line each; any failure exits non-zero without a result line:
      beside a trial of the native f32 matmul rows at N = 200 (cut), and
      that optimiser's sweep of one row against its unbatched call (walls,
      launches of a trial replay); SH23 f64 matmul (native rows), B = 3, N = 200
-     and 5 iterations (cut), within rtol 1e-10; mixing 256x128 at N = 100
+     and 5 iterations (cut), within rtol 1e-10; mixing 256x128 at N = 50
      (cut) with one shared stack operand, B = 4, 3 iterations, f64 within
      1e-10, f32 reported; the device RTR on SH23 f64 at N = 100 (cut),
      B = 3, per-row iterations,
@@ -200,8 +202,27 @@ Phases, one line each; any failure exits non-zero without a result line:
      1e-9);
      SHB23 f32 plain and mixing f64 at N = 100 with the state a one-rank
      DTensor (`on_mesh`), J and g bitwise the unsharded calls
+  0  the example studies (`examples/torch_*.py`) through their `main` on
+     the card, run last, at full width and a cut depth (EXAMPLES): the
+     critical seed energy (SH23 256 modes, 1000 steps, f32 kernels, 1
+     bisection of 6-iteration probes: one capture, the ends straddling
+     the threshold, E_c inside the final bracket); the critical Rm (KDyn
+     24^3, the plain Rm route at 10 of the 2000 steps, 2 iterations a
+     probe, 1 bisection: one capture, rm_c inside the bracket); L-BFGS
+     against CG on SH23 (f32 kernels, 1000 steps, 6 iterations) and KDyn
+     (f32 kernels, 2000 steps, 2 iterations); RTR against CG (SH23 plain
+     f32, 100 steps, 2 iterations); the regrid warm start (128 -> 256
+     modes, f32 kernels, 50 steps, 20 iterations); the two mixing studies
+     at their --small widths (df64 solves, 100 steps, 2 + 1 and 2
+     iterations: mix-norm non-increasing). Every x_opt on its sphere,
+     every value finite, each JSON line the example's result. The two
+     sharded examples run as one-rank torchrun children side by side
+     (NCCL, f64, KDyn 16^3 and mixing 32x16 at 20 steps, mixing with the
+     KE objective, 3 iterations each) against the unsharded loops
+     (TOL_DIST_LOOP). The bisections, L-BFGS against CG and the warm start
+     are main paths of their kernels (not recorded on the kernels line)
 
-Each main path (G, H, L, M, R, S, T, U, V, 1, 5, 7, 8) runs with the launch counters set to 0
+Each main path (G, H, L, M, R, S, T, U, V, 1, 5, 7, 8, 0) runs with the launch counters set to 0
 just before it and read just after; a kernel of that path that was not
 launched fails it. The kernels line lists the kernels of those paths;
 the one-block kernels, which no path reaches on an H100, are timed in
@@ -237,7 +258,7 @@ from spheremanopt_torch.ops.cuda import kdyn_step as kd
 from spheremanopt_torch.problems.kinematic_dynamo import KinematicDynamo
 # the H100 SXM data-sheet peaks and the bound of a piece of work: the
 # larger of its bytes over the HBM rate and its flop over a peak
-from spheremanopt_torch.utils.profiling import HBM_RATE, TF32_PEAK, bound_ms
+from spheremanopt_torch.utils.profiling import HBM_RATE, TF32_PEAK, bound_ms, card_name
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REF = os.path.join(HERE, "baselines", "sh23_port_ref.npz")
@@ -294,6 +315,9 @@ TOL_REMAT32, MEM_FRACTION = 1e-6, 0.25
 # values against the host loop's, the JAX package's test tolerance.
 TOL_DF_J, TOL_DF_G, TOL_DF_LOOP = 1e-10, 1e-7, 2e-6
 RM_ITERS, RM_VALUES, TOL_RM = 4, (1.0, 4.0), 1e-12   # Rm route (4)
+# phase 4's steps (its checks hold at any depth: loop against loop at each
+# Rm, the CLI runs' exit and J); cut from KDYN_CUT for the 1200 s limit
+RM_CUT = 100
 # sweeps (5): SH23 f32 kernels B = 8 over E0 = linspace(0.02, 0.10), 30
 # iterations, rows bitwise their unbatched runs (no native rows: each row
 # runs on the unbatched loop); the native f64 rows (products of R columns: another
@@ -303,6 +327,7 @@ RM_ITERS, RM_VALUES, TOL_RM = 4, (1.0, 4.0), 1e-12   # Rm route (4)
 SWEEP_B, SWEEP_ITERS, SWEEP_F64_ITERS, ROW_RTOL = 8, 30, 5, 1e-10
 SWEEP_CUT = 200   # steps of the native-row SH23 sweeps (their captures are eager)
 MIX_SWEEP_E0, MIX_SWEEP_ITERS = (0.005, 0.01, 0.02, 0.04), 3
+MIX_SWEEP_CUT = 50   # the mixing rows' steps (cut from MIX_CUT for the 1200 s limit)
 RTR_SWEEP_CUT = 100
 # depths: the remat modes' Integrated units at half the horizon (an eager
 # unit takes ~20 s at 2000 steps); the df64 device loop's KDyn at N = 100
@@ -318,6 +343,38 @@ BLOCK_MG, BLOCK_N, WIDE_MG = 1024, 200, 2048
 # (the loops at a cut depth: a distributed f64 unit at N = 200 takes seconds)
 TOL_DIST_J, TOL_DIST_G, TOL_DIST_LOOP, DIST_LOOP_ITERS = 1e-12, 1e-9, 1e-9, 2
 DIST_LOOP_CUT = int(os.environ.get("CHIP_SMOKE_DIST_LOOP_N", "20"))
+# phase 0: the example studies (examples/torch_*.py) through their `main`,
+# at full width and a cut depth: (name, argv, the main path's kernels).
+# SH23 at 256 modes on 512 points (the bisection and L-BFGS against CG at
+# 1000 steps, RTR's host loops cut to 100; the regrid from 128 to 256
+# modes at its own 50 steps), KDyn at 24^3 on 36^3 (the Rm bisection's
+# plain loop cut to 10 steps; L-BFGS against CG on the kernels at the
+# full 2000), the mixing studies at their --small widths
+# (64x32, 128x64; a cold f64 operator assembly at 512x256 takes minutes)
+EXAMPLES = (
+    ("sh23_critical_seed", ["--max-iters", "6", "--bisections", "1"],
+     ("fused_fwd_shared_grid", "fused_bwd_shared")),
+    ("kdyn_critical_rm", ["--steps", "10", "--iters", "2", "--bisections", "1"], None),
+    ("lbfgs_vs_cg", ["sh23", "--max-iters", "6"],
+     ("fused_fwd_shared_grid", "fused_bwd_shared")),
+    ("lbfgs_vs_cg", ["kdyn", "--max-iters", "2"], ("kdyn_fwd_traj", "kdyn_bwd")),
+    ("rtr_newton_vs_cg", ["--n-iters", "100", "--max-iters", "2"], None),
+    ("regrid_warmstart", ["--max-iters", "20"],
+     ("fused_fwd_shared_grid", "fused_bwd_shared")),
+    ("mixing_regrid_continuation", ["--small", "--coarse-iters", "2", "--fine-iters", "1",
+                                    "--out", os.path.join(OUT, "examples", "c.json")], None),
+    ("mixing512_df64_study", ["--small", "--n-iters", "100", "--max-iters", "2",
+                              "--out", os.path.join(OUT, "examples", "s.npz")], None),
+)
+# the two sharded examples run as one-rank torchrun children, side by
+# side, in f64 at their default widths (KDyn 16^3 at 20 of its 50 steps,
+# mixing 32x16; mixing's KE objective, whose Wolfe searches go on past
+# the first iteration) against the unsharded loops here (TOL_DIST_LOOP)
+SHARDED_ITERS = 3
+SHARDED = {
+    "kdyn_sharded_optimisation": ["--iters", str(SHARDED_ITERS), "--steps", "20"],
+    "mixing_sharded_optimisation": ["--iters", str(SHARDED_ITERS), "--s", "0"],
+}
 # the run.main flags of phase 7's three SH23 runs
 ARCHIVE_FLAGS = {"plain": [], "light": ["--archive-every", "1"], "fused": ["--archive-full"]}
 PALLAS = "spheremanopt_tpu/ops/pallas/fused_two_matrix.py"
@@ -503,12 +560,15 @@ def kdyn_work(n, mg, n_steps, fwd, traj):
     return n_steps * step, 4 * floats
 
 
-def card_line():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
-        f"nvidia-smi failed: {out.stderr.strip()}"
+def _numbers(obj):
+    """Every number in a JSON-like object."""
+    if isinstance(obj, bool) or obj is None or isinstance(obj, str):
+        return []
+    if isinstance(obj, (int, float)):
+        return [obj]
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    return [v for o in obj for v in _numbers(o)]
 
 
 def trace(fn):
@@ -606,7 +666,7 @@ class Smoke:
     # -- SH23 ---------------------------------------------------------------
 
     def phase_a(self):
-        self.card = card_line()
+        self.card = card_name()
         print(self.card, flush=True)
         cli.set_precision()
         flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -2177,7 +2237,7 @@ class Smoke:
     def phase_4(self):
         from spheremanopt_torch.optim.jit_driver import jit_optimise_on_multi_sphere
 
-        args = problem_args("kdyn", "float64", "plain", "--n-iters", str(KDYN_CUT))
+        args = problem_args("kdyn", "float64", "plain", "--n-iters", str(RM_CUT))
         p, x, _ = cli.make_problem(args, x0=self.kdyn_x0(np.float64))
         fg, make_ops = p.objective_and_gradient_rm
         same = all(torch.equal(make_ops(p.cfg.rm)[k], t)
@@ -2206,7 +2266,7 @@ class Smoke:
                          f"loop on a problem built at that Rm (eager steps) {e:.2e}")
         ok &= len(opt.loops) == 1 and values[RM_VALUES[0]] != values[RM_VALUES[1]]
         self.check("4", ok,
-                   f"kdyn f64 Rm route (N={KDYN_CUT}, Wolfe + CG, alpha0 100): make_ops("
+                   f"kdyn f64 Rm route (N={RM_CUT}, Wolfe + CG, alpha0 100): make_ops("
                    f"cfg.rm) bitwise the problem's factors {same}; one optimise object, "
                    f"{len(opt.loops)} capture(s) for {len(RM_VALUES)} Rm values: "
                    + "; ".join(lines) + f" (tol {TOL_RM:g}); "
@@ -2216,14 +2276,14 @@ class Smoke:
             out = os.path.join(OUT, "kdyn_cli_" + extra[-1])
             t0 = time.perf_counter()
             rc = cli.main(["kdyn", *extra, "--max-iters", "1", "--n-iters",
-                           str(KDYN_CUT), "--quiet", "--out-dir", out])
+                           str(RM_CUT), "--quiet", "--out-dir", out])
             summary = os.path.join(out, "summary.json")
             sj = json.load(open(summary)) if os.path.exists(summary) else {}
             cfg = sj.get("config", {})
             self.check("4", rc == 0 and sj.get("iterations", 0) >= 1
                        and np.isfinite(sj.get("J_final") or np.nan),
                        f"`spheremanopt_torch.run kdyn {' '.join(extra)} --max-iters 1 "
-                       f"--n-iters {KDYN_CUT}`: rc {rc}, {sj.get('iterations')} iterations "
+                       f"--n-iters {RM_CUT}`: rc {rc}, {sj.get('iterations')} iterations "
                        f"to J {sj.get('J_final')!r}, method {cfg.get('method')!r}, dtype "
                        f"{cfg.get('dtype')!r}, adjoint {cfg.get('adjoint')!r}, remat "
                        f"{cfg.get('remat')!r}, {time.perf_counter() - t0:.1f} s")
@@ -2390,7 +2450,7 @@ class Smoke:
         # mixing at 256 x 128, one shared operator-stack operand, depth cut
         e4 = [[v] for v in MIX_SWEEP_E0]
         for dtype in ("float64", "float32"):
-            m = OptimalMixing(MixingConfig(dtype=dtype, n_iters=MIX_CUT),
+            m = OptimalMixing(MixingConfig(dtype=dtype, n_iters=MIX_SWEEP_CUT),
                               device="cuda")
             fg, ops = m.objective_and_gradient_aux
             xm = [torch.stack([m.generate_ic(seed=s)[0] for s in range(len(e4))])]
@@ -2399,7 +2459,7 @@ class Smoke:
                 cg=True, line_search="wolfe", f=m.objective_ops,
                 rows=row_forms(m, aux=True))
             worst = self.sweep_case(
-                f"mixing {dtype} 256x128 at N = {MIX_CUT} (cut from 1000), native rows, "
+                f"mixing {dtype} 256x128 at N = {MIX_SWEEP_CUT} (cut from 1000), native rows, "
                 f"one shared stack operand, E0 {MIX_SWEEP_E0}, {MIX_SWEEP_ITERS} "
                 f"iterations", optm, xm, e4, aux=ops,
                 rtol=ROW_RTOL, gate=dtype == "float64")[-1]
@@ -2918,9 +2978,186 @@ class Smoke:
                    f"DTensor: J and g bitwise the unsharded call; {tP:.3f} s against "
                    f"{t1:.3f} s")
 
+    # -- the example studies ------------------------------------------------
+
+    def example(self, name, argv, kernels=None):
+        """`examples/torch_<name>.py`'s `main(argv)` in-process on the card,
+        a main path of `kernels` when given: (its result, the JSON object
+        of its last output line, wall s). Its own lines stay out of this
+        log."""
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            f"torch_example_{name}", os.path.join(HERE, "examples", f"torch_{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+
+        def run():
+            try:
+                with contextlib.redirect_stdout(buf):
+                    return mod.main(argv + ["--device", "cuda"])
+            except SystemExit as e:   # an example's refusal fails the phase
+                raise RuntimeError(f"torch_{name}.py exited: {e}") from e
+
+        t0 = time.perf_counter()
+        ret = run() if kernels is None else self.main_path("0", kernels, run, record=())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lines = buf.getvalue().strip().splitlines()
+        return ret, json.loads(lines[-1]) if lines else None, wall
+
+    def sharded_child(self, name, argv):
+        """One rank of a sharded example under torchrun, in a child process
+        (its own NCCL group: phase 9's is not reused)."""
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        # "--": torchrun's parser would take the example's `--s` for its own
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", "--", os.path.join(HERE, "examples", f"torch_{name}.py"),
+               *argv, "--device", "cuda", "--dtype", "float64"]
+        proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        t0, done = time.perf_counter(), {}
+
+        def wait():
+            try:
+                done["out"] = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                done["out"] = proc.communicate()
+            done["s"] = time.perf_counter() - t0
+
+        import threading
+
+        done["thread"] = threading.Thread(target=wait, daemon=True)
+        done["thread"].start()
+        return proc, done
+
+    def phase_0(self):
+        """The example studies (EXAMPLES, SHARDED): each one's JSON line
+        must be its result, its values finite and its gates met."""
+        os.makedirs(os.path.join(OUT, "examples"), exist_ok=True)
+        t0 = time.perf_counter()
+        children = {name: self.sharded_child(name, argv) for name, argv in SHARDED.items()}
+        try:
+            for name, argv, kernels in EXAMPLES:
+                ret, line, wall = self.example(name, argv, kernels)
+                self.example_check(name, argv, ret, line, wall)
+            self.sharded_checks(children)
+        finally:
+            for proc, done in children.values():
+                if proc.poll() is None:
+                    proc.kill()
+                done["thread"].join(30)
+
+    def example_check(self, name, argv, ret, line, wall):
+        finite = all(np.isfinite(v) for v in _numbers(ret))
+        what = f"torch_{name}.py {' '.join(argv[:2])}"
+        if name == "sh23_critical_seed":
+            lo, hi = ret["bracket"]
+            e_lo, e_hi = ret["ends"]
+            ok = (ret["captures"] == 1 and e_hi["J_opt"] > ret["threshold"] > e_lo["J_opt"]
+                  and lo < ret["critical_seed_energy"] < hi
+                  and ret["sphere_err"] <= SPHERE_TOL)
+            msg = (f"E_c {ret['critical_seed_energy']!r} in [{lo!r}, {hi!r}], J_opt "
+                   f"{e_lo['J_opt']:.4g} / {e_hi['J_opt']:.4g} at the ends (threshold "
+                   f"{ret['threshold']:.4g}), decisions "
+                   f"{[b['triggered'] for b in ret['bisections']]}, {ret['captures']} capture")
+        elif name == "kdyn_critical_rm":
+            lo, hi = ret["bracket"]
+            probes = ret["probes"]
+            ok = (ret["captures"] == 1 and not ret["eager"] and lo < ret["rm_c"] < hi
+                  and probes[0]["J_opt"] < 1.0 < probes[1]["J_opt"]
+                  and all(p["growth"] == (p["J_opt"] > 1.0) for p in probes)
+                  and ret["sphere_err"] <= SPHERE_TOL)
+            msg = (f"rm_c {ret['rm_c']!r} +- {ret['plus_minus']:.4g} in [{lo:.4g}, {hi:.4g}], "
+                   f"J_opt {[round(p['J_opt'], 6) for p in probes]}, {ret['captures']} "
+                   f"capture, first probe (warm-up and capture) {ret['first_probe_s']:.2f} s, "
+                   f"host peak RSS {ret['host_max_rss_mb']:.0f} MB")
+        elif name == "lbfgs_vs_cg":
+            runs = [ret[d] for d in ("cg", "lbfgs")]
+            ok = all(r["iterations"] >= 1 and bool(np.all(np.diff(r["J_history"]) >= 0))
+                     and r["sphere_err"] <= SPHERE_TOL for r in runs)
+            msg = "; ".join(f"{d} {r['iterations']} iterations to J {r['J_final']!r}, "
+                            f"first {r['first_s']:.2f} s, steady {r['steady_s']:.3f} s"
+                            for d, r in zip(("cg", "lbfgs"), runs))
+        elif name == "rtr_newton_vs_cg":
+            runs = [ret[d] for d in ("cg", "rtr")]
+            ok = all(r["iterations"] >= 1 and bool(np.all(np.diff(r["J_history"]) >= 0))
+                     and r["sphere_err"] <= SPHERE_TOL for r in runs)
+            msg = "; ".join(f"{d} {r['iterations']} iterations, f {r['function_evals']}, g "
+                            f"{r['gradient_evals']}, HVPs {r['hvp_evals']}, J "
+                            f"{r['J_history'][-1]!r}, cold {r['cold_s']:.2f} s, warm "
+                            f"{r['warm_s']:.2f} s" for d, r in zip(("cg", "rtr"), runs))
+        elif name == "regrid_warmstart":
+            ok = (ret["captures"] == 2 and ret["sphere_err"] <= SPHERE_TOL
+                  and all(ret[k]["iters"] >= 1 for k in ("cold", "coarse", "warm")))
+            msg = (f"cold {ret['cold']['iters']} / warm {ret['warm']['iters']} iterations "
+                   f"(to target {ret['cold']['iters_to_target']} / "
+                   f"{ret['warm']['iters_to_target']}), J start {ret['cold']['J_start']:.6g} "
+                   f"/ {ret['warm']['J_start']:.6g}, coarse {ret['coarse']['iters']}")
+        else:   # the two mixing host-loop studies: mix-norm histories
+            hists = ([ret["coarse"]["mixnorm"], ret["warm_fine"]["mixnorm"]]
+                     if "coarse" in ret else [ret["mixnorm"]])
+            ok = (all(len(h) >= 1 and bool(np.all(np.diff(h) <= 0)) for h in hists)
+                  and ret["sphere_err"] <= SPHERE_TOL and ret["solve_precision"] == "df64")
+            msg = f"mix-norm histories {hists}"
+        self.check("0", ok and finite and line == ret,
+                   f"{what}: {msg}; |<x,x>/r-1| {ret.get('sphere_err', 0.0):.1e}, finite "
+                   f"{finite}, JSON line = result {line == ret}, {wall:.2f} s [{self.card}]")
+
+    def sharded_checks(self, children):
+        """The sharded children's trajectories against the unsharded loops
+        on the same widths, depths and seeds, run here meanwhile."""
+        from spheremanopt_torch.optim.jit_driver import jit_optimise_on_multi_sphere
+        from spheremanopt_torch.problems.kinematic_dynamo import KDynConfig
+        from spheremanopt_torch.problems.optimal_mixing import MixingConfig, OptimalMixing
+
+        def loop(fg, p, x0, alpha0, aux=None):
+            opt = jit_optimise_on_multi_sphere(
+                fg, p.inner_product, p.radii, max_iters=SHARDED_ITERS, alpha0=alpha0,
+                cg=True, err_tol=1e-12, line_search="wolfe")
+            r = opt(x0, aux=aux)
+            k = int(r.iterations)
+            return r.function_values[:k].cpu().numpy(), r.step_sizes[:k].cpu().numpy()
+
+        pk = KinematicDynamo(KDynConfig(npts=16, n_iters=20, dt=1e-3, dtype="float64"),
+                             device="cuda")
+        pm = OptimalMixing(MixingConfig(nx=32, nz=16, n_iters=20, prep_steps=5, s=0,
+                                        dtype="float64"), device="cuda")
+        fgm, ops = pm.objective_and_gradient_aux
+        refs = {"kdyn_sharded_optimisation": loop(pk.objective_and_gradient, pk,
+                                                  pk.generate_ic(seed=3), 100.0),
+                "mixing_sharded_optimisation": loop(fgm, pm, pm.generate_ic(seed=3), 10.0,
+                                                    ops)}
+        for name, (proc, done) in children.items():
+            done["thread"].join(330)
+            out, err = done.get("out", ("", "still running"))
+            try:
+                rec = json.loads(out.strip().splitlines()[-1])
+            except (ValueError, IndexError):
+                rec = None
+            fv, steps = refs[name]
+            ok = (proc.returncode == 0 and rec is not None and rec["ranks"] == 1
+                  and rec["torchrun"] and rec["backend"] == "nccl"
+                  and rec["iterations"] == len(fv) >= 1
+                  and np.allclose(rec["J_trajectory"], fv, rtol=TOL_DIST_LOOP,
+                                  atol=1e-12 * float(np.abs(fv).max()))
+                  and np.allclose(rec["step_sizes"], steps, rtol=TOL_DIST_LOOP, atol=0.0))
+            self.check("0", ok,
+                       f"torchrun --nproc-per-node 1 torch_{name}.py --dtype float64: exit "
+                       f"{proc.returncode}, " + (
+                           f"{rec['iterations']} iterations, J {rec['J_trajectory']} against "
+                           f"the unsharded loop's {fv.tolist()} (rtol {TOL_DIST_LOOP:g}), "
+                           f"{rec['grid']}, memory and work split "
+                           f"{rec['memory_and_work_split']}, loop {rec['wall_s']:.2f} s"
+                           if rec else f"no JSON line; stderr {err.strip().splitlines()[-3:]}")
+                       + f"; the child {done.get('s', float('nan')):.1f} s [{self.card}]")
+
     def run(self, only=None):
         self.only = only
-        for name in "abcdefghijklmnopqrstuvwxyz123456789":
+        for name in "abcdefghijklmnopqrstuvwxyz1234567890":
             if only and name not in "ab" + only:
                 continue
             phase = getattr(self, f"phase_{name}")

@@ -20,7 +20,6 @@ Run: python examples/torch_sh23_batch_sweep.py [B] [--device cpu] [--method matm
 
 import argparse
 import os
-import subprocess
 import sys
 import time
 
@@ -33,13 +32,7 @@ import torch
 from spheremanopt_torch.optim.jit_driver import jit_optimise_on_multi_sphere
 from spheremanopt_torch.problems.base import row_forms
 from spheremanopt_torch.problems.swift_hohenberg import SH23Config, SwiftHohenberg
-
-
-def card() -> str:
-    """The card's name and power limit as nvidia-smi reports them."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "no nvidia-smi"
+from spheremanopt_torch.utils.profiling import card_name
 
 
 def sync(device):
@@ -97,7 +90,7 @@ def main(argv=None) -> None:
     sync(device)
     t_seq = time.perf_counter() - t0
 
-    where = card() if on_gpu else "CPU"
+    where = card_name() if on_gpu else "CPU"
     print(f"batch={B} x {max_iters} Wolfe+CG iterations (SH23 N={cfg.npts}, "
           f"{cfg.n_iters} steps/solve, {cfg.dtype} {cfg.method}) on {where}")
     print(f"  batched: {t_batch:.3f}s total = {t_batch / B:.4f}s per optimisation "

@@ -115,3 +115,10 @@ def directional_inner(gs, ds, inner):
     for g, d, ip in zip(gs, ds, ips):
         total = total + ip(g, d)
     return total
+
+
+def sphere_error(xs, radii, inner) -> float:
+    """max over the spheres of |<x_i, x_i> / r_i - 1|: how far a state
+    lies off its spheres (a Python float)."""
+    ips = _as_list(inner, len(xs))
+    return max(abs(float(ip(x, x)) / float(r) - 1.0) for x, r, ip in zip(xs, radii, ips))

@@ -12,12 +12,15 @@ package's `utils/profiling.py`).
   * `roofline(ms, flops, bytes)` and `bound_ms(flops, bytes, peak)` —
     achieved rates against the H100 SXM data-sheet peaks, and the least
     time the card could take for the same work
+  * `card_name()`        — the card's name and power limit, as nvidia-smi
+    gives them, to print beside every time
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 from typing import Callable
 
@@ -28,6 +31,21 @@ import torch
 F32_PEAK = 67e12
 TF32_PEAK = 495e12
 HBM_RATE = 3.35e12
+
+
+def card_name() -> str:
+    """The first card's name and power limit, the line `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints (or why it
+    could not be read)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi failed: {e}"
+    lines = out.stdout.strip().splitlines()
+    return lines[0] if out.returncode == 0 and lines else \
+        f"nvidia-smi failed: {out.stderr.strip()}"
 
 
 @contextlib.contextmanager

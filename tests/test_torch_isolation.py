@@ -187,3 +187,73 @@ def test_chip_smoke_alone_fails(tmp_path):
                        text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+# every examples/torch_*.py at a tiny config on the CPU: (argv, environment)
+EXAMPLES = {
+    "sh23_batch_sweep": (["2"], {"SMO_SWEEP_TINY": "1"}),
+    "mixing_e0_sweep": (["2"], {"SMO_SWEEP_TINY": "1"}),
+    "sh23_critical_seed": (["--npts", "48", "--t-final", "10", "--bisections", "1",
+                            "--max-iters", "10"], {}),
+    "kdyn_critical_rm": (["--npts", "8", "--steps", "50", "--iters", "2",
+                          "--bisections", "1"], {}),
+    "lbfgs_vs_cg": (["kdyn", "--npts", "8", "--steps", "10", "--max-iters", "2"], {}),
+    "rtr_newton_vs_cg": (["--npts", "16", "--n-iters", "10", "--max-iters", "2"], {}),
+    "regrid_warmstart": (["--fine", "32", "--coarse", "16", "--n-steps", "10",
+                          "--max-iters", "3"], {}),
+    "mixing_regrid_continuation": (["--small", "--n-steps", "10", "--coarse-iters", "1",
+                                    "--fine-iters", "1", "--out", "{tmp}/c.json"], {}),
+    "mixing512_df64_study": (["--small", "--n-iters", "10", "--max-iters", "1",
+                              "--out", "{tmp}/s.npz"], {}),
+    "kdyn_sharded_optimisation": (["--npts", "8", "--steps", "5", "--iters", "2"], {}),
+    "mixing_sharded_optimisation": (["--nx", "16", "--nz", "8", "--steps", "5",
+                                     "--iters", "2"], {}),
+}
+
+
+def test_every_torch_example_is_listed():
+    assert sorted(p.stem[len("torch_"):] for p in (ROOT / "examples").glob("torch_*.py")) \
+        == sorted(EXAMPLES)
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLES))
+def test_example_runs_without_jax(name, tmp_path):
+    """The example at a tiny config on `--device cpu` with JAX blocked:
+    it finishes, imports neither JAX nor the JAX package, and (the eleven
+    that print one) ends its output with a JSON object."""
+    argv, env = EXAMPLES[name]
+    argv = [a.replace("{tmp}", str(tmp_path)) for a in argv] + ["--device", "cpu"]
+    code = _BLOCK_JAX + (
+        "import runpy; "
+        f"sys.argv = ['torch_{name}.py'] + {argv!r}; "
+        f"runpy.run_path('examples/torch_{name}.py', run_name='__main__'); "
+        "assert not any(m.startswith(('jax', 'spheremanopt_tpu')) "
+        "for m, v in sys.modules.items() if v is not None), 'JAX imported'; "
+        "print('isolated')")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+                                SMO_OP_CACHE=str(tmp_path / "op_cache"), **env))
+    assert r.returncode == 0, r.stderr[-2000:]
+    lines = r.stdout.strip().splitlines()
+    assert lines[-1] == "isolated"
+    if name not in ("sh23_batch_sweep", "mixing_e0_sweep"):   # PR 14's print tables
+        import json
+
+        assert isinstance(json.loads(lines[-2]), dict)
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLES))
+def test_example_refuses_cuda_without_a_gpu(name):
+    """`--device cuda` (the default) without a GPU exits non-zero with the
+    "no CUDA GPU" message, and never falls back to the CPU."""
+    import torch
+
+    from torch_dist_cases import load_example
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    argv, _ = EXAMPLES[name]
+    with pytest.raises(SystemExit) as e:
+        load_example(name).main([a for a in argv if "{tmp}" not in a and a != "--out"] + ["--device", "cuda"])
+    assert isinstance(e.value.code, str) and "no CUDA GPU" in e.value.code

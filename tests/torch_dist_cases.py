@@ -1,7 +1,8 @@
 """A world of local gloo worker processes (`LocalWorld`) and the cases
 that run on each of its ranks, for the port's sharding tests
 (`test_torch_parallel.py`, `test_torch_sharded.py`,
-`test_torch_regrid.py`).
+`test_torch_regrid.py`, `test_torch_examples_dist.py`), and
+`load_example`, which the example tests share.
 
 `LocalWorld(P, store_dir)` starts P spawned processes, kept for many
 calls; `world.run(fn, *args)` runs `fn(*args)` on every rank and returns
@@ -567,3 +568,31 @@ def regrid_distributed_target(x_coarse):
     Jd = float(pd.objective(pd.shard_state([torch.as_tensor(x) for x in xd])))
     Jm = float(pm.objective([torch.as_tensor(x) for x in xm]))
     return xd, xm, Jd, Jm, pd.mg
+
+
+def load_example(name):
+    """The module `examples/torch_<name>.py` (the examples are scripts,
+    not a package)."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}", os.path.join(root, "examples", f"torch_{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_case(name, argv, x0):
+    """`examples/torch_<name>.py`'s `main(argv, x0=x0)` on this rank:
+    (its return value, the JSON object of its last output line or None
+    where the rank printed none, its full x_opt)."""
+    import contextlib
+    import io
+    import json
+
+    buf, out = io.StringIO(), {}
+    with contextlib.redirect_stdout(buf):
+        ret = load_example(name).main(argv, x0=x0, out=out)
+    lines = buf.getvalue().strip().splitlines()
+    return ret, (json.loads(lines[-1]) if lines else None), out["x_opt"]

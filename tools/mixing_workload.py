@@ -21,7 +21,6 @@ difference of their function values iteration by iteration.
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -32,13 +31,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 from spheremanopt_torch import run as cli  # noqa: E402
-
-
-def card_line():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "not read"
+from spheremanopt_torch.utils.profiling import card_name  # noqa: E402
 
 
 def run_one(dtype, x0, out_dir):
@@ -76,7 +69,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("mixing_workload: no CUDA device", file=sys.stderr)
         return 1
-    card = card_line()
+    card = card_name()
     x0 = np.load(os.path.join(HERE, "baselines", "mixing256_truth.npz"))["x0"]
     out_dir = os.path.join(HERE, "build", "mixing_workload")
     os.makedirs(out_dir, exist_ok=True)
