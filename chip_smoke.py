@@ -151,12 +151,20 @@ Phases, one line each; any failure exits non-zero without a result line:
      `spheremanopt_torch.run kdyn` (its `main`) for one iteration with
      `--adjoint continuous` and with `--remat nested` at N = 100 (the
      phase cut from N = 200 for the 1200 s limit)
-  5  sweeps over rows (`DeviceOptimiser.sweep`) at full width: SH23 f32
-     kernels (no native rows: one row at a time on the unbatched loop),
-     B = 8, E0 = linspace(0.02, 0.10), 30 Wolfe + CG iterations, every
-     row bitwise its unbatched run, batched and sequential wall times, a
-     main path of a warm sweep, its trace (idle share, launches a replay)
-     beside a trial of the native f32 matmul rows at N = 200 (cut), and
+  5  sweeps over rows (`DeviceOptimiser.sweep`) at full width: the four
+     row kernels (a sweep's rows in one launch, the vmapped Pallas
+     kernels) called directly at R = 8, every row's u_T, J, trajectory
+     and lambda_0 bitwise the one-row kernels', against the plain rows,
+     timed at R = 8 and 1 beside 8 one-row calls; SH23 f32 kernels on
+     native rows, B = 8, E0 = linspace(0.02, 0.10): 5 Wolfe + CG
+     iterations, every row bitwise its unbatched run, a main path of a
+     warm sweep (the row kernels, no one-row kernel); the same sweep one
+     row at a time (rows=None), bitwise, a main path of the one-row
+     kernels; then 30 iterations, bitwise, with the batched and
+     sequential wall times and a trace (idle share, launches a replay);
+     SHB23 f32 kernels on native rows, B = 4, 5 iterations, bitwise and a
+     main path the same way; a trial of the native f32
+     matmul rows at N = 200 (cut), and
      that optimiser's sweep of one row against its unbatched call (walls,
      launches of a trial replay); SH23 f64 matmul (native rows), B = 3, N = 200
      and 5 iterations (cut), within rtol 1e-10; mixing 256x128 at N = 50
@@ -166,8 +174,9 @@ Phases, one line each; any failure exits non-zero without a result line:
      trials, HVPs and `converged` equal to the unbatched runs
   6  the server (`spheremanopt_torch.serve`) in a thread on a socket in a
      temporary directory: status; optimise sh23 f32 `cuda` at full width,
-     5 Wolfe iterations, cold then warm; a sweep of 8 seeds with e0 (row 0
-     bitwise the optimise reply); a sweep on mixing (N = 100); save; an
+     5 Wolfe iterations, cold then warm; a sweep of 8 seeds with e0 on
+     native rows (row 0 bitwise the optimise reply); a sweep on mixing
+     (N = 100); save; an
      error reply; status answered while a sweep is busy; shutdown
   7  I/O and --resume through `spheremanopt_torch.run.main` in-process:
      SH23 f32 `cuda` at full width, 5 iterations from the pinned x0,
@@ -258,7 +267,13 @@ from spheremanopt_torch.ops.cuda import kdyn_step as kd
 from spheremanopt_torch.problems.kinematic_dynamo import KinematicDynamo
 # the H100 SXM data-sheet peaks and the bound of a piece of work: the
 # larger of its bytes over the HBM rate and its flop over a peak
-from spheremanopt_torch.utils.profiling import HBM_RATE, TF32_PEAK, bound_ms, card_name
+from spheremanopt_torch.utils.profiling import (
+    HBM_RATE,
+    TF32_PEAK,
+    bound_ms,
+    card_name,
+    gpu_ms,
+)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REF = os.path.join(HERE, "baselines", "sh23_port_ref.npz")
@@ -318,13 +333,18 @@ RM_ITERS, RM_VALUES, TOL_RM = 4, (1.0, 4.0), 1e-12   # Rm route (4)
 # phase 4's steps (its checks hold at any depth: loop against loop at each
 # Rm, the CLI runs' exit and J); cut from KDYN_CUT for the 1200 s limit
 RM_CUT = 100
-# sweeps (5): SH23 f32 kernels B = 8 over E0 = linspace(0.02, 0.10), 30
-# iterations, rows bitwise their unbatched runs (no native rows: each row
-# runs on the unbatched loop); the native f64 rows (products of R columns: another
-# summation order) within ROW_RTOL; mixing's f32 native rows reported
-# against theirs (f32 roundoff of the other order); the depth cuts keep
-# phases 5 and 6 near 150 s
+# sweeps (5): the row kernels called directly at R = SWEEP_B, full width,
+# each row bitwise the one-row kernel; SH23 f32 kernels B = 8 over E0 =
+# linspace(0.02, 0.10) and SHB23 f32 kernels B = SHB_SWEEP_B on their
+# native rows (the row kernels; u0 = P x and the inner product taken a
+# row as the unbatched call takes them), every row bitwise its unbatched
+# run at SWEEP_F64_ITERS iterations and SH23's at SWEEP_ITERS; the same
+# SH23 sweep one row at a time (rows=None), bitwise; the native f64 rows
+# (products of R columns: another summation order) within ROW_RTOL;
+# mixing's f32 native rows reported against theirs (f32 roundoff of the
+# other order); the depth cuts keep phases 5 and 6 near 150 s
 SWEEP_B, SWEEP_ITERS, SWEEP_F64_ITERS, ROW_RTOL = 8, 30, 5, 1e-10
+SHB_SWEEP_B = 4
 SWEEP_CUT = 200   # steps of the native-row SH23 sweeps (their captures are eager)
 MIX_SWEEP_E0, MIX_SWEEP_ITERS = (0.005, 0.01, 0.02, 0.04), 3
 MIX_SWEEP_CUT = 50   # the mixing rows' steps (cut from MIX_CUT for the 1200 s limit)
@@ -409,6 +429,12 @@ REPLACES = {
     "fused_bwd_shared_grid_ops": f"{PALLAS}:203",   # _bwd_kernel_shared, op_grads, mg > 896
     "fused_bwd_grid_ops": f"{PALLAS}:125",      # _bwd_kernel, op_grads, mg > 640
     "op_grads": f"{PALLAS}:125",                # its dA/dB (and :203-206's dB)
+    # the same kernels under jax.vmap: pallas_call's batching rule gives
+    # each a grid over a sweep's rows, one launch for all of them
+    "fused_fwd_shared_rows": f"{PALLAS}:150",   # _fwd_kernel_shared, vmapped
+    "fused_bwd_shared_rows": f"{PALLAS}:185",   # _bwd_kernel_shared, vmapped, mg <= 896
+    "fused_fwd_rows": f"{PALLAS}:60",           # _fwd_kernel, vmapped
+    "fused_bwd_rows": f"{PALLAS}:102",          # _bwd_kernel, vmapped, mg <= 640
 }
 
 
@@ -478,20 +504,6 @@ def max_abs(pairs):
                      .abs().max()) for a, b in pairs)
 
 
-def gpu_ms(fn, reps, warm=2):
-    """Mean ms per call by CUDA events, after `warm` warm-up calls."""
-    for _ in range(warm):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def interleaved_ms(plain, kernel, reps_plain, reps_kernel, warm_plain=2,
                    plain_once=False):
     """(plain ms, kernel ms), measured plain, kernel, kernel, plain; with
@@ -517,6 +529,15 @@ def sweep_work(mg, n_steps, n_mats, fwd, traj=True, ser=False):
     floats += n_steps * mg if (traj or not fwd) else 0
     floats += n_steps + 1 if ser else 0
     return flop, 4 * floats
+
+
+def rows_work(mg, n_steps, n_mats, fwd, n_rows):
+    """(flop, bytes) of a row kernel over n_rows sweeps: n_rows times a
+    sweep's operations; the matrices read once, each row's vectors (and
+    the trajectory: written by a forward, read by a reverse) once."""
+    flop, _ = sweep_work(mg, n_steps, n_mats, fwd)
+    floats = n_mats * mg * mg + n_rows * (3 * mg + 1 + n_steps * mg)
+    return n_rows * flop, 4 * floats
 
 
 def hist_work(mg, n_steps, n_mats):
@@ -2325,8 +2346,8 @@ class Smoke:
             for a, b in pairs:
                 if rtol is None:
                     same &= torch.equal(a, b)
-                worst = max(worst, rel(a, b) if float(b.abs().max()) > 0 else
-                            float(a.abs().max()))
+                d = rel(a, b) if float(b.abs().max()) > 0 else float(a.abs().max())
+                worst = max(worst, d)
         ok = (same and (rtol is None or worst <= rtol)) or not gate
         its = [int(v) for v in rb.iterations]
         single_its = [int(r1.iterations) for r1 in singles]
@@ -2334,12 +2355,85 @@ class Smoke:
         want = ("bitwise" if rtol is None else f"within rtol {rtol:g} of") if gate \
             else "reported against"
         self.check("5", ok and all(np.isfinite(rb.function_values.cpu().numpy().ravel())),
-                   f"{what}: B = {R}, iterations {its} (unbatched {single_its}){extra}; "
+                   f"{what}: B = {R}, iterations {its} (unbatched {single_its}; "
+                   f"{sum(its)} row-iterations, unbatched {sum(single_its)}){extra}; "
                    f"every row {want} its unbatched run ({same}), worst rel "
                    f"{worst:.2e}; sweep {first:.3f} s "
                    f"with the warm-up and capture, {warm:.3f} s replaying; sequential "
                    f"{seq:.3f} s replaying [{self.card}]")
         return rb, first, warm, seq, worst
+
+    def row_kernels(self, p, q):
+        """Each row kernel called directly at R = SWEEP_B rows and full width
+        (p: SH23, mg 512, N 1000; q: SHB23, mg 512, N 2000, both f32
+        `cuda`): every row's u_T, J, trajectory and lambda_0 bitwise the
+        one-row kernel on that row; the rows against the plain rows in
+        f32; CUDA-event times at R = SWEEP_B and at R = 1 beside the plain
+        rows' (once each) and R one-row calls'."""
+        R = SWEEP_B
+        mg, n, lin = p.basis.n_grid, p.cfg.n_iters, 1.0 / p.cfg.dt
+        b = p._Mt.float().contiguous()
+        w = torch.full((mg,), 1.0 / mg, device="cuda")
+        x = torch.stack([p.generate_ic(seed=s)[0] for s in range(R)]).float()
+        u0 = torch.matmul(x, p._Pt.float().t()).contiguous()
+        s1 = (-2.0 * p.cfg.dt) * torch.linspace(0.5, 1.5, R, device="cuda")
+        a2, b2 = q._Alt.float().contiguous(), q._Ant.float().contiguous()
+        w2, n2 = q._wt.float().contiguous(), q.cfg.n_iters
+        u2 = torch.stack([q.generate_ic(seed=s)[0] for s in range(R)]).float().contiguous()
+        s2 = (-2.0 * q.cfg.dt) * torch.linspace(0.5, 1.5, R, device="cuda")
+        cases = (
+            ("sh23", "fused_fwd_shared_rows", "fused_bwd_shared_rows", u0, s1, n, 1,
+             lambda u: fk.fused_fwd_shared_rows(b, w, u, C2, C3, lin, n),
+             lambda uT, t, sc: fk.fused_bwd_shared_rows(b, w, uT, t, C2, C3, lin, sc, n),
+             lambda u: fk.fused_fwd_shared(b, w, u, C2, C3, lin, n)[:3],
+             lambda uT, t, sc: fk.fused_bwd_shared(b, w, uT, t, C2, C3, lin, sc, n)[0],
+             lambda u: fk.fused_fwd_shared_rows_plain(b, w, u, C2, C3, lin, n),
+             lambda uT, t, sc: fk.fused_bwd_shared_rows_plain(b, w, uT, t, C2, C3, lin,
+                                                              sc, n)),
+            ("shb23", "fused_fwd_rows", "fused_bwd_rows", u2, s2, n2, 2,
+             lambda u: fk.fused_fwd_rows(a2, b2, w2, u, C2B, C3B, n2),
+             lambda uT, t, sc: fk.fused_bwd_rows(a2, b2, w2, uT, t, C2B, C3B, sc, n2),
+             lambda u: fk.fused_fwd(a2, b2, w2, u, C2B, C3B, n2)[:3],
+             lambda uT, t, sc: fk.fused_bwd(a2, b2, w2, uT, t, C2B, C3B, sc, n2)[0],
+             lambda u: fk.fused_fwd_rows_plain(a2, b2, w2, u, C2B, C3B, n2),
+             lambda uT, t, sc: fk.fused_bwd_rows_plain(a2, b2, w2, uT, t, C2B, C3B, sc, n2)),
+        )
+        for what, kf, kb, U, sc, steps, n_mats, fr, br, f1, b1, fp, bp in cases:
+            uT, J, traj = fr(U)
+            lam = br(uT, traj, sc)
+            torch.cuda.synchronize()
+            same = True
+            for r in range(R):
+                u1, j1, t1 = f1(U[r])
+                l1 = b1(u1, t1, sc[r])
+                same &= (torch.equal(uT[r], u1) and torch.equal(J[r], j1)
+                         and torch.equal(traj[r], t1) and torch.equal(lam[r], l1))
+            pu, pj, pt = fp(U)
+            pl = bp(uT, traj, sc)
+            rel_f = max(rel(uT, pu), rel(J, pj), rel(traj, pt))
+            rel_b = rel(lam, pl)
+            self.kernels[kf]["max_abs_err"] = max_abs([(uT, pu), (J, pj), (traj, pt)])
+            self.kernels[kb]["max_abs_err"] = max_abs([(lam, pl)])
+            pf_ms, f_ms = interleaved_ms(lambda: fp(U), lambda: fr(U), 1, 10, warm_plain=0,
+                                         plain_once=True)
+            pb_ms, b_ms = interleaved_ms(lambda: bp(uT, traj, sc), lambda: br(uT, traj, sc),
+                                         1, 10, warm_plain=0, plain_once=True)
+            f1_ms = gpu_ms(lambda: fr(U[:1]), 10)
+            b1_ms = gpu_ms(lambda: br(uT[:1], traj[:1], sc[:1]), 10)
+            fseq = gpu_ms(lambda: [f1(U[r]) for r in range(R)], 3)
+            bseq = gpu_ms(lambda: [b1(uT[r], traj[r], sc[r]) for r in range(R)], 3)
+            self.kernels[kf].update(ms=f_ms, plain_ms=pf_ms,
+                                    work=rows_work(U.shape[1], steps, n_mats, True, R))
+            self.kernels[kb].update(ms=b_ms, plain_ms=pb_ms,
+                                    work=rows_work(U.shape[1], steps, n_mats, False, R))
+            self.check("5", same and rel_f <= TOL_VS_PLAIN and rel_b <= TOL_VS_PLAIN,
+                       f"{what} row kernels at R = {R}, mg {U.shape[1]}, N {steps}: every "
+                       f"row's u_T, J, trajectory and lambda_0 bitwise the one-row kernels' "
+                       f"({same}); vs the plain rows f32 rel {rel_f:.2e} / {rel_b:.2e}; "
+                       f"forward {f_ms:.3f} ms (R = 1 {f1_ms:.3f}; {R} one-row calls "
+                       f"{fseq:.3f}; plain {pf_ms:.3f}), reverse {b_ms:.3f} ms (R = 1 "
+                       f"{b1_ms:.3f}; {R} one-row calls {bseq:.3f}; plain {pb_ms:.3f}) "
+                       f"[{self.card}]")
 
     def phase_5(self):
         from spheremanopt_torch.optim.jit_driver import jit_optimise_on_multi_sphere
@@ -2347,44 +2441,108 @@ class Smoke:
         from spheremanopt_torch.problems.base import row_forms
         from spheremanopt_torch.problems.optimal_mixing import MixingConfig, OptimalMixing
         from spheremanopt_torch.problems.swift_hohenberg import SH23Config, SwiftHohenberg
+        from spheremanopt_torch.problems.swift_hohenberg_bounded import (
+            SHB23Config,
+            SwiftHohenbergBounded,
+        )
 
         cli.set_precision()
-        e0 = np.linspace(0.02, 0.10, SWEEP_B)
-        # SH23 f32 kernels at full width: no native rows, so the sweep runs
-        # each row on the unbatched loop's graphs, which launch its two sweeps
         p = SwiftHohenberg(SH23Config(dtype="float32", method="cuda"), device="cuda")
+        qb = SwiftHohenbergBounded(SHB23Config(dtype="float32", method="cuda"), device="cuda")
+        self.row_kernels(p, qb)
+        e0 = np.linspace(0.02, 0.10, SWEEP_B)
+        # SH23 f32 kernels at full width on their native rows: every
+        # gradient of the sweep one row-forward and one row-reverse launch
         x0 = [torch.stack([p.generate_ic(seed=s)[0] for s in range(SWEEP_B)])]
         radii = [[float(r)] for r in e0]
         forms = row_forms(p)
-        opt = jit_optimise_on_multi_sphere(
-            p.objective_and_gradient, p.inner_product, p.radii, max_iters=SWEEP_ITERS,
-            alpha0=float(np.pi), cg=True, line_search="wolfe", f=p.objective,
-            rows=forms)
-        self.check("5", forms is None and not opt.native_rows,
-                   f"sh23 method=cuda has no native rows ({forms}): its sweep runs "
-                   f"one row at a time on the unbatched loop")
-        rb, first, warm, seq, _ = self.sweep_case(
+
+        def kernel_opt(iters):
+            return jit_optimise_on_multi_sphere(
+                p.objective_and_gradient, p.inner_product, p.radii, max_iters=iters,
+                alpha0=float(np.pi), cg=True, line_search="wolfe", f=p.objective,
+                rows=forms)
+
+        opt5 = kernel_opt(SWEEP_F64_ITERS)
+        self.check("5", forms is not None and opt5.native_rows,
+                   "sh23 method=cuda sweeps on native rows (FusedObjectiveSharedRows: "
+                   "the row kernels)")
+        self.sweep_case(
+            f"sh23 f32 kernels (method=cuda, native rows) at full width, E0 = "
+            f"linspace(0.02, 0.10), {SWEEP_F64_ITERS} Wolfe + CG iterations", opt5, x0,
+            radii)
+        # a warm sweep is the main path: graph replays only, the row kernels
+        # and never the one-row kernels
+        self.main_path("5", ("fused_fwd_shared_rows", "fused_bwd_shared_rows"),
+                       lambda: opt5.sweep(x0, radii))
+        one_row = {k: launches()[k] for k in ("fused_fwd_shared_grid", "fused_bwd_shared")}
+        self.check("5", not any(one_row.values()),
+                   f"the warm sweep launched no one-row kernel {one_row}")
+        # the same sweep one row at a time (rows=None: the route of KDyn,
+        # the continuous adjoint and the widths without row kernels), each
+        # row on the unbatched loop's graphs and bitwise its unbatched run;
+        # a warm sweep launches the one-row kernels (their counts stay
+        # phase 1's)
+        opt1 = jit_optimise_on_multi_sphere(
+            p.objective_and_gradient, p.inner_product, p.radii, max_iters=SWEEP_F64_ITERS,
+            alpha0=float(np.pi), cg=True, line_search="wolfe", f=p.objective, rows=None)
+        self.check("5", not opt1.native_rows,
+                   "sh23 method=cuda with rows=None sweeps one row at a time")
+        self.sweep_case(
             f"sh23 f32 kernels (method=cuda, one row at a time) at full width, E0 = "
-            f"linspace(0.02, 0.10), {SWEEP_ITERS} Wolfe + CG iterations", opt, x0, radii)
-        # a warm sweep is the main path: graph replays only
+            f"linspace(0.02, 0.10), {SWEEP_F64_ITERS} Wolfe + CG iterations", opt1, x0,
+            radii)
         self.main_path("5", ("fused_fwd_shared_grid", "fused_bwd_shared"),
-                       lambda: opt.sweep(x0, radii), record=())
-        loop = opt.last_loop
-        print(f"[5] sh23 f32 sweep of {SWEEP_B}: batched {warm:.3f} s, sequential "
-              f"{seq:.3f} s ({seq / warm:.2f}x); J_final "
-              f"{[float(rb.function_values[i, max(int(rb.iterations[i]) - 1, 0)]) for i in range(SWEEP_B)]} "
-              f"[{self.card}]", flush=True)
+                       lambda: opt1.sweep(x0, radii), record=())
+        rows_k = {k: launches()[k] for k in ("fused_fwd_shared_rows", "fused_bwd_shared_rows")}
+        self.check("5", not any(rows_k.values()),
+                   f"the one-row-at-a-time sweep launched no row kernel {rows_k}")
+        # the study's 30 iterations: every row's decisions its unbatched
+        # run's, bit for bit (the f32 end points against JAX are not gated)
+        opt = kernel_opt(SWEEP_ITERS)
+        rb, first, warm, seq, worst = self.sweep_case(
+            f"sh23 f32 kernels (native rows) at full width, {SWEEP_ITERS} Wolfe + CG "
+            f"iterations", opt, x0, radii)
+        j_final = [float(rb.function_values[i, max(int(rb.iterations[i]) - 1, 0)])
+                   for i in range(SWEEP_B)]
+        print(f"[5] sh23 f32 sweep of {SWEEP_B} on native rows, {SWEEP_ITERS} iterations: "
+              f"iterations {[int(v) for v in rb.iterations]}, J_final {j_final}; batched "
+              f"{warm:.3f} s, sequential {seq:.3f} s ({seq / warm:.2f}x) [{self.card}]",
+              flush=True)
         wall_t, busy, rows_t = self.print_trace("5", "a warm sh23 f32 sweep (graph replays)",
                                                 lambda: opt.sweep(x0, radii))
+        loop = opt.last_loop
         steps = sum(opt.last_replays.values())
         n_k = sum(c for _, _, c in rows_t)
-        held = sum(sum(loop.graph_launches(st).values()) * n
+        held = sum(sum(v for k, v in loop.graph_launches(st).items() if k.endswith("_rows")) * n
                    for st, n in opt.last_replays.items())
         print(f"[5] sh23 sweep: {steps} graph replays, {n_k} kernel launches, "
-              f"{n_k / steps:.1f} a replay ({held / steps:.1f} of them the two "
-              f"sweeps); idle share {100 * (1 - busy / wall_t):.1f} %, "
+              f"{n_k / steps:.1f} a replay ({held / steps:.2f} of them row kernels); "
+              f"idle share {100 * (1 - busy / wall_t):.1f} %, "
               f"{1e6 * (wall_t - busy) / steps:.1f} us of idle time a replay; "
               f"replays by step {dict(opt.last_replays)}", flush=True)
+
+        # SHB23 f32 kernels at full width on their native rows
+        xb = [torch.stack([qb.generate_ic(seed=s)[0] for s in range(SHB_SWEEP_B)])]
+        mb = [[qb.cfg.m0]] * SHB_SWEEP_B
+        formsb = row_forms(qb)
+        optb = jit_optimise_on_multi_sphere(
+            qb.objective_and_gradient, qb.inner_product, qb.radii,
+            max_iters=SWEEP_F64_ITERS, alpha0=1.0, cg=True, line_search="wolfe",
+            f=qb.objective, rows=formsb)
+        self.check("5", formsb is not None and optb.native_rows,
+                   "shb23 method=cuda sweeps on native rows (FusedObjectiveRows)")
+        _, _, warm_b, seq_b, _ = self.sweep_case(
+            f"shb23 f32 kernels (method=cuda, native rows) at full width, M0 "
+            f"{qb.cfg.m0}, seeds 0..{SHB_SWEEP_B - 1}, {SWEEP_F64_ITERS} Wolfe + CG "
+            f"iterations", optb, xb, mb)
+        self.main_path("5", ("fused_fwd_rows", "fused_bwd_rows"), lambda: optb.sweep(xb, mb))
+        one_row = {k: launches()[k] for k in ("fused_fwd_grid", "fused_bwd")}
+        self.check("5", not any(one_row.values()),
+                   f"the warm shb23 sweep launched no one-row kernel {one_row}; batched "
+                   f"{warm_b:.3f} s, sequential {seq_b:.3f} s ({seq_b / warm_b:.2f}x) "
+                   f"[{self.card}]")
+
         # the same sweep on SH23's native f32 matmul rows (one product of R
         # columns a step, no kernel), at SWEEP_CUT steps (an eager step of
         # the warm-up and a capture record ~36 launches a step): a warm
@@ -2520,11 +2678,14 @@ class Smoke:
         sw2 = srv.request(sock, sweep)
         ok = sw["ok"] and sw2["ok"] and len(sw["points"]) == SWEEP_B
         row0 = sw["points"][0] if ok else {}
+        # the sweep runs on the row kernels (native rows), each row bitwise
+        # its unbatched run
         self.check("6", ok and row0["J"] == warm["J"]
                    and row0["iterations"] == warm["iterations"]
                    and sw2["points"] == sw["points"],
-                   f"sweep of {SWEEP_B} seeds with e0: row 0 equals the optimise reply "
-                   f"bitwise, iterations {[r['iterations'] for r in sw.get('points', [])]}; "
+                   f"sweep of {SWEEP_B} seeds with e0 (native rows): row 0 equals the "
+                   f"optimise reply bitwise, iterations "
+                   f"{[r['iterations'] for r in sw.get('points', [])]}; "
                    f"cold {sw.get('wall_s')} s, warm {sw2.get('wall_s')} s [{self.card}]")
         mix = {"cmd": "sweep", "problem": "mixing", "config": {"n_iters": MIX_CUT},
                "driver": {"max_iters": 2, "line_search": "wolfe", "cg": True,

@@ -52,13 +52,15 @@ __device__ __forceinline__ void energy_partials(const float* u, const float* ws,
 // order.
 __host__ __device__ constexpr int row_phases(int mg) { return kThreads / (mg / 4); }
 
-// The launch of one cluster of kClusterCtas CTAs of `threads` threads and
-// `smem` bytes of dynamic shared memory. The kernel's attributes are set
-// once per device; `ready` is the flag set of that kernel.
+// The launch of `clusters` clusters of kClusterCtas CTAs of `threads`
+// threads and `smem` bytes of dynamic shared memory each (a row launch
+// runs one cluster per row; the clusters need not be resident at once).
+// The kernel's attributes are set once per device; `ready` is the flag set
+// of that kernel.
 template <typename Kernel>
 cudaError_t cluster_config(Kernel kernel, size_t smem, int threads,
                            bool (&ready)[kMaxDevices], cudaLaunchConfig_t& cfg,
-                           cudaLaunchAttribute& attr, cudaStream_t st) {
+                           cudaLaunchAttribute& attr, cudaStream_t st, int clusters = 1) {
   const cudaError_t err = set_once(ready, [&] {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -67,7 +69,7 @@ cudaError_t cluster_config(Kernel kernel, size_t smem, int threads,
     return e;
   });
   cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3(kClusterCtas);
+  cfg.gridDim = dim3(kClusterCtas * clusters);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -93,11 +95,12 @@ int cluster_capacity(Kernel kernel, size_t smem, int threads, bool (&ready)[kMax
 }
 
 template <typename Kernel, typename... Args>
-int cluster_launch(Kernel kernel, size_t smem, int threads, bool (&ready)[kMaxDevices],
-                   cudaStream_t st, Args... args) {
+int cluster_launch(Kernel kernel, int clusters, size_t smem, int threads,
+                   bool (&ready)[kMaxDevices], cudaStream_t st, Args... args) {
+  if (clusters < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config(kernel, smem, threads, ready, cfg, attr, st);
+  cudaError_t err = cluster_config(kernel, smem, threads, ready, cfg, attr, st, clusters);
   if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -13,6 +13,12 @@
 //                           route of the same reverse sweep; with op_grads
 //                           it stores the lambda history that op_grads.cu
 //                           turns into dB (the `lam_hist` pointer)
+//   sm_fused_fwd_shared_rows, sm_fused_bwd_shared_rows
+//                        <- the same two kernels under jax.vmap (a sweep's
+//                           R rows: pallas_call's batching rule gives each
+//                           a grid over the rows, one launch for all of
+//                           them): R forwards in one grid launch, R reverse
+//                           clusters in one launch
 //
 // What bounds them on an H100: every step is a batch-1 GEMV with the
 // (mg, mg) f32 step matrix B (1 MiB at mg = 512), and the steps are
@@ -87,6 +93,28 @@
 // bit. The wrapper chooses by shape; each route launches its kernel or
 // fails.
 //
+// Rows (a sweep of R independent starting points, the vmapped form):
+// sm_fused_fwd_shared_rows is the grid forward over up to kMaxStates = 8
+// states at once (smo::fwd_rows in grid.cuh, which sm_fused_fwd_rows runs
+// with two matrices). A step is R GEMVs with the same B, so each warp reads a
+// float4 of its row of B from shared memory once and applies it to all R
+// states' v (one register chain per state, each in the one-row kernel's
+// order): one step's latency (the exchange through L2, which now carries
+// R vectors) serves R rows. CTA s forms state s's J, so no CTA sums more
+// than one energy a step (with all of them on CTA 0 and the reads 4
+// rounds deep the forward took 6.275 ms at R = 8, mg = 512, N = 1000;
+// 3.717 with them spread and the reads 8 deep); the
+// wrapper splits B's rows over 64 CTAs (`rows_partition`), which beat one
+// CTA an SM at R = 8 (3.385 against 3.757 ms: each CTA reads the R vectors
+// back every step, so fewer CTAs move fewer bytes through L2; H100 SXM at
+// 700 W, chip_smoke.py phase 5 and tools/time_row_kernels.py).
+// sm_fused_bwd_shared_rows launches the
+// reverse cluster once per row, R clusters in one launch; the clusters are
+// independent, so those the card holds at once run side by side. Each
+// row's u_T, J, trajectory and lambda_0 are bitwise the one-row kernels'
+// on that row. Only the mg <= 896 widths of the cluster have row kernels;
+// a wider sweep runs its rows one at a time (the wrapper raises there).
+//
 // The energy series is a template flag, chosen from the `ser` pointer at
 // launch: a runtime test of the pointer on thread 0's per-step path made
 // every step measurably slower on an H100. J stays bitwise the
@@ -119,6 +147,7 @@ using smo::row_phases;
 using smo::kClusterCtas;
 using smo::kClusterThreads;
 using smo::kClusterWarps;
+using smo::kMaxStates;
 using smo::kThreads;
 using smo::kWarps;
 
@@ -494,7 +523,10 @@ struct BwdSharedGrid {
 // kernel's thread (p, column group) for one column: p = t / C, column
 // c0 + t % C. Shared memory: B's columns (mg x C, row-major),
 // lambda[2][mg] (ping-pong), the partials (P x C), w and u_n of the
-// columns.
+// columns. A launch of several clusters (sm_fused_bwd_shared_rows) runs
+// one sweep per cluster: cluster q reads row q of u_T and of scale, its
+// (N, mg) block of the trajectory, and writes row q of lambda_0 (and its
+// block of the history); B is every cluster's.
 __host__ __device__ constexpr size_t bwd_shared_cluster_smem_bytes(int R) {
   return ((size_t)(128 * R) * (8 * R) + 2 * (size_t)(128 * R)
           + (size_t)row_phases(128 * R) * (8 * R) + 2 * (size_t)(8 * R)) * sizeof(float);
@@ -513,6 +545,12 @@ fused_bwd_shared_cluster_kernel(const float* __restrict__ b, const float* __rest
   const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
   const int c0 = rank * C;
+  const size_t q = blockIdx.x / kClusterCtas;   // this cluster's sweep
+  uT += q * mg;
+  traj += q * n_steps * mg;
+  scale += q;
+  lam_out += q * mg;
+  if constexpr (kLamHist) lam_hist += q * n_steps * mg;
   extern __shared__ float4 smem4[];
   float* bs = reinterpret_cast<float*>(smem4);  // [mg][C]
   float* lam = bs + mg * C;
@@ -569,13 +607,53 @@ struct BwdSharedCluster {
     return smo::cluster_capacity(fused_bwd_shared_cluster_kernel<kLamHist, R>,
                                  bwd_shared_cluster_smem_bytes(R), kClusterThreads, ready);
   }
-  static int launch(cudaStream_t st, const float* b, const float* w, const float* uT,
-                    const float* traj, float c2, float c3, float lin, const float* scale,
-                    int n_steps, float* lam_out, float* lam_hist) {
-    return smo::cluster_launch(fused_bwd_shared_cluster_kernel<kLamHist, R>,
+  static int launch(cudaStream_t st, int clusters, const float* b, const float* w,
+                    const float* uT, const float* traj, float c2, float c3, float lin,
+                    const float* scale, int n_steps, float* lam_out, float* lam_hist) {
+    return smo::cluster_launch(fused_bwd_shared_cluster_kernel<kLamHist, R>, clusters,
                                bwd_shared_cluster_smem_bytes(R), kClusterThreads, ready, st,
                                b, w, uT, traj, c2, c3, lin, scale, n_steps, lam_out,
                                lam_hist);
+  }
+};
+
+// Forward over rows, grid-wide (sm_fused_fwd_shared_rows): smo::fwd_rows
+// with B alone, each state's v = v_poly(u) and shared_dot4, the one-row
+// grid's polynomial and dot, so each state is bitwise
+// fused_fwd_shared_grid_kernel on it.
+struct SharedRowStep {
+  float lin, c2, c3;
+  __device__ __forceinline__ float poly(float x) const { return v_poly(lin, c2, c3, x); }
+  __device__ __forceinline__ float dot(float s, const float4 bb, const float4, const float4,
+                                       const float4 vv) const {
+    return shared_dot4(s, bb, vv);
+  }
+};
+
+__global__ void __launch_bounds__(kClusterThreads, 1)
+fused_fwd_shared_rows_kernel(const float* __restrict__ b, const float* __restrict__ w,
+                             const float* __restrict__ u0, float c2, float c3, float lin,
+                             int n_steps, int mg, int rows, int ns, float* __restrict__ uT,
+                             float* __restrict__ jsum, float* __restrict__ traj,
+                             float* __restrict__ ubuf) {
+  smo::fwd_rows<1>(b, b, w, u0, SharedRowStep{lin, c2, c3}, n_steps, mg, rows, ns, uT, jsum,
+                   traj, ubuf);
+}
+
+struct FwdSharedRows {
+  static inline bool ready[smo::kMaxDevices] = {};
+  static size_t smem(int mg, int rows, int ns) {
+    return smo::fwd_rows_smem_bytes(1, mg, rows, ns);
+  }
+  static int capacity(int mg, int rows, int ns) {
+    return smo::grid_capacity(fused_fwd_shared_rows_kernel, smem(mg, rows, ns), ready);
+  }
+  static int launch(const float* b, const float* w, const float* u0, float c2, float c3,
+                    float lin, int n_steps, int mg, int rows, int ns, float* uT, float* jsum,
+                    float* traj, float* ubuf, cudaStream_t st) {
+    return smo::grid_launch(fused_fwd_shared_rows_kernel, (mg + rows - 1) / rows,
+                            smem(mg, rows, ns), ready, st, b, w, u0, c2, c3, lin, n_steps, mg,
+                            rows, ns, uT, jsum, traj, ubuf);
   }
 };
 
@@ -622,9 +700,41 @@ int sm_fused_bwd_shared(const float* b, const float* w, const float* uT,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return lam_hist != nullptr
              ? smo::launch_by_mg<BwdSharedCluster, true, kMaxR>(
-                   mg, st, b, w, uT, traj, c2, c3, lin, scale, n_steps, lam_out, lam_hist)
+                   mg, st, 1, b, w, uT, traj, c2, c3, lin, scale, n_steps, lam_out, lam_hist)
              : smo::launch_by_mg<BwdSharedCluster, false, kMaxR>(
-                   mg, st, b, w, uT, traj, c2, c3, lin, scale, n_steps, lam_out, lam_hist);
+                   mg, st, 1, b, w, uT, traj, c2, c3, lin, scale, n_steps, lam_out, lam_hist);
+}
+
+// The cluster reverse over ns rows: one cluster per row in one launch
+// (16 ns CTAs; clusters that the card cannot hold at once wait for a free
+// one), row q from row q of uT, scale (ns,) and lam_out and the (N, mg)
+// block q of traj, each row's lambda_0 bitwise sm_fused_bwd_shared's on
+// that row. mg <= 896, as sm_fused_bwd_shared; its capacity query holds.
+int sm_fused_bwd_shared_rows(const float* b, const float* w, const float* uT,
+                             const float* traj, float c2, float c3, float lin,
+                             const float* scale, int n_steps, int mg, int ns, float* lam_out,
+                             void* stream) {
+  return smo::launch_by_mg<BwdSharedCluster, false, kMaxR>(
+      mg, static_cast<cudaStream_t>(stream), ns, b, w, uT, traj, c2, c3, lin, scale, n_steps,
+      lam_out, static_cast<float*>(nullptr));
+}
+
+// The grid-wide forward over ns <= kMaxStates rows at (mg, rows):
+// ceil(mg / rows) >= ns CTAs, which the card must hold at once; u0, uT (ns, mg),
+// jsum (ns,), traj (ns, N, mg) or null; ubuf is 4 ns mg floats of scratch.
+int sm_fused_fwd_shared_rows(const float* b, const float* w, const float* u0, float c2,
+                             float c3, float lin, int n_steps, int mg, int rows, int ns,
+                             float* uT, float* jsum, float* traj, float* ubuf, void* stream) {
+  if (rows < 1 || rows > mg || ns < 1 || ns > kMaxStates || (mg + rows - 1) / rows < ns)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return FwdSharedRows::launch(b, w, u0, c2, c3, lin, n_steps, mg, rows, ns, uT, jsum, traj,
+                               ubuf, static_cast<cudaStream_t>(stream));
+}
+
+// CTAs of sm_fused_fwd_shared_rows that the card can hold at once at
+// (mg, rows, ns), as sm_fused_fwd_shared_grid_capacity.
+int sm_fused_fwd_shared_rows_capacity(int mg, int rows, int ns) {
+  return FwdSharedRows::capacity(mg, rows, ns);
 }
 
 // Clusters of sm_fused_bwd_shared (with the lambda history when `hist`)

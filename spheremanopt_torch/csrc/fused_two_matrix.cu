@@ -12,6 +12,10 @@
 //                    reverse sweep; with op_grads it stores the lambda
 //                    history that op_grads.cu turns into dA and dB (the
 //                    `lam_hist` pointer)
+//   sm_fused_fwd_rows, sm_fused_bwd_rows
+//                 <- the same two kernels under jax.vmap (a sweep's R
+//                    rows, one launch for all of them): R forwards in one
+//                    grid launch, R reverse clusters in one launch
 //
 // SHB23's step has two dense (mg, mg) f32 propagators: A = A_lin (the
 // Chebyshev-tau solve of the linear operator, entries ~1/dt) and
@@ -135,6 +139,18 @@
 // do not fit, and the kernel the cluster and the grid are held to bit for
 // bit.
 //
+// Rows (a sweep of R starting points, the vmapped form), as in
+// fused_shared.cu: sm_fused_fwd_rows is the grid forward over up to
+// kMaxStates = 8 states (smo::fwd_rows with A and B), each warp's float4s of A and B read once a step
+// for every state; sm_fused_bwd_rows launches the reverse cluster once per
+// row. At mg = 512 a reverse CTA holds 137 KB (A's and B's columns and
+// the state), one CTA an SM, and the card holds 7 such clusters at once:
+// an eighth row waits for a free cluster. Keeping R rows' lambda in each
+// cluster instead (2 R mg floats, 32 KB at R = 8) would fit, but would
+// run the R rows' column sums on one cluster's threads. Each row's u_T,
+// J, trajectory and lambda_0 are bitwise the one-row kernels' on that
+// row. Only the mg <= 640 widths of the cluster have row kernels.
+//
 // The energy series is a template flag, chosen from the `ser` pointer at
 // launch, as in fused_shared.cu (a runtime test sits on thread 0's
 // per-step path); the pinned rounding of common.cuh keeps J bitwise the
@@ -168,6 +184,7 @@ using smo::energy_partials;
 using smo::kClusterCtas;
 using smo::kClusterThreads;
 using smo::kClusterWarps;
+using smo::kMaxStates;
 using smo::kThreads;
 using smo::kWarps;
 using smo::launch_by_mg;
@@ -710,7 +727,10 @@ struct BwdGrid {
 // (p, column group) for one column: p = t / C, column c0 + t % C, with the
 // one-block kernel's P = 1024 / (mg / 4) row phases. Shared memory: A's
 // and B's columns (mg x C each, row-major), lambda[2][mg] (ping-pong),
-// the partials (P x C each), w and u_n of the columns.
+// the partials (P x C each), w and u_n of the columns. A launch of several
+// clusters (sm_fused_bwd_rows) runs one sweep per cluster, as the shared
+// matrix's cluster does: cluster q reads row q of u_T and scale and its
+// (N, mg) block of the trajectory, and writes row q of lambda_0.
 __host__ __device__ constexpr size_t bwd_cluster_smem_bytes(int R) {
   return (2 * (size_t)(128 * R) * (8 * R) + 2 * (size_t)(128 * R)
           + 2 * (size_t)row_phases(128 * R) * (8 * R) + 2 * (size_t)(8 * R)) * sizeof(float);
@@ -729,6 +749,12 @@ fused_bwd_cluster_kernel(const float* __restrict__ a, const float* __restrict__ 
   const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
   const int c0 = rank * C;
+  const size_t q = blockIdx.x / kClusterCtas;   // this cluster's sweep
+  uT += q * mg;
+  traj += q * n_steps * mg;
+  scale += q;
+  lam_out += q * mg;
+  if constexpr (kLamHist) lam_hist += q * n_steps * mg;
   extern __shared__ float4 smem4[];
   float* as = reinterpret_cast<float*>(smem4);  // [mg][C]
   float* bs = as + mg * C;
@@ -798,12 +824,51 @@ struct BwdCluster {
     return cluster_capacity(fused_bwd_cluster_kernel<kLamHist, R>,
                             bwd_cluster_smem_bytes(R), kClusterThreads, ready);
   }
-  static int launch(cudaStream_t st, const float* a, const float* b, const float* w,
-                    const float* uT, const float* traj, float c2, float c3,
+  static int launch(cudaStream_t st, int clusters, const float* a, const float* b,
+                    const float* w, const float* uT, const float* traj, float c2, float c3,
                     const float* scale, int n_steps, float* lam_out, float* lam_hist) {
-    return cluster_launch(fused_bwd_cluster_kernel<kLamHist, R>, bwd_cluster_smem_bytes(R),
-                          kClusterThreads, ready, st, a, b, w, uT, traj, c2, c3, scale,
-                          n_steps, lam_out, lam_hist);
+    return cluster_launch(fused_bwd_cluster_kernel<kLamHist, R>, clusters,
+                          bwd_cluster_smem_bytes(R), kClusterThreads, ready, st, a, b, w, uT,
+                          traj, c2, c3, scale, n_steps, lam_out, lam_hist);
+  }
+};
+
+// Forward over rows, grid-wide (sm_fused_fwd_rows): smo::fwd_rows with A
+// and B (every B row of a CTA in shared memory, as fused_fwd_grid_kernel
+// without kStreamB), each state's g = g_poly(u) and fwd_dot4, the one-row
+// grid's polynomial and dot, so each state is bitwise that grid on it.
+struct RowStep {
+  float c2, c3;
+  __device__ __forceinline__ float poly(float x) const { return g_poly(c2, c3, x); }
+  __device__ __forceinline__ float dot(float s, const float4 aa, const float4 bb,
+                                       const float4 uu, const float4 gg) const {
+    return fwd_dot4(s, aa, uu, bb, gg);
+  }
+};
+
+__global__ void __launch_bounds__(kClusterThreads, 1)
+fused_fwd_rows_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                      const float* __restrict__ w, const float* __restrict__ u0, float c2,
+                      float c3, int n_steps, int mg, int rows, int ns, float* __restrict__ uT,
+                      float* __restrict__ jsum, float* __restrict__ traj,
+                      float* __restrict__ ubuf) {
+  smo::fwd_rows<2>(a, b, w, u0, RowStep{c2, c3}, n_steps, mg, rows, ns, uT, jsum, traj, ubuf);
+}
+
+struct FwdRows {
+  static inline bool ready[smo::kMaxDevices] = {};
+  static size_t smem(int mg, int rows, int ns) {
+    return smo::fwd_rows_smem_bytes(2, mg, rows, ns);
+  }
+  static int capacity(int mg, int rows, int ns) {
+    return smo::grid_capacity(fused_fwd_rows_kernel, smem(mg, rows, ns), ready);
+  }
+  static int launch(const float* a, const float* b, const float* w, const float* u0, float c2,
+                    float c3, int n_steps, int mg, int rows, int ns, float* uT, float* jsum,
+                    float* traj, float* ubuf, cudaStream_t st) {
+    return smo::grid_launch(fused_fwd_rows_kernel, (mg + rows - 1) / rows, smem(mg, rows, ns),
+                            ready, st, a, b, w, u0, c2, c3, n_steps, mg, rows, ns, uT, jsum,
+                            traj, ubuf);
   }
 };
 
@@ -862,10 +927,42 @@ int sm_fused_bwd(const float* a, const float* b, const float* w, const float* uT
                  void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return lam_hist != nullptr
-             ? launch_by_mg<BwdCluster, true, kMaxR>(mg, st, a, b, w, uT, traj, c2, c3, scale,
-                                                     n_steps, lam_out, lam_hist)
-             : launch_by_mg<BwdCluster, false, kMaxR>(mg, st, a, b, w, uT, traj, c2, c3, scale,
-                                                      n_steps, lam_out, lam_hist);
+             ? launch_by_mg<BwdCluster, true, kMaxR>(mg, st, 1, a, b, w, uT, traj, c2, c3,
+                                                     scale, n_steps, lam_out, lam_hist)
+             : launch_by_mg<BwdCluster, false, kMaxR>(mg, st, 1, a, b, w, uT, traj, c2, c3,
+                                                      scale, n_steps, lam_out, lam_hist);
+}
+
+// The cluster reverse over ns rows: one cluster per row in one launch
+// (16 ns CTAs; clusters that the card cannot hold at once wait for a free
+// one), row q from row q of uT, scale (ns,) and lam_out and the (N, mg)
+// block q of traj, each row's lambda_0 bitwise sm_fused_bwd's on that row.
+// mg <= 640, as sm_fused_bwd; its capacity query holds.
+int sm_fused_bwd_rows(const float* a, const float* b, const float* w, const float* uT,
+                      const float* traj, float c2, float c3, const float* scale, int n_steps,
+                      int mg, int ns, float* lam_out, void* stream) {
+  return launch_by_mg<BwdCluster, false, kMaxR>(mg, static_cast<cudaStream_t>(stream), ns, a, b,
+                                                w, uT, traj, c2, c3, scale, n_steps, lam_out,
+                                                static_cast<float*>(nullptr));
+}
+
+// The grid-wide forward over ns <= kMaxStates rows at (mg, rows), every B
+// row of a CTA kept: ceil(mg / rows) >= ns CTAs, which the card must
+// hold at once; u0, uT (ns, mg), jsum (ns,), traj (ns, N, mg) or null; ubuf is
+// 4 ns mg floats of scratch.
+int sm_fused_fwd_rows(const float* a, const float* b, const float* w, const float* u0,
+                      float c2, float c3, int n_steps, int mg, int rows, int ns, float* uT,
+                      float* jsum, float* traj, float* ubuf, void* stream) {
+  if (rows < 1 || rows > mg || ns < 1 || ns > kMaxStates || (mg + rows - 1) / rows < ns)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return FwdRows::launch(a, b, w, u0, c2, c3, n_steps, mg, rows, ns, uT, jsum, traj, ubuf,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// CTAs of sm_fused_fwd_rows that the card can hold at once at
+// (mg, rows, ns), as sm_fused_fwd_grid_capacity.
+int sm_fused_fwd_rows_capacity(int mg, int rows, int ns) {
+  return FwdRows::capacity(mg, rows, ns);
 }
 
 // Clusters of sm_fused_bwd (with the lambda history when `hist`) that the

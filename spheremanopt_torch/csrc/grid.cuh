@@ -1,12 +1,14 @@
 // The grid-wide sweeps' machinery (fused_two_matrix.cu, fused_shared.cu):
 // u (lambda in a reverse sweep) crosses between the CTAs through L2 as
-// step-tagged 64-bit words, and the kernels run as one cooperative launch
+// step-tagged 64-bit words (the row grids' R vectors of u through the same
+// words), and the kernels run as one cooperative launch
 // of co-resident CTAs of kClusterThreads threads, with a capacity query
 // that tells the wrapper whether the card can hold them at once; the
 // reverse sweeps' layout of their chains in shared memory and the chains'
 // sums.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "cluster.cuh"
@@ -65,6 +67,225 @@ __device__ __forceinline__ void read_tagged(const unsigned long long* slot, unsi
     if (f != nullptr) {
       f[2 * k] = poly(x0);
       f[2 * k + 1] = poly(x1);
+    }
+  }
+}
+
+// States (rows of a sweep) that one launch of a row kernel steps together:
+// the forward row grids keep a register chain per state
+constexpr int kMaxStates = 8;
+
+// Rounds of read_tagged_rows whose loads are in flight at once
+constexpr int kRowRounds = 8;
+
+// read_tagged over the n words of a slot that holds several vectors one
+// after another (the row grids' R vectors of mg words, n = R mg): u[j]
+// and, with f != nullptr, f[j] = poly(u[j]) for every word j. A thread's
+// word pairs go kRowRounds rounds at a time, all their loads in flight at
+// once and only the words without the tag loaded again, as in
+// read_tagged_lambda; where a thread has one pair at most, read_tagged
+// polls it alone. Measured with tools/time_row_kernels.py against a build
+// that read every slot pair by pair (H100 SXM at 700 W, SH23 row forward
+// at mg = 512, N = 1000, 64 CTAs): at R = 8 (8 pairs a thread) the rounds
+// took 3.27 ms against 4.92 pair by pair; at R = 1 (one pair) the rounds'
+// bookkeeping cost 2.30 ms against 1.62. n is even.
+template <typename Poly>
+__device__ __forceinline__ void read_tagged_rows(const unsigned long long* slot, unsigned tag,
+                                                 int n, Poly poly, float* u, float* f) {
+  if (n <= 2 * kClusterThreads) {
+    read_tagged(slot, tag, n, poly, u, f);
+    return;
+  }
+  const int half = n / 2;
+  for (int k0 = threadIdx.x; k0 < half; k0 += kRowRounds * kClusterThreads) {
+    unsigned long long v[2 * kRowRounds];
+#pragma unroll
+    for (int r = 0; r < kRowRounds; ++r) {
+      const int k = k0 + r * kClusterThreads;
+      v[2 * r] = v[2 * r + 1] = 0ull;
+      if (k < half) {
+        v[2 * r] = load_tagged(slot + 2 * k);
+        v[2 * r + 1] = load_tagged(slot + 2 * k + 1);
+      }
+    }
+    for (unsigned polls = 0;; ++polls) {
+      bool done = true;
+#pragma unroll
+      for (int r = 0; r < kRowRounds; ++r) {
+        const int k = k0 + r * kClusterThreads;
+        if (k < half
+            && (static_cast<unsigned>(v[2 * r] >> 32) != tag
+                || static_cast<unsigned>(v[2 * r + 1] >> 32) != tag)) {
+          done = false;
+          v[2 * r] = load_tagged(slot + 2 * k);
+          v[2 * r + 1] = load_tagged(slot + 2 * k + 1);
+        }
+      }
+      if (done) break;
+      if (polls > kMaxPolls) __trap();
+    }
+#pragma unroll
+    for (int r = 0; r < kRowRounds; ++r) {
+      const int k = k0 + r * kClusterThreads;
+      if (k < half) {
+        const float x0 = __uint_as_float(static_cast<unsigned>(v[2 * r]));
+        const float x1 = __uint_as_float(static_cast<unsigned>(v[2 * r + 1]));
+        u[2 * k] = x0;
+        u[2 * k + 1] = x1;
+        if (f != nullptr) {
+          f[2 * k] = poly(x0);
+          f[2 * k + 1] = poly(x1);
+        }
+      }
+    }
+  }
+}
+
+// The row grids' forward (sm_fused_fwd_shared_rows with kMats = 1,
+// sm_fused_fwd_rows with kMats = 2): ns <= kMaxStates independent sweeps of
+// the one-row grid forward (the rows of a sweep, each its own u0) in one
+// cooperative launch, CTA b owning the matrices' rows [b rows,
+// min((b + 1) rows, mg)). Each step a warp reads a float4 of its row of
+// each matrix from shared memory once and applies it to every state, one
+// register chain per state in the one-row kernel's lane and k order
+// (`step.dot`), so the matrices cross from shared memory once a step for
+// all the rows; each state's u_{n+1} goes out as step-tagged words, all
+// states' words in one slot of ns x mg (ubuf: two slots, 4 ns mg floats),
+// and every CTA reads them back at once (read_tagged_rows). CTA s < ns
+// forms state s's J with the one-row kernel's reduction tree, as the
+// one-row grid's CTA 0 forms its J (so no CTA sums more than one energy a
+// step; the launch needs ns <= CTAs). Per state, u_T, J and the trajectory
+// (its own (N, mg) block, state-major) are bitwise the one-row grid's.
+//
+// Step: poly(x), the step's polynomial of u (v for one matrix, g for
+// two), and dot(s, m0, m1, uu, ff), one float4 term of a row's sum (m0,
+// m1 the float4s of the matrices' rows, m1 = m0 for one matrix; uu, ff
+// those of u and poly(u)). Shared memory (fwd_rows_smem_bytes): the
+// matrices' rows (kMats x rows x mg), u[ns][mg], f[ns][mg], w[mg],
+// red[32].
+__host__ __device__ constexpr size_t fwd_rows_smem_bytes(int mats, int mg, int rows, int ns) {
+  return (((size_t)mats * rows + 2 * (size_t)ns + 1) * mg + 32) * sizeof(float);
+}
+
+template <int kMats, typename Step>
+__device__ __forceinline__ void fwd_rows(const float* __restrict__ m0,
+                                         const float* __restrict__ m1,
+                                         const float* __restrict__ w,
+                                         const float* __restrict__ u0, Step step, int n_steps,
+                                         int mg, int rows, int ns, float* __restrict__ uT,
+                                         float* __restrict__ jsum, float* __restrict__ traj,
+                                         float* __restrict__ ubuf) {
+  static_assert(kMats == 1 || kMats == 2, "one or two matrices");
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int mg4 = mg / 4, r0 = blockIdx.x * rows;
+  const int nr = min(rows, mg - r0);
+  // CTA s < ns forms state s's J, as the one-row grid's CTA 0 forms its J
+  const int own = blockIdx.x < ns ? static_cast<int>(blockIdx.x) : -1;
+  const int nw = ns * mg;  // words of a slot
+  const size_t mat4 = (size_t)rows * mg4;  // float4s of one matrix's rows
+  extern __shared__ float4 smem4[];
+  float4* ms4 = smem4;  // kMats x rows x mg4
+  float4* u4 = ms4 + kMats * mat4;  // [ns][mg4]
+  float4* f4 = u4 + (size_t)ns * mg4;  // [ns][mg4]
+  float* u = reinterpret_cast<float*>(u4);
+  float* f = reinterpret_cast<float*>(f4);
+  float* ws = f + nw;
+  float* red = ws + mg;  // [32]
+  auto* pairs = reinterpret_cast<unsigned long long*>(ubuf);  // [2][ns][mg] (value, tag)
+  const auto poly = [=](float x) { return step.poly(x); };
+
+  const float4* src0 = reinterpret_cast<const float4*>(m0) + (size_t)r0 * mg4;
+  const float4* src1 = reinterpret_cast<const float4*>(m1) + (size_t)r0 * mg4;
+  for (int i = tid; i < nr * mg4; i += kClusterThreads) {
+    ms4[i] = __ldg(src0 + i);
+    if constexpr (kMats == 2) ms4[mat4 + i] = __ldg(src1 + i);
+  }
+  if (own >= 0)
+    for (int j = tid; j < mg; j += kClusterThreads) ws[j] = w[j];
+  for (int i = blockIdx.x * kClusterThreads + tid; i < 2 * nw; i += gridDim.x * kClusterThreads)
+    pairs[i] = 0ull;  // no tag: steps count from 1
+  grid.sync();      // the tags are clear before any CTA stores u_1
+
+  float acc = 0.f, comp = 0.f;  // live in thread 0 of CTA `own`
+  for (int n = 0; n < n_steps; ++n) {
+    if (n == 0) {
+      for (int j = tid; j < nw; j += kClusterThreads) {
+        const float x = u0[j];
+        u[j] = x;
+        f[j] = poly(x);
+      }
+    } else {
+      read_tagged_rows(pairs + (size_t)((n - 1) & 1) * nw, n, nw, poly, u, f);
+    }
+    __syncthreads();  // u and f complete (and at n = 0 the rows and w)
+    if (traj != nullptr)
+      for (int i = tid; i < ns * nr; i += kClusterThreads) {
+        const int s = i / nr, r = r0 + i % nr;
+        traj[((size_t)s * n_steps + n) * mg + r] = u[s * mg + r];
+      }
+    if (own >= 0) {
+      energy_partials(u + own * mg, ws, mg, red);
+      __syncthreads();  // red complete
+    }
+    unsigned long long* dst = pairs + (size_t)(n & 1) * nw;
+    for (int rl = warp; rl < nr; rl += kClusterWarps) {
+      const float4* row0 = ms4 + (size_t)rl * mg4;
+      const float4* row1 = row0 + (kMats - 1) * mat4;
+      float sum[kMaxStates];
+#pragma unroll
+      for (int s = 0; s < kMaxStates; ++s) sum[s] = 0.f;
+      if (ns == 1) {  // the one-row grid's loop, its loads 4 deep: 2.01 against 2.30 ms
+                      // at R = 1 for SH23 (the build before, tools/time_row_kernels.py)
+#pragma unroll 4
+        for (int k = lane; k < mg4; k += 32)
+          sum[0] = step.dot(sum[0], row0[k], row1[k], u4[k], f4[k]);
+      } else {
+#pragma unroll 2
+        for (int k = lane; k < mg4; k += 32) {
+          const float4 aa = row0[k], bb = row1[k];
+#pragma unroll
+          for (int s = 0; s < kMaxStates; ++s)
+            if (s < ns) sum[s] = step.dot(sum[s], aa, bb, u4[s * mg4 + k], f4[s * mg4 + k]);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < kMaxStates; ++s) {
+        if (s < ns) {
+          const float x = warp_sum(sum[s]);
+          if (lane == 0) store_tagged(dst + s * mg + r0 + rl, x, n + 1);
+        }
+      }
+    }
+    if (own >= 0 && warp == 0) {
+      const float e = warp_sum(red[lane]);
+      if (lane == 0) kahan_add(acc, comp, e);
+    }
+    __syncthreads();  // u, f and red free for the next step
+  }
+
+  // u_N: each CTA stores its rows of every state's u_T; CTA s < ns forms
+  // state s's e_N and J
+  if (n_steps == 0) {
+    for (int j = tid; j < nw; j += kClusterThreads) u[j] = u0[j];
+  } else {
+    read_tagged_rows(pairs + (size_t)((n_steps - 1) & 1) * nw, n_steps, nw, poly, u,
+                     static_cast<float*>(nullptr));
+  }
+  __syncthreads();
+  for (int i = tid; i < ns * nr; i += kClusterThreads) {
+    const int j = (i / nr) * mg + r0 + i % nr;
+    uT[j] = u[j];
+  }
+  if (own >= 0) {
+    energy_partials(u + own * mg, ws, mg, red);
+    __syncthreads();
+    if (warp == 0) {
+      const float eN = warp_sum(red[lane]);
+      if (lane == 0) {
+        kahan_add(acc, comp, eN);
+        jsum[own] = acc;
+      }
     }
   }
 }

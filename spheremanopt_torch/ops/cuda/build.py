@@ -63,6 +63,12 @@ SIGNATURES = {
     "sm_fused_bwd_grid": [_P, _P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I, _P, _P, _P,
                           _P],
     "sm_fused_bwd_grid_capacity": [_I, _I, _I, _I],  # returns a count, not an error code
+    "sm_fused_fwd_shared_rows": [_P, _P, _P, _F, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "sm_fused_fwd_shared_rows_capacity": [_I, _I, _I],  # returns a count, not an error code
+    "sm_fused_bwd_shared_rows": [_P, _P, _P, _P, _F, _F, _F, _P, _I, _I, _I, _P, _P],
+    "sm_fused_fwd_rows": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "sm_fused_fwd_rows_capacity": [_I, _I, _I],  # returns a count, not an error code
+    "sm_fused_bwd_rows": [_P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _P, _P],
     "sm_op_grads": [_P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P, _P, _P],
     "sm_kdyn_work_floats": [_I, _I],   # returns a count, not an error code
     "sm_kdyn_fwd": _KDYN_FWD + [_P, _L, _P],

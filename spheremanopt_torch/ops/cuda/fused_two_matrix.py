@@ -33,6 +33,17 @@ PyTorch port of the JAX package's `ops/pallas/fused_two_matrix.py`:
                           do not (`shared_bwd_route`)
     FusedObjectiveShared     <- `fused_objective_shared`
     FusedObjectiveSharedDiag <- `fused_objective_shared_diag`
+  rows (a sweep's R starting points; the JAX package's `jax.vmap` of the
+  same kernels, where `pallas_call`'s batching rule gives each a grid over
+  the rows: one launch for every row)
+    fused_fwd_shared_rows, fused_bwd_shared_rows, FusedObjectiveSharedRows
+    fused_fwd_rows, fused_bwd_rows, FusedObjectiveRows
+                       R forwards in one grid launch (each CTA applies its
+                       rows of the operators to every state), R reverse
+                       clusters in one launch; each row bitwise the one-row
+                       kernels' on that row; differentiable in u0 only. Widths of the reverse
+                       clusters only (`rows_width_ok`); the wrappers raise
+                       at others, where a sweep runs its rows one at a time
 
 A forward runs all N steps in one launch and returns the final state,
 the Kahan-compensated sum J_sum = sum_{n=0..N} sum_j w_j u_n,j^2 and,
@@ -92,6 +103,10 @@ KERNEL_SOURCES = {
     "fused_bwd_shared_ops": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_bwd_ops": "spheremanopt_torch/csrc/fused_two_matrix.cu",
     "op_grads": "spheremanopt_torch/csrc/op_grads.cu",
+    "fused_fwd_shared_rows": "spheremanopt_torch/csrc/fused_shared.cu",
+    "fused_bwd_shared_rows": "spheremanopt_torch/csrc/fused_shared.cu",
+    "fused_fwd_rows": "spheremanopt_torch/csrc/fused_two_matrix.cu",
+    "fused_bwd_rows": "spheremanopt_torch/csrc/fused_two_matrix.cu",
 }
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
@@ -951,3 +966,286 @@ class FusedObjectiveSharedDiag(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gbar, _ser_bar, _uT_bar):
         return _shared_backward(ctx, gbar)
+
+
+# ---------------------------------------------------------------------------
+# rows: R independent sweeps of one operator (a sweep's starting points)
+# ---------------------------------------------------------------------------
+
+# states one launch of a row kernel steps (csrc/grid.cuh kMaxStates); a
+# wider call runs in chunks of ROWS_MAX rows, each chunk one launch
+ROWS_MAX = 8
+# CTAs of a row forward: at mg = 512 and R = 8 a split of the operators'
+# rows over 64 CTAs (8 rows a CTA) took 3.385 / 8.552 ms (SH23 N = 1000 /
+# SHB23 N = 2000) against 3.757 / 8.843 over 128 and 4.815 / 13.443 over
+# 32: fewer CTAs read each step's R vectors back from L2, more share the
+# products. At R = 1 the 128-CTA split led, 1.361 / 2.859 against 1.423 /
+# 3.102 ms; the split is chosen for the sweep's R = 8 (H100 SXM at 700 W,
+# tools/time_row_kernels.py)
+ROW_CTAS = 64
+
+
+def rows_partition(mg):
+    """(rows, ctas) of a row forward: `rows` = ceil(mg / ROW_CTAS)
+    contiguous rows of the operators a CTA, as `grid_partition`; at the
+    row kernels' widths ctas >= ROWS_MAX (CTA s forms row s's J)."""
+    rows = -(-mg // ROW_CTAS)
+    return rows, -(-mg // rows)
+
+
+def rows_width_ok(mg, two_matrix):
+    """Whether the row kernels take width mg: the widths of the reverse
+    clusters, which they launch once per row (128 <= mg <= 896 for the
+    shared matrix, 640 for two matrices, mg % 128 == 0). A sweep at
+    another width has no row kernels and runs its rows one at a time."""
+    top = CLUSTER_MG_MAX if two_matrix else SHARED_CLUSTER_MG_MAX
+    return MG_MIN <= mg <= top and mg % MG_ALIGN == 0
+
+
+def _plain_rows_sweep(step, w, u0, n_steps, store_traj):
+    """(uT (R, mg), J_sum (R,), traj (R, N, mg) or None) of N steps of
+    `step` over the rows of u0 (R, mg), each row's energy Kahan-summed."""
+    u = u0
+    acc = kahan_zero(u0.dtype, u0.device)
+    traj = []
+    for _ in range(n_steps):
+        if store_traj:
+            traj.append(u)
+        acc = kahan_add(acc, torch.sum(w * u * u, -1))
+        u = step(u)
+    acc = kahan_add(acc, torch.sum(w * u * u, -1))
+    if store_traj:
+        traj = (torch.stack(traj, 1) if traj
+                else u0.new_zeros((u0.shape[0], 0, u0.shape[-1])))
+    return u, acc[0], traj if store_traj else None
+
+
+def fused_fwd_shared_rows_plain(b, w, u0, c2, c3, lin, n_steps, store_traj=True):
+    """`fused_fwd_shared_plain` of each row of u0 (R, mg), all rows a step
+    as one product: (uT (R, mg), J_sum (R,), traj (R, N, mg) or None)."""
+    return _plain_rows_sweep(
+        lambda u: torch.mm(lin * u + c2 * u * u + c3 * u * u * u, b.t()),
+        w, u0, n_steps, store_traj)
+
+
+def fused_fwd_rows_plain(a, b, w, u0, c2, c3, n_steps, store_traj=True):
+    """`fused_fwd_plain` of each row of u0 (R, mg), all rows a step as two
+    products: (uT (R, mg), J_sum (R,), traj (R, N, mg) or None)."""
+    return _plain_rows_sweep(
+        lambda u: torch.mm(u, a.t()) + torch.mm(c2 * u * u + c3 * u * u * u, b.t()),
+        w, u0, n_steps, store_traj)
+
+
+def fused_bwd_shared_rows_plain(b, w, uT, traj, c2, c3, lin, scale, n_steps):
+    """lambda_0 (R, mg) of `fused_bwd_shared_plain` for each row: uT
+    (R, mg), traj (R, N, mg), scale (R,)."""
+    s = scale[:, None]
+    lam = s * (w * uT)
+    for k in range(n_steps):
+        u = traj[:, n_steps - 1 - k]
+        vprime = lin + 2.0 * c2 * u + 3.0 * c3 * u * u
+        lam = vprime * torch.mm(lam, b) + s * (w * u)
+    return lam
+
+
+def fused_bwd_rows_plain(a, b, w, uT, traj, c2, c3, scale, n_steps):
+    """lambda_0 (R, mg) of `fused_bwd_plain` for each row, as
+    `fused_bwd_shared_rows_plain`."""
+    s = scale[:, None]
+    lam = s * (w * uT)
+    for k in range(n_steps):
+        u = traj[:, n_steps - 1 - k]
+        gprime = 2.0 * c2 * u + 3.0 * c3 * u * u
+        lam = torch.mm(lam, a) + gprime * torch.mm(lam, b) + s * (w * u)
+    return lam
+
+
+def _check_rows(n_steps, two_matrix, mats, w, states, traj=None, scale=None):
+    """(R, mg) of a row call; raises unless the operands are (mg, mg)
+    matrices, a (mg,) w, (R, mg) states, an (R, N, mg) trajectory and an
+    (R,) scale at a width the row kernels take (`rows_width_ok`), on one
+    device, and, for CUDA tensors, f32 and contiguous."""
+    if states.dim() != 2:
+        raise ValueError(f"row states must be (R, mg), got {tuple(states.shape)}")
+    R, mg = states.shape
+    if not rows_width_ok(mg, two_matrix):
+        top = CLUSTER_MG_MAX if two_matrix else SHARED_CLUSTER_MG_MAX
+        raise ValueError(f"the row kernels take {MG_MIN} <= mg <= {top}, "
+                         f"mg % {MG_ALIGN} == 0 (the reverse clusters' widths); got "
+                         f"mg={mg}: a sweep at this width runs its rows one at a time")
+    named = list(mats) + [("w", w), ("states", states)]
+    named += [(k, t) for k, t in (("traj", traj), ("scale", scale)) if t is not None]
+    want = {"w": (mg,), "states": (R, mg), "traj": (R, n_steps, mg), "scale": (R,)}
+    bad = [f"{k}{tuple(t.shape)}" for k, t in named
+           if tuple(t.shape) != want.get(k, (mg, mg))]
+    if bad:
+        raise ValueError(f"shapes {' '.join(bad)} do not match R={R}, mg={mg}, "
+                         f"n_steps={n_steps}")
+    if len({t.device for _, t in named}) != 1:
+        raise ValueError("all tensors must be on one device")
+    if states.is_cuda:
+        for name, t in named:
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name} must be float32 (got {t.dtype})")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+    return R, mg
+
+
+def _row_chunks(R):
+    """(start, stop) of each launch of a call over R rows: ROWS_MAX rows
+    at a time."""
+    return [(i, min(i + ROWS_MAX, R)) for i in range(0, R, ROWS_MAX)]
+
+
+def fused_fwd_shared_rows(b, w, u0, c2, c3, lin, n_steps, store_traj=True):
+    """(uT (R, mg), J_sum (R,), traj (R, N, mg) or None) of N steps of
+    u' = B(lin u + g(u)) from each row of u0 (R, mg). On the card the row
+    grid (`sm_fused_fwd_shared_rows`) runs up to ROWS_MAX rows a launch,
+    so R rows take ceil(R / ROWS_MAX) launches, each row bitwise
+    `fused_fwd_shared` on it; raises where the card cannot hold its CTAs
+    and at widths without row kernels (`rows_width_ok`), also on the
+    CPU, where it runs `fused_fwd_shared_rows_plain`."""
+    R, mg = _check_rows(n_steps, False, [("b", b)], w, u0)
+    if not u0.is_cuda:
+        return fused_fwd_shared_rows_plain(b, w, u0, c2, c3, lin, n_steps, store_traj)
+    rows, ctas = rows_partition(mg)
+    uT, jsum, traj, slots = _rows_outputs(u0, n_steps, store_traj)
+    for i, j in _row_chunks(R):
+        _check_grid(u0.device, "sm_fused_fwd_shared_rows", (mg, rows), ctas, j - i)
+        _launch("sm_fused_fwd_shared_rows", "fused_fwd_shared_rows", u0.device,
+                b.data_ptr(), w.data_ptr(), u0[i].data_ptr(), c2, c3, lin,
+                int(n_steps), mg, rows, j - i, uT[i].data_ptr(), jsum[i].data_ptr(),
+                None if traj is None or not n_steps else traj[i].data_ptr(),
+                slots.data_ptr())
+    return uT, jsum, traj
+
+
+def fused_fwd_rows(a, b, w, u0, c2, c3, n_steps, store_traj=True):
+    """(uT (R, mg), J_sum (R,), traj (R, N, mg) or None) of N steps of
+    u' = A u + B(c2 u^2 + c3 u^3) from each row of u0 (R, mg): the row grid
+    `sm_fused_fwd_rows`, as `fused_fwd_shared_rows`; each row bitwise
+    `fused_fwd` on it."""
+    R, mg = _check_rows(n_steps, True, [("a", a), ("b", b)], w, u0)
+    if not u0.is_cuda:
+        return fused_fwd_rows_plain(a, b, w, u0, c2, c3, n_steps, store_traj)
+    rows, ctas = rows_partition(mg)
+    uT, jsum, traj, slots = _rows_outputs(u0, n_steps, store_traj)
+    for i, j in _row_chunks(R):
+        _check_grid(u0.device, "sm_fused_fwd_rows", (mg, rows), ctas, j - i)
+        _launch("sm_fused_fwd_rows", "fused_fwd_rows", u0.device, a.data_ptr(),
+                b.data_ptr(), w.data_ptr(), u0[i].data_ptr(), c2, c3, int(n_steps), mg,
+                rows, j - i, uT[i].data_ptr(), jsum[i].data_ptr(),
+                None if traj is None or not n_steps else traj[i].data_ptr(),
+                slots.data_ptr())
+    return uT, jsum, traj
+
+
+def _rows_outputs(u0, n_steps, store_traj):
+    """(uT, jsum, traj or None, tag slots) of a row forward: the slots hold
+    ROWS_MAX rows' words, reused by each chunk (the launches run in order
+    on one stream, each clearing the tags first)."""
+    R, mg = u0.shape
+    dev = u0.device
+    traj = (torch.empty((R, n_steps, mg), dtype=torch.float32, device=dev)
+            if store_traj else None)
+    return (torch.empty_like(u0), torch.empty((R,), dtype=torch.float32, device=dev),
+            traj, torch.empty((4 * min(R, ROWS_MAX) * mg,), dtype=torch.float32,
+                              device=dev))
+
+
+def fused_bwd_shared_rows(b, w, uT, traj, c2, c3, lin, scale, n_steps):
+    """lambda_0 (R, mg) of the reverse sweep of each row: uT (R, mg), traj
+    (R, N, mg) and scale (R,) = float32(-2 dt) * gbar per row, on the
+    device (no sync). On the card one launch of the reverse cluster per
+    ROWS_MAX rows, one cluster a row (`sm_fused_bwd_shared_rows`), each row
+    bitwise `fused_bwd_shared` on it; raises as `fused_fwd_shared_rows`."""
+    R, mg = _check_rows(n_steps, False, [("b", b)], w, uT, traj, scale)
+    if not uT.is_cuda:
+        return fused_bwd_shared_rows_plain(b, w, uT, traj, c2, c3, lin, scale, n_steps)
+    _check_cluster(uT.device, "sm_fused_bwd_shared", mg, False)
+    lam = torch.empty_like(uT)
+    for i, j in _row_chunks(R):
+        _launch("sm_fused_bwd_shared_rows", "fused_bwd_shared_rows", uT.device,
+                b.data_ptr(), w.data_ptr(), uT[i].data_ptr(), traj[i].data_ptr(), c2, c3,
+                lin, scale[i:].data_ptr(), int(n_steps), mg, j - i, lam[i].data_ptr())
+    return lam
+
+
+def fused_bwd_rows(a, b, w, uT, traj, c2, c3, scale, n_steps):
+    """lambda_0 (R, mg) of the two-matrix reverse sweep of each row, as
+    `fused_bwd_shared_rows` (`sm_fused_bwd_rows`); each row bitwise
+    `fused_bwd` on it."""
+    R, mg = _check_rows(n_steps, True, [("a", a), ("b", b)], w, uT, traj, scale)
+    if not uT.is_cuda:
+        return fused_bwd_rows_plain(a, b, w, uT, traj, c2, c3, scale, n_steps)
+    _check_cluster(uT.device, "sm_fused_bwd", mg, False)
+    lam = torch.empty_like(uT)
+    for i, j in _row_chunks(R):
+        _launch("sm_fused_bwd_rows", "fused_bwd_rows", uT.device, a.data_ptr(),
+                b.data_ptr(), w.data_ptr(), uT[i].data_ptr(), traj[i].data_ptr(), c2, c3,
+                scale[i:].data_ptr(), int(n_steps), mg, j - i, lam[i].data_ptr())
+    return lam
+
+
+def _only_u0_grads(ctx, n_data):
+    """Raise when one of the first n_data inputs (the operators and w) needs
+    a gradient: the row objectives are differentiable in u0 only."""
+    if any(ctx.needs_input_grad[:n_data]):
+        raise ValueError("the row objectives take no operator cotangents and no dw: "
+                         "pass the operators and w without requires_grad (or use "
+                         "the one-row FusedObjective*)")
+
+
+class FusedObjectiveSharedRows(torch.autograd.Function):
+    """-J (R,) of each row of u0 (R, mg) under u' = B (lin u + c2 u^2 +
+    c3 u^3), J as in `FusedObjectiveShared`; differentiable in u0 only (a
+    B or w that requires grad raises).
+
+    apply(b, w, u0, c2, c3, lin, dt, n_steps)
+
+    The forward stores the trajectory only when a gradient is wanted; the
+    backward takes gbar (R,) to du0 (R, mg) through the row reverse."""
+
+    @staticmethod
+    def forward(ctx, b, w, u0, c2, c3, lin, dt, n_steps):
+        _only_u0_grads(ctx, 2)
+        uT, jsum, traj = fused_fwd_shared_rows(b, w, u0, c2, c3, lin, n_steps,
+                                               store_traj=ctx.needs_input_grad[2])
+        if ctx.needs_input_grad[2]:
+            ctx.save_for_backward(b, w, uT, traj)
+        ctx.consts = (c2, c3, lin, dt, n_steps)
+        return -dt * jsum
+
+    @staticmethod
+    def backward(ctx, gbar):
+        b, w, uT, traj = ctx.saved_tensors
+        c2, c3, lin, dt, n_steps = ctx.consts
+        lam = fused_bwd_shared_rows(b, w, uT, traj, c2, c3, lin,
+                                    _scale(dt, gbar, uT).contiguous(), n_steps)
+        return (None, None, lam) + (None,) * 5
+
+
+class FusedObjectiveRows(torch.autograd.Function):
+    """-J (R,) of each row of u0 (R, mg) under u' = A u + B (c2 u^2 +
+    c3 u^3), as `FusedObjectiveSharedRows`; differentiable in u0 only.
+
+    apply(a, b, w, u0, c2, c3, dt, n_steps)"""
+
+    @staticmethod
+    def forward(ctx, a, b, w, u0, c2, c3, dt, n_steps):
+        _only_u0_grads(ctx, 3)
+        uT, jsum, traj = fused_fwd_rows(a, b, w, u0, c2, c3, n_steps,
+                                        store_traj=ctx.needs_input_grad[3])
+        if ctx.needs_input_grad[3]:
+            ctx.save_for_backward(a, b, w, uT, traj)
+        ctx.consts = (c2, c3, dt, n_steps)
+        return -dt * jsum
+
+    @staticmethod
+    def backward(ctx, gbar):
+        a, b, w, uT, traj = ctx.saved_tensors
+        c2, c3, dt, n_steps = ctx.consts
+        lam = fused_bwd_rows(a, b, w, uT, traj, c2, c3,
+                             _scale(dt, gbar, uT).contiguous(), n_steps)
+        return (None, None, None, lam) + (None,) * 4

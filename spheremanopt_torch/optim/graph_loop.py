@@ -255,8 +255,11 @@ class DeviceOptimiser:
     (over all its rows).
 
     `native_rows` says that the problem has batched forms (the loop's
-    steps over rows); without them a sweep runs its rows one after
-    another on the unbatched loop, each row exactly its unbatched run.
+    steps over rows; with SH23's and SHB23's `cuda` rows each step
+    launches the row kernels once for all rows, captured in the step's
+    graph as the one-row kernels are); without them a sweep runs its rows
+    one after another on the unbatched loop, each row exactly its
+    unbatched run.
     """
 
     def __init__(self, make_steps, order, drive, result, radii, graphs=None,

@@ -23,8 +23,15 @@ as the JAX package):
 
 Rows (a sweep of R starting points, `row_forms`): "matmul" steps all rows
 with one product of R columns a step, so the operator is read once a step
-for every row; "fft" transforms the rows together; "cuda" and the
-continuous adjoint have no batched form: a sweep runs their rows one
+for every row; "fft" transforms the rows together; "cuda" runs the row
+kernels (`FusedObjectiveSharedRows`: R forwards in one grid launch, R
+reverse clusters in one launch, each row bitwise the one-row kernels), the
+counterpart of the JAX package's `jax.vmap` over its "pallas" objective;
+its u0 = P x and its inner product are the unbatched call's, taken a row,
+so that each row of an f32 sweep is bitwise its unbatched run.
+The row kernels take the reverse cluster's widths (n_grid <= 896,
+`ops.cuda.fused_two_matrix.rows_width_ok`); at other widths, and for the
+continuous adjoint, there is no batched form: a sweep runs the rows one
 after another on the unbatched loop.
 
 The fused diagnostics (`objective_and_diagnostics`,
@@ -145,6 +152,7 @@ class SwiftHohenberg:
             from spheremanopt_torch.ops.cuda.fused_two_matrix import (
                 FusedObjectiveShared,
                 FusedObjectiveSharedDiag,
+                FusedObjectiveSharedRows,
             )
 
             b32 = self._Mt.float().contiguous()
@@ -168,8 +176,17 @@ class SwiftHohenberg:
                     cfg.n_iters, False)
                 return J, {"kinetic_energy": ser[sidx], "u_final": uT}
 
+            def obj_rows_cuda(xs):
+                # row r: P x_r by obj_cuda's own product (a matrix-vector
+                # product a row, not one product of R columns), so that each
+                # row's u0, J and gradient are bitwise its unbatched call's
+                u0 = torch.stack([torch.matmul(p32, x) for x in xs[0].float()])
+                return FusedObjectiveSharedRows.apply(
+                    b32, w32, u0, 1.8, -1.0, 1.0 / cfg.dt, cfg.dt, cfg.n_iters)
+
             self._objective_impl = obj_cuda
             self._objective_aux_impl = obj_diag_cuda
+            self._objective_rows_impl = obj_rows_cuda
             # the JAX pallas path scales by n_grid in both gradient forms
             self._gradient = lambda xs: [
                 g * n_grid for g in value_and_raw_gradient(obj_cuda, xs)[1]]
@@ -348,6 +365,8 @@ class SwiftHohenberg:
 
     def gradient_rows(self, x_list):
         raw = value_and_raw_gradient(self._objective_rows_impl, list(x_list))[1]
+        if self.cfg.method == "cuda":   # as the unbatched cuda gradient
+            return [g * self.basis.n_grid for g in raw]
         return [g / (1.0 / self.basis.n_grid) for g in raw]
 
     def objective_and_gradient_rows(self, x_list):
@@ -355,13 +374,23 @@ class SwiftHohenberg:
         return J, [g * self.basis.n_grid for g in raw]
 
     def inner_product_rows(self, x, y):
+        if self.cfg.method == "cuda":
+            # the unbatched inner product a row, as SHB23's: each f32 kernel
+            # row then makes its unbatched run's decisions bit for bit
+            return torch.stack([self.inner_product(a, b) for a, b in zip(x, y)])
         return torch.mean(x * y, -1)
 
     def row_forms(self, aux=False):
         """The native forms over rows, or None where this configuration has
-        none ("cuda", the continuous adjoint)."""
-        if aux or self.cfg.method == "cuda" or self.cfg.adjoint == "continuous":
+        none: the continuous adjoint, and "cuda" at widths without row
+        kernels (chosen by shape, the same on every device)."""
+        if aux or self.cfg.adjoint == "continuous":
             return None
+        if self.cfg.method == "cuda":
+            from spheremanopt_torch.ops.cuda.fused_two_matrix import rows_width_ok
+
+            if not rows_width_ok(self.basis.n_grid, two_matrix=False):
+                return None
         return RowForms(self.objective_and_gradient_rows, self.objective_rows,
                         self.gradient_rows, self.inner_product_rows)
 

@@ -30,6 +30,18 @@ Gradients: adjoint="discrete" is reverse-mode autograd of the discrete
 forward (or the kernels' reverse sweep), returned as the Riesz
 representative raw / w; adjoint="continuous" integrates the adjoint PDE
 backward (ref `ADJ_Solve_IVP_Cnts`), first order in dt.
+
+Rows (a sweep of R starting points, `row_forms`): "matmul" steps all rows
+with two products of R columns a step, so each propagator is read once a
+step for every row; "cuda" runs the row kernels (`FusedObjectiveRows`: R
+forwards in one grid launch, R reverse clusters in one launch, each row
+bitwise the one-row kernels), the counterpart of the JAX package's
+`jax.vmap` over its "pallas" objective, at the reverse cluster's widths
+(npts <= 640, `ops.cuda.fused_two_matrix.rows_width_ok`), with the
+unbatched inner product taken a row, so that each row of an f32 sweep is
+bitwise its unbatched run. At other widths
+of "cuda", and for the continuous adjoint, there is no batched form: a
+sweep runs the rows one after another on the unbatched loop.
 """
 
 from __future__ import annotations
@@ -41,8 +53,9 @@ import numpy as np
 import torch
 
 from spheremanopt_torch.ops.chebyshev import ChebyshevBasis1D
-from spheremanopt_torch.problems.base import (MeshForms, DTYPES, SegmentAdvance,
-                                              check_choice, resolve_device,
+from spheremanopt_torch.problems.base import (MeshForms, DTYPES, RowForms,
+                                              SegmentAdvance, check_choice,
+                                              resolve_device,
                                               value_and_raw_gradient)
 from spheremanopt_torch.solvers.scan_utils import (kahan_add, kahan_zero,
                                                    strided_energy_scan,
@@ -128,6 +141,7 @@ class SwiftHohenbergBounded(MeshForms):
             from spheremanopt_torch.ops.cuda.fused_two_matrix import (
                 FusedObjective,
                 FusedObjectiveDiag,
+                FusedObjectiveRows,
             )
 
             a32 = self._Alt.float().contiguous()
@@ -146,11 +160,17 @@ class SwiftHohenbergBounded(MeshForms):
                     False)
                 return J, {"kinetic_energy": ser[sidx], "u_final": uT}
 
+            def obj_rows_cuda(xs):
+                return FusedObjectiveRows.apply(a32, b32, w32, xs[0].float().contiguous(),
+                                                C2, C3, cfg.dt, cfg.n_iters)
+
             self._objective_dispatch = obj_cuda
             self._objective_aux_dispatch = obj_diag_cuda
+            self._objective_rows_dispatch = obj_rows_cuda
         else:
             self._objective_dispatch = self._objective_impl
             self._objective_aux_dispatch = self._objective_aux_impl
+            self._objective_rows_dispatch = self._objective_rows_impl
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -182,6 +202,18 @@ class SwiftHohenbergBounded(MeshForms):
     def _objective_impl(self, x_list) -> torch.Tensor:
         _, J = self._integrate(x_list[0].to(self.dtype), self.cfg.n_iters)
         return -J
+
+    def _objective_rows_impl(self, x_list) -> torch.Tensor:
+        """-J of each row of x_list[0] (R, npts), (R,): `_integrate` of R
+        states held as the columns of (npts, R), two products a step."""
+        u = x_list[0].to(self.dtype).T
+        w = self._wt[:, None]
+        acc = kahan_zero(self.dtype, self.device)
+        for _ in range(self.cfg.n_iters):
+            acc = kahan_add(acc, torch.sum(w * u * u, 0))
+            u = torch.mm(self._Alt, u) + torch.mm(self._Ant, 2.0 * u * u - u * u * u)
+        acc = kahan_add(acc, torch.sum(w * u * u, 0))
+        return -(self.cfg.dt * acc[0])
 
     def _objective_aux_impl(self, x_list):
         """(-J, diagnostics) from one forward solve (the fused analogue of
@@ -260,6 +292,42 @@ class SwiftHohenbergBounded(MeshForms):
     @property
     def inner_products(self):
         return self.inner_product
+
+    # -- rows: (R, npts) states (see the module docstring) -----------------
+
+    def objective_rows(self, x_list):
+        with torch.no_grad():
+            return self._objective_rows_dispatch(list(x_list))
+
+    def objective_and_gradient_rows(self, x_list):
+        J, raw = value_and_raw_gradient(self._objective_rows_dispatch, list(x_list))
+        return J, [raw[0] / self._wt.to(raw[0].dtype)]
+
+    def gradient_rows(self, x_list):
+        return self.objective_and_gradient_rows(x_list)[1]
+
+    def inner_product_rows(self, x, y):
+        if self.cfg.method == "cuda":
+            # the unbatched inner product a row: a reduction over the rows'
+            # last axis changes torch's reduction layout with the row count
+            # (at 8 rows on an H100), and the kernel rows are bitwise their
+            # unbatched calls, so each f32 row makes its unbatched decisions
+            return torch.stack([self.inner_product(a, b) for a, b in zip(x, y)])
+        return torch.sum(self._wt * x * y, -1)
+
+    def row_forms(self, aux=False):
+        """The native forms over rows, or None where this configuration has
+        none: the continuous adjoint, and "cuda" at widths without row
+        kernels (chosen by shape, the same on every device)."""
+        if aux or self.cfg.adjoint == "continuous":
+            return None
+        if self.cfg.method == "cuda":
+            from spheremanopt_torch.ops.cuda.fused_two_matrix import rows_width_ok
+
+            if not rows_width_ok(self.cfg.npts, two_matrix=True):
+                return None
+        return RowForms(self.objective_and_gradient_rows, self.objective_rows,
+                        self.gradient_rows, self.inner_product_rows)
 
     # ------------------------------------------------------------------
     # fused diagnostics: the energy series and final state from the

@@ -21,10 +21,16 @@ request.
   {"cmd": "sweep", "problem": "sh23", "seeds": [1,2,3],
    "e0": [0.02, 0.05, 0.08],          # optional per-point first-sphere
    "config": {...}, "driver": {...}}  # radius
-    -> per-point result rows from ONE batched device loop over rows
-       (`DeviceOptimiser.sweep`: the rows' states carry a leading axis,
-       each row makes its own run's decisions; mixing's operator stacks
-       are one operand shared by every row)
+    -> per-point result rows from `DeviceOptimiser.sweep`. Where the
+       problem has native rows (`problems.base.row_forms`: PCA, SH23
+       matmul / fft, SHB23 matmul, mixing, and SH23 / SHB23 `cuda` at
+       the row kernels' widths, whose sweeps step every row in one launch
+       of each row kernel), ONE batched device loop over rows: the rows'
+       states carry a leading axis, each row makes its own run's
+       decisions, mixing's operator stacks are one operand shared by
+       every row. Elsewhere (KDyn, the continuous adjoints, `cuda` at
+       other widths) the rows run one after another on the unbatched
+       loop, each bitwise its own `optimise`.
 
   {"cmd": "status"}   -> uptime, request count, cached loop keys, and
                          live occupancy: {"busy": {...}|null,

@@ -14,6 +14,7 @@ package's `utils/profiling.py`).
     time the card could take for the same work
   * `card_name()`        — the card's name and power limit, as nvidia-smi
     gives them, to print beside every time
+  * `gpu_ms(fn, reps)`   — mean CUDA-event ms per call of `fn`
 """
 
 from __future__ import annotations
@@ -46,6 +47,21 @@ def card_name() -> str:
     lines = out.stdout.strip().splitlines()
     return lines[0] if out.returncode == 0 and lines else \
         f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def gpu_ms(fn: Callable, reps: int, warm: int = 2) -> float:
+    """Mean ms per call of `fn` by CUDA events, after `warm` warm-up
+    calls."""
+    for _ in range(warm):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 @contextlib.contextmanager

@@ -3,17 +3,21 @@
 device loops).
 
 Every row must make its unbatched run's decisions. A problem without
-native forms over rows (`problems.base.row_forms` gives None) sweeps its
-rows one after another on the unbatched loop, so the rows are bitwise the
+native forms over rows (`problems.base.row_forms` gives None: KDyn, and
+SH23 / SHB23 `cuda` at widths without row kernels) sweeps its rows one
+after another on the unbatched loop, so the rows are bitwise the
 unbatched runs; on the native batched forms (PCA, SH23 `matmul` and
-`fft`, mixing) only the reductions' order differs, and the rows hold rtol
-1e-10 of the unbatched runs. SH23's f64
+`fft`, SHB23 `matmul`, mixing) only the reductions' order differs, and
+the rows hold rtol 1e-10 of the unbatched runs. SH23's f64
 sweep is also held against the JAX package's `jax.vmap` sweep on the same
-numpy inputs (rtol 1e-9, equal iteration counts). The card test
+numpy inputs (rtol 1e-9, equal iteration counts). The card tests
 (`requires_cuda`; the card's machine has no JAX, so this module imports
 it only inside the test that needs it: `python -m pytest --noconftest -m
-requires_cuda tests/test_torch_batched.py`) holds the f32 kernel sweep
-bitwise and its warm replay.
+requires_cuda tests/test_torch_batched.py`) run the f32 kernel sweep on
+its native rows (the row kernels of `tests/test_torch_rows_kernel.py`),
+each row bitwise its unbatched run and a warm sweep bitwise the first,
+with the row kernels' launches equal to the replayed graphs', and the
+same sweep one row at a time (`rows=None`), bitwise.
 """
 
 import numpy as np
@@ -411,16 +415,9 @@ def test_row_adapter_rows_bitwise_unbatched(name, one_thread):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.requires_cuda
-def test_kernel_sweep_rows_bitwise_and_warm_replay():
-    """The f32 kernel sweep (SH23 `cuda`: no native rows, so each row on
-    the unbatched loop's CUDA graphs) bitwise its unbatched runs; a second
-    sweep replays the captured graphs (no new capture), and the kernels
-    launch as many times as the replayed graphs hold."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA graphs and the CUDA kernels "
-                    "have no CPU mode)")
-    from spheremanopt_torch.ops.cuda import fused_two_matrix as fk
+def _kernel_sweep_case():
+    """SH23 f32 `cuda` at npts 64, N 100, four rows over E0: the card
+    tests' sweep."""
     from spheremanopt_torch.problems.swift_hohenberg import SH23Config, SwiftHohenberg
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -428,8 +425,28 @@ def test_kernel_sweep_rows_bitwise_and_warm_replay():
                                   method="cuda"), device="cuda")
     x0 = torch.stack([p.generate_ic(seed=s)[0] for s in range(4)])
     radii = torch.tensor([[0.02], [0.05], [0.0725], [0.1]])
+    return p, x0, radii
+
+
+@pytest.mark.requires_cuda
+def test_kernel_sweep_rows_bitwise_and_warm_replay():
+    """The f32 kernel sweep (SH23 `cuda`) on its native rows: every
+    gradient of the sweep one row-forward and one row-reverse launch for
+    all rows, in the loop's CUDA graphs. Each row bitwise its unbatched run
+    (the row kernels are bitwise the one-row kernels per row, and each
+    row's u0 = P x takes the unbatched call's product); a second sweep
+    replays the captured graphs (no new capture) bitwise the first, and
+    the row kernels launch as many times as the replayed graphs hold (the
+    one-row kernels never)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs and the CUDA kernels "
+                    "have no CPU mode)")
+    from spheremanopt_torch.ops.cuda import fused_two_matrix as fk
+
+    p, x0, radii = _kernel_sweep_case()
     opt = t_jit(p.objective_and_gradient, p.inner_product, p.radii, max_iters=6,
                 alpha0=float(np.pi), line_search="wolfe", rows=row_forms(p))
+    assert opt.native_rows
     rb = opt.sweep([x0], radii)
     singles = [opt([x0[i]], radii_dyn=[radii[i, 0]]) for i in range(4)]
     _rows_match(rb, singles)
@@ -438,11 +455,39 @@ def test_kernel_sweep_rows_bitwise_and_warm_replay():
     rb2 = opt.sweep([x0], radii)
     torch.cuda.synchronize()
     assert opt.loops == loops            # no new capture for the same R
-    assert torch.equal(rb2.function_values, rb.function_values)
+    for a, b in ((rb2.function_values, rb.function_values),
+                 (rb2.step_sizes, rb.step_sizes), (rb2.x_opt[0], rb.x_opt[0])):
+        assert torch.equal(a, b)
     L = opt.last_loop
     want = {}
     for step, n in opt.last_replays.items():
         for k, d in L.graph_launches(step).items():
             want[k] = want.get(k, 0) + n * d
     assert {k: v for k, v in fk.LAUNCHES.items() if v} == want
-    assert want.get("fused_fwd_shared_grid", 0) > 0 and want.get("fused_bwd_shared", 0) > 0
+    assert want.get("fused_fwd_shared_rows", 0) > 0 and want.get("fused_bwd_shared_rows", 0) > 0
+    assert not want.get("fused_fwd_shared_grid") and not want.get("fused_bwd_shared")
+
+
+@pytest.mark.requires_cuda
+def test_kernel_sweep_one_row_at_a_time_bitwise():
+    """The same sweep without row forms (`rows=None`, the route of KDyn,
+    the continuous adjoint and the widths without row kernels): each row
+    on the unbatched loop's CUDA graphs, bitwise its unbatched run, with
+    the one-row kernels and never the row kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs and the CUDA kernels "
+                    "have no CPU mode)")
+    from spheremanopt_torch.ops.cuda import fused_two_matrix as fk
+
+    p, x0, radii = _kernel_sweep_case()
+    opt = t_jit(p.objective_and_gradient, p.inner_product, p.radii, max_iters=6,
+                alpha0=float(np.pi), line_search="wolfe", rows=None)
+    assert not opt.native_rows
+    fk.reset_launches()
+    rb = opt.sweep([x0], radii)
+    torch.cuda.synchronize()
+    swept = {k: v for k, v in fk.LAUNCHES.items() if v}
+    singles = [opt([x0[i]], radii_dyn=[radii[i, 0]]) for i in range(4)]
+    _rows_match(rb, singles)
+    assert swept.get("fused_fwd_shared_grid", 0) > 0 and swept.get("fused_bwd_shared", 0) > 0
+    assert not swept.get("fused_fwd_shared_rows") and not swept.get("fused_bwd_shared_rows")
