@@ -43,7 +43,8 @@ script imports no JAX).
 
 Phases, one line each; any failure exits non-zero without a result line:
   A  card, power limit, torch/CUDA versions, TF32 flags (off)
-  B  kernel build (nvcc, sm_90a, one process per source), timed
+  B  kernel build (nvcc, sm_90a, one process per source), timed, on a
+     thread beside E, F and J, which launch no kernel
   C  SH23 kernels vs plain f32 vs plain f64 on the card, full width (mg =
      512: the grid-wide forward and the 16-CTA cluster reverse sweep);
      the grid forward's u_T, J, trajectory and series, and the cluster
@@ -78,7 +79,10 @@ Phases, one line each; any failure exits non-zero without a result line:
      full 2000 steps, Integrated at 200; then J and both gradients of
      method=cuda, plain f32 and plain f64 against the pinned f64 values
   O  CUDA-event timings: the three KDyn sweeps (each in two grid-wide
-     stages a step) and the fwd+grad unit, kernel vs plain
+     stages a step) and the fwd+grad unit (unprojected gradients, as the
+     JAX bench's), kernel vs plain (the plain forward with the trajectory,
+     the plain reverse and the plain f32 unit are phase N's calls on the
+     same inputs, timed there)
   P  Taylor test of the KDyn f64 plain path at 200 steps
   Q  KDyn f64 workload (method=plain) at 200 steps vs the pinned JAX f64
      trajectory
@@ -117,14 +121,14 @@ Phases, one line each; any failure exits non-zero without a result line:
      truth, f32 against the same truth; the fused diagnostics' J bitwise
      `objective`, the wall residuals at roundoff; CUDA-event times of the
      f64 and f32 units beside the operator-stream bound, and a
-     torch.profiler trace of an f32 unit at N = 100
+     torch.profiler trace of an f32 unit at N = 50
   Z  mixing workloads: the f64 host loop at N = 100 vs the pinned JAX f64
      trajectory; the f32 reference workload through `--device-loop` to
      its end (the operator stacks as the loop's aux operand), its first
-     value against JAX's f64 one, and a trace of one Wolfe-trial graph
-     replay; the same workload's first 3 iterations through the host loop
-     (a launch-bound eager unit takes seconds); the loop's graphs bitwise
-     its eager steps at N = 100; one RTR iteration through
+     value against JAX's f64 one; the same workload's first 3 iterations
+     through the host loop (a launch-bound eager unit takes seconds); the
+     loop's graphs bitwise its eager steps at N = 100, and a trace of one
+     Wolfe-trial graph replay of that loop; one RTR iteration through
      `spheremanopt_torch.run mixing` (its `main`) at N = 100
   1  KDyn's continuous adjoint: f64 at N = 200, both costs, the gradient
      and the invariant series (max|div G|, max|div nu|, |<G>|) against
@@ -132,10 +136,10 @@ Phases, one line each; any failure exits non-zero without a result line:
      default route (method=cuda f32: J from the kdyn_fwd kernel, a main
      path, and the f32 continuous sweep) at the full 2000 steps against
      the port's f64 run; the wall time of one continuous gradient in f32
-     and f64 and its launches a step (traced at N = 200); the continuous
+     and f64 and its launches a step (traced at N = 20); the continuous
      gradient against the discrete truth (reported)
   2  KDyn's remat modes (step, nested, offload, store-all) on the plain
-     f32 path, cost Final at 2000 steps and Integrated at 1000: J and
+     f32 path, cost Final at 500 steps and Integrated at 1000: J and
      both gradients against step remat, and each mode's peak device
      memory above the resident
   3  df64 (the f32 config's solves in float64): KDyn at full depth and
@@ -143,14 +147,14 @@ Phases, one line each; any failure exits non-zero without a result line:
      gradients), KDyn with --df-adjoint at N = 200 against the pinned
      values there; each gradient equal to the f64 config's cast to f32;
      two iterations of each on the device loop (the aux form; KDyn at
-     N = 100, mixing at N = 100) against the host loop's
-  4  KDyn's Rm route: f64 at N = 100, Wolfe + CG, alpha0 = 100, 4
+     N = 50, mixing at N = 100) against the host loop's
+  4  KDyn's Rm route: f64 at N = 50, Wolfe + CG, alpha0 = 100, 4
      iterations at Rm = 1 and 4 through one device-loop object (one
      capture), each against a loop (eager steps) on a problem built at
      that Rm;
      `spheremanopt_torch.run kdyn` (its `main`) for one iteration with
-     `--adjoint continuous` and with `--remat nested` at N = 100 (the
-     phase cut from N = 200 for the 1200 s limit)
+     `--adjoint continuous` and with `--remat nested` at N = 50 (the
+     phase cut from N = 200, then 100, for the 1200 s limit)
   5  sweeps over rows (`DeviceOptimiser.sweep`) at full width: the four
      row kernels (a sweep's rows in one launch, the vmapped Pallas
      kernels) called directly at R = 8, every row's u_T, J, trajectory
@@ -163,7 +167,15 @@ Phases, one line each; any failure exits non-zero without a result line:
      kernels; then 30 iterations, bitwise, with the batched and
      sequential wall times and a trace (idle share, launches a replay);
      SHB23 f32 kernels on native rows, B = 4, 5 iterations, bitwise and a
-     main path the same way; a trial of the native f32
+     main path the same way; KDyn's three row kernels (24^3 on 36^3, 2000
+     steps) called directly at R = 8, both costs, every row's b_T, J,
+     trajectory, b0_bar and u_bar bitwise the one-row kernels', against
+     the plain rows at R = 2 (Final; each plain row version timed once),
+     timed at R = 8 and 1 beside 8 one-row calls; KDyn f32 kernel sweeps
+     on native rows, B = 4, each row on its own radii: Wolfe + CG (5
+     iterations) and Armijo (2), every row bitwise its unbatched run, a
+     main path of each warm sweep (the row kernels, no one-row kernel);
+     a trial of the native f32
      matmul rows at N = 200 (cut), and
      that optimiser's sweep of one row against its unbatched call (walls,
      launches of a trial replay); SH23 f64 matmul (native rows), B = 3, N = 200
@@ -202,7 +214,7 @@ Phases, one line each; any failure exits non-zero without a result line:
      fwd+grad unit beside phase D's time, and its `roofline`
      (`sh23_cost_model`)
   9  sharding at one rank, an in-process one-rank NCCL group: KDyn
-     transform="distributed" f64 at N = 200 from kdyn24_truth's x0 (24^3
+     transform="distributed" f64 at N = 100 from kdyn24_truth's x0 (24^3
      modes on 36^3), slab and the (1, 1) pencil, J and both gradients
      against the matmul transform (rtol 1e-12 / 1e-9), the two units'
      times; 2 iterations of the device loop on CUDA graphs with the
@@ -230,6 +242,12 @@ Phases, one line each; any failure exits non-zero without a result line:
      KE objective, 3 iterations each) against the unsharded loops
      (TOL_DIST_LOOP). The bisections, L-BFGS against CG and the warm start
      are main paths of their kernels (not recorded on the kernels line)
+
+The phases run in ORDER: A, B, E, F, J (beside the build), then T, X
+and Z while K, Q and W, the other pinned f64 loops, run in a second
+process on the card (`chip_smoke.py --beside kqw`, its lines printed
+after Z), then the rest from C on; no phase that times a kernel runs
+beside another process.
 
 Each main path (G, H, L, M, R, S, T, U, V, 1, 5, 7, 8, 0) runs with the launch counters set to 0
 just before it and read just after; a kernel of that path that was not
@@ -264,7 +282,7 @@ from spheremanopt_torch.grad.testgrad import adjoint_gradient_test
 from spheremanopt_torch.ops.cuda import build as kbuild
 from spheremanopt_torch.ops.cuda import fused_two_matrix as fk
 from spheremanopt_torch.ops.cuda import kdyn_step as kd
-from spheremanopt_torch.problems.kinematic_dynamo import KinematicDynamo
+from spheremanopt_torch.problems.kinematic_dynamo import KDynConfig, KinematicDynamo
 # the H100 SXM data-sheet peaks and the bound of a piece of work: the
 # larger of its bytes over the HBM rate and its flop over a peak
 from spheremanopt_torch.utils.profiling import (
@@ -300,6 +318,10 @@ GAMMA2_TOL, TRAJ_F64_RTOL, FV0_ATOL, FV0_RTOL, SPHERE_TOL = 0.05, 1e-6, 1e-4, 1e
 # gradients are stored in f32 (~6e-8).
 TOL_KDYN_VS_PLAIN, TOL_KDYN_VS_F64, TOL_KDYN_J64, TOL_KDYN_G64 = 1e-3, 1e-3, 1e-10, 1e-6
 KDYN_CUT = 200   # steps of the depth-cut f64 phases (a tenth of the horizon)
+# steps of phase 1's traced continuous gradients (the profiler's own cost
+# grows with their ~170 launches a step: 7.6 and 9.0 s at 50 steps; cut
+# from KDYN_CUT for the 1200 s limit)
+KDYN_TRACE_CUT = 20
 # the continuous adjoint is the same FFT recursion in both packages (f64)
 TOL_CONT_F64 = 1e-10
 # the JAX package's bench record (iterations, J): another workload, with
@@ -314,6 +336,10 @@ KDYN_BENCH_END = (10, 2.518)
 # solves at roundoff.
 TOL_MIX_J64, TOL_MIX_G64, TOL_MIX_J32, TOL_MIX_G32, TOL_MIX_BC = 1e-10, 1e-6, 1e-4, 1e-3, 1e-10
 MIX_CUT = 100   # steps of the depth-cut phases (a tenth of the horizon)
+# steps of phase Y's traced f32 unit (the profiler's own cost grows with
+# its ~85 launches a step: 9.8 s at 100 steps; cut from MIX_CUT for the
+# 1200 s limit)
+MIX_TRACE_CUT = 50
 MIX_HOST_ITERS = 3   # iterations of the f32 workload's host loop
 # KDyn's continuous adjoint (1): f64 against JAX's pinned gradient as the
 # SH23 one (T); the adjoint invariants at Leray roundoff, as in the JAX
@@ -331,8 +357,9 @@ TOL_REMAT32, MEM_FRACTION = 1e-6, 0.25
 TOL_DF_J, TOL_DF_G, TOL_DF_LOOP = 1e-10, 1e-7, 2e-6
 RM_ITERS, RM_VALUES, TOL_RM = 4, (1.0, 4.0), 1e-12   # Rm route (4)
 # phase 4's steps (its checks hold at any depth: loop against loop at each
-# Rm, the CLI runs' exit and J); cut from KDYN_CUT for the 1200 s limit
-RM_CUT = 100
+# Rm, the CLI runs' exit and J); cut from KDYN_CUT, then 100, for the
+# 1200 s limit
+RM_CUT = 50
 # sweeps (5): the row kernels called directly at R = SWEEP_B, full width,
 # each row bitwise the one-row kernel; SH23 f32 kernels B = 8 over E0 =
 # linspace(0.02, 0.10) and SHB23 f32 kernels B = SHB_SWEEP_B on their
@@ -345,14 +372,30 @@ RM_CUT = 100
 # other order); the depth cuts keep phases 5 and 6 near 150 s
 SWEEP_B, SWEEP_ITERS, SWEEP_F64_ITERS, ROW_RTOL = 8, 30, 5, 1e-10
 SHB_SWEEP_B = 4
+# KDyn's rows (5): the row kernels at R = SWEEP_B, full width and depth,
+# both costs, each row bitwise the one-row kernels; against the plain rows
+# at R = KDYN_PLAIN_ROWS, cost Final (a plain row takes ~3.4 s forward and
+# ~5.3 s reverse), within TOL_KDYN_VS_PLAIN; the f32 `cuda` sweep of
+# KDYN_SWEEP_B rows on native rows, Wolfe + CG at KDYN_SWEEP_ITERS
+# iterations (cut from SWEEP_F64_ITERS for the 1200 s limit), every row
+# bitwise its unbatched run; a warm Armijo sweep (its J-only trials: the
+# forward without the trajectory) at KDYN_ARMIJO_ITERS as the main path of
+# that row kernel
+KDYN_PLAIN_ROWS, KDYN_SWEEP_B, KDYN_SWEEP_ITERS, KDYN_ARMIJO_ITERS = 2, 4, 3, 2
+KDYN_ONE_ROW = ("kdyn_fwd", "kdyn_fwd_traj", "kdyn_bwd")
+KDYN_ROWS = ("kdyn_fwd_rows", "kdyn_fwd_traj_rows", "kdyn_bwd_rows")
 SWEEP_CUT = 200   # steps of the native-row SH23 sweeps (their captures are eager)
 MIX_SWEEP_E0, MIX_SWEEP_ITERS = (0.005, 0.01, 0.02, 0.04), 3
 MIX_SWEEP_CUT = 50   # the mixing rows' steps (cut from MIX_CUT for the 1200 s limit)
 RTR_SWEEP_CUT = 100
-# depths: the remat modes' Integrated units at half the horizon (an eager
-# unit takes ~20 s at 2000 steps); the df64 device loop's KDyn at N = 100
-REMAT_STEPS = {"Final": 2000, "Integrated": 1000}
-KDYN_LOOP_CUT = 100
+# depths: the remat modes' Final units at a quarter of the horizon (cut
+# from 2000 for the 1200 s limit: each mode against step remat and each
+# mode's peak against step's hold at any depth, ~0.15 of step's for nested
+# at 500 steps; an eager unit takes ~5-10 s at 2000), the Integrated ones
+# at half, the depth at which phase 2 caught offload's host-copy fault
+# (ROADMAP); the df64 device loop's KDyn at N = 50
+REMAT_STEPS = {"Final": 500, "Integrated": 1000}
+KDYN_LOOP_CUT = 50
 # the routes above the reverse clusters' widths (H): SHB23's and SH23's
 # grid-wide sweeps at BLOCK_MG, held to the one-block kernels; SHB23's
 # grid-wide sweeps with B rows and columns from L2 at WIDE_MG
@@ -363,6 +406,7 @@ BLOCK_MG, BLOCK_N, WIDE_MG = 1024, 200, 2048
 # (the loops at a cut depth: a distributed f64 unit at N = 200 takes seconds)
 TOL_DIST_J, TOL_DIST_G, TOL_DIST_LOOP, DIST_LOOP_ITERS = 1e-12, 1e-9, 1e-9, 2
 DIST_LOOP_CUT = int(os.environ.get("CHIP_SMOKE_DIST_LOOP_N", "20"))
+DIST_CUT = 100   # the distributed units' steps (cut from KDYN_CUT for the 1200 s limit)
 # phase 0: the example studies (examples/torch_*.py) through their `main`,
 # at full width and a cut depth: (name, argv, the main path's kernels).
 # SH23 at 256 modes on 512 points (the bisection and L-BFGS against CG at
@@ -395,6 +439,15 @@ SHARDED = {
     "kdyn_sharded_optimisation": ["--iters", str(SHARDED_ITERS), "--steps", "20"],
     "mixing_sharded_optimisation": ["--iters", str(SHARDED_ITERS), "--s", "0"],
 }
+# the order of the phases. NO_KERNELS launch no kernel (the f64 Taylor
+# tests and SH23's pinned f64 host loop): they run right after phase B,
+# beside the kernels' build. BESIDE, the other pinned f64 loops (host
+# loops and device loops, launch-bound, nothing timed), run in a second
+# process on the card while this one runs ALONGSIDE, which times no
+# kernel either; every timed phase runs after both.
+NO_KERNELS, BESIDE, ALONGSIDE = "efj", "kqw", "txz"
+ORDER = "ab" + NO_KERNELS + "<" + ALONGSIDE + ">" + "".join(
+    c for c in "cdghilmnopqrstuvwxyz1234567890" if c not in NO_KERNELS + BESIDE + ALONGSIDE)
 # the run.main flags of phase 7's three SH23 runs
 ARCHIVE_FLAGS = {"plain": [], "light": ["--archive-every", "1"], "fused": ["--archive-full"]}
 PALLAS = "spheremanopt_tpu/ops/pallas/fused_two_matrix.py"
@@ -435,6 +488,9 @@ REPLACES = {
     "fused_bwd_shared_rows": f"{PALLAS}:185",   # _bwd_kernel_shared, vmapped, mg <= 896
     "fused_fwd_rows": f"{PALLAS}:60",           # _fwd_kernel, vmapped
     "fused_bwd_rows": f"{PALLAS}:102",          # _bwd_kernel, vmapped, mg <= 640
+    "kdyn_fwd_rows": f"{PALLAS_K}:411",         # _fwd_kernel, vmapped
+    "kdyn_fwd_traj_rows": f"{PALLAS_K}:201",    # _fwd_traj_kernel, vmapped
+    "kdyn_bwd_rows": f"{PALLAS_K}:247",         # _bwd_kernel, vmapped
 }
 
 
@@ -581,6 +637,15 @@ def kdyn_work(n, mg, n_steps, fwd, traj):
     return n_steps * step, 4 * floats
 
 
+def kdyn_rows_work(n, mg, n_steps, fwd, traj, n_rows):
+    """(flop, bytes) of a KDyn row sweep over n_rows rows: n_rows times a
+    sweep's operations and bytes, the constant pack read once."""
+    flop, nbytes = kdyn_work(n, mg, n_steps, fwd, traj)
+    kz = n // 2 + 1
+    consts = 4 * (4 * n * mg + 4 * kz * mg + 9 * n * n * kz)
+    return n_rows * flop, n_rows * (nbytes - consts) + consts
+
+
 def _numbers(obj):
     """Every number in a JSON-like object."""
     if isinstance(obj, bool) or obj is None or isinstance(obj, str):
@@ -615,6 +680,18 @@ def trace(fn):
     return wall, sum(r[1] for r in rows) / 1e3, rows
 
 
+def timed_once(fn):
+    """(fn(), ms) of one call of `fn` by CUDA events (a plain version that
+    takes seconds a call)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def graph_ms(fn, reps=20, replays=5):
     """Mean ms per call of `fn` on the card: CUDA events around replays of
     one CUDA graph that holds `reps` calls, so the host's per-call time
@@ -644,6 +721,8 @@ class Smoke:
         self.kernels = {name: {} for name in SOURCES}
         self.card = ""
         self.launched, self.host_iters = {}, {}   # main paths' launches, iterations
+        # phase B's build, the second process, phase 0's children
+        self.build, self.beside, self.children = {}, {}, {}
 
     def check(self, phase, ok, msg):
         print(f"[{phase}] {'ok' if ok else 'FAIL'}: {msg}", flush=True)
@@ -697,14 +776,43 @@ class Smoke:
                    f"tf32 matmul/cudnn = {flags}")
 
     def phase_b(self):
+        """Start the kernels' build (each csrc/*.cu in its own nvcc, all at
+        once) on a thread: the phases that launch no kernel (NO_KERNELS)
+        run meanwhile, and every other phase first waits for it (built)."""
+        import threading
+
         t0 = time.perf_counter()
+
+        def build():
+            try:
+                kbuild.build()
+            except Exception as e:   # reported by built()
+                self.build["error"] = e
+            self.build["s"] = time.perf_counter() - t0
+
+        self.build = {"thread": threading.Thread(target=build, daemon=True)}
+        self.build["thread"].start()
+
+    def built(self):
+        """Wait for phase B's build, load the library and report it (once);
+        raises if the build failed."""
+        if self.build.get("done"):
+            if "error" in self.build:
+                raise RuntimeError("the kernels did not build (phase B)")
+            return
+        t0 = time.perf_counter()
+        self.build["thread"].join()
+        self.build["done"] = True
+        if "error" in self.build:
+            self.check("B", False, f"build failed: {self.build['error']}")
+            raise RuntimeError("the kernels did not build (phase B)")
         kbuild.load()
-        dt = time.perf_counter() - t0
         ptxas = [ln.strip() for ln in kbuild.build_log.splitlines() if "ptxas info" in ln]
         for ln in ptxas:
             print("  " + ln)
         self.check("B", True, f"built {kbuild.library_path().relative_to(HERE)} "
-                   f"in {dt:.1f} s")
+                   f"in {self.build['s']:.1f} s on a thread (waited "
+                   f"{time.perf_counter() - t0:.1f} s for it)")
 
     def phase_c(self):
         p, x0, _ = cli.make_problem(problem_args("sh23", "float32", "cuda"),
@@ -1305,16 +1413,18 @@ class Smoke:
         br0, bi0, u = b0_c.real.contiguous(), b0_c.imag.contiguous(), u.contiguous()
         self.kdyn_sweep = (br0, bi0, u, C, cfg.n_iters, cfg.dt)
         gbar = torch.tensor(-1.0, dtype=torch.float32, device=u.device)
-        pairs = {k: [] for k in kd.KERNEL_SOURCES}
+        pairs = {k: [] for k in KDYN_ONE_ROW}
         reset_launches()
         for integrated, n in ((False, cfg.n_iters), (True, KDYN_CUT)):
             k = kd.run_fwd_traj(br0, bi0, u, C, n, integrated, cfg.dt)
             k0 = kd.run_forward(br0, bi0, u, C, n, integrated, cfg.dt)
-            r = kd.run_fwd_traj_plain(br0, bi0, u, C, n, integrated, cfg.dt)
+            r, r_ms = timed_once(lambda: kd.run_fwd_traj_plain(br0, bi0, u, C, n, integrated,
+                                                               cfg.dt))
             bk = kd.run_bwd(u, k[0], k[1], gbar, k[3], k[4], C, n, integrated, cfg.dt)
-            bp = kd.run_bwd_plain(u, k[0], k[1], gbar, k[3], k[4], C, n, integrated,
-                                  cfg.dt)
-            torch.cuda.synchronize()
+            bp, bp_ms = timed_once(lambda: kd.run_bwd_plain(
+                u, k[0], k[1], gbar, k[3], k[4], C, n, integrated, cfg.dt))
+            if not integrated:   # phase O's plain times: the same calls, once each
+                self.kdyn_plain_ms = {"kdyn_fwd_traj": r_ms, "kdyn_bwd": bp_ms}
             pairs["kdyn_fwd_traj"] += list(zip(k, r))
             pairs["kdyn_fwd"] += list(zip(k0, r[:3]))
             pairs["kdyn_bwd"] += list(zip(bk, bp))
@@ -1336,11 +1446,13 @@ class Smoke:
         # J and both unprojected gradients at the pinned x0, full depth,
         # against the pinned f64 values (computed by the JAX package on a CPU)
         def unprojected(args, dtype):
+            """(J, gradients, the call's ms, problem, x0): one fwd+grad unit
+            with unprojected gradients, timed by CUDA events."""
             q, x, _ = cli.make_problem(args, x0=self.kdyn_x0(dtype))
             q = KinematicDynamo(dataclasses.replace(q.cfg, project_gradients=False),
                                 device=q.device)
-            J, g = q.objective_and_gradient(x)
-            return float(J), [a.double() for a in g]
+            (J, g), ms = timed_once(lambda: q.objective_and_gradient(x))
+            return float(J), [a.double() for a in g], ms, q, x
 
         def against(J, g, J64, g64):
             return (abs(J - J64) / abs(J64),
@@ -1350,13 +1462,15 @@ class Smoke:
         dev = u.device
         J64 = float(self.truthk["J"])
         g64 = [torch.as_tensor(self.truthk[k], device=dev).double() for k in ("gb", "gu")]
-        e_k = against(*unprojected(problem_args("kdyn", "float32", "cuda"), np.float32),
-                      J64, g64)
-        e_p = against(*unprojected(problem_args("kdyn", "float32", "plain"), np.float32),
-                      J64, g64)
+        k32 = unprojected(problem_args("kdyn", "float32", "cuda"), np.float32)
+        p32 = unprojected(problem_args("kdyn", "float32", "plain"), np.float32)
+        e_k, e_p = against(*k32[:2], J64, g64), against(*p32[:2], J64, g64)
+        # phase O's fwd+grad units: these unprojected ones (as the JAX
+        # bench's KDyn unit), the plain f32 one timed here, once
+        self.kdyn_units = (k32[3], k32[4], p32[2])
         d64 = unprojected(problem_args("kdyn", "float64", "plain"), np.float64)
         self.kdyn_g64 = d64[1]   # phase 3's f64-config gradient
-        e_d = against(*d64, J64, g64)
+        e_d = against(*d64[:2], J64, g64)
         fmt = "rel_J {:.3e} rel_gB {:.3e} rel_gU {:.3e}".format
         self.check("N", max(e_k) <= TOL_KDYN_VS_F64,
                    f"KDyn full depth vs pinned f64: method=cuda {fmt(*e_k)} (plain "
@@ -1364,9 +1478,6 @@ class Smoke:
         self.check("N", e_d[0] <= TOL_KDYN_J64 and max(e_d[1:]) <= TOL_KDYN_G64,
                    f"KDyn full depth plain f64 vs pinned f64: {fmt(*e_d)}, tol "
                    f"{TOL_KDYN_J64:g} / {TOL_KDYN_G64:g}")
-        self.pk_cuda, self.xk32 = p, x0
-        self.pk_plain32 = cli.make_problem(problem_args("kdyn", "float32", "plain"),
-                                           x0=self.kdyn_x0(np.float32))[0]
 
         # both costs at the cut depth, projected gradients, through the
         # problem: method=cuda f32 and plain f64 against the pinned f64 values
@@ -1393,20 +1504,18 @@ class Smoke:
         br0, bi0, u, C, n, dt = self.kdyn_sweep
         brT, biT, _, trr, tri = kd.run_fwd_traj(br0, bi0, u, C, n, False, dt)
         gbar = torch.tensor(-1.0, dtype=torch.float32, device=u.device)
-        # the plain versions take seconds a sweep and were run in phase N:
-        # one call of each, no warm-up, between two kernel timings
+        # the plain versions take seconds a sweep: the forward timed once, no
+        # warm-up, between two kernel timings; the forward with the
+        # trajectory and the reverse are phase N's calls (cost Final, the
+        # same inputs), timed there once each
         f_pl, f_k = interleaved_ms(
             lambda: kd.run_forward_plain(br0, bi0, u, C, n, False, dt),
             lambda: kd.run_forward(br0, bi0, u, C, n, False, dt), 1, 5, 0, plain_once=True)
-        t_pl, t_k = interleaved_ms(
-            lambda: kd.run_fwd_traj_plain(br0, bi0, u, C, n, False, dt),
-            lambda: kd.run_fwd_traj(br0, bi0, u, C, n, False, dt), 1, 5, 0, plain_once=True)
-        b_pl, b_k = interleaved_ms(
-            lambda: kd.run_bwd_plain(u, brT, biT, gbar, trr, tri, C, n, False, dt),
-            lambda: kd.run_bwd(u, brT, biT, gbar, trr, tri, C, n, False, dt), 1, 5, 0, plain_once=True)
-        u_pl, u_k = interleaved_ms(
-            lambda: self.pk_plain32.objective_and_gradient(self.xk32),
-            lambda: self.pk_cuda.objective_and_gradient(self.xk32), 1, 5, 0, plain_once=True)
+        t_k = gpu_ms(lambda: kd.run_fwd_traj(br0, bi0, u, C, n, False, dt), 10, 1)
+        b_k = gpu_ms(lambda: kd.run_bwd(u, brT, biT, gbar, trr, tri, C, n, False, dt), 10, 1)
+        t_pl, b_pl = self.kdyn_plain_ms["kdyn_fwd_traj"], self.kdyn_plain_ms["kdyn_bwd"]
+        qk, xk, u_pl = self.kdyn_units
+        u_k = gpu_ms(lambda: qk.objective_and_gradient(xk), 10, 1)
         npts, mg = br0.shape[1], u.shape[1]
         self.kernels["kdyn_fwd"].update(
             ms=f_k, plain_ms=f_pl, work=kdyn_work(npts, mg, n, fwd=True, traj=False))
@@ -1418,8 +1527,8 @@ class Smoke:
                    f"[{self.card}] KDyn (n={npts}, mg={mg}, N={n}) fwd sweep kernel "
                    f"{f_k:.3f} ms vs plain {f_pl:.3f} ms; with the trajectory "
                    f"{t_k:.3f} vs {t_pl:.3f} ms; bwd sweep kernel {b_k:.3f} ms vs "
-                   f"plain {b_pl:.3f} ms; fwd+grad unit kernel path {u_k:.3f} ms vs "
-                   f"plain f32 path {u_pl:.3f} ms")
+                   f"plain {b_pl:.3f} ms; fwd+grad unit (unprojected gradients) kernel "
+                   f"path {u_k:.3f} ms vs plain f32 path {u_pl:.3f} ms")
 
     def phase_p(self):
         self.taylor("P", problem_args("kdyn", "float64", "plain", "--n-iters",
@@ -1442,7 +1551,7 @@ class Smoke:
     def phase_r(self):
         x0 = self.kdyn_x0(np.float32)
         p, res, wall = self.main_path(
-            "R", tuple(kd.KERNEL_SOURCES),
+            "R", KDYN_ONE_ROW,
             lambda: self.workload("kdyn", "float32", "cuda", x0))
         fv = np.asarray(res.function_values)
         self.host_iters["R"] = res.iterations
@@ -1800,6 +1909,8 @@ class Smoke:
                              str(KDYN_CUT))
 
     def phase_x(self):
+        if self.only is None or "0" in self.only:
+            self.start_children()
         pin = self.refr
         os.makedirs(OUT, exist_ok=True)
         # the host loop's eager forward-over-reverse products cost ~4 s each
@@ -1918,14 +2029,14 @@ class Smoke:
                   f"(3 x {n} reads of S, {s_bytes / 1e6:.1f} MB, at "
                   f"{HBM_RATE / 1e12:g} TB/s) [{self.card}]", flush=True)
         # the profiler's own cost grows with the ~85 host-side ops a step:
-        # trace a unit at a tenth of the horizon
-        pc, xc, _, _ = self.mixing("float32", "--n-iters", str(MIX_CUT))
+        # trace a unit at MIX_TRACE_CUT steps
+        pc, xc, _, _ = self.mixing("float32", "--n-iters", str(MIX_TRACE_CUT))
         pc.objective_and_gradient(xc)
-        wall, busy, rows = self.print_trace("Y", f"an f32 fwd+grad unit at N={MIX_CUT}",
+        wall, busy, rows = self.print_trace("Y", f"an f32 fwd+grad unit at N={MIX_TRACE_CUT}",
                                             lambda: pc.objective_and_gradient(xc))
         n_k = sum(c for _, _, c in rows)
-        print(f"[Y] f32 unit at N={MIX_CUT}: {n_k} kernel launches, "
-              f"{n_k / MIX_CUT:.1f} a step, {1e6 * (wall - busy) / max(n_k, 1):.2f} us "
+        print(f"[Y] f32 unit at N={MIX_TRACE_CUT}: {n_k} kernel launches, "
+              f"{n_k / MIX_TRACE_CUT:.1f} a step, {1e6 * (wall - busy) / max(n_k, 1):.2f} us "
               "of idle time a launch", flush=True)
 
     def phase_z(self):
@@ -1973,14 +2084,6 @@ class Smoke:
                    f"steps replayed {dict(loop.replays)}; {wall:.2f} s with the warm-up "
                    f"and capture [{self.card}]")
         print(f"[Z] device-loop values: {[float(v) for v in fvd]}", flush=True)
-        # one Wolfe trial (a fwd+grad unit and the search's transition) replayed
-        wall_t, busy, rows = self.print_trace("Z", "one Wolfe-trial graph replay",
-                                              lambda: loop.run("trial"))
-        n_k = sum(c for _, _, c in rows)
-        print(f"[Z] the trial graph: {n_k} kernel launches, "
-              f"{1e6 * (wall_t - busy) / max(n_k, 1):.2f} us of idle time a launch; "
-              "its device time by kernel: " + "; ".join(
-                  f"{k[:90]} {ms:.3f} ms x{c}" for k, ms, c in rows[:12]), flush=True)
 
         # the host loop: the same workload's first iterations (a host-loop
         # unit is launch-bound, ~3 s; the whole run would take minutes)
@@ -2017,10 +2120,21 @@ class Smoke:
                 torch.equal(r.function_values, r2.function_values),
                 int(r.iterations) == 3]
         self.check("Z", all(same),
-                   f"mixing f32 device loop at N={MIX_CUT}, 3 iterations, on CUDA graphs "
-                   f"against the same steps run eagerly: J history, step sizes and "
-                   f"x_opt bitwise, a replay-only call bitwise the first, 3 "
+                   f"mixing f32 device loop at N={MIX_CUT}, 3 iterations, on CUDA "
+                   f"graphs against the same steps run eagerly: J history, step sizes "
+                   f"and x_opt bitwise, a replay-only call bitwise the first, 3 "
                    f"iterations: {same}")
+        # one Wolfe trial (a fwd+grad unit and the search's transition)
+        # replayed, at a tenth of the horizon (the profiler's own cost grows
+        # with the trial's ~85 launches a step: 11.0 s at full depth)
+        wall_t, busy, rows = self.print_trace(
+            "Z", f"one Wolfe-trial graph replay at N={MIX_CUT}",
+            lambda: opt.last_loop.run("trial"))
+        n_k = sum(c for _, _, c in rows)
+        print(f"[Z] the trial graph: {n_k} kernel launches, "
+              f"{1e6 * (wall_t - busy) / max(n_k, 1):.2f} us of idle time a launch; "
+              "its device time by kernel: " + "; ".join(
+                  f"{k[:90]} {ms:.3f} ms x{c}" for k, ms, c in rows[:12]), flush=True)
 
         # trust-region Newton through the command line's own entry point
         out = os.path.join(OUT, "mixing_rtr_cli")
@@ -2101,7 +2215,7 @@ class Smoke:
         for tag, dtype, method in (("f32", "float32", "cuda"), ("f64", "float64", "plain")):
             pc, xc, _ = cli.make_problem(
                 problem_args("kdyn", dtype, method, "--adjoint", "continuous",
-                             "--n-iters", str(KDYN_CUT)),
+                             "--n-iters", str(KDYN_TRACE_CUT)),
                 x0=self.kdyn_x0(np.float32 if tag == "f32" else np.float64))
             pc.gradient(xc)
             wt, busy, rows = trace(lambda: pc.gradient(xc))
@@ -2109,7 +2223,8 @@ class Smoke:
             print(f"[1] one continuous gradient, {tag}, N={p32.cfg.n_iters}: "
                   f"{walls[tag]:.3f} s wall" + (" (with J from kdyn_fwd)" if tag == "f32"
                                                else "") +
-                  f"; traced at N={KDYN_CUT}: {n_k} kernel launches ({n_k / KDYN_CUT:.1f}"
+                  f"; traced at N={KDYN_TRACE_CUT}: {n_k} kernel launches "
+                  f"({n_k / KDYN_TRACE_CUT:.1f}"
                   f" a step of forward and adjoint), device busy {1e3 * busy:.1f} of "
                   f"{1e3 * wt:.1f} ms, idle share {100 * (1 - busy / wt):.1f} % "
                   f"[{self.card}]", flush=True)
@@ -2435,6 +2550,121 @@ class Smoke:
                        f"{b1_ms:.3f}; {R} one-row calls {bseq:.3f}; plain {pb_ms:.3f}) "
                        f"[{self.card}]")
 
+    def kdyn_row_kernels(self, p):
+        """KDyn's row kernels called directly at full width and depth (p:
+        `KDynConfig()` f32 `cuda`: 24^3 modes on 36^3, 2000 steps): at
+        R = SWEEP_B, both costs, every row's b_T, J, trajectory, b0_bar and
+        u_bar bitwise the one-row kernels' on that row; at
+        R = KDYN_PLAIN_ROWS, cost Final, against the plain rows (each timed
+        once); CUDA-event times at R = SWEEP_B and at R = 1 beside SWEEP_B
+        one-row calls."""
+        R, C, n, dt = SWEEP_B, p._consts, p.cfg.n_iters, p.cfg.dt
+        with torch.no_grad():
+            preps = [p._prepare(p.generate_ic(seed=s)) for s in range(R)]
+        br0 = torch.stack([c.real for c, _ in preps])
+        bi0 = torch.stack([c.imag for c, _ in preps])
+        u = torch.stack([v for _, v in preps])
+        gbar = -torch.linspace(0.5, 1.5, R, device="cuda")
+        same = {}
+        for cost in ("Integrated", "Final"):   # Final last: its sweeps are timed
+            integrated = cost == "Integrated"
+            f = kd.run_forward_rows(br0, bi0, u, C, n, integrated, dt)
+            t = kd.run_fwd_traj_rows(br0, bi0, u, C, n, integrated, dt)
+            b = kd.run_bwd_rows(u, t[0], t[1], gbar, t[3], t[4], C, n, integrated, dt)
+            ok = True
+            for r in range(R):
+                one = kd.run_fwd_traj(br0[r], bi0[r], u[r], C, n, integrated, dt)
+                one0 = kd.run_forward(br0[r], bi0[r], u[r], C, n, integrated, dt)
+                back = kd.run_bwd(u[r], one[0], one[1], gbar[r].contiguous(), one[3],
+                                  one[4], C, n, integrated, dt)
+                ok &= (all(torch.equal(x[r], y) for x, y in zip(t, one))
+                       and all(torch.equal(x[r], y) for x, y in zip(f, one0))
+                       and all(torch.equal(x[r], y) for x, y in zip(b, back)))
+            same[cost] = ok
+            del one, one0, back
+        fwd_r = lambda k: kd.run_forward_rows(br0[:k], bi0[:k], u[:k], C, n, False, dt)  # noqa: E731
+        traj_r = lambda k: kd.run_fwd_traj_rows(br0[:k], bi0[:k], u[:k], C, n, False, dt)  # noqa: E731
+        bwd_r = lambda k: kd.run_bwd_rows(u[:k], t[0][:k], t[1][:k], gbar[:k],  # noqa: E731
+                                          t[3][:k], t[4][:k], C, n, False, dt)
+        ms = {k: [gpu_ms(lambda: fn(k), 3, 1) for fn in (fwd_r, traj_r, bwd_r)]
+              for k in (R, 1)}
+        seq = [gpu_ms(lambda: [kd.run_forward(br0[r], bi0[r], u[r], C, n, False, dt)
+                               for r in range(R)], 1, 1),
+               gpu_ms(lambda: [kd.run_fwd_traj(br0[r], bi0[r], u[r], C, n, False, dt)
+                               for r in range(R)], 1, 1),
+               gpu_ms(lambda: [kd.run_bwd(u[r], t[0][r], t[1][r], gbar[r].contiguous(),
+                                          t[3][r], t[4][r], C, n, False, dt)
+                               for r in range(R)], 1, 1)]
+        # against the plain rows, once each (a plain row takes seconds)
+        k = KDYN_PLAIN_ROWS
+        kern = (fwd_r(k), traj_r(k), bwd_r(k))
+        plain = [timed_once(lambda: kd.run_forward_rows_plain(
+                     br0[:k], bi0[:k], u[:k], C, n, False, dt)),
+                 timed_once(lambda: kd.run_fwd_traj_rows_plain(
+                     br0[:k], bi0[:k], u[:k], C, n, False, dt)),
+                 timed_once(lambda: kd.run_bwd_rows_plain(
+                     u[:k], t[0][:k], t[1][:k], gbar[:k], t[3][:k], t[4][:k], C, n, False,
+                     dt))]
+        errs = {}
+        npts, mg = br0.shape[2], u.shape[2]
+        for i, (name, fwd, traj) in enumerate(zip(KDYN_ROWS, (True, True, False),
+                                                  (False, True, True))):
+            pairs = list(zip(kern[i], plain[i][0]))
+            errs[name] = max(rel(a, b) for a, b in pairs)
+            self.kernels[name].update(
+                ms=ms[R][i], plain_ms=plain[i][1], max_abs_err=max_abs(pairs),
+                work=kdyn_rows_work(npts, mg, n, fwd, traj, R))
+        self.check("5", all(same.values()) and max(errs.values()) <= TOL_KDYN_VS_PLAIN,
+                   f"kdyn row kernels at R = {R}, n {npts}, mg {mg}, N {n}: every row's "
+                   f"b_T, J, trajectory, b0_bar and u_bar bitwise the one-row kernels' "
+                   f"{same}; vs the plain rows at R = {k} (Final) f32 rel "
+                   + ", ".join(f"{key} {v:.2e}" for key, v in errs.items())
+                   + f" (tol {TOL_KDYN_VS_PLAIN:g}); "
+                   + "; ".join(f"{key} {ms[R][i]:.3f} ms (R = 1 {ms[1][i]:.3f}; {R} one-row "
+                               f"calls {seq[i]:.3f}; plain at R = {k} {plain[i][1]:.1f})"
+                               for i, key in enumerate(("forward", "with the trajectory",
+                                                        "reverse")))
+                   + f" [{self.card}]")
+
+    def kdyn_sweeps(self, p, jit, row_forms):
+        """KDyn f32 `cuda` sweeps of KDYN_SWEEP_B rows at full width and
+        depth on native rows (the row kernels), each row on its own radii:
+        Wolfe + CG (KDYN_SWEEP_ITERS iterations), every row bitwise its
+        unbatched run, and a warm sweep a main path of the row kernels; a
+        warm Armijo sweep (KDYN_ARMIJO_ITERS) the main path of the forward
+        without the trajectory (its J-only trials); neither launches a
+        one-row kernel."""
+        B = KDYN_SWEEP_B
+        ics = [p.generate_ic(seed=s) for s in range(B)]
+        x0 = [torch.stack([ic[j] for ic in ics]) for j in range(2)]
+        radii = [[1.0, 1.0], [1.0, 1.0], [0.5, 1.0], [1.0, 2.0]][:B]
+        forms = row_forms(p)
+        for ls, iters, record in (("wolfe", KDYN_SWEEP_ITERS, KDYN_ROWS[1:]),
+                                  ("armijo", KDYN_ARMIJO_ITERS, KDYN_ROWS[:1])):
+            opt = jit(p.objective_and_gradient, p.inner_product, p.radii,
+                      max_iters=iters, alpha0=100.0, cg=True, line_search=ls,
+                      f=p.objective, rows=forms)
+            self.check("5", forms is not None and opt.native_rows,
+                       f"kdyn method=cuda {ls} sweeps on native rows (FusedEnergyRows: "
+                       "the row kernels)")
+            if ls == "wolfe":
+                _, _, warm, seq, _ = self.sweep_case(
+                    f"kdyn f32 kernels (method=cuda, native rows) at full width and "
+                    f"depth, radii {radii}, {iters} Wolfe + CG iterations (cut from "
+                    f"{SWEEP_F64_ITERS})", opt, x0, radii)
+                speed = f"; batched {warm:.3f} s, sequential {seq:.3f} s ({seq / warm:.2f}x)"
+            else:
+                opt.sweep(x0, radii)   # warm-up and capture
+                speed = ""
+            rb = self.main_path("5", KDYN_ROWS if ls == "armijo" else KDYN_ROWS[1:],
+                                lambda: opt.sweep(x0, radii), record=record)
+            one_row = {k: launches()[k] for k in KDYN_ONE_ROW}
+            self.check("5", not any(one_row.values())
+                       and bool(torch.isfinite(rb.function_values).all()),
+                       f"the warm kdyn {ls} sweep (iterations "
+                       f"{[int(v) for v in rb.iterations]}) launched no one-row kernel "
+                       f"{one_row}{speed} [{self.card}]")
+
     def phase_5(self):
         from spheremanopt_torch.optim.jit_driver import jit_optimise_on_multi_sphere
         from spheremanopt_torch.optim.jit_rtr import jit_optimise_rtr
@@ -2478,8 +2708,8 @@ class Smoke:
         one_row = {k: launches()[k] for k in ("fused_fwd_shared_grid", "fused_bwd_shared")}
         self.check("5", not any(one_row.values()),
                    f"the warm sweep launched no one-row kernel {one_row}")
-        # the same sweep one row at a time (rows=None: the route of KDyn,
-        # the continuous adjoint and the widths without row kernels), each
+        # the same sweep one row at a time (rows=None: the route of the
+        # continuous adjoints and the widths without row kernels), each
         # row on the unbatched loop's graphs and bitwise its unbatched run;
         # a warm sweep launches the one-row kernels (their counts stay
         # phase 1's)
@@ -2542,6 +2772,12 @@ class Smoke:
                    f"the warm shb23 sweep launched no one-row kernel {one_row}; batched "
                    f"{warm_b:.3f} s, sequential {seq_b:.3f} s ({seq_b / warm_b:.2f}x) "
                    f"[{self.card}]")
+
+        # KDyn f32 kernels at full width and depth: the row kernels called
+        # directly, then the sweeps on native rows
+        pk = KinematicDynamo(KDynConfig(dtype="float32", method="cuda"), device="cuda")
+        self.kdyn_row_kernels(pk)
+        self.kdyn_sweeps(pk, jit_optimise_on_multi_sphere, row_forms)
 
         # the same sweep on SH23's native f32 matmul rows (one product of R
         # columns a step, no kernel), at SWEEP_CUT steps (an eager step of
@@ -3010,7 +3246,7 @@ class Smoke:
     def phase_9(self):
         """Sharding at one rank: an in-process one-rank NCCL group. KDyn
         transform="distributed" (slab, and the (1, 1) pencil) f64 at N =
-        KDYN_CUT from kdyn24_truth's x0 against the matmul transform; the
+        DIST_CUT from kdyn24_truth's x0 against the matmul transform; the
         device loop on CUDA graphs with the distributed problem against the
         unsharded matmul loop (N = DIST_LOOP_CUT); SHB23 f32 and mixing f64
         (N = MIX_CUT) with the state a one-rank DTensor, J and g bitwise
@@ -3071,11 +3307,11 @@ class Smoke:
 
         xs = [torch.as_tensor(self.truthk[k], dtype=torch.float64, device=dev)
               for k in ("b0", "u0")]
-        pm = kdyn(KDYN_CUT)
+        pm = kdyn(DIST_CUT)
         (Jm, gm), _ = timed(lambda: pm.objective_and_gradient(xs))
         _, t_m = timed(lambda: pm.objective_and_gradient(xs))
         for shape in ((), (1, 1)):
-            pd = kdyn(KDYN_CUT, transform="distributed", mesh_shape=shape)
+            pd = kdyn(DIST_CUT, transform="distributed", mesh_shape=shape)
             xd = pd.shard_state(xs)
             (Jd, gd), t_d = timed(lambda: pd.objective_and_gradient(xd))
             what = "first call"
@@ -3085,7 +3321,7 @@ class Smoke:
             ok = (abs(float(Jd) / float(Jm) - 1) <= TOL_DIST_J
                   and all(close(a, b, TOL_DIST_G) for a, b in zip(gd, gm)))
             self.check("9", ok,
-                       f"kdyn f64 N={KDYN_CUT} transform='distributed' mesh_shape={shape}: "
+                       f"kdyn f64 N={DIST_CUT} transform='distributed' mesh_shape={shape}: "
                        f"J rel {abs(float(Jd) / float(Jm) - 1):.2e} (tol {TOL_DIST_J:g}), "
                        f"gradients rel {max(rel(a, b) for a, b in zip(gd, gm)):.2e} "
                        f"(elementwise rtol {TOL_DIST_G:g}); fwd+grad unit {t_d:.3f} s "
@@ -3168,6 +3404,15 @@ class Smoke:
         lines = buf.getvalue().strip().splitlines()
         return ret, json.loads(lines[-1]) if lines else None, wall
 
+    def start_children(self):
+        """Start the sharded examples' torchrun children (SHARDED); phase 0
+        collects them. Phase X starts them, when phase 0 runs, so that
+        their ~35 s (mostly their imports and NCCL's start) overlap phase
+        X's f64 loops, which time no kernel."""
+        self.children = {name: self.sharded_child(name, argv)
+                         for name, argv in SHARDED.items()}
+        return self.children
+
     def sharded_child(self, name, argv):
         """One rank of a sharded example under torchrun, in a child process
         (its own NCCL group: phase 9's is not reused)."""
@@ -3199,8 +3444,7 @@ class Smoke:
         """The example studies (EXAMPLES, SHARDED): each one's JSON line
         must be its result, its values finite and its gates met."""
         os.makedirs(os.path.join(OUT, "examples"), exist_ok=True)
-        t0 = time.perf_counter()
-        children = {name: self.sharded_child(name, argv) for name, argv in SHARDED.items()}
+        children = self.children or self.start_children()
         try:
             for name, argv, kernels in EXAMPLES:
                 ret, line, wall = self.example(name, argv, kernels)
@@ -3316,14 +3560,62 @@ class Smoke:
                            if rec else f"no JSON line; stderr {err.strip().splitlines()[-3:]}")
                        + f"; the child {done.get('s', float('nan')):.1f} s [{self.card}]")
 
-    def run(self, only=None):
+    def start_beside(self):
+        """Run the BESIDE phases that this run selects in a second process
+        (`chip_smoke.py --beside ...`); join_beside prints its lines."""
+        names = "".join(c for c in BESIDE if not self.only or c in self.only)
+        if not names:
+            return
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--beside",
+                                 names], cwd=HERE, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        t0, done = time.perf_counter(), {"names": names, "proc": proc}
+
+        def wait():
+            try:
+                done["out"] = proc.communicate(timeout=900)[0]
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                done["out"] = proc.communicate()[0] + "\n(killed after 900 s)"
+            done["s"] = time.perf_counter() - t0
+
+        import threading
+
+        done["thread"] = threading.Thread(target=wait, daemon=True)
+        done["thread"].start()
+        self.beside = done
+
+    def join_beside(self):
+        done = self.beside
+        if not done:
+            return
+        done["thread"].join()
+        names = ", ".join(done["names"].upper())
+        print(f"[{done['names'][0].upper()}] phases {names} in a second process "
+              f"({done['s']:.1f} s, beside phases {', '.join(ALONGSIDE.upper())}):",
+              flush=True)
+        print(done["out"].rstrip(), flush=True)
+        if done["proc"].returncode != 0:
+            self.failures.append(f"{names}: the second process exited "
+                                 f"{done['proc'].returncode}")
+
+    def run(self, only=None, beside=False):
+        """The phases in ORDER (with `only`, A, B and those named); with
+        `beside`, phase A and the phases `only` names, in this order (the
+        second process)."""
         self.only = only
-        for name in "abcdefghijklmnopqrstuvwxyz1234567890":
+        for name in ("a" + only if beside else ORDER):
+            if name in "<>":
+                if not beside:
+                    self.start_beside() if name == "<" else self.join_beside()
+                continue
             if only and name not in "ab" + only:
                 continue
             phase = getattr(self, f"phase_{name}")
             t0 = time.perf_counter()
             try:
+                if name not in "ab" + NO_KERNELS + BESIDE:
+                    self.built()
                 phase()
             except Exception:  # report every phase, then fail the run
                 traceback.print_exc()
@@ -3352,8 +3644,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
+    beside = "--beside" in sys.argv
+    if beside:   # the second process: phase A and BESIDE phases
+        only = sys.argv[sys.argv.index("--beside") + 1]
     smoke = Smoke()
-    if not smoke.run(only):
+    if not smoke.run(only, beside):
         print("chip_smoke FAILED: " + "; ".join(smoke.failures), file=sys.stderr)
         return 1
     if only:   # a part of the phases: no kernels line and no result line

@@ -83,6 +83,23 @@
 // The forward with and without the trajectory, and with and without the
 // integrated cost, are instantiations of one template.
 //
+// Rows (sm_kdyn_fwd_rows, sm_kdyn_fwd_traj_rows, sm_kdyn_bwd_rows: the
+// same kernels under the JAX package's jax.vmap, where pallas_call's
+// batching rule gives each a grid over a sweep's rows): R <= kMaxRows
+// independent sweeps of one constant pack in one launch, the kRows
+// instances of the same two templates. Stage YZ's task index runs over R x
+// tasks and stage X's over R x chunks in the same grid-stride loops, row
+// t / tasks (t / chunks); the two grid-wide barriers a step stay two, and
+// the DFT matrices are staged into shared memory once for every row. Each
+// row has its own operands (the (R, ...) arrays, one row's size apart),
+// its own slab of `work`, and its own Kahan sum, in thread 32 r of the
+// last block (warp r sums row r's partials). The order of every sum
+// depends on (n, mg) alone and a (row, task) keeps its owner thread for
+// the sweep, so each row's outputs are bitwise the one-row kernel's on
+// that row. One row at n = 24 is 216 YZ tasks and 156 X chunks on at most
+// 264 co-resident blocks; R = 8 is 1728 and 1248 on the same blocks, so a
+// row launch saves barriers and launches, not stage work.
+//
 // All functions launch on the given stream, do not synchronise, and
 // return a cudaError_t as int. The caller guarantees contiguous f32
 // buffers on the current device, `consts` packed as (Ffr, Ffi (n, mg),
@@ -112,6 +129,7 @@ constexpr int kColChunk = 2;         // mode columns of a stage-X task
 constexpr int kPts = 2;              // grid points a thread holds in stage YZ
 constexpr int kMaxGroups = 16;       // groups S of a slab, at most (mg <= 96)
 constexpr int kLoads = 4;            // global loads a thread keeps in flight
+constexpr int kMaxRows = kPartWarps; // rows of a row launch: one warp's Kahan sum each
 
 struct Dims {
   int n, mg, kz;
@@ -401,6 +419,7 @@ struct FwdParams {
   int n, mg, n_steps;
   float dt;
   float *brT, *biT, *J, *trr, *tri, *work;
+  int rows = 1;  // R: the (R, ...) arrays of a row launch
 };
 
 struct FwdCtx {
@@ -408,24 +427,55 @@ struct FwdCtx {
   Mats M;
   Factors F;
   const FwdParams* p;
-  float* buf;        // shared memory after the matrices
-  float* red;        // [kPartWarps] of shared memory, for block_sum
+  float* buf;  // shared memory after the matrices
+  float* red;  // [kPartWarps] of shared memory, for block_sum
+};
+
+// Row `row` of a launch: its operands, `row` rows into the (R, ...)
+// arrays, and its own slab of `work` (a one-row launch: row 0, the arrays
+// themselves).
+struct FwdRow {
+  const float *br0, *bi0, *u;
+  float *brT, *biT, *J, *trr, *tri;
   float *sr, *si;    // the state (3, n, n, kz)
   float *g1r, *g1i;  // (3, mg, n, kz): x-synthesis of the state
   float *h4r, *h4i;  // S x (3, mg, n, kz): each group's share of h4
   float* epart;      // [2][chunks]: the chunks' energy partials, by step parity
 };
 
-// Stage YZ of a forward step: for each task (a, grp), the y-synthesis of
-// the slab a of g1 onto the task's y-grid points, the pencil work
-// (z-synthesis -> B, e = u x B, z-analysis -> h3) and the task's share of
-// the y-analysis, sum over its b of Ff(Y, b) h3.
-template <int kN, int kMG>
+__device__ __forceinline__ FwdRow fwd_row(const FwdParams& p, const PartDims& d, int row) {
+  const size_t s = (size_t)row * d.s, g = (size_t)row * 3 * d.mg * d.mg * d.mg;
+  const size_t traj = s * p.n_steps;
+  FwdRow r;
+  r.br0 = p.br0 + s;
+  r.bi0 = p.bi0 + s;
+  r.u = p.u + g;
+  r.brT = p.brT + s;
+  r.biT = p.biT + s;
+  r.J = p.J + row;
+  r.trr = p.trr ? p.trr + traj : nullptr;
+  r.tri = p.tri ? p.tri + traj : nullptr;
+  r.sr = p.work + (size_t)row * d.fwd_work_floats();
+  r.si = r.sr + d.s;
+  r.g1r = r.si + d.s;
+  r.g1i = r.g1r + d.p1;
+  r.h4r = r.g1i + d.p1;
+  r.h4i = r.h4r + (size_t)d.S * d.p1;
+  r.epart = r.h4i + (size_t)d.S * d.p1;
+  return r;
+}
+
+// Stage YZ of a forward step: for each task (a, grp) of each row, the
+// y-synthesis of the slab a of g1 onto the task's y-grid points, the
+// pencil work (z-synthesis -> B, e = u x B, z-analysis -> h3) and the
+// task's share of the y-analysis, sum over its b of Ff(Y, b) h3.
+template <int kN, int kMG, bool kRows>
 __device__ __forceinline__ void fwd_stage_yz(const FwdCtx& x) {
   const PartDims d = kN ? PartDims(kN, kMG) : x.d;  // constants in the specialised instance
   const Mats& M = x.M;
   const FwdParams& p = *x.p;
   const int tid = threadIdx.x, mg = d.mg, n = d.n, kz = d.kz, nkz = d.nkz, nb = d.nb;
+  const int R = kRows ? p.rows : 1;
   const size_t grid1 = (size_t)mg * mg * mg;
   float* sg1r = x.buf;  // [3][nkz] each: the slab of g1
   float* sg1i = sg1r + 3 * nkz;
@@ -435,9 +485,10 @@ __device__ __forceinline__ void fwd_stage_yz(const FwdCtx& x) {
   float* h3i = h3r + 3 * nb * kz;
   float* es = h3i + 3 * nb * kz;  // [3][nb][mg]: e = u x B
   const int cs = nb * mg;         // its component stride
-  const float* src[2] = {x.g1r, x.g1i};
   float* const dst[2] = {sg1r, sg1i};
-  for (int task = blockIdx.x; task < d.tasks; task += gridDim.x) {
+  for (int t = blockIdx.x; t < R * d.tasks; t += gridDim.x) {
+    const int row = kRows ? t / d.tasks : 0, task = t - row * d.tasks;
+    const FwdRow r = fwd_row(p, d, row);
     const int a = task / d.S, grp = task % d.S;
     const int b0 = grp * nb, nbl = min(nb, mg - b0), npts = nbl * mg;
     // u at this thread's grid points (pt = bl mg + k), in flight during
@@ -449,9 +500,10 @@ __device__ __forceinline__ void fwd_stage_yz(const FwdCtx& x) {
       if (pt < npts) {
         const size_t gi = ((size_t)a * mg + b0) * mg + pt;
 #pragma unroll
-        for (int c = 0; c < 3; ++c) uu[q][c] = __ldg(p.u + c * grid1 + gi);
+        for (int c = 0; c < 3; ++c) uu[q][c] = __ldg(r.u + c * grid1 + gi);
       }
     }
+    const float* src[2] = {r.g1r, r.g1i};
     load_slab<2>(src, dst, a, mg, nkz);
     __syncthreads();
     for (int o = tid; o < 3 * nbl * kz; o += kPartThreads) {
@@ -516,27 +568,29 @@ __device__ __forceinline__ void fwd_stage_yz(const FwdCtx& x) {
       cdot4<false>(M.Ffr + Y * mg + b0, M.Ffi + Y * mg + b0, 1, h3r + c * nb * kz + z,
                    h3i + c * nb * kz + z, kz, nbl, vr, vi);
       const size_t at = (size_t)grp * d.p1 + ((size_t)c * mg + a) * nkz + col;
-      x.h4r[at] = vr;
-      x.h4i[at] = vi;
+      r.h4r[at] = vr;
+      r.h4i[at] = vi;
     }
     __syncthreads();  // the buffers are free for the next task
   }
 }
 
 // Stage X of forward step `step` (step = -1: the start of the sweep, from
-// b_0): for each task's mode columns, h4 (the groups' shares added in
-// group order), the x-analysis, the mode-space tail -> b_{step+1} (to the
-// state, the trajectory row step + 1, or b_T on the last step) and its
-// energy partial, then the x-synthesis of b_{step+1} -> g1. One warp of
-// the last block adds E(b_step) to the Kahan sum meanwhile (with
-// kIntegrated; the chunks write E(b_{step+1}) to the other half of epart).
-template <bool kTraj, bool kIntegrated, int kN, int kMG>
+// b_0): for each task's mode columns of each row, h4 (the groups' shares
+// added in group order), the x-analysis, the mode-space tail -> b_{step+1}
+// (to the state, the trajectory row step + 1, or b_T on the last step)
+// and its energy partial, then the x-synthesis of b_{step+1} -> g1. Warp
+// r of the last block adds row r's E(b_step) to its Kahan sum meanwhile
+// (with kIntegrated; the chunks write E(b_{step+1}) to the other half of
+// epart).
+template <bool kTraj, bool kIntegrated, int kN, int kMG, bool kRows>
 __device__ __forceinline__ void fwd_stage_x(const FwdCtx& x, int step, float& acc,
                                             float& comp) {
   const PartDims d = kN ? PartDims(kN, kMG) : x.d;
   const Mats& M = x.M;
   const FwdParams& p = *x.p;
   const int tid = threadIdx.x, mg = d.mg, n = d.n, nkz = d.nkz, s1 = d.s1;
+  const int R = kRows ? p.rows : 1, warp = tid / 32, lane = tid % 32;
   const int tm = 3 * n;  // modes (c, X) of one column
   const bool first = step < 0, last = step == p.n_steps - 1;
   const bool energy = kIntegrated || last;
@@ -549,14 +603,17 @@ __device__ __forceinline__ void fwd_stage_x(const FwdCtx& x, int step, float& ac
   float* ei = er + CT * tm;
   float* bnr = ei + CT * tm;  // b_{step+1}
   float* bni = bnr + CT * tm;
-  const float* inr = first ? p.br0 : x.sr;
-  const float* ini = first ? p.bi0 : x.si;
-  if (kIntegrated && !first && blockIdx.x == gridDim.x - 1 && tid < 32) {
-    const float e = sum_partials(x.epart + (step & 1) * d.chunks, d.chunks, tid);
-    if (tid == 0) smo::kahan_add(acc, comp, e);  // E(b_step)
+  if (kIntegrated && !first && blockIdx.x == gridDim.x - 1 && warp < R) {
+    const float e = sum_partials(fwd_row(p, d, warp).epart + (step & 1) * d.chunks,
+                                 d.chunks, lane);
+    if (lane == 0) smo::kahan_add(acc, comp, e);  // row `warp`'s E(b_step)
   }
-  float* epart = x.epart + ((step + 1) & 1) * d.chunks;
-  for (int chunk = blockIdx.x; chunk < d.chunks; chunk += gridDim.x) {
+  for (int t = blockIdx.x; t < R * d.chunks; t += gridDim.x) {
+    const int row = kRows ? t / d.chunks : 0, chunk = t - row * d.chunks;
+    const FwdRow r = fwd_row(p, d, row);
+    const float* inr = first ? r.br0 : r.sr;
+    const float* ini = first ? r.bi0 : r.si;
+    float* epart = r.epart + ((step + 1) & 1) * d.chunks;
     const int col0 = chunk * CT, nc = min(CT, nkz - col0);
     // the tail's factors of this thread's mode (j, X), in flight early
     const bool tailer = tid < n * nc;
@@ -574,7 +631,7 @@ __device__ __forceinline__ void fwd_stage_x(const FwdCtx& x, int step, float& ac
       bsr[sl] = inr[idx];
       bsi[sl] = ini[idx];
     }
-    if (!first) add_shares(d, x.h4r, x.h4i, col0, nc, h4sr, h4si);
+    if (!first) add_shares(d, r.h4r, r.h4i, col0, nc, h4sr, h4si);
     __syncthreads();
     if (!first) {
       for (int o = tid; o < tm * nc; o += kPartThreads) {
@@ -613,14 +670,14 @@ __device__ __forceinline__ void fwd_stage_x(const FwdCtx& x, int step, float& ac
         bnr[hj * tm + c * n + hX] = nr[c];
         bni[hj * tm + c * n + hX] = ni[c];
         if (last) {
-          p.brT[idx] = nr[c];
-          p.biT[idx] = ni[c];
+          r.brT[idx] = nr[c];
+          r.biT[idx] = ni[c];
         } else {
-          x.sr[idx] = nr[c];
-          x.si[idx] = ni[c];
+          r.sr[idx] = nr[c];
+          r.si[idx] = ni[c];
           if constexpr (kTraj) {
-            p.trr[(size_t)(step + 1) * d.s + idx] = nr[c];
-            p.tri[(size_t)(step + 1) * d.s + idx] = ni[c];
+            r.trr[(size_t)(step + 1) * d.s + idx] = nr[c];
+            r.tri[(size_t)(step + 1) * d.s + idx] = ni[c];
           }
         }
       }
@@ -641,19 +698,20 @@ __device__ __forceinline__ void fwd_stage_x(const FwdCtx& x, int step, float& ac
         float gr, gi;
         cdot4<false>(M.Bfr + a * n, M.Bfi + a * n, 1, bnr + base, bni + base, 1, n, gr, gi);
         const size_t at = (size_t)ca * nkz + col0 + j;
-        x.g1r[at] = gr;
-        x.g1i[at] = gi;
+        r.g1r[at] = gr;
+        r.g1i[at] = gi;
       }
     }
     __syncthreads();  // the buffers are free for the next task
   }
 }
 
-// Forward: N steps from (br0, bi0). J = E(b_T), or with kIntegrated
-// dt * Kahan sum of E(b_0) .. E(b_{N-1}), then E(b_T). With kTraj row i of
-// (trr, tri) is the state before step i. Two grid-wide barriers a step:
-// after stage YZ and after stage X. (kN, kMG) as in kdyn_bwd_kernel.
-template <bool kTraj, bool kIntegrated, int kN, int kMG>
+// Forward: N steps from (br0, bi0) of each row. J = E(b_T), or with
+// kIntegrated dt * Kahan sum of E(b_0) .. E(b_{N-1}), then E(b_T). With
+// kTraj row i of (trr, tri) is the state before step i. Two grid-wide
+// barriers a step: after stage YZ and after stage X. (kN, kMG) as in
+// kdyn_bwd_kernel; kRows: p.rows rows (else one).
+template <bool kTraj, bool kIntegrated, int kN, int kMG, bool kRows>
 __global__ void __launch_bounds__(kPartThreads, kPartBlocksPerSm)
 kdyn_fwd_kernel(const FwdParams p) {
   cg::grid_group grid = cg::this_grid();
@@ -665,32 +723,26 @@ kdyn_fwd_kernel(const FwdParams p) {
   x.p = &p;
   x.buf = smem + x.d.mats;
   x.red = red;
-  x.sr = p.work;
-  x.si = x.sr + x.d.s;
-  x.g1r = x.si + x.d.s;
-  x.g1i = x.g1r + x.d.p1;
-  x.h4r = x.g1i + x.d.p1;
-  x.h4i = x.h4r + (size_t)x.d.S * x.d.p1;
-  x.epart = x.h4i + (size_t)x.d.S * x.d.p1;
 
-  float acc = 0.f, comp = 0.f;  // live in thread 0 of the last block
-  fwd_stage_x<kTraj, kIntegrated, kN, kMG>(x, -1, acc, comp);
+  float acc = 0.f, comp = 0.f;  // row r's live in thread 32 r of the last block
+  fwd_stage_x<kTraj, kIntegrated, kN, kMG, kRows>(x, -1, acc, comp);
   grid.sync();
   for (int step = 0; step < p.n_steps; ++step) {
-    fwd_stage_yz<kN, kMG>(x);
+    fwd_stage_yz<kN, kMG, kRows>(x);
     grid.sync();
-    fwd_stage_x<kTraj, kIntegrated, kN, kMG>(x, step, acc, comp);
+    fwd_stage_x<kTraj, kIntegrated, kN, kMG, kRows>(x, step, acc, comp);
     grid.sync();
   }
-  if (blockIdx.x == gridDim.x - 1 && threadIdx.x < 32) {
-    const float eT = sum_partials(x.epart + (p.n_steps & 1) * x.d.chunks, x.d.chunks,
-                                  threadIdx.x);
-    if (threadIdx.x == 0) {
+  const int R = kRows ? p.rows : 1, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (blockIdx.x == gridDim.x - 1 && warp < R) {
+    const FwdRow r = fwd_row(p, x.d, warp);
+    const float eT = sum_partials(r.epart + (p.n_steps & 1) * x.d.chunks, x.d.chunks, lane);
+    if (lane == 0) {
       if constexpr (kIntegrated) {
         smo::kahan_add(acc, comp, eT);
-        *p.J = p.dt * acc;
+        *r.J = p.dt * acc;
       } else {
-        *p.J = eT;
+        *r.J = eT;
       }
     }
   }
@@ -705,6 +757,7 @@ struct BwdParams {
   int n, mg, n_steps;
   float dt;
   float *b0r_bar, *b0i_bar, *ubar, *work;
+  int rows = 1;  // R: the (R, ...) arrays of a row launch
 };
 
 struct BwdCtx {
@@ -712,24 +765,55 @@ struct BwdCtx {
   Mats M;
   Factors F;
   const BwdParams* p;
-  float* buf;                    // shared memory after the matrices
+  float* buf;  // shared memory after the matrices
+};
+
+// Row `row` of a launch, as FwdRow.
+struct BwdRow {
+  const float *u, *brT, *biT, *gbar, *trr, *tri;
+  float *b0r_bar, *b0i_bar, *ubar;
   float *dr, *di;                // direct term rhs_fac t (3, n, n, kz)
   float *q1r, *q1i, *g1r, *g1i;  // (3, mg, n, kz): x-analysis^T of p0, x-synthesis of b
   float *r4r, *r4i;              // S x (3, mg, n, kz): each group's share of r4
-  float wT, wI;
 };
 
-// Stage YZ of a reverse step: for each task (a, grp), the y-analysis^T of
-// q1 and the y-synthesis of g1 onto the task's y-grid points, the pencil
-// work (z-analysis^T -> e_bar, z-synthesis of the stored state -> B_n,
-// u_bar += B_n x e_bar, z-synthesis^T of e_bar x u -> r3) and the task's
-// share of the y-synthesis^T, sum over its b of conj(Bf(b, Y)) r3.
-template <int kN, int kMG>
+__device__ __forceinline__ BwdRow bwd_row(const BwdParams& p, const PartDims& d, int row) {
+  const size_t s = (size_t)row * d.s, g = (size_t)row * 3 * d.mg * d.mg * d.mg;
+  const size_t traj = s * p.n_steps;
+  BwdRow r;
+  r.u = p.u + g;
+  r.brT = p.brT + s;
+  r.biT = p.biT + s;
+  r.gbar = p.gbar + row;
+  r.trr = p.trr + traj;
+  r.tri = p.tri + traj;
+  r.b0r_bar = p.b0r_bar + s;
+  r.b0i_bar = p.b0i_bar + s;
+  r.ubar = p.ubar + g;
+  r.dr = p.work + (size_t)row * d.bwd_work_floats();
+  r.di = r.dr + d.s;
+  r.q1r = r.di + d.s;
+  r.q1i = r.q1r + d.p1;
+  r.g1r = r.q1i + d.p1;
+  r.g1i = r.g1r + d.p1;
+  r.r4r = r.g1i + d.p1;
+  r.r4i = r.r4r + (size_t)d.S * d.p1;
+  return r;
+}
+
+// Stage YZ of a reverse step: for each task (a, grp) of each row, the
+// y-analysis^T of q1 and the y-synthesis of g1 onto the task's y-grid
+// points, the pencil work (z-analysis^T -> e_bar, z-synthesis of the
+// stored state -> B_n, u_bar += B_n x e_bar, z-synthesis^T of e_bar x u
+// -> r3) and the task's share of the y-synthesis^T, sum over its b of
+// conj(Bf(b, Y)) r3.
+template <int kN, int kMG, bool kRows>
 __device__ __forceinline__ void bwd_stage_yz(const BwdCtx& x) {
   const PartDims d = kN ? PartDims(kN, kMG) : x.d;  // constants in the specialised instance
   const Mats& M = x.M;
   const BwdParams& p = *x.p;
   const int tid = threadIdx.x, mg = d.mg, n = d.n, kz = d.kz, nkz = d.nkz, nb = d.nb;
+  const int R = kRows ? p.rows : 1;
   const size_t grid1 = (size_t)mg * mg * mg;
   float* sq1r = x.buf;  // [3][nkz] each: the slab of q1 and of g1
   float* sq1i = sq1r + 3 * nkz;
@@ -743,9 +827,10 @@ __device__ __forceinline__ void bwd_stage_yz(const BwdCtx& x) {
   float* r3i = r3r + 3 * nb * kz;
   float* eb = r3i + 3 * nb * kz;  // [3][nb][mg]: e_bar x u
   const int cs = nb * mg;         // its component stride
-  const float* src[4] = {x.q1r, x.q1i, x.g1r, x.g1i};
   float* const dst[4] = {sq1r, sq1i, sg1r, sg1i};
-  for (int task = blockIdx.x; task < d.tasks; task += gridDim.x) {
+  for (int t = blockIdx.x; t < R * d.tasks; t += gridDim.x) {
+    const int row = kRows ? t / d.tasks : 0, task = t - row * d.tasks;
+    const BwdRow r = bwd_row(p, d, row);
     const int a = task / d.S, grp = task % d.S;
     const int b0 = grp * nb, nbl = min(nb, mg - b0), npts = nbl * mg;
     // this thread's grid points (pt = bl mg + k): u and u_bar in flight
@@ -758,11 +843,12 @@ __device__ __forceinline__ void bwd_stage_yz(const BwdCtx& x) {
         const size_t gi = ((size_t)a * mg + b0) * mg + pt;
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          uu[q][c] = __ldg(p.u + c * grid1 + gi);
-          ub[q][c] = p.ubar[c * grid1 + gi];
+          uu[q][c] = __ldg(r.u + c * grid1 + gi);
+          ub[q][c] = r.ubar[c * grid1 + gi];
         }
       }
     }
+    const float* src[4] = {r.q1r, r.q1i, r.g1r, r.g1i};
     load_slab<4>(src, dst, a, mg, nkz);
     __syncthreads();
     for (int o = tid; o < 3 * nbl * kz; o += kPartThreads) {
@@ -796,9 +882,9 @@ __device__ __forceinline__ void bwd_stage_yz(const BwdCtx& x) {
         }
         const float u0 = uu[q][0], u1 = uu[q][1], u2 = uu[q][2];
         const size_t gi = ((size_t)a * mg + b0) * mg + pt;
-        p.ubar[gi] = ub[q][0] + (v[1] * e[2] - v[2] * e[1]);
-        p.ubar[grid1 + gi] = ub[q][1] + (v[2] * e[0] - v[0] * e[2]);
-        p.ubar[2 * grid1 + gi] = ub[q][2] + (v[0] * e[1] - v[1] * e[0]);
+        r.ubar[gi] = ub[q][0] + (v[1] * e[2] - v[2] * e[1]);
+        r.ubar[grid1 + gi] = ub[q][1] + (v[2] * e[0] - v[0] * e[2]);
+        r.ubar[2 * grid1 + gi] = ub[q][2] + (v[0] * e[1] - v[1] * e[0]);
         eb[pt] = e[1] * u2 - e[2] * u1;
         eb[cs + pt] = e[2] * u0 - e[0] * u2;
         eb[2 * cs + pt] = e[0] * u1 - e[1] * u0;
@@ -832,21 +918,22 @@ __device__ __forceinline__ void bwd_stage_yz(const BwdCtx& x) {
       cdot4<true>(M.Bfr + b0 * n + Y, M.Bfi + b0 * n + Y, n, r3r + c * nb * kz + z,
                  r3i + c * nb * kz + z, kz, nbl, vr, vi);
       const size_t at = (size_t)grp * d.p1 + ((size_t)c * mg + a) * nkz + col;
-      x.r4r[at] = vr;
-      x.r4i[at] = vi;
+      r.r4r[at] = vr;
+      r.r4i[at] = vi;
     }
     __syncthreads();  // the buffers are free for the next task
   }
 }
 
 // Stage X at the end of reverse step kk (kk = -1: the start of the sweep,
-// from lambda_T): for each task's mode columns, r4 (the groups' shares
-// added in group order), the x-synthesis^T plus the direct term (and the
-// integrated cost's term) -> lambda_n; on the last step b0_bar = lambda_0,
-// else the head of the next transposed step (d to memory, p0), the
-// x-analysis^T of p0 -> q1 and the x-synthesis of the next stored state
-// -> g1.
-template <bool kIntegrated, int kN, int kMG>
+// from lambda_T): for each task's mode columns of each row, r4 (the
+// groups' shares added in group order), the x-synthesis^T plus the direct
+// term (and the integrated cost's term) -> lambda_n; on the last step
+// b0_bar = lambda_0, else the head of the next transposed step (d to
+// memory, p0), the x-analysis^T of p0 -> q1 and the x-synthesis of the
+// next stored state -> g1. The cost's weights w_T = 2 gbar (2 dt gbar
+// with kIntegrated) and w_I = 2 dt gbar are the row's.
+template <bool kIntegrated, int kN, int kMG, bool kRows>
 __device__ __forceinline__ void bwd_stage_x(const BwdCtx& x, int kk) {
   const PartDims d = kN ? PartDims(kN, kMG) : x.d;
   const Mats& M = x.M;
@@ -870,7 +957,12 @@ __device__ __forceinline__ void bwd_stage_x(const BwdCtx& x, int kk) {
   float* bii = bir + CT * tm;
   float* bnr = bii + CT * tm;
   float* bni = bnr + CT * tm;
-  for (int chunk = blockIdx.x; chunk < d.chunks; chunk += gridDim.x) {
+  const int R = kRows ? p.rows : 1;
+  for (int t = blockIdx.x; t < R * d.chunks; t += gridDim.x) {
+    const int row = kRows ? t / d.chunks : 0, chunk = t - row * d.chunks;
+    const BwdRow r = bwd_row(p, d, row);
+    const float g = __ldg(r.gbar);
+    const float wT = (kIntegrated ? 2.f * p.dt : 2.f) * g, wI = 2.f * p.dt * g;
     const int col0 = chunk * CT, nc = min(CT, nkz - col0);
     // the head's factors of this thread's mode (j, X), in flight early
     const bool header = !last && tid < n * nc;
@@ -882,24 +974,24 @@ __device__ __forceinline__ void bwd_stage_x(const BwdCtx& x, int kk) {
       const int j = o % nc, cx = o / nc, c = cx / n, X = cx % n;
       const int m = X * nkz + col0 + j, idx = c * s1 + m, sl = j * tm + cx;
       if (first) {
-        const float w = x.wT * __ldg(F.pw + m);
-        lamr[sl] = w * p.brT[idx];
-        lami[sl] = w * p.biT[idx];
+        const float w = wT * __ldg(F.pw + m);
+        lamr[sl] = w * r.brT[idx];
+        lami[sl] = w * r.biT[idx];
       } else {
-        dsr[sl] = x.dr[idx];
-        dsi[sl] = x.di[idx];
+        dsr[sl] = r.dr[idx];
+        dsi[sl] = r.di[idx];
         if constexpr (kIntegrated) {  // the integrated cost's term, w b_n
-          const float w = x.wI * __ldg(F.pw + m);
-          bir[sl] = w * p.trr[state + idx];
-          bii[sl] = w * p.tri[state + idx];
+          const float w = wI * __ldg(F.pw + m);
+          bir[sl] = w * r.trr[state + idx];
+          bii[sl] = w * r.tri[state + idx];
         }
       }
       if (!last) {
-        bnr[sl] = p.trr[next + idx];
-        bni[sl] = p.tri[next + idx];
+        bnr[sl] = r.trr[next + idx];
+        bni[sl] = r.tri[next + idx];
       }
     }
-    if (!first) add_shares(d, x.r4r, x.r4i, col0, nc, r4sr, r4si);
+    if (!first) add_shares(d, r.r4r, r.r4i, col0, nc, r4sr, r4si);
     __syncthreads();
     if (!first) {
       for (int o = tid; o < tm * nc; o += kPartThreads) {
@@ -915,8 +1007,8 @@ __device__ __forceinline__ void bwd_stage_x(const BwdCtx& x, int kk) {
           li += bii[sl];
         }
         if (last) {
-          p.b0r_bar[c * s1 + m] = lr;
-          p.b0i_bar[c * s1 + m] = li;
+          r.b0r_bar[c * s1 + m] = lr;
+          r.b0i_bar[c * s1 + m] = li;
         } else {
           lamr[sl] = lr;
           lami[sl] = li;
@@ -935,8 +1027,8 @@ __device__ __forceinline__ void bwd_stage_x(const BwdCtx& x, int kk) {
         adjoint_head(hf, lr, li, hdr, hdi, hpr, hpi);
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          x.dr[c * s1 + hm] = hdr[c];
-          x.di[c * s1 + hm] = hdi[c];
+          r.dr[c * s1 + hm] = hdr[c];
+          r.di[c * s1 + hm] = hdi[c];
           p0r[hj * tm + c * n + hX] = hpr[c];
           p0i[hj * tm + c * n + hX] = hpi[c];
         }
@@ -949,10 +1041,10 @@ __device__ __forceinline__ void bwd_stage_x(const BwdCtx& x, int kk) {
         cdot4<true>(M.Ffr + a, M.Ffi + a, mg, p0r + base, p0i + base, 1, n, qr, qi);
         cdot4<false>(M.Bfr + a * n, M.Bfi + a * n, 1, bnr + base, bni + base, 1, n, gr, gi);
         const size_t at = (size_t)ca * nkz + col0 + j;
-        x.q1r[at] = qr;
-        x.q1i[at] = qi;
-        x.g1r[at] = gr;
-        x.g1i[at] = gi;
+        r.q1r[at] = qr;
+        r.q1i[at] = qi;
+        r.g1r[at] = gr;
+        r.g1i[at] = gi;
       }
     }
     __syncthreads();  // the buffers are free for the next task
@@ -965,8 +1057,9 @@ __device__ __forceinline__ void bwd_stage_x(const BwdCtx& x, int kk) {
 // Two grid-wide barriers a step: after stage YZ and after stage X.
 // (kN, kMG) = (0, 0) takes the shape from p; otherwise it must be (n, mg),
 // and the shape is a compile-time constant (strides and trip counts fold,
-// which cuts the stages' integer work about in half at n = 24).
-template <bool kIntegrated, int kN, int kMG>
+// which cuts the stages' integer work about in half at n = 24). kRows:
+// p.rows rows (else one), each with its own gbar.
+template <bool kIntegrated, int kN, int kMG, bool kRows>
 __global__ void __launch_bounds__(kPartThreads, kPartBlocksPerSm)
 kdyn_bwd_kernel(const BwdParams p) {
   cg::grid_group grid = cg::this_grid();
@@ -976,24 +1069,13 @@ kdyn_bwd_kernel(const BwdParams p) {
   x.F = factors(p.consts, x.d);
   x.p = &p;
   x.buf = smem + x.d.mats;
-  x.dr = p.work;
-  x.di = x.dr + x.d.s;
-  x.q1r = x.di + x.d.s;
-  x.q1i = x.q1r + x.d.p1;
-  x.g1r = x.q1i + x.d.p1;
-  x.g1i = x.g1r + x.d.p1;
-  x.r4r = x.g1i + x.d.p1;
-  x.r4i = x.r4r + (size_t)x.d.S * x.d.p1;
-  const float g = __ldg(p.gbar);
-  x.wT = (kIntegrated ? 2.f * p.dt : 2.f) * g;
-  x.wI = 2.f * p.dt * g;
 
-  bwd_stage_x<kIntegrated, kN, kMG>(x, -1);
+  bwd_stage_x<kIntegrated, kN, kMG, kRows>(x, -1);
   grid.sync();
   for (int kk = 0; kk < p.n_steps; ++kk) {
-    bwd_stage_yz<kN, kMG>(x);
+    bwd_stage_yz<kN, kMG, kRows>(x);
     grid.sync();
-    bwd_stage_x<kIntegrated, kN, kMG>(x, kk);
+    bwd_stage_x<kIntegrated, kN, kMG, kRows>(x, kk);
     if (kk + 1 < p.n_steps) grid.sync();
   }
 }
@@ -1001,14 +1083,16 @@ kdyn_bwd_kernel(const BwdParams p) {
 // Cooperative launch of a sweep with every block co-resident: at most
 // kPartBlocksPerSm blocks of kPartThreads on each SM, fewer if the
 // kernel's resources allow fewer, and at most one per task of the larger
-// stage. `need` is the scratch the launch reads. Shapes past the
-// partition's limits (the pencil points of a task, the groups of a slab,
-// the modes of a stage-X task) give cudaErrorInvalidValue.
+// stage over all rows. `row_work` is the scratch one row reads. Shapes
+// past the partition's limits (the pencil points of a task, the groups of
+// a slab, the modes of a stage-X task) and row counts outside 1 ..
+// kMaxRows give cudaErrorInvalidValue.
 template <typename Params>
-int launch(void (*kernel)(const Params), Params& params, size_t smem, long long need,
+int launch(void (*kernel)(const Params), Params& params, size_t smem, long long row_work,
            long long work_floats, void* stream) {
   const PartDims d(params.n, params.mg);
-  if (params.n < 2 || params.mg < params.n || params.n_steps < 1 || work_floats < need ||
+  if (params.n < 2 || params.mg < params.n || params.n_steps < 1 || params.rows < 1 ||
+      params.rows > kMaxRows || work_floats < params.rows * row_work ||
       d.nb * d.mg > kPts * kPartThreads || d.S > kMaxGroups ||
       d.n * kColChunk > kPartThreads)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1027,7 +1111,7 @@ int launch(void (*kernel)(const Params), Params& params, size_t smem, long long 
   if (err != cudaSuccess) return static_cast<int>(err);
   if (occ < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
   int blocks = sms * (occ < kPartBlocksPerSm ? occ : kPartBlocksPerSm);
-  const int max_blocks = d.tasks > d.chunks ? d.tasks : d.chunks;
+  const int max_blocks = params.rows * (d.tasks > d.chunks ? d.tasks : d.chunks);
   if (blocks > max_blocks) blocks = max_blocks;
   void* args[] = {&params};
   err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kPartThreads), args, smem,
@@ -1039,24 +1123,25 @@ int launch(void (*kernel)(const Params), Params& params, size_t smem, long long 
 // instance of each sweep.
 bool main_shape(int n, int mg) { return n == 24 && mg == 36; }
 
-template <bool kTraj>
+template <bool kTraj, bool kRows>
 int launch_fwd(FwdParams& p, int integrated, long long work_floats, void* stream) {
   const PartDims d(p.n, p.mg);
   const bool main = main_shape(p.n, p.mg);
-  const auto kernel = integrated ? (main ? kdyn_fwd_kernel<kTraj, true, 24, 36>
-                                         : kdyn_fwd_kernel<kTraj, true, 0, 0>)
-                                 : (main ? kdyn_fwd_kernel<kTraj, false, 24, 36>
-                                         : kdyn_fwd_kernel<kTraj, false, 0, 0>);
+  const auto kernel = integrated ? (main ? kdyn_fwd_kernel<kTraj, true, 24, 36, kRows>
+                                         : kdyn_fwd_kernel<kTraj, true, 0, 0, kRows>)
+                                 : (main ? kdyn_fwd_kernel<kTraj, false, 24, 36, kRows>
+                                         : kdyn_fwd_kernel<kTraj, false, 0, 0, kRows>);
   return launch(kernel, p, d.fwd_smem_bytes(), d.fwd_work_floats(), work_floats, stream);
 }
 
+template <bool kRows>
 int launch_bwd(BwdParams& p, int integrated, long long work_floats, void* stream) {
   const PartDims d(p.n, p.mg);
   const bool main = main_shape(p.n, p.mg);
-  const auto kernel = integrated ? (main ? kdyn_bwd_kernel<true, 24, 36>
-                                         : kdyn_bwd_kernel<true, 0, 0>)
-                                 : (main ? kdyn_bwd_kernel<false, 24, 36>
-                                         : kdyn_bwd_kernel<false, 0, 0>);
+  const auto kernel = integrated ? (main ? kdyn_bwd_kernel<true, 24, 36, kRows>
+                                         : kdyn_bwd_kernel<true, 0, 0, kRows>)
+                                 : (main ? kdyn_bwd_kernel<false, 24, 36, kRows>
+                                         : kdyn_bwd_kernel<false, 0, 0, kRows>);
   return launch(kernel, p, d.bwd_smem_bytes(), d.bwd_work_floats(), work_floats, stream);
 }
 
@@ -1064,8 +1149,14 @@ int launch_bwd(BwdParams& p, int integrated, long long work_floats, void* stream
 
 extern "C" {
 
-// Floats of scratch that a launch at (n, mg) needs (the larger of the
-// forward's and the reverse sweep's).
+// csrc/kdyn_rows.cu compiles this file with SMO_KDYN_ROWS defined: the row
+// launches' instances then build in an nvcc process of their own, beside
+// the one-row ones (one file with both took twice as long to compile as
+// either half, and the longest source sets the build's time).
+#ifndef SMO_KDYN_ROWS
+
+// Floats of scratch that a launch at (n, mg) needs for each of its rows
+// (the larger of the forward's and the reverse sweep's).
 int sm_kdyn_work_floats(int n, int mg) {
   const PartDims d(n, mg);
   const long long f = d.fwd_work_floats(), b = d.bwd_work_floats();
@@ -1077,7 +1168,7 @@ int sm_kdyn_fwd(const float* br0, const float* bi0, const float* u,
                 float dt, float* brT, float* biT, float* J, float* work,
                 long long work_floats, void* stream) {
   FwdParams p{br0, bi0, u, consts, n, mg, n_steps, dt, brT, biT, J, nullptr, nullptr, work};
-  return launch_fwd<false>(p, integrated, work_floats, stream);
+  return launch_fwd<false, false>(p, integrated, work_floats, stream);
 }
 
 int sm_kdyn_fwd_traj(const float* br0, const float* bi0, const float* u,
@@ -1085,7 +1176,7 @@ int sm_kdyn_fwd_traj(const float* br0, const float* bi0, const float* u,
                      float dt, float* brT, float* biT, float* J, float* trr,
                      float* tri, float* work, long long work_floats, void* stream) {
   FwdParams p{br0, bi0, u, consts, n, mg, n_steps, dt, brT, biT, J, trr, tri, work};
-  return launch_fwd<true>(p, integrated, work_floats, stream);
+  return launch_fwd<true, false>(p, integrated, work_floats, stream);
 }
 
 int sm_kdyn_bwd(const float* u, const float* brT, const float* biT, const float* gbar,
@@ -1094,7 +1185,42 @@ int sm_kdyn_bwd(const float* u, const float* brT, const float* biT, const float*
                 float* ubar, float* work, long long work_floats, void* stream) {
   BwdParams p{u, brT, biT, gbar, consts, trr, tri, n, mg, n_steps, dt,
               b0r_bar, b0i_bar, ubar, work};
-  return launch_bwd(p, integrated, work_floats, stream);
+  return launch_bwd<false>(p, integrated, work_floats, stream);
 }
+
+#else  // SMO_KDYN_ROWS
+
+// The row launches: `rows` (1 .. kMaxRows) sweeps of one constant pack,
+// each operand an (R, ...) array of the one-row launch's operands (J and
+// gbar (R,)), and rows x sm_kdyn_work_floats(n, mg) floats of scratch.
+
+int sm_kdyn_fwd_rows(const float* br0, const float* bi0, const float* u,
+                     const float* consts, int n, int mg, int n_steps, int integrated,
+                     float dt, int rows, float* brT, float* biT, float* J, float* work,
+                     long long work_floats, void* stream) {
+  FwdParams p{br0, bi0, u, consts, n, mg, n_steps, dt, brT, biT, J, nullptr, nullptr, work,
+              rows};
+  return launch_fwd<false, true>(p, integrated, work_floats, stream);
+}
+
+int sm_kdyn_fwd_traj_rows(const float* br0, const float* bi0, const float* u,
+                          const float* consts, int n, int mg, int n_steps, int integrated,
+                          float dt, int rows, float* brT, float* biT, float* J, float* trr,
+                          float* tri, float* work, long long work_floats, void* stream) {
+  FwdParams p{br0, bi0, u, consts, n, mg, n_steps, dt, brT, biT, J, trr, tri, work, rows};
+  return launch_fwd<true, true>(p, integrated, work_floats, stream);
+}
+
+int sm_kdyn_bwd_rows(const float* u, const float* brT, const float* biT, const float* gbar,
+                     const float* consts, const float* trr, const float* tri, int n, int mg,
+                     int n_steps, int integrated, float dt, int rows, float* b0r_bar,
+                     float* b0i_bar, float* ubar, float* work, long long work_floats,
+                     void* stream) {
+  BwdParams p{u, brT, biT, gbar, consts, trr, tri, n, mg, n_steps, dt,
+              b0r_bar, b0i_bar, ubar, work, rows};
+  return launch_bwd<true>(p, integrated, work_floats, stream);
+}
+
+#endif  // SMO_KDYN_ROWS
 
 }  // extern "C"

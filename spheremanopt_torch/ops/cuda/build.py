@@ -75,6 +75,10 @@ SIGNATURES = {
     "sm_kdyn_fwd_traj": _KDYN_FWD + [_P, _P, _P, _L, _P],
     "sm_kdyn_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P,
                     _P, _L, _P],
+    "sm_kdyn_fwd_rows": _KDYN_FWD[:9] + [_I, _P, _P, _P, _P, _L, _P],
+    "sm_kdyn_fwd_traj_rows": _KDYN_FWD[:9] + [_I, _P, _P, _P, _P, _P, _P, _L, _P],
+    "sm_kdyn_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P,
+                         _P, _P, _L, _P],
 }
 
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"   # used when nvcc is not on PATH

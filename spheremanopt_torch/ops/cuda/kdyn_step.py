@@ -8,6 +8,17 @@ PyTorch port of the JAX package's `ops/pallas/kdyn_step.py`:
   run_bwd        <- `_run_bwd` / `_bwd_kernel`           (kdyn_bwd)
   FusedEnergy    <- `make_fused_energy` (custom_vjp)
 
+and the same kernels over a sweep's rows (the JAX package's `jax.vmap` of
+them, where `pallas_call`'s batching rule gives each a grid over the
+rows: one launch for every row):
+
+  run_forward_rows   (kdyn_fwd_rows)       run_fwd_traj_rows (kdyn_fwd_traj_rows)
+  run_bwd_rows       (kdyn_bwd_rows)       FusedEnergyRows
+
+R states with a leading row axis, up to ROWS_MAX rows a launch (the kRows
+instances of the same two kernel templates), each row's outputs bitwise
+the one-row kernel's on it.
+
 The whole CNAB1 induction solve — per-axis DFT synthesis, u x B on the
 oversampled grid, analysis, curl, Leray projection, diagonal implicit
 update, energy — runs in one launch per sweep. All arithmetic is real:
@@ -18,10 +29,11 @@ B-cotangent recursion is the exact transpose of the step operator; only
 dJ/dU consumes the stored per-step states.
 
 Each wrapper takes its plain PyTorch version (`*_plain`, Python loops
-over `step_planes` / `step_planes_T`, f32 or f64) for tensors on the CPU
-and launches its kernel for CUDA tensors; a CUDA tensor never falls
-back. `LAUNCHES` counts kernel launches per wrapper. The kernels are f32
-only.
+over `step_planes` / `step_planes_T`, f32 or f64; the row versions
+`*_rows_plain` a row at a time, each row bitwise the one-row version) for
+tensors on the CPU and launches its kernel for CUDA tensors; a CUDA
+tensor never falls back. `LAUNCHES` counts kernel launches per wrapper.
+The kernels are f32 only.
 """
 
 from __future__ import annotations
@@ -35,9 +47,16 @@ KERNEL_SOURCES = {
     "kdyn_fwd": "spheremanopt_torch/csrc/kdyn_step.cu",
     "kdyn_fwd_traj": "spheremanopt_torch/csrc/kdyn_step.cu",
     "kdyn_bwd": "spheremanopt_torch/csrc/kdyn_step.cu",
+    "kdyn_fwd_rows": "spheremanopt_torch/csrc/kdyn_step.cu",
+    "kdyn_fwd_traj_rows": "spheremanopt_torch/csrc/kdyn_step.cu",
+    "kdyn_bwd_rows": "spheremanopt_torch/csrc/kdyn_step.cu",
 }
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
+# rows one launch of a row kernel steps (csrc/kdyn_step.cu kMaxRows: each
+# row's Kahan sum on its own warp); a wider call runs in chunks of
+# ROWS_MAX rows, each chunk one launch
+ROWS_MAX = 8
 
 # order of the constants in the flat f32 pack the kernels read
 _MATRICES = ("Ffr", "Ffi", "Fzr", "Fzi", "Bfr", "Bfi", "Bzr", "Bzi")
@@ -239,6 +258,33 @@ def run_bwd_plain(u, brT, biT, gbar, trr, tri, C, n_steps, integrated=False,
     return lam_r, lam_i, ubar
 
 
+def _stack_rows(outs):
+    """The one-row calls' outputs `outs`, each output stacked over the rows."""
+    return tuple(torch.stack(v) for v in zip(*outs))
+
+
+def run_forward_rows_plain(br0, bi0, u, C, n_steps, integrated=False, dt=0.0):
+    """`run_forward_plain` of each row of br0, bi0 (R, 3, n, n, kz) and u
+    (R, 3, mg, mg, mg), a row at a time: (brT, biT, J (R,))."""
+    return _stack_rows(run_forward_plain(a, b, c, C, n_steps, integrated, dt)
+                       for a, b, c in zip(br0, bi0, u))
+
+
+def run_fwd_traj_rows_plain(br0, bi0, u, C, n_steps, integrated=False, dt=0.0):
+    """`run_fwd_traj_plain` of each row, a row at a time: (brT, biT, J (R,),
+    trr, tri (R, n_steps, 3, n, n, kz))."""
+    return _stack_rows(run_fwd_traj_plain(a, b, c, C, n_steps, integrated, dt)
+                       for a, b, c in zip(br0, bi0, u))
+
+
+def run_bwd_rows_plain(u, brT, biT, gbar, trr, tri, C, n_steps, integrated=False,
+                       dt=0.0):
+    """`run_bwd_plain` of each row, gbar (R,), a row at a time: (dJ/dbr0,
+    dJ/dbi0, dJ/du), each (R, ...)."""
+    return _stack_rows(run_bwd_plain(*row, C, n_steps, integrated, dt)
+                       for row in zip(u, brT, biT, gbar, trr, tri))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -250,24 +296,26 @@ def _check_dt(integrated, dt):
                          "identically zero otherwise)")
 
 
-def _check(n_steps, integrated, dt, C, planes, grids, traj=(), gbar=None):
+def _check(n_steps, integrated, dt, C, planes, grids, traj=(), gbar=None, rows=None):
     """(n, mg) of the operands; raises unless they fit the kernels: f32,
     contiguous, on one CUDA device, (3, n, n, n//2+1) planes, (3, mg, mg,
-    mg) grids, (n_steps, 3, n, n, n//2+1) trajectories, a constant pack
-    of matching size, n_steps >= 1."""
+    mg) grids, (n_steps, 3, n, n, n//2+1) trajectories, a 0-dim gbar, a
+    constant pack of matching size, n_steps >= 1; with `rows` = R, each
+    operand but the pack with a leading axis of R."""
     _check_dt(integrated, dt)
     if n_steps < 1:
         raise ValueError(f"n_steps={n_steps} must be >= 1")
     mg, n = C["Bfr"].shape
     kz = n // 2 + 1
-    shp = (3, n, n, kz)
+    lead = () if rows is None else (rows,)
+    shp = lead + (3, n, n, kz)
     named = ([(k, t, shp) for k, t in planes]
-             + [(k, t, (3, mg, mg, mg)) for k, t in grids]
-             + [(k, t, (n_steps,) + shp) for k, t in traj]
+             + [(k, t, lead + (3, mg, mg, mg)) for k, t in grids]
+             + [(k, t, lead + (n_steps,) + shp[len(lead):]) for k, t in traj]
              + [("packed constants", C["packed"],
                  (4 * n * mg + 4 * kz * mg + 9 * n * n * kz,))])
     if gbar is not None:
-        named.append(("gbar", gbar, ()))
+        named.append(("gbar", gbar, lead))
     dev = named[0][1].device
     for name, t, shape in named:
         if not t.is_cuda:
@@ -284,14 +332,15 @@ def _check(n_steps, integrated, dt, C, planes, grids, traj=(), gbar=None):
     return n, mg
 
 
-def _launch(symbol, counter, like, n, mg, *args) -> None:
+def _launch(symbol, counter, like, n, mg, *args, rows=1) -> None:
     """Launch `symbol` of the built library on the current stream of
     `like`'s device with a scratch buffer of the size the library asks
-    for, count it under LAUNCHES[counter] and raise if it failed."""
+    for (`rows` times that for a row launch), count it under
+    LAUNCHES[counter] and raise if it failed."""
     from spheremanopt_torch.ops.cuda.build import load
 
     lib = load()
-    work = torch.empty(lib.sm_kdyn_work_floats(n, mg), dtype=torch.float32,
+    work = torch.empty(rows * lib.sm_kdyn_work_floats(n, mg), dtype=torch.float32,
                        device=like.device)
     with torch.cuda.device(like.device):
         code = getattr(lib, symbol)(*args, work.data_ptr(), work.numel(),
@@ -353,6 +402,86 @@ def run_bwd(u, brT, biT, gbar, trr, tri, C, n_steps, integrated=False, dt=0.0):
     return b0r_bar, b0i_bar, ubar
 
 
+def _row_count(planes, grid):
+    """R of a row call: raises unless the (re, im) planes are (R, 3, n, n,
+    kz) and the grid (R, 3, mg, mg, mg), on the CPU too."""
+    if any(t.dim() != 5 for t in (*planes, grid)):
+        raise ValueError("row operands take a leading row axis: (R, 3, n, n, "
+                         "n//2+1) planes and an (R, 3, mg, mg, mg) grid")
+    R = grid.shape[0]
+    if any(t.shape[0] != R for t in planes):
+        raise ValueError("all row operands must have the same number of rows")
+    return R
+
+
+def _row_chunks(R):
+    """(start, stop) of each launch of a call over R rows: ROWS_MAX rows
+    at a time."""
+    return [(i, min(i + ROWS_MAX, R)) for i in range(0, R, ROWS_MAX)]
+
+
+def _forward_rows(R, br0, bi0, u, C, n_steps, integrated, dt, store_traj):
+    n, mg = _check(n_steps, integrated, dt, C, planes=[("br0", br0), ("bi0", bi0)],
+                   grids=[("u", u)], rows=R)
+    brT, biT = torch.empty_like(br0), torch.empty_like(bi0)
+    J = torch.empty((R,), dtype=torch.float32, device=br0.device)
+    traj = [torch.empty((R, n_steps) + br0.shape[1:], dtype=torch.float32,
+                        device=br0.device) for _ in range(2 * store_traj)]
+    symbol = "sm_kdyn_fwd_traj_rows" if store_traj else "sm_kdyn_fwd_rows"
+    counter = "kdyn_fwd_traj_rows" if store_traj else "kdyn_fwd_rows"
+    for i, j in _row_chunks(R):
+        _launch(symbol, counter, br0, n, mg,
+                br0[i].data_ptr(), bi0[i].data_ptr(), u[i].data_ptr(),
+                C["packed"].data_ptr(), n, mg, int(n_steps), int(integrated),
+                float(dt), j - i, brT[i].data_ptr(), biT[i].data_ptr(),
+                J[i:].data_ptr(), *[t[i].data_ptr() for t in traj], rows=j - i)
+    return (brT, biT, J, *traj)
+
+
+def run_forward_rows(br0, bi0, u, C, n_steps, integrated=False, dt=0.0):
+    """`run_forward` of each row of br0, bi0 (R, 3, n, n, kz) and u (R, 3,
+    mg, mg, mg): (brT, biT (R, ...), J (R,)). On the card one launch of
+    `sm_kdyn_fwd_rows` per ROWS_MAX rows, each row bitwise `run_forward`
+    on it; on the CPU `run_forward_rows_plain`."""
+    R = _row_count((br0, bi0), u)
+    if br0.device.type == "cpu":
+        return run_forward_rows_plain(br0, bi0, u, C, n_steps, integrated, dt)
+    return _forward_rows(R, br0, bi0, u, C, n_steps, integrated, dt, False)
+
+
+def run_fwd_traj_rows(br0, bi0, u, C, n_steps, integrated=False, dt=0.0):
+    """`run_fwd_traj` of each row: (brT, biT, J (R,), trr, tri (R, n_steps,
+    3, n, n, kz)), `sm_kdyn_fwd_traj_rows` as `run_forward_rows`."""
+    R = _row_count((br0, bi0), u)
+    if br0.device.type == "cpu":
+        return run_fwd_traj_rows_plain(br0, bi0, u, C, n_steps, integrated, dt)
+    return _forward_rows(R, br0, bi0, u, C, n_steps, integrated, dt, True)
+
+
+def run_bwd_rows(u, brT, biT, gbar, trr, tri, C, n_steps, integrated=False, dt=0.0):
+    """`run_bwd` of each row, gbar (R,) on the device (no sync): (dJ/dbr0,
+    dJ/dbi0, dJ/du), each (R, ...). On the card one launch of
+    `sm_kdyn_bwd_rows` per ROWS_MAX rows, each row bitwise `run_bwd` on it;
+    on the CPU `run_bwd_rows_plain`."""
+    R = _row_count((brT, biT), u)
+    if brT.device.type == "cpu":
+        return run_bwd_rows_plain(u, brT, biT, gbar, trr, tri, C, n_steps,
+                                  integrated, dt)
+    n, mg = _check(n_steps, integrated, dt, C, planes=[("brT", brT), ("biT", biT)],
+                   grids=[("u", u)], traj=[("trr", trr), ("tri", tri)], gbar=gbar,
+                   rows=R)
+    b0r_bar, b0i_bar = torch.empty_like(brT), torch.empty_like(biT)
+    ubar = torch.zeros_like(u)   # the kernel accumulates into it
+    for i, j in _row_chunks(R):
+        _launch("sm_kdyn_bwd_rows", "kdyn_bwd_rows", brT, n, mg,
+                u[i].data_ptr(), brT[i].data_ptr(), biT[i].data_ptr(),
+                gbar[i:].data_ptr(), C["packed"].data_ptr(), trr[i].data_ptr(),
+                tri[i].data_ptr(), n, mg, int(n_steps), int(integrated), float(dt),
+                j - i, b0r_bar[i].data_ptr(), b0i_bar[i].data_ptr(),
+                ubar[i].data_ptr(), rows=j - i)
+    return b0r_bar, b0i_bar, ubar
+
+
 # ---------------------------------------------------------------------------
 # differentiable objective (the JAX custom_vjp)
 # ---------------------------------------------------------------------------
@@ -386,4 +515,34 @@ class FusedEnergy(torch.autograd.Function):
         C, n_steps, integrated, dt = ctx.consts
         grads = run_bwd(u, brT, biT, gbar.to(brT.dtype), trr, tri, C, n_steps,
                         integrated, dt)
+        return (*grads, None, None, None, None)
+
+
+class FusedEnergyRows(torch.autograd.Function):
+    """J (R,) of each row of br0, bi0 (R, 3, n, n, kz) and u (R, 3, mg, mg,
+    mg), as `FusedEnergy` of that row, with the row kernels: one forward
+    and one reverse launch per ROWS_MAX rows; differentiable in all three.
+
+    apply(br0, bi0, u, C, n_steps, integrated=False, dt=0.0)
+
+    The forward stores the trajectories only when a gradient is wanted;
+    the backward takes gbar (R,)."""
+
+    @staticmethod
+    def forward(ctx, br0, bi0, u, C, n_steps, integrated=False, dt=0.0):
+        _check_dt(integrated, dt)
+        ctx.consts = (C, n_steps, integrated, dt)
+        if not any(ctx.needs_input_grad[:3]):
+            return run_forward_rows(br0, bi0, u, C, n_steps, integrated, dt)[2]
+        brT, biT, J, trr, tri = run_fwd_traj_rows(br0, bi0, u, C, n_steps,
+                                                  integrated, dt)
+        ctx.save_for_backward(u, brT, biT, trr, tri)
+        return J
+
+    @staticmethod
+    def backward(ctx, gbar):
+        u, brT, biT, trr, tri = ctx.saved_tensors
+        C, n_steps, integrated, dt = ctx.consts
+        grads = run_bwd_rows(u, brT, biT, gbar.to(brT.dtype).contiguous(), trr, tri,
+                             C, n_steps, integrated, dt)
         return (*grads, None, None, None, None)

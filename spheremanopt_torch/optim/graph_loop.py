@@ -255,8 +255,8 @@ class DeviceOptimiser:
     (over all its rows).
 
     `native_rows` says that the problem has batched forms (the loop's
-    steps over rows; with SH23's and SHB23's `cuda` rows each step
-    launches the row kernels once for all rows, captured in the step's
+    steps over rows; with SH23's, SHB23's and KDyn's `cuda` rows each
+    step launches the row kernels once for up to 8 rows, captured in the step's
     graph as the one-row kernels are); without them a sweep runs its rows
     one after another on the unbatched loop, each row exactly its
     unbatched run.

@@ -40,6 +40,16 @@ CNAB1 timestepping with 3/2-rule dealiasing (ref `:211-216,443`).
     tensors the wrappers run their plain versions. It has no fused
     diagnostics (the objective is a closed kernel), as in JAX.
 
+Rows (a sweep of R starting points, `row_forms`): "cuda" with the
+discrete adjoint runs the row kernels (`FusedEnergyRows`: one forward and
+one reverse launch for up to 8 rows, the JAX package's `jax.vmap` of its
+Pallas kernels), each row bitwise the one-row kernels. The parts around
+the kernels (`_prepare`'s transforms, the Riesz map with its Leray
+projection, the inner product) run a row at a time, as the unbatched call
+runs them, so that each row of an f32 sweep makes its unbatched run's
+decisions bit for bit. Every other configuration has no batched form: a
+sweep runs its rows one after another on the unbatched loop.
+
 `transform="distributed"` (the JAX package's) runs the transforms as the
 slab or 2-D pencil distributed FFTs of `parallel/fft.py` over a process
 mesh (`torch.distributed`: NCCL on GPUs, gloo on CPUs): `n_shards`
@@ -81,9 +91,10 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from spheremanopt_torch.problems.base import (MeshForms, DTYPES, SegmentAdvance,
-                                              check_choice, resolve_device,
-                                              to_f64, value_and_raw_gradient)
+from spheremanopt_torch.problems.base import (MeshForms, DTYPES, RowForms,
+                                              SegmentAdvance, check_choice,
+                                              resolve_device, to_f64,
+                                              value_and_raw_gradient)
 from spheremanopt_torch.solvers.scan_utils import (checkpoint_on_host,
                                                    host_copy, kahan_add,
                                                    kahan_zero,
@@ -813,6 +824,49 @@ class KinematicDynamo(MeshForms):
     def full_inner_product(x, y):
         """The inner product of full (c, mg, mg, mg) fields."""
         return torch.sum(torch.mean(x * y, dim=(-3, -2, -1)))
+
+    # ------------------------------------------------------------------
+    # rows: [B0 (R, 3, mg, mg, mg), U (R, 3, mg, mg, mg)] (see the module
+    # docstring)
+    # ------------------------------------------------------------------
+
+    def _objective_rows_impl(self, x_list) -> torch.Tensor:
+        """-J (R,) of each row: the row kernels on each row's B0
+        coefficients and band-limited U, `_prepare`d a row at a time."""
+        from spheremanopt_torch.ops.cuda.kdyn_step import FusedEnergyRows
+
+        preps = [self._prepare([b, u]) for b, u in zip(*x_list)]
+        return -FusedEnergyRows.apply(
+            torch.stack([c.real for c, _ in preps]),
+            torch.stack([c.imag for c, _ in preps]),
+            torch.stack([u for _, u in preps]), self._consts, self.cfg.n_iters,
+            self.cfg.cost == "Integrated", self.cfg.dt)
+
+    def objective_rows(self, x_list):
+        with torch.no_grad():
+            return self._objective_rows_impl(list(x_list))
+
+    def objective_and_gradient_rows(self, x_list):
+        J, raw = value_and_raw_gradient(self._objective_rows_impl, list(x_list))
+        per_row = [self._riesz(list(g)) for g in zip(*raw)]
+        return J, [torch.stack(g) for g in zip(*per_row)]
+
+    def gradient_rows(self, x_list):
+        return self.objective_and_gradient_rows(x_list)[1]
+
+    def inner_product_rows(self, x, y):
+        return torch.stack([self.inner_product(a, b) for a, b in zip(x, y)])
+
+    def row_forms(self, aux=False):
+        """The native forms over rows: method="cuda" with the discrete
+        adjoint (which implies f32, `transform="matmul"`, no df64). None
+        elsewhere (the aux forms, the continuous adjoint, "plain", df64,
+        the distributed transform): a sweep then runs its rows one at a
+        time."""
+        if aux or self.cfg.method != "cuda" or self.cfg.adjoint != "discrete":
+            return None
+        return RowForms(self.objective_and_gradient_rows, self.objective_rows,
+                        self.gradient_rows, self.inner_product_rows)
 
     @property
     def inner_products(self):

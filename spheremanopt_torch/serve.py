@@ -23,14 +23,14 @@ request.
    "config": {...}, "driver": {...}}  # radius
     -> per-point result rows from `DeviceOptimiser.sweep`. Where the
        problem has native rows (`problems.base.row_forms`: PCA, SH23
-       matmul / fft, SHB23 matmul, mixing, and SH23 / SHB23 `cuda` at
-       the row kernels' widths, whose sweeps step every row in one launch
-       of each row kernel), ONE batched device loop over rows: the rows'
-       states carry a leading axis, each row makes its own run's
-       decisions, mixing's operator stacks are one operand shared by
-       every row. Elsewhere (KDyn, the continuous adjoints, `cuda` at
-       other widths) the rows run one after another on the unbatched
-       loop, each bitwise its own `optimise`.
+       matmul / fft, SHB23 matmul, mixing, SH23 / SHB23 `cuda` at the
+       row kernels' widths and KDyn `cuda`, whose sweeps step every row
+       in one launch of each row kernel), ONE batched device loop over
+       rows: the rows' states carry a leading axis, each row makes its
+       own run's decisions, mixing's operator stacks are one operand
+       shared by every row. Elsewhere (the continuous adjoints, KDyn
+       plain and df64, `cuda` at other widths) the rows run one after
+       another on the unbatched loop, each bitwise its own `optimise`.
 
   {"cmd": "status"}   -> uptime, request count, cached loop keys, and
                          live occupancy: {"busy": {...}|null,

@@ -3,8 +3,9 @@
 device loops).
 
 Every row must make its unbatched run's decisions. A problem without
-native forms over rows (`problems.base.row_forms` gives None: KDyn, and
-SH23 / SHB23 `cuda` at widths without row kernels) sweeps its rows one
+native forms over rows (`problems.base.row_forms` gives None: KDyn's
+continuous adjoint, and SH23 / SHB23 `cuda` at widths without row
+kernels) sweeps its rows one
 after another on the unbatched loop, so the rows are bitwise the
 unbatched runs; on the native batched forms (PCA, SH23 `matmul` and
 `fft`, SHB23 `matmul`, mixing) only the reductions' order differs, and
@@ -384,8 +385,10 @@ def _unbatched_case(name):
         return p, [p.generate_ic(seed=s) for s in (3, 4)], 1.0
     from spheremanopt_torch.problems.kinematic_dynamo import KDynConfig, KinematicDynamo
 
+    # the continuous adjoint under "cuda" has no native rows (the discrete
+    # one runs the row kernels: tests/test_torch_kdyn_rows.py)
     p = KinematicDynamo(KDynConfig(npts=8, n_iters=10, dt=1e-3, dtype="float32",
-                                   method="cuda"), device="cpu")
+                                   method="cuda", adjoint="continuous"), device="cpu")
     return p, [p.generate_ic(seed=s) for s in (3, 4)], 5.0
 
 

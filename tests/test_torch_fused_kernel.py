@@ -474,7 +474,7 @@ def test_tf32_emulation_rounds_ties_away():
 
 
 @pytest.mark.parametrize("mode", ["shared", "two"])
-def test_3xtf32_split_product_keeps_f32_accuracy(mode):
+def test_3xtf32_split_product_keeps_f32_accuracy(mode, one_thread):
     """The product kernel's 3xTF32 split (emulated) against the f64
     product: within 1e-5 of the largest entry; against the plain f32 loop
     (`op_grads_plain`): within 1e-4. mg = 256, N = 500, seeded data at

@@ -16,7 +16,8 @@ _BLOCK_JAX = "import sys; sys.modules['jax'] = None; "
 
 
 def _python(code, cwd=ROOT, timeout=120):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # one intra-op thread: the test workers share the host's cores
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=timeout)
 

@@ -389,7 +389,7 @@ def test_port_reproduces_pinned_f64_at_full_width_and_a_cut_depth(one_thread):
 
 
 @pytest.mark.parametrize("cost", ["Final", "Integrated"])
-def test_cli_kdyn_optimise_on_cpu(cost, tmp_path, capsys):
+def test_cli_kdyn_optimise_on_cpu(cost, tmp_path, capsys, one_thread):
     from spheremanopt_torch import run
 
     base = ["kdyn", "--device", "cpu", "--npts", "8", "--n-iters", "20",

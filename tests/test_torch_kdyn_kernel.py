@@ -254,7 +254,8 @@ def test_cpu_tensors_take_the_plain_versions(jx):
     assert all(torch.equal(a, b) for a, b in zip(gb, wb))
     assert not any(kd.LAUNCHES.values())
     assert set(kd.LAUNCHES) == set(kd.KERNEL_SOURCES) == {
-        "kdyn_fwd", "kdyn_fwd_traj", "kdyn_bwd"}
+        "kdyn_fwd", "kdyn_fwd_traj", "kdyn_bwd",
+        "kdyn_fwd_rows", "kdyn_fwd_traj_rows", "kdyn_bwd_rows"}
 
 
 @pytest.mark.parametrize("cost", ["Final", "Integrated"])
@@ -502,7 +503,8 @@ def test_kernels_match_plain_on_card(cuda, integrated, npts):
     bk = kd.run_bwd(u, k[0], k[1], g, k[3], k[4], C, n, integrated, DT)
     br = kd.run_bwd_plain(u, k[0], k[1], g, k[3], k[4], C, n, integrated, DT)
     torch.cuda.synchronize()
-    assert kd.LAUNCHES == {"kdyn_fwd": 1, "kdyn_fwd_traj": 2, "kdyn_bwd": 1}
+    assert {k: v for k, v in kd.LAUNCHES.items() if v} == {
+        "kdyn_fwd": 1, "kdyn_fwd_traj": 2, "kdyn_bwd": 1}
     for got, want in list(zip(k, r)) + list(zip(bk, br)):
         assert _rel(got.cpu(), want.cpu()) < 1e-4
     for a, b in zip(k0, k[:3]):
@@ -521,7 +523,8 @@ def test_method_cuda_matches_method_plain_on_card(cuda, cost):
     kd.reset_launches()
     J_k, g_k = pk.objective_and_gradient(x)
     assert float(pk.objective(x)) == float(J_k)
-    assert kd.LAUNCHES == {"kdyn_fwd": 1, "kdyn_fwd_traj": 1, "kdyn_bwd": 1}
+    assert {k: v for k, v in kd.LAUNCHES.items() if v} == {
+        "kdyn_fwd": 1, "kdyn_fwd_traj": 1, "kdyn_bwd": 1}
     J_p, g_p = pp.objective_and_gradient(x)
     assert abs(float(J_k) - float(J_p)) < 1e-5 * abs(float(J_p))
     for a, b in zip(g_k, g_p):

@@ -276,7 +276,7 @@ def test_state_restart_segments_equal_one_run(ref):
     assert _rel(u, uj) < 1e-12 and _rel(w, wj) < 1e-12 and _rel(r, rj) < 1e-12
 
 
-def test_f32_keeps_complex64_through_a_step(ref):
+def test_f32_keeps_complex64_through_a_step(ref, one_thread):
     tp = _t(dtype="float32")
     assert tp._ops["S"].dtype == tp._ops["MN"].dtype == torch.complex64
     x = tp._initial(torch.as_tensor(ref["x0"], dtype=torch.float32))

@@ -220,7 +220,7 @@ def test_mixing_df64_matches_jax_f64(s, df_adjoint, mix_truth, one_thread):
     assert _rel_g(g, g64) < 1e-6
 
 
-def test_mixing_df64_fused_aux_and_objective_forms(mix_truth):
+def test_mixing_df64_fused_aux_and_objective_forms(mix_truth, one_thread):
     x = [torch.as_tensor(mix_truth[0])]
     p = _tm(**DF)
     J1, g1 = p.objective_f64(x), p.gradient(x)
@@ -258,7 +258,7 @@ def test_mixing_df64_device_loop_matches_host_loop(mix_truth, one_thread):
                                np.asarray(rh.function_values), rtol=2e-6)
 
 
-def test_mixing_df64_taylor_second_order(mix_truth):
+def test_mixing_df64_taylor_second_order(mix_truth, one_thread):
     x32 = mix_truth[0]
     p = _tm(**DF)
     x = [torch.as_tensor(x32)]

@@ -64,10 +64,14 @@ ROW_RTOL, JAX_RTOL = 1e-10, 1e-9
 @pytest.fixture
 def one_thread():
     """Long loops of small products: one intra-op thread, so several test
-    workers on one host do not fight over the cores."""
+    workers on one host do not fight over the cores (and one BLAS thread
+    for the operators' numpy assembly)."""
+    from threadpoolctl import threadpool_limits
+
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 
@@ -112,7 +116,7 @@ def _states(R, mg, dtype, device="cpu", seed=0, amp=0.3):
 
 
 @pytest.mark.parametrize("two_matrix", [False, True], ids=["shared", "two"])
-def test_plain_rows_match_one_row_plain_f64(two_matrix):
+def test_plain_rows_match_one_row_plain_f64(two_matrix, one_thread):
     mg, R = 128, 3
     mats, w, (c2, c3, lin) = _operators(two_matrix, mg, torch.float64)
     u0 = _states(R, mg, torch.float64, amp=0.05 if two_matrix else 0.3)
@@ -136,7 +140,7 @@ def test_plain_rows_match_one_row_plain_f64(two_matrix):
 
 
 @pytest.mark.parametrize("two_matrix", [False, True], ids=["shared", "two"])
-def test_row_objective_gradients_match_one_row_objective(two_matrix):
+def test_row_objective_gradients_match_one_row_objective(two_matrix, one_thread):
     """The row Functions' J and du0 (per-row cotangents gbar) against the
     one-row Functions row by row, f64 plain."""
     mg, R = 128, 3
@@ -304,7 +308,7 @@ def test_shb23_matmul_sweep_matches_unbatched_and_jax_vmap(one_thread):
 @pytest.mark.parametrize("mg,two_matrix,ok", [
     (64, False, False), (128, False, True), (896, False, True), (1024, False, False),
     (96, True, False), (128, True, True), (640, True, True), (768, True, False)])
-def test_row_widths_and_row_forms(mg, two_matrix, ok):
+def test_row_widths_and_row_forms(mg, two_matrix, ok, one_thread):
     """The row kernels take the reverse clusters' widths; elsewhere the
     row wrappers raise (on the CPU too) and `row_forms` of a `cuda`
     problem is None (a sweep runs its rows one at a time), while `matmul`

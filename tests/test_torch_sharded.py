@@ -19,6 +19,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import torch_dist_cases as cases
 from torch_dist_cases import LocalWorld
@@ -285,7 +286,17 @@ def test_kdyn_distributed_3_ranks(world3, kdyn_jax):
         np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12)
 
 
-def test_cli_shards_two_ranks(tmp_path):
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the in-process run: the test workers share
+    the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_cli_shards_two_ranks(tmp_path, one_thread):
     """`torchrun --nproc-per-node 2 -m spheremanopt_torch.run kdyn --device
     cpu --shards 2` writes summary.json once, with the J history of the
     one-process run at rtol 1e-9; --shards not equal to the world size

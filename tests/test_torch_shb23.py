@@ -199,7 +199,7 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def test_pinned_inputs_match_jax_now(ref):
+def test_pinned_inputs_match_jax_now(ref, one_thread):
     for dtype, tag in (("float64", "f64"), ("float32", "f32")):
         p = JSHB(JConfig(dtype=dtype))
         noise = jax.random.normal(jax.random.PRNGKey(42), (512,), jnp.dtype(dtype))
