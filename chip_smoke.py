@@ -168,10 +168,10 @@ Phases, one line each; any failure exits non-zero without a result line:
      sequential wall times and a trace (idle share, launches a replay);
      SHB23 f32 kernels on native rows, B = 4, 5 iterations, bitwise and a
      main path the same way; KDyn's three row kernels (24^3 on 36^3, 2000
-     steps) called directly at R = 8, both costs, every row's b_T, J,
-     trajectory, b0_bar and u_bar bitwise the one-row kernels', against
+     steps) called directly at R = 4 and 8, both costs, every row's b_T,
+     J, trajectory, b0_bar and u_bar bitwise the one-row kernels', against
      the plain rows at R = 2 (Final; each plain row version timed once),
-     timed at R = 8 and 1 beside 8 one-row calls; KDyn f32 kernel sweeps
+     timed at R = 8, 4 and 1 beside 8 one-row calls; KDyn f32 kernel sweeps
      on native rows, B = 4, each row on its own radii: Wolfe + CG (5
      iterations) and Armijo (2), every row bitwise its unbatched run, a
      main path of each warm sweep (the row kernels, no one-row kernel);
@@ -382,6 +382,8 @@ SHB_SWEEP_B = 4
 # forward without the trajectory) at KDYN_ARMIJO_ITERS as the main path of
 # that row kernel
 KDYN_PLAIN_ROWS, KDYN_SWEEP_B, KDYN_SWEEP_ITERS, KDYN_ARMIJO_ITERS = 2, 4, 3, 2
+# KDyn's row kernels held bitwise the one-row kernels at these R, timed at those
+KDYN_BITWISE_ROWS, KDYN_TIMED_ROWS = (4, 8), (8, 4, 1)
 KDYN_ONE_ROW = ("kdyn_fwd", "kdyn_fwd_traj", "kdyn_bwd")
 KDYN_ROWS = ("kdyn_fwd_rows", "kdyn_fwd_traj_rows", "kdyn_bwd_rows")
 SWEEP_CUT = 200   # steps of the native-row SH23 sweeps (their captures are eager)
@@ -2553,11 +2555,11 @@ class Smoke:
     def kdyn_row_kernels(self, p):
         """KDyn's row kernels called directly at full width and depth (p:
         `KDynConfig()` f32 `cuda`: 24^3 modes on 36^3, 2000 steps): at
-        R = SWEEP_B, both costs, every row's b_T, J, trajectory, b0_bar and
-        u_bar bitwise the one-row kernels' on that row; at
-        R = KDYN_PLAIN_ROWS, cost Final, against the plain rows (each timed
-        once); CUDA-event times at R = SWEEP_B and at R = 1 beside SWEEP_B
-        one-row calls."""
+        R = KDYN_BITWISE_ROWS (4: one row group of 4; SWEEP_B: one of 8),
+        both costs, every row's b_T, J, trajectory, b0_bar and u_bar
+        bitwise the one-row kernels' on that row; at R = KDYN_PLAIN_ROWS,
+        cost Final, against the plain rows (each timed once); CUDA-event
+        times at R = KDYN_TIMED_ROWS beside SWEEP_B one-row calls."""
         R, C, n, dt = SWEEP_B, p._consts, p.cfg.n_iters, p.cfg.dt
         with torch.no_grad():
             preps = [p._prepare(p.generate_ic(seed=s)) for s in range(R)]
@@ -2568,26 +2570,31 @@ class Smoke:
         same = {}
         for cost in ("Integrated", "Final"):   # Final last: its sweeps are timed
             integrated = cost == "Integrated"
-            f = kd.run_forward_rows(br0, bi0, u, C, n, integrated, dt)
-            t = kd.run_fwd_traj_rows(br0, bi0, u, C, n, integrated, dt)
-            b = kd.run_bwd_rows(u, t[0], t[1], gbar, t[3], t[4], C, n, integrated, dt)
-            ok = True
+            ones = []
             for r in range(R):
                 one = kd.run_fwd_traj(br0[r], bi0[r], u[r], C, n, integrated, dt)
                 one0 = kd.run_forward(br0[r], bi0[r], u[r], C, n, integrated, dt)
                 back = kd.run_bwd(u[r], one[0], one[1], gbar[r].contiguous(), one[3],
                                   one[4], C, n, integrated, dt)
-                ok &= (all(torch.equal(x[r], y) for x, y in zip(t, one))
-                       and all(torch.equal(x[r], y) for x, y in zip(f, one0))
-                       and all(torch.equal(x[r], y) for x, y in zip(b, back)))
-            same[cost] = ok
-            del one, one0, back
+                ones.append((one, one0, back))
+            for k in KDYN_BITWISE_ROWS:
+                f = kd.run_forward_rows(br0[:k], bi0[:k], u[:k], C, n, integrated, dt)
+                t = kd.run_fwd_traj_rows(br0[:k], bi0[:k], u[:k], C, n, integrated, dt)
+                b = kd.run_bwd_rows(u[:k], t[0], t[1], gbar[:k], t[3], t[4], C, n,
+                                    integrated, dt)
+                same[f"{cost} R={k}"] = all(
+                    all(torch.equal(x[r], y) for x, y in zip(t, one))
+                    and all(torch.equal(x[r], y) for x, y in zip(f, one0))
+                    and all(torch.equal(x[r], y) for x, y in zip(b, back))
+                    for r, (one, one0, back) in enumerate(ones[:k]))
+                del f, b
+            del ones
         fwd_r = lambda k: kd.run_forward_rows(br0[:k], bi0[:k], u[:k], C, n, False, dt)  # noqa: E731
         traj_r = lambda k: kd.run_fwd_traj_rows(br0[:k], bi0[:k], u[:k], C, n, False, dt)  # noqa: E731
         bwd_r = lambda k: kd.run_bwd_rows(u[:k], t[0][:k], t[1][:k], gbar[:k],  # noqa: E731
                                           t[3][:k], t[4][:k], C, n, False, dt)
         ms = {k: [gpu_ms(lambda: fn(k), 3, 1) for fn in (fwd_r, traj_r, bwd_r)]
-              for k in (R, 1)}
+              for k in KDYN_TIMED_ROWS}
         seq = [gpu_ms(lambda: [kd.run_forward(br0[r], bi0[r], u[r], C, n, False, dt)
                                for r in range(R)], 1, 1),
                gpu_ms(lambda: [kd.run_fwd_traj(br0[r], bi0[r], u[r], C, n, False, dt)
@@ -2595,6 +2602,14 @@ class Smoke:
                gpu_ms(lambda: [kd.run_bwd(u[r], t[0][r], t[1][r], gbar[r].contiguous(),
                                           t[3][r], t[4][r], C, n, False, dt)
                                for r in range(R)], 1, 1)]
+        names = ("forward", "with the trajectory", "reverse")
+        self.check("5", True,
+                   f"kdyn row kernels' CUDA-event times (ms, Final, 2000 steps): "
+                   + "; ".join(f"{key} " + ", ".join(f"R = {k} {ms[k][i]:.3f}"
+                                                     for k in KDYN_TIMED_ROWS)
+                               + f" ({R} one-row calls {seq[i]:.3f})"
+                               for i, key in enumerate(names))
+                   + f" [{self.card}]")
         # against the plain rows, once each (a plain row takes seconds)
         k = KDYN_PLAIN_ROWS
         kern = (fwd_r(k), traj_r(k), bwd_r(k))
@@ -2615,15 +2630,15 @@ class Smoke:
                 ms=ms[R][i], plain_ms=plain[i][1], max_abs_err=max_abs(pairs),
                 work=kdyn_rows_work(npts, mg, n, fwd, traj, R))
         self.check("5", all(same.values()) and max(errs.values()) <= TOL_KDYN_VS_PLAIN,
-                   f"kdyn row kernels at R = {R}, n {npts}, mg {mg}, N {n}: every row's "
-                   f"b_T, J, trajectory, b0_bar and u_bar bitwise the one-row kernels' "
-                   f"{same}; vs the plain rows at R = {k} (Final) f32 rel "
+                   f"kdyn row kernels at R = {', '.join(map(str, KDYN_BITWISE_ROWS))}, n "
+                   f"{npts}, mg {mg}, N {n}: every row's b_T, J, trajectory, b0_bar and "
+                   f"u_bar bitwise the one-row kernels' {same}; vs the plain rows at R = "
+                   f"{k} (Final) f32 rel "
                    + ", ".join(f"{key} {v:.2e}" for key, v in errs.items())
                    + f" (tol {TOL_KDYN_VS_PLAIN:g}); "
                    + "; ".join(f"{key} {ms[R][i]:.3f} ms (R = 1 {ms[1][i]:.3f}; {R} one-row "
                                f"calls {seq[i]:.3f}; plain at R = {k} {plain[i][1]:.1f})"
-                               for i, key in enumerate(("forward", "with the trajectory",
-                                                        "reverse")))
+                               for i, key in enumerate(names))
                    + f" [{self.card}]")
 
     def kdyn_sweeps(self, p, jit, row_forms):

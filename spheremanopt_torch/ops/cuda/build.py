@@ -71,6 +71,7 @@ SIGNATURES = {
     "sm_fused_bwd_rows": [_P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _P, _P],
     "sm_op_grads": [_P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P, _P, _P],
     "sm_kdyn_work_floats": [_I, _I],   # returns a count, not an error code
+    "sm_kdyn_row_group": [_I],         # returns a count, not an error code
     "sm_kdyn_fwd": _KDYN_FWD + [_P, _L, _P],
     "sm_kdyn_fwd_traj": _KDYN_FWD + [_P, _P, _P, _L, _P],
     "sm_kdyn_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P,
@@ -95,9 +96,14 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+def _sources(sources=None):
+    """csrc/*.cu, or the named ones of them."""
+    return sorted(CSRC / s for s in sources) if sources else sorted(CSRC.glob("*.cu"))
+
+
+def library_path(flags=(), sources=None) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(flags)).encode())
+    for src in _sources(sources) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / "libspheremanopt_kernels.so"
@@ -112,21 +118,24 @@ def _run_all(cmds):
     return [p.returncode for p in procs], "".join(outs)
 
 
-def build() -> Path:
-    """Compile csrc/*.cu unless the library for these sources exists."""
+def build(flags=(), sources=None) -> Path:
+    """Compile csrc/*.cu unless the library for these sources exists.
+    `flags` adds nvcc flags and `sources` names the sources to take (the
+    probe builds of tools/probe_kdyn_tasks.py), each in a library of its
+    own."""
     global build_log
-    lib = library_path()
+    lib = library_path(flags, sources)
     if lib.exists():
         return lib
     nvcc = find_nvcc()
     lib.parent.mkdir(parents=True, exist_ok=True)
-    srcs = sorted(CSRC.glob("*.cu"))
+    srcs = _sources(sources)
     # build into a temporary directory and rename the library: concurrent
     # first uses never load a half-written one
     with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
         objs = [os.path.join(tmp, s.stem + ".o") for s in srcs]
         codes, build_log = _run_all(
-            [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+            [[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", o, str(s)]
              for s, o in zip(srcs, objs)])
         if any(codes):
             raise RuntimeError(f"nvcc failed ({codes}):\n{build_log}")

@@ -15,9 +15,11 @@ rows: one launch for every row):
   run_forward_rows   (kdyn_fwd_rows)       run_fwd_traj_rows (kdyn_fwd_traj_rows)
   run_bwd_rows       (kdyn_bwd_rows)       FusedEnergyRows
 
-R states with a leading row axis, up to ROWS_MAX rows a launch (the kRows
-instances of the same two kernel templates), each row's outputs bitwise
-the one-row kernel's on it.
+R states with a leading row axis, up to ROWS_MAX rows a launch, each
+row's outputs bitwise the one-row kernel's on it. The row kernels are
+instances of the same two kernel templates whose stage tasks step a
+group of rows at once (2 or 4 by R, `csrc/kdyn_step.cu` row_group; one
+row launches the one-row kernel).
 
 The whole CNAB1 induction solve — per-axis DFT synthesis, u x B on the
 oversampled grid, analysis, curl, Leray projection, diagonal implicit
@@ -57,6 +59,18 @@ LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
 # row's Kahan sum on its own warp); a wider call runs in chunks of
 # ROWS_MAX rows, each chunk one launch
 ROWS_MAX = 8
+# rows one stage task of a row launch steps (csrc/kdyn_step.cu row_group,
+# one instance of the kernels each; 1: the one-row kernel)
+ROW_GROUPS = (1, 2, 4)
+
+
+def row_group(rows):
+    """Rows a stage task of a launch of `rows` (1 .. ROWS_MAX) rows steps,
+    as the kernels choose it: the rows themselves up to 2, 4 for 3 or 4
+    rows, 2 above (several row groups)."""
+    if not 1 <= rows <= ROWS_MAX:
+        raise ValueError(f"a row launch takes 1 .. {ROWS_MAX} rows (got {rows})")
+    return rows if rows <= 2 else 4 if rows <= 4 else 2
 
 # order of the constants in the flat f32 pack the kernels read
 _MATRICES = ("Ffr", "Ffi", "Fzr", "Fzi", "Bfr", "Bfi", "Bzr", "Bzi")

@@ -30,7 +30,7 @@ CPU cases that need it):
     python -m pytest --noconftest -m requires_cuda tests/test_torch_kdyn_rows.py
 
 hold each row of the three row kernels bitwise the one-row kernels at
-R = 1, 3, 8, at npts 8 and at the 24^3 width, both costs; the rows
+R = 1, 2, 3, 4, 5, 8, 11, at npts 8 and at the 24^3 width, both costs; the rows
 against the plain rows in f32 (rel 1e-4 at 40 steps); a call past
 ROWS_MAX rows in chunks; a CUDA graph of the row Function replayed
 bitwise; the `cuda` row forms at full width and R = 8 bitwise the
@@ -310,6 +310,33 @@ def test_row_launch_limit_and_signatures():
     assert set(kd.KERNEL_SOURCES) == set(ONE_ROW + ROW_KERNELS)
 
 
+# row counts of the card's bitwise cases: each row-group size filled exactly
+# and partly, and a call past ROWS_MAX (8 + 3 rows)
+CARD_ROWS = [1, 2, 3, 4, 5, 8, 11]
+
+
+def test_row_groups_and_the_card_cases():
+    """A row launch's stage tasks step 1 (the one-row kernel), 2 or 4 rows
+    (the kernels' row_group, which the card test holds to it), and the
+    card's bitwise cases launch each size with its group full and partly
+    filled (3 rows in a group of 4, 5 rows in groups of 2), and several
+    groups of 2 (5 and 8 rows)."""
+    assert kd.ROW_GROUPS == (1, 2, 4)
+    groups = [kd.row_group(R) for R in range(1, kd.ROWS_MAX + 1)]
+    assert groups == [1, 2, 4, 4, 2, 2, 2, 2]
+    for bad in (0, kd.ROWS_MAX + 1):
+        with pytest.raises(ValueError, match="row launch"):
+            kd.row_group(bad)
+    launched = [j - i for R in CARD_ROWS for i, j in kd._row_chunks(R)]
+    for G in kd.ROW_GROUPS:
+        sizes = {R for R in launched if kd.row_group(R) == G}
+        assert G in sizes, G                                   # one full group
+        if G > 1:
+            assert any(R % G for R in sizes), G                # a partial group
+    assert {5, 8} <= set(launched)                             # several groups of 2
+    assert max(CARD_ROWS) > kd.ROWS_MAX
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -361,15 +388,23 @@ def _bitwise_rows(p, br0, bi0, u, gbar, integrated):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("R", [1, 3, 8])
+@pytest.mark.parametrize("R", CARD_ROWS)
 @pytest.mark.parametrize("npts", [8, 24])
 @pytest.mark.parametrize("cost", COSTS)
 def test_row_kernels_bitwise_one_row_kernels_on_card(cuda, R, npts, cost):
     """Each row's b_T, J, trajectory, b0_bar and u_bar bitwise the one-row
     kernels' on that row, at npts 8 (the generic instance) and 24 (the
-    24^3 / 36^3 instance), 40 steps."""
+    24^3 / 36^3 instance), 40 steps, at row counts that fill a row group
+    exactly, partly, or several (and past ROWS_MAX: 8 + 3 rows)."""
     p, br0, bi0, u, gbar = _card_rows(cuda, R, npts, cost)
     _bitwise_rows(p, br0, bi0, u, gbar, cost == "Integrated")
+
+
+@pytest.mark.requires_cuda
+def test_row_group_matches_the_kernels_on_card(cuda):
+    lib = kbuild.load()
+    assert [lib.sm_kdyn_row_group(R) for R in range(1, kd.ROWS_MAX + 1)] == [
+        kd.row_group(R) for R in range(1, kd.ROWS_MAX + 1)]
 
 
 @pytest.mark.requires_cuda
