@@ -2481,12 +2481,13 @@ class Smoke:
         return rb, first, warm, seq, worst
 
     def row_kernels(self, p, q):
-        """Each row kernel called directly at R = SWEEP_B rows and full width
-        (p: SH23, mg 512, N 1000; q: SHB23, mg 512, N 2000, both f32
-        `cuda`): every row's u_T, J, trajectory and lambda_0 bitwise the
-        one-row kernel on that row; the rows against the plain rows in
-        f32; CUDA-event times at R = SWEEP_B and at R = 1 beside the plain
-        rows' (once each) and R one-row calls'."""
+        """Each row kernel called directly at full width (p: SH23, mg 512,
+        N 1000; q: SHB23, mg 512, N 2000, both f32 `cuda`): every row's
+        u_T, J, trajectory and lambda_0 bitwise the one-row kernel on that
+        row, SH23's at R = SWEEP_B, SHB23's at R = SHB_SWEEP_B (the sweep's
+        width, at which the kernels line records them) and SWEEP_B; the rows
+        against the plain rows in f32 at each; CUDA-event times at each R and
+        at R = 1 beside the plain rows' (once each) and R one-row calls'."""
         R = SWEEP_B
         mg, n, lin = p.basis.n_grid, p.cfg.n_iters, 1.0 / p.cfg.dt
         b = p._Mt.float().contiguous()
@@ -2499,7 +2500,7 @@ class Smoke:
         u2 = torch.stack([q.generate_ic(seed=s)[0] for s in range(R)]).float().contiguous()
         s2 = (-2.0 * q.cfg.dt) * torch.linspace(0.5, 1.5, R, device="cuda")
         cases = (
-            ("sh23", "fused_fwd_shared_rows", "fused_bwd_shared_rows", u0, s1, n, 1,
+            ("sh23", "fused_fwd_shared_rows", "fused_bwd_shared_rows", u0, s1, n, 1, (R,),
              lambda u: fk.fused_fwd_shared_rows(b, w, u, C2, C3, lin, n),
              lambda uT, t, sc: fk.fused_bwd_shared_rows(b, w, uT, t, C2, C3, lin, sc, n),
              lambda u: fk.fused_fwd_shared(b, w, u, C2, C3, lin, n)[:3],
@@ -2507,7 +2508,7 @@ class Smoke:
              lambda u: fk.fused_fwd_shared_rows_plain(b, w, u, C2, C3, lin, n),
              lambda uT, t, sc: fk.fused_bwd_shared_rows_plain(b, w, uT, t, C2, C3, lin,
                                                               sc, n)),
-            ("shb23", "fused_fwd_rows", "fused_bwd_rows", u2, s2, n2, 2,
+            ("shb23", "fused_fwd_rows", "fused_bwd_rows", u2, s2, n2, 2, (SHB_SWEEP_B, R),
              lambda u: fk.fused_fwd_rows(a2, b2, w2, u, C2B, C3B, n2),
              lambda uT, t, sc: fk.fused_bwd_rows(a2, b2, w2, uT, t, C2B, C3B, sc, n2),
              lambda u: fk.fused_fwd(a2, b2, w2, u, C2B, C3B, n2)[:3],
@@ -2515,42 +2516,52 @@ class Smoke:
              lambda u: fk.fused_fwd_rows_plain(a2, b2, w2, u, C2B, C3B, n2),
              lambda uT, t, sc: fk.fused_bwd_rows_plain(a2, b2, w2, uT, t, C2B, C3B, sc, n2)),
         )
-        for what, kf, kb, U, sc, steps, n_mats, fr, br, f1, b1, fp, bp in cases:
-            uT, J, traj = fr(U)
-            lam = br(uT, traj, sc)
-            torch.cuda.synchronize()
-            same = True
-            for r in range(R):
-                u1, j1, t1 = f1(U[r])
-                l1 = b1(u1, t1, sc[r])
-                same &= (torch.equal(uT[r], u1) and torch.equal(J[r], j1)
-                         and torch.equal(traj[r], t1) and torch.equal(lam[r], l1))
-            pu, pj, pt = fp(U)
-            pl = bp(uT, traj, sc)
-            rel_f = max(rel(uT, pu), rel(J, pj), rel(traj, pt))
-            rel_b = rel(lam, pl)
-            self.kernels[kf]["max_abs_err"] = max_abs([(uT, pu), (J, pj), (traj, pt)])
-            self.kernels[kb]["max_abs_err"] = max_abs([(lam, pl)])
-            pf_ms, f_ms = interleaved_ms(lambda: fp(U), lambda: fr(U), 1, 10, warm_plain=0,
-                                         plain_once=True)
-            pb_ms, b_ms = interleaved_ms(lambda: bp(uT, traj, sc), lambda: br(uT, traj, sc),
-                                         1, 10, warm_plain=0, plain_once=True)
-            f1_ms = gpu_ms(lambda: fr(U[:1]), 10)
-            b1_ms = gpu_ms(lambda: br(uT[:1], traj[:1], sc[:1]), 10)
-            fseq = gpu_ms(lambda: [f1(U[r]) for r in range(R)], 3)
-            bseq = gpu_ms(lambda: [b1(uT[r], traj[r], sc[r]) for r in range(R)], 3)
-            self.kernels[kf].update(ms=f_ms, plain_ms=pf_ms,
-                                    work=rows_work(U.shape[1], steps, n_mats, True, R))
-            self.kernels[kb].update(ms=b_ms, plain_ms=pb_ms,
-                                    work=rows_work(U.shape[1], steps, n_mats, False, R))
-            self.check("5", same and rel_f <= TOL_VS_PLAIN and rel_b <= TOL_VS_PLAIN,
-                       f"{what} row kernels at R = {R}, mg {U.shape[1]}, N {steps}: every "
-                       f"row's u_T, J, trajectory and lambda_0 bitwise the one-row kernels' "
-                       f"({same}); vs the plain rows f32 rel {rel_f:.2e} / {rel_b:.2e}; "
-                       f"forward {f_ms:.3f} ms (R = 1 {f1_ms:.3f}; {R} one-row calls "
-                       f"{fseq:.3f}; plain {pf_ms:.3f}), reverse {b_ms:.3f} ms (R = 1 "
-                       f"{b1_ms:.3f}; {R} one-row calls {bseq:.3f}; plain {pb_ms:.3f}) "
-                       f"[{self.card}]")
+        for what, kf, kb, U_all, sc_all, steps, n_mats, widths, fr, br, f1, b1, fp, bp in cases:
+            ones = []
+            for r in range(max(widths)):
+                u1, j1, t1 = f1(U_all[r])
+                ones.append((u1, j1, t1, b1(u1, t1, sc_all[r])))
+            f1_ms = gpu_ms(lambda: fr(U_all[:1]), 10)
+            uT1, _, traj1 = fr(U_all[:1])
+            b1_ms = gpu_ms(lambda: br(uT1, traj1, sc_all[:1]), 10)
+            times = {1: (f1_ms, b1_ms)}
+            for k, Rk in enumerate(widths):
+                U, sc = U_all[:Rk], sc_all[:Rk].contiguous()
+                uT, J, traj = fr(U)
+                lam = br(uT, traj, sc)
+                torch.cuda.synchronize()
+                same = all(torch.equal(uT[r], ones[r][0]) and torch.equal(J[r], ones[r][1])
+                           and torch.equal(traj[r], ones[r][2]) and torch.equal(lam[r], ones[r][3])
+                           for r in range(Rk))
+                pu, pj, pt = fp(U)
+                pl = bp(uT, traj, sc)
+                rel_f = max(rel(uT, pu), rel(J, pj), rel(traj, pt))
+                rel_b = rel(lam, pl)
+                pf_ms, f_ms = interleaved_ms(lambda: fp(U), lambda: fr(U), 1, 10,
+                                             warm_plain=0, plain_once=True)
+                pb_ms, b_ms = interleaved_ms(lambda: bp(uT, traj, sc), lambda: br(uT, traj, sc),
+                                             1, 10, warm_plain=0, plain_once=True)
+                times[Rk] = (f_ms, b_ms)
+                fseq = gpu_ms(lambda: [f1(U[r]) for r in range(Rk)], 3)
+                bseq = gpu_ms(lambda: [b1(uT[r], traj[r], sc[r]) for r in range(Rk)], 3)
+                if k == 0:   # the kernels line: the width the main path launches
+                    self.kernels[kf]["max_abs_err"] = max_abs([(uT, pu), (J, pj), (traj, pt)])
+                    self.kernels[kb]["max_abs_err"] = max_abs([(lam, pl)])
+                    self.kernels[kf].update(ms=f_ms, plain_ms=pf_ms,
+                                            work=rows_work(U.shape[1], steps, n_mats, True, Rk))
+                    self.kernels[kb].update(ms=b_ms, plain_ms=pb_ms,
+                                            work=rows_work(U.shape[1], steps, n_mats, False, Rk))
+                self.check("5", same and rel_f <= TOL_VS_PLAIN and rel_b <= TOL_VS_PLAIN,
+                           f"{what} row kernels at R = {Rk}, mg {U.shape[1]}, N {steps}: every "
+                           f"row's u_T, J, trajectory and lambda_0 bitwise the one-row "
+                           f"kernels' ({same}); vs the plain rows f32 rel {rel_f:.2e} / "
+                           f"{rel_b:.2e}; forward {f_ms:.3f} ms ({Rk} one-row calls "
+                           f"{fseq:.3f}; plain {pf_ms:.3f}), reverse {b_ms:.3f} ms ({Rk} "
+                           f"one-row calls {bseq:.3f}; plain {pb_ms:.3f}) [{self.card}]")
+            print(f"[5] {what} row kernels, ms at R = "
+                  + ", ".join(f"{Rk}: forward {t[0]:.3f}, reverse {t[1]:.3f}"
+                              for Rk, t in sorted(times.items()))
+                  + f" [{self.card}]", flush=True)
 
     def kdyn_row_kernels(self, p):
         """KDyn's row kernels called directly at full width and depth (p:

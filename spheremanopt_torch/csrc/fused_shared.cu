@@ -95,12 +95,12 @@
 //
 // Rows (a sweep of R independent starting points, the vmapped form):
 // sm_fused_fwd_shared_rows is the grid forward over up to kMaxStates = 8
-// states at once (smo::fwd_rows in grid.cuh, which sm_fused_fwd_rows runs
-// with two matrices). A step is R GEMVs with the same B, so each warp reads a
-// float4 of its row of B from shared memory once and applies it to all R
-// states' v (one register chain per state, each in the one-row kernel's
-// order): one step's latency (the exchange through L2, which now carries
-// R vectors) serves R rows. CTA s forms state s's J, so no CTA sums more
+// states at once (smo::fwd_rows in grid.cuh). A step is R GEMVs with the
+// same B, so each warp reads a float4 of its row of B from shared memory
+// once and applies it to all R states' v (one register chain per state,
+// each in the one-row kernel's order): one step's latency (the exchange
+// through L2, which now carries R vectors) serves R rows. CTA s forms
+// state s's J, so no CTA sums more
 // than one energy a step (with all of them on CTA 0 and the reads 4
 // rounds deep the forward took 6.275 ms at R = 8, mg = 512, N = 1000;
 // 3.717 with them spread and the reads 8 deep); the
@@ -624,8 +624,7 @@ struct BwdSharedCluster {
 struct SharedRowStep {
   float lin, c2, c3;
   __device__ __forceinline__ float poly(float x) const { return v_poly(lin, c2, c3, x); }
-  __device__ __forceinline__ float dot(float s, const float4 bb, const float4, const float4,
-                                       const float4 vv) const {
+  __device__ __forceinline__ float dot(float s, const float4 bb, const float4 vv) const {
     return shared_dot4(s, bb, vv);
   }
 };
@@ -636,14 +635,14 @@ fused_fwd_shared_rows_kernel(const float* __restrict__ b, const float* __restric
                              int n_steps, int mg, int rows, int ns, float* __restrict__ uT,
                              float* __restrict__ jsum, float* __restrict__ traj,
                              float* __restrict__ ubuf) {
-  smo::fwd_rows<1>(b, b, w, u0, SharedRowStep{lin, c2, c3}, n_steps, mg, rows, ns, uT, jsum,
-                   traj, ubuf);
+  smo::fwd_rows(b, w, u0, SharedRowStep{lin, c2, c3}, n_steps, mg, rows, ns, uT, jsum, traj,
+                ubuf);
 }
 
 struct FwdSharedRows {
   static inline bool ready[smo::kMaxDevices] = {};
   static size_t smem(int mg, int rows, int ns) {
-    return smo::fwd_rows_smem_bytes(1, mg, rows, ns);
+    return smo::fwd_rows_smem_bytes(mg, rows, ns);
   }
   static int capacity(int mg, int rows, int ns) {
     return smo::grid_capacity(fused_fwd_shared_rows_kernel, smem(mg, rows, ns), ready);

@@ -14,8 +14,9 @@
 //                    `lam_hist` pointer)
 //   sm_fused_fwd_rows, sm_fused_bwd_rows
 //                 <- the same two kernels under jax.vmap (a sweep's R
-//                    rows, one launch for all of them): R forwards in one
-//                    grid launch, R reverse clusters in one launch
+//                    rows, one launch for all of them): the forward as
+//                    groups of CTAs in one cooperative launch, the reverse
+//                    as clusters of G rows each (fused_rows.cuh)
 //
 // SHB23's step has two dense (mg, mg) f32 propagators: A = A_lin (the
 // Chebyshev-tau solve of the linear operator, entries ~1/dt) and
@@ -139,17 +140,14 @@
 // do not fit, and the kernel the cluster and the grid are held to bit for
 // bit.
 //
-// Rows (a sweep of R starting points, the vmapped form), as in
-// fused_shared.cu: sm_fused_fwd_rows is the grid forward over up to
-// kMaxStates = 8 states (smo::fwd_rows with A and B), each warp's float4s of A and B read once a step
-// for every state; sm_fused_bwd_rows launches the reverse cluster once per
-// row. At mg = 512 a reverse CTA holds 137 KB (A's and B's columns and
-// the state), one CTA an SM, and the card holds 7 such clusters at once:
-// an eighth row waits for a free cluster. Keeping R rows' lambda in each
-// cluster instead (2 R mg floats, 32 KB at R = 8) would fit, but would
-// run the R rows' column sums on one cluster's threads. Each row's u_T,
-// J, trajectory and lambda_0 are bitwise the one-row kernels' on that
-// row. Only the mg <= 640 widths of the cluster have row kernels.
+// Rows (a sweep of R starting points, the vmapped form): sm_fused_fwd_rows
+// and sm_fused_bwd_rows launch the kernels of fused_rows.cuh (compiled in
+// fused_rows_g1.cu and fused_rows_g2.cu, one group size G each): the
+// forward as ceil(R / G) groups of CTAs, each exchanging only its own rows'
+// u, the reverse as ceil(R / G) clusters of 16 CTAs, each carrying G rows;
+// both keep each CTA's share of A and B in registers. Each row's u_T, J,
+// trajectory and lambda_0 are bitwise the one-row kernels' on that row.
+// Only the mg <= 640 widths of the cluster have row kernels.
 //
 // The energy series is a template flag, chosen from the `ser` pointer at
 // launch, as in fused_shared.cu (a runtime test sits on thread 0's
@@ -170,6 +168,7 @@
 
 #include "cluster.cuh"
 #include "common.cuh"
+#include "fused_rows.cuh"
 #include "grid.cuh"
 
 namespace cg = cooperative_groups;
@@ -181,6 +180,8 @@ using smo::capacity_by_mg;
 using smo::cluster_capacity;
 using smo::cluster_launch;
 using smo::energy_partials;
+using smo::fwd_dot4;
+using smo::g_poly;
 using smo::kClusterCtas;
 using smo::kClusterThreads;
 using smo::kClusterWarps;
@@ -192,20 +193,6 @@ using smo::launch_by_mg;
 // The reverse cluster holds A's and B's columns while 2 mg^2 4 / 16
 // bytes fit one SM: instances for mg = 128 R, R <= kMaxR.
 constexpr int kMaxR = 5;
-
-// g(u) = c2 u^2 + c3 u^3 and one float4 of a row's dot products with u
-// and g(u): written once for both forward kernels, so the grid's u is
-// bitwise the one-block kernel's.
-__device__ __forceinline__ float g_poly(float c2, float c3, float u) {
-  return c2 * u * u + c3 * u * u * u;
-}
-
-__device__ __forceinline__ float fwd_dot4(float s, const float4 aa, const float4 uu,
-                                          const float4 bb, const float4 gg) {
-  s += aa.x * uu.x + aa.y * uu.y + aa.z * uu.z + aa.w * uu.w;
-  s += bb.x * gg.x + bb.y * gg.y + bb.z * gg.z + bb.w * gg.w;
-  return s;
-}
 
 // Forward, one block (sm_fused_fwd_block): N steps; J_sum = Kahan sum
 // over n = 0..N of sum_j w_j u_n,j^2. traj (N rows) is written when
@@ -727,10 +714,10 @@ struct BwdGrid {
 // (p, column group) for one column: p = t / C, column c0 + t % C, with the
 // one-block kernel's P = 1024 / (mg / 4) row phases. Shared memory: A's
 // and B's columns (mg x C each, row-major), lambda[2][mg] (ping-pong),
-// the partials (P x C each), w and u_n of the columns. A launch of several
-// clusters (sm_fused_bwd_rows) runs one sweep per cluster, as the shared
-// matrix's cluster does: cluster q reads row q of u_T and scale and its
-// (N, mg) block of the trajectory, and writes row q of lambda_0.
+// the partials (P x C each), w and u_n of the columns. Cluster q of a
+// launch reads row q of u_T and scale and its (N, mg) block of the
+// trajectory, and writes row q of lambda_0 (sm_fused_bwd launches one, so
+// q = 0).
 __host__ __device__ constexpr size_t bwd_cluster_smem_bytes(int R) {
   return (2 * (size_t)(128 * R) * (8 * R) + 2 * (size_t)(128 * R)
           + 2 * (size_t)row_phases(128 * R) * (8 * R) + 2 * (size_t)(8 * R)) * sizeof(float);
@@ -833,44 +820,18 @@ struct BwdCluster {
   }
 };
 
-// Forward over rows, grid-wide (sm_fused_fwd_rows): smo::fwd_rows with A
-// and B (every B row of a CTA in shared memory, as fused_fwd_grid_kernel
-// without kStreamB), each state's g = g_poly(u) and fwd_dot4, the one-row
-// grid's polynomial and dot, so each state is bitwise that grid on it.
-struct RowStep {
-  float c2, c3;
-  __device__ __forceinline__ float poly(float x) const { return g_poly(c2, c3, x); }
-  __device__ __forceinline__ float dot(float s, const float4 aa, const float4 bb,
-                                       const float4 uu, const float4 gg) const {
-    return fwd_dot4(s, aa, uu, bb, gg);
+// The row kernels of fused_rows.cuh for groups of `group` (1, 2) rows a
+// launch of ns <= kMaxStates rows: the launchers of fused_rows_g<group>.cu
+template <typename F>
+int by_group(int group, F f) {
+  switch (group) {
+    case 1: return f(smo::fused_fwd_rows_g1, smo::fused_fwd_rows_capacity_g1,
+                     smo::fused_bwd_rows_g1, smo::fused_bwd_rows_capacity_g1);
+    case 2: return f(smo::fused_fwd_rows_g2, smo::fused_fwd_rows_capacity_g2,
+                     smo::fused_bwd_rows_g2, smo::fused_bwd_rows_capacity_g2);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
   }
-};
-
-__global__ void __launch_bounds__(kClusterThreads, 1)
-fused_fwd_rows_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                      const float* __restrict__ w, const float* __restrict__ u0, float c2,
-                      float c3, int n_steps, int mg, int rows, int ns, float* __restrict__ uT,
-                      float* __restrict__ jsum, float* __restrict__ traj,
-                      float* __restrict__ ubuf) {
-  smo::fwd_rows<2>(a, b, w, u0, RowStep{c2, c3}, n_steps, mg, rows, ns, uT, jsum, traj, ubuf);
 }
-
-struct FwdRows {
-  static inline bool ready[smo::kMaxDevices] = {};
-  static size_t smem(int mg, int rows, int ns) {
-    return smo::fwd_rows_smem_bytes(2, mg, rows, ns);
-  }
-  static int capacity(int mg, int rows, int ns) {
-    return smo::grid_capacity(fused_fwd_rows_kernel, smem(mg, rows, ns), ready);
-  }
-  static int launch(const float* a, const float* b, const float* w, const float* u0, float c2,
-                    float c3, int n_steps, int mg, int rows, int ns, float* uT, float* jsum,
-                    float* traj, float* ubuf, cudaStream_t st) {
-    return smo::grid_launch(fused_fwd_rows_kernel, (mg + rows - 1) / rows, smem(mg, rows, ns),
-                            ready, st, a, b, w, u0, c2, c3, n_steps, mg, rows, ns, uT, jsum,
-                            traj, ubuf);
-  }
-};
 
 }  // namespace
 
@@ -933,36 +894,50 @@ int sm_fused_bwd(const float* a, const float* b, const float* w, const float* uT
                                                       scale, n_steps, lam_out, lam_hist);
 }
 
-// The cluster reverse over ns rows: one cluster per row in one launch
-// (16 ns CTAs; clusters that the card cannot hold at once wait for a free
-// one), row q from row q of uT, scale (ns,) and lam_out and the (N, mg)
-// block q of traj, each row's lambda_0 bitwise sm_fused_bwd's on that row.
-// mg <= 640, as sm_fused_bwd; its capacity query holds.
+// The grouped forward over ns <= kMaxStates rows: ceil(ns / group) groups
+// of `ctas` CTAs of `rows` rows of the operators (ctas = ceil(mg / rows)),
+// which the card must hold at once; ceil(rows / 8) <= fwd_row_slots(mg,
+// group) and ctas >= min(group, ns). u0, uT (ns, mg), jsum (ns,), traj
+// (ns, N, mg) or null; ubuf is 4 ns mg floats of scratch. Each row's u_T, J
+// and trajectory are bitwise sm_fused_fwd_grid's on that row.
+int sm_fused_fwd_rows(const float* a, const float* b, const float* w, const float* u0,
+                      float c2, float c3, int n_steps, int mg, int group, int ctas, int rows,
+                      int ns, float* uT, float* jsum, float* traj, float* ubuf, void* stream) {
+  if (group < 1 || ns < 1 || ns > kMaxStates || rows < 1 || rows > mg
+      || ctas != (mg + rows - 1) / rows || ctas < (group < ns ? group : ns)
+      || (rows + kClusterWarps - 1) / kClusterWarps > smo::fwd_row_slots(mg, group))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return by_group(group, [&](auto fwd, auto, auto, auto) {
+    return fwd(mg, (ns + group - 1) / group, a, b, w, u0, c2, c3, n_steps, ns, ctas, rows, uT,
+               jsum, traj, ubuf, static_cast<cudaStream_t>(stream));
+  });
+}
+
+// CTAs of sm_fused_fwd_rows that the card can hold at once at (mg, group,
+// rows); a negative value is -cudaError_t.
+int sm_fused_fwd_rows_capacity(int mg, int group, int rows) {
+  return by_group(group, [&](auto, auto cap, auto, auto) { return cap(mg, rows); });
+}
+
+// The reverse over ns <= kMaxStates rows: ceil(ns / group) clusters of 16
+// CTAs, cluster q carrying rows [q group, min((q + 1) group, ns)) of uT,
+// scale (ns,), lam_out (ns, mg) and traj (ns, N, mg); each row's lambda_0
+// bitwise sm_fused_bwd's on that row. mg <= 640; the clusters need not be
+// resident at once (sm_fused_bwd_rows_capacity: how many are).
 int sm_fused_bwd_rows(const float* a, const float* b, const float* w, const float* uT,
                       const float* traj, float c2, float c3, const float* scale, int n_steps,
-                      int mg, int ns, float* lam_out, void* stream) {
-  return launch_by_mg<BwdCluster, false, kMaxR>(mg, static_cast<cudaStream_t>(stream), ns, a, b,
-                                                w, uT, traj, c2, c3, scale, n_steps, lam_out,
-                                                static_cast<float*>(nullptr));
+                      int mg, int group, int ns, float* lam_out, void* stream) {
+  if (group < 1 || ns < 1 || ns > kMaxStates) return static_cast<int>(cudaErrorInvalidValue);
+  return by_group(group, [&](auto, auto, auto bwd, auto) {
+    return bwd(mg, (ns + group - 1) / group, a, b, w, uT, traj, c2, c3, scale, n_steps, ns,
+               lam_out, static_cast<cudaStream_t>(stream));
+  });
 }
 
-// The grid-wide forward over ns <= kMaxStates rows at (mg, rows), every B
-// row of a CTA kept: ceil(mg / rows) >= ns CTAs, which the card must
-// hold at once; u0, uT (ns, mg), jsum (ns,), traj (ns, N, mg) or null; ubuf is
-// 4 ns mg floats of scratch.
-int sm_fused_fwd_rows(const float* a, const float* b, const float* w, const float* u0,
-                      float c2, float c3, int n_steps, int mg, int rows, int ns, float* uT,
-                      float* jsum, float* traj, float* ubuf, void* stream) {
-  if (rows < 1 || rows > mg || ns < 1 || ns > kMaxStates || (mg + rows - 1) / rows < ns)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return FwdRows::launch(a, b, w, u0, c2, c3, n_steps, mg, rows, ns, uT, jsum, traj, ubuf,
-                         static_cast<cudaStream_t>(stream));
-}
-
-// CTAs of sm_fused_fwd_rows that the card can hold at once at
-// (mg, rows, ns), as sm_fused_fwd_grid_capacity.
-int sm_fused_fwd_rows_capacity(int mg, int rows, int ns) {
-  return FwdRows::capacity(mg, rows, ns);
+// Clusters of sm_fused_bwd_rows that the card can hold at once at (mg,
+// group); a negative value is -cudaError_t.
+int sm_fused_bwd_rows_capacity(int mg, int group) {
+  return by_group(group, [&](auto, auto, auto, auto cap) { return cap(mg); });
 }
 
 // Clusters of sm_fused_bwd (with the lambda history when `hist`) that the

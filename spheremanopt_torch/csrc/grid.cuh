@@ -1,7 +1,7 @@
 // The grid-wide sweeps' machinery (fused_two_matrix.cu, fused_shared.cu):
 // u (lambda in a reverse sweep) crosses between the CTAs through L2 as
-// step-tagged 64-bit words (the row grids' R vectors of u through the same
-// words), and the kernels run as one cooperative launch
+// step-tagged 64-bit words (the row forwards' R vectors of u through the
+// same words), and the kernels run as one cooperative launch
 // of co-resident CTAs of kClusterThreads threads, with a capacity query
 // that tells the wrapper whether the card can hold them at once; the
 // reverse sweeps' layout of their chains in shared memory and the chains'
@@ -141,14 +141,13 @@ __device__ __forceinline__ void read_tagged_rows(const unsigned long long* slot,
   }
 }
 
-// The row grids' forward (sm_fused_fwd_shared_rows with kMats = 1,
-// sm_fused_fwd_rows with kMats = 2): ns <= kMaxStates independent sweeps of
-// the one-row grid forward (the rows of a sweep, each its own u0) in one
-// cooperative launch, CTA b owning the matrices' rows [b rows,
-// min((b + 1) rows, mg)). Each step a warp reads a float4 of its row of
-// each matrix from shared memory once and applies it to every state, one
-// register chain per state in the one-row kernel's lane and k order
-// (`step.dot`), so the matrices cross from shared memory once a step for
+// The row grid forward of sm_fused_fwd_shared_rows: ns <= kMaxStates
+// independent sweeps of the one-row grid forward (the rows of a sweep, each
+// its own u0) in one cooperative launch, CTA b owning the matrix's rows
+// [b rows, min((b + 1) rows, mg)). Each step a warp reads a float4 of its
+// row of the matrix from shared memory once and applies it to every state,
+// one register chain per state in the one-row kernel's lane and k order
+// (`step.dot`), so the matrix crosses from shared memory once a step for
 // all the rows; each state's u_{n+1} goes out as step-tagged words, all
 // states' words in one slot of ns x mg (ubuf: two slots, 4 ns mg floats),
 // and every CTA reads them back at once (read_tagged_rows). CTA s < ns
@@ -157,25 +156,21 @@ __device__ __forceinline__ void read_tagged_rows(const unsigned long long* slot,
 // step; the launch needs ns <= CTAs). Per state, u_T, J and the trajectory
 // (its own (N, mg) block, state-major) are bitwise the one-row grid's.
 //
-// Step: poly(x), the step's polynomial of u (v for one matrix, g for
-// two), and dot(s, m0, m1, uu, ff), one float4 term of a row's sum (m0,
-// m1 the float4s of the matrices' rows, m1 = m0 for one matrix; uu, ff
-// those of u and poly(u)). Shared memory (fwd_rows_smem_bytes): the
-// matrices' rows (kMats x rows x mg), u[ns][mg], f[ns][mg], w[mg],
-// red[32].
-__host__ __device__ constexpr size_t fwd_rows_smem_bytes(int mats, int mg, int rows, int ns) {
-  return (((size_t)mats * rows + 2 * (size_t)ns + 1) * mg + 32) * sizeof(float);
+// Step: poly(x), the step's polynomial of u, and dot(s, mm, ff), one
+// float4 term of a row's sum (mm the float4 of the matrix's row, ff that of
+// poly(u)). Shared memory (fwd_rows_smem_bytes): the matrix's rows
+// (rows x mg), u[ns][mg], f[ns][mg], w[mg], red[32].
+__host__ __device__ constexpr size_t fwd_rows_smem_bytes(int mg, int rows, int ns) {
+  return (((size_t)rows + 2 * (size_t)ns + 1) * mg + 32) * sizeof(float);
 }
 
-template <int kMats, typename Step>
-__device__ __forceinline__ void fwd_rows(const float* __restrict__ m0,
-                                         const float* __restrict__ m1,
+template <typename Step>
+__device__ __forceinline__ void fwd_rows(const float* __restrict__ m,
                                          const float* __restrict__ w,
                                          const float* __restrict__ u0, Step step, int n_steps,
                                          int mg, int rows, int ns, float* __restrict__ uT,
                                          float* __restrict__ jsum, float* __restrict__ traj,
                                          float* __restrict__ ubuf) {
-  static_assert(kMats == 1 || kMats == 2, "one or two matrices");
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int mg4 = mg / 4, r0 = blockIdx.x * rows;
@@ -183,10 +178,9 @@ __device__ __forceinline__ void fwd_rows(const float* __restrict__ m0,
   // CTA s < ns forms state s's J, as the one-row grid's CTA 0 forms its J
   const int own = blockIdx.x < ns ? static_cast<int>(blockIdx.x) : -1;
   const int nw = ns * mg;  // words of a slot
-  const size_t mat4 = (size_t)rows * mg4;  // float4s of one matrix's rows
   extern __shared__ float4 smem4[];
-  float4* ms4 = smem4;  // kMats x rows x mg4
-  float4* u4 = ms4 + kMats * mat4;  // [ns][mg4]
+  float4* ms4 = smem4;  // rows x mg4
+  float4* u4 = ms4 + (size_t)rows * mg4;  // [ns][mg4]
   float4* f4 = u4 + (size_t)ns * mg4;  // [ns][mg4]
   float* u = reinterpret_cast<float*>(u4);
   float* f = reinterpret_cast<float*>(f4);
@@ -195,12 +189,8 @@ __device__ __forceinline__ void fwd_rows(const float* __restrict__ m0,
   auto* pairs = reinterpret_cast<unsigned long long*>(ubuf);  // [2][ns][mg] (value, tag)
   const auto poly = [=](float x) { return step.poly(x); };
 
-  const float4* src0 = reinterpret_cast<const float4*>(m0) + (size_t)r0 * mg4;
-  const float4* src1 = reinterpret_cast<const float4*>(m1) + (size_t)r0 * mg4;
-  for (int i = tid; i < nr * mg4; i += kClusterThreads) {
-    ms4[i] = __ldg(src0 + i);
-    if constexpr (kMats == 2) ms4[mat4 + i] = __ldg(src1 + i);
-  }
+  const float4* src = reinterpret_cast<const float4*>(m) + (size_t)r0 * mg4;
+  for (int i = tid; i < nr * mg4; i += kClusterThreads) ms4[i] = __ldg(src + i);
   if (own >= 0)
     for (int j = tid; j < mg; j += kClusterThreads) ws[j] = w[j];
   for (int i = blockIdx.x * kClusterThreads + tid; i < 2 * nw; i += gridDim.x * kClusterThreads)
@@ -230,8 +220,7 @@ __device__ __forceinline__ void fwd_rows(const float* __restrict__ m0,
     }
     unsigned long long* dst = pairs + (size_t)(n & 1) * nw;
     for (int rl = warp; rl < nr; rl += kClusterWarps) {
-      const float4* row0 = ms4 + (size_t)rl * mg4;
-      const float4* row1 = row0 + (kMats - 1) * mat4;
+      const float4* row = ms4 + (size_t)rl * mg4;
       float sum[kMaxStates];
 #pragma unroll
       for (int s = 0; s < kMaxStates; ++s) sum[s] = 0.f;
@@ -239,14 +228,14 @@ __device__ __forceinline__ void fwd_rows(const float* __restrict__ m0,
                       // at R = 1 for SH23 (the build before, tools/time_row_kernels.py)
 #pragma unroll 4
         for (int k = lane; k < mg4; k += 32)
-          sum[0] = step.dot(sum[0], row0[k], row1[k], u4[k], f4[k]);
+          sum[0] = step.dot(sum[0], row[k], f4[k]);
       } else {
 #pragma unroll 2
         for (int k = lane; k < mg4; k += 32) {
-          const float4 aa = row0[k], bb = row1[k];
+          const float4 mm = row[k];
 #pragma unroll
           for (int s = 0; s < kMaxStates; ++s)
-            if (s < ns) sum[s] = step.dot(sum[s], aa, bb, u4[s * mg4 + k], f4[s * mg4 + k]);
+            if (s < ns) sum[s] = step.dot(sum[s], mm, f4[s * mg4 + k]);
         }
       }
 #pragma unroll

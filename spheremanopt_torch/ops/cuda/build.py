@@ -22,9 +22,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
+import threading
+import time
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[2]
@@ -37,8 +40,9 @@ NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P, _F, _I, _L = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                   ctypes.c_longlong)
 # C signatures of the exported functions (csrc/fused_shared.cu,
-# csrc/fused_two_matrix.cu, csrc/op_grads.cu, csrc/kdyn_step.cu); the last
-# argument of each launcher is the stream
+# csrc/fused_two_matrix.cu, csrc/op_grads.cu, csrc/kdyn_step.cu; those of
+# csrc/fused_rows_g*.cu are reached through fused_two_matrix.cu's row
+# launchers); the last argument of each launcher is the stream
 _FWD = [_P, _P, _P, _P, _F, _F, _I, _I, _P, _P, _P, _P, _P]
 _BWD = [_P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _P, _P, _P]
 _FWD_SHARED = [_P, _P, _P, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P]
@@ -66,9 +70,10 @@ SIGNATURES = {
     "sm_fused_fwd_shared_rows": [_P, _P, _P, _F, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "sm_fused_fwd_shared_rows_capacity": [_I, _I, _I],  # returns a count, not an error code
     "sm_fused_bwd_shared_rows": [_P, _P, _P, _P, _F, _F, _F, _P, _I, _I, _I, _P, _P],
-    "sm_fused_fwd_rows": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "sm_fused_fwd_rows": [_P, _P, _P, _P, _F, _F] + [_I] * 6 + [_P] * 5,
     "sm_fused_fwd_rows_capacity": [_I, _I, _I],  # returns a count, not an error code
-    "sm_fused_bwd_rows": [_P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _P, _P],
+    "sm_fused_bwd_rows": [_P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I, _P, _P],
+    "sm_fused_bwd_rows_capacity": [_I, _I],  # returns a count, not an error code
     "sm_op_grads": [_P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P, _P, _P],
     "sm_kdyn_work_floats": [_I, _I],   # returns a count, not an error code
     "sm_kdyn_row_group": [_I],         # returns a count, not an error code
@@ -85,7 +90,9 @@ SIGNATURES = {
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"   # used when nvcc is not on PATH
 
 _lib = None
-build_log = ""   # nvcc's output (ptxas register/shared-memory report)
+# nvcc's output (ptxas register/shared-memory report) of the last library
+# built or reused, kept beside each library as nvcc.log
+build_log = ""
 
 
 def find_nvcc() -> str:
@@ -110,12 +117,24 @@ def library_path(flags=(), sources=None) -> Path:
 
 
 def _run_all(cmds):
-    """Start every command at once; (return codes, combined output)."""
+    """Start every command at once; (return codes, combined output, each
+    command's seconds)."""
+    start = time.monotonic()
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
-    return [p.returncode for p in procs], "".join(outs)
+    outs, secs = [None] * len(procs), [0.0] * len(procs)
+
+    def wait(i):
+        outs[i] = procs[i].communicate()[0]
+        secs[i] = time.monotonic() - start
+
+    threads = [threading.Thread(target=wait, args=(i,)) for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return [p.returncode for p in procs], "".join(outs), secs
 
 
 def build(flags=(), sources=None) -> Path:
@@ -125,7 +144,9 @@ def build(flags=(), sources=None) -> Path:
     own."""
     global build_log
     lib = library_path(flags, sources)
+    log = lib.parent / "nvcc.log"
     if lib.exists():
+        build_log = log.read_text() if log.exists() else ""
         return lib
     nvcc = find_nvcc()
     lib.parent.mkdir(parents=True, exist_ok=True)
@@ -134,18 +155,38 @@ def build(flags=(), sources=None) -> Path:
     # first uses never load a half-written one
     with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
         objs = [os.path.join(tmp, s.stem + ".o") for s in srcs]
-        codes, build_log = _run_all(
+        codes, build_log, secs = _run_all(
             [[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", o, str(s)]
              for s, o in zip(srcs, objs)])
+        build_log += "".join(f"nvcc {s.name}: {t:.1f} s\n" for s, t in zip(srcs, secs))
         if any(codes):
             raise RuntimeError(f"nvcc failed ({codes}):\n{build_log}")
         out = os.path.join(tmp, lib.name)
-        codes, link_log = _run_all([[nvcc, *ARCH, "-shared", "-o", out, *objs]])
+        codes, link_log, _ = _run_all([[nvcc, *ARCH, "-shared", "-o", out, *objs]])
         build_log += link_log
         if any(codes):
             raise RuntimeError(f"nvcc link failed ({codes}):\n{build_log}")
+        log.write_text(build_log)   # before the library: whoever finds one finds both
         os.replace(out, lib)
     return lib
+
+
+def ptxas_report(log=None):
+    """(kernel, registers, spill store bytes, spill load bytes) of each
+    kernel instance in an nvcc -Xptxas -v log (default: `build_log`)."""
+    out, name, spill = [], None, (None, None)
+    for line in (build_log if log is None else log).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), (None, None)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1))) + spill)
+            name = None
+    return out
 
 
 def load() -> ctypes.CDLL:

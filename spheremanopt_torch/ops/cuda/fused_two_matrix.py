@@ -37,11 +37,16 @@ PyTorch port of the JAX package's `ops/pallas/fused_two_matrix.py`:
   same kernels, where `pallas_call`'s batching rule gives each a grid over
   the rows: one launch for every row)
     fused_fwd_shared_rows, fused_bwd_shared_rows, FusedObjectiveSharedRows
-    fused_fwd_rows, fused_bwd_rows, FusedObjectiveRows
                        R forwards in one grid launch (each CTA applies its
-                       rows of the operators to every state), R reverse
-                       clusters in one launch; each row bitwise the one-row
-                       kernels' on that row; differentiable in u0 only. Widths of the reverse
+                       rows of B to every state), R reverse clusters in one
+                       launch
+    fused_fwd_rows, fused_bwd_rows, FusedObjectiveRows
+                       the forward as groups of G rows on CTAs of their
+                       own (`fwd_row_group`), the reverse as clusters of G
+                       rows (`bwd_row_group`), both keeping each CTA's share
+                       of A and B in registers
+                       Each row bitwise the one-row kernels' on that row;
+                       differentiable in u0 only. Widths of the reverse
                        clusters only (`rows_width_ok`); the wrappers raise
                        at others, where a sweep runs its rows one at a time
 
@@ -105,8 +110,8 @@ KERNEL_SOURCES = {
     "op_grads": "spheremanopt_torch/csrc/op_grads.cu",
     "fused_fwd_shared_rows": "spheremanopt_torch/csrc/fused_shared.cu",
     "fused_bwd_shared_rows": "spheremanopt_torch/csrc/fused_shared.cu",
-    "fused_fwd_rows": "spheremanopt_torch/csrc/fused_two_matrix.cu",
-    "fused_bwd_rows": "spheremanopt_torch/csrc/fused_two_matrix.cu",
+    "fused_fwd_rows": "spheremanopt_torch/csrc/fused_rows.cuh",
+    "fused_bwd_rows": "spheremanopt_torch/csrc/fused_rows.cuh",
 }
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
@@ -975,22 +980,146 @@ class FusedObjectiveSharedDiag(torch.autograd.Function):
 # states one launch of a row kernel steps (csrc/grid.cuh kMaxStates); a
 # wider call runs in chunks of ROWS_MAX rows, each chunk one launch
 ROWS_MAX = 8
-# CTAs of a row forward: at mg = 512 and R = 8 a split of the operators'
-# rows over 64 CTAs (8 rows a CTA) took 3.385 / 8.552 ms (SH23 N = 1000 /
-# SHB23 N = 2000) against 3.757 / 8.843 over 128 and 4.815 / 13.443 over
-# 32: fewer CTAs read each step's R vectors back from L2, more share the
-# products. At R = 1 the 128-CTA split led, 1.361 / 2.859 against 1.423 /
-# 3.102 ms; the split is chosen for the sweep's R = 8 (H100 SXM at 700 W,
-# tools/time_row_kernels.py)
+# CTAs of the SH23 row forward: at mg = 512 and R = 8 a split of the
+# operator's rows over 64 CTAs (8 rows a CTA) took 3.385 ms (SH23 N = 1000)
+# against 3.757 over 128 and 4.815 over 32: fewer CTAs read each step's R
+# vectors back from L2, more share the products. At R = 1 the 128-CTA
+# split led, 1.361 against 1.423 ms; the split is chosen for the sweep's
+# R = 8 (H100 SXM at 700 W, tools/time_row_kernels.py)
 ROW_CTAS = 64
 
 
 def rows_partition(mg):
-    """(rows, ctas) of a row forward: `rows` = ceil(mg / ROW_CTAS)
-    contiguous rows of the operators a CTA, as `grid_partition`; at the
-    row kernels' widths ctas >= ROWS_MAX (CTA s forms row s's J)."""
+    """(rows, ctas) of the SH23 row forward: `rows` = ceil(mg / ROW_CTAS)
+    contiguous rows of B a CTA, as `grid_partition`; at the row kernels'
+    widths ctas >= ROWS_MAX (CTA s forms row s's J)."""
     rows = -(-mg // ROW_CTAS)
     return rows, -(-mg // rows)
+
+
+# SHB23's row kernels (csrc/fused_rows.cuh): the forward runs a launch's
+# rows in groups of G rows, each group on its own CTAs, and the reverse in
+# clusters of G rows; G is a template parameter of each kernel, one nvcc
+# process a G (csrc/fused_rows_g<G>.cu). The wrappers take the smallest G
+# that fits (`fwd_row_group`, `bwd_row_group`): on an H100, 1, and 2 for
+# the reverse at R = 8 (one wave of 4 clusters) and, on a 114-SM card, for
+# the forward at R = 8 (`fwd_rows_most`: where G = 2 does not fit 8 rows
+# either, a launch takes 7)
+ROW_GROUPS = (1, 2)
+# floats of the operators a forward thread keeps in registers (kOpFloats:
+# its float4s of its warp's rows of A and B), and terms of each of a reverse
+# thread's two chains kept in registers (kOpTerms)
+OP_FLOATS, OP_TERMS = 128, 56
+ROW_WARPS = GRID_THREADS // 32
+
+
+def fwd_row_slots(mg, group):
+    """Rows a warp of the grouped forward holds at most (its row slots,
+    csrc/fused_rows.cuh `fwd_row_slots`): those of a CTA of the narrowest
+    group a card of >= 128 SMs gives, ceil(8 / G) groups of 16 G CTAs."""
+    return -(-(mg // 128) // group)
+
+
+def fwd_reg_slots(mg, group):
+    """The row slots whose float4s of A and B a lane keeps in registers
+    (`fwd_reg_slots`): as many as OP_FLOATS holds, 8 mg / 128 floats a
+    slot; the rows of the other slots stay in shared memory."""
+    return min(fwd_row_slots(mg, group), OP_FLOATS // (8 * (mg // 128)))
+
+
+def fwd_rows_groups(mg, R, group, sms):
+    """(groups, ctas, rows) of the grouped forward of R rows on a card of
+    `sms` SMs: ceil(R / G) groups, each of `ctas` CTAs that split the
+    operators' rows as `grid_partition` splits them over sms // groups
+    SMs, `rows` a CTA."""
+    groups = -(-R // group)
+    rows, ctas = grid_partition(mg, sms // groups)
+    return groups, ctas, rows
+
+
+def fwd_rows_fits(mg, R, group, sms):
+    """Whether the grouped forward of R rows at G = `group` fits a card of
+    `sms` SMs: a CTA's rows fit its warps' row slots and a group has a CTA
+    for each of its rows' J."""
+    _, ctas, rows = fwd_rows_groups(mg, R, group, sms)
+    return -(-rows // ROW_WARPS) <= fwd_row_slots(mg, group) and ctas >= min(group, R)
+
+
+def fwd_rows_smem_bytes(mg, group, rows):
+    """Shared memory of a grouped-forward CTA of `rows` rows: the rows past
+    its register slots (of A and B), u of its group's G rows twice
+    (ping-pong) and their g, w and 32 partial sums (csrc/fused_rows.cuh
+    `fwd_rows_group_smem`)."""
+    shared = max(rows - ROW_WARPS * fwd_reg_slots(mg, group), 0)
+    return 4 * (2 * shared * mg + 3 * group * mg + mg + 32)
+
+
+def bwd_reg_terms(mg):
+    """Terms of each of a row-reverse thread's two chains (rows p, p + P, ...
+    of its column of A and of B) kept in registers: all ceil(mg / P) up to
+    OP_TERMS; the tail stays in shared memory (56 of 64 at mg = 512, of 107
+    at 640)."""
+    return min(-(-mg // row_phases(mg)), OP_TERMS)
+
+
+def bwd_rows_smem_bytes(mg, group):
+    """Shared memory of a row-reverse CTA: the chains' tails of its P x C
+    threads (C = mg / 16 columns), lambda [2][P][lts][G] in the chains'
+    order (lts = chain_stride(ceil(mg / P))), the partials of both matrices
+    [P C][G], u_n [C][G] and w [C] (`bwd_rows_group_smem`)."""
+    P, C = row_phases(mg), mg // 16
+    tail = -(-mg // P) - bwd_reg_terms(mg)
+    ts = chain_stride(tail) if tail > 0 else 0
+    lts = chain_stride(-(-mg // P))
+    return 4 * (2 * P * C * ts + 2 * P * lts * group + 2 * P * C * group + C * group + C)
+
+
+def fwd_row_group(R, mg, card=H100_SXM):
+    """G of the grouped forward of R (1 .. ROWS_MAX) rows at width mg on a
+    card of `card` = (SMs, opt-in shared memory): the smallest G whose
+    partition fits the card (G = 1 on an H100 at every row kernels' width:
+    the most CTAs a row, the fewest words a CTA polls). At mg = 512,
+    N = 2000 on an H100 SXM at 700 W, G = 1 took 3.23 / 3.84 ms at R = 4 / 8
+    and G = 2 3.18 / 3.86 (tools/time_row_kernels.py --probe --stamps)."""
+    if not 1 <= R <= ROWS_MAX:
+        raise ValueError(f"a row launch takes 1 .. {ROWS_MAX} rows (got {R})")
+    fits = _fwd_groups_that_fit(R, mg, card)
+    if not fits:
+        raise ValueError(f"no row group of the SHB23 row forward fits R={R}, mg={mg} on a "
+                         f"card of {card[0]} SMs")
+    return fits[0]
+
+
+def _fwd_groups_that_fit(R, mg, card):
+    return [g for g in ROW_GROUPS if fwd_rows_fits(mg, R, g, card[0])
+            and fwd_rows_smem_bytes(mg, g, fwd_rows_groups(mg, R, g, card[0])[2]) <= card[1]]
+
+
+def fwd_rows_most(mg, card=H100_SXM):
+    """The most rows (<= ROWS_MAX) one launch of the grouped forward takes
+    at width mg on `card`: ROWS_MAX on an H100 SXM; on a card of fewer SMs
+    a G of ROW_GROUPS may not fit 8 rows (on a 114-SM H100 PCIe at mg 256
+    and 512, 7), and the wrapper then launches smaller chunks."""
+    return max(R for R in range(1, ROWS_MAX + 1) if _fwd_groups_that_fit(R, mg, card))
+
+
+def bwd_row_group(R, held):
+    """G of the row reverse of R (1 .. ROWS_MAX) rows on a card that holds
+    held[G] of its clusters at once (`sm_fused_bwd_rows_capacity`): the
+    smallest G whose ceil(R / G) clusters run in one wave, else the largest
+    whose cluster can be scheduled; raises where none can. At mg = 512, N = 2000 on an H100 SXM at 700 W (7 clusters held at every
+    G), a cluster of one row took 2.97 / 2.96 ms at R = 1 / 4 (G = 2: 3.72
+    at R = 4) and 5.82 at R = 8, two waves, against 3.70 at G = 2
+    (tools/time_row_kernels.py --probe --stamps)."""
+    if not 1 <= R <= ROWS_MAX:
+        raise ValueError(f"a row launch takes 1 .. {ROWS_MAX} rows (got {R})")
+    ok = [g for g in ROW_GROUPS if held[g] > 0]
+    if not ok:
+        raise RuntimeError(f"no cluster of the row reverse sm_fused_bwd_rows can be scheduled "
+                           f"on this card (clusters held a G: {held}; a negative count is "
+                           f"-cudaError_t)")
+    one_wave = [g for g in ok if -(-R // g) <= held[g]]
+    return one_wave[0] if one_wave else ok[-1]
 
 
 def rows_width_ok(mg, two_matrix):
@@ -1092,10 +1221,10 @@ def _check_rows(n_steps, two_matrix, mats, w, states, traj=None, scale=None):
     return R, mg
 
 
-def _row_chunks(R):
-    """(start, stop) of each launch of a call over R rows: ROWS_MAX rows
-    at a time."""
-    return [(i, min(i + ROWS_MAX, R)) for i in range(0, R, ROWS_MAX)]
+def _row_chunks(R, most=ROWS_MAX):
+    """(start, stop) of each launch of a call over R rows: `most` rows at a
+    time."""
+    return [(i, min(i + most, R)) for i in range(0, R, most)]
 
 
 def fused_fwd_shared_rows(b, w, u0, c2, c3, lin, n_steps, store_traj=True):
@@ -1123,22 +1252,55 @@ def fused_fwd_shared_rows(b, w, u0, c2, c3, lin, n_steps, store_traj=True):
 
 def fused_fwd_rows(a, b, w, u0, c2, c3, n_steps, store_traj=True):
     """(uT (R, mg), J_sum (R,), traj (R, N, mg) or None) of N steps of
-    u' = A u + B(c2 u^2 + c3 u^3) from each row of u0 (R, mg): the row grid
-    `sm_fused_fwd_rows`, as `fused_fwd_shared_rows`; each row bitwise
-    `fused_fwd` on it."""
+    u' = A u + B(c2 u^2 + c3 u^3) from each row of u0 (R, mg). On the card
+    the grouped row forward (`sm_fused_fwd_rows`) runs up to
+    `fwd_rows_most` rows a launch (ROWS_MAX on an H100 SXM), in groups of
+    `fwd_row_group` rows, each row bitwise
+    `fused_fwd` on it; raises where the card cannot hold its CTAs and at
+    widths without row kernels (`rows_width_ok`), also on the CPU, where
+    it runs `fused_fwd_rows_plain`."""
     R, mg = _check_rows(n_steps, True, [("a", a), ("b", b)], w, u0)
     if not u0.is_cuda:
         return fused_fwd_rows_plain(a, b, w, u0, c2, c3, n_steps, store_traj)
-    rows, ctas = rows_partition(mg)
+    card = _card(u0.device)
     uT, jsum, traj, slots = _rows_outputs(u0, n_steps, store_traj)
-    for i, j in _row_chunks(R):
-        _check_grid(u0.device, "sm_fused_fwd_rows", (mg, rows), ctas, j - i)
+    for i, j in _row_chunks(R, fwd_rows_most(mg, card)):
+        group = fwd_row_group(j - i, mg, card)
+        groups, ctas, rows = fwd_rows_groups(mg, j - i, group, card[0])
+        _check_rows_grid(u0.device, mg, group, rows, groups * ctas)
         _launch("sm_fused_fwd_rows", "fused_fwd_rows", u0.device, a.data_ptr(),
                 b.data_ptr(), w.data_ptr(), u0[i].data_ptr(), c2, c3, int(n_steps), mg,
-                rows, j - i, uT[i].data_ptr(), jsum[i].data_ptr(),
+                group, ctas, rows, j - i, uT[i].data_ptr(), jsum[i].data_ptr(),
                 None if traj is None or not n_steps else traj[i].data_ptr(),
                 slots.data_ptr())
     return uT, jsum, traj
+
+
+@functools.lru_cache(maxsize=None)
+def _check_rows_grid(device, mg, group, rows, ctas):
+    """Raise unless the card can hold the `ctas` CTAs of the grouped row
+    forward at (mg, G = group, rows a CTA) at once:
+    `sm_fused_fwd_rows_capacity` must reach `ctas`. A pass is remembered."""
+    from spheremanopt_torch.ops.cuda.build import load
+
+    with torch.cuda.device(device):
+        n = load().sm_fused_fwd_rows_capacity(mg, group, rows)
+    if n < ctas:
+        raise RuntimeError(
+            f"the grouped row forward sm_fused_fwd_rows (mg={mg}, G={group}: {ctas} CTAs of "
+            f"{rows} rows) cannot be co-resident on {torch.cuda.get_device_name(device)}: "
+            f"it holds {n}" + ("" if n >= 0 else f" (cudaError_t {-n})"))
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_clusters(device, mg):
+    """{G: clusters of the row reverse at (mg, G) the card holds at once}
+    (`sm_fused_bwd_rows_capacity`: cudaOccupancyMaxActiveClusters, or
+    -cudaError_t)."""
+    from spheremanopt_torch.ops.cuda.build import load
+
+    with torch.cuda.device(device):
+        return {g: load().sm_fused_bwd_rows_capacity(mg, g) for g in ROW_GROUPS}
 
 
 def _rows_outputs(u0, n_steps, store_traj):
@@ -1173,18 +1335,20 @@ def fused_bwd_shared_rows(b, w, uT, traj, c2, c3, lin, scale, n_steps):
 
 
 def fused_bwd_rows(a, b, w, uT, traj, c2, c3, scale, n_steps):
-    """lambda_0 (R, mg) of the two-matrix reverse sweep of each row, as
-    `fused_bwd_shared_rows` (`sm_fused_bwd_rows`); each row bitwise
-    `fused_bwd` on it."""
+    """lambda_0 (R, mg) of the two-matrix reverse sweep of each row: uT
+    (R, mg), traj (R, N, mg) and scale (R,) = float32(-2 dt) * gbar per
+    row, on the device (no sync). On the card one launch of the row reverse
+    (`sm_fused_bwd_rows`) per ROWS_MAX rows, in clusters of `bwd_row_group`
+    rows, each row bitwise `fused_bwd` on it; raises as `fused_fwd_rows`."""
     R, mg = _check_rows(n_steps, True, [("a", a), ("b", b)], w, uT, traj, scale)
     if not uT.is_cuda:
         return fused_bwd_rows_plain(a, b, w, uT, traj, c2, c3, scale, n_steps)
-    _check_cluster(uT.device, "sm_fused_bwd", mg, False)
     lam = torch.empty_like(uT)
     for i, j in _row_chunks(R):
+        group = bwd_row_group(j - i, _rows_clusters(uT.device, mg))
         _launch("sm_fused_bwd_rows", "fused_bwd_rows", uT.device, a.data_ptr(),
                 b.data_ptr(), w.data_ptr(), uT[i].data_ptr(), traj[i].data_ptr(), c2, c3,
-                scale[i:].data_ptr(), int(n_steps), mg, j - i, lam[i].data_ptr())
+                scale[i:].data_ptr(), int(n_steps), mg, group, j - i, lam[i].data_ptr())
     return lam
 
 

@@ -32,14 +32,17 @@ CPU cases that need it):
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_rows_kernel.py
 
-hold each row of the four row kernels bitwise the one-row kernels at
-R = 1, 3, 8 and two widths, the rows against the plain rows in f32 (rel
+hold each row of the four row kernels bitwise the one-row kernels (SH23's
+at R = 1, 3, 8 and mg 128, 512; SHB23's at R = 1, 2, 3, 4, 5, 8 and mg 128,
+384, 512, 640: every row group the wrapper chooses, and the register-only
+and part-shared instances), the rows against the plain rows in f32 (rel
 1e-5 at 40 steps), a call past ROWS_MAX rows in chunks, a CUDA graph of
 a row forward and reverse replayed bitwise, and the `cuda` row forms at
 full width and R = 8 (J, gradient, objective, inner product) bitwise the
 unbatched calls row by row.
 """
 
+import functools
 import re
 
 import numpy as np
@@ -91,6 +94,14 @@ def _operators(two_matrix, mg, dtype, device="cpu"):
     """(mats, w, c2, c3, lin): SH23's step matrix at width mg (npts =
     mg / 2) or SHB23's two propagators (npts = mg), as the problems build
     them, and their cost weights."""
+    mats, w, c = _operators_f64(two_matrix, mg)
+    conv = lambda t: t.to(dtype).contiguous().to(device)   # noqa: E731
+    return tuple(conv(m) for m in mats), conv(w), c
+
+
+@functools.lru_cache(maxsize=None)
+def _operators_f64(two_matrix, mg):
+    """The f64 operators of `_operators`, built once a width."""
     if two_matrix:
         p = SwiftHohenbergBounded(SHB23Config(npts=mg), device="cpu")
         mats = (p._Alt, p._Ant)
@@ -101,8 +112,7 @@ def _operators(two_matrix, mg, dtype, device="cpu"):
         mats = (p._Mt,)
         w = torch.full((mg,), 1.0 / mg, dtype=torch.float64)
         c = (C2, C3, 1.0 / p.cfg.dt)
-    conv = lambda t: t.to(dtype).contiguous().to(device)   # noqa: E731
-    return tuple(conv(m) for m in mats), conv(w), c
+    return mats, w, c
 
 
 def _states(R, mg, dtype, device="cpu", seed=0, amp=0.3):
@@ -404,11 +414,33 @@ def test_row_partition_covers_every_row_once(mg):
 
 def test_row_launchers_signatures_match_their_c_parameters():
     """The ctypes signature of each exported function has as many
-    arguments as its C definition."""
+    arguments as its C definition, and every signature has a definition;
+    the launchers of one row group that fused_two_matrix.cu calls
+    (csrc/fused_rows.cuh SMO_ROWS_DECLARE) take the parameters of their
+    definitions (SMO_ROWS_DEFINE), and each exported row launcher passes
+    its launcher as many arguments."""
+    def arity(params):
+        return len([x for x in params.split(",") if x.strip() and x.strip() != "void"])
+
+    defined = set()
     for src in kbuild.CSRC.glob("*.cu"):
         for name, params in re.findall(r"^int (sm_\w+)\(([^)]*)\)", src.read_text(), re.M):
-            n = len([x for x in params.split(",") if x.strip() and x.strip() != "void"])
-            assert len(kbuild.SIGNATURES[name]) == n, name
+            assert len(kbuild.SIGNATURES[name]) == arity(params), name
+            defined.add(name)
+    assert set(kbuild.SIGNATURES) == defined
+    rows = (kbuild.CSRC / "fused_rows.cuh").read_text().replace("\\\n", " ")
+    macro = {m: dict(re.findall(r"int (fused_\w+)_g##G\(([^)]*)\)", body))
+             for m, body in re.findall(r"#define (SMO_ROWS_\w+)\(G\)(.*)", rows)}
+    decl, defn = macro["SMO_ROWS_DECLARE"], macro["SMO_ROWS_DEFINE"]
+    assert sorted(decl) == sorted(defn) == ["fused_bwd_rows", "fused_bwd_rows_capacity",
+                                            "fused_fwd_rows", "fused_fwd_rows_capacity"]
+    for name in decl:
+        assert arity(decl[name]) == arity(defn[name]), name
+    two = (kbuild.CSRC / "fused_two_matrix.cu").read_text()
+    for sym, launcher in (("sm_fused_fwd_rows", "fwd"), ("sm_fused_bwd_rows", "bwd")):
+        body = two[two.index(f"int {sym}("):]
+        call = re.search(rf"return {launcher}\(([^;]*)\);", body).group(1)
+        assert arity(re.sub(r"\([^()]*\)", "", call)) == arity(decl[f"fused_{launcher}_rows"])
 
 
 # ---------------------------------------------------------------------------
@@ -457,10 +489,16 @@ def _bitwise_rows(fr, br, f1, b1, u0, scale):
     return uT, J, traj, lam
 
 
+# the shared matrix's row kernels at two widths; the two-matrix ones at
+# every R the wrapper groups differently (fwd_row_group, bwd_row_group) and
+# at widths with every operator in registers (128, 384, 512) and with part
+# of it in shared memory (640)
+ROW_CARD_CASES = ([(False, mg, R) for mg in (128, 512) for R in (1, 3, 8)]
+                  + [(True, mg, R) for mg in (128, 384, 512, 640) for R in (1, 2, 3, 4, 5, 8)])
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("R", [1, 3, 8])
-@pytest.mark.parametrize("two_matrix,mg", [(False, 128), (False, 512), (True, 128),
-                                           (True, 512)])
+@pytest.mark.parametrize("two_matrix,mg,R", ROW_CARD_CASES)
 def test_row_kernels_bitwise_one_row_kernels_on_card(cuda, two_matrix, mg, R):
     fr, br, f1, b1, u0, scale = _row_case(cuda, two_matrix, mg, R, 200)
     fk.reset_launches()
